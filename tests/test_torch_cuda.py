@@ -110,6 +110,55 @@ def test_cuda_kernels_small_widths(cuda):
         _assert_match(got, want, wa, wb)
 
 
+# merge width L -> (compression, K): L=64, 128 and 256 run the warp path
+# (one instance each), L=2048 (compression 1000) the general block path
+WIDTHS = {64: (20.0, 24), 128: (50.0, 56), 256: (100.0, 104),
+          2048: (1000.0, 1008)}
+
+
+@pytest.mark.parametrize("sort_b", [False, True])
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_cuda_kernel_widths_match_plain(cuda, width, sort_b):
+    """K1 and K2, presorted and with sort_b (K3), at merge widths 64,
+    128, 256 and 2048 against their plain versions; each call is one
+    counted launch of its own kernel."""
+    c, k = WIDTHS[width]
+    rng = np.random.default_rng(width + sort_b)
+    rows = 4099 if width <= 256 else 515
+    ma = np.sort(rng.gamma(2.0, 30.0, (rows, k)).astype(np.float32), 1)
+    wa = ((rng.random((rows, k)) < 0.6)
+          * rng.integers(1, 5, (rows, k))).astype(np.float32)
+    mb = rng.gamma(2.0, 25.0, (rows, k)).astype(np.float32)
+    wb = ((rng.random((rows, k)) < 0.5)
+          * rng.integers(1, 5, (rows, k))).astype(np.float32)
+    mb = np.where(wb > 0, mb, np.inf).astype(np.float32)
+    if not sort_b:
+        order = np.argsort(mb, axis=1, kind="stable")
+        mb, wb = (np.take_along_axis(a, order, 1) for a in (mb, wb))
+    mn = np.minimum(np.where(wa > 0, ma, np.inf).min(1),
+                    np.where(wb > 0, mb, np.inf).min(1)).astype(np.float32)
+    mx = np.maximum(np.where(wa > 0, ma, -np.inf).max(1),
+                    np.where(wb > 0, mb, -np.inf).max(1)).astype(np.float32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (ma, wa, mb, wb, mn, mx, QS)]
+    counter = "sort_b_launches" if sort_b else "launches"
+    before = (getattr(tc.drain_quantile, counter),
+              getattr(tc.compress_presorted, counter))
+    got = [t.cpu().numpy()
+           for t in tc.drain_quantile(*args, c, k, sort_b=sort_b)]
+    want = [t.cpu().numpy()
+            for t in tc.drain_quantile_plain(*args, c, k, sort_b=sort_b)]
+    _assert_match(got, want, wa, wb, mn, mx)
+    got = [t.cpu().numpy()
+           for t in tc.compress_presorted(*args[:4], c, k, sort_b=sort_b)]
+    want = [t.cpu().numpy() for t in tc.compress_presorted_plain(
+        *args[:4], c, k, sort_b=sort_b)]
+    _assert_match(got, want, wa, wb)
+    assert (getattr(tc.drain_quantile, counter),
+            getattr(tc.compress_presorted, counter)) == (before[0] + 1,
+                                                         before[1] + 1)
+
+
 def test_store_on_cuda_matches_cpu(cuda):
     """The same lines into a store on the card and a store on the CPU:
     the card's path runs K1/K2, the CPU's their plain versions. Counters,

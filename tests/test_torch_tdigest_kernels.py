@@ -1,5 +1,6 @@
 """The port's t-digest merge kernels (K1 drain_quantile, K2
-compress_presorted) against the JAX package's Pallas kernels.
+compress_presorted, each with the in-kernel b-half sort K3) against the
+JAX package's Pallas kernels and its XLA rung.
 
 On the CPU the port's wrappers run their plain PyTorch versions, which
 follow the kernels step for step; the Pallas kernels run as
@@ -18,6 +19,7 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+from veneur_tpu.ops import tdigest as jtd
 from veneur_tpu.ops import tdigest_pallas as tp
 from veneur_tpu_torch.ops import tdigest_cuda as tc
 
@@ -193,3 +195,160 @@ def test_cpu_path_counts_no_launch():
                       C, K)
     assert (tc.drain_quantile.launches,
             tc.compress_presorted.launches) == before
+
+
+# --- K3: sort_b, the b half in any order, sorted inside the kernel --------
+
+
+def _in_kernel_sort_inputs():
+    """tests/test_pallas.py::TestInKernelSort's inputs: S=130, C=20
+    (K=24, half=32), seed 0, an unsorted b half with 30% dead slots, and
+    the same half sorted ascending."""
+    s, k = 130, jtd.size_bound(20.0)
+    rng = np.random.default_rng(0)
+    ma = np.sort(rng.normal(0, 1, (s, k)), axis=1).astype(np.float32)
+    wa = rng.uniform(0.5, 2, (s, k)).astype(np.float32)
+    mb = rng.normal(0, 1, (s, k)).astype(np.float32)
+    wb = rng.uniform(0.5, 2, (s, k)).astype(np.float32)
+    dead = rng.uniform(0, 1, (s, k)) < 0.3
+    mb[dead] = np.inf
+    wb[dead] = 0.0
+    order = np.argsort(np.where(wb > 0, mb, np.inf), axis=1)
+    return (ma, wa, mb, wb, np.take_along_axis(mb, order, 1),
+            np.take_along_axis(wb, order, 1))
+
+
+@pytest.mark.parametrize("kernel", ["drain_quantile", "compress_presorted"])
+def test_sort_b_plain_matches_pallas_interpret(kernel):
+    """The port's plain sort_b=True against the Pallas kernel with
+    interpret=True, sort_b=True, at TestInKernelSort's shapes (the
+    full-width interpret lowering compiles too slowly) and tolerances:
+    weights rtol/atol 1e-6, live means rtol 1e-5, percentiles rtol/atol
+    1e-5."""
+    ma, wa, mb, wb, _, _ = _in_kernel_sort_inputs()
+    c, k = 20.0, ma.shape[1]
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (ma, wa, mb, wb)]
+    j = [jnp.asarray(a) for a in (ma, wa, mb, wb)]
+    if kernel == "drain_quantile":
+        s = ma.shape[0]
+        mn, mx = np.full(s, -5.0, np.float32), np.full(s, 5.0, np.float32)
+        qs = np.array([0.1, 0.5, 0.9], np.float32)
+        port = tc.drain_quantile(*t, torch.from_numpy(mn),
+                                 torch.from_numpy(mx), torch.from_numpy(qs),
+                                 c, k, sort_b=True)
+        ref = tp.drain_quantile(*j, jnp.asarray(mn), jnp.asarray(mx),
+                                jnp.asarray(qs), c, k, interpret=True,
+                                sort_b=True)
+        np.testing.assert_allclose(port[2].numpy(), np.asarray(ref[2]),
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        port = tc.compress_presorted(*t, c, k, sort_b=True)
+        ref = tp.compress_presorted(*j, c, k, interpret=True, sort_b=True)
+    pm, pw = (p.numpy() for p in port[:2])
+    rm, rw = (np.asarray(r) for r in ref[:2])
+    np.testing.assert_allclose(pw, rw, rtol=1e-6, atol=1e-6)
+    live = rw > 0
+    np.testing.assert_array_equal(pw > 0, live)
+    np.testing.assert_allclose(pm[live], rm[live], rtol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["drain_quantile", "compress_presorted"])
+def test_sort_b_plain_matches_presorted_full_width(kernel):
+    """At C=100 full width: the plain sort_b=True on a shuffled b half
+    against the presorted call on the same half sorted. With distinct
+    keys both build the same descending b half (the +inf empties all
+    carry weight 0), so the outputs are equal bit for bit."""
+    rng = np.random.default_rng(41)
+    s = 64
+    ma, wa = _sorted_centroids(rng, s, K, 30.0, 0.6)
+    mb, wb = _temp_half(rng, s, K, 25.0, 0.5)
+    perm = np.argsort(rng.random((s, K)), axis=1)
+    mb_u, wb_u = (np.take_along_axis(a, perm, 1) for a in (mb, wb))
+    sorted_args = [torch.from_numpy(np.ascontiguousarray(a))
+                   for a in (ma, wa, mb, wb)]
+    shuffled = sorted_args[:2] + [torch.from_numpy(np.ascontiguousarray(a))
+                                  for a in (mb_u, wb_u)]
+    if kernel == "drain_quantile":
+        mn, mx = (torch.from_numpy(a) for a in _extrema(ma, wa, mb, wb))
+        extra = (mn, mx, torch.from_numpy(QS))
+        want = tc.drain_quantile(*sorted_args, *extra, C, K)
+        got = tc.drain_quantile(*shuffled, *extra, C, K, sort_b=True)
+    else:
+        want = tc.compress_presorted(*sorted_args, C, K)
+        got = tc.compress_presorted(*shuffled, C, K, sort_b=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("width", [2, 32, 128])
+def test_bitonic_sort_desc_plain_matches_numpy(width):
+    """_bitonic_sort_desc_plain against a numpy descending sort of
+    distinct keys: +inf empties first, weights following their keys."""
+    rng = np.random.default_rng(width)
+    rows = 9
+    key = rng.permutation(rows * width).reshape(rows, width)
+    key = (key + rng.random((rows, width))).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, (rows, width)).astype(np.float32)
+    dead = rng.random((rows, width)) < 0.3
+    key[dead], w[dead] = np.inf, 0.0
+    got_k, got_w = tc._bitonic_sort_desc_plain(torch.from_numpy(key),
+                                               torch.from_numpy(w))
+    order = np.argsort(-key, axis=1, kind="stable")
+    want_k = np.take_along_axis(key, order, 1)
+    want_w = np.take_along_axis(w, order, 1)
+    np.testing.assert_array_equal(got_k.numpy(), want_k)
+    np.testing.assert_array_equal(got_w.numpy(), want_w)
+    assert np.isinf(got_k.numpy()[dead.any(1), 0]).all()
+
+
+# --- the merge width: compression 1000 (K=1008, L=2048) --------------------
+
+C_WIDE = 1000.0
+K_WIDE = jtd.size_bound(C_WIDE)
+
+
+def test_wide_plain_matches_xla_rung():
+    """compress_presorted_plain and drain_quantile_plain at compression
+    1000 (K=1008, half=1024, L=2048) against the JAX package's XLA rung
+    (_compress, then quantile): per-row mass rtol 1e-6 and quantiles
+    within 0.02 x (max - min), the ROADMAP's cross-rung tolerances."""
+    rng = np.random.default_rng(43)
+    s = 12
+    ma, wa = _sorted_centroids(rng, s, K_WIDE, 30.0, 0.6)
+    mb, wb = _temp_half(rng, s, K_WIDE, 25.0, 0.5)
+    mn, mx = _extrema(ma, wa, mb, wb)
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (ma, wa, mb, wb)]
+    pm, pw = tc.compress_presorted_plain(*t, C_WIDE, K_WIDE)
+    _, dw, pq = tc.drain_quantile_plain(
+        *t, torch.from_numpy(mn), torch.from_numpy(mx), torch.from_numpy(QS),
+        C_WIDE, K_WIDE)
+    torch.testing.assert_close(dw, pw, rtol=0, atol=0)
+    jm, jw = jtd._compress(jnp.concatenate([jnp.asarray(ma),
+                                            jnp.asarray(mb)], 1),
+                           jnp.concatenate([jnp.asarray(wa),
+                                            jnp.asarray(wb)], 1),
+                           C_WIDE, K_WIDE)
+    jq = np.asarray(jtd.quantile(jtd.TDigest(jm, jw, jnp.asarray(mn),
+                                             jnp.asarray(mx)), QS))
+    mass = wa.astype(np.float64).sum(1) + wb.astype(np.float64).sum(1)
+    np.testing.assert_allclose(pw.numpy().astype(np.float64).sum(1), mass,
+                               rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(jw, np.float64).sum(1), mass,
+                               rtol=1e-6)
+    assert (pm.numpy()[:, 1:] >= pm.numpy()[:, :-1]).all()
+    span = (mx - mn)[:, None]
+    assert (np.abs(pq.numpy() - jq) <= 0.02 * span).all()
+
+
+def test_kernel_input_check_takes_compression_1000():
+    """The kernel path's input check no longer refuses the merge width of
+    compression 1000 (L=2048); only widths past the general path's
+    shared memory (L > 4096) are refused."""
+    z = torch.zeros((4, K_WIDE))
+    s, _, half, m = tc._shapes(z, z)
+    assert 2 * half == 2048
+    tc._check_kernel_inputs(z, z, z, z, K_WIDE, m, half)
+    huge = torch.zeros((4, 4097))
+    s, _, half, m = tc._shapes(huge, huge)
+    with pytest.raises(ValueError, match="merge width"):
+        tc._check_kernel_inputs(huge, huge, huge, huge, 4097, m, half)

@@ -4,27 +4,36 @@ counters, and the plain PyTorch version of each kernel.
     K1  drain_quantile      replaces veneur_tpu/ops/tdigest_pallas.py
                             _drain_quantile_slab (pl.pallas_call at :334)
     K2  compress_presorted  replaces _compress_presorted_slab (:419)
+    K3  sort_b=True on K1 or K2: the b half in any order, sorted inside
+                            the kernel (_bitonic_sort_desc :97)
 
-Both kernels live in ``csrc/tdigest_merge.cu``, built by nvcc for
-``sm_90a`` into a shared library with a plain C interface
-(``cuda_build``) and launched through ctypes on PyTorch's current stream.
-Per row they bitonic-merge the ascending digest half with the
-pre-reversed temp half, take the log-step prefix sum of the weights, bin
-by the k-scale with the Abramowitz-Stegun asin polynomial, and reduce
-weight and weight*mean into the output bins; K1 then runs the
-inverse-CDF for every requested quantile on the fresh bins.
+All three live in ``csrc/tdigest_merge.cu``, built by nvcc for ``sm_90a``
+into a shared library with a plain C interface (``cuda_build``) and
+launched through ctypes on PyTorch's current stream. Per row they
+bitonic-merge the ascending digest half with the reversed temp half,
+take the log-step prefix sum of the weights, bin by the k-scale with the
+Abramowitz-Stegun asin polynomial, reduce weight and weight*mean into
+the output bins and gap-fill the dead bins' means with a running max;
+K1 then runs the inverse-CDF for every requested quantile on the fresh
+bins. The kernel reads the b half at its own width and row stride and
+pads, reverses (or, with ``sort_b``, sorts) it in registers, so a call
+is input checks, ``torch.empty`` outputs and one launch. Merge widths
+up to 256 run a warp per row; wider ones (up to ``_MAX_MERGE_WIDTH``)
+a block per row.
 
 The gate is the tensor's device: a CUDA tensor goes to the kernel, a CPU
 tensor to the plain version (``*_plain`` below), anything else raises.
 There is no fallback from the kernel: a build or launch error
-propagates. Each wrapper counts its kernel launches in ``.launches``.
+propagates. Each wrapper counts its kernel launches in ``.launches``
+(presorted b half) and ``.sort_b_launches`` (K3).
 
-The host wrappers keep the JAX package's padding contract: the b half
-is padded with +inf to ``half = next_pow2(max(Ka, Kb))`` and reversed,
-and the output means are gap-filled with a running max so rows stay
-ascending. The 128-row block padding and the 1M-row slab split of the
-Pallas wrappers exist only for Mosaic's tiling and 32-bit operand
-offsets; the CUDA kernel indexes rows with 64-bit offsets instead.
+The plain versions keep the JAX package's padding contract as separate
+passes: the b half is padded with +inf to ``half = next_pow2(max(Ka,
+Kb))`` and reversed (or sorted descending), and the output means are
+gap-filled with ``torch.cummax``. The 128-row block padding and the
+1M-row slab split of the Pallas wrappers exist only for Mosaic's tiling
+and 32-bit operand offsets; the CUDA kernels index rows with 64-bit
+offsets instead.
 """
 
 from __future__ import annotations
@@ -35,8 +44,9 @@ import math
 import torch
 
 _INF = float("inf")
-# largest merge width one block handles (one thread per merge slot)
-_MAX_MERGE_WIDTH = 1024
+# widest merge the general path takes: its shared memory holds 8 L + 6 K
+# floats, 224 KB at L = 4096 with K = L (the card allows 227 KB a block)
+_MAX_MERGE_WIDTH = 4096
 
 
 def next_pow2(n: int) -> int:
@@ -55,14 +65,48 @@ def _use_kernel(*tensors: torch.Tensor) -> bool:
                      f"tensors, got devices {sorted(kinds)}")
 
 
-def _prepare_b(mean_b: torch.Tensor, weight_b: torch.Tensor, half: int):
-    """Pad the ascending b half to ``half`` with (+inf, 0) and reverse it,
-    so a + reversed(b) is one bitonic sequence per row."""
+def _bitonic_sort_desc_plain(key: torch.Tensor, w: torch.Tensor):
+    """_bitonic_sort_desc step for step: a full bitonic sort of each row
+    DESCENDING (length a power of two), weights following, so +inf
+    empties land in front. Stage (k, j) pairs slot p with p + j inside
+    each 2j-block and keeps the min of the signed key -key (block
+    descending) where p & k == 0, of +key (ascending) elsewhere; ties
+    never swap."""
+    rows, l = key.shape
+    pos = torch.arange(l, device=key.device)
+    k = 2
+    while k <= l:
+        sign = torch.where((pos & k) == 0, -1.0, 1.0).to(key.dtype)
+        j = k // 2
+        while j >= 1:
+            sk = (sign * key).view(rows, l // (2 * j), 2, j)
+            k4 = key.view(rows, l // (2 * j), 2, j)
+            w4 = w.view(rows, l // (2 * j), 2, j)
+            swap = sk[:, :, 0] > sk[:, :, 1]
+            key = torch.stack([torch.where(swap, k4[:, :, 1], k4[:, :, 0]),
+                               torch.where(swap, k4[:, :, 0], k4[:, :, 1])],
+                              2).view(rows, l)
+            w = torch.stack([torch.where(swap, w4[:, :, 1], w4[:, :, 0]),
+                             torch.where(swap, w4[:, :, 0], w4[:, :, 1])],
+                            2).view(rows, l)
+            j //= 2
+        k *= 2
+    return key, w
+
+
+def _prepare_b(mean_b: torch.Tensor, weight_b: torch.Tensor, half: int,
+               sort_b: bool = False):
+    """Pad the b half to ``half`` with (+inf, 0) and reverse it (it is
+    ascending) or, with ``sort_b``, sort it descending (it is in any
+    order), so a + b is one bitonic sequence per row with the pads in
+    front of b."""
     pad = half - mean_b.shape[1]
     if pad:
         rows = mean_b.shape[0]
         mean_b = torch.cat([mean_b, mean_b.new_full((rows, pad), _INF)], 1)
         weight_b = torch.cat([weight_b, weight_b.new_zeros((rows, pad))], 1)
+    if sort_b:
+        return _bitonic_sort_desc_plain(mean_b, weight_b)
     return (torch.flip(mean_b, [1]).contiguous(),
             torch.flip(weight_b, [1]).contiguous())
 
@@ -180,22 +224,26 @@ def _kernel_quantiles_plain(nm, sw, mn, mx, qs, kout: int):
 
 
 def compress_presorted_plain(mean_a, weight_a, mean_b, weight_b,
-                             compression: float, out_size: int):
-    """The plain PyTorch version of K2, with the wrapper's padding and
-    gap-fill: same inputs and outputs as :func:`compress_presorted`."""
+                             compression: float, out_size: int,
+                             sort_b: bool = False):
+    """The plain PyTorch version of K2 (K3 with ``sort_b``), with the
+    padding and gap-fill as separate passes: same inputs and outputs as
+    :func:`compress_presorted`."""
     _, _, half, m = _shapes(mean_a, mean_b)
-    mb, wb = _prepare_b(mean_b, weight_b, half)
+    mb, wb = _prepare_b(mean_b, weight_b, half, sort_b)
     nm, sw = _merge_bin_reduce_plain(mean_a, weight_a, mb, wb, compression,
                                      half, out_size, m)
     return torch.cummax(nm, 1).values, sw
 
 
 def drain_quantile_plain(mean_a, weight_a, mean_b, weight_b, mn, mx, qs,
-                         compression: float, out_size: int):
-    """The plain PyTorch version of K1, with the wrapper's padding and
-    gap-fill: same inputs and outputs as :func:`drain_quantile`."""
+                         compression: float, out_size: int,
+                         sort_b: bool = False):
+    """The plain PyTorch version of K1 (K3 with ``sort_b``), with the
+    padding and gap-fill as separate passes: same inputs and outputs as
+    :func:`drain_quantile`."""
     _, _, half, m = _shapes(mean_a, mean_b)
-    mb, wb = _prepare_b(mean_b, weight_b, half)
+    mb, wb = _prepare_b(mean_b, weight_b, half, sort_b)
     nm, sw = _merge_bin_reduce_plain(mean_a, weight_a, mb, wb, compression,
                                      half, out_size, m)
     pcts = _kernel_quantiles_plain(nm, sw, mn, mx, qs, out_size)
@@ -207,6 +255,8 @@ def drain_quantile_plain(mean_a, weight_a, mean_b, weight_b, mn, mx, qs,
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
 
 
 def _kernel_lib():
@@ -216,15 +266,15 @@ def _kernel_lib():
 
     lib = cuda_build.load("tdigest_merge")
     if not getattr(lib, "_vt_declared", False):
-        common = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_int, ctypes.c_int]
+        # rows, ka, kb, the four row strides, out_size
+        shape = [_LL, _I, _I, _LL, _LL, _LL, _LL, _I]
         lib.vt_drain_quantile.argtypes = (
-            [_P] * 10 + common + [ctypes.c_int, ctypes.c_float, _P])
-        lib.vt_drain_quantile.restype = ctypes.c_int
+            [_P] * 10 + shape + [_I, _I, ctypes.c_float, _P])
+        lib.vt_drain_quantile.restype = _I
         lib.vt_compress_presorted.argtypes = (
-            [_P] * 6 + common + [ctypes.c_float, _P])
-        lib.vt_compress_presorted.restype = ctypes.c_int
-        lib.vt_error_string.argtypes = [ctypes.c_int]
+            [_P] * 6 + shape + [_I, ctypes.c_float, _P])
+        lib.vt_compress_presorted.restype = _I
+        lib.vt_error_string.argtypes = [_I]
         lib.vt_error_string.restype = ctypes.c_char_p
         lib._vt_declared = True
     return lib
@@ -247,102 +297,125 @@ def _check_kernel_inputs(mean_a, weight_a, mean_b, weight_b, out_size, m,
         raise ValueError("more than 2^31-1 rows in one launch")
 
 
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """The plane with unit inner stride (the kernels take any row
+    stride); copies only a plane whose columns are strided."""
+    return t if t.shape[1] <= 1 or t.stride(1) == 1 else t.contiguous()
+
+
 def _raise_on(lib, err: int, name: str):
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"({lib.vt_error_string(err).decode()})")
 
 
-def launch_drain_quantile(ma, wa, mb_rev, wb_rev, mn, mx, qs, compression,
-                          out_size: int, m: int):
-    """Enqueue K1 on the current stream over kernel-layout inputs (b half
-    padded and pre-reversed, all contiguous); returns the raw outputs
-    (means not gap-filled). Not counted: the wrapper counts."""
-    s, ka = ma.shape
-    half = mb_rev.shape[1]
-    nq = qs.shape[0]
+def _plane_args(ma, wa, mb, wb):
+    """(pointers, [rows, ka, kb, four row strides]) of the four planes."""
+    return ([t.data_ptr() for t in (ma, wa, mb, wb)],
+            [ma.shape[0], ma.shape[1], mb.shape[1],
+             *(t.stride(0) for t in (ma, wa, mb, wb))])
+
+
+def launch_drain_quantile(mean_a, weight_a, mean_b, weight_b, mn, mx, qs,
+                          compression: float, out_size: int,
+                          sort_b: bool = False):
+    """Enqueue K1 (K3 with ``sort_b``) on the current stream over the
+    function's own inputs; returns (mean gap-filled, weight,
+    percentiles). Not counted: the wrapper counts."""
+    ma, wa, mb, wb = (_rows(t) for t in (mean_a, weight_a, mean_b,
+                                         weight_b))
+    mn, mx, qs = (t.float().contiguous() for t in (mn, mx, qs))
+    s, nq = ma.shape[0], qs.shape[0]
     om = torch.empty((s, out_size), dtype=torch.float32, device=ma.device)
     ow = torch.empty_like(om)
     pct = torch.empty((s, nq), dtype=torch.float32, device=ma.device)
     if s:
         lib = _kernel_lib()
+        ptrs, shape = _plane_args(ma, wa, mb, wb)
         with torch.cuda.device(ma.device):
             stream = torch.cuda.current_stream(ma.device).cuda_stream
             err = lib.vt_drain_quantile(
-                ma.data_ptr(), wa.data_ptr(), mb_rev.data_ptr(),
-                wb_rev.data_ptr(), mn.data_ptr(), mx.data_ptr(),
-                qs.data_ptr(), om.data_ptr(), ow.data_ptr(), pct.data_ptr(),
-                s, ka, half, out_size, m, nq, float(compression), stream)
+                *ptrs, mn.data_ptr(), mx.data_ptr(), qs.data_ptr(),
+                om.data_ptr(), ow.data_ptr(), pct.data_ptr(), *shape,
+                out_size, nq, int(sort_b), float(compression), stream)
         _raise_on(lib, err, "drain_quantile")
     return om, ow, pct
 
 
+def _count(wrapper, s: int, sort_b: bool):
+    if s:
+        if sort_b:
+            wrapper.sort_b_launches += 1
+        else:
+            wrapper.launches += 1
+
+
 def drain_quantile(mean_a, weight_a, mean_b, weight_b, mn, mx, qs,
-                   compression: float, out_size: int):
+                   compression: float, out_size: int, sort_b: bool = False):
     """K1: fused drain + percentiles. The a half must be row-ascending,
-    the b half row-ascending with +inf empties, mn/mx the final [S]
+    the b half row-ascending with +inf empties (with ``sort_b``: any
+    order, empties carrying mean +inf and weight 0), mn/mx the final [S]
     extrema and qs the [P] quantiles. Returns (mean [S, out_size]
     gap-filled, weight [S, out_size], percentiles [S, P])."""
     if not _use_kernel(mean_a, weight_a, mean_b, weight_b, mn, mx, qs):
         return drain_quantile_plain(mean_a, weight_a, mean_b, weight_b, mn,
-                                    mx, qs, compression, out_size)
+                                    mx, qs, compression, out_size, sort_b)
     s, _, half, m = _shapes(mean_a, mean_b)
     _check_kernel_inputs(mean_a, weight_a, mean_b, weight_b, out_size, m,
                          half)
-    if not 0 < qs.shape[0] <= max(2 * half, 32):
-        raise ValueError(f"{qs.shape[0]} quantiles do not fit one block")
-    mb, wb = _prepare_b(mean_b, weight_b, half)
-    om, ow, pct = launch_drain_quantile(
-        mean_a.contiguous(), weight_a.contiguous(), mb, wb,
-        mn.float().contiguous(), mx.float().contiguous(),
-        qs.float().contiguous(), compression, out_size, m)
-    if s:
-        drain_quantile.launches += 1
-    return torch.cummax(om, 1).values, ow, pct
+    if qs.dim() != 1 or mn.shape != (s,) or mx.shape != (s,):
+        raise ValueError("drain_quantile takes [S] extrema and [P] "
+                         "quantiles")
+    out = launch_drain_quantile(mean_a, weight_a, mean_b, weight_b, mn, mx,
+                                qs, compression, out_size, sort_b)
+    _count(drain_quantile, s, sort_b)
+    return out
 
 
 drain_quantile.launches = 0
+drain_quantile.sort_b_launches = 0
 
 
-def launch_compress_presorted(ma, wa, mb_rev, wb_rev, compression,
-                              out_size: int, m: int):
-    """Enqueue K2 on the current stream over kernel-layout inputs; returns
-    the raw outputs (means not gap-filled). Not counted: the wrapper
-    counts."""
-    s, ka = ma.shape
-    half = mb_rev.shape[1]
+def launch_compress_presorted(mean_a, weight_a, mean_b, weight_b,
+                              compression: float, out_size: int,
+                              sort_b: bool = False):
+    """Enqueue K2 (K3 with ``sort_b``) on the current stream over the
+    function's own inputs; returns (mean gap-filled, weight). Not
+    counted: the wrapper counts."""
+    ma, wa, mb, wb = (_rows(t) for t in (mean_a, weight_a, mean_b,
+                                         weight_b))
+    s = ma.shape[0]
     om = torch.empty((s, out_size), dtype=torch.float32, device=ma.device)
     ow = torch.empty_like(om)
     if s:
         lib = _kernel_lib()
+        ptrs, shape = _plane_args(ma, wa, mb, wb)
         with torch.cuda.device(ma.device):
             stream = torch.cuda.current_stream(ma.device).cuda_stream
             err = lib.vt_compress_presorted(
-                ma.data_ptr(), wa.data_ptr(), mb_rev.data_ptr(),
-                wb_rev.data_ptr(), om.data_ptr(), ow.data_ptr(), s, ka, half,
-                out_size, m, float(compression), stream)
+                *ptrs, om.data_ptr(), ow.data_ptr(), *shape, out_size,
+                int(sort_b), float(compression), stream)
         _raise_on(lib, err, "compress_presorted")
     return om, ow
 
 
 def compress_presorted(mean_a, weight_a, mean_b, weight_b,
-                       compression: float, out_size: int):
+                       compression: float, out_size: int,
+                       sort_b: bool = False):
     """K2: fused compress of a row-ascending centroid list with a second
-    row-ascending list (+inf empties). Returns (mean gap-filled, weight),
-    each [S, out_size]."""
+    row-ascending list (+inf empties; with ``sort_b`` any order).
+    Returns (mean gap-filled, weight), each [S, out_size]."""
     if not _use_kernel(mean_a, weight_a, mean_b, weight_b):
         return compress_presorted_plain(mean_a, weight_a, mean_b, weight_b,
-                                        compression, out_size)
+                                        compression, out_size, sort_b)
     s, _, half, m = _shapes(mean_a, mean_b)
     _check_kernel_inputs(mean_a, weight_a, mean_b, weight_b, out_size, m,
                          half)
-    mb, wb = _prepare_b(mean_b, weight_b, half)
-    om, ow = launch_compress_presorted(mean_a.contiguous(),
-                                       weight_a.contiguous(), mb, wb,
-                                       compression, out_size, m)
-    if s:
-        compress_presorted.launches += 1
-    return torch.cummax(om, 1).values, ow
+    out = launch_compress_presorted(mean_a, weight_a, mean_b, weight_b,
+                                    compression, out_size, sort_b)
+    _count(compress_presorted, s, sort_b)
+    return out
 
 
 compress_presorted.launches = 0
+compress_presorted.sort_b_launches = 0
