@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a), then runs three
+Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a), then runs five
 phases, each printing one JSON line:
 
   kernels  K1 drain_quantile and K2 compress_presorted at the flush's
@@ -18,9 +18,26 @@ phases, each printing one JSON line:
            distribution, so the shift guard drains through K2) and 32,768
            HLL sets at p=14, then one flush through K1;
   server   the UDP Server with a channel sink: datagrams of every ported
-           type, one flush, rows checked against what was sent.
+           type, one flush, rows checked against what was sent;
+  global_merge
+           global aggregation at full width: two forwarding locals on
+           cuda (1,048,576 histogram series each, B's distribution
+           shifted from A's, 32,768 sets in both, 4,096 global-only
+           counters) and a global that imports both states (digests
+           through import_digests_bulk, the rest through the JSON body)
+           and flushes; held to conservation, extrema, the union's
+           percentiles, counters and set cardinalities, and a 4,096-row
+           slice run on cuda and on the CPU twin-checked as the kernels
+           are;
+  server_global
+           a global Server (http_address) and a local Server (UDP in,
+           forward_address) in this process: 65,536 series forwarded as
+           one deflated POST /import, merged by the global's pool and
+           flushed into a channel sink, in our body format and in the
+           reference's (gob/axiomhq).
 
-It ends with the kernel summary, the card's name and power limit, and
+The launch counts in the kernel summary are the sum over the store,
+global_merge and server_global phases. It ends with the kernel summary, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits 2 before
 printing any result. It imports nothing of the JAX package.
@@ -444,9 +461,9 @@ def phase_store(dev, rows: int = ROWS, set_series: int = SET_SERIES,
     k1_ingest = tc.drain_quantile.launches
 
     t0 = time.perf_counter()
-    final = store.flush(list(PERCENTILES),
-                        HistogramAggregates.from_names(["min", "max",
-                                                        "count"]), 0)
+    final, _ = store.flush(list(PERCENTILES),
+                           HistogramAggregates.from_names(["min", "max",
+                                                           "count"]), 0)
     flush_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     flush_program_ms = events[0].elapsed_time(events[1])
@@ -619,6 +636,534 @@ def phase_server(dev, series: int = 300, lines_per_series: int = 12):
           "packet_errors": server.packet_errors})
 
 
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _global_merge_traffic(rows: int, set_series: int, gcounters: int):
+    """The global_merge phase's data, from the seed: local A's and B's
+    histogram samples (4 a series; B's shifted by +1000), set members
+    (every set in both locals, each holding ~60% of the set's universe)
+    and global-only counters."""
+    # one generator per array, so a smaller call draws exactly the first
+    # rows, sets and counters of a larger one
+    rng = iter([np.random.default_rng(s) for s in
+                np.random.SeedSequence(SEED + 2).spawn(8)])
+    t = {"a": next(rng).gamma(2.0, 10.0, (rows, 4)).astype(np.float32),
+         "b": (1000.0 + next(rng).gamma(2.0, 10.0, (rows, 4))
+               ).astype(np.float32)}
+    t["card"] = next(rng).integers(100, 1001, set_series)
+    t["universe"] = next(rng).integers(0, np.iinfo(np.uint64).max,
+                                       int(t["card"].sum()),
+                                       dtype=np.uint64, endpoint=True)
+    t["owner"] = np.repeat(np.arange(set_series, dtype=np.int32), t["card"])
+    for label in ("a", "b"):
+        t[f"{label}_keep"] = next(rng).random(len(t["universe"])) < 0.6
+        t[f"{label}_ctr"] = next(rng).integers(1, 1000, gcounters)
+    return t
+
+
+def _forwarding_local(dev, chunk, vals, set_owner, set_hashes, set_series,
+                      ctrs, aggs):
+    """One port local on ``dev``: a histogram series per row of ``vals``
+    (weight 2), the sets, the global-only counters, then one forwarding
+    flush. Returns (ForwardableState with its per-row digest lists
+    built, the flush's time split)."""
+    from veneur_tpu_torch.core.store import MetricStore
+    from veneur_tpu_torch.samplers.parser import MetricKey, parse_metric
+
+    rows = len(vals)
+    store = MetricStore(initial_capacity=1024, chunk=chunk, device=dev)
+    hist, sets = store.histograms, store.sets
+    for i in range(rows):
+        hist.interner.intern(MetricKey(f"h.{i}", "histogram", ""), [])
+    hist.ensure_capacity(rows - 1)
+    for i in range(set_series):
+        sets.interner.intern(MetricKey(f"s.{i}", "set", ""), [])
+    sets.ensure_capacity(set_series - 1)
+    with store._lock:
+        hist.sample_many(np.repeat(np.arange(rows, dtype=np.int32), 4),
+                         vals.reshape(-1),
+                         np.full(vals.size, 2.0, np.float32))
+        sets.sample_many(set_owner, set_hashes)
+    for i, v in enumerate(ctrs):
+        store.process_metric(parse_metric(
+            f"g.c.{i}:{int(v)}|c|#veneurglobalonly".encode()))
+    _sync(dev)
+
+    # where the forwarding flush's time goes, timed around the store's
+    # own methods: dispatch (host enqueue), collect (every device->host
+    # fetch), the digest-plane part of the fetch, the per-row emission;
+    # then the forward-list build (ForwardableState.materialize_digests)
+    split = {"dispatch_s": 0.0, "collect_s": 0.0, "digest_fetch_s": 0.0,
+             "emit_s": 0.0}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                split[name] += time.perf_counter() - t
+        return run
+
+    hist._flush_dispatch = timed("dispatch_s", hist._flush_dispatch)
+    hist._flush_collect = timed("collect_s", hist._flush_collect)
+    hist._fetch_planes = timed("digest_fetch_s", hist._fetch_planes)
+    store._emit_digest_result = timed("emit_s", store._emit_digest_result)
+    t0 = time.perf_counter()
+    final, fwd = store.flush(list(PERCENTILES), aggs, 0, is_local=True)
+    split["flush_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fwd.materialize_digests()
+    split["forward_list_s"] = time.perf_counter() - t0
+    if len(final) != 3 * rows or len(fwd.histograms) != rows \
+            or len(fwd.sets) != set_series or len(fwd.counters) != len(ctrs):
+        raise AssertionError(
+            f"local flushed {len(final)} rows and forwarded "
+            f"{len(fwd.histograms)} digests, {len(fwd.sets)} sets, "
+            f"{len(fwd.counters)} counters")
+    return fwd, split
+
+
+def _events_ms(dev, fn):
+    """(result, device ms between CUDA events recorded before and after
+    ``fn`` on the current stream), or (result, None) off the card."""
+    import torch
+
+    if dev.type != "cuda":
+        return fn(), None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def run_global_merge(dev, rows: int, set_series: int, gcounters: int,
+                     chunk: int):
+    """Two port locals A and B forward to a port global, all on ``dev``:
+    the locals flush as forwarding locals; the global imports both
+    ForwardableStates (digests through import_digests_bulk, sets and
+    counters through the JSON body and apply_json_metric_list) and
+    flushes. Checks conservation, extrema, percentiles, counters and
+    set estimates. Returns (record, the global's merged digests and
+    percentiles as host tensors)."""
+    from veneur_tpu_torch.core import store as store_mod
+    from veneur_tpu_torch.core.store import ForwardableState, MetricStore
+    from veneur_tpu_torch.forward.convert import (apply_json_metric_list,
+                                                  json_metrics_from_state)
+    from veneur_tpu_torch.ops import tdigest as td
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.samplers.intermetric import HistogramAggregates
+    from veneur_tpu_torch.samplers.parser import MetricKey
+
+    aggs = HistogramAggregates.from_names(["min", "max", "count"])
+    t = _global_merge_traffic(rows, set_series, gcounters)
+    rec = {"histogram_series": rows, "set_series": set_series,
+           "global_counters": gcounters, "chunk": chunk}
+    states = []
+    for label in ("a", "b"):
+        keep = t[f"{label}_keep"]
+        fwd, split = _forwarding_local(
+            dev, chunk, t[label], t["owner"][keep], t["universe"][keep],
+            set_series, t[f"{label}_ctr"], aggs)
+        rec[f"local_{label}"] = split
+        states.append(fwd)
+
+    # digests go through import_digests_bulk, the store call that
+    # apply_json_metric_list makes once a body is parsed; the JSON text
+    # of 1M digests is host Python only (server_global times that path)
+    glob = MetricStore(initial_capacity=1024, chunk=chunk, device=dev)
+    gh = glob.histograms
+    counts = {"import_drains": 0, "stat_only_drains": 0, "guard_drains": 0}
+    real_drain_imports, real_drain_temp = gh._drain_imports, td.drain_temp
+
+    def drain_imports():
+        if gh._imp_fill:
+            counts["import_drains"] += 1
+        elif gh._imp_stat_fill:
+            counts["stat_only_drains"] += 1
+        real_drain_imports()
+
+    def drain_temp(*args, **kwargs):
+        counts["guard_drains"] += 1
+        return real_drain_temp(*args, **kwargs)
+
+    gh._drain_imports, td.drain_temp = drain_imports, drain_temp
+    split = {"digests_s": 0.0, "json_s": 0.0}
+    try:
+        t0 = time.perf_counter()
+        for fwd in states:
+            t1 = time.perf_counter()
+            glob.import_digests_bulk([
+                (MetricKey(name, "histogram", ",".join(tags)), tags, means,
+                 weights, lo, hi)
+                for name, tags, means, weights, lo, hi in fwd.histograms])
+            t2 = time.perf_counter()
+            rest = ForwardableState(counters=fwd.counters, sets=fwd.sets)
+            body = json.loads(json.dumps(json_metrics_from_state(rest)))
+            n_ok, n_err = apply_json_metric_list(glob, body)
+            if n_err or n_ok != set_series + gcounters:
+                raise AssertionError(f"JSON import: {n_ok} ok, {n_err} "
+                                     "errors")
+            split["digests_s"] += t2 - t1
+            split["json_s"] += time.perf_counter() - t2
+        with glob._lock:
+            gh._drain_staging()
+            glob.sets._drain_staging()
+        _sync(dev)
+        rec["import_s"] = time.perf_counter() - t0
+    finally:
+        td.drain_temp = real_drain_temp
+    rec["import_split"] = split
+    rec.update(counts)
+    rec["imported"] = glob.imported
+
+    # the global flush; its merged digests are captured from the flush
+    # program (the histograms group is the first non-empty digest group)
+    captured = []
+    real_flush = store_mod._flush_digests
+
+    def capture(*args):
+        out = real_flush(*args)
+        captured.append(out[:2])
+        return out
+
+    def dispatch_timed(*args, _real=gh._flush_dispatch):
+        # the flush program's device time: CUDA events around the
+        # dispatch (the temp half's sort, K1, the stat slices)
+        out, ms = _events_ms(dev, lambda: _real(*args))
+        rec["global_flush_program_device_ms"] = ms
+        return out
+
+    real_launch = tc.launch_drain_quantile
+
+    def k1_timed(*args, **kwargs):
+        # K1 alone: events around its one launch (counted by the wrapper)
+        out, ms = _events_ms(dev, lambda: real_launch(*args, **kwargs))
+        rec["global_flush_k1_device_ms"] = ms
+        return out
+
+    gh._flush_dispatch = dispatch_timed
+    store_mod._flush_digests = capture
+    tc.launch_drain_quantile = k1_timed
+    try:
+        t0 = time.perf_counter()
+        final, _ = glob.flush(list(PERCENTILES), aggs, 0)
+        rec["global_flush_s"] = time.perf_counter() - t0
+    finally:
+        store_mod._flush_digests = real_flush
+        tc.launch_drain_quantile = real_launch
+    digest, pcts = captured[0]
+    merged = [x[:rows].cpu() for x in (digest.mean, digest.weight,
+                                       digest.min, digest.max)]
+    merged.append(pcts[:rows, :-1].cpu())
+    _check_global_merge(t, states, merged, final, rows, set_series,
+                        gcounters, rec)
+    return rec, merged
+
+
+def _check_global_merge(t, states, merged, final, rows, set_series,
+                        gcounters, rec):
+    """The global against the raw data: each row's merged weight equals
+    A's plus B's forwarded weight and the sample mass (16) at rtol 1e-6;
+    min/max exact; percentiles within 1e-3 x span of the exact digest of
+    the union of both locals' samples (8 centroids of weight 2 a row);
+    counters exact; set estimates within the HLL error of the true union
+    cardinality and within 1e-4 of a numpy HLL of the union."""
+    _, weight, mn, mx, _ = (x.numpy() for x in merged)
+    fwd_w = [np.array([e[3].sum() for e in fwd.histograms])
+             for fwd in states]
+    mass = weight.astype(np.float64).sum(1)
+    for want in (fwd_w[0] + fwd_w[1], np.full(rows, 16.0)):
+        err = float(np.max(np.abs(mass - want) / want))
+        if err > 1e-6:
+            raise AssertionError(f"merged weight off by {err:.3g}")
+    raw = np.concatenate([t["a"], t["b"]], axis=1)
+    if not (np.array_equal(mn, raw.min(1)) and np.array_equal(mx, raw.max(1))):
+        raise AssertionError("merged min/max differ from the raw samples")
+    npct = len(PERCENTILES)
+    rng = np.random.default_rng(SEED + 3)
+    worst = rank_worst = 0.0
+    for i in rng.choice(rows, min(512, rows), replace=False):
+        ms = final[i * npct:(i + 1) * npct]
+        if [m.name for m in ms] != [f"h.{i}.{int(p * 100)}percentile"
+                                    for p in PERCENTILES]:
+            raise AssertionError(f"unexpected emission order at h.{i}")
+        got = np.array([m.value for m in ms])
+        want = _digest_reference(raw[i], PERCENTILES)
+        span = float(raw[i].max() - raw[i].min())
+        worst = max(worst, float(np.max(np.abs(got - want))) / span)
+        srt = np.sort(raw[i].astype(np.float64))
+        ranks = np.interp(got, srt, np.linspace(0.0, 1.0, len(srt)))
+        rank_worst = max(rank_worst, float(np.max(np.abs(
+            ranks - np.array(PERCENTILES)))))
+    if worst > 1e-3:
+        raise AssertionError(f"global percentiles off the union's exact "
+                             f"digest by {worst:.3g} of the span")
+    tail = {m.name: m.value for m in final[rows * npct:]}
+    if len(final) != rows * npct + set_series + gcounters:
+        raise AssertionError(f"global flushed {len(final)} rows")
+    for i in range(gcounters):
+        want = int(t["a_ctr"][i]) + int(t["b_ctr"][i])
+        if tail[f"g.c.{i}"] != want:
+            raise AssertionError(f"g.c.{i}: {tail[f'g.c.{i}']} != {want}")
+    union = t["a_keep"] | t["b_keep"]
+    card = np.bincount(t["owner"][union], minlength=set_series)
+    est = np.array([tail[f"s.{i}"] for i in range(set_series)])
+    rel = np.abs(est - card) / card
+    starts = np.concatenate([[0], np.cumsum(t["card"])])
+    ref_err = 0.0
+    for i in rng.choice(set_series, min(256, set_series), replace=False):
+        lo, hi = starts[i], starts[i + 1]
+        ref = _hll_reference(t["universe"][lo:hi][union[lo:hi]], 14)
+        ref_err = max(ref_err, abs(est[i] - ref) / ref)
+    if ref_err > 1e-4:
+        raise AssertionError(f"set estimates off the numpy HLL of the "
+                             f"union by {ref_err:.3g}")
+    if np.percentile(rel, 99) > 0.02 or rel.max() > 0.05:
+        raise AssertionError(f"set estimates too far from the union "
+                             f"cardinality: p99 {np.percentile(rel, 99):.3g}"
+                             f", max {rel.max():.3g}")
+    rec.update({"pct_err_vs_exact_union_digest": worst,
+                "rank_err_vs_np_quantile_max": rank_worst,
+                "set_err_vs_numpy_hll": ref_err,
+                "set_rel_err_p50": float(np.median(rel)),
+                "set_rel_err_p99": float(np.percentile(rel, 99))})
+
+
+def phase_global_merge(dev, card: str, rows: int = ROWS,
+                       set_series: int = SET_SERIES, gcounters: int = 4096,
+                       chunk: int = 1 << 14, twin_rows: int = 4096):
+    """Global aggregation at full width on the card (run_global_merge at
+    1,048,576 histogram series), then a 4,096-row slice of the same
+    traffic through the same path on the card and on the CPU (the plain
+    versions): the twins' merged digests must agree as the kernels do.
+    Returns the launch counts of the full-width run."""
+    import torch
+
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts(tc)
+    t0 = time.perf_counter()
+    rec, _ = run_global_merge(dev, rows, set_series, gcounters, chunk)
+    rec["phase_s"] = time.perf_counter() - t0
+    counts = _counts(tc)
+    rec["max_memory_allocated"] = int(torch.cuda.max_memory_allocated(dev))
+    k1, k2 = counts["drain_quantile.launches"], \
+        counts["compress_presorted.launches"]
+    if k1 < 3 or k2 < 1 or k2 != rec["guard_drains"]:
+        raise AssertionError(f"global_merge launched K1 {k1}x, K2 {k2}x "
+                             f"({rec['guard_drains']} guard drains); want "
+                             "K1 >= 3 (two locals, the global) and one K2 "
+                             "per guard drain, at least one")
+    rec["launches"] = counts
+    card_run = run_global_merge(dev, twin_rows, 64, 64, chunk)[1]
+    cpu_run = run_global_merge(torch.device("cpu"), twin_rows, 64, 64,
+                               chunk)[1]
+    gm, gw, gmin, gmax, gp = card_run
+    pm, pw, pmin, pmax, pp = cpu_run
+    if not (torch.equal(gmin, pmin) and torch.equal(gmax, pmax)):
+        raise AssertionError("twin extrema differ")
+    rec["cpu_twin_rows"] = twin_rows
+    rec["cpu_twin_max_abs_err"] = _compare(
+        "global_merge cpu twin", (gm, gw, gp), (pm, pw, pp), pw,
+        torch.zeros_like(pw), (pmax - pmin).float())
+    emit({"phase": "global_merge", "card": card, **rec})
+    return counts
+
+
+def _udp_lines(rng, series: int):
+    """A few hundred DogStatsD lines of the kinds a local forwards:
+    global-only counters and gauges, histograms, sets. Returns (lines,
+    the numpy reference: counter totals, last gauges, histogram samples,
+    set members)."""
+    lines, ref = [], {"c": {}, "g": {}, "h": {}, "s": {}}
+    for n in range(4):
+        for i in range(series):
+            v = int(rng.integers(1, 10))
+            ref["c"][f"u.c.{i}"] = ref["c"].get(f"u.c.{i}", 0) + v
+            lines.append(f"u.c.{i}:{v}|c|#veneurglobalonly")
+            ref["g"][f"u.g.{i}"] = float(n * 10 + i)
+            lines.append(f"u.g.{i}:{n * 10 + i}|g|#veneurglobalonly")
+            x = float(f"{rng.gamma(2.0, 10.0):.4f}")
+            ref["h"].setdefault(f"u.h.{i}", []).append(x)
+            lines.append(f"u.h.{i}:{x}|h")
+            m = f"m{int(rng.integers(0, 20))}"
+            ref["s"].setdefault(f"u.s.{i}", set()).add(m)
+            lines.append(f"u.s.{i}:{m}|s")
+    return lines, ref
+
+
+def run_server_global(dev, compat: bool, series: int = 1 << 16,
+                      udp_series: int = 25):
+    """A port global Server (http_address) and a port local Server (UDP
+    in, forward_address pointing at the global) in this process on
+    ``dev``. DogStatsD lines go over UDP, then ``series`` histogram
+    series fill the local through its store; one local flush POSTs the
+    deflated JSON body to /import, the global's pool merges it, and one
+    global flush emits into a channel sink. The emissions are held to
+    the numpy reference of what was sent."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.samplers.parser import MetricKey
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+
+    rng = np.random.default_rng(SEED + 4)
+    pcts = [0.25, 0.5, 0.99]
+    common = dict(interval="3600s", percentiles=pcts,
+                  aggregates=["min", "max", "count"], hostname="smoke")
+    sink = ChannelMetricSink()
+    glob = Server(Config(http_address="127.0.0.1:0", **common),
+                  metric_sinks=[sink], device=dev)
+    rec = {"reference_compatible": compat, "histogram_series": series}
+    glob.start()
+    try:
+        pool = glob.ops_server.import_pool
+        real_handle = pool._handle
+
+        def timed_handle(metrics):
+            t0 = time.perf_counter()
+            try:
+                return real_handle(metrics)
+            finally:
+                rec["import_s"] = time.perf_counter() - t0
+
+        pool._handle = timed_handle
+        local = Server(Config(
+            statsd_listen_addresses=["udp://127.0.0.1:0"],
+            forward_address=f"http://127.0.0.1:{glob.ops_server.port}",
+            forward_reference_compatible=compat, forward_timeout="600s",
+            **common), device=dev)
+        local.start()
+        try:
+            lines, ref = _udp_lines(rng, udp_series)
+            port = local.statsd_addrs[0][1]
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+                for i in range(0, len(lines), 8):
+                    tx.sendto("\n".join(lines[i:i + 8]).encode(),
+                              ("127.0.0.1", port))
+            deadline = time.time() + 60
+            while local.store.processed < len(lines):
+                if time.time() > deadline:
+                    raise AssertionError(
+                        f"local processed {local.store.processed} of "
+                        f"{len(lines)} lines")
+                time.sleep(0.05)
+            vals = rng.gamma(2.0, 10.0, (series, 4)).astype(np.float32)
+            with local.store._lock:
+                hist = local.store.histograms
+                base = len(hist)
+                for i in range(series):
+                    hist.interner.intern(
+                        MetricKey(f"b.h.{i}", "histogram", ""), [])
+                hist.ensure_capacity(base + series - 1)
+                hist.sample_many(
+                    np.repeat(np.arange(base, base + series,
+                                        dtype=np.int32), 4),
+                    vals.reshape(-1), np.ones(vals.size, np.float32))
+            fwd = local.forwarder
+            real_body = fwd.body
+
+            def timed_body(state):
+                t0 = time.perf_counter()
+                try:
+                    return real_body(state)
+                finally:
+                    rec["body_build_s"] = time.perf_counter() - t0
+
+            fwd.body = timed_body
+            t0 = time.perf_counter()
+            local.flush()
+            rec["local_flush_s"] = time.perf_counter() - t0
+            if local.wait_forward(600) is not True:
+                raise AssertionError(f"forward failed ({fwd.errors} errors)")
+            rec["post_s"] = fwd.post_durations[-1]
+            rec["body_bytes"] = fwd.post_content_lengths[-1]
+            rec["forwarded"] = fwd.forwarded
+            rec["retries"] = fwd.retries
+            deadline = time.time() + 600
+            while pool.merged_batches + pool.failed_batches < 1:
+                if time.time() > deadline:
+                    raise AssertionError("the global never merged the body")
+                time.sleep(0.05)
+            if pool.failed_batches or glob.import_errors:
+                raise AssertionError(f"import failed: {glob.import_errors} "
+                                     "metric errors")
+            t0 = time.perf_counter()
+            glob.flush()
+            rec["global_flush_s"] = time.perf_counter() - t0
+            rows = sink.get_flush(timeout=60)
+        finally:
+            local.shutdown()
+    finally:
+        glob.shutdown()
+    rec["imported"] = glob.imported_metrics
+    by = {m.name: m.value for m in rows}
+    want_rows = (udp_series * (2 + 1 + len(pcts))
+                 + series * len(pcts))
+    if len(rows) != want_rows:
+        raise AssertionError(f"global emitted {len(rows)} rows, want "
+                             f"{want_rows}")
+    for name, total in ref["c"].items():
+        if by[name] != total:
+            raise AssertionError(f"{name}: {by[name]} != {total}")
+    for name, last in ref["g"].items():
+        if by[name] != last:
+            raise AssertionError(f"{name}: {by[name]} != {last}")
+    for name, members in ref["s"].items():
+        if abs(by[name] - len(members)) > 0.02 * len(members) + 0.5:
+            raise AssertionError(f"{name}: estimate {by[name]} vs "
+                                 f"{len(members)} members")
+    worst = 0.0
+    for name, samples in ref["h"].items():
+        raw = np.float32(samples)
+        span = float(raw.max() - raw.min()) or 1.0
+        for p in pcts:
+            err = abs(by[f"{name}.{int(p * 100)}percentile"]
+                      - _digest_reference(raw, [p])[0])
+            worst = max(worst, err / span)
+    for i in np.random.default_rng(SEED + 5).choice(series, 512,
+                                                    replace=False):
+        span = float(vals[i].max() - vals[i].min())
+        got = [by[f"b.h.{i}.{int(p * 100)}percentile"] for p in pcts]
+        worst = max(worst, float(np.max(np.abs(
+            np.array(got) - _digest_reference(vals[i], pcts)))) / span)
+    # each series' digest holds its samples as centroids (4 a series in
+    # bulk, 4 over UDP), so the global's percentiles are exact up to
+    # float32 rounding; ROADMAP's 0.02 x span is the contract
+    if worst > 0.02:
+        raise AssertionError(f"global percentiles off by {worst:.3g} "
+                             "of the span")
+    rec["pct_err_vs_exact_digest"] = worst
+    return rec
+
+
+def phase_server_global(dev, card: str):
+    """run_server_global in our structured body format, then in the
+    reference's (gob digests, axiomhq sets, LE scalars). Returns the
+    launch counts of both runs."""
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+
+    _reset_counts(tc)
+    recs = [run_server_global(dev, compat) for compat in (False, True)]
+    counts = _counts(tc)
+    # a local flush and a global flush per run
+    if counts["drain_quantile.launches"] < 4:
+        raise AssertionError(f"server_global launched K1 "
+                             f"{counts['drain_quantile.launches']}x")
+    emit({"phase": "server_global", "card": card, "runs": recs,
+          "launches": counts})
+    return counts
+
+
 def _ptxas_summary(logs) -> list:
     """Registers, spills and shared memory of every kernel instance, from
     nvcc's -Xptxas -v output: warp<half,sort_b,drain> / block<...>."""
@@ -670,8 +1215,14 @@ def main() -> int:
           "built": sorted(logs), "ptxas": _ptxas_summary(logs)})
     card = card_line()
     kern = phase_kernels(dev)
+    # the main path's launches: each phase resets the counts just before
+    # it drives its path and reads them just after
     launches = phase_store(dev)
     phase_server(dev)
+    for counts in (phase_global_merge(dev, card),
+                   phase_server_global(dev, card)):
+        for key, n in counts.items():
+            launches[key] += n
     src = "veneur_tpu_torch/csrc/tdigest_merge.cu"
     rows = []
     # K1 and K2 with the b half presorted (the main path), then K3: the

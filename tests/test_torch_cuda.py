@@ -183,7 +183,7 @@ def test_store_on_cuda_matches_cpu(cuda):
         store = MetricStore(chunk=512, device=dev)
         for ln in lines:
             store.process_metric(parse_metric(ln.encode()))
-        rows = store.flush([0.5, 0.99], aggs, 0)
+        rows, _ = store.flush([0.5, 0.99], aggs, 0)
         out.append({(m.name, tuple(m.tags)): m.value for m in rows})
     assert tc.compress_presorted.launches > k2
     got, want = out
@@ -198,3 +198,94 @@ def test_store_on_cuda_matches_cpu(cuda):
             np.testing.assert_allclose(got[key], value, rtol=1e-6)
         else:
             assert got[key] == value, key
+
+
+def _local_to_global(dev, monkeypatch, rows=512):
+    """Two locals on ``dev`` (A: 4 samples a series from gamma(2, 10), B
+    the same shifted by +1000, weight 2) forward their state through
+    the JSON body into a global on ``dev``, which flushes once. Returns
+    the global's drained digests and percentiles (host numpy) and its
+    emitted rows."""
+    import json
+
+    from veneur_tpu_torch.core import store as tstore
+    from veneur_tpu_torch.forward.convert import (apply_json_metric_list,
+                                                  json_metrics_from_state)
+    from veneur_tpu_torch.samplers.parser import MetricKey
+
+    rng = np.random.default_rng(41)
+    aggs = HistogramAggregates.from_names(["min", "max", "count"])
+    pcts = [0.1, 0.5, 0.99]
+    bodies = []
+    for shift in (0.0, 1000.0):
+        loc = MetricStore(chunk=256, device=dev)
+        h = loc.histograms
+        for i in range(rows):
+            h.interner.intern(MetricKey(f"h.{i}", "histogram", ""), [])
+        h.ensure_capacity(rows - 1)
+        vals = (shift + rng.gamma(2.0, 10.0, (rows, 4))).astype(np.float32)
+        with loc._lock:
+            h.sample_many(np.repeat(np.arange(rows, dtype=np.int32), 4),
+                          vals.reshape(-1), np.full(rows * 4, 2.0,
+                                                    np.float32))
+        for i in range(0, rows, 8):
+            loc.process_metric(parse_metric(
+                f"c.{i}:{i}|c|#veneurglobalonly".encode()))
+            loc.process_metric(parse_metric(f"s.{i}:m{shift + i}|s".encode()))
+        _, fwd = loc.flush(pcts, aggs, 0, is_local=True)
+        fwd.materialize_digests()
+        bodies.append(json.loads(json.dumps(json_metrics_from_state(fwd))))
+    glob = MetricStore(chunk=256, device=dev)
+    k2 = tc.compress_presorted.launches
+    for body in bodies:
+        assert apply_json_metric_list(glob, body)[1] == 0
+    with glob._lock:
+        glob.histograms._drain_staging()
+    if dev.type == "cuda":
+        assert tc.compress_presorted.launches > k2  # the guard drained
+    drained = []
+    real = tstore._flush_digests
+
+    def capture(*args):
+        out = real(*args)
+        drained.append(out[:2])
+        return out
+
+    monkeypatch.setattr(tstore, "_flush_digests", capture)
+    out, _ = glob.flush(pcts, aggs, 0)
+    monkeypatch.setattr(tstore, "_flush_digests", real)
+    d, p = drained[0]
+    n = rows
+    host = [t[:n].cpu().numpy() for t in (d.mean, d.weight, d.min, d.max)]
+    return host + [p[:n, :-1].cpu().numpy()], out
+
+
+def test_local_to_global_on_cuda_matches_cpu(cuda, monkeypatch):
+    """The global-aggregation path on the card (K1 on each local's and
+    the global's flush, K2 on the global's import guard drain) against
+    the same path on the CPU (the plain versions): the merged digests'
+    bin liveness identical, conserved mass (rtol 1e-6, 16 a row), live
+    bins rtol 1e-5, percentiles within 1e-4 x span, and every compared
+    value within 1e-4 absolute, as the kernels are held; emitted
+    counters and set estimates exact."""
+    k1 = tc.drain_quantile.launches
+    got, got_rows = _local_to_global(cuda, monkeypatch)
+    assert tc.drain_quantile.launches >= k1 + 3   # two locals, one global
+    want, want_rows = _local_to_global(torch.device("cpu"), monkeypatch)
+    gm, gw, gmin, gmax, gp = got
+    pm, pw, pmin, pmax, pp = want
+    np.testing.assert_allclose(gw.sum(1), 16.0, rtol=1e-6)
+    live = pw > 0
+    np.testing.assert_array_equal(gw > 0, live)
+    np.testing.assert_array_equal(gmin, pmin)
+    np.testing.assert_array_equal(gmax, pmax)
+    np.testing.assert_allclose(gw[live], pw[live], rtol=1e-5)
+    np.testing.assert_allclose(gm[live], pm[live], rtol=1e-5)
+    span = (pmax - pmin)[:, None]
+    assert (np.abs(gp - pp) <= 1e-4 * span).all()
+    worst = max(np.abs(gw[live] - pw[live]).max(),
+                np.abs(gm[live] - pm[live]).max(), np.abs(gp - pp).max())
+    assert worst <= 1e-4, worst
+    by = lambda rows: {m.name: m.value for m in rows
+                       if not m.name.endswith("percentile")}
+    assert by(got_rows) == by(want_rows)

@@ -1,10 +1,11 @@
-"""The port stands alone: veneur_tpu_torch and chip_smoke.py import
-neither jax nor anything of veneur_tpu.
+"""The port stands alone: veneur_tpu_torch and the scripts beside it
+(chip_smoke.py, chip_stages.py) import neither jax nor anything of
+veneur_tpu.
 
 An AST scan covers every import statement; a subprocess with ``jax`` and
 ``veneur_tpu`` blocked from import then imports every module of the port
-and chip_smoke, so an import hidden behind a string or a call would fail
-there too.
+and both scripts, so an import hidden behind a string or a call would
+fail there too.
 """
 
 import ast
@@ -16,10 +17,11 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "veneur_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "veneur_tpu")
+SCRIPTS = ("chip_smoke", "chip_stages")
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / f"{s}.py" for s in SCRIPTS]
 
 
 def _modules():
@@ -30,7 +32,7 @@ def _modules():
         if parts[-1] == "__init__":
             parts = parts[:-1]
         mods.append(".".join(parts))
-    return mods + ["chip_smoke"]
+    return mods + list(SCRIPTS)
 
 
 def _forbidden(name: str) -> bool:

@@ -113,8 +113,10 @@ def test_rejected_lines_are_counted():
 
 
 def test_config_is_loud_about_unported_keys(tmp_path):
-    with pytest.raises(UnsupportedConfig, match="forward_address"):
-        config_from_dict({"forward_address": "http://x:1"})
+    with pytest.raises(UnsupportedConfig, match="grpc_address"):
+        config_from_dict({"grpc_address": "127.0.0.1:1"})
+    with pytest.raises(UnsupportedConfig, match="HTTP forwarding"):
+        config_from_dict({"forward_address": "x:1", "forward_use_grpc": True})
     with pytest.raises(UnsupportedConfig, match="digest_storage"):
         config_from_dict({"digest_storage": "slab"})
     with pytest.raises(UnsupportedConfig, match="mesh_enabled"):
@@ -124,7 +126,7 @@ def test_config_is_loud_about_unported_keys(tmp_path):
     with pytest.raises(UnsupportedConfig, match="udp"):
         config_from_dict({"statsd_listen_addresses": ["tcp://127.0.0.1:1"]})
     # switched-off keys pass
-    cfg = config_from_dict({"digest_storage": "dense", "forward_address": "",
+    cfg = config_from_dict({"digest_storage": "dense", "grpc_address": "",
                             "mesh_enabled": False, "interval": "250ms",
                             "percentiles": [0.5]})
     assert cfg.interval_seconds == 0.25 and cfg.aggregates == ["min", "max",

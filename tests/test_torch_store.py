@@ -76,7 +76,8 @@ def _flush_jax(store):
 
 
 def _flush_port(store):
-    return store.flush(PCTS, HistogramAggregates.from_names(AGGS), 0)
+    out, _ = store.flush(PCTS, HistogramAggregates.from_names(AGGS), 0)
+    return out
 
 
 def _by_key(metrics):
@@ -154,8 +155,9 @@ def test_swap_generation_never_aliases():
     retired = planes(getattr(gen, n) for n in t._GEN_GROUPS)
     assert live and retired and not live & retired
     # the retired generation still flushes what it held
-    assert len(t._flush_generation(gen, PCTS,
-                                   HistogramAggregates.from_names(AGGS), 0))
+    final, _ = t._flush_generation(gen, PCTS,
+                                   HistogramAggregates.from_names(AGGS), 0)
+    assert len(final)
 
 
 def test_not_ported_lines_raise():
@@ -222,7 +224,7 @@ def test_convert_set_group():
     np.testing.assert_array_equal(pg.registers.numpy()[:20],
                                   np.asarray(g.registers)[:20])
     _, je, _ = g.flush(want_estimates=True, want_registers=False)
-    _, pe = pg.flush()
+    _, pe, _ = pg.flush()
     np.testing.assert_allclose(pe, je, rtol=1e-6)
 
 

@@ -9,3 +9,5 @@ neither ``jax`` nor anything of ``veneur_tpu``.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 see :func:`veneur_tpu_torch.device.resolve_device`.
 """
+
+__version__ = "0.1.0"

@@ -21,6 +21,9 @@ class UnsupportedConfig(ValueError):
     """A configuration key or value this port does not implement yet."""
 
 
+_BREAKER_THRESHOLD_DEFAULT = 5
+
+
 @dataclass
 class Config:
     """Server configuration (config.go:3-89); field names are YAML keys."""
@@ -38,6 +41,28 @@ class Config:
     num_readers: int = 1
     metric_max_length: int = 4096
     read_buffer_size_bytes: int = 2 * 1048576
+    # global aggregation: a local forwards to forward_address; a global
+    # serves POST /import (and /healthcheck, /version) on http_address
+    forward_address: str = ""
+    http_address: str = ""
+    # per-flush forward budget: retries never push a forward past it
+    forward_timeout: str = ""
+    # forward in the reference's JSONMetric format (gob digests, axiomhq
+    # sets), for a Go global
+    forward_reference_compatible: bool = False
+    # only false: the gRPC transport is not ported
+    forward_use_grpc: bool = False
+    # accepted and unused: it shapes only the gRPC wire (as in the
+    # reference, HTTP forwarding ignores it)
+    forward_packed_digests: bool = True
+    # RE-tries per forward (0 = one attempt; -1 = unset, defaults to 2)
+    retry_max: int = -1
+    # first backoff; later retries double it with full jitter
+    retry_base_interval: str = ""
+    # consecutive failures before the forward breaker opens (0 = 5)
+    breaker_failure_threshold: int = 0
+    # how long an open breaker waits before a half-open probe
+    breaker_reset_timeout: str = ""
 
     def __post_init__(self):
         if not self.aggregates:
@@ -49,10 +74,43 @@ class Config:
                 raise UnsupportedConfig(
                     f"statsd_listen_addresses: {spec!r} is not a udp:// "
                     "address; TCP and UNIX listeners are not ported yet")
+        if self.forward_use_grpc \
+                or self.forward_address.startswith("native://"):
+            raise UnsupportedConfig(
+                "only HTTP forwarding is ported: forward_use_grpc and "
+                "native:// forward addresses need veneur_tpu")
+        # defaults and validation of veneur_tpu/config.py's egress knobs
+        if self.breaker_failure_threshold < 0:
+            raise ValueError(
+                f"breaker_failure_threshold must be >= 0 (0 = use the "
+                f"default, {_BREAKER_THRESHOLD_DEFAULT}), got "
+                f"{self.breaker_failure_threshold}")
+        if not self.breaker_failure_threshold:
+            self.breaker_failure_threshold = _BREAKER_THRESHOLD_DEFAULT
+        if self.retry_max < 0:
+            self.retry_max = 2
+        self.forward_timeout = self.forward_timeout or "10s"
+        self.retry_base_interval = self.retry_base_interval or "100ms"
+        self.breaker_reset_timeout = self.breaker_reset_timeout or "30s"
+        for name in ("interval", "forward_timeout", "retry_base_interval",
+                     "breaker_reset_timeout"):
+            parse_duration(getattr(self, name))  # malformed raises here
 
     @property
     def interval_seconds(self) -> float:
         return parse_duration(self.interval)
+
+    @property
+    def forward_timeout_seconds(self) -> float:
+        return parse_duration(self.forward_timeout)
+
+    @property
+    def retry_base_interval_seconds(self) -> float:
+        return parse_duration(self.retry_base_interval)
+
+    @property
+    def breaker_reset_timeout_seconds(self) -> float:
+        return parse_duration(self.breaker_reset_timeout)
 
 
 # values that leave an unimplemented key switched off

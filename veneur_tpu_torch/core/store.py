@@ -20,10 +20,14 @@ Every scope-class is one dense group:
 
 The per-interval flush drains every digest group through the K1 kernel
 (``ops/tdigest_cuda.drain_quantile``) and every set group through one
-batched estimate. This store plays the non-forwarding (global) role:
-forwarding, imports, status checks, heavy hitters, snapshots, overload
-control and columnar egress are not ported yet, and a kernel error
-propagates (there is no fallback rung).
+batched estimate. The store plays either role of global aggregation: a
+local's flush (``is_local=True``) returns the sketch state it forwards
+(:class:`ForwardableState`), and a global merges forwarded state through
+the ``import_*`` methods, where imported centroids re-enter the binning
+as weighted samples (a shift between imported digests drains the bins
+through the K2 kernel). Status checks, heavy hitters, snapshots,
+overload control and columnar egress are not ported yet, and a kernel
+error propagates (there is no fallback rung).
 
 Device state is updated in place where the JAX package donates buffers;
 a flush swaps every group for a fresh twin with freshly allocated
@@ -34,7 +38,8 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Dict, List
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +68,8 @@ from veneur_tpu_torch.samplers.parser import (
 DEFAULT_CHUNK = 1 << 14
 DEFAULT_INITIAL_CAPACITY = 1 << 10
 _GROW_FACTOR = 2
+# HLL register imports drain in batches of this many rows
+IMPORT_DRAIN_BATCH = 256
 COUNTER_CONTRIB_MAX = float(1 << 63)
 _STAT_NAMES = ("pcts", "count", "sum", "min", "max", "recip")
 
@@ -148,6 +155,22 @@ class ScalarGroup:
             row = self._row(key, tags)
             self.values[row] = value
 
+    def combine(self, key: MetricKey, tags: List[str], value: float):
+        """Merge imported state: counters add, gauges overwrite
+        (samplers.go:195-212, 276-289). Values the typed lane cannot
+        hold are counted in ``scrubbed`` and dropped."""
+        if not math.isfinite(value):
+            self.scrubbed += 1
+            return
+        if self.kind == "counter" and abs(value) >= COUNTER_CONTRIB_MAX:
+            self.scrubbed += 1
+            return
+        row = self._row(key, tags)
+        if self.kind == "counter":
+            self.values[row] += int(value)
+        else:
+            self.values[row] = value
+
     def snapshot_and_reset(self):
         n = len(self.interner)
         interner, self.interner = self.interner, Interner()
@@ -172,6 +195,33 @@ def _ingest_samples(digest: td_ops.TDigest, temp: td_ops.TempCentroids,
     re-binning. Updates ``temp`` in place; returns (digest, temp)."""
     return td_ops.ingest_chunk_guarded(digest, temp, rows, values, weights,
                                        compression)
+
+
+def _ingest_centroids(digest: td_ops.TDigest, temp: td_ops.TempCentroids,
+                      dmin, dmax, rows, means, weights, stat_rows,
+                      stat_mins, stat_maxs, compression):
+    """Fold imported digest centroids into the bin accumulators WITHOUT
+    touching the local scalar stats (samplers.go:473-480), shift-guarded
+    like the sample path. Imported per-digest min/max land in dmin/dmax,
+    which only bound the final digest. Updates temp, dmin and dmax in
+    place; returns (digest, temp).
+
+    The stat arrays are padded with row == capacity and +inf/-inf: the
+    JAX package drops those rows with ``mode="drop"``; here they are
+    masked to row 0 with the identity of the reduction."""
+    digest, temp = td_ops.ingest_chunk_guarded(
+        digest, temp, rows, means, weights, compression, update_stats=False)
+    _scatter_extrema(dmin, dmax, stat_rows, stat_mins, stat_maxs)
+    return digest, temp
+
+
+def _scatter_extrema(dmin, dmax, rows, mins, maxs):
+    """dmin[rows] = min(dmin[rows], mins), dmax likewise, in place;
+    padding rows (== capacity) change nothing."""
+    ok = rows < dmin.shape[0]
+    r = torch.where(ok, rows, 0)
+    dmin.scatter_reduce_(0, r, torch.where(ok, mins, math.inf), "amin")
+    dmax.scatter_reduce_(0, r, torch.where(ok, maxs, -math.inf), "amax")
 
 
 def _flush_digests(digest: td_ops.TDigest, temp: td_ops.TempCentroids,
@@ -208,7 +258,7 @@ class DigestGroup:
         self.k = td_ops.size_bound(compression)
         self.scrubbed = 0
         self._init_device()
-        self._new_sample_buffers()
+        self._init_staging()
 
     def _init_device(self):
         dev = self.device
@@ -222,6 +272,10 @@ class DigestGroup:
                                dtype=torch.float32, device=dev)
         self._device_dirty = False
 
+    def _init_staging(self):
+        self._new_sample_buffers()
+        self._new_import_buffers()
+
     def _new_sample_buffers(self):
         # fresh host buffers per drain: a host->device copy may still be
         # reading the previous ones
@@ -229,6 +283,18 @@ class DigestGroup:
         self._vals = np.zeros(self.chunk, np.float32)
         self._wts = np.zeros(self.chunk, np.float32)
         self._fill = 0
+
+    def _new_import_buffers(self):
+        self._imp_rows = np.full(self.chunk, self.capacity, np.int32)
+        self._imp_means = np.zeros(self.chunk, np.float32)
+        self._imp_wts = np.zeros(self.chunk, np.float32)
+        self._imp_fill = 0
+        # per-digest extrema; the sentinel padding (out-of-range row,
+        # +inf/-inf) is the identity of the min/max scatter
+        self._imp_stat_rows = np.full(self.chunk, self.capacity, np.int32)
+        self._imp_stat_mins = np.full(self.chunk, np.inf, np.float32)
+        self._imp_stat_maxs = np.full(self.chunk, -np.inf, np.float32)
+        self._imp_stat_fill = 0
 
     def __len__(self):
         return len(self.interner)
@@ -240,7 +306,7 @@ class DigestGroup:
         return row
 
     def _grow(self):
-        self._drain_samples()
+        self._drain_staging()
         old = self.capacity
         self.capacity *= _GROW_FACTOR
         pad = self.capacity - old
@@ -264,6 +330,8 @@ class DigestGroup:
         self.dmax = grow(self.dmax, -math.inf)
         # re-point staging padding at the new out-of-range row id
         self._rows[self._fill:] = self.capacity
+        self._imp_rows[self._imp_fill:] = self.capacity
+        self._imp_stat_rows[self._imp_stat_fill:] = self.capacity
 
     def ensure_capacity(self, max_row: int):
         """Grow so max_row is addressable (bulk paths bypass _row)."""
@@ -317,6 +385,103 @@ class DigestGroup:
         if self._fill == self.chunk:
             self._drain_samples()
 
+    def import_centroids(self, key: MetricKey, tags: List[str],
+                         means: np.ndarray, weights: np.ndarray,
+                         dmin: float, dmax: float):
+        """Merge a forwarded digest: its centroids re-enter the binning as
+        weighted samples, the reference's Merge-by-re-adding-centroids
+        (merging_digest.go:358-370) without the shuffle."""
+        row = self._row(key, tags)
+        n = len(means)
+        # keep one digest's sorted centroid run inside one staging drain:
+        # a split run hands each drain a skewed half that the per-chunk
+        # binning aliases (see import_centroids_bulk)
+        if self._imp_fill + n > self.chunk and n <= self.chunk:
+            self._drain_imports()
+        start = 0
+        while start < n:  # digests larger than one chunk span several drains
+            if self._imp_fill == self.chunk:
+                self._drain_imports()
+            take = min(self.chunk - self._imp_fill, n - start)
+            i = self._imp_fill
+            self._imp_rows[i:i + take] = row
+            self._imp_means[i:i + take] = means[start:start + take]
+            self._imp_wts[i:i + take] = weights[start:start + take]
+            self._imp_fill = i + take
+            start += take
+        if math.isfinite(dmin):
+            i = self._imp_stat_fill
+            self._imp_stat_rows[i] = row
+            self._imp_stat_mins[i] = dmin
+            self._imp_stat_maxs[i] = dmax
+            self._imp_stat_fill = i + 1
+            # zero-centroid imports never advance _imp_fill, so the stat
+            # buffers need their own drain bound
+            if self._imp_stat_fill == self.chunk:
+                self._drain_imports()
+
+    def import_centroids_bulk(self, rows: np.ndarray, means: np.ndarray,
+                              weights: np.ndarray, stat_rows, stat_mins,
+                              stat_maxs):
+        """Bulk staging append for the import path (rows pre-interned by
+        the caller; the JAX package's ``bulk_stage_import_centroids``):
+        span copies into the import buffers, draining when either the
+        centroid buffer or the stat buffers fill.
+
+        Drains align to ROW-RUN boundaries: a row's centroids arrive as
+        one sorted-by-mean run, and splitting that run across two drains
+        hands each drain a skewed half that the per-chunk quantile
+        binning aliases into the same bins. Only a run longer than a
+        whole chunk (never a digest: a run is <= K centroids) splits."""
+        n = len(rows)
+        # equal-row run boundaries, so span copies stay O(n / chunk)
+        if n:
+            run_ends = np.concatenate(
+                (np.flatnonzero(rows[1:] != rows[:-1]) + 1, [n]))
+        else:
+            run_ends = np.empty(0, np.int64)
+        start = 0
+        while start < n:
+            if self._imp_fill == self.chunk:
+                self._drain_imports()
+            avail = self.chunk - self._imp_fill
+            limit = start + avail
+            if limit >= n:
+                end = n
+            else:
+                # the largest run boundary that fits; a run longer than
+                # the space left drains first (partial buffer) or, when
+                # longer than a whole chunk, splits as a last resort
+                j = int(np.searchsorted(run_ends, limit, "right"))
+                end = int(run_ends[j - 1]) if j > 0 else 0
+                if end <= start:
+                    if avail < self.chunk:
+                        self._drain_imports()
+                        continue
+                    end = limit
+            take = end - start
+            i = self._imp_fill
+            self._imp_rows[i:i + take] = rows[start:end]
+            self._imp_means[i:i + take] = means[start:end]
+            self._imp_wts[i:i + take] = weights[start:end]
+            self._imp_fill = i + take
+            start = end
+        ns = len(stat_rows)
+        pos = 0
+        while pos < ns:
+            if self._imp_stat_fill == self.chunk:
+                self._drain_imports()
+            take = min(self.chunk - self._imp_stat_fill, ns - pos)
+            i = self._imp_stat_fill
+            self._imp_stat_rows[i:i + take] = stat_rows[pos:pos + take]
+            self._imp_stat_mins[i:i + take] = stat_mins[pos:pos + take]
+            self._imp_stat_maxs[i:i + take] = stat_maxs[pos:pos + take]
+            self._imp_stat_fill = i + take
+            pos += take
+        if (self._imp_fill == self.chunk
+                or self._imp_stat_fill == self.chunk):
+            self._drain_imports()
+
     def _drain_samples(self):
         if self._fill == 0:
             return
@@ -333,24 +498,57 @@ class DigestGroup:
             torch.from_numpy(vals).to(dev), torch.from_numpy(wts).to(dev),
             self.compression)
 
-    def flush(self, percentiles: List[float], want_stats=None):
+    def _drain_imports(self):
+        """One staged import chunk through ``_ingest_centroids`` (the
+        shift guard may drain the bins through K2 here). A stat-only
+        drain (zero-centroid digests) scatters just the extrema: a chunk
+        of padding alone would add nothing to the bins."""
+        if self._imp_fill == 0 and self._imp_stat_fill == 0:
+            return
+        self._device_dirty = True
+        # pow2 prefixes of the sentinel-padded buffers (see _drain_samples)
+        n = pow2_cap(self._imp_fill) if self._imp_fill else 0
+        ns = pow2_cap(self._imp_stat_fill)
+        staged = (self._imp_rows[:n], self._imp_means[:n], self._imp_wts[:n],
+                  self._imp_stat_rows[:ns], self._imp_stat_mins[:ns],
+                  self._imp_stat_maxs[:ns])
+        self._new_import_buffers()
+        rows, means, wts, srows, smins, smaxs = (
+            torch.from_numpy(a).to(self.device) for a in staged)
+        if n:
+            self.digest, self.temp = _ingest_centroids(
+                self.digest, self.temp, self.dmin, self.dmax, rows.long(),
+                means, wts, srows.long(), smins, smaxs, self.compression)
+        else:
+            _scatter_extrema(self.dmin, self.dmax, srows.long(), smins,
+                             smaxs)
+
+    def _drain_staging(self):
+        self._drain_samples()
+        self._drain_imports()
+
+    def flush(self, percentiles: List[float], want_digests: bool = False,
+              want_stats=None):
         """Run the flush program; returns (interner, host result dict) and
         resets the group. ``want_stats`` (None = all) selects the per-row
-        stat columns fetched."""
-        return self.flush_begin(percentiles, want_stats)()
+        stat columns fetched; ``want_digests`` (a forwarding flush) also
+        fetches the drained digests' mean/weight planes and extrema."""
+        return self.flush_begin(percentiles, want_digests, want_stats)()
 
-    def flush_begin(self, percentiles: List[float], want_stats=None):
+    def flush_begin(self, percentiles: List[float],
+                    want_digests: bool = False, want_stats=None):
         """Two-phase flush: drain staging and DISPATCH the flush program
         now (kernel launches are asynchronous), and return a ``finish()``
         whose device->host copy blocks later, so the store can dispatch
         every group before any fetch waits. ``finish()`` returns
         ``(interner, out)`` and only then resets the group."""
-        self._drain_samples()
+        self._drain_staging()
         n = len(self.interner)
         if n == 0:
             res = self._flush_empty()
             return lambda: res
-        pending = self._flush_dispatch(n, percentiles, want_stats)
+        pending = self._flush_dispatch(n, percentiles, want_digests,
+                                       want_stats)
         return lambda: self._flush_commit(
             self._flush_collect(pending, n, percentiles))
 
@@ -360,7 +558,7 @@ class DigestGroup:
             self._drop_device()
         elif self._device_dirty:
             self._init_device()
-            self._new_sample_buffers()
+            self._init_staging()
         return interner, {}
 
     def _flush_commit(self, out: dict):
@@ -369,23 +567,26 @@ class DigestGroup:
             self._drop_device()
         else:
             self._init_device()
-            self._new_sample_buffers()
+            self._init_staging()
         return interner, out
 
-    def _flush_dispatch(self, n: int, percentiles, want_stats):
+    def _flush_dispatch(self, n: int, percentiles, want_digests,
+                        want_stats):
         sel = [nm for nm in _STAT_NAMES
                if want_stats is None or nm in want_stats]
         qs = torch.tensor(list(percentiles) + [0.5], dtype=torch.float32,
                           device=self.device)
-        _, pcts, count, vsum, vmin, vmax, recip = _flush_digests(
+        digest, pcts, count, vsum, vmin, vmax, recip = _flush_digests(
             self.digest, self.temp, self.dmin, self.dmax, qs,
             self.compression)
         stats = {"pcts": pcts, "count": count, "sum": vsum, "min": vmin,
                  "max": vmax, "recip": recip}
-        return sel, tuple(stats[nm][:n] for nm in sel)
+        planes = ((digest.mean[:n], digest.weight[:n], digest.min[:n],
+                   digest.max[:n]) if want_digests else ())
+        return sel, tuple(stats[nm][:n] for nm in sel), planes
 
     def _flush_collect(self, pending, n: int, percentiles) -> dict:
-        sel, refs = pending
+        sel, refs, planes = pending
         fetched = [_to_host(t) for t in refs]
         out = {}
         # unfetched stats zero-fill: the aggregate mask that left them out
@@ -401,14 +602,27 @@ class DigestGroup:
         else:
             out["percentiles"] = np.zeros((n, len(percentiles)), np.float32)
             out["median"] = zeros
+        if planes:
+            out.update(self._fetch_planes(planes))
         return out
+
+    @staticmethod
+    def _fetch_planes(planes) -> dict:
+        """The drained digests a forwarding flush ships: [n, K] mean and
+        weight planes plus [n] extrema, copied to the host."""
+        mean, weight, dmin, dmax = (_to_host(t) for t in planes)
+        return {"digest_mean": mean, "digest_weight": weight,
+                "digest_min": dmin, "digest_max": dmax}
 
     def _drop_device(self):
         """Free a retired generation's device state and staging buffers."""
         self.digest = self.temp = self.dmin = self.dmax = None
         self._device_dirty = False
         self._rows = self._vals = self._wts = None
-        self._fill = 0
+        self._imp_rows = self._imp_means = self._imp_wts = None
+        self._imp_stat_rows = self._imp_stat_mins = None
+        self._imp_stat_maxs = None
+        self._fill = self._imp_fill = self._imp_stat_fill = 0
 
 
 # ---------------------------------------------------------------------------
@@ -432,6 +646,24 @@ def _estimate_all(registers):
     return hll_ops.estimate(registers, _precision_of(registers))
 
 
+def _merge_registers(registers, rows: np.ndarray, updates: np.ndarray):
+    """registers[rows] = max(registers[rows], updates) in place: the
+    elementwise register max of Set.Combine (samplers.go:423-435). Rows
+    repeated in one batch max-combine on the host first, so the device
+    write sees each row once."""
+    order = np.argsort(rows, kind="stable")
+    rows, updates = rows[order], updates[order]
+    starts = np.flatnonzero(np.r_[True, rows[1:] != rows[:-1]])
+    if len(starts) < len(rows):
+        ends = np.r_[starts[1:], len(rows)]
+        updates = np.stack([updates[s:e].max(axis=0)
+                            for s, e in zip(starts, ends)])
+    idx = torch.from_numpy(rows[starts].astype(np.int64)).to(
+        registers.device)
+    upd = torch.from_numpy(updates.view(np.int8)).to(registers.device)
+    registers[idx] = torch.maximum(registers[idx], upd)
+
+
 class SetGroup:
     """One scope-class of Set metrics as a dense [S, 2^p] int8 register
     tensor (at precision 14 a series costs 16 KiB of device memory)."""
@@ -448,7 +680,12 @@ class SetGroup:
         self.precision = precision
         self.m = hll_ops.num_registers(precision)
         self._reset_registers()
+        self._init_staging()
+
+    def _init_staging(self):
         self._new_sample_buffers()
+        self._imp_rows: List[int] = []
+        self._imp_regs: List[np.ndarray] = []
 
     def _new_sample_buffers(self):
         self._rows = np.full(self.chunk, self.capacity, np.int32)
@@ -466,7 +703,7 @@ class SetGroup:
         return row
 
     def _grow(self):
-        self._drain_samples()
+        self._drain_staging()
         old = self.capacity
         self.capacity *= _GROW_FACTOR
         self.registers = torch.cat([self.registers,
@@ -512,6 +749,35 @@ class SetGroup:
         if self._fill == self.chunk:
             self._drain_samples()
 
+    def import_registers(self, key: MetricKey, tags: List[str],
+                         registers: np.ndarray):
+        """Merge a forwarded sketch: elementwise register max
+        (samplers.go:423-435). A precision mismatch raises for this
+        metric alone (cf. Set.Combine's error), never for the batch."""
+        registers = np.asarray(registers)
+        if registers.shape != (self.m,):
+            raise ValueError(
+                f"HLL precision mismatch: got {registers.shape}, "
+                f"want ({self.m},)")
+        row = self._row(key, tags)
+        self._imp_rows.append(row)
+        self._imp_regs.append(registers)
+        if len(self._imp_rows) >= IMPORT_DRAIN_BATCH:
+            self._drain_imports()
+
+    def _drain_imports(self):
+        if not self._imp_rows:
+            return
+        self._device_dirty = True
+        _merge_registers(self.registers, np.asarray(self._imp_rows, np.int64),
+                         np.stack(self._imp_regs).astype(np.uint8))
+        self._imp_rows.clear()
+        self._imp_regs.clear()
+
+    def _drain_staging(self):
+        self._drain_samples()
+        self._drain_imports()
+
     def _drain_samples(self):
         if self._fill == 0:
             return
@@ -526,14 +792,20 @@ class SetGroup:
                        torch.from_numpy(hi.view(np.int32)).to(dev),
                        torch.from_numpy(lo.view(np.int32)).to(dev))
 
-    def flush(self):
-        return self.flush_begin()()
+    def flush(self, want_estimates: bool = True,
+              want_registers: bool = False):
+        return self.flush_begin(want_estimates, want_registers)()
 
-    def flush_begin(self):
-        """Two-phase flush: the estimate is dispatched now (a fresh output
-        tensor, so the reset below cannot touch it); ``finish()`` copies
-        it to the host and returns ``(interner, estimates)``."""
-        self._drain_samples()
+    def flush_begin(self, want_estimates: bool = True,
+                    want_registers: bool = False):
+        """Two-phase flush: the estimate is dispatched now and the live
+        rows' registers are sliced (the reset below allocates a new plane
+        and never writes the old one); ``finish()`` copies both to the
+        host and returns
+        ``(interner, estimates, registers)``. A local estimates its local
+        sets and forwards the registers of its mixed ones; a flush that
+        wants neither skips both."""
+        self._drain_staging()
         n = len(self.interner)
         interner, self.interner = self.interner, Interner()
         if n == 0:
@@ -541,16 +813,24 @@ class SetGroup:
                 self.registers = None
             elif self._device_dirty:
                 self._reset_registers()
-                self._new_sample_buffers()
-            return lambda: (interner, None)
-        est_ref = _estimate_all(self.registers[:n])
+                self._init_staging()
+            return lambda: (interner, None, None)
+        est_ref = (_estimate_all(self.registers[:n]) if want_estimates
+                   else None)
+        reg_ref = self.registers[:n] if want_registers else None
         if self._retired:
             self.registers = None
         else:
             self._reset_registers()
-            self._new_sample_buffers()
+            self._init_staging()
 
-        return lambda: (interner, _to_host(est_ref))
+        def finish():
+            est = _to_host(est_ref) if est_ref is not None else None
+            regs = (_to_host(reg_ref).view(np.uint8) if reg_ref is not None
+                    else None)
+            return interner, est, regs
+
+        return finish
 
     def _reset_registers(self):
         self.registers = torch.zeros((self.capacity, self.m),
@@ -562,10 +842,64 @@ _DIGEST_GROUPS = ("histograms", "timers", "local_histograms", "local_timers")
 _SET_GROUPS = ("sets", "local_sets")
 
 
-def _digest_want(percentiles, aggregates: HistogramAggregates) -> set:
-    """The per-row stat columns one digest group's flush must fetch for
-    this aggregate config; the rest are zero-filled and never emitted,
-    because the same mask gates their emissions."""
+@dataclass
+class ForwardableState:
+    """Sketch state a local forwards to the global tier
+    (worker.go:161-183): global counters/gauges by value, digests as
+    centroid lists, sets as register arrays.
+
+    A flush leaves each forwarded digest group in ``histograms_columnar``
+    / ``timers_columnar`` as its dense planes, (names, tags, mean [n, K],
+    weight [n, K], dmin [n], dmax [n]); :meth:`materialize_digests` turns
+    them into the per-row tuples the JSON wire needs, off the flush's
+    emission path."""
+
+    counters: List[Tuple[str, List[str], int]] = field(default_factory=list)
+    gauges: List[Tuple[str, List[str], float]] = field(default_factory=list)
+    # (name, tags, means f64, weights f64, min, max), one per series
+    histograms: List[tuple] = field(default_factory=list)
+    timers: List[tuple] = field(default_factory=list)
+    histograms_columnar: Optional[tuple] = None
+    timers_columnar: Optional[tuple] = None
+    # (name, tags, registers uint8 [2^p], precision)
+    sets: List[tuple] = field(default_factory=list)
+
+    def __len__(self):
+        return (len(self.counters) + len(self.gauges) + len(self.histograms)
+                + len(self.timers) + len(self.sets)
+                + sum(len(col[0]) for col in (self.histograms_columnar,
+                                              self.timers_columnar)
+                      if col is not None))
+
+    def materialize_digests(self):
+        """Convert the dense digest planes into per-row tuples holding only
+        the live centroids (weight > 0) in mean order, as float64."""
+        for attr, col_attr in (("histograms", "histograms_columnar"),
+                               ("timers", "timers_columnar")):
+            col = getattr(self, col_attr)
+            if col is None:
+                continue
+            names, tags, means, weights, dmins, dmaxs = col
+            live = weights > 0
+            ends = np.cumsum(live.sum(1))
+            flat_m = means[live].astype(np.float64)
+            flat_w = weights[live].astype(np.float64)
+            out = getattr(self, attr)
+            start = 0
+            for r, end in enumerate(ends.tolist()):
+                out.append((names[r], tags[r], flat_m[start:end],
+                            flat_w[start:end], float(dmins[r]),
+                            float(dmaxs[r])))
+                start = end
+            setattr(self, col_attr, None)
+
+
+def _digest_want(percentiles, aggregates: HistogramAggregates,
+                 forwarding: bool):
+    """(want_digests, want_stats) of one digest group's flush: the digest
+    planes only when the group forwards, and the per-row stat columns
+    this aggregate config reads; the rest are zero-filled and never
+    emitted, because the same mask gates their emissions."""
     agg = aggregates.value
     want_stats = set()
     if agg & (Aggregate.COUNT | Aggregate.AVERAGE
@@ -581,7 +915,7 @@ def _digest_want(percentiles, aggregates: HistogramAggregates) -> set:
         want_stats.add("recip")
     if (agg & Aggregate.MEDIAN) or percentiles:
         want_stats.add("pcts")
-    return want_stats
+    return forwarding, want_stats
 
 
 class _Generation:
@@ -589,11 +923,11 @@ class _Generation:
 
     __slots__ = ("counters", "global_counters", "gauges", "global_gauges",
                  "histograms", "timers", "local_histograms", "local_timers",
-                 "sets", "local_sets", "processed")
+                 "sets", "local_sets", "processed", "imported")
 
 
 class MetricStore:
-    """The ported scope-classes plus dispatch and flush."""
+    """The ported scope-classes plus dispatch, import and flush."""
 
     # every group swapped per flush, in flush order
     _GEN_GROUPS = ("counters", "global_counters", "gauges", "global_gauges",
@@ -622,6 +956,8 @@ class MetricStore:
                                          hll_precision, self.device))
         self.hll_precision = hll_precision
         self.processed = 0
+        # forwarded metrics merged this interval (import_*)
+        self.imported = 0
 
     def process_metric(self, m: UDPMetric):
         """Dispatch one parsed sample to its scope-class
@@ -655,19 +991,96 @@ class MetricStore:
                 raise NotPortedError(f"metric type {t!r} is not ported yet")
             self.processed += 1
 
+    # -- import (global-aggregator ingest) ---------------------------------
+    # The import methods run on the importing thread (the HTTP server's
+    # merge workers) under the store lock; a digest import may launch K2
+    # through the shift guard on the store's own device.
+
+    def import_counter(self, key: MetricKey, tags: List[str], value: int):
+        """Imported counters are global by definition (worker.go:313-326)."""
+        with self._lock:
+            self.imported += 1
+            self.global_counters.combine(key, tags, value)
+
+    def import_gauge(self, key: MetricKey, tags: List[str], value: float):
+        with self._lock:
+            self.imported += 1
+            self.global_gauges.combine(key, tags, value)
+
+    def import_digest(self, key: MetricKey, tags: List[str],
+                      means: np.ndarray, weights: np.ndarray,
+                      dmin: float, dmax: float):
+        with self._lock:
+            self.imported += 1
+            group = self.timers if key.type == "timer" else self.histograms
+            group.import_centroids(key, tags, means, weights, dmin, dmax)
+
+    def import_digests_bulk(self, entries: List[tuple]):
+        """Merge many forwarded digests in one pass: one lock hold, one
+        flat staging append per group instead of a per-metric call chain
+        (cf. the reference's per-worker chunking,
+        importsrv/server.go:99-132).
+
+        entries: [(key, tags, means, weights, dmin, dmax)]."""
+        with self._lock:
+            self.imported += len(entries)
+            for want_timer, group in ((False, self.histograms),
+                                      (True, self.timers)):
+                sel = [e for e in entries
+                       if (e[0].type == "timer") == want_timer]
+                if not sel:
+                    continue
+                total = sum(len(e[2]) for e in sel)
+                flat_rows = np.empty(total, np.int32)
+                flat_means = np.empty(total, np.float32)
+                flat_wts = np.empty(total, np.float32)
+                stat_rows: List[int] = []
+                stat_mins: List[float] = []
+                stat_maxs: List[float] = []
+                pos = 0
+                for key, tags, means, weights, dmin, dmax in sel:
+                    row = group._row(key, tags)
+                    n = len(means)
+                    flat_rows[pos:pos + n] = row
+                    flat_means[pos:pos + n] = means
+                    flat_wts[pos:pos + n] = weights
+                    pos += n
+                    if math.isfinite(dmin):
+                        stat_rows.append(row)
+                        stat_mins.append(dmin)
+                        stat_maxs.append(dmax)
+                group.import_centroids_bulk(flat_rows, flat_means, flat_wts,
+                                            stat_rows, stat_mins, stat_maxs)
+
+    def import_set(self, key: MetricKey, tags: List[str],
+                   registers: np.ndarray):
+        with self._lock:
+            self.imported += 1
+            self.sets.import_registers(key, tags, registers)
+
+    # -- flush ---------------------------------------------------------------
+
     def flush(self, percentiles: List[float],
-              aggregates: HistogramAggregates, now: int):
-        """Drain everything into the InterMetrics a global
-        (non-forwarding) instance emits and reset all groups; returns the
-        list. Mirrors generateInterMetrics (flusher.go:189-254).
+              aggregates: HistogramAggregates, now: int,
+              is_local: bool = False, forward: bool = True):
+        """Drain everything and reset all groups; returns (InterMetrics
+        for the sinks, the :class:`ForwardableState` a local forwards).
+        Mirrors generateInterMetrics (flusher.go:189-254): a local
+        (``is_local``) emits no percentiles for mixed histograms/timers
+        and, with ``forward``, forwards them with the mixed sets and the
+        global counters/gauges instead of flushing those; local-only
+        groups always flush in full. A global emits everything and
+        forwards nothing.
 
         SWAP-ON-FLUSH: the store lock is held only for the generation
         swap; the device programs and fetches run on the retired
-        generation off-lock, so ingest never stalls behind a flush."""
+        generation off-lock, so ingest and imports never stall behind a
+        flush."""
         with self._flush_gate:
             with self._lock:
                 gen = self._swap_generation()
-            return self._flush_generation(gen, percentiles, aggregates, now)
+            return self._flush_generation(gen, percentiles, aggregates, now,
+                                          is_local, forward)
 
     def _swap_generation(self) -> _Generation:
         """Retire every group behind an empty twin (caller holds _lock).
@@ -679,35 +1092,66 @@ class MetricStore:
             old._retired = True  # its flush frees state, not reinits it
             setattr(gen, attr, old)
             setattr(self, attr, old.fresh())
-        gen.processed = self.processed
-        self.processed = 0
+        gen.processed, gen.imported = self.processed, self.imported
+        self.processed = self.imported = 0
         return gen
 
     def _flush_generation(self, g: _Generation, percentiles, aggregates,
-                          now) -> List[InterMetric]:
-        """Drain a retired generation into emissions. Every device group
-        dispatches its flush program before any fetch blocks; the
-        fetches and emissions then run in plan order."""
+                          now, is_local=False, forward=True):
+        """Drain a retired generation into emissions and forwardable
+        state. Every device group dispatches its flush program before any
+        fetch blocks; the fetches and emissions then run in plan order."""
         final: List[InterMetric] = []
+        fwd = ForwardableState()
+        fwd_digests = is_local and forward
         self._flush_scalars(g.counters, MetricType.COUNTER, final, now)
         self._flush_scalars(g.gauges, MetricType.GAUGE, final, now)
-        want_stats = _digest_want(percentiles, aggregates)
+        # mixed histograms/timers: no percentiles on a local instance
+        mixed_pcts = [] if is_local else list(percentiles)
         plan = []
-        for name in _DIGEST_GROUPS:
-            fin = getattr(g, name).flush_begin(percentiles,
+        for name, pcts, fwd_attr in (
+                ("histograms", mixed_pcts,
+                 "histograms_columnar" if fwd_digests else None),
+                ("timers", mixed_pcts,
+                 "timers_columnar" if fwd_digests else None),
+                ("local_histograms", list(percentiles), None),
+                ("local_timers", list(percentiles), None)):
+            want, want_stats = _digest_want(pcts, aggregates,
+                                             fwd_attr is not None)
+            fin = getattr(g, name).flush_begin(pcts, want_digests=want,
                                                want_stats=want_stats)
-            plan.append((fin, lambda res: self._emit_digest_result(
-                res, percentiles, aggregates, final, now)))
-        for name in ("local_sets", "sets"):
-            fin = getattr(g, name).flush_begin()
-            plan.append((fin, lambda res: self._emit_set_result(
-                res, final, now)))
+            plan.append((fin, lambda res, pcts=pcts, fwd_attr=fwd_attr:
+                         self._emit_digest_result(
+                             res, pcts, aggregates, final, now, fwd,
+                             fwd_attr)))
+        # local sets always flush; mixed sets flush only on a global and
+        # are forwarded by a local
+        for name, out, fwd_list in (
+                ("local_sets", final, None),
+                ("sets", None if is_local else final,
+                 fwd.sets if fwd_digests else None)):
+            fin = getattr(g, name).flush_begin(
+                want_estimates=out is not None,
+                want_registers=fwd_list is not None)
+            plan.append((fin, lambda res, out=out, fwd_list=fwd_list:
+                         self._emit_set_result(res, out, now, fwd_list)))
         for fin, emit in plan:
             emit(fin())
-        self._flush_scalars(g.global_counters, MetricType.COUNTER, final,
-                            now)
-        self._flush_scalars(g.global_gauges, MetricType.GAUGE, final, now)
-        return final
+        # global counters/gauges: forwarded by locals, flushed by globals
+        if not is_local:
+            self._flush_scalars(g.global_counters, MetricType.COUNTER, final,
+                                now)
+            self._flush_scalars(g.global_gauges, MetricType.GAUGE, final,
+                                now)
+        else:
+            for group, out, cast in ((g.global_counters, fwd.counters, int),
+                                     (g.global_gauges, fwd.gauges, float)):
+                interner, values = group.snapshot_and_reset()
+                if forward:
+                    out.extend((key.name, interner.tags[row],
+                                cast(values[row]))
+                               for key, row in interner.rows.items())
+        return final, fwd
 
     def _flush_scalars(self, group: ScalarGroup, mtype: MetricType,
                        out: List[InterMetric], now: int):
@@ -720,10 +1164,17 @@ class MetricStore:
 
     def _emit_digest_result(self, res, percentiles: List[float],
                             aggregates: HistogramAggregates,
-                            out: List[InterMetric], now: int):
+                            out: List[InterMetric], now: int,
+                            fwd: Optional[ForwardableState] = None,
+                            fwd_attr: Optional[str] = None):
         """Emission rules of Histo.Flush (samplers.go:511-636) for one
-        digest group's fetched result."""
+        digest group's fetched result; a forwarding group also leaves its
+        drained planes on ``fwd`` (see ForwardableState)."""
         interner, r = res
+        if fwd_attr is not None and len(interner):
+            setattr(fwd, fwd_attr, (
+                interner.names, interner.tags, r["digest_mean"],
+                r["digest_weight"], r["digest_min"], r["digest_max"]))
         agg = aggregates.value
         for key, row in interner.rows.items():
             tags = interner.tags[row]
@@ -759,10 +1210,16 @@ class MetricStore:
                     value=float(r["percentiles"][row, i]), tags=list(tags),
                     type=MetricType.GAUGE, sinks=sinks))
 
-    def _emit_set_result(self, res, out: List[InterMetric], now: int):
-        interner, estimates = res
+    def _emit_set_result(self, res, out: Optional[List[InterMetric]],
+                         now: int, fwd_list: Optional[list] = None):
+        interner, estimates, registers = res
         for key, row in interner.rows.items():
             tags = interner.tags[row]
-            out.append(InterMetric(
-                name=key.name, timestamp=now, value=float(estimates[row]),
-                tags=tags, type=MetricType.GAUGE, sinks=route_info(tags)))
+            if out is not None:
+                out.append(InterMetric(
+                    name=key.name, timestamp=now,
+                    value=float(estimates[row]), tags=tags,
+                    type=MetricType.GAUGE, sinks=route_info(tags)))
+            if fwd_list is not None:
+                fwd_list.append((key.name, tags, registers[row],
+                                 self.hll_precision))

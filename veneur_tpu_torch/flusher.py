@@ -1,18 +1,21 @@
-"""One interval's flush: drain the store and hand the rows to every sink.
+"""One interval's flush: drain the store, forward, hand the rows to sinks.
 
-Port of ``veneur_tpu/flusher.py``'s ``flush_once`` for the non-columnar,
-non-forwarding path (flusher.go:26-132): the store drains into
-InterMetrics, then each metric sink gets the batch it accepts, one sink
-after another. Forwarding, span sinks and self-telemetry are not ported
-yet.
+Port of ``veneur_tpu/flusher.py``'s ``flush_once`` for the non-columnar
+path (flusher.go:26-132): the store drains into InterMetrics and, on a
+local, the ForwardableState it forwards; the forward runs on its own
+thread off the flush path (flusher.go:66-75) while each metric sink gets
+the batch it accepts, one sink after another. Span sinks, streaming
+egress and self-telemetry are not ported yet.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from typing import TYPE_CHECKING
 
+from veneur_tpu_torch.resilience import Deadline
 from veneur_tpu_torch.sinks.base import filter_acceptable
 
 if TYPE_CHECKING:
@@ -26,11 +29,24 @@ def flush_once(server: "Server") -> int:
     that raises is logged and the remaining sinks still flush; a store
     (kernel) failure propagates."""
     now = int(time.time())
+    is_local = server.is_local()
+    forwarding = is_local and server.forward_fn is not None
     t0 = time.perf_counter()
-    final = server.store.flush(server.histogram_percentiles,
-                               server.histogram_aggregates, now)
+    final, forwardable = server.store.flush(
+        server.histogram_percentiles, server.histogram_aggregates, now,
+        is_local=is_local, forward=forwarding)
     log.debug("store flush of %d metrics took %.1f ms", len(final),
               (time.perf_counter() - t0) * 1e3)
+    if forwarding and len(forwardable):
+        # the forward shares the interval's budget: its retries end
+        # before the next flush
+        deadline = Deadline.after(min(server.interval,
+                                      server.config.forward_timeout_seconds))
+        thread = threading.Thread(
+            target=_forward, args=(server, forwardable, deadline),
+            name="forward", daemon=True)
+        server.forward_thread = thread
+        thread.start()
     if final:
         for sink in server.metric_sinks:
             try:
@@ -40,3 +56,18 @@ def flush_once(server: "Server") -> int:
     server.last_flush_time = time.time()
     server.last_flush_ok = True
     return len(final)
+
+
+def _forward(server: "Server", state, deadline: Deadline):
+    """The forward thread: one POST of the interval's state (with the
+    forwarder's own retries inside the deadline). Its outcome lands in
+    ``server.last_forward_ok``; a failed forward is logged and counted
+    and the thread ends: the state is not requeued."""
+    try:
+        ok = bool(server.forward_fn(state, deadline=deadline))
+    except Exception:
+        log.exception("forward failed")
+        ok = False
+    if not ok:
+        server._count("forward_errors")
+    server.last_forward_ok = ok

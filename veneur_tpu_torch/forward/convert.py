@@ -1,0 +1,280 @@
+"""ForwardableState <-> the JSON wire of ``POST /import``.
+
+Port of the JSON half of ``veneur_tpu/forward/convert.py``. Two body
+formats, both accepted on import:
+
+* our structured entries: counters and gauges carry numbers in
+  ``value``, digests a ``digest`` object with ``[mean, weight]``
+  centroid pairs, sets an ``hll`` field holding base64 of
+  :func:`encode_hll`;
+* the reference's ``JSONMetric`` entries (samplers.go:102-108): every
+  ``value`` is the base64 of the sampler's own bytes — LE int64
+  counters, LE float64 gauges, axiomhq sets, gob t-digest streams — so a
+  Go local can POST to a port global and a port local can forward into a
+  Go global (``forward_reference_compatible``).
+
+The protobuf (gRPC) wire is not ported: it needs the generated
+``forward_pb2`` modules. Heavy-hitter (``topk_sketch``) entries are
+counted as errors on import, like an unknown type, because the port has
+no heavy-hitter group.
+"""
+
+from __future__ import annotations
+
+import base64
+import logging
+import struct
+from typing import Dict, List
+
+import numpy as np
+
+from veneur_tpu_torch.ops import axiomhq
+from veneur_tpu_torch.protocol.gob import (decode_reference_digest,
+                                           encode_reference_digest)
+from veneur_tpu_torch.samplers.parser import MetricKey
+
+log = logging.getLogger("veneur.forward.convert")
+
+_HLL_MAGIC = b"VH"
+_HLL_VERSION = 1
+
+
+def encode_hll(registers: np.ndarray, precision: int,
+               reference_compat: bool = False) -> bytes:
+    """Serialize dense HLL registers.
+
+    Native layout: magic ``VH``, version, precision, raw registers (one
+    byte each, lossless). ``reference_compat=True`` emits the axiomhq
+    ``MarshalBinary`` dense layout instead (samplers.go:441-465), which a
+    Go global's ``UnmarshalBinary`` + ``Merge`` accept (4-bit tailcut
+    registers: values past base+15 clip as the reference's own inserts
+    do)."""
+    regs = np.asarray(registers, np.uint8)
+    if regs.shape != (1 << precision,):
+        raise ValueError(f"want {1 << precision} registers, got {regs.shape}")
+    if reference_compat:
+        return axiomhq.encode_dense(regs, precision)
+    return (_HLL_MAGIC + struct.pack("BB", _HLL_VERSION, precision)
+            + regs.tobytes())
+
+
+def decode_hll(blob: bytes) -> tuple[np.ndarray, int]:
+    """Decode an HLL payload: our ``VH`` layout or the reference's axiomhq
+    format (dense and sparse), auto-detected."""
+    if blob[:2] == _HLL_MAGIC:
+        version, precision = struct.unpack_from("BB", blob, 2)
+        if version != _HLL_VERSION:
+            raise ValueError(f"unsupported HLL version {version}")
+        regs = np.frombuffer(blob, np.uint8, count=1 << precision, offset=4)
+        return regs, precision
+    if axiomhq.looks_like(blob):
+        return axiomhq.decode(blob)
+    raise ValueError("unrecognized HLL payload (neither VH nor axiomhq)")
+
+
+def _validated_digest(key, tags, means, weights, dmin, dmax):
+    """Normalize a digest import so the bulk store call cannot raise on
+    its data: 1-D numeric parallel arrays, float extrema."""
+    means = np.asarray(means, np.float64)
+    weights = np.asarray(weights, np.float64)
+    if means.ndim != 1 or means.shape != weights.shape:
+        raise ValueError("centroid mean/weight arrays malformed")
+    return (key, tags, means, weights, float(dmin), float(dmax))
+
+
+def _apply_ops(store, others, digests) -> tuple:
+    """Apply pre-validated import ops: a per-op guard on the scalar/set
+    path (a store-level rejection, e.g. an HLL precision mismatch, skips
+    that metric, never the batch), one bulk call for the digests (fully
+    data-validated, so anything raising there is systemic and fails the
+    whole digest batch). Returns (n_applied, n_errors)."""
+    n_ok = n_err = 0
+    for kind, key, tags, payload in others:
+        try:
+            if kind == "counter":
+                store.import_counter(key, tags, payload)
+            elif kind == "gauge":
+                store.import_gauge(key, tags, payload)
+            else:
+                store.import_set(key, tags, payload)
+            n_ok += 1
+        except Exception as e:
+            n_err += 1
+            log.debug("store rejected imported metric %s: %s", key.name, e)
+    if digests:
+        try:
+            store.import_digests_bulk(digests)
+            n_ok += len(digests)
+        except Exception:
+            # not transactional: a prefix may already be staged, so the
+            # batch counts as errors and is not retried (a retry could
+            # double-count the applied prefix)
+            n_err += len(digests)
+            log.exception("bulk digest import failed; dropping %d digests",
+                          len(digests))
+    return n_ok, n_err
+
+
+# ---------------------------------------------------------------------------
+# ForwardableState -> body
+# ---------------------------------------------------------------------------
+
+
+def reference_json_metrics_from_state(state,
+                                      compression: float = 100.0
+                                      ) -> List[Dict]:
+    """ForwardableState -> REFERENCE-format ``JSONMetric`` entries: the
+    body a Go local would POST (samplers.go Export methods). The caller
+    materializes the digest planes first."""
+    out: List[Dict] = []
+
+    def entry(name, tags, mtype, blob: bytes) -> Dict:
+        return {"name": name, "type": mtype,
+                "tagstring": ",".join(tags), "tags": list(tags),
+                "value": base64.b64encode(blob).decode()}
+
+    for name, tags, value in state.counters:
+        out.append(entry(name, tags, "counter",
+                         struct.pack("<q", int(value))))
+    for name, tags, value in state.gauges:
+        out.append(entry(name, tags, "gauge",
+                         struct.pack("<d", float(value))))
+    for kind, mtype in (("histograms", "histogram"), ("timers", "timer")):
+        for name, tags, means, weights, dmin, dmax in getattr(state, kind):
+            n = len(means)
+            out.append(entry(name, tags, mtype, encode_reference_digest(
+                means, weights, compression,
+                float(dmin) if n else 0.0, float(dmax) if n else 0.0)))
+    for name, tags, registers, precision in state.sets:
+        out.append(entry(name, tags, "set",
+                         axiomhq.encode_dense(registers, precision)))
+    return out
+
+
+def json_metrics_from_state(state, compression: float = 100.0
+                            ) -> List[Dict]:
+    """ForwardableState -> our structured JSON entries, the replacement
+    for ``JSONMetric``'s gob blob (flusher.go:292-385). The caller
+    materializes the digest planes first."""
+    out: List[Dict] = []
+    for name, tags, value in state.counters:
+        out.append({"name": name, "tags": tags, "type": "counter",
+                    "value": int(value)})
+    for name, tags, value in state.gauges:
+        out.append({"name": name, "tags": tags, "type": "gauge",
+                    "value": float(value)})
+    for kind, mtype in (("histograms", "histogram"), ("timers", "timer")):
+        for name, tags, means, weights, dmin, dmax in getattr(state, kind):
+            out.append({"name": name, "tags": tags, "type": mtype,
+                        "digest": {
+                            "compression": compression,
+                            "min": float(dmin), "max": float(dmax),
+                            # float64 pairs: the same numbers as
+                            # [[float(m), float(w)], ...]
+                            "centroids": np.column_stack(
+                                (means, weights)).tolist()}})
+    for name, tags, registers, precision in state.sets:
+        out.append({"name": name, "tags": tags, "type": "set",
+                    "hll": base64.b64encode(
+                        encode_hll(registers, precision)).decode()})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# body -> store
+# ---------------------------------------------------------------------------
+
+
+def _parse_reference_json(d: Dict) -> tuple:
+    """One REFERENCE-format JSONMetric -> (digest op, None) or (None,
+    other op). ``tagstring`` (parser.go:47) is the key's joined tags."""
+    mtype = d["type"]
+    tags = list(d.get("tags") or [])
+    joined = d.get("tagstring")
+    if not tags and joined:
+        tags = joined.split(",")
+    key = MetricKey(name=d["name"], type=mtype,
+                    joined_tags=joined if joined is not None
+                    else ",".join(tags))
+    blob = base64.b64decode(d["value"])
+    if mtype == "counter":
+        (v,) = struct.unpack("<q", blob)
+        return None, ("counter", key, tags, v)
+    if mtype == "gauge":
+        (v,) = struct.unpack("<d", blob)
+        return None, ("gauge", key, tags, v)
+    if mtype == "set":
+        registers, _ = decode_hll(blob)
+        return None, ("set", key, tags, registers)
+    if mtype in ("histogram", "timer"):
+        means, weights, _comp, dmin, dmax = decode_reference_digest(blob)
+        return _validated_digest(key, tags, means, weights, dmin, dmax), None
+    raise ValueError(f"unknown reference JSON metric type {mtype!r}")
+
+
+def _parse_json(d: Dict) -> tuple:
+    """One entry of either format -> (digest op, None) or (None, other
+    op); raises on a malformed or unknown entry."""
+    if isinstance(d.get("value"), str):
+        # reference format: only reference entries put base64 strings in
+        # "value" (ours carry numbers there)
+        return _parse_reference_json(d)
+    mtype = d["type"]
+    tags = list(d.get("tags") or [])
+    key = MetricKey(name=d["name"], type=mtype, joined_tags=",".join(tags))
+    if mtype in ("histogram", "timer"):
+        td = d["digest"]
+        cents = td.get("centroids") or []
+        return _validated_digest(key, tags, [c[0] for c in cents],
+                                 [c[1] for c in cents],
+                                 td.get("min", float("inf")),
+                                 td.get("max", float("-inf"))), None
+    if mtype == "counter":
+        return None, ("counter", key, tags, int(d["value"]))
+    if mtype == "gauge":
+        return None, ("gauge", key, tags, float(d["value"]))
+    if mtype == "set":
+        registers, _ = decode_hll(base64.b64decode(d["hll"]))
+        return None, ("set", key, tags, registers)
+    # includes "topk_sketch": the heavy-hitter group is not ported
+    raise ValueError(f"unknown JSON metric type {mtype!r}")
+
+
+def apply_json_metric_list(store, metrics: List[Dict]) -> tuple:
+    """Merge a decoded ``/import`` body: every entry is parsed and decoded
+    first (a malformed one is counted and skipped), each scalar/set op is
+    applied under its own guard, and all digests stage through ONE bulk
+    store call. Returns (n_applied, n_errors)."""
+    digests, others = [], []
+    n_err = 0
+    for d in metrics:
+        try:
+            digest_op, other_op = _parse_json(d)
+        except Exception as e:
+            n_err += 1
+            log.debug("skipping malformed JSON metric %r: %s",
+                      d.get("name") if isinstance(d, dict) else d, e)
+            continue
+        if digest_op is not None:
+            digests.append(digest_op)
+        else:
+            others.append(other_op)
+    n_ok, apply_errs = _apply_ops(store, others, digests)
+    return n_ok, n_err + apply_errs
+
+
+def apply_json_metric(store, d: Dict):
+    """Merge one imported JSON metric of either format
+    (handlers_global.go:60-213 + Worker.ImportMetric,
+    worker.go:313-351); raises on a malformed entry."""
+    digest_op, other_op = _parse_json(d)
+    if digest_op is not None:
+        store.import_digest(*digest_op)
+        return
+    kind, key, tags, payload = other_op
+    if kind == "counter":
+        store.import_counter(key, tags, payload)
+    elif kind == "gauge":
+        store.import_gauge(key, tags, payload)
+    else:
+        store.import_set(key, tags, payload)

@@ -1,0 +1,162 @@
+"""HTTP forwarding client: deflate-compressed JSON ``POST /import``.
+
+Port of ``veneur_tpu/forward/http_forward.py`` (after ``flushForward`` +
+``PostHelper``, flusher.go:292-385 and http/http.go:123-247): JSON
+body, zlib deflate ``Content-Encoding``, success = any 2xx (the
+reference answers 202). Retries with backoff inside the flush deadline
+and a circuit breaker for the destination. Trace-context headers are
+not sent: the trace plane is not ported.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import threading
+import time
+import urllib.error
+import urllib.request
+import zlib
+from typing import List
+
+from veneur_tpu_torch.forward.convert import (
+    json_metrics_from_state, reference_json_metrics_from_state)
+from veneur_tpu_torch.resilience import (Deadline, RetryPolicy,
+                                         is_transient_status,
+                                         post_with_retry)
+
+log = logging.getLogger("veneur.forward.http")
+
+
+def post_helper(url: str, payload, timeout: float = 10.0,
+                compress: bool = True, out_info: dict = None) -> int:
+    """POST a JSON payload, deflated unless ``compress`` is False
+    (http/http.go:123-247). Returns the HTTP status (including non-2xx);
+    raises only on transport errors. ``out_info`` (if given) receives
+    ``content_length``, the size of the body as sent."""
+    hdrs = {"Content-Type": "application/json"}
+    body = json.dumps(payload).encode("utf-8")
+    if compress:
+        body = zlib.compress(body)
+        hdrs["Content-Encoding"] = "deflate"
+    if out_info is not None:
+        out_info["content_length"] = len(body)
+    req = urllib.request.Request(url, data=body, headers=hdrs, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status
+    except urllib.error.HTTPError as e:
+        e.close()
+        return e.code
+
+
+class HTTPForwarder:
+    """Per-flush HTTP forward of a ForwardableState (flusher.go:292-385).
+
+    ``reference_compat`` emits the reference's own JSONMetric format
+    (gob digests, axiomhq sets, LE scalars), for forwarding into a Go
+    global."""
+
+    def __init__(self, addr: str, timeout: float = 10.0,
+                 compression: float = 100.0,
+                 reference_compat: bool = False,
+                 retry_policy: RetryPolicy = None, breaker=None):
+        self.base = addr.rstrip("/")
+        if not self.base.startswith(("http://", "https://")):
+            self.base = "http://" + self.base
+        self.timeout = timeout
+        self.compression = compression
+        self.reference_compat = reference_compat
+        self.retry_policy = retry_policy or RetryPolicy()
+        self.breaker = breaker
+        # forward() runs on a fresh thread each flush; guard the counters
+        self._lock = threading.Lock()
+        self.forwarded = 0
+        self.errors = 0
+        self.retries = 0
+        # per-POST telemetry: wall seconds and body bytes as sent
+        self.post_durations: List[float] = []
+        self.post_content_lengths: List[int] = []
+
+    def _count_retry(self, retry_index, exc, pause):
+        with self._lock:
+            self.retries += 1
+
+    def _rejected_by_breaker(self, consume_probe: bool) -> bool:
+        """The breaker gate: blocked() before serialization is paid
+        (never consumes a half-open probe), allow() at the send site
+        (counts the probe). Rejections count as errors."""
+        if self.breaker is None:
+            return False
+        rejected = (not self.breaker.allow()) if consume_probe \
+            else self.breaker.blocked()
+        if rejected:
+            with self._lock:
+                self.errors += 1
+            log.warning("forward to %s skipped: circuit breaker open",
+                        self.base)
+        return rejected
+
+    def body(self, state) -> List[dict]:
+        """The JSON entries of one ForwardableState (its digest planes
+        are materialized into per-row centroid lists first)."""
+        state.materialize_digests()
+        if self.reference_compat:
+            return reference_json_metrics_from_state(state, self.compression)
+        return json_metrics_from_state(state, self.compression)
+
+    def forward(self, state, deadline: Deadline = None) -> bool:
+        """POST one ForwardableState. Returns True once the body got a
+        2xx (or there was nothing to send)."""
+        if self._rejected_by_breaker(consume_probe=False):
+            return False
+        metrics = self.body(state)
+        if not metrics:
+            return True
+        url = self.base + "/import"
+        info = {}
+        t0 = time.perf_counter()
+        # the flush deadline bounds every attempt and backoff sleep; a
+        # standalone forward budgets its own timeout
+        if deadline is None:
+            deadline = Deadline.after(self.timeout)
+        if self._rejected_by_breaker(consume_probe=True):
+            return False
+        ok = False
+        try:
+            status = post_with_retry(
+                lambda: post_helper(url, metrics,
+                                    timeout=deadline.clamp(self.timeout),
+                                    out_info=info),
+                self.retry_policy, deadline=deadline,
+                on_retry=self._count_retry)
+            if 200 <= status < 300:
+                ok = True
+                if self.breaker is not None:
+                    self.breaker.record_success()
+                with self._lock:
+                    self.forwarded += len(metrics)
+            else:
+                # a 4xx still proves the destination is alive; only
+                # transient statuses (5xx/429) count toward tripping
+                if self.breaker is not None:
+                    if is_transient_status(status):
+                        self.breaker.record_failure()
+                    else:
+                        self.breaker.record_success()
+                with self._lock:
+                    self.errors += 1
+                log.warning("forward to %s returned HTTP %d", url, status)
+        except OSError as e:  # urllib.error.URLError is an OSError
+            if self.breaker is not None:
+                self.breaker.record_failure()
+            with self._lock:
+                self.errors += 1
+            log.warning("failed to forward %d metrics to %s: %s",
+                        len(metrics), url, e)
+        finally:
+            with self._lock:
+                self.post_durations.append(time.perf_counter() - t0)
+                if "content_length" in info:
+                    self.post_content_lengths.append(info["content_length"])
+        return ok

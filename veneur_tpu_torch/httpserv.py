@@ -1,0 +1,261 @@
+"""The operational HTTP server of the port: healthcheck, version, import.
+
+Port of the part of ``veneur_tpu/httpserv.py`` that global aggregation
+needs (after the reference's goji mux, http.go:21-51, and its import
+handler, handlers_global.go:60-213):
+
+    GET  /healthcheck   -> "ok"
+    GET  /version       -> version string
+    POST /import        -> JSON (optionally deflate) list of forwarded
+                           metrics, queued for a merge worker; 202, or
+                           429 when the bounded queue is full
+
+Error behavior follows ``unmarshalMetricsFromHTTP``: an empty body, an
+unknown encoding and invalid JSON are 400s. The other routes of the JAX
+package (``/debug/vars``, ``/handoff``, readiness, ...) are not ported.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import queue
+import threading
+import zlib
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, List, Optional
+
+from veneur_tpu_torch import __version__
+
+log = logging.getLogger("veneur.http")
+
+# Inflate bound for deflate-encoded bodies: a small crafted body must not
+# expand to gigabytes (the /import endpoint is unauthenticated).
+MAX_INFLATED_BYTES = 256 * 1024 * 1024
+
+
+class ImportError400(ValueError):
+    pass
+
+
+def bounded_inflate(body: bytes, limit: Optional[int] = None) -> bytes:
+    """zlib-decompress with an output-size cap; raises ImportError400 on
+    malformed input or when the inflated size exceeds ``limit``."""
+    if limit is None:
+        limit = MAX_INFLATED_BYTES
+    d = zlib.decompressobj()
+    try:
+        out = d.decompress(body, limit)
+    except zlib.error as e:
+        raise ImportError400(f"invalid deflate body: {e}")
+    if d.unconsumed_tail:
+        raise ImportError400(
+            f"deflate body inflates past the {limit}-byte limit")
+    if not d.eof:
+        raise ImportError400("invalid deflate body: truncated stream")
+    return out
+
+
+def unmarshal_metrics_from_http(headers, body: bytes) -> List[dict]:
+    """Decode an /import body (handlers_global.go:147-213)."""
+    if not body:
+        raise ImportError400("empty request body")
+    encoding = (headers.get("Content-Encoding") or "").lower()
+    if encoding == "deflate":
+        body = bounded_inflate(body)
+    elif encoding not in ("", "identity"):
+        raise ImportError400(f"unknown Content-Encoding {encoding!r}")
+    try:
+        metrics = json.loads(body)
+    except json.JSONDecodeError as e:
+        raise ImportError400(f"invalid JSON: {e}")
+    if not isinstance(metrics, list):
+        raise ImportError400("body must be a JSON array of metrics")
+    if not metrics:
+        raise ImportError400("empty import batch")
+    return metrics
+
+
+class _Handler(BaseHTTPRequestHandler):
+    server_version = f"veneur-tpu-torch/{__version__}"
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):  # route to logging, not stderr
+        log.debug("http: " + fmt, *args)
+
+    def _reply(self, status: int, body: str = ""):
+        data = body.encode("utf-8")
+        self.send_response(status)
+        self.send_header("Content-Type", "text/plain")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _drain_body(self) -> bytes:
+        """Always consume the request body: on keep-alive connections an
+        unread body desyncs the next request on the stream."""
+        length = int(self.headers.get("Content-Length") or 0)
+        return self.rfile.read(length) if length else b""
+
+    def do_GET(self):
+        self._drain_body()
+        path = self.path.partition("?")[0]
+        if path == "/healthcheck":
+            self._reply(200, "ok")
+        elif path == "/version":
+            self._reply(200, __version__)
+        else:
+            self._reply(404, "not found")
+
+    def do_POST(self):
+        body = self._drain_body()
+        if self.path.partition("?")[0] != "/import":
+            self._reply(404, "not found")
+            return
+        pool = self.server.veneur_import_pool
+        if pool is None:
+            self._reply(404, "import not enabled on this instance")
+            return
+        try:
+            metrics = unmarshal_metrics_from_http(self.headers, body)
+        except ImportError400 as e:
+            self._reply(400, str(e))
+            return
+        # merge off the request thread (the reference's ``go
+        # s.ImportMetrics``, http.go:54-60) through a BOUNDED worker
+        # pool: a fleet hitting a slow interval sheds (429) instead of
+        # piling up threads and bodies
+        if pool.submit(metrics):
+            self._reply(202, "accepted")
+        else:
+            self._reply(429, "import queue full; retry next interval")
+
+
+class ImportQueuePool:
+    """Bounded merge queue + worker pool behind ``POST /import`` (the
+    reference's bounded worker channels, http.go:54-142). A full queue
+    sheds the POST with 429; ``shed`` counts rejected batches,
+    ``merged_batches`` the merged ones and ``failed_batches`` those whose
+    merge raised."""
+
+    def __init__(self, handle: Callable[[List[dict]], object],
+                 workers: int = 2, max_queue: int = 64):
+        self._handle = handle
+        # queue.Queue(maxsize <= 0) is UNBOUNDED, the opposite of this
+        # pool's purpose: clamp to the smallest real bound
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, max_queue))
+        self.shed = 0
+        self.merged_batches = 0
+        self.failed_batches = 0
+        self._stopping = threading.Event()
+        self._lock = threading.Lock()
+        self._workers = [
+            threading.Thread(target=self._worker,
+                             name=f"import-merge-{i}", daemon=True)
+            for i in range(max(1, workers))]
+        for t in self._workers:
+            t.start()
+
+    def submit(self, metrics) -> bool:
+        """Enqueue one decoded batch; False = queue full (or the pool is
+        stopping), shed it."""
+        if self._stopping.is_set():
+            return False
+        try:
+            self._q.put_nowait(metrics)
+            return True
+        except queue.Full:
+            with self._lock:
+                self.shed += 1
+            return False
+
+    def qsize(self) -> int:
+        return self._q.qsize()
+
+    def _worker(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            if self._stopping.is_set():
+                continue  # drain without merging; exit on the sentinel
+            try:
+                self._handle(item)
+                ok = True
+            except Exception:
+                # the worker must survive a failed merge; the batch is
+                # reported here and counted
+                log.exception("import of %d metrics failed", len(item))
+                ok = False
+            with self._lock:
+                if ok:
+                    self.merged_batches += 1
+                else:
+                    self.failed_batches += 1
+
+    def stop(self):
+        # never block on a full queue: flag first (workers then drain
+        # without merging) and let the bounded join absorb the rest
+        self._stopping.set()
+        for _ in self._workers:
+            try:
+                self._q.put_nowait(None)
+            except queue.Full:
+                break
+        for t in self._workers:
+            t.join(timeout=5.0)
+
+
+class OpsServer:
+    """The /healthcheck, /version and /import endpoints (http.go:21-51).
+
+    ``import_fn`` receives each decoded JSON metric list on a merge
+    worker; without one, /import answers 404."""
+
+    def __init__(self, addr: str = "127.0.0.1:0",
+                 import_fn: Optional[Callable[[List[dict]], object]] = None,
+                 import_workers: int = 2, import_queue: int = 64):
+        host, _, port = addr.rpartition(":")
+        self._httpd = ThreadingHTTPServer((host or "127.0.0.1", int(port)),
+                                          _Handler)
+        self._httpd.daemon_threads = True
+        self.import_pool = (
+            ImportQueuePool(import_fn, workers=import_workers,
+                            max_queue=import_queue)
+            if import_fn is not None else None)
+        self._httpd.veneur_import_pool = self.import_pool
+        self._thread: Optional[threading.Thread] = None
+
+    @classmethod
+    def for_server(cls, server, addr: str) -> "OpsServer":
+        """The ops server of a port :class:`~veneur_tpu_torch.server.Server`:
+        /import merges into its store. The merge runs on the pool's
+        threads; the store's import methods take its lock and use its
+        device."""
+        from veneur_tpu_torch.forward.convert import apply_json_metric_list
+
+        def import_metrics(metrics: List[dict]) -> int:
+            n_ok, errs = apply_json_metric_list(server.store, metrics)
+            server.count_imported(n_ok, errs)
+            if errs:
+                log.warning("failed to import %d/%d metrics", errs,
+                            len(metrics))
+            return n_ok
+
+        return cls(addr, import_fn=import_metrics)
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    def start(self):
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="http-serve", daemon=True)
+        self._thread.start()
+        log.info("http server listening on port %d", self.port)
+
+    def stop(self):
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self.import_pool is not None:
+            self.import_pool.stop()

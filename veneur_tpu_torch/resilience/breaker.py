@@ -1,0 +1,115 @@
+"""A destination's circuit breaker.
+
+Classic closed → open → half-open automaton: ``failure_threshold``
+consecutive failures trip the breaker; while open every ``allow()`` is
+rejected instantly (a black-holed destination costs nothing per flush
+instead of a full timeout); after ``reset_timeout`` the breaker admits
+``half_open_max`` probe requests — one success closes it, one failure
+re-opens it and restarts the timer.
+
+Port of ``veneur_tpu/resilience/breaker.py``, the part the HTTP
+forwarder uses (the per-destination registry of the proxy is not
+ported).
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from typing import Callable
+
+log = logging.getLogger("veneur.resilience.breaker")
+
+CLOSED = "closed"
+OPEN = "open"
+HALF_OPEN = "half_open"
+
+
+class CircuitBreaker:
+    """One destination's failure automaton. Thread-safe; the forwarder
+    shares its breaker across per-flush threads."""
+
+    def __init__(self, failure_threshold: int = 5,
+                 reset_timeout: float = 30.0, half_open_max: int = 1,
+                 clock: Callable[[], float] = time.monotonic,
+                 name: str = ""):
+        self.failure_threshold = max(1, failure_threshold)
+        self.reset_timeout = reset_timeout
+        self.half_open_max = max(1, half_open_max)
+        self.name = name
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._state = CLOSED
+        self._failures = 0
+        self._opened_at = 0.0
+        self._probes = 0
+        # lifetime counters for tests and telemetry
+        self.rejections = 0
+        self.trips = 0
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            self._maybe_half_open()
+            return self._state
+
+    def _maybe_half_open(self) -> None:
+        # caller holds self._lock
+        if (self._state == OPEN
+                and self._clock() - self._opened_at >= self.reset_timeout):
+            self._state = HALF_OPEN
+            self._probes = 0
+
+    def _trip(self) -> None:
+        # caller holds self._lock
+        self._state = OPEN
+        self._opened_at = self._clock()
+        self._probes = 0
+        self.trips += 1
+        log.warning("circuit breaker for %s opened after %d consecutive "
+                    "failures", self.name or "destination", self._failures)
+
+    def allow(self) -> bool:
+        """May a request go out right now? Counts half-open probes."""
+        with self._lock:
+            self._maybe_half_open()
+            if self._state == CLOSED:
+                return True
+            if self._state == HALF_OPEN and self._probes < self.half_open_max:
+                self._probes += 1
+                return True
+            self.rejections += 1
+            return False
+
+    def blocked(self) -> bool:
+        """True iff the breaker is OPEN (not ready for a probe). Unlike
+        ``allow`` this never consumes a half-open probe, so the forwarder
+        can reject BEFORE paying serialization cost. Counted as a
+        rejection when True."""
+        with self._lock:
+            self._maybe_half_open()
+            if self._state == OPEN:
+                self.rejections += 1
+                return True
+            return False
+
+    def record_success(self) -> None:
+        with self._lock:
+            self._failures = 0
+            if self._state != CLOSED:
+                log.info("circuit breaker for %s closed",
+                         self.name or "destination")
+            self._state = CLOSED
+
+    def record_failure(self) -> None:
+        with self._lock:
+            self._maybe_half_open()
+            if self._state == HALF_OPEN:
+                # a failed probe re-opens and restarts the reset timer
+                self._trip()
+                return
+            self._failures += 1
+            if self._state == CLOSED and \
+                    self._failures >= self.failure_threshold:
+                self._trip()
