@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a), then runs five
-phases, each printing one JSON line:
+Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and its native
+ingest library (g++), side by side, then runs six phases, each printing
+one JSON line:
 
   kernels  K1 drain_quantile and K2 compress_presorted at the flush's
            shape (1,048,576 rows, K=104, the store's 9 quantiles), each
@@ -13,12 +14,28 @@ phases, each printing one JSON line:
            path: held against its plain PyTorch version on the card, then
            each full call timed beside its bound, and sort_b beside the
            flush's torch.sort + presorted composition;
-  store    a MetricStore on cuda with 1,048,576 histogram series x 8
+  store    a MetricStore on cuda with 65,536 histogram series x 8
            samples (the second half of the interval steps the
            distribution, so the shift guard drains through K2) and 32,768
-           HLL sets at p=14, then one flush through K1;
+           HLL sets at p=14, then one flush through K1; cut from
+           1,048,576 series, since the ingest phase drives the 1M-series
+           ingest and flush;
   server   the UDP Server with a channel sink: datagrams of every ported
            type, one flush, rows checked against what was sent;
+  ingest   the server's default UDP listener, the ingest-lane fleet
+           (4 lanes, native parse, recvmmsg) of a Server on cuda, at
+           1,048,576 histogram series (2 tags, 8 samples, a quarter at
+           @0.5, the last four shifted +1000 so the guard drains through
+           K2), 32,768 sets of 16 members, 4,096 counters and gauges,
+           256 events and service checks: DogStatsD lines in datagrams of
+           at most 1,432 bytes from 2 sender processes x 16 flows, paced
+           so the kernel drops nothing. Two intervals (every series first
+           seen, then the same traffic), each flushed through K1 and
+           held to the traffic: conservation, counters, gauges, digest
+           mass, extrema and percentiles, set estimates. Then a
+           4,096-series twin (one lane and the per-line path emit the
+           same on the CPU; one lane on cuda agrees with the CPU as the
+           kernels do) and an unpaced 5 s burst at 1 and 4 lanes;
   global_merge
            global aggregation at full width: two forwarding locals on
            cuda (1,048,576 histogram series each, B's distribution
@@ -37,7 +54,8 @@ phases, each printing one JSON line:
            reference's (gob/axiomhq).
 
 The launch counts in the kernel summary are the sum over the store,
-global_merge and server_global phases. It ends with the kernel summary, the card's name and power limit, and
+ingest (its two intervals), global_merge and server_global phases. It
+ends with the kernel summary, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits 2 before
 printing any result. It imports nothing of the JAX package.
@@ -51,7 +69,9 @@ import re
 import socket
 import subprocess
 import sys
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -59,6 +79,7 @@ SEED = 20261017
 ROWS = 1 << 20                   # histogram series (README "Scale")
 SAMPLES_PER_SERIES = 8
 SET_SERIES = 1 << 15
+STORE_ROWS = 1 << 16             # the store phase's series (see above)
 PERCENTILES = (0.01, 0.10, 0.25, 0.50, 0.75, 0.90, 0.95, 0.99)
 COMPRESSION = 100.0
 WIDE_COMPRESSION = 1000.0        # K=1008, merge width 2048: general path
@@ -1164,6 +1185,657 @@ def phase_server_global(dev, card: str):
     return counts
 
 
+# the ingest phase: the default UDP lane fleet of a Server on the card
+
+INGEST_DGRAM = 1432              # the DogStatsD clients' default payload
+INGEST_SENDERS = 2
+INGEST_SOURCE_SOCKETS = 16       # a sender's flows: REUSEPORT hashes each
+INGEST_MAX_WINDOW = 4096         # datagrams in flight, at most
+INGEST_PERCENTILES = (0.5, 0.75, 0.99)   # example.yaml's
+# the unpaced burst's 64-line cycle (one line a datagram)
+_BURST_LINE = "ingest.h.%d:%d.5|h|#az:z%d,svc:s%d"
+
+# A load generator in its own process. It imports recvmmsg.py by path
+# (standard library only), so it never imports torch. "paced" sends the
+# datagram ranges named on stdin and answers "done <n>" each; "blast"
+# sends a fixed cycle for a given time, as fast as sendmmsg goes.
+_SENDER = r'''
+import os, socket, sys, time
+from array import array
+sys.path.insert(0, os.path.join(os.getcwd(), "veneur_tpu_torch", "ingest"))
+from recvmmsg import BatchSender
+mode, port, arg = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+socks = []
+for _ in range(SOURCE_SOCKETS):
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.connect(("127.0.0.1", port))
+    socks.append(s)
+
+
+def send_all(sock, payloads):
+    sent, idle = 0, 0
+    while sent < len(payloads):
+        n = BatchSender(sock, payloads[sent:sent + 1024]).send_cycle()
+        sent += n
+        idle = idle + 1 if n == 0 else 0
+        if idle > 1000:
+            raise OSError("sendmmsg sent nothing 1000 times")
+    return sent
+
+
+if mode == "paced":
+    lens = array("I")
+    with open(arg + ".len", "rb") as f:
+        lens.frombytes(f.read())
+    with open(arg + ".bin", "rb") as f:
+        blob = f.read()
+    payloads, off = [], 0
+    for n in lens:
+        payloads.append(blob[off:off + n])
+        off += n
+    for line in sys.stdin:
+        a, b = map(int, line.split())
+        total = sum(send_all(s, payloads[a + k:b:len(socks)])
+                    for k, s in enumerate(socks))
+        print("done", total, flush=True)
+else:
+    msgs = [(BURST_LINE % (i, i % 97, i % 4, i % 64)).encode()
+            for i in range(64)]
+    senders = [BatchSender(s, msgs[(i % 2) * 32:(i % 2) * 32 + 32])
+               for i, s in enumerate(socks)]
+    end = time.time() + float(arg)
+    i = 0
+    while time.time() < end:
+        for _ in range(3):
+            senders[i % len(senders)].send_cycle()
+            i += 1
+        time.sleep(0.001)
+'''
+
+
+def _burst_lines() -> list:
+    return [(_BURST_LINE % (i, i % 97, i % 4, i % 64)).encode()
+            for i in range(64)]
+
+
+def _sender_code() -> str:
+    return (_SENDER.replace("BURST_LINE", repr(_BURST_LINE))
+            .replace("SOURCE_SOCKETS", str(INGEST_SOURCE_SOCKETS)))
+
+
+def _ingest_traffic(rows: int, set_series: int, scalars: int, raws: int):
+    """The ingest phase's DogStatsD traffic, from the seed: ``rows``
+    histogram series with 2 tags, 8 samples each in units of 1/8 (exact
+    in float32; a quarter of the series at @0.5), ``set_series`` sets of
+    16 members, ``scalars`` counters (4 samples, every 8th at @0.1) and
+    gauges (one sample), ``raws`` events and service checks. As in the
+    store phase, every series' first four samples come first, each
+    series' four together, and the last four, shifted by +1000, after
+    everything else, so the shift guard drains through K2 and a series'
+    samples bin in one drain a half. Lines are packed greedily into
+    datagrams of at most 1,432 bytes that never split a series' four
+    lines. One generator per array, so a smaller call draws the first
+    series of a larger."""
+    gens = iter([np.random.default_rng(s) for s in
+                 np.random.SeedSequence(SEED + 6).spawn(5)])
+    q = np.concatenate(
+        [np.round(next(gens).gamma(2.0, 10.0, (rows, 4)) * 8),
+         np.round((1000.0 + next(gens).gamma(2.0, 10.0, (rows, 4))) * 8)],
+        axis=1).astype(np.int64)
+    members = next(gens).integers(0, 1 << 48, (set_series, 16))
+    cvals = next(gens).integers(1, 1000, (4, scalars))
+    gvals = np.round(next(gens).normal(0.0, 1000.0, scalars), 3)
+    head = [f"ingest.h.{i}:" for i in range(rows)]
+    tail = [f"|h{'|@0.5' if i % 4 == 0 else ''}|#az:z{i % 4},svc:s{i % 64}"
+            for i in range(rows)]
+    vals = (q / 8.0).tolist()
+
+    def half(k0):
+        return [h + repr(v) + t for h, t, vs in zip(head, tail, vals)
+                for v in vs[k0:k0 + 4]]
+
+    lines = half(0)
+    lines += [f"ingest.s.{j}:u{m}|s" for j, ms in enumerate(members.tolist())
+              for m in ms]
+    for r in range(4):
+        lines += [f"ingest.c.{i}:{v}|c{'|@0.1' if i % 8 == 0 else ''}"
+                  for i, v in enumerate(cvals[r].tolist())]
+    lines += [f"ingest.g.{i}:{v!r}|g" for i, v in enumerate(gvals.tolist())]
+    lines += ["_e{5,4}:title|text", "_sc|ingest.check|0"] * raws
+    middle = len(lines) - 4 * rows
+    lines += half(4)
+    del head, tail, vals
+    lens = np.fromiter(map(len, lines), np.int64, len(lines))
+    blob = "\n".join(lines).encode()
+    del lines
+    starts = np.concatenate([[0], np.cumsum(lens + 1)[:-1]])
+    ends = starts + lens
+    # the units a datagram never splits: a series' four lines, or a line
+    units = np.concatenate([np.arange(0, 4 * rows, 4),
+                            4 * rows + np.arange(middle),
+                            4 * rows + middle + np.arange(0, 4 * rows, 4),
+                            [len(lens)]])
+    unit_ends = ends[units[1:] - 1]
+    cuts = [0]
+    while cuts[-1] < len(units) - 1:
+        first = starts[units[cuts[-1]]]
+        cuts.append(max(cuts[-1] + 1, int(np.searchsorted(
+            unit_ends, first + INGEST_DGRAM, "right"))))
+    cuts = units[np.array(cuts)]
+    d_off = starts[cuts[:-1]]
+    d_len = ends[cuts[1:] - 1] - d_off
+    mult = int(np.float32(1.0) / np.float32(0.1))
+    weights = np.where(np.arange(scalars) % 8 == 0, mult, 1)
+    return {"blob": blob, "d_off": d_off, "d_len": d_len, "q": q,
+            "members": members, "lines": len(lens),
+            "metric_lines": len(lens) - 2 * raws, "raw_lines": 2 * raws,
+            "counters": (cvals * weights).sum(0), "gauges": gvals,
+            "rows": rows, "set_series": set_series, "scalars": scalars}
+
+
+def _datagrams(t) -> list:
+    blob = t["blob"]
+    return [blob[o:o + n] for o, n in zip(t["d_off"].tolist(),
+                                           t["d_len"].tolist())]
+
+
+def _udp_drops(port: int) -> int:
+    """Datagrams the kernel dropped on every socket bound to ``port``
+    (the drops column of /proc/net/udp and udp6)."""
+    total = 0
+    for path in ("/proc/net/udp", "/proc/net/udp6"):
+        try:
+            with open(path) as f:
+                table = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        for ln in table:
+            cols = ln.split()
+            if int(cols[1].rsplit(":", 1)[1], 16) == port:
+                total += int(cols[-1])
+    return total
+
+
+class _PacedSenders:
+    """INGEST_SENDERS sender processes, each owning every
+    INGEST_SENDERS-th datagram of the traffic, released one window at a
+    time."""
+
+    def __init__(self, port: int, t, workdir):
+        import os
+
+        workdir.mkdir(parents=True, exist_ok=True)
+        self.procs, self.counts, self.files = [], [], []
+        blob = t["blob"]
+        for s in range(INGEST_SENDERS):
+            offs = t["d_off"][s::INGEST_SENDERS].tolist()
+            lens = t["d_len"][s::INGEST_SENDERS]
+            base = workdir / f"sender{s}"
+            self.files += [Path(f"{base}.bin"), Path(f"{base}.len")]
+            with open(f"{base}.bin", "wb") as f:
+                for o, n in zip(offs, lens.tolist()):
+                    f.write(blob[o:o + n])
+            lens.astype(np.uint32).tofile(f"{base}.len")
+            self.counts.append(len(offs))
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c", _sender_code(), "paced", str(port),
+                 str(base)], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                text=True, cwd=os.path.dirname(os.path.abspath(__file__))))
+
+    def send(self, a: int, b: int) -> int:
+        """Each sender sends its datagrams [a, b); returns how many went
+        out."""
+        for p in self.procs:
+            p.stdin.write(f"{a} {b}\n")
+            p.stdin.flush()
+        sent = 0
+        for p in self.procs:
+            reply = p.stdout.readline().split()
+            if reply[:1] != ["done"]:
+                raise AssertionError(f"sender failed: {reply}")
+            sent += int(reply[1])
+        return sent
+
+    def close(self):
+        for p in self.procs:
+            p.stdin.close()
+        for p in self.procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for f in self.files:
+            f.unlink(missing_ok=True)
+
+
+def _wait_for(cond, timeout: float, what: str):
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def _instrument(store, fleet) -> dict:
+    """Per-interval time accumulators around the lanes' intern misses,
+    the store's lane remap (store-side interning) and its chunk merge;
+    each wrapper's accumulator has one writer thread."""
+    acc = {"lane_intern_s": [0.0] * fleet.num_lanes, "store_intern_s": 0.0,
+           "merge_s": 0.0}
+
+    def timed(fn, add):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                add(time.perf_counter() - t0)
+        return run
+
+    def lane_add(i):
+        def add(dt):
+            acc["lane_intern_s"][i] += dt
+        return add
+
+    for lane in fleet.lanes:
+        lane._intern_misses = timed(lane._intern_misses,
+                                    lane_add(lane.lane_id))
+    store._lane_remap = timed(store._lane_remap, lambda dt: acc.__setitem__(
+        "store_intern_s", acc["store_intern_s"] + dt))
+    store.import_lane_chunk = timed(
+        store.import_lane_chunk,
+        lambda dt: acc.__setitem__("merge_s", acc["merge_s"] + dt))
+    return acc
+
+
+def _paced_interval(server, fleet, senders, t, window: int, acc) -> dict:
+    """Send the traffic once, one window at a time (at most ``window``
+    datagrams in flight, and the merger's backlog drained, before the
+    next), and wait until every line is merged, handed back raw or
+    rejected."""
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+
+    acc.update(lane_intern_s=[0.0] * fleet.num_lanes, store_intern_s=0.0,
+               merge_s=0.0)
+    before = fleet.totals()
+    not_ported0 = server.not_ported
+    k2 = tc.compress_presorted.launches
+    port = fleet.bound[0][1]
+    per_sender = window // INGEST_SENDERS
+    sent = 0
+    t0 = time.perf_counter()
+    for a in range(0, max(senders.counts), per_sender):
+        sent += senders.send(a, a + per_sender)
+        _wait_for(lambda: (fleet.totals()["packets"] - before["packets"]
+                           >= sent and fleet.totals()["backlog"]
+                           <= fleet.num_lanes),
+                  300, "the lanes to catch up with a window")
+
+    def settled():
+        now = fleet.totals()
+        return (sum(now[k] - before[k] for k in (
+            "merged", "merged_raws", "parse_errors", "quarantined",
+            "shed_records")) >= t["lines"]
+            and server.not_ported - not_ported0 >= t["raw_lines"])
+
+    _wait_for(settled, 600, "every line to be merged")
+    wall = time.perf_counter() - t0
+    after = fleet.totals()
+    d = {k: after[k] - before[k] for k in after
+         if isinstance(after[k], int) and k != "lanes"}
+    drops = _udp_drops(port)
+    rec = {"datagrams_sent": sent, "lines": t["lines"], "ingest_s": wall,
+           "records_per_s": t["lines"] / wall,
+           "datagrams_per_s": sent / wall,
+           "syscalls_per_packet": d["syscalls"] / d["packets"],
+           "kernel_drops_total": drops, "totals": d,
+           "balance_ok": fleet.balance()["ok"],
+           "intern_gens": [lane.gen for lane in fleet.lanes],
+           "not_ported": server.not_ported - not_ported0,
+           "k2_launches": tc.compress_presorted.launches - k2,
+           "lane_intern_s": list(acc["lane_intern_s"]),
+           "store_intern_s": acc["store_intern_s"],
+           "merge_s": acc["merge_s"]}
+    conserved = (d["merged"] + d["raws"] + d["parse_errors"]
+                 + d["quarantined"] + d["shed_records"])
+    if not (sent == d["packets"] == len(t["d_len"]) and drops == 0
+            and rec["balance_ok"] and conserved == t["lines"]
+            and d["shed_records"] == d["shed_packets"] == 0
+            and d["raws"] == d["merged_raws"] == t["raw_lines"]
+            and d["parse_errors"] == d["quarantined"] == 0
+            and rec["not_ported"] == t["raw_lines"]):
+        raise AssertionError(f"ingest did not conserve the traffic: {rec}")
+    return rec
+
+
+def _check_ingest_flush(rows, t, rec):
+    """One interval's flushed rows against the traffic: the row count;
+    counters and gauges exact; on 4,096 seeded histogram series, the
+    count (the sum of 1/rate) at rtol 1e-6, min/max exact and the
+    percentiles within 1e-3 x span of the exact digest of the samples;
+    set estimates within 1e-4 of a numpy HLL of the members."""
+    from veneur_tpu_torch.ops import hll as hll_ops
+
+    n, sets, scalars = t["rows"], t["set_series"], t["scalars"]
+    want_rows = n * (3 + len(INGEST_PERCENTILES)) + sets + 2 * scalars
+    if len(rows) != want_rows:
+        raise AssertionError(f"{len(rows)} rows flushed, want {want_rows}")
+    rng = np.random.default_rng(SEED + 7)
+    pick = rng.choice(n, min(4096, n), replace=False)
+    sfx = ["count", "min", "max"] + [f"{int(p * 100)}percentile"
+                                     for p in INGEST_PERCENTILES]
+    wanted = {f"ingest.h.{i}.{s}" for i in pick for s in sfx}
+    wanted.update(f"ingest.c.{i}" for i in range(scalars))
+    wanted.update(f"ingest.g.{i}" for i in range(scalars))
+    wanted.update(f"ingest.s.{j}" for j in range(sets))
+    by = {m.name: m.value for m in rows if m.name in wanted}
+    for i in range(scalars):
+        if by[f"ingest.c.{i}"] != t["counters"][i] \
+                or by[f"ingest.g.{i}"] != t["gauges"][i]:
+            raise AssertionError(f"ingest.c/g.{i} differ from what was sent")
+    worst = mass_err = 0.0
+    for i in pick:
+        samples = (t["q"][i] / 8.0).astype(np.float32)
+        mass = 8.0 * (2.0 if i % 4 == 0 else 1.0)
+        mass_err = max(mass_err, abs(by[f"ingest.h.{i}.count"] - mass)
+                       / mass)
+        if by[f"ingest.h.{i}.min"] != samples.min() \
+                or by[f"ingest.h.{i}.max"] != samples.max():
+            raise AssertionError(f"ingest.h.{i}: min/max wrong")
+        got = np.array([by[f"ingest.h.{i}.{s}"] for s in sfx[3:]])
+        want = _digest_reference(samples, INGEST_PERCENTILES)
+        span = float(samples.max() - samples.min())
+        worst = max(worst, float(np.max(np.abs(got - want))) / span)
+    if mass_err > 1e-6 or worst > 1e-3:
+        raise AssertionError(f"histograms off: mass {mass_err:.3g}, "
+                             f"percentiles {worst:.3g} of the span")
+    est = np.array([by[f"ingest.s.{j}"] for j in range(sets)])
+    rel = np.abs(est - 16.0) / 16.0
+    ref_err = 0.0
+    for j in rng.choice(sets, min(512, sets), replace=False):
+        hashes = np.array([hll_ops.hash_member(f"u{m}".encode())
+                           for m in t["members"][j].tolist()], np.uint64)
+        ref = _hll_reference(hashes, 14)
+        ref_err = max(ref_err, abs(est[j] - ref) / ref)
+    if ref_err > 1e-4:
+        raise AssertionError(f"set estimates off the numpy HLL by "
+                             f"{ref_err:.3g}")
+    rec.update({"rows_flushed": len(rows), "hist_mass_rel_err": mass_err,
+                "pct_err_vs_exact_digest": worst,
+                "set_err_vs_numpy_hll": ref_err,
+                "set_rel_err_max": float(rel.max())})
+
+
+def _ingest_window(fleet) -> int:
+    """Datagrams in flight per window: at most INGEST_MAX_WINDOW, and
+    no more than half the lanes' receive buffers at 4 KiB a datagram
+    (a 1,432-byte datagram's kernel footprint is below that), so an
+    uneven REUSEPORT spread still fits."""
+    rcv = min(lane.sock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+              for lane in fleet.lanes)
+    per = INGEST_SENDERS * INGEST_SOURCE_SOCKETS
+    window = min(INGEST_MAX_WINDOW, fleet.num_lanes * rcv // (2 * 4096))
+    return max(per, window // per * per)
+
+
+def run_ingest_lanes(dev, rows: int, set_series: int, scalars: int,
+                     raws: int, lanes: int, workdir):
+    """A Server on ``dev`` whose UDP listener is the lane fleet takes the
+    traffic twice (interval 1: every series first seen; interval 2: the
+    same, after the flush bumped the epoch), each interval flushed.
+    Returns (record, launch counts of the two intervals)."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+
+    t0 = time.perf_counter()
+    t = _ingest_traffic(rows, set_series, scalars, raws)
+    rec = {"histogram_series": rows, "set_series": set_series,
+           "set_members": 16 * set_series, "counters": scalars,
+           "gauges": scalars, "events": raws, "service_checks": raws,
+           "lines": t["lines"], "datagrams": len(t["d_len"]),
+           "datagram_bytes_max": int(t["d_len"].max()),
+           "traffic_build_s": time.perf_counter() - t0}
+    sink = ChannelMetricSink()
+    server = Server(Config(
+        statsd_listen_addresses=["udp://127.0.0.1:0"], num_readers=lanes,
+        interval="86400s", percentiles=list(INGEST_PERCENTILES),
+        aggregates=["min", "max", "count"], hostname="smoke",
+        read_buffer_size_bytes=8 << 20), metric_sinks=[sink], device=dev)
+    server.start()
+    senders = None
+    try:
+        fleet = server.ingest_fleets[0]
+        rec.update(lanes=fleet.num_lanes, listener=server.listeners[0][1],
+                   using_native=server.using_native,
+                   using_recvmmsg=server.using_recvmmsg,
+                   rcvbuf=[lane.sock.getsockopt(socket.SOL_SOCKET,
+                                                socket.SO_RCVBUF)
+                           for lane in fleet.lanes])
+        if not (rec["listener"] == "lanes" and fleet.num_lanes == lanes
+                and rec["using_native"] and rec["using_recvmmsg"]):
+            raise AssertionError(f"the lanes did not come up native with "
+                                 f"recvmmsg: {rec}")
+        acc = _instrument(server.store, fleet)
+        rec["window"] = window = _ingest_window(fleet)
+        senders = _PacedSenders(fleet.bound[0][1], t, workdir)
+        _reset_counts(tc)
+        rec["intervals"] = []
+        for _ in range(2):
+            r = _paced_interval(server, fleet, senders, t, window, acc)
+            k1 = tc.drain_quantile.launches
+            t1 = time.perf_counter()
+            server.flush()
+            r["flush_s"] = time.perf_counter() - t1
+            r["k1_launches"] = tc.drain_quantile.launches - k1
+            flushed = sink.get_flush(timeout=60)
+            _check_ingest_flush(flushed, t, r)
+            del flushed
+            rec["intervals"].append(r)
+        counts = _counts(tc)
+    finally:
+        if senders is not None:
+            senders.close()
+        server.shutdown()
+    first = rec["intervals"][0]
+    if first["k2_launches"] < 1 or any(r["k1_launches"] < 1
+                                       for r in rec["intervals"]):
+        raise AssertionError("want K2 >= 1 in interval 1 and K1 >= 1 a "
+                             f"flush: {rec['intervals']}")
+    return rec, counts
+
+
+def _lane_twin(dev, t):
+    """The traffic through one lane (staged by hand, in order, 64
+    datagrams a recv) into a store on ``dev`` that starts at full
+    capacity, then one flush. Returns (emissions by key, the flush's
+    digest planes and percentiles on the host, or None)."""
+    from veneur_tpu_torch.core import store as store_mod
+    from veneur_tpu_torch.ingest import IngestFleet
+    from veneur_tpu_torch.protocol.addr import resolve_addr
+    from veneur_tpu_torch.samplers.intermetric import HistogramAggregates
+
+    store = store_mod.MetricStore(initial_capacity=t["rows"], device=dev)
+    fleet = IngestFleet(store, resolve_addr("udp://127.0.0.1:0"), 1,
+                        1 << 20, 4096)
+    try:
+        lane = fleet.lanes[0]
+        dgrams = _datagrams(t)
+        for i in range(0, len(dgrams), 64):
+            lane._stage_native(dgrams[i:i + 64])
+        lane._seal()
+        fleet.merge_sealed()
+    finally:
+        fleet.shutdown()
+    captured = []
+    real = store_mod._flush_digests
+
+    def grab(*args):
+        out = real(*args)
+        captured.append(out)
+        return out
+
+    store_mod._flush_digests = grab
+    try:
+        final, _ = store.flush(list(INGEST_PERCENTILES),
+                               HistogramAggregates.from_names(
+                                   ["min", "max", "count"]), 0)
+    finally:
+        store_mod._flush_digests = real
+    n = t["rows"]
+    digest, pcts = captured[0][:2]
+    planes = [x[:n].cpu() for x in (digest.mean, digest.weight, digest.min,
+                                    digest.max)] + [pcts[:n, :-1].cpu()]
+    return {(m.name, tuple(m.tags)): m.value for m in final}, planes
+
+
+def ingest_twin(dev, rows: int = 4096):
+    """A 4,096-series cut of the ingest traffic: through one lane into a
+    CPU store and through process_metric into another CPU store, the
+    emissions must be identical; through one lane on ``dev``, the merged
+    digests must agree with the CPU lane's as the kernels agree with
+    their plain versions. Returns the record."""
+    import torch
+
+    from veneur_tpu_torch.core.store import MetricStore
+    from veneur_tpu_torch.samplers import parser as p
+    from veneur_tpu_torch.samplers.intermetric import HistogramAggregates
+
+    t = _ingest_traffic(rows, 128, 64, 8)
+    cpu_rows, cpu_planes = _lane_twin(torch.device("cpu"), t)
+    by_line = MetricStore(initial_capacity=rows, device="cpu")
+    for d in _datagrams(t):
+        for line in p.split_lines(d):
+            if not line.startswith((b"_e{", b"_sc")):
+                by_line.process_metric(p.parse_metric(line))
+    final, _ = by_line.flush(list(INGEST_PERCENTILES),
+                             HistogramAggregates.from_names(
+                                 ["min", "max", "count"]), 0)
+    if {(m.name, tuple(m.tags)): m.value for m in final} != cpu_rows:
+        raise AssertionError("the lane and the per-line path emit "
+                             "differently on the CPU")
+    _, dev_planes = _lane_twin(dev, t)
+    gm, gw, gmin, gmax, gp = dev_planes
+    pm, pw, pmin, pmax, pp = cpu_planes
+    if not (torch.equal(gmin, pmin) and torch.equal(gmax, pmax)):
+        raise AssertionError("ingest twin extrema differ")
+    err = _compare("ingest cpu twin", (gm, gw, gp), (pm, pw, pp), pw,
+                   torch.zeros_like(pw), (pmax - pmin).float())
+    return {"cpu_twin_rows": rows, "cpu_twin_emissions": len(cpu_rows),
+            "cpu_twin_max_abs_err": err}
+
+
+def ingest_burst(dev, lanes: int, seconds: float = 5.0) -> dict:
+    """Unpaced: two blast senders cycle 64 lines (one a datagram) over
+    16 flows each against a fleet of ``lanes`` lanes on a store on
+    ``dev``; after a warm-up that interns the series, packets/s over
+    ``seconds``. Drops are reported, not failed on."""
+    import os
+
+    from veneur_tpu_torch.core.store import MetricStore
+    from veneur_tpu_torch.ingest import IngestFleet
+    from veneur_tpu_torch.protocol.addr import resolve_addr
+
+    store = MetricStore(initial_capacity=1 << 14, device=dev)
+    fleet = IngestFleet(store, resolve_addr("udp://127.0.0.1:0"), lanes,
+                        8 << 20, 4096)
+    fleet.start()
+    port = fleet.bound[0][1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _sender_code(), "blast", str(port),
+         str(seconds + 60)], cwd=os.path.dirname(os.path.abspath(__file__)))
+        for _ in range(INGEST_SENDERS)]
+    rec = {"lanes": lanes}
+    try:
+        _wait_for(lambda: fleet.totals()["merged"] >= 4 * (1 << 14), 60,
+                  "the burst to warm up")
+        p0, d0 = fleet.totals()["packets"], _udp_drops(port)
+        t0 = time.perf_counter()
+        time.sleep(seconds)
+        p1, d1 = fleet.totals()["packets"], _udp_drops(port)
+        dt = time.perf_counter() - t0
+        rec.update(packets_per_s=(p1 - p0) / dt, records_per_s=(p1 - p0) / dt,
+                   kernel_drops_per_s=(d1 - d0) / dt)
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            p.wait(timeout=30)
+        fleet.shutdown()
+    t = fleet.totals()
+    rec.update(syscalls_per_packet=t["syscalls_per_packet"],
+               shed_records=t["shed_records"],
+               balance_ok=fleet.balance()["ok"])
+    return rec
+
+
+def lane_decode_rate(threads: int, seconds: float = 2.0) -> float:
+    """Records/s through the native decode and columnar staging of
+    ``threads`` lanes at once, each staging the burst's 64-line cycle in
+    2,048-record spans (no sockets; sealed chunks are dropped): the
+    lane's own ceiling behind the wire numbers, and how far the
+    interpreter lock lets lanes overlap."""
+    from veneur_tpu_torch.ingest import IngestLane
+
+    lines = _burst_lines()
+    span = [lines[i % 64] for i in range(2048)]
+    socks, lanes, done = [], [], [0] * threads
+    try:
+        for i in range(threads):
+            socks.append(socket.socket(socket.AF_INET, socket.SOCK_DGRAM))
+            socks[-1].bind(("127.0.0.1", 0))
+            lanes.append(IngestLane(i, socks[-1], 4096, 1 << 14,
+                                    threading.Event()))
+        if not all(lane.using_native for lane in lanes):
+            raise AssertionError("the lanes did not load the native parser")
+
+        def run(i):
+            lane, end = lanes[i], time.perf_counter() + seconds
+            while time.perf_counter() < end:
+                lane._stage_native(span)
+                lane.sealed.clear()
+                done[i] += len(span)
+
+        t0 = time.perf_counter()
+        workers = [threading.Thread(target=run, args=(i,))
+                   for i in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        return sum(done) / (time.perf_counter() - t0)
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+def phase_ingest(dev, card: str, rows: int = ROWS,
+                 set_series: int = SET_SERIES, scalars: int = 4096,
+                 raws: int = 256, lanes: int = 4):
+    """The default UDP ingest lane at full width (run_ingest_lanes), the
+    CPU twin (ingest_twin), the unpaced burst at 1 and 4 lanes and the
+    lanes' decode-and-stage rate without sockets (lane_decode_rate).
+    Returns the launch counts of the two paced intervals."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    workdir = Path(__file__).resolve().parent / "build" / "ingest_smoke"
+    rec, counts = run_ingest_lanes(dev, rows, set_series, scalars, raws,
+                                   lanes, workdir)
+    rec["max_memory_allocated"] = int(torch.cuda.max_memory_allocated(dev))
+    rec["launches"] = counts
+    rec.update(ingest_twin(dev))
+    rec["burst"] = [ingest_burst(dev, n) for n in (1, lanes)]
+    rec["lane_decode_records_per_s"] = {
+        str(n): lane_decode_rate(n) for n in (1, lanes)}
+    rec["phase_s"] = time.perf_counter() - t0
+    emit({"phase": "ingest", "card": card, **rec})
+    return counts
+
+
 def _ptxas_summary(logs) -> list:
     """Registers, spills and shared memory of every kernel instance, from
     nvcc's -Xptxas -v output: warp<half,sort_b,drain> / block<...>."""
@@ -1200,6 +1872,7 @@ def main() -> int:
               "and has no CPU mode", file=sys.stderr)
         return 2
     try:
+        from veneur_tpu_torch import native
         from veneur_tpu_torch.ops import cuda_build
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -1209,17 +1882,36 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    # g++ (the native ingest library) beside nvcc (the kernels)
+    gxx = {}
+
+    def build_native():
+        t = time.perf_counter()
+        try:
+            gxx["path"] = str(native.build())
+        finally:
+            gxx["seconds"] = time.perf_counter() - t
+
+    gxx_thread = threading.Thread(target=build_native)
+    gxx_thread.start()
     t0 = time.perf_counter()
     logs = cuda_build.build()
+    nvcc_s = time.perf_counter() - t0
+    gxx_thread.join()
+    if "path" not in gxx or not native.available():
+        raise RuntimeError("the native ingest library did not build")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": sorted(logs), "ptxas": _ptxas_summary(logs)})
+          "nvcc_seconds": nvcc_s, "gxx_seconds": gxx["seconds"],
+          "built": sorted(logs) + ["veneur_ingest"],
+          "ptxas": _ptxas_summary(logs)})
     card = card_line()
     kern = phase_kernels(dev)
     # the main path's launches: each phase resets the counts just before
     # it drives its path and reads them just after
-    launches = phase_store(dev)
+    launches = phase_store(dev, rows=STORE_ROWS)
     phase_server(dev)
-    for counts in (phase_global_merge(dev, card),
+    for counts in (phase_ingest(dev, card),
+                   phase_global_merge(dev, card),
                    phase_server_global(dev, card)):
         for key, n in counts.items():
             launches[key] += n

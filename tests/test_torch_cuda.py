@@ -289,3 +289,66 @@ def test_local_to_global_on_cuda_matches_cpu(cuda, monkeypatch):
     by = lambda rows: {m.name: m.value for m in rows
                        if not m.name.endswith("percentile")}
     assert by(got_rows) == by(want_rows)
+
+
+def test_ingest_lane_on_cuda_matches_cpu(cuda):
+    """A 4,096-series cut of chip_smoke.py's ingest traffic (8 samples a
+    series, the last four shifted, so the guard drains through K2)
+    through one ingest lane: into a CPU store it emits exactly what the
+    per-line path emits, and into a store on the card its merged digests
+    agree with the CPU lane's as the kernels agree with their plain
+    versions (chip_smoke.ingest_twin raises otherwise)."""
+    import chip_smoke
+
+    k1, k2 = tc.drain_quantile.launches, tc.compress_presorted.launches
+    rec = chip_smoke.ingest_twin(cuda)
+    assert tc.compress_presorted.launches > k2
+    assert tc.drain_quantile.launches > k1
+    assert rec["cpu_twin_emissions"] == 4096 * 6 + 128 + 2 * 64
+    assert rec["cpu_twin_max_abs_err"] <= 1e-4
+
+
+@pytest.mark.parametrize("lanes,rung", [(0, "lanes"), (-1, "native")])
+def test_cli_server_listener_on_cuda(cuda, tmp_path, lanes, rung):
+    """``python -m veneur_tpu_torch.cli.server -f config.yaml`` on the
+    card: the UDP listener is the lane fleet by default and the C++
+    reader pool with ``ingest_lanes: -1``; a counter sent over UDP comes
+    out of the final flush in the debug sink."""
+    import os
+    import signal
+    import socket
+    import subprocess
+    import sys
+    import time
+
+    pytest.importorskip("yaml", reason="the CLI reads YAML configs")
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    cfg = tmp_path / "config.yaml"
+    cfg.write_text(f"statsd_listen_addresses: ['udp://127.0.0.1:{port}']\n"
+                   f"interval: 3600s\ningest_lanes: {lanes}\n"
+                   "debug_flushed_metrics: true\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "veneur_tpu_torch.cli.server", "-f",
+         str(cfg)], cwd=root, stderr=subprocess.PIPE, text=True)
+    try:
+        lines = []
+        deadline = time.time() + 120
+        while not any("Starting server" in ln for ln in lines):
+            assert proc.poll() is None and time.time() < deadline, lines
+            lines.append(proc.stderr.readline())
+        assert f"'{rung}')" in lines[-1], lines[-1]
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+            tx.sendto(b"cli.count:3|c\ncli.count:4|c|@0.5",
+                      ("127.0.0.1", port))
+        time.sleep(1.0)
+        proc.send_signal(signal.SIGTERM)
+        _, out = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, out
+    assert "name='cli.count'" in out and "value=11.000000" in out, out

@@ -1,16 +1,18 @@
 """The port stands alone: veneur_tpu_torch and the scripts beside it
 (chip_smoke.py, chip_stages.py) import neither jax nor anything of
-veneur_tpu.
+veneur_tpu, and open no path under veneur_tpu/ (the port builds and
+loads its own native library).
 
-An AST scan covers every import statement; a subprocess with ``jax`` and
-``veneur_tpu`` blocked from import then imports every module of the port
-and both scripts, so an import hidden behind a string or a call would
-fail there too.
+An AST scan covers every import statement and every string that is not
+a docstring; a subprocess with ``jax`` and ``veneur_tpu`` blocked from
+import then imports every module of the port and both scripts, so an
+import hidden behind a string or a call would fail there too.
 """
 
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -52,6 +54,38 @@ def test_no_jax_or_reference_imports():
                     bad.append((path.name, node.module))
     assert not bad, bad
     assert len(_sources()) > 20
+
+
+def _strings(tree):
+    """Every string constant of a module that is not a docstring."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value,
+                                                          ast.Constant):
+                docs.add(id(first.value))
+    return [node for node in ast.walk(tree)
+            if isinstance(node, ast.Constant)
+            and isinstance(node.value, str) and id(node) not in docs]
+
+
+def test_no_path_under_the_reference_package():
+    """No code string names a path under veneur_tpu/ (a way to load the
+    JAX package's native library or sources); chip_smoke.py's kernel
+    summary alone names the TPU kernels the CUDA kernels replace."""
+    pattern = re.compile(r"(^|[/\\])veneur_tpu([/\\]|$)")
+    found = [(path.name, node.value) for path in _sources()
+             for node in _strings(ast.parse(path.read_text(), str(path)))
+             if pattern.search(node.value)]
+    assert found == [("chip_smoke.py", "veneur_tpu/ops/tdigest_pallas.py:")]
+
+
+def test_ingest_modules_are_covered():
+    assert {"veneur_tpu_torch.native", "veneur_tpu_torch.ingest",
+            "veneur_tpu_torch.ingest.lanes", "veneur_tpu_torch.ingest.counters",
+            "veneur_tpu_torch.ingest.recvmmsg"} <= set(_modules())
 
 
 def test_imports_with_jax_blocked():

@@ -173,3 +173,94 @@ def test_parser_matches_jax(line):
         (want.key.name, want.key.type, want.key.joined_tags)
     assert (got.digest, got.value, got.sample_rate, got.tags, got.scope) == \
         (want.digest, want.value, want.sample_rate, want.tags, want.scope)
+
+
+RUNGS = {"lanes": {}, "native": {"ingest_lanes": -1},
+         "python": {"ingest_lanes": -1, "native_ingest": False}}
+
+
+def _rung_run(rung, lines, extra):
+    """One server on the CPU whose listener takes ``rung``: the datagrams
+    over one socket, then one flush."""
+    sink = ChannelMetricSink()
+    cfg = Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                 interval="3600s", percentiles=PCTS, aggregates=AGGS,
+                 hostname="test", **RUNGS[rung])
+    server = Server(cfg, metric_sinks=[sink], device="cpu")
+    server.start()
+    try:
+        assert [r for _, r, _ in server.listeners] == [rung]
+        native = rung != "python"
+        assert server.using_native is native
+        assert server.using_recvmmsg is native
+        _send(server.statsd_addrs[0][1], lines + extra)
+        _wait(lambda: server.store.processed >= len(lines)
+              and server.not_ported == 9
+              and server.packet_errors + server.quarantined == 4)
+        server.flush()
+        rows = sink.get_flush(timeout=10)
+    finally:
+        server.shutdown()
+    return _by_key(rows), (server.not_ported,
+                           server.packet_errors + server.quarantined)
+
+
+def test_listener_rungs_flush_the_same_rows():
+    """The lane fleet (the default), the C++ reader pool with
+    ``ingest_lanes: -1``, and the Python readers with ``native_ingest:
+    false`` too: the same datagrams flush to identical rows, and each
+    rejected or unported line is counted once."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: the native rungs cannot be built")
+    lines = _lines(seed=11)
+    extra = [b"_e{5,4}:title|text", b"_sc|svc.check|0",
+             b"top:a|s|#veneurtopk"] * 3 + [
+        b"bad.c:nan|c", b"bad.h:1e308|h", b"bad.r:1|c|@0", b"no_type:1"]
+    out = {rung: _rung_run(rung, lines, extra) for rung in RUNGS}
+    rows, counts = out["python"]
+    assert len(rows) > 500 and counts == (9, 4)
+    assert out["lanes"] == (rows, counts)
+    # process_batch interns a series before scrubbing its value, as the
+    # JAX package's does: the rejected 1e308 histogram leaves an empty
+    # row, which emits its percentiles (ROADMAP section 3)
+    native_rows, native_counts = out["native"]
+    empty = {k: v for k, v in native_rows.items()
+             if k[0].startswith("bad.h.")}
+    assert sorted(k[0] for k in empty) == sorted(
+        f"bad.h.{int(p * 100)}percentile" for p in PCTS)
+    assert {k: v for k, v in native_rows.items() if k not in empty} == rows
+    assert native_counts == counts
+
+
+def test_ingest_lanes_validation():
+    assert Config(ingest_lanes=4).ingest_lanes == 4
+    with pytest.raises(ValueError, match="ingest_lanes"):
+        Config(ingest_lanes=-2)
+    cfg = config_from_dict({"ingest_lanes": -1, "native_ingest": False})
+    assert (cfg.ingest_lanes, cfg.native_ingest) == (-1, False)
+
+
+def test_shutdown_flushes_lane_residue():
+    """A record a lane has received but not yet merged at shutdown rides
+    the final flush: the fleet stops and merges before the store's last
+    drain."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: the native rungs cannot be built")
+    sink = ChannelMetricSink()
+    server = Server(Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                           interval="3600s", hostname="test"),
+                    metric_sinks=[sink], device="cpu")
+    server.start()
+    try:
+        fleet = server.ingest_fleets[0]
+        _send(server.statsd_addrs[0][1], [b"residue:3|c"])
+        _wait(lambda: fleet.totals()["packets"] == 1)
+    finally:
+        server.shutdown()
+    rows = sink.get_flush(timeout=10)
+    assert [(m.name, m.value) for m in rows] == [("residue", 3.0)]
+    assert fleet.balance()["ok"]

@@ -43,7 +43,8 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGTERM, handle_signal)
     signal.signal(signal.SIGINT, handle_signal)
     server.start()
-    log.info("Starting server on %s (statsd)", server.statsd_addrs)
+    log.info("Starting server: statsd listeners %s",
+             [(spec, rung) for spec, rung, _ in server.listeners])
     done.wait()
     server.shutdown()
     return 0

@@ -41,6 +41,17 @@ class Config:
     num_readers: int = 1
     metric_max_length: int = 4096
     read_buffer_size_bytes: int = 2 * 1048576
+    # drain plain-IPv4 UDP statsd listeners with the C++ recvmmsg reader
+    # pool and batch parser when the native library builds (used only
+    # with ingest_lanes: -1)
+    native_ingest: bool = True
+    # the ingest-lane fleet for UDP statsd listeners (ingest/): each
+    # reader thread owns a lock-free lane (SO_REUSEPORT socket, recvmmsg
+    # batches, native parse, lane-local interning and columnar staging)
+    # merged into the store one chunk at a time. 0 = one lane per reader
+    # (num_readers); N > 0 = N lanes; -1 = off (the C++ reader pool, else
+    # the Python readers)
+    ingest_lanes: int = 0
     # global aggregation: a local forwards to forward_address; a global
     # serves POST /import (and /healthcheck, /version) on http_address
     forward_address: str = ""
@@ -79,6 +90,11 @@ class Config:
             raise UnsupportedConfig(
                 "only HTTP forwarding is ported: forward_use_grpc and "
                 "native:// forward addresses need veneur_tpu")
+        if self.ingest_lanes < -1:
+            raise ValueError(
+                f"ingest_lanes must be -1 (disabled), 0 (auto: one lane "
+                f"per reader) or a positive lane count, got "
+                f"{self.ingest_lanes}")
         # defaults and validation of veneur_tpu/config.py's egress knobs
         if self.breaker_failure_threshold < 0:
             raise ValueError(

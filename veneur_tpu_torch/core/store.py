@@ -18,6 +18,12 @@ Every scope-class is one dense group:
     local_sets             device HLL registers [S, 2^p] (int8)
     =====================  =============================================
 
+Samples arrive three ways: one parsed line at a time
+(:meth:`MetricStore.process_metric`), a native parsed batch
+(:meth:`MetricStore.process_batch`), or a sealed ingest-lane chunk
+(:meth:`MetricStore.import_lane_chunk`, ``ingest/lanes.py``); rejected
+samples are counted by reason in ``MetricStore.quarantine``.
+
 The per-interval flush drains every digest group through the K1 kernel
 (``ops/tdigest_cuda.drain_quantile``) and every set group through one
 batched estimate. The store plays either role of global aggregation: a
@@ -44,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from veneur_tpu_torch import native
 from veneur_tpu_torch.core.bucketing import pow2_cap
 from veneur_tpu_torch.device import resolve_device
 from veneur_tpu_torch.ops import hll as hll_ops
@@ -73,6 +80,16 @@ IMPORT_DRAIN_BATCH = 256
 COUNTER_CONTRIB_MAX = float(1 << 63)
 _STAT_NAMES = ("pcts", "count", "sum", "min", "max", "recip")
 
+# native ParsedBatch record types (RecordType in native/veneur_ingest.cpp)
+_NATIVE_TYPE_NAMES = ("counter", "gauge", "histogram", "timer", "set")
+# scope-class kinds of the native batch and lane paths; must mirror
+# kind_of() in native/veneur_ingest.cpp. _K_TOPK (heavy-hitter sets) has
+# no group in the port: its records are counted in ``not_ported``
+(_K_COUNTER, _K_GLOBAL_COUNTER, _K_GAUGE, _K_GLOBAL_GAUGE, _K_HISTO,
+ _K_LOCAL_HISTO, _K_TIMER, _K_LOCAL_TIMER, _K_SET, _K_LOCAL_SET,
+ _K_TOPK) = range(11)
+_KIND_RAW = 255  # kind_of()'s sentinel for event/service-check records
+
 
 class Interner:
     """MetricKey -> dense row index, plus per-row name/tags for flush-time
@@ -99,17 +116,105 @@ class Interner:
         return row
 
 
+class Quarantine:
+    """Per-reason tally of rejected samples (the counting half of the
+    JAX package's ``overload.Quarantine``): the groups and the batch
+    path scrub into it, and the ingest fleet folds its lanes' ledgers
+    into it."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.counts: Dict[str, int] = {}
+
+    def count(self, reason: str, n: int = 1) -> None:
+        with self._lock:
+            self.counts[reason] = self.counts.get(reason, 0) + n
+
+    def total(self) -> int:
+        with self._lock:
+            return sum(self.counts.values())
+
+
+def _scrub_counter_batch(quarantine, vals, rates) -> np.ndarray:
+    """Admissibility mask for a bulk counter span; rejects are counted
+    per reason into ``quarantine`` (None = just mask). The bound follows
+    the Go truncation, int64(value) * int64(float32(1) / float32(rate)),
+    and a rate whose f32 reciprocal overflows to inf is caught before
+    the undefined inf -> int64 cast."""
+    finite = np.isfinite(vals)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        recip = np.where((rates > 0) & np.isfinite(rates),
+                         np.float32(1.0) / rates.astype(np.float32),
+                         np.inf)
+    rate_ok = np.isfinite(recip)
+    mult = np.trunc(np.where(rate_ok, recip, 1.0)).astype(np.float64)
+    # the bound backs off from 2^63 by more than f64's spacing there
+    # (2^10): a float-compared product a hair past it must be rejected,
+    # never wrap int64
+    inrange = (np.abs(np.trunc(vals)) * np.maximum(mult, 1.0)
+               < COUNTER_CONTRIB_MAX - 4096.0)
+    ok = finite & rate_ok & inrange
+    if quarantine is not None and not ok.all():
+        for reason, n in (("not_finite", (~finite).sum()),
+                          ("bad_rate", (finite & ~rate_ok).sum()),
+                          ("out_of_range", (finite & rate_ok
+                                            & ~inrange).sum())):
+            if n:
+                quarantine.count(reason, int(n))
+    return ok
+
+
+def _scrub_float_batch(quarantine, vals, abs_max=None,
+                       weights=None) -> np.ndarray:
+    """Admissibility mask for bulk float samples. Gauges (float64 on the
+    host) pass abs_max=None; digest staging passes abs_max=F32_ABS_MAX
+    and the 1/rate weights, so a float64 value past float32's range is
+    rejected instead of laundered into inf by the cast."""
+    finite = np.isfinite(vals)
+    ok = finite
+    n_or = 0
+    if abs_max is not None:
+        inr = np.abs(vals) <= abs_max
+        n_or = int((finite & ~inr).sum())
+        ok = ok & inr
+    n_br = 0
+    if weights is not None:
+        wok = np.isfinite(weights) & (weights > 0)
+        n_br = int((ok & ~wok).sum())
+        ok = ok & wok
+    if quarantine is not None:
+        for reason, n in (("not_finite", int((~finite).sum())),
+                          ("out_of_range", n_or), ("bad_rate", n_br)):
+            if n:
+                quarantine.count(reason, n)
+    return ok
+
+
+class _Rejecting:
+    """A group that drops samples its typed lane cannot hold: counted in
+    the group's ``scrubbed`` and, by reason, in the store's
+    ``quarantine`` (set by MetricStore on every generation's groups)."""
+
+    scrubbed = 0
+    quarantine: Optional[Quarantine] = None
+
+    def _reject(self, reason: str, n: int = 1):
+        self.scrubbed += n
+        if self.quarantine is not None:
+            self.quarantine.count(reason, n)
+
+
 # ---------------------------------------------------------------------------
 # Host-side scalar groups
 # ---------------------------------------------------------------------------
 
 
-class ScalarGroup:
+class ScalarGroup(_Rejecting):
     """Counters / gauges: host numpy state.
 
     kind: "counter" (int64 accumulate, samplers.go:141-143) or "gauge"
     (float64 last-write, samplers.go:225-227). Samples the typed lane
-    cannot hold are counted in ``scrubbed`` and dropped."""
+    cannot hold are rejected (``_Rejecting``)."""
 
     def __init__(self, kind: str, capacity: int = DEFAULT_INITIAL_CAPACITY):
         if kind not in ("counter", "gauge"):
@@ -117,7 +222,6 @@ class ScalarGroup:
         self.kind = kind
         self.interner = Interner()
         self.capacity = capacity
-        self.scrubbed = 0
         self.values = np.zeros(capacity, np.int64 if kind == "counter"
                                else np.float64)
 
@@ -136,18 +240,18 @@ class ScalarGroup:
     def sample(self, key: MetricKey, tags: List[str], value: float,
                sample_rate: float):
         if not math.isfinite(value):
-            self.scrubbed += 1
+            self._reject("not_finite")
             return
         if self.kind == "counter":
             # Go semantics: value += int64(sample) * int64(1/rate), the
             # reciprocal a float32 division (samplers.go:141-143)
             if not MIN_SAMPLE_RATE <= sample_rate <= 1:
-                self.scrubbed += 1
+                self._reject("bad_rate")
                 return
             contrib = (int(value)
                        * int(np.float32(1.0) / np.float32(sample_rate)))
             if abs(contrib) >= COUNTER_CONTRIB_MAX:
-                self.scrubbed += 1
+                self._reject("out_of_range")
                 return
             row = self._row(key, tags)  # may grow (replace) values
             self.values[row] += contrib
@@ -155,15 +259,36 @@ class ScalarGroup:
             row = self._row(key, tags)
             self.values[row] = value
 
+    def ensure_capacity(self, max_row: int):
+        """Grow so max_row is addressable (bulk paths bypass _row)."""
+        while max_row >= self.capacity:
+            self.capacity *= _GROW_FACTOR
+        if self.capacity > len(self.values):
+            self.values = np.concatenate(
+                [self.values, np.zeros(self.capacity - len(self.values),
+                                       self.values.dtype)])
+
+    def add_many(self, rows: np.ndarray, contribs: np.ndarray):
+        """Bulk counter accumulate; contribs already carry the truncating
+        int64(value) * int64(1/rate) Go semantics."""
+        np.add.at(self.values, rows, contribs)
+
+    def set_many(self, rows: np.ndarray, vals: np.ndarray):
+        """Bulk gauge write, last-write-wins per row in input order."""
+        # fancy assignment leaves the order of duplicate indices
+        # unspecified, so pick each row's last value explicitly
+        urows, last = np.unique(rows[::-1], return_index=True)
+        self.values[urows] = vals[::-1][last]
+
     def combine(self, key: MetricKey, tags: List[str], value: float):
         """Merge imported state: counters add, gauges overwrite
         (samplers.go:195-212, 276-289). Values the typed lane cannot
-        hold are counted in ``scrubbed`` and dropped."""
+        hold are rejected."""
         if not math.isfinite(value):
-            self.scrubbed += 1
+            self._reject("not_finite")
             return
         if self.kind == "counter" and abs(value) >= COUNTER_CONTRIB_MAX:
-            self.scrubbed += 1
+            self._reject("out_of_range")
             return
         row = self._row(key, tags)
         if self.kind == "counter":
@@ -180,7 +305,9 @@ class ScalarGroup:
 
     def fresh(self) -> "ScalarGroup":
         """Empty same-config twin (swap-on-flush generation swap)."""
-        return ScalarGroup(self.kind, self.capacity)
+        twin = ScalarGroup(self.kind, self.capacity)
+        twin.quarantine = self.quarantine
+        return twin
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +366,7 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-class DigestGroup:
+class DigestGroup(_Rejecting):
     """One scope-class of histograms/timers as a dense t-digest batch."""
 
     # set by MetricStore._swap_generation: a retired group's flush drops
@@ -256,7 +383,6 @@ class DigestGroup:
         self.chunk = chunk
         self.compression = compression
         self.k = td_ops.size_bound(compression)
-        self.scrubbed = 0
         self._init_device()
         self._init_staging()
 
@@ -341,18 +467,19 @@ class DigestGroup:
     def fresh(self) -> "DigestGroup":
         """Empty same-config twin with newly allocated planes. Carries the
         grown capacity so a steady cardinality never re-grows."""
-        return DigestGroup(self.capacity, self.chunk, self.compression,
+        twin = DigestGroup(self.capacity, self.chunk, self.compression,
                            self.device)
+        twin.quarantine = self.quarantine
+        return twin
 
     def sample_many(self, rows: np.ndarray, vals: np.ndarray,
                     wts: np.ndarray):
         """Bulk staging append of pre-interned rows: one numpy copy per
         span instead of a Python call per sample. Non-finite values and
-        non-positive or non-finite weights are counted in ``scrubbed``
-        and dropped."""
+        non-positive or non-finite weights are rejected."""
         vals = np.asarray(vals, np.float32)
         wts = np.asarray(wts, np.float32)
-        ok = np.isfinite(vals) & np.isfinite(wts) & (wts > 0)
+        ok = _scrub_float_batch(self.quarantine, vals, weights=wts)
         if not ok.all():
             self.scrubbed += int((~ok).sum())
             rows, vals, wts = rows[ok], vals[ok], wts[ok]
@@ -371,9 +498,14 @@ class DigestGroup:
 
     def sample(self, key: MetricKey, tags: List[str], value: float,
                sample_rate: float):
-        if not math.isfinite(value) or abs(value) > F32_ABS_MAX \
-                or not MIN_SAMPLE_RATE <= sample_rate <= 1:
-            self.scrubbed += 1
+        if not math.isfinite(value):
+            self._reject("not_finite")
+            return
+        if abs(value) > F32_ABS_MAX:
+            self._reject("out_of_range")
+            return
+        if not MIN_SAMPLE_RATE <= sample_rate <= 1:
+            self._reject("bad_rate")
             return
         row = self._row(key, tags)
         i = self._fill
@@ -940,6 +1072,9 @@ class MetricStore:
                  hll_precision: int = hll_ops.DEFAULT_PRECISION,
                  device=None):
         self.device = resolve_device(device)
+        # samples the store rejects, by reason (cumulative): the groups'
+        # scrubs, process_batch's and the ingest lanes' ledgers
+        self.quarantine = Quarantine()
         self._lock = threading.RLock()
         # serializes whole flush() calls; the store lock itself is held
         # only for the generation swap
@@ -954,10 +1089,23 @@ class MetricStore:
         for name in _SET_GROUPS:
             setattr(self, name, SetGroup(initial_capacity, chunk,
                                          hll_precision, self.device))
+        for name in self._GEN_GROUPS:
+            if name not in _SET_GROUPS:
+                getattr(self, name).quarantine = self.quarantine
         self.hll_precision = hll_precision
         self.processed = 0
         # forwarded metrics merged this interval (import_*)
         self.imported = 0
+        # bumped by every generation swap: an ingest lane's resolver drops
+        # its lane-row -> store-row remap when the epoch moved
+        self.flush_epoch = 0
+        # heavy-hitter (veneurtopk) records of the batch and lane paths
+        # (cumulative; the per-line path raises NotPortedError instead)
+        self.not_ported = 0
+        # the C++ (kind, name, tags) -> row memo of process_batch, and the
+        # kind -> group table; both restart with every generation
+        self._native_table: Optional[native.InternTable] = None
+        self._kind_groups: Optional[tuple] = None
 
     def process_metric(self, m: UDPMetric):
         """Dispatch one parsed sample to its scope-class
@@ -990,6 +1138,220 @@ class MetricStore:
             else:
                 raise NotPortedError(f"metric type {t!r} is not ported yet")
             self.processed += 1
+
+    def process_batch(self, batch) -> List[bytes]:
+        """Vectorized ingest of a native ``ParsedBatch``: one lock hold a
+        batch, one C++ table lookup a record, and per-group numpy bulk
+        appends into the staging buffers instead of the per-line
+        parse/lock/dispatch chain. Returns the raw event/service-check
+        lines for the caller to route through the Python parser outside
+        the lock.
+
+        Semantics of process_metric: worker sharding collapses to row
+        interning (server.go:670-720), Go counter truncation and gauge
+        last-write-wins (samplers.go:141-143, 225-227). Rejected samples
+        are counted in ``quarantine``, heavy-hitter records in
+        ``not_ported``."""
+        raws: List[bytes] = []
+        if batch.count == 0:
+            return raws
+        arena = batch.arena
+        values, rates = batch.value, batch.sample_rate
+        with self._lock:
+            if self._native_table is None:
+                self._native_table = native.InternTable()
+            # the C++ table maps every record to its memoized row in one
+            # pass; only first-sight series take the Python slow path
+            rows, kinds, miss = self._native_table.assign(batch)
+            if len(miss):
+                types, scopes = batch.type, batch.scope
+                noffs, nlens = batch.name_off, batch.name_len
+                toffs, tlens = batch.tags_off, batch.tags_len
+                # intra-batch dedup only: once put() teaches the C++ table
+                # a key, later batches never miss on it again
+                cache: Dict[tuple, int] = {}
+                table = self._native_table
+                for j in miss:
+                    j = int(j)
+                    if kinds[j] == _K_TOPK:
+                        continue  # no group to intern into
+                    t, sc = int(types[j]), int(scopes[j])
+                    no, nl = noffs[j], nlens[j]
+                    to, tl = toffs[j], tlens[j]
+                    ck = (t, sc, arena[no:no + nl], arena[to:to + tl])
+                    row = cache.get(ck)
+                    if row is None:
+                        kind, _, row = self._intern_native(t, sc, ck[2],
+                                                           ck[3])
+                        cache[ck] = row
+                        table.put(kind, ck[2], ck[3], row)
+                    rows[j] = row
+            processed = int(batch.count)
+            member_hashes = None
+            for kind in np.unique(kinds).tolist():
+                sel = np.nonzero(kinds == kind)[0]
+                if kind == _KIND_RAW:  # raw events / service checks
+                    aoffs, alens = batch.aux_off, batch.aux_len
+                    raws.extend(arena[aoffs[j]:aoffs[j] + alens[j]]
+                                for j in sel)
+                    processed -= len(sel)  # counted when re-parsed
+                    continue
+                if kind == _K_TOPK:
+                    self.not_ported += len(sel)
+                    processed -= len(sel)
+                    continue
+                grp_rows = rows[sel].astype(np.int64)
+                group = self._group_for_kind(kind)
+                group.ensure_capacity(int(grp_rows.max()))
+                if kind in (_K_COUNTER, _K_GLOBAL_COUNTER):
+                    # scrub before the cast: NaN/Inf cast to int64 garbage
+                    # and oversized contributions overflow the lanes
+                    ok = _scrub_counter_batch(self.quarantine, values[sel],
+                                              rates[sel])
+                    sel, grp_rows = sel[ok], grp_rows[ok]
+                    # int64(value) * int64(float32(1)/float32(rate)), both
+                    # truncating (samplers.go:141-143): the reciprocal the
+                    # scrub bounded, so nothing admitted wraps the product
+                    recips = np.float32(1.0) / rates[sel].astype(np.float32)
+                    group.add_many(grp_rows, values[sel].astype(np.int64)
+                                   * recips.astype(np.int64))
+                elif kind in (_K_GAUGE, _K_GLOBAL_GAUGE):
+                    ok = _scrub_float_batch(self.quarantine, values[sel])
+                    group.set_many(grp_rows[ok], values[sel[ok]])
+                elif kind in (_K_SET, _K_LOCAL_SET):
+                    if member_hashes is None:
+                        member_hashes = batch.member_hashes()
+                    group.sample_many(grp_rows.astype(np.int32),
+                                      member_hashes[sel])
+                else:  # histograms / timers, both scopes
+                    # scrub the float64 values before the f32 cast, so an
+                    # out-of-range sample is rejected, not made inf
+                    vals64 = values[sel]
+                    wts = (1.0 / rates[sel]).astype(np.float32)
+                    ok = _scrub_float_batch(self.quarantine, vals64,
+                                            abs_max=F32_ABS_MAX,
+                                            weights=wts)
+                    group.sample_many(grp_rows[ok].astype(np.int32),
+                                      vals64[ok].astype(np.float32),
+                                      wts[ok])
+            self.processed += processed
+        return raws
+
+    def _group_for_kind(self, kind: int):
+        """The live group of a scope-class kind (caller holds _lock);
+        None for _K_TOPK."""
+        if self._kind_groups is None:
+            self._kind_groups = (
+                self.counters, self.global_counters, self.gauges,
+                self.global_gauges, self.histograms, self.local_histograms,
+                self.timers, self.local_timers, self.sets, self.local_sets,
+                None)
+        return self._kind_groups[kind]
+
+    def _intern_native(self, t: int, sc: int, name_b: bytes,
+                       tags_b: bytes) -> Tuple[int, object, int]:
+        """Slow path of the native and lane paths (caller holds _lock):
+        decode the strings, pick the scope-class group (kind_of() of
+        veneur_ingest.cpp, worker.go:96-157) and intern the row. Returns
+        (kind, group, row). The port has no ``max_tag_length``, so tags
+        are never truncated."""
+        name = name_b.decode("utf-8", "replace")
+        joined = tags_b.decode("utf-8", "replace")
+        tags = joined.split(",") if joined else []
+        key = MetricKey(name=name, type=_NATIVE_TYPE_NAMES[t],
+                        joined_tags=joined)
+        if t == 0:
+            kind = _K_GLOBAL_COUNTER if sc == GLOBAL_ONLY else _K_COUNTER
+        elif t == 1:
+            kind = _K_GLOBAL_GAUGE if sc == GLOBAL_ONLY else _K_GAUGE
+        elif t == 2:
+            kind = _K_LOCAL_HISTO if sc == LOCAL_ONLY else _K_HISTO
+        elif t == 3:
+            kind = _K_LOCAL_TIMER if sc == LOCAL_ONLY else _K_TIMER
+        else:
+            kind = _K_LOCAL_SET if sc == LOCAL_ONLY else _K_SET
+        group = self._group_for_kind(kind)
+        return kind, group, group._row(key, tags)
+
+    # -- ingest-lane merge (veneur_tpu_torch/ingest/) ----------------------
+
+    # lane kind -> (native record type, scope) for re-interning lane
+    # entries through _intern_native: the inverse of kind_of()
+    _KIND_NATIVE = {
+        _K_COUNTER: (0, 0), _K_GLOBAL_COUNTER: (0, GLOBAL_ONLY),
+        _K_GAUGE: (1, 0), _K_GLOBAL_GAUGE: (1, GLOBAL_ONLY),
+        _K_HISTO: (2, 0), _K_LOCAL_HISTO: (2, LOCAL_ONLY),
+        _K_TIMER: (3, 0), _K_LOCAL_TIMER: (3, LOCAL_ONLY),
+        _K_SET: (4, 0), _K_LOCAL_SET: (4, LOCAL_ONLY)}
+
+    def import_lane_chunk(self, chunk, resolver) -> List[bytes]:
+        """Merge one sealed ingest-lane chunk under ONE store-lock hold:
+        lanes stage lock-free against lane-local rows, and this is the
+        only place their samples meet shared state.
+
+        ``resolver`` is the merger's LaneResolver for the chunk's lane:
+        its (name, tags) registry remaps lane rows onto the store's
+        interners. The remap is dropped whole when the flush epoch moved
+        (the fresh generation's interners start empty) and rebuilt
+        lazily. Values arrive scrubbed and in Go semantics (contribs
+        truncated, weights float32 reciprocals), the bits process_batch
+        would stage. Heavy-hitter spans are counted in ``not_ported``.
+
+        Returns the chunk's raw event/service-check lines for the caller
+        to route through the Python parser OUTSIDE the lock. A digest
+        span may launch K2 (the shift guard) on the store's device from
+        the calling thread."""
+        with self._lock:
+            if resolver.epoch != self.flush_epoch:
+                resolver.remap = [None] * len(resolver.remap)
+                resolver.epoch = self.flush_epoch
+            for kind, new in chunk.new_entries.items():
+                resolver.entries[kind].extend(new)
+            records = chunk.records
+            for kind, span in chunk.spans.items():
+                rows = span[0]
+                if kind == _K_TOPK:
+                    self.not_ported += len(rows)
+                    records -= len(rows)
+                    continue
+                grp_rows = self._lane_remap(kind, resolver, rows)[rows]
+                group = self._group_for_kind(kind)
+                group.ensure_capacity(int(grp_rows.max()))
+                if kind in (_K_COUNTER, _K_GLOBAL_COUNTER):
+                    group.add_many(grp_rows, span[1])
+                elif kind in (_K_GAUGE, _K_GLOBAL_GAUGE):
+                    group.set_many(grp_rows, span[1])
+                elif kind in (_K_SET, _K_LOCAL_SET):
+                    group.sample_many(grp_rows.astype(np.int32), span[1])
+                else:
+                    group.sample_many(grp_rows.astype(np.int32), span[1],
+                                      span[2])
+            self.processed += records
+        return chunk.raws
+
+    def _lane_remap(self, kind: int, resolver, rows) -> np.ndarray:
+        """Lane-row -> store-row array of one kind (caller holds _lock),
+        resolved LAZILY per referenced row (-1 = unresolved): only rows
+        the chunk carries re-intern after an epoch bump, so an idle
+        series a lane once saw is not resurrected into every fresh
+        generation (it would emit as zero forever), and the work under
+        the lock is bounded by the chunk's rows, not the lane's
+        lifetime registry."""
+        entries = resolver.entries[kind]
+        remap = resolver.remap[kind]
+        if remap is None or len(remap) < len(entries):
+            grown = np.full(len(entries), -1, np.int64)
+            if remap is not None and len(remap):
+                grown[:len(remap)] = remap
+            remap = resolver.remap[kind] = grown
+        needed = np.unique(rows)
+        todo = needed[remap[needed] < 0]
+        if len(todo):
+            t, sc = self._KIND_NATIVE[kind]
+            for r in todo.tolist():
+                name_b, tags_b = entries[r]
+                remap[r] = self._intern_native(t, sc, name_b, tags_b)[2]
+        return remap
 
     # -- import (global-aggregator ingest) ---------------------------------
     # The import methods run on the importing thread (the HTTP server's
@@ -1094,6 +1456,10 @@ class MetricStore:
             setattr(self, attr, old.fresh())
         gen.processed, gen.imported = self.processed, self.imported
         self.processed = self.imported = 0
+        self.flush_epoch += 1
+        self._kind_groups = None  # it holds the retired groups
+        if self._native_table is not None:
+            self._native_table.reset()  # rows restart in the fresh twins
         return gen
 
     def _flush_generation(self, g: _Generation, percentiles, aggregates,

@@ -1,0 +1,720 @@
+"""Ingest lanes and the fleet merger.
+
+Port of ``veneur_tpu/ingest/lanes.py``. One ``IngestLane`` per reader
+thread: an SO_REUSEPORT socket drained in ``recvmmsg`` batches, a
+reusable native parse batch (the C++ parser releases the GIL), a
+lane-local C++ intern table assigning LANE rows, lane-local columnar
+staging arrays per store kind, and single-writer counters. The recv ->
+decode -> stage loop (``_ingest_once``) takes no lock, and nothing of
+torch runs on a lane thread.
+
+Hand-off happens at the **group boundary only**: a full (or idle)
+staging chunk seals into an immutable ``SealedChunk`` on the lane's
+deque (GIL-atomic append, no lock), and the fleet's merger thread folds
+it into the store with ONE lock hold per chunk
+(``MetricStore.import_lane_chunk``), remapping lane rows onto the store
+interners through a per-lane, flush-epoch-aware ``LaneResolver``. The
+merge is where the store's staging drains, so the merger thread is the
+one that launches K2 (the shift guard) on the store's device.
+
+Reference shape: per-core readers (socket_linux.go:12-76) feeding
+share-nothing workers (worker.go:54-91), with the merge at the chunk
+boundary. Overload shedding at the socket and stage tracing are not
+ported yet; the backlog cap is.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import threading
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from veneur_tpu_torch import native
+from veneur_tpu_torch.core.store import (_K_COUNTER, _K_GAUGE,
+                                         _K_GLOBAL_COUNTER, _K_GLOBAL_GAUGE,
+                                         _K_HISTO, _K_LOCAL_HISTO,
+                                         _K_LOCAL_SET, _K_LOCAL_TIMER,
+                                         _K_SET, _K_TIMER, _K_TOPK,
+                                         _KIND_RAW, COUNTER_CONTRIB_MAX,
+                                         _scrub_counter_batch,
+                                         _scrub_float_batch)
+from veneur_tpu_torch.ingest.counters import LaneLedger
+from veneur_tpu_torch.ingest.recvmmsg import BatchReceiver
+from veneur_tpu_torch.ops import hll as hll_ops
+from veneur_tpu_torch.samplers import parser as p
+from veneur_tpu_torch.samplers.parser import (F32_ABS_MAX, GLOBAL_ONLY,
+                                              LOCAL_ONLY)
+
+log = logging.getLogger("veneur.ingest")
+
+KIND_COUNT = 11
+
+# merger wake cadence: sealed chunks wait at most this long before the
+# group-boundary merge
+DRAIN_TICK = 0.01
+# a partially-filled staging chunk seals after this long even under
+# continuous traffic, bounding stage->merge latency
+SEAL_MAX_AGE = 0.05
+# lane recv timeout: bounds both stop latency and the idle-residue seal
+RECV_TIMEOUT = 0.2
+# datagrams a recvmmsg call takes
+RECV_BATCH = 32
+# sealed chunks a lane may queue before it sheds payloads (a wedged
+# merger must cost bounded memory)
+DEFAULT_MAX_BACKLOG = 64
+# decode-span accumulation: while the socket stays hot (every recvmmsg
+# comes back full), keep draining before decoding. The numpy staging
+# cost is per CALL far more than per record, and recv syscalls release
+# the GIL where staging cannot. Bounded by datagram count AND bytes so
+# the native parse arena is never outgrown.
+DECODE_BATCH = 1024
+DECODE_BYTES = 1 << 18
+
+_COUNTER_KINDS = (_K_COUNTER, _K_GLOBAL_COUNTER)
+_GAUGE_KINDS = (_K_GAUGE, _K_GLOBAL_GAUGE)
+_HASH_KINDS = (_K_SET, _K_LOCAL_SET, _K_TOPK)
+
+
+class _KindStage:
+    """One kind's lane-local staging columns: the rows/vals/wts layout
+    the store groups stage in, so a sealed span feeds ``add_many`` /
+    ``set_many`` / ``sample_many`` without reshaping."""
+
+    __slots__ = ("kind", "rows", "a", "b", "fill")
+
+    def __init__(self, kind: int, chunk: int):
+        self.kind = kind
+        self.rows = np.empty(chunk, np.int64)
+        self.b = None
+        if kind in _COUNTER_KINDS:
+            self.a = np.empty(chunk, np.int64)      # Go-semantics contribs
+        elif kind in _GAUGE_KINDS:
+            self.a = np.empty(chunk, np.float64)    # last-write values
+        elif kind in _HASH_KINDS:
+            self.a = np.empty(chunk, np.uint64)     # member hashes
+        else:
+            self.a = np.empty(chunk, np.float32)    # digest values
+            self.b = np.empty(chunk, np.float32)    # digest weights
+        self.fill = 0
+
+    def put(self, rows, a, b=None) -> None:
+        i, n = self.fill, len(rows)
+        self.rows[i:i + n] = rows
+        self.a[i:i + n] = a
+        if b is not None:
+            self.b[i:i + n] = b
+        self.fill = i + n
+
+    def take(self):
+        """Trimmed copies of the staged span; resets the stage. The
+        copies are what seal publishes: the columns are reusable by the
+        lane thread at once."""
+        n = self.fill
+        self.fill = 0
+        b = self.b[:n].copy() if self.b is not None else None
+        return (self.rows[:n].copy(), self.a[:n].copy(), b)
+
+
+class SealedChunk:
+    """An immutable hand-off unit: per-kind staged spans plus the lane
+    intern entries minted since the previous seal (the resolver learns
+    them even when a backlogged chunk's payload is shed)."""
+
+    __slots__ = ("lane_id", "gen", "records", "spans", "new_entries",
+                 "raws")
+
+    def __init__(self, lane_id: int, gen: int, records: int,
+                 spans: Dict[int, tuple], new_entries: Dict[int, list],
+                 raws: list):
+        self.lane_id = lane_id
+        self.gen = gen
+        self.records = records
+        self.spans = spans
+        self.new_entries = new_entries
+        self.raws = raws
+
+
+class LaneResolver:
+    """Merger-side lane-row -> store-row state for one lane intern
+    generation. ``entries[kind]`` accumulates the lane's (name, tags)
+    registry in row order; ``remap[kind]`` is the resolved store-row
+    array, dropped whole when the store's flush epoch moves and rebuilt
+    lazily under the store lock (``MetricStore._lane_remap``)."""
+
+    __slots__ = ("gen", "epoch", "entries", "remap")
+
+    def __init__(self, gen: int):
+        self.gen = gen
+        self.epoch = -1
+        self.entries: List[list] = [[] for _ in range(KIND_COUNT)]
+        self.remap: List[Optional[np.ndarray]] = [None] * KIND_COUNT
+
+
+def _kind_of_metric(m) -> int:
+    """Scope-class kind of a Python-parsed UDPMetric (the fallback
+    decode); mirrors kind_of() of veneur_ingest.cpp."""
+    t = m.key.type
+    if t == "counter":
+        return _K_GLOBAL_COUNTER if m.scope == GLOBAL_ONLY else _K_COUNTER
+    if t == "gauge":
+        return _K_GLOBAL_GAUGE if m.scope == GLOBAL_ONLY else _K_GAUGE
+    if t == "histogram":
+        return _K_LOCAL_HISTO if m.scope == LOCAL_ONLY else _K_HISTO
+    if t == "timer":
+        return _K_LOCAL_TIMER if m.scope == LOCAL_ONLY else _K_TIMER
+    if "veneurtopk" in m.tags:
+        return _K_TOPK
+    return _K_LOCAL_SET if m.scope == LOCAL_ONLY else _K_SET
+
+
+class IngestLane:
+    """One reader thread's share-nothing lane. Every mutable field on the
+    hot path is single-writer (this lane's thread); the sealed deque is
+    the only cross-thread surface, and deque append/popleft are
+    GIL-atomic: no lock anywhere per packet."""
+
+    def __init__(self, lane_id: int, sock, max_len: int,
+                 chunk_records: int, stop: threading.Event,
+                 max_backlog: int = DEFAULT_MAX_BACKLOG,
+                 intern_limit: int = 1 << 20,
+                 use_native: Optional[bool] = None):
+        self.lane_id = lane_id
+        self.sock = sock
+        self._stop = stop
+        self._chunk = max(256, chunk_records)
+        self._max_backlog = max(1, max_backlog)
+        self._intern_limit = max(1024, intern_limit)
+        self._receiver = BatchReceiver(sock, max_len, batch=RECV_BATCH)
+        self.sealed: "collections.deque" = collections.deque()
+        self.gen = 0
+        self.ledger = LaneLedger()
+        self.thread: Optional[threading.Thread] = None
+
+        # single-writer counters (read-side sums never lock)
+        self.packets = 0
+        self.shed_packets = 0
+        self.parsed = 0
+        self.parse_errors = 0
+        self.staged = 0
+        self.raws_staged = 0
+        self.shed_records = 0
+        self.sealed_chunks = 0
+        self.shed_chunks = 0
+
+        # staging state
+        self._stages: List[Optional[_KindStage]] = [None] * KIND_COUNT
+        self._staged_total = 0
+        self._raws: list = []
+        self._pending_entries: Dict[int, list] = {}
+        self._nrows = [0] * KIND_COUNT
+        self._intern_total = 0
+        self._first_stage_t = 0.0
+
+        # native decode: a reusable C++ parse batch and this lane's own
+        # intern table, bound once here so the hot loop never touches the
+        # library loader
+        self._vt = None
+        self._table = None
+        self._batch = None
+        self._py_interner: Dict[tuple, int] = {}
+        if use_native is not False:
+            if native.available():
+                lib = native._load()
+                self._vt = lib
+                self._table = native.InternTable()
+                # sized for a full accumulated decode span: DECODE_BYTES
+                # of small lines plus one worst-case recvmmsg burst of
+                # max_len datagrams (6 B is the shortest parseable line)
+                arena = DECODE_BYTES + RECV_BATCH * max_len + 4096
+                self._batch = lib.vt_batch_new(max(4096, arena // 6), arena)
+            elif use_native:
+                raise RuntimeError("native decode requested but the "
+                                   "native library is unavailable")
+            else:
+                log.warning("ingest lane %d: native library unavailable, "
+                            "decoding with the Python parser", lane_id)
+
+    @property
+    def using_native(self) -> bool:
+        return self._vt is not None
+
+    @property
+    def using_recvmmsg(self) -> bool:
+        return self._receiver.using_recvmmsg
+
+    @property
+    def quarantined(self) -> int:
+        return self.ledger.total()
+
+    # -- hot path ------------------------------------------------------------
+
+    def _ingest_once(self) -> int:
+        """One hot-path iteration: recv a datagram batch, decode, stage
+        columnar, seal at the chunk boundary. Returns the number of
+        datagrams received (0 on timeout). Takes no lock."""
+        datagrams = self._receiver.recv_batch(RECV_TIMEOUT)
+        if not datagrams:
+            if self._staged_total or self._raws:
+                self._seal()
+            return 0
+        # a FULL recvmmsg means the socket queue is hot: keep draining
+        # (GIL-released syscalls) so the staging cost spreads over a span
+        hot = len(datagrams) == self._receiver.batch
+        if hot:
+            nbytes = sum(map(len, datagrams))
+            while len(datagrams) < DECODE_BATCH and nbytes < DECODE_BYTES:
+                more = self._receiver.recv_batch(0.0)
+                datagrams.extend(more)
+                nbytes += sum(map(len, more))
+                if len(more) < self._receiver.batch:
+                    hot = False
+                    break
+        now = time.monotonic()
+        n = len(datagrams)
+        self.packets += n
+        if len(self.sealed) >= self._max_backlog:
+            # a wedged merger must cost BOUNDED memory: shed whole packets
+            # before decode, so neither sealed chunks nor intern entries
+            # keep accumulating; staged residue still honours SEAL_MAX_AGE
+            self.shed_packets += n
+            if (self._staged_total or self._raws) and (
+                    now - self._first_stage_t >= SEAL_MAX_AGE):
+                self._seal()
+            return n
+        if self._staged_total == 0 and not self._raws:
+            self._first_stage_t = now
+        if self._vt is not None:
+            self._stage_native(datagrams)
+        else:
+            self._stage_python(datagrams)
+        if (self._staged_total or self._raws) and (
+                not hot or now - self._first_stage_t >= SEAL_MAX_AGE):
+            # the socket went momentarily idle (short recv batch) or the
+            # residue aged out: publish rather than sit on it
+            self._seal()
+        return n
+
+    def _stage_native(self, datagrams: list) -> None:
+        """Decode a recv batch with the C++ parser (GIL released) into
+        the reusable batch, assign lane rows through the lane's own
+        intern table, scrub, and stage columnar per kind."""
+        if self._intern_total >= self._intern_limit:
+            self._reset_interner()
+        vt = self._vt
+        buf = b"\n".join(datagrams)
+        b = self._batch
+        vt.vt_batch_reset(b)
+        vt.vt_parse_lines(buf, len(buf), b)
+        pb = native.ParsedBatch(b.contents)
+        self.parse_errors += int(pb.parse_errors)
+        if pb.count == 0:
+            return
+        self.parsed += int(pb.count)
+        rows, kinds, miss = self._table.assign(pb)
+        if len(miss):
+            self._intern_misses(pb, rows, kinds, miss)
+        arena = pb.arena
+        values, rates = pb.value, pb.sample_rate
+        member_hashes = None
+        for kind in np.unique(kinds).tolist():
+            sel = np.nonzero(kinds == kind)[0]
+            if kind == _KIND_RAW:
+                aoffs, alens = pb.aux_off, pb.aux_len
+                self._raws.extend(arena[aoffs[j]:aoffs[j] + alens[j]]
+                                  for j in sel)
+                self.raws_staged += len(sel)
+                self.parsed -= len(sel)  # counted when re-parsed
+                continue
+            krows = rows[sel].astype(np.int64)
+            if kind in _COUNTER_KINDS:
+                ok = _scrub_counter_batch(self.ledger, values[sel],
+                                          rates[sel])
+                sel, krows = sel[ok], krows[ok]
+                # Go truncation, bit-identical to process_batch's
+                recips = np.float32(1.0) / rates[sel].astype(np.float32)
+                self._stage_span(kind, krows, values[sel].astype(np.int64)
+                                 * recips.astype(np.int64))
+            elif kind in _GAUGE_KINDS:
+                ok = _scrub_float_batch(self.ledger, values[sel])
+                self._stage_span(kind, krows[ok], values[sel[ok]])
+            elif kind in _HASH_KINDS:
+                if member_hashes is None:
+                    member_hashes = pb.member_hashes()
+                self._stage_span(kind, krows, member_hashes[sel])
+            else:  # digests: histograms / timers, both scopes
+                # scrub the float64 values BEFORE the f32 cast, so an
+                # out-of-f32-range sample is rejected, not made inf
+                vals64 = values[sel]
+                wts = (1.0 / rates[sel]).astype(np.float32)
+                ok = _scrub_float_batch(self.ledger, vals64,
+                                        abs_max=F32_ABS_MAX, weights=wts)
+                self._stage_span(kind, krows[ok],
+                                 vals64[ok].astype(np.float32), wts[ok])
+
+    def _intern_misses(self, pb, rows, kinds, miss) -> None:
+        arena = pb.arena
+        noffs, nlens = pb.name_off, pb.name_len
+        toffs, tlens = pb.tags_off, pb.tags_len
+        cache: Dict[tuple, int] = {}  # intra-batch dedup (assign ran once)
+        table = self._table
+        pending = self._pending_entries
+        for j in miss.tolist():
+            k = int(kinds[j])
+            name_b = arena[noffs[j]:noffs[j] + nlens[j]]
+            tags_b = arena[toffs[j]:toffs[j] + tlens[j]]
+            ck = (k, name_b, tags_b)
+            row = cache.get(ck)
+            if row is None:
+                row = self._nrows[k]
+                self._nrows[k] = row + 1
+                self._intern_total += 1
+                pending.setdefault(k, []).append((name_b, tags_b))
+                table.put(k, name_b, tags_b, row)
+                cache[ck] = row
+            rows[j] = row
+
+    def _stage_python(self, datagrams: list) -> None:
+        """Pure-Python decode fallback (no native library): per-line
+        parse into the same columnar stages. Slower, same semantics."""
+        if self._intern_total >= self._intern_limit:
+            self._reset_interner()
+        interner = self._py_interner
+        for d in datagrams:
+            for line in p.split_lines(d):
+                if line.startswith(b"_e{") or line.startswith(b"_sc"):
+                    self._raws.append(bytes(line))
+                    self.raws_staged += 1
+                    continue
+                try:
+                    m = p.parse_metric(line)
+                except p.QuarantineError as e:
+                    self.parsed += 1
+                    self.ledger.count(e.reason)
+                    continue
+                except p.ParseError:
+                    self.parse_errors += 1
+                    continue
+                self.parsed += 1
+                kind = _kind_of_metric(m)
+                ik = (kind, m.key.name, m.key.joined_tags)
+                row = interner.get(ik)
+                if row is None:
+                    row = self._nrows[kind]
+                    self._nrows[kind] = row + 1
+                    self._intern_total += 1
+                    interner[ik] = row
+                    self._pending_entries.setdefault(kind, []).append(
+                        (m.key.name.encode("utf-8"),
+                         m.key.joined_tags.encode("utf-8")))
+                self._stage_one_metric(kind, row, m)
+
+    def _stage_one_metric(self, kind: int, row: int, m) -> None:
+        if kind in _COUNTER_KINDS:
+            contrib = (int(m.value)
+                       * int(np.float32(1.0) / np.float32(m.sample_rate)))
+            if abs(contrib) >= COUNTER_CONTRIB_MAX:
+                self.ledger.count("out_of_range")
+                return
+            self._put_one(kind, row, contrib)
+        elif kind in _GAUGE_KINDS:
+            self._put_one(kind, row, float(m.value))
+        elif kind in _HASH_KINDS:
+            h = hll_ops.hash_member(str(m.value).encode("utf-8"))
+            self._put_one(kind, row, np.uint64(h))
+        else:
+            # the parser bounded the value and the rate already
+            self._put_one(kind, row, np.float32(m.value),
+                          np.float32(1.0) / np.float32(m.sample_rate))
+
+    def _put_one(self, kind, row, a, b=None) -> None:
+        if self._chunk - self._staged_total == 0:
+            self._seal()
+        st = self._stages[kind]
+        if st is None:
+            st = self._stages[kind] = _KindStage(kind, self._chunk)
+        st.put([row], [a], None if b is None else [b])
+        self._staged_total += 1
+
+    def _stage_span(self, kind, rows, a, b=None) -> None:
+        st = self._stages[kind]
+        if st is None:
+            st = self._stages[kind] = _KindStage(kind, self._chunk)
+        n = len(rows)
+        start = 0
+        while start < n:
+            room = self._chunk - self._staged_total
+            if room == 0:
+                self._seal()
+                room = self._chunk
+            end = start + min(room, n - start)
+            st.put(rows[start:end], a[start:end],
+                   b[start:end] if b is not None else None)
+            self._staged_total += end - start
+            start = end
+
+    def _reset_interner(self) -> None:
+        """Bound the lane's intern memory: past the limit, seal what is
+        staged, drop the table and start a new intern GENERATION; the
+        resolver keys on ``gen``, so stale lane rows never alias fresh
+        ones."""
+        self._seal()
+        if self._table is not None:
+            self._table.reset()
+        self._py_interner.clear()
+        self._nrows = [0] * KIND_COUNT
+        self._pending_entries = {}
+        self._intern_total = 0
+        self.gen += 1
+
+    def _seal(self) -> None:
+        """Publish the staged chunk to the merge deque. Past the backlog
+        cap the PAYLOAD is shed (bounded memory under a wedged merger),
+        but the intern entries still ship: later chunks reference rows
+        this lane's table already assigned."""
+        total = self._staged_total
+        if total == 0 and not self._raws and not self._pending_entries:
+            return
+        spans = {kind: st.take() for kind, st in enumerate(self._stages)
+                 if st is not None and st.fill}
+        chunk = SealedChunk(self.lane_id, self.gen, total, spans,
+                            self._pending_entries, self._raws)
+        self._pending_entries = {}
+        self._raws = []
+        self._staged_total = 0
+        self.staged += total
+        if len(self.sealed) >= self._max_backlog:
+            self.shed_records += total
+            self.shed_chunks += 1
+            chunk.records = 0
+            chunk.spans = {}
+            chunk.raws = []
+        self.sealed_chunks += 1
+        self.sealed.append(chunk)
+
+    # -- reader loop ---------------------------------------------------------
+
+    def _run(self) -> None:
+        try:
+            while not self._stop.is_set():
+                try:
+                    self._ingest_once()
+                except OSError as e:
+                    if self._stop.is_set():
+                        break
+                    log.warning("ingest lane %d recv error: %s",
+                                self.lane_id, e)
+                    time.sleep(0.01)
+                except Exception:
+                    # the lane must NEVER die with its socket open: the
+                    # kernel would keep hashing its REUSEPORT share of
+                    # datagrams into a queue nobody drains
+                    log.exception("ingest lane %d hot-path error",
+                                  self.lane_id)
+                    time.sleep(0.05)
+        finally:
+            try:
+                self._seal()  # residue rides the fleet's final drain
+            except Exception:
+                log.exception("ingest lane %d final seal failed",
+                              self.lane_id)
+            self.sock.close()
+
+    def counters_snapshot(self) -> dict:
+        return {
+            "packets": self.packets,
+            "shed_packets": self.shed_packets,
+            "syscalls": self._receiver.syscalls,
+            "parsed": self.parsed,
+            "parse_errors": self.parse_errors,
+            "quarantined": self.quarantined,
+            "staged": self.staged,
+            "raws": self.raws_staged,
+            "shed_records": self.shed_records,
+            "sealed_chunks": self.sealed_chunks,
+            "shed_chunks": self.shed_chunks,
+            "backlog": len(self.sealed),
+        }
+
+
+class IngestFleet:
+    """N lanes on one SO_REUSEPORT UDP address plus the merger thread
+    that folds sealed chunks into the store at the group boundary and
+    rolls the lanes' quarantine tallies into the store's ledger, once a
+    tick instead of once a packet."""
+
+    def __init__(self, store, addr, num_lanes: int, recv_buf: int,
+                 max_len: int, chunk_records: int = 1 << 14,
+                 stop: Optional[threading.Event] = None,
+                 raw_handler: Optional[Callable[[bytes], None]] = None,
+                 drain_tick: float = DRAIN_TICK,
+                 max_backlog: int = DEFAULT_MAX_BACKLOG,
+                 use_native: Optional[bool] = None,
+                 intern_limit: int = 1 << 20):
+        from veneur_tpu_torch import networking
+        from veneur_tpu_torch.protocol.addr import ResolvedAddr
+
+        self._store = store
+        self._stop = stop if stop is not None else threading.Event()
+        self._raw_handler = raw_handler
+        self._tick = drain_tick
+        self._merge_lock = threading.Lock()
+        self._resolvers: Dict[int, LaneResolver] = {}
+        self.merged_records: Dict[int, int] = {}
+        self.merged_raws: Dict[int, int] = {}
+        self.unrouted_raws: list = []  # only without a raw_handler
+        self.lanes: List[IngestLane] = []
+        self.bound: List[tuple] = []
+        try:
+            for i in range(max(1, num_lanes)):
+                sock = networking.new_udp_socket(addr, recv_buf,
+                                                 reuse_port=True)
+                self.bound.append(sock.getsockname())
+                if addr.port == 0:
+                    # later lanes share the port the first one got
+                    addr = ResolvedAddr(scheme=addr.scheme, host=addr.host,
+                                        port=sock.getsockname()[1])
+                try:
+                    lane = IngestLane(
+                        i, sock, max_len, chunk_records, self._stop,
+                        max_backlog=max_backlog, intern_limit=intern_limit,
+                        use_native=use_native)
+                except BaseException:
+                    sock.close()
+                    raise
+                self.lanes.append(lane)
+        except BaseException:
+            for lane in self.lanes:
+                lane.sock.close()
+            raise
+        self._threads: List[threading.Thread] = []
+        self._merger: Optional[threading.Thread] = None
+
+    @property
+    def num_lanes(self) -> int:
+        return len(self.lanes)
+
+    def start(self) -> None:
+        for lane in self.lanes:
+            t = threading.Thread(target=lane._run,
+                                 name=f"ingest-lane-{lane.lane_id}",
+                                 daemon=True)
+            t.start()
+            lane.thread = t
+            self._threads.append(t)
+        self._merger = threading.Thread(target=self._merge_loop,
+                                        name="ingest-merger", daemon=True)
+        self._merger.start()
+
+    # -- the group boundary --------------------------------------------------
+
+    def merge_sealed(self) -> int:
+        """Drain every lane's sealed deque into the store, one store-lock
+        hold a chunk. Serialized against concurrent callers (the merger
+        tick, shutdown) by the merge lock: the resolver state has one
+        merger at a time, and the lanes never wait on it."""
+        merged = 0
+        with self._merge_lock:
+            for lane in self.lanes:
+                while lane.sealed:
+                    merged += self._merge_chunk(lane.sealed.popleft())
+                self._fold_ledger(lane)
+        return merged
+
+    def _merge_chunk(self, chunk: SealedChunk) -> int:
+        res = self._resolvers.get(chunk.lane_id)
+        if res is None or res.gen != chunk.gen:
+            # the lane reset its intern table (bounded-memory rollover):
+            # rows restart at 0 under a new gen, so the old registry must
+            # never remap them
+            res = self._resolvers[chunk.lane_id] = LaneResolver(chunk.gen)
+        raws = self._store.import_lane_chunk(chunk, res)
+        if chunk.records:
+            self.merged_records[chunk.lane_id] = (
+                self.merged_records.get(chunk.lane_id, 0) + chunk.records)
+        if raws:
+            self.merged_raws[chunk.lane_id] = (
+                self.merged_raws.get(chunk.lane_id, 0) + len(raws))
+            if self._raw_handler is not None:
+                for raw in raws:  # outside the store lock
+                    self._raw_handler(raw)
+            elif len(self.unrouted_raws) < 65536:
+                self.unrouted_raws.extend(raws)
+        return chunk.records
+
+    def _fold_ledger(self, lane: IngestLane) -> None:
+        for reason, d in lane.ledger.take_deltas().items():
+            self._store.quarantine.count(reason, d)
+
+    def _merge_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self.merge_sealed()
+            except Exception:
+                log.exception("ingest merge pass failed")
+            self._stop.wait(self._tick)
+        # lanes seal their residue on exit; collect it before returning
+        for t in self._threads:
+            t.join(timeout=5.0)
+        try:
+            self.merge_sealed()
+        except Exception:
+            log.exception("final ingest merge failed")
+
+    def shutdown(self, timeout: float = 10.0) -> None:
+        """Stop the lanes, collect their sealed residue, stop the merger.
+        The caller's stop event may already be set. Lanes that never ran
+        (a fleet driven by hand, never started) get their sockets
+        closed here."""
+        self._stop.set()
+        deadline = time.monotonic() + timeout
+        for t in self._threads:
+            t.join(timeout=max(0.1, deadline - time.monotonic()))
+        if self._merger is not None:
+            self._merger.join(timeout=max(0.1,
+                                          deadline - time.monotonic()))
+        self.merge_sealed()  # idempotent; covers a wedged merger thread
+        for lane in self.lanes:
+            if lane.thread is None:
+                lane.sock.close()
+
+    # -- read-side counters ----------------------------------------------------
+
+    def parse_errors(self) -> int:
+        return sum(lane.parse_errors for lane in self.lanes)
+
+    def totals(self) -> dict:
+        t = {"lanes": len(self.lanes)}
+        for lane in self.lanes:
+            for k, v in lane.counters_snapshot().items():
+                t[k] = t.get(k, 0) + v
+        t["merged"] = sum(self.merged_records.values())
+        t["merged_raws"] = sum(self.merged_raws.values())
+        pkts = t["packets"]
+        t["syscalls_per_packet"] = (round(t["syscalls"] / pkts, 4)
+                                    if pkts else None)
+        return t
+
+    def balance(self) -> dict:
+        """Count conservation per lane: everything a lane parsed is
+        merged, quarantined, shed, or still in flight; nothing vanishes.
+        ``ok`` only once backlogs and staging are drained."""
+        lanes = []
+        ok = True
+        for lane in self.lanes:
+            pending = sum(c.records for c in list(lane.sealed))
+            pending += lane._staged_total
+            merged = self.merged_records.get(lane.lane_id, 0)
+            accounted = (merged + lane.quarantined + lane.shed_records
+                         + pending)
+            lane_ok = lane.parsed == accounted
+            ok = ok and lane_ok
+            lanes.append({"lane": lane.lane_id, "ingested": lane.parsed,
+                          "merged": merged,
+                          "quarantined": lane.quarantined,
+                          "shed": lane.shed_records, "pending": pending,
+                          "ok": lane_ok})
+        return {"ok": ok, "lanes": lanes}
