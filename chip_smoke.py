@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and its native
-ingest library (g++), side by side, then runs six phases, each printing
-one JSON line:
+ingest library (g++), side by side, then runs seven phases, each
+printing one JSON line:
 
   kernels  K1 drain_quantile and K2 compress_presorted at the flush's
            shape (1,048,576 rows, K=104, the store's 9 quantiles), each
@@ -32,10 +32,28 @@ one JSON line:
            so the kernel drops nothing. Two intervals (every series first
            seen, then the same traffic), each flushed through K1 and
            held to the traffic: conservation, counters, gauges, digest
-           mass, extrema and percentiles, set estimates. Then a
+           mass, extrema and percentiles, set estimates, the service
+           checks' status rows and the events in flush_other_samples.
+           Then a
            4,096-series twin (one lane and the per-line path emit the
            same on the CPU; one lane on cuda agrees with the CPU as the
            kernels do) and an unpaced 5 s burst at 1 and 4 lanes;
+  ssf      SSF into a Server on cuda: the native SSF reader pool (4
+           readers) and a unix:// SSF listener, indicator_span_timer_name
+           set, a channel metric sink and a channel span sink. 262,144
+           histogram series (2 tags, 8 samples, a quarter at rate 0.5,
+           the last four shifted +1000 so the guard drains through K2 on
+           the pump's thread) as SSFSamples, 16 a span, plus spans of
+           4,096 counters, gauges and sets x 16 members and 1,024 STATUS
+           samples (the slow lane); every span an indicator span (64
+           services x {error, ok}, 1 us to 10 s); 256 events and service
+           checks over statsd. Paced windows from the sender processes;
+           one flush through K1. Held to the traffic: every span to the
+           span sink, every sample merged (exact conservation), digests,
+           timers, counters, gauges, sets, status rows, events. Then a
+           4,096-series twin: the Python UDP rung, the UNIX stream and
+           the native lane emit the same rows on the CPU, and the native
+           lane and the UNIX stream on the card agree with the CPU;
   global_merge
            global aggregation at full width: two forwarding locals on
            cuda (1,048,576 histogram series each, B's distribution
@@ -54,7 +72,8 @@ one JSON line:
            reference's (gob/axiomhq).
 
 The launch counts in the kernel summary are the sum over the store,
-ingest (its two intervals), global_merge and server_global phases. It
+ingest (its two intervals), ssf (its main path), global_merge and
+server_global phases. It
 ends with the kernel summary, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits 2 before
@@ -63,6 +82,7 @@ printing any result. It imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -1268,7 +1288,8 @@ def _ingest_traffic(rows: int, set_series: int, scalars: int, raws: int):
     histogram series with 2 tags, 8 samples each in units of 1/8 (exact
     in float32; a quarter of the series at @0.5), ``set_series`` sets of
     16 members, ``scalars`` counters (4 samples, every 8th at @0.1) and
-    gauges (one sample), ``raws`` events and service checks. As in the
+    gauges (one sample), ``raws`` events and service checks (one status
+    series each). As in the
     store phase, every series' first four samples come first, each
     series' four together, and the last four, shifted by +1000, after
     everything else, so the shift guard drains through K2 and a series'
@@ -1301,7 +1322,8 @@ def _ingest_traffic(rows: int, set_series: int, scalars: int, raws: int):
         lines += [f"ingest.c.{i}:{v}|c{'|@0.1' if i % 8 == 0 else ''}"
                   for i, v in enumerate(cvals[r].tolist())]
     lines += [f"ingest.g.{i}:{v!r}|g" for i, v in enumerate(gvals.tolist())]
-    lines += ["_e{5,4}:title|text", "_sc|ingest.check|0"] * raws
+    lines += [ln for i in range(raws) for ln in (
+        "_e{5,4}:title|text", f"_sc|ingest.check.{i}|{i % 4}|m:m{i}")]
     middle = len(lines) - 4 * rows
     lines += half(4)
     del head, tail, vals
@@ -1452,7 +1474,8 @@ def _instrument(store, fleet) -> dict:
 def _paced_interval(server, fleet, senders, t, window: int, acc) -> dict:
     """Send the traffic once, one window at a time (at most ``window``
     datagrams in flight, and the merger's backlog drained, before the
-    next), and wait until every line is merged, handed back raw or
+    next), and wait until every line is merged, handed back raw (and
+    routed: events to the event worker, service checks to the store) or
     rejected."""
     from veneur_tpu_torch.ops import tdigest_cuda as tc
 
@@ -1460,6 +1483,7 @@ def _paced_interval(server, fleet, senders, t, window: int, acc) -> dict:
                merge_s=0.0)
     before = fleet.totals()
     not_ported0 = server.not_ported
+    events0 = len(server.event_worker)
     k2 = tc.compress_presorted.launches
     port = fleet.bound[0][1]
     per_sender = window // INGEST_SENDERS
@@ -1477,7 +1501,7 @@ def _paced_interval(server, fleet, senders, t, window: int, acc) -> dict:
         return (sum(now[k] - before[k] for k in (
             "merged", "merged_raws", "parse_errors", "quarantined",
             "shed_records")) >= t["lines"]
-            and server.not_ported - not_ported0 >= t["raw_lines"])
+            and len(server.event_worker) - events0 >= t["raw_lines"] // 2)
 
     _wait_for(settled, 600, "every line to be merged")
     wall = time.perf_counter() - t0
@@ -1493,6 +1517,7 @@ def _paced_interval(server, fleet, senders, t, window: int, acc) -> dict:
            "balance_ok": fleet.balance()["ok"],
            "intern_gens": [lane.gen for lane in fleet.lanes],
            "not_ported": server.not_ported - not_ported0,
+           "events": len(server.event_worker) - events0,
            "k2_launches": tc.compress_presorted.launches - k2,
            "lane_intern_s": list(acc["lane_intern_s"]),
            "store_intern_s": acc["store_intern_s"],
@@ -1504,7 +1529,8 @@ def _paced_interval(server, fleet, senders, t, window: int, acc) -> dict:
             and d["shed_records"] == d["shed_packets"] == 0
             and d["raws"] == d["merged_raws"] == t["raw_lines"]
             and d["parse_errors"] == d["quarantined"] == 0
-            and rec["not_ported"] == t["raw_lines"]):
+            and rec["not_ported"] == 0
+            and rec["events"] == t["raw_lines"] // 2):
         raise AssertionError(f"ingest did not conserve the traffic: {rec}")
     return rec
 
@@ -1514,13 +1540,22 @@ def _check_ingest_flush(rows, t, rec):
     counters and gauges exact; on 4,096 seeded histogram series, the
     count (the sum of 1/rate) at rtol 1e-6, min/max exact and the
     percentiles within 1e-3 x span of the exact digest of the samples;
-    set estimates within 1e-4 of a numpy HLL of the members."""
+    set estimates within 1e-4 of a numpy HLL of the members; each
+    service check a status row with its value and message."""
     from veneur_tpu_torch.ops import hll as hll_ops
 
     n, sets, scalars = t["rows"], t["set_series"], t["scalars"]
-    want_rows = n * (3 + len(INGEST_PERCENTILES)) + sets + 2 * scalars
+    checks = t["raw_lines"] // 2
+    want_rows = (n * (3 + len(INGEST_PERCENTILES)) + sets + 2 * scalars
+                 + checks)
     if len(rows) != want_rows:
         raise AssertionError(f"{len(rows)} rows flushed, want {want_rows}")
+    status = {m.name: (m.value, m.message) for m in rows
+              if m.type.value == "status"}
+    if status != {f"ingest.check.{i}": (float(i % 4), f"m{i}")
+                  for i in range(checks)}:
+        raise AssertionError("the service checks' status rows differ from "
+                             "what was sent")
     rng = np.random.default_rng(SEED + 7)
     pick = rng.choice(n, min(4096, n), replace=False)
     sfx = ["count", "min", "max"] + [f"{int(p * 100)}percentile"
@@ -1633,6 +1668,11 @@ def run_ingest_lanes(dev, rows: int, set_series: int, scalars: int,
             flushed = sink.get_flush(timeout=60)
             _check_ingest_flush(flushed, t, r)
             del flushed
+            events = sink.get_other_samples(timeout=60)
+            if [(e.name, e.message) for e in events] != [
+                    ("title", "text")] * (t["raw_lines"] // 2):
+                raise AssertionError("the interval's events did not reach "
+                                     "flush_other_samples")
             rec["intervals"].append(r)
         counts = _counts(tc)
     finally:
@@ -1836,6 +1876,598 @@ def phase_ingest(dev, card: str, rows: int = ROWS,
     return counts
 
 
+# the ssf phase: SSF spans into a Server on the card
+
+SSF_SERIES = 1 << 18             # histogram series carried in spans
+SSF_SPAN_SAMPLES = 16            # samples a span
+SSF_SERVICES = 64                # indicator spans: 64 services x {error, ok}
+SSF_SCALARS = 4096               # counters, gauges and sets (16 members)
+SSF_STATUS = 1024                # STATUS samples (the C++ slow lane)
+SSF_RAWS = 256                   # events and service checks over statsd
+SSF_TIMER = "ssf.indicator"
+
+
+def _vint(n: int) -> bytes:
+    out = bytearray()
+    while n > 0x7F:
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def _ld(field: int, payload: bytes) -> bytes:
+    """One length-delimited protobuf field."""
+    return bytes([field << 3 | 2]) + _vint(len(payload)) + payload
+
+
+def _tag_entries(tags) -> bytes:
+    """SSFSample.tags (field 8) entries for (key, value) pairs."""
+    return b"".join(_ld(8, _ld(1, k.encode()) + _ld(2, v.encode()))
+                    for k, v in tags)
+
+
+def _sample_heads(names, tags_of, rates, metric: int):
+    """Per-series (head, tail) of an embedded SSFSample (span field 10):
+    head + the float32 value's 4 bytes + tail is the whole field."""
+    heads, tails = [], []
+    for i, name in enumerate(names):
+        nb = name.encode()
+        pre = (b"\x08" + _vint(metric) + _ld(2, nb) + b"\x1d")
+        post = ((b"\x3d" + np.float32(rates[i]).tobytes()
+                 if rates[i] != 1.0 else b"") + _tag_entries(tags_of(i)))
+        body = len(pre) + 4 + len(post)
+        heads.append(b"\x52" + _vint(body) + pre)
+        tails.append(post)
+    return heads, tails
+
+
+def _ssf_traffic(series: int, scalars: int, status: int, raws: int):
+    """The ssf phase's traffic, from the seed.
+
+    ``series`` histogram series with 2 tags and 8 samples each (units of
+    1/8, exact in float32; a quarter of the series at rate 0.5), 16
+    samples a span: as in the ingest phase, every series' first four
+    samples travel first (four series a span) and the last four, shifted
+    +1000, after everything else, so the shift guard drains through K2.
+    Between them: spans of ``scalars`` counters (every 8th at rate 0.1),
+    gauges, sets of 16 members, and ``status`` STATUS samples. Every span
+    is an indicator span: service svc<j % 64>, error on odd j // 64, a
+    duration of 10^U(3, 10) ns. Over statsd: ``raws`` events (every
+    vdogstatsd_* section) and service checks."""
+    from veneur_tpu_torch.protocol import ssf
+
+    gens = iter([np.random.default_rng(s) for s in
+                 np.random.SeedSequence(SEED + 8).spawn(6)])
+    q = np.concatenate(
+        [np.round(next(gens).gamma(2.0, 10.0, (series, 4)) * 8),
+         np.round((1000.0 + next(gens).gamma(2.0, 10.0, (series, 4))) * 8)],
+        axis=1).astype(np.int64)
+    members = next(gens).integers(0, 1 << 48, (scalars, 16))
+    cvals = next(gens).integers(1, 1000, scalars)
+    gvals = np.round(next(gens).normal(0.0, 1000.0, scalars), 3)
+    rates = np.where(np.arange(series) % 4 == 0, 0.5, 1.0)
+    heads, tails = _sample_heads(
+        [f"ssf.h.{i}" for i in range(series)],
+        lambda i: (("az", f"z{i % 4}"), ("svc", f"s{i % 64}")), rates, 2)
+    vbytes = (q / 8.0).astype("<f4").tobytes()
+    hist = [heads[i] + vbytes[4 * (8 * i + k):4 * (8 * i + k) + 4]
+            + tails[i] for i in range(series) for k in range(8)]
+    first = [hist[8 * i + k] for i in range(series) for k in range(4)]
+    last = [hist[8 * i + k] for i in range(series) for k in range(4, 8)]
+    del hist, heads, tails
+    c_rates = np.where(np.arange(scalars) % 8 == 0, 0.1, 1.0)
+    ch, ct = _sample_heads([f"ssf.c.{i}" for i in range(scalars)],
+                           lambda i: (), c_rates, 0)
+    cb = cvals.astype("<f4").tobytes()
+    middle = [ch[i] + cb[4 * i:4 * i + 4] + ct[i] for i in range(scalars)]
+    gh, gt = _sample_heads([f"ssf.g.{i}" for i in range(scalars)],
+                           lambda i: (), np.ones(scalars), 1)
+    gb = gvals.astype("<f4").tobytes()
+    middle += [gh[i] + gb[4 * i:4 * i + 4] + gt[i] for i in range(scalars)]
+    middle += [_ld(10, b"\x08\x03" + _ld(2, f"ssf.s.{i}".encode())
+                   + _ld(5, f"u{m}".encode()))
+               for i, ms in enumerate(members.tolist()) for m in ms]
+    middle += [_ld(10, ssf.encode_sample(ssf.SSFSample(
+        metric=ssf.SSFSample.STATUS, name=f"ssf.st.{i}", status=i % 4,
+        message=f"st{i}", tags={"role": "db"}))) for i in range(status)]
+    samples = first + middle + last
+    n_spans = -(-len(samples) // SSF_SPAN_SAMPLES)
+    durs = np.floor(10.0 ** next(gens).uniform(3.0, 10.0, n_spans)) \
+        .astype(np.int64)
+    base = 1_700_000_000_000_000_000
+    datagrams = []
+    for j in range(n_spans):
+        head = ssf.encode_span(ssf.SSFSpan(
+            trace_id=j + 1, id=j + 1, start_timestamp=base + j,
+            end_timestamp=base + j + int(durs[j]),
+            error=bool((j // SSF_SERVICES) % 2),
+            service=f"svc{j % SSF_SERVICES}", indicator=True, name="op"))
+        datagrams.append(head + b"".join(
+            samples[j * SSF_SPAN_SAMPLES:(j + 1) * SSF_SPAN_SAMPLES]))
+    del samples, first, last, middle
+    lens = np.fromiter(map(len, datagrams), np.int64, len(datagrams))
+    blob = b"".join(datagrams)
+    del datagrams
+    d_off = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    events = [f"_e{{{len(f'title{i}')},{len(f'text {i}')}}}:title{i}|"
+              f"text {i}|h:host{i % 8}|k:agg{i}|p:low|s:src|t:info|#k:v"
+              for i in range(raws)]
+    checks = [f"_sc|ssf.check.{i}|{i % 4}|h:host{i % 8}|#k:v|m:msg {i}"
+              for i in range(raws)]
+    raw_lines = [ln.encode() for pair in zip(events, checks) for ln in pair]
+    mult = int(np.float32(1.0) / np.float32(0.1))
+    return {"blob": blob, "d_off": d_off, "d_len": lens, "q": q,
+            "members": members, "durs": durs,
+            "counters": cvals * np.where(c_rates == 0.1, mult, 1),
+            "gauges": gvals.astype(np.float32).astype(np.float64),
+            "raw_lines": raw_lines, "rows": series, "scalars": scalars,
+            "status": status, "raws": raws, "spans": n_spans,
+            "samples": 8 * series + 2 * scalars + 16 * scalars + status}
+
+
+def _ssf_datagrams(t) -> list:
+    blob = t["blob"]
+    return [blob[o:o + n] for o, n in zip(t["d_off"].tolist(),
+                                           t["d_len"].tolist())]
+
+
+def _check_ssf_codec(t) -> None:
+    """The traffic's bytes decode, with the port's codec, to what was
+    meant: the first and last span, sample for sample."""
+    from veneur_tpu_torch.protocol import ssf
+
+    dgrams = _ssf_datagrams(t)
+    for j in (0, len(dgrams) - 1):
+        span = ssf.decode_span(dgrams[j])
+        if not (span.indicator and span.id == j + 1
+                and span.end_timestamp - span.start_timestamp
+                == int(t["durs"][j])
+                and len(span.metrics) == SSF_SPAN_SAMPLES):
+            raise AssertionError(f"span {j} decodes wrong: {span}")
+        s = span.metrics[0]
+        # the j-th span's first sample: a first half, or a last half
+        p = j * SSF_SPAN_SAMPLES - (len(dgrams) * SSF_SPAN_SAMPLES
+                                    - 4 * t["rows"])
+        i, k = (j * 4, 0) if p < 0 else (p // 4, 4)
+        if (s.name, s.value, s.tags) != (
+                f"ssf.h.{i}", t["q"][i, k] / 8.0,
+                {"az": f"z{i % 4}", "svc": f"s{i % 64}"}):
+            raise AssertionError(f"span {j}'s first sample: {s}")
+
+
+def _ssf_server(dev, sock_path, sinks, native: bool = True):
+    """A Server on ``dev`` as the ssf phase runs it: a udp:// SSF listener
+    (the native pool, or Python readers with ``native=False``), a
+    unix:// one at ``sock_path`` if given, 4 readers or lanes, the
+    indicator timer, and ``sinks`` = (metric sink, span sink). A stream
+    arrives unpaced, one span a channel item, so the span channel holds
+    4,096 items: the default 100 sheds when the span worker falls behind
+    the stream's reader."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.server import Server
+
+    addrs = ["udp://127.0.0.1:0"] + ([f"unix://{sock_path}"] if sock_path
+                                     else [])
+    return Server(Config(
+        statsd_listen_addresses=["udp://127.0.0.1:0"], num_readers=4,
+        ssf_listen_addresses=addrs, native_ingest=native,
+        span_channel_capacity=4096,
+        indicator_span_timer_name=SSF_TIMER, interval="86400s",
+        percentiles=list(INGEST_PERCENTILES),
+        aggregates=["min", "max", "count"], hostname="smoke",
+        read_buffer_size_bytes=8 << 20),
+        metric_sinks=[sinks[0]], span_sinks=[sinks[1]], device=dev)
+
+
+def _ssf_instrument(server) -> dict:
+    """Counters and time around the native pump's three steps, from the
+    pump's thread: records into process_batch, slow-lane samples, spans
+    handed to the span workers."""
+    acc = {"records": 0, "batches": 0, "slow": 0, "spans": 0,
+           "process_batch_s": 0.0}
+    store = server.store
+    real_batch, real_slow = store.process_batch, server._slow_ssf_sample
+    real_spans = server.handle_ssf_batch
+
+    def process_batch(batch):
+        t0 = time.perf_counter()
+        try:
+            return real_batch(batch)
+        finally:
+            acc["process_batch_s"] += time.perf_counter() - t0
+            acc["records"] += int(batch.count)
+            acc["batches"] += 1
+
+    def slow(raw):
+        acc["slow"] += 1
+        real_slow(raw)
+
+    def spans(batch):
+        acc["spans"] += len(batch)
+        real_spans(batch)
+
+    store.process_batch = process_batch
+    server._slow_ssf_sample = slow
+    server.handle_ssf_batch = spans
+    return acc
+
+
+def _emission_timer(store) -> dict:
+    """Wall time of the flush's per-row emission methods."""
+    acc = {"emit_s": 0.0}
+    for name in ("_emit_digest_result", "_emit_set_result",
+                 "_flush_scalars", "_flush_status"):
+        real = getattr(store, name)
+
+        def timed(*args, _real=real, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _real(*args, **kwargs)
+            finally:
+                acc["emit_s"] += time.perf_counter() - t0
+        setattr(store, name, timed)
+    return acc
+
+
+def _check_ssf_flush(rows, events, t, rec) -> None:
+    """The flushed rows and events against the traffic: the row count;
+    on 4,096 seeded histogram series count (the sum of 1/rate), min and
+    max exact and percentiles within 0.02 x span of the exact digest;
+    every indicator timer's count equal to its spans, its extrema the
+    durations (doubles on the C++ lane) as the float32 digest holds them,
+    its percentiles inside the extrema and in order (their rank error is
+    reported: on durations spread over seven decades the dense store's
+    bins are ~3.4% off in rank, in the JAX package as here; the twin
+    holds the card to the CPU); counters and gauges exact; set
+    estimates within 1e-4 of a numpy HLL; status rows' value, message and
+    hostname; the events' vdogstatsd_* tags."""
+    from veneur_tpu_torch.ops import hll as hll_ops
+
+    n, sc, st, raws = t["rows"], t["scalars"], t["status"], t["raws"]
+    timers = 2 * SSF_SERVICES
+    want_rows = ((n + timers) * (3 + len(INGEST_PERCENTILES)) + 3 * sc
+                 + st + raws)
+    if len(rows) != want_rows:
+        raise AssertionError(f"{len(rows)} rows flushed, want {want_rows}")
+    sfx = ["count", "min", "max"] + [f"{int(p * 100)}percentile"
+                                     for p in INGEST_PERCENTILES]
+    rng = np.random.default_rng(SEED + 9)
+    pick = rng.choice(n, min(4096, n), replace=False)
+    by = {}
+    for m in rows:
+        by[(m.name, tuple(m.tags))] = m
+    worst = mass_err = 0.0
+    for i in pick:
+        tags = ("az:z%d" % (i % 4), "svc:s%d" % (i % 64))
+        samples = (t["q"][i] / 8.0).astype(np.float32)
+        mass = 8.0 * (2.0 if i % 4 == 0 else 1.0)
+        got = {s: by[(f"ssf.h.{i}.{s}", tags)].value for s in sfx}
+        mass_err = max(mass_err, abs(got["count"] - mass) / mass)
+        if got["min"] != samples.min() or got["max"] != samples.max():
+            raise AssertionError(f"ssf.h.{i}: min/max wrong")
+        want = _digest_reference(samples, INGEST_PERCENTILES)
+        span = float(samples.max() - samples.min())
+        worst = max(worst, float(np.max(np.abs(
+            np.array([got[s] for s in sfx[3:]]) - want))) / span)
+    j = np.arange(t["spans"])
+    timer_err = timer_rank_err = 0.0
+    for svc in range(SSF_SERVICES):
+        for err in (0, 1):
+            sel = (j % SSF_SERVICES == svc) & ((j // SSF_SERVICES) % 2
+                                               == err)
+            durs = t["durs"][sel].astype(np.float64).astype(np.float32)
+            tags = ("error:%s" % ("true" if err else "false"),
+                    f"service:svc{svc}")
+            got = {s: by[(f"{SSF_TIMER}.{s}", tags)].value for s in sfx}
+            if (got["count"] != sel.sum() or got["min"] != durs.min()
+                    or got["max"] != durs.max()):
+                raise AssertionError(f"indicator timer {tags}: {got}")
+            want = _digest_reference(durs, INGEST_PERCENTILES)
+            vals = np.array([got[s] for s in sfx[3:]])
+            if not (durs.min() <= vals.min() and vals.max() <= durs.max()
+                    and np.all(np.diff(vals) >= 0)):
+                raise AssertionError(f"indicator timer {tags}: percentiles "
+                                     f"{vals} out of order or range")
+            timer_err = max(timer_err, float(np.max(np.abs(vals - want)))
+                            / float(durs.max() - durs.min()))
+            # a value's quantile range under the midpoint convention
+            # (sample k sits at (k + 0.5) / n): from below its lowest
+            # sample-rank to above its highest
+            x = np.sort(durs.astype(np.float64))
+            n_x = len(x)
+            for q, v in zip(INGEST_PERCENTILES, vals):
+                lo = (np.searchsorted(x, v, "left") - 0.5) / n_x
+                hi = (np.searchsorted(x, v, "right") + 0.5) / n_x
+                timer_rank_err = max(timer_rank_err,
+                                     max(lo - q, q - hi, 0.0))
+    if mass_err > 1e-6 or worst > 0.02:
+        raise AssertionError(f"digests off: mass {mass_err:.3g}, "
+                             f"percentiles {worst:.3g} of the span")
+    for i in range(sc):
+        if by[(f"ssf.c.{i}", ())].value != t["counters"][i] \
+                or by[(f"ssf.g.{i}", ())].value != t["gauges"][i]:
+            raise AssertionError(f"ssf.c/g.{i} differ from what was sent")
+    ref_err = 0.0
+    for i in rng.choice(sc, min(512, sc), replace=False):
+        hashes = np.array([hll_ops.hash_member(f"u{m}".encode())
+                           for m in t["members"][i].tolist()], np.uint64)
+        ref = _hll_reference(hashes, 14)
+        ref_err = max(ref_err, abs(by[(f"ssf.s.{i}", ())].value - ref) / ref)
+    if ref_err > 1e-4:
+        raise AssertionError(f"set estimates off the numpy HLL by "
+                             f"{ref_err:.3g}")
+    for i in range(st):
+        m = by[(f"ssf.st.{i}", ("role:db",))]
+        # the reference's parseMetricSSF carries a STATUS sample's status,
+        # not its message
+        if (m.type.value, m.value, m.message, m.hostname) != (
+                "status", float(i % 4), "", ""):
+            raise AssertionError(f"status row ssf.st.{i}: {m}")
+    for i in range(raws):
+        m = by[(f"ssf.check.{i}", ("k:v",))]
+        if (m.type.value, m.value, m.message, m.hostname) != (
+                "status", float(i % 4), f"msg {i}", f"host{i % 8}"):
+            raise AssertionError(f"service check row {i}: {m}")
+    got_events = sorted((e.name, e.message, tuple(sorted(e.tags.items())))
+                        for e in events)
+    want_events = sorted(
+        (f"title{i}", f"text {i}", tuple(sorted({
+            "vdogstatsd_ev": "", "vdogstatsd_hostname": f"host{i % 8}",
+            "vdogstatsd_ak": f"agg{i}", "vdogstatsd_pri": "low",
+            "vdogstatsd_st": "src", "vdogstatsd_at": "info",
+            "k": "v"}.items()))) for i in range(raws))
+    if got_events != want_events:
+        raise AssertionError("the events in flush_other_samples differ "
+                             "from what was sent")
+    rec.update({"rows_flushed": len(rows), "hist_mass_rel_err": mass_err,
+                "pct_err_vs_exact_digest": worst,
+                "timer_pct_err_vs_exact_digest": timer_err,
+                "timer_pct_rank_err": timer_rank_err,
+                "set_err_vs_numpy_hll": ref_err, "events": len(events)})
+
+
+def _wait_ssf_window(server, reader, acc, p0, sent, timeout=300):
+    """Until the pool received ``sent`` datagrams and the pump handed
+    them all on (decoded, or counted as decode errors or drops)."""
+    _wait_for(lambda: reader.packets() - p0 >= sent
+              and acc["spans"] + server.packet_errors
+              + server.native_ssf_drops >= sent,
+              timeout, "the SSF pump to catch up with a window")
+
+
+def run_ssf(dev, t, workdir, sock_path):
+    """The ssf phase's main path: a Server on ``dev`` with the native SSF
+    reader pool (4 readers) and a unix:// SSF listener takes the traffic
+    in paced windows from the sender processes, and the event and
+    service-check lines over its statsd listener; one flush through K1.
+    Returns (record, launch counts)."""
+    import torch
+
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.sinks.channel import (ChannelMetricSink,
+                                                ChannelSpanSink)
+
+    sink, span_sink = ChannelMetricSink(), ChannelSpanSink()
+    server = _ssf_server(dev, sock_path, (sink, span_sink))
+    server.start()
+    senders = None
+    try:
+        rungs = [r for _, r, _ in server.ssf_listeners]
+        reader = server.native_ssf_readers[0] \
+            if server.native_ssf_readers else None
+        if rungs != ["native", "stream"] or reader is None:
+            raise AssertionError(f"the SSF listeners came up as {rungs}")
+        acc = _ssf_instrument(server)
+        emit_acc = _emission_timer(server.store)
+        window = _ingest_window(server.ingest_fleets[0])
+        port = reader.port
+        senders = _PacedSenders(port, t, workdir)
+        # earlier phases' stores die in reference cycles: collect them,
+        # so the peak is this phase's own
+        gc.collect()
+        mem0 = int(torch.cuda.memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts(tc)
+        t0 = time.perf_counter()
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+            lines = t["raw_lines"]
+            for i in range(0, len(lines), 16):
+                tx.sendto(b"\n".join(lines[i:i + 16]),
+                          server.statsd_addrs[0])
+        p0, sent = reader.packets(), 0
+        per_sender = window // INGEST_SENDERS
+        for a in range(0, max(senders.counts), per_sender):
+            sent += senders.send(a, a + per_sender)
+            _wait_ssf_window(server, reader, acc, p0, sent)
+        want_processed = t["samples"] + t["spans"] + t["raws"]
+        # shed spans never arrive: stop waiting, the check below fails
+        _wait_for(lambda: server.spans_dropped or (
+            server.store.processed >= want_processed
+            and span_sink.queue.qsize() >= t["spans"]
+            and len(server.event_worker) >= t["raws"]), 600,
+            "every span to reach the span sinks and every sample the "
+            "store")
+        wall = time.perf_counter() - t0
+        k2 = tc.compress_presorted.launches
+        processed = server.store.processed
+        t1 = time.perf_counter()
+        server.flush()
+        flush_s = time.perf_counter() - t1
+        counts = _counts(tc)
+        rows = sink.get_flush(timeout=60)
+        events = sink.get_other_samples(timeout=60)
+        mem = int(torch.cuda.max_memory_allocated(dev))
+    finally:
+        if senders is not None:
+            senders.close()
+        server.shutdown()
+    drops = _udp_drops(port)
+    samples = t["samples"] + t["spans"]
+    rec = {"histogram_series": t["rows"], "spans": t["spans"],
+           "samples": t["samples"], "indicator_timers": t["spans"],
+           "datagrams_sent": sent,
+           "datagram_bytes_max": int(t["d_len"].max()), "window": window,
+           "ingest_s": wall, "spans_per_s": t["spans"] / wall,
+           "samples_per_s": samples / wall,
+           "records_native": acc["records"], "slow_lane": acc["slow"],
+           "pump_batches": acc["batches"],
+           "process_batch_s": acc["process_batch_s"],
+           "spans_to_sinks": span_sink.queue.qsize(),
+           "spans_dropped": server.spans_dropped,
+           "native_ssf_drops": server.native_ssf_drops,
+           "decode_errors_and_invalid": server.packet_errors,
+           "quarantined": server.quarantined,
+           "not_ported": server.not_ported,
+           "kernel_drops_total": drops, "processed": processed,
+           "flush_s": flush_s, "emit_s": emit_acc["emit_s"],
+           "emission_share": emit_acc["emit_s"] / flush_s,
+           "k2_before_flush": k2, "memory_allocated_before": mem0,
+           "max_memory_allocated": mem,
+           "launches": counts}
+    # exact conservation on the native lane: every span received; every
+    # sample and timer a record or a slow-lane sample, all merged
+    if not (sent == len(t["d_len"]) and drops == 0
+            and rec["spans_to_sinks"] == t["spans"]
+            and rec["spans_dropped"] == rec["native_ssf_drops"] == 0
+            and rec["decode_errors_and_invalid"] == 0
+            and rec["quarantined"] == rec["not_ported"] == 0
+            and acc["records"] + acc["slow"] == samples
+            and acc["slow"] == t["status"]
+            and processed == samples + t["raws"]):
+        raise AssertionError(f"the SSF lane did not conserve the traffic: "
+                             f"{rec}")
+    if counts["compress_presorted.launches"] < 1 \
+            or counts["drain_quantile.launches"] != 1:
+        raise AssertionError(f"want K2 >= 1 and K1 = 1: {counts}")
+    _check_ssf_flush(rows, events, t, rec)
+    return rec, counts
+
+
+def _ssf_rows(dev, t, way: str):
+    """One Server on ``dev`` takes the traffic one way: "python" (UDP,
+    native_ingest off), "unix" (framed spans over a UNIX socket) or
+    "native" (the C++ pool); rows by (name, tags, type) after one
+    flush."""
+    import tempfile
+
+    from veneur_tpu_torch.protocol import wire
+    from veneur_tpu_torch.sinks.channel import (ChannelMetricSink,
+                                                ChannelSpanSink)
+
+    sock_dir = tempfile.mkdtemp(prefix="vssf")
+    sock_path = f"{sock_dir}/ssf.sock"
+    sink, span_sink = ChannelMetricSink(), ChannelSpanSink()
+    server = _ssf_server(dev, sock_path if way == "unix" else None,
+                         (sink, span_sink), native=way == "native")
+    # the group starts at full size: a group that grows drains its
+    # staging first, at a point that differs between the paths
+    server.store.histograms.ensure_capacity(t["rows"] + 2 * SSF_SERVICES)
+    server.start()
+    try:
+        dgrams = _ssf_datagrams(t)
+        if way == "unix":
+            with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as tx:
+                tx.connect(sock_path)
+                tx.sendall(b"".join(wire.FRAME_HEADER.pack(0, len(d)) + d
+                                    for d in dgrams))
+        else:
+            # at most 64 datagrams in flight: a small default receive
+            # buffer holds them
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+                for i, d in enumerate(dgrams):
+                    tx.sendto(d, server.ssf_addrs[0])
+                    if i % 32 == 31:
+                        _wait_for(lambda: span_sink.queue.qsize()
+                                  >= i + 1 - 64, 120, "the span sink")
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+            tx.sendto(b"\n".join(t["raw_lines"]), server.statsd_addrs[0])
+        want = t["samples"] + t["spans"] + t["raws"]
+        _wait_for(lambda: server.spans_dropped or (
+            server.store.processed >= want
+            and span_sink.queue.qsize() >= t["spans"]), 300,
+            f"the {way} twin")
+        if server.spans_dropped:
+            raise AssertionError(f"the {way} twin shed "
+                                 f"{server.spans_dropped} spans")
+        server.flush()
+        rows = sink.get_flush(timeout=60)
+    finally:
+        server.shutdown()
+        Path(sock_path).unlink(missing_ok=True)
+        Path(sock_dir).rmdir()
+    return {(m.name, tuple(m.tags), m.type.value): (m.value, m.message,
+                                                    m.hostname)
+            for m in rows}
+
+
+def ssf_twin(dev, rows: int = 4096) -> dict:
+    """A 4,096-series cut of the ssf traffic three ways on the CPU (the
+    Python UDP rung, framed over a UNIX socket, the native lane): the
+    rows must be identical (the indicator timer is a float32 on the
+    first two and a double on the third, but the digest stages float32,
+    so the rows agree). Then the native lane and the UNIX stream on
+    ``dev``: non-percentile rows exact, percentiles within 1e-4 x
+    (max - min) of the CPU's, as the kernels agree with their plain
+    versions. Returns the record."""
+    import torch
+
+    t = _ssf_traffic(rows, 64, 16, 8)
+    cpu = torch.device("cpu")
+    ways = {w: _ssf_rows(cpu, t, w) for w in ("python", "unix", "native")}
+    if not ways["python"] == ways["unix"] == ways["native"]:
+        raise AssertionError("the SSF rungs emit differently on the CPU")
+    want = ways["native"]
+    err = 0.0
+    for way in ("native", "unix"):
+        got = _ssf_rows(dev, t, way)
+        if set(got) != set(want):
+            raise AssertionError(f"the {way} twin on the card emits other "
+                                 "rows")
+        for key, (v, msg, host) in want.items():
+            gv, gmsg, ghost = got[key]
+            name = key[0]
+            if not name.endswith("percentile"):
+                if (gv, gmsg, ghost) != (v, msg, host):
+                    raise AssertionError(f"{way} twin: {key} {got[key]} "
+                                         f"vs {want[key]}")
+                continue
+            base = name.rsplit(".", 1)[0]
+            lo = want[(f"{base}.min", key[1], "gauge")][0]
+            hi = want[(f"{base}.max", key[1], "gauge")][0]
+            err = max(err, abs(gv - v) / max(hi - lo, 1e-30))
+    if err > 1e-4:
+        raise AssertionError(f"SSF twin percentiles off by {err:.3g} of "
+                             "the span")
+    return {"cpu_twin_rows": rows, "cpu_twin_spans": t["spans"],
+            "cpu_twin_emissions": len(want),
+            "cuda_twin_pct_err_of_span": err}
+
+
+def phase_ssf(dev, card: str) -> dict:
+    """SSF at full width (run_ssf), then the 4,096-series twin
+    (ssf_twin). Returns the launch counts of the main path."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    t = _ssf_traffic(SSF_SERIES, SSF_SCALARS, SSF_STATUS, SSF_RAWS)
+    rec = {"traffic_build_s": time.perf_counter() - t0}
+    _check_ssf_codec(t)
+    workdir = Path(__file__).resolve().parent / "build" / "ssf_smoke"
+    sock_dir = Path(tempfile.mkdtemp(prefix="vssf"))
+    try:
+        run, counts = run_ssf(dev, t, workdir, str(sock_dir / "ssf.sock"))
+    finally:
+        (sock_dir / "ssf.sock").unlink(missing_ok=True)
+        sock_dir.rmdir()
+    rec.update(run)
+    del t
+    rec.update(ssf_twin(dev))
+    rec["phase_s"] = time.perf_counter() - t0
+    emit({"phase": "ssf", "card": card, **rec})
+    return counts
+
+
 def _ptxas_summary(logs) -> list:
     """Registers, spills and shared memory of every kernel instance, from
     nvcc's -Xptxas -v output: warp<half,sort_b,drain> / block<...>."""
@@ -1911,6 +2543,7 @@ def main() -> int:
     launches = phase_store(dev, rows=STORE_ROWS)
     phase_server(dev)
     for counts in (phase_ingest(dev, card),
+                   phase_ssf(dev, card),
                    phase_global_merge(dev, card),
                    phase_server_global(dev, card)):
         for key, n in counts.items():

@@ -308,6 +308,26 @@ def test_ingest_lane_on_cuda_matches_cpu(cuda):
     assert rec["cpu_twin_max_abs_err"] <= 1e-4
 
 
+def test_ssf_server_on_cuda_matches_cpu(cuda):
+    """A 4,096-series cut of chip_smoke.py's SSF traffic (16 samples a
+    span, every span an indicator span, STATUS samples on the slow lane,
+    events and service checks over statsd): the Python UDP rung, the
+    UNIX stream and the native lane emit identical rows on the CPU, and
+    the native lane and the UNIX stream into a Server on the card agree
+    with them, percentiles within 1e-4 x (max - min) (chip_smoke.ssf_twin
+    raises otherwise). K2 and K1 run on the card."""
+    import chip_smoke
+
+    k1, k2 = tc.drain_quantile.launches, tc.compress_presorted.launches
+    rec = chip_smoke.ssf_twin(cuda)
+    assert tc.compress_presorted.launches > k2
+    assert tc.drain_quantile.launches > k1
+    assert rec["cuda_twin_pct_err_of_span"] <= 1e-4
+    # histograms and 128 timers x 6 rows, counters, gauges, sets,
+    # status rows (SSF STATUS samples and service checks)
+    assert rec["cpu_twin_emissions"] == (4096 + 128) * 6 + 3 * 64 + 16 + 8
+
+
 @pytest.mark.parametrize("lanes,rung", [(0, "lanes"), (-1, "native")])
 def test_cli_server_listener_on_cuda(cuda, tmp_path, lanes, rung):
     """``python -m veneur_tpu_torch.cli.server -f config.yaml`` on the

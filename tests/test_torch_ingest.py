@@ -191,12 +191,18 @@ def test_process_batch_matches_jax_and_per_line(gxx, monkeypatch):
 
 
 def test_process_batch_heavy_hitters_are_not_ported(gxx):
+    """Heavy-hitter records are counted ``not_ported``; events and service
+    checks come back raw, and the service check then flushes as a status
+    row through process_metric."""
     store = tstore.MetricStore(device="cpu")
     pb = tnative.parse_lines(b"top:a|s|#veneurtopk\ntop:b|s|#veneurtopk\n"
-                             b"s:a|s\n_e{1,1}:a|b")
-    assert store.process_batch(pb) == [b"_e{1,1}:a|b"]
+                             b"s:a|s\n_e{1,1}:a|b\n_sc|chk|1")
+    assert store.process_batch(pb) == [b"_e{1,1}:a|b", b"_sc|chk|1"]
     assert store.not_ported == 2 and store.processed == 1
-    assert [m.name for m in _flush_port(store)] == ["s"]
+    assert tparser.parse_event(b"_e{1,1}:a|b").name == "a"
+    store.process_metric(tparser.parse_service_check(b"_sc|chk|1"))
+    assert sorted((m.name, m.type.value) for m in _flush_port(store)) == [
+        ("chk", "status"), ("s", "gauge")]
 
 
 # ---------------------------------------------------------------------------
@@ -289,12 +295,21 @@ def test_fleet_over_udp_conserves_counts(gxx, lanes):
     assert len(raws) == t["merged_raws"] == 20
     assert store.not_ported == 7
     assert store.processed == t["merged"] - 7
+    # the raw lines are the events and service checks, which a Server
+    # routes to its event worker and to the status group
+    events = [tparser.parse_event(r) for r in raws if r.startswith(b"_e{")]
+    for r in raws:
+        if r.startswith(b"_sc"):
+            store.process_metric(tparser.parse_service_check(r))
+    assert [(e.name, e.message) for e in events] == [("title", "text")] * 10
     if lanes > 1:
         assert sum(lane.packets > 0 for lane in fleet.lanes) > 1
     fm = flush_map(store)
     for name, total in counters.items():
         assert fm[name].value == total, name
     assert "top" not in fm and "bad.c" not in fm and "bad.h" not in fm
+    assert (fm["svc.check"].type.value, fm["svc.check"].value) == (
+        "status", 0.0)
     assert {n.split(".")[1] for n in fm if n.startswith("w.")} == {
         "c", "h", "t", "s", "g"}
 
@@ -384,7 +399,7 @@ def test_all_kinds_flow_through_merge(gxx, use_native):
     assert lane.using_native is (use_native is None)
     _stage(lane, [b"c:3|c", b"g:2.5|g", b"h:1.5|h", b"t:12|ms",
                   b"s:member|s|#veneurlocalonly", b"gc:4|c|#veneurglobalonly",
-                  b"top:a|s|#veneurtopk"])
+                  b"top:a|s|#veneurtopk", b"_sc|chk|0"])
     lane._seal()
     fleet.merge_sealed()
     final, fwd = store.flush([0.5], HistogramAggregates(), 0,
@@ -397,6 +412,8 @@ def test_all_kinds_flow_through_merge(gxx, use_native):
     assert any(m.name.startswith("t.") for m in final)
     assert fwd.counters == [("gc", [], 4)]
     assert store.not_ported == 1
+    # the service check is handed back raw (no raw_handler here)
+    assert fleet.unrouted_raws == [b"_sc|chk|0"]
     fleet.shutdown()
 
 

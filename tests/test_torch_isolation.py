@@ -1,12 +1,14 @@
 """The port stands alone: veneur_tpu_torch and the scripts beside it
 (chip_smoke.py, chip_stages.py) import neither jax nor anything of
-veneur_tpu, and open no path under veneur_tpu/ (the port builds and
-loads its own native library).
+veneur_tpu, nor protobuf or grpc (the card's machine has neither: the
+port decodes SSF with its own codec), and open no path under veneur_tpu/
+(the port builds and loads its own native library).
 
 An AST scan covers every import statement and every string that is not
-a docstring; a subprocess with ``jax`` and ``veneur_tpu`` blocked from
-import then imports every module of the port and both scripts, so an
-import hidden behind a string or a call would fail there too.
+a docstring; a subprocess with ``jax``, ``veneur_tpu``,
+``google.protobuf`` and ``grpc`` blocked from import then imports every
+module of the port and both scripts, so an import hidden behind a string
+or a call would fail there too.
 """
 
 import ast
@@ -18,7 +20,7 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "veneur_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "veneur_tpu")
+FORBIDDEN = ("jax", "jaxlib", "veneur_tpu", "google.protobuf", "grpc")
 SCRIPTS = ("chip_smoke", "chip_stages")
 
 
@@ -38,7 +40,7 @@ def _modules():
 
 
 def _forbidden(name: str) -> bool:
-    return name.split(".")[0] in FORBIDDEN
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
 def test_no_jax_or_reference_imports():
@@ -50,8 +52,10 @@ def test_no_jax_or_reference_imports():
                 bad += [(path.name, a.name) for a in node.names
                         if _forbidden(a.name)]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                if _forbidden(node.module or ""):
-                    bad.append((path.name, node.module))
+                mod = node.module or ""
+                if _forbidden(mod) or any(_forbidden(f"{mod}.{a.name}")
+                                          for a in node.names):
+                    bad.append((path.name, mod))
     assert not bad, bad
     assert len(_sources()) > 20
 
@@ -86,13 +90,16 @@ def test_ingest_modules_are_covered():
     assert {"veneur_tpu_torch.native", "veneur_tpu_torch.ingest",
             "veneur_tpu_torch.ingest.lanes", "veneur_tpu_torch.ingest.counters",
             "veneur_tpu_torch.ingest.recvmmsg"} <= set(_modules())
+    assert {"veneur_tpu_torch.protocol.ssf", "veneur_tpu_torch.protocol.wire",
+            "veneur_tpu_torch.sinks.ssfmetrics"} <= set(_modules())
 
 
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"
         "for name in list(sys.modules):\n"
-        "    if name.split('.')[0] in {blocked!r}:\n"
+        "    if any(name == b or name.startswith(b + '.')\n"
+        "           for b in {blocked!r}):\n"
         "        del sys.modules[name]\n"
         "for name in {blocked!r}:\n"
         "    sys.modules[name] = None\n"

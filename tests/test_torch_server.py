@@ -7,8 +7,10 @@ bounds of tests/test_torch_store.py: counters, gauges and histogram
 count/min/max exact; sum rtol 1e-6; set estimates rtol 1e-6 (one float32
 ulp of the log); percentiles within 0.02 x (max - min).
 
-Also: the configuration refuses what the slice does not implement, and
-unported or malformed lines are counted, never silently dropped.
+Also: the configuration refuses what the slice does not implement;
+events reach the event worker and service checks the status group;
+unported (heavy-hitter) or malformed lines are counted, never silently
+dropped.
 """
 
 import socket
@@ -107,9 +109,13 @@ def test_rejected_lines_are_counted():
     server = Server(Config(hostname="test"), device="cpu")
     server.handle_packet(b"a:1|c\n_e{1,1}:t|x\n_sc|svc|0\nbad\nn:nan|h\n"
                          b"top:a|s|#veneurtopk\n")
-    assert server.store.processed == 1
+    # the counter and the service check reach the store, the event the
+    # event worker; only the heavy-hitter set is not ported
+    assert server.store.processed == 2
+    assert len(server.store.local_status_checks) == 1
+    assert [e.name for e in server.event_worker.flush()] == ["t"]
     assert (server.not_ported, server.packet_errors,
-            server.quarantined) == (3, 1, 1)
+            server.quarantined) == (1, 1, 1)
 
 
 def test_config_is_loud_about_unported_keys(tmp_path):
@@ -122,7 +128,9 @@ def test_config_is_loud_about_unported_keys(tmp_path):
     with pytest.raises(UnsupportedConfig, match="mesh_enabled"):
         config_from_dict({"mesh_enabled": True})
     with pytest.raises(UnsupportedConfig, match="ssf_listen_addresses"):
-        config_from_dict({"ssf_listen_addresses": ["udp://127.0.0.1:1"]})
+        config_from_dict({"ssf_listen_addresses": ["http://127.0.0.1:1"]})
+    with pytest.raises(UnsupportedConfig, match="debug_ingested_spans"):
+        config_from_dict({"debug_ingested_spans": True})
     with pytest.raises(UnsupportedConfig, match="udp"):
         config_from_dict({"statsd_listen_addresses": ["tcp://127.0.0.1:1"]})
     # switched-off keys pass
@@ -194,22 +202,25 @@ def _rung_run(rung, lines, extra):
         assert server.using_native is native
         assert server.using_recvmmsg is native
         _send(server.statsd_addrs[0][1], lines + extra)
-        _wait(lambda: server.store.processed >= len(lines)
-              and server.not_ported == 9
+        _wait(lambda: server.store.processed >= len(lines) + 3
+              and server.not_ported == 3
               and server.packet_errors + server.quarantined == 4)
         server.flush()
         rows = sink.get_flush(timeout=10)
+        events = sink.get_other_samples(timeout=10)
     finally:
         server.shutdown()
     return _by_key(rows), (server.not_ported,
-                           server.packet_errors + server.quarantined)
+                           server.packet_errors + server.quarantined,
+                           sorted((e.name, e.message) for e in events))
 
 
 def test_listener_rungs_flush_the_same_rows():
     """The lane fleet (the default), the C++ reader pool with
     ``ingest_lanes: -1``, and the Python readers with ``native_ingest:
-    false`` too: the same datagrams flush to identical rows, and each
-    rejected or unported line is counted once."""
+    false`` too: the same datagrams flush to identical rows (the service
+    checks as status rows), the same events reach flush_other_samples,
+    and each rejected or unported line is counted once."""
     import shutil
 
     if shutil.which("g++") is None:
@@ -220,7 +231,9 @@ def test_listener_rungs_flush_the_same_rows():
         b"bad.c:nan|c", b"bad.h:1e308|h", b"bad.r:1|c|@0", b"no_type:1"]
     out = {rung: _rung_run(rung, lines, extra) for rung in RUNGS}
     rows, counts = out["python"]
-    assert len(rows) > 500 and counts == (9, 4)
+    assert len(rows) > 500
+    assert counts == (3, 4, [("title", "text")] * 3)
+    assert rows[("svc.check", (), "status")] == 0.0
     assert out["lanes"] == (rows, counts)
     # process_batch interns a series before scrubbing its value, as the
     # JAX package's does: the rejected 1e308 histogram leaves an empty

@@ -161,13 +161,25 @@ def test_swap_generation_never_aliases():
 
 
 def test_not_ported_lines_raise():
+    """Heavy-hitter sets, from a DogStatsD line or an SSF sample, are the
+    one kind the store refuses; events and service checks now parse, and
+    a service check lands in the status group."""
+    from veneur_tpu_torch.protocol import ssf
+
     t = tstore.MetricStore(device="cpu")
     with pytest.raises(tparser.NotPortedError):
         t.process_metric(tparser.parse_metric(b"top:a|s|#veneurtopk"))
-    for line in (b"_e{1,1}:a|b", b"_sc|svc|0"):
-        with pytest.raises(tparser.NotPortedError):
-            (tparser.parse_event if line.startswith(b"_e")
-             else tparser.parse_service_check)(line)
+    topk = ssf.SSFSample(metric=ssf.SSFSample.SET, name="top", message="a",
+                         tags={"veneurtopk": ""})
+    with pytest.raises(tparser.NotPortedError):
+        t.process_metric(tparser.parse_metric_ssf(topk))
+    event = tparser.parse_event(b"_e{1,1}:a|b", now=7)
+    assert (event.name, event.message, event.timestamp) == ("a", "b", 7)
+    t.process_metric(tparser.parse_service_check(b"_sc|svc|2|m:down"))
+    assert t.processed == 1
+    final, _ = t.flush(PCTS, HistogramAggregates.from_names(AGGS), 0)
+    assert [(m.name, m.value, m.type.value, m.message) for m in final] == [
+        ("svc", 2.0, "status", "down")]
 
 
 def _jax_digest_group():
@@ -226,6 +238,52 @@ def test_convert_set_group():
     _, je, _ = g.flush(want_estimates=True, want_registers=False)
     _, pe, _ = pg.flush()
     np.testing.assert_allclose(pe, je, rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["counter", "gauge", "status"])
+def test_convert_scalar_group(kind):
+    """A JAX ScalarGroup in flight (a status group with its messages and
+    hostnames) carried into the port's: both stores flush the same rows
+    from there on."""
+    rng = np.random.default_rng(41)
+    js, ts = jstore.MetricStore(), tstore.MetricStore(device="cpu")
+    attr = {"counter": "counters", "gauge": "gauges",
+            "status": "local_status_checks"}[kind]
+    jg = getattr(js, attr)
+    for i in range(30):
+        tags = [f"k:{i % 3}"]
+        key = jparser.MetricKey(f"{kind}.{i % 11}", kind, tags[0])
+        v = float(rng.integers(0, 4) if kind == "status"
+                  else rng.normal(0, 50) if kind == "gauge"
+                  else rng.integers(1, 9))
+        with js._lock:
+            jg.sample(key, tags, v, 1.0,
+                      **({"message": f"m{i}", "hostname": f"h{i % 2}"}
+                         if kind == "status" else {}))
+    n = len(jg.interner)
+    series = [(k.name, k.type, jg.interner.tags[r])
+              for k, r in sorted(jg.interner.rows.items(),
+                                 key=lambda kv: kv[1])]
+    extra = ({"messages": jg.messages[:n], "hostnames": jg.hostnames[:n]}
+             if kind == "status" else {})
+    convert.load_scalar_group(getattr(ts, attr), jg.values[:n], series,
+                              **extra)
+    with pytest.raises(ValueError, match="empty"):
+        convert.load_scalar_group(getattr(ts, attr), jg.values[:n], series,
+                                  **extra)
+    if kind != "status":
+        with pytest.raises(ValueError, match="status"):
+            convert.load_scalar_group(tstore.ScalarGroup(kind), [1.0],
+                                      [("x", kind, [])], ["m"], ["h"])
+    want, _, _ = js.flush(PCTS, JAggs.from_names(AGGS), is_local=False,
+                          now=0, forward=False)
+    got, _ = ts.flush(PCTS, HistogramAggregates.from_names(AGGS), 0)
+    def rows(final):
+        return sorted((m.name, tuple(m.tags), m.type.value, m.value,
+                       m.message, m.hostname) for m in final)
+
+    assert rows(got) == rows(want)
+    assert len(got) == n > 5
 
 
 def test_convert_rejects_mismatched_widths():

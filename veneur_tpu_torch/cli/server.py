@@ -43,8 +43,9 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGTERM, handle_signal)
     signal.signal(signal.SIGINT, handle_signal)
     server.start()
-    log.info("Starting server: statsd listeners %s",
-             [(spec, rung) for spec, rung, _ in server.listeners])
+    log.info("Starting server: statsd listeners %s, SSF listeners %s",
+             [(spec, rung) for spec, rung, _ in server.listeners],
+             [(spec, rung) for spec, rung, _ in server.ssf_listeners])
     done.wait()
     server.shutdown()
     return 0

@@ -22,6 +22,8 @@ class UnsupportedConfig(ValueError):
 
 
 _BREAKER_THRESHOLD_DEFAULT = 5
+_SSF_SCHEMES = tuple(f"{s}://" for s in ("udp", "udp4", "udp6", "tcp",
+                                          "tcp4", "tcp6", "unix"))
 
 
 @dataclass
@@ -74,6 +76,18 @@ class Config:
     breaker_failure_threshold: int = 0
     # how long an open breaker waits before a half-open probe
     breaker_reset_timeout: str = ""
+    # SSF: udp:// (one bare SSFSpan a datagram; the C++ reader pool when
+    # native_ingest is on), unix:// and tcp:// (framed spans) listeners
+    ssf_listen_addresses: List[str] = field(default_factory=list)
+    # threads draining the span channel into the span sinks (0 = 1)
+    num_span_workers: int = 0
+    # spans (or native span batches) queued for the span workers; a full
+    # channel sheds and counts (0 = 100; negative refused)
+    span_channel_capacity: int = 0
+    # the largest SSF datagram read (0 = 16 KiB)
+    trace_max_length_bytes: int = 0
+    # name of the duration timer an indicator span yields ("" = none)
+    indicator_span_timer_name: str = ""
 
     def __post_init__(self):
         if not self.aggregates:
@@ -90,6 +104,22 @@ class Config:
             raise UnsupportedConfig(
                 "only HTTP forwarding is ported: forward_use_grpc and "
                 "native:// forward addresses need veneur_tpu")
+        for spec in self.ssf_listen_addresses:
+            if not spec.startswith(_SSF_SCHEMES):
+                raise UnsupportedConfig(
+                    f"ssf_listen_addresses: {spec!r} is not a udp://, "
+                    "tcp:// or unix:// address")
+        if self.span_channel_capacity < 0:
+            # queue.Queue treats maxsize <= 0 as unbounded, which would
+            # defeat span shedding; 0 takes the default
+            raise ValueError(
+                f"span_channel_capacity must be positive (0 = use the "
+                f"default, 100; a queue.Queue maxsize <= 0 is unbounded "
+                f"and defeats span shedding), got "
+                f"{self.span_channel_capacity}")
+        self.span_channel_capacity = self.span_channel_capacity or 100
+        self.num_span_workers = self.num_span_workers or 1
+        self.trace_max_length_bytes = self.trace_max_length_bytes or 16384
         if self.ingest_lanes < -1:
             raise ValueError(
                 f"ingest_lanes must be -1 (disabled), 0 (auto: one lane "

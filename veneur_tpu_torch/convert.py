@@ -4,8 +4,10 @@ The JAX package's device state, fetched to the host as numpy arrays
 (``jax.device_get``), becomes the port's tensors: the t-digest planes,
 the temp bin planes and the HLL registers. :func:`load_digest_group` and
 :func:`load_set_group` fill a port group from a JAX group's planes plus
-its interner order, so an interval in flight on one package can flush on
-the other: the counterpart of loading weights for this system.
+its interner order, and :func:`load_scalar_group` a counter, gauge or
+status group from its values (a status group also from its messages and
+hostnames), so an interval in flight on one package can flush on the
+other: the counterpart of loading weights for this system.
 
 Nothing here imports the JAX package: callers hand over plain arrays and
 (name, type, tags) triples.
@@ -13,7 +15,7 @@ Nothing here imports the JAX package: callers hand over plain arrays and
 
 from __future__ import annotations
 
-from typing import Iterable, Mapping, Sequence, Tuple
+from typing import Iterable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +67,27 @@ def _intern_all(group, series: Iterable[Series]) -> int:
                              "empty")
         n = row + 1
     return n
+
+
+def load_scalar_group(group, values: np.ndarray, series: Iterable[Series],
+                      messages: Optional[Sequence[str]] = None,
+                      hostnames: Optional[Sequence[str]] = None) -> None:
+    """Fill an empty port ``ScalarGroup`` (counter, gauge or status) from
+    a JAX ScalarGroup's values in its row order, plus ``series`` in that
+    order; a status group also takes the rows' messages and hostnames,
+    and only a status group does."""
+    if len(group):
+        raise ValueError("load_scalar_group needs an empty group")
+    status = group.kind == "status"
+    if (messages is not None, hostnames is not None) != (status, status):
+        raise ValueError("messages and hostnames go with a status group, "
+                         "and only with one")
+    n = _intern_all(group, series)
+    group.ensure_capacity(max(n - 1, 0))
+    group.values[:n] = np.asarray(values)[:n].astype(group.values.dtype)
+    if status:
+        group.messages[:] = [str(m) for m in messages[:n]]
+        group.hostnames[:] = [str(h) for h in hostnames[:n]]
 
 
 def load_digest_group(group, planes: Mapping[str, np.ndarray],

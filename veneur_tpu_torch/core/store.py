@@ -10,6 +10,7 @@ Every scope-class is one dense group:
     global_counters        host   int64  [S]
     gauges                 host   float64[S]   (last-write-wins)
     global_gauges          host   float64[S]
+    local_status_checks    host   float64[S] + message/hostname strings
     histograms             device t-digest [S, K] + temp bins [S, K]
     timers                 device t-digest [S, K] + temp bins [S, K]
     local_histograms       device t-digest [S, K] + temp bins [S, K]
@@ -31,9 +32,9 @@ local's flush (``is_local=True``) returns the sketch state it forwards
 (:class:`ForwardableState`), and a global merges forwarded state through
 the ``import_*`` methods, where imported centroids re-enter the binning
 as weighted samples (a shift between imported digests drains the bins
-through the K2 kernel). Status checks, heavy hitters, snapshots,
-overload control and columnar egress are not ported yet, and a kernel
-error propagates (there is no fallback rung).
+through the K2 kernel). Heavy hitters, snapshots, overload control and
+columnar egress are not ported yet, and a kernel error propagates (there
+is no fallback rung).
 
 Device state is updated in place where the JAX package donates buffers;
 a flush swaps every group for a fresh twin with freshly allocated
@@ -67,6 +68,7 @@ from veneur_tpu_torch.samplers.parser import (
     GLOBAL_ONLY,
     LOCAL_ONLY,
     MIN_SAMPLE_RATE,
+    TOPK_SCOPE,
     MetricKey,
     NotPortedError,
     UDPMetric,
@@ -210,20 +212,24 @@ class _Rejecting:
 
 
 class ScalarGroup(_Rejecting):
-    """Counters / gauges: host numpy state.
+    """Counters / gauges / status checks: host numpy state.
 
-    kind: "counter" (int64 accumulate, samplers.go:141-143) or "gauge"
-    (float64 last-write, samplers.go:225-227). Samples the typed lane
-    cannot hold are rejected (``_Rejecting``)."""
+    kind: "counter" (int64 accumulate, samplers.go:141-143), "gauge"
+    (float64 last-write, samplers.go:225-227) or "status" (a gauge plus
+    the last message and hostname, samplers.go:307-313). Samples the
+    typed lane cannot hold are rejected (``_Rejecting``)."""
 
     def __init__(self, kind: str, capacity: int = DEFAULT_INITIAL_CAPACITY):
-        if kind not in ("counter", "gauge"):
+        if kind not in ("counter", "gauge", "status"):
             raise ValueError(f"unknown scalar kind {kind!r}")
         self.kind = kind
         self.interner = Interner()
         self.capacity = capacity
         self.values = np.zeros(capacity, np.int64 if kind == "counter"
                                else np.float64)
+        self.messages: Optional[List[str]] = [] if kind == "status" else None
+        self.hostnames: Optional[List[str]] = ([] if kind == "status"
+                                              else None)
 
     def __len__(self):
         return len(self.interner)
@@ -235,10 +241,13 @@ class ScalarGroup(_Rejecting):
             self.values = np.concatenate(
                 [self.values, np.zeros(self.capacity - len(self.values),
                                        self.values.dtype)])
+        if self.messages is not None and row >= len(self.messages):
+            self.messages.append("")
+            self.hostnames.append("")
         return row
 
     def sample(self, key: MetricKey, tags: List[str], value: float,
-               sample_rate: float):
+               sample_rate: float, message: str = "", hostname: str = ""):
         if not math.isfinite(value):
             self._reject("not_finite")
             return
@@ -258,6 +267,9 @@ class ScalarGroup(_Rejecting):
         else:
             row = self._row(key, tags)
             self.values[row] = value
+            if self.messages is not None:
+                self.messages[row] = message
+                self.hostnames[row] = hostname
 
     def ensure_capacity(self, max_row: int):
         """Grow so max_row is addressable (bulk paths bypass _row)."""
@@ -297,11 +309,16 @@ class ScalarGroup(_Rejecting):
             self.values[row] = value
 
     def snapshot_and_reset(self):
+        """(interner, values, messages, hostnames) of the interval, the
+        group left empty; messages/hostnames are None but for status."""
         n = len(self.interner)
         interner, self.interner = self.interner, Interner()
         values = self.values[:n].copy()
         self.values[:] = 0
-        return interner, values
+        messages, hostnames = self.messages, self.hostnames
+        if messages is not None:
+            self.messages, self.hostnames = [], []
+        return interner, values, messages, hostnames
 
     def fresh(self) -> "ScalarGroup":
         """Empty same-config twin (swap-on-flush generation swap)."""
@@ -1054,8 +1071,9 @@ class _Generation:
     """The retired group set a flush drains off-lock (swap-on-flush)."""
 
     __slots__ = ("counters", "global_counters", "gauges", "global_gauges",
-                 "histograms", "timers", "local_histograms", "local_timers",
-                 "sets", "local_sets", "processed", "imported")
+                 "local_status_checks", "histograms", "timers",
+                 "local_histograms", "local_timers", "sets", "local_sets",
+                 "processed", "imported")
 
 
 class MetricStore:
@@ -1063,8 +1081,8 @@ class MetricStore:
 
     # every group swapped per flush, in flush order
     _GEN_GROUPS = ("counters", "global_counters", "gauges", "global_gauges",
-                   "histograms", "timers", "local_histograms",
-                   "local_timers", "sets", "local_sets")
+                   "local_status_checks", "histograms", "timers",
+                   "local_histograms", "local_timers", "sets", "local_sets")
 
     def __init__(self, initial_capacity: int = DEFAULT_INITIAL_CAPACITY,
                  chunk: int = DEFAULT_CHUNK,
@@ -1083,6 +1101,7 @@ class MetricStore:
         self.global_counters = ScalarGroup("counter", initial_capacity)
         self.gauges = ScalarGroup("gauge", initial_capacity)
         self.global_gauges = ScalarGroup("gauge", initial_capacity)
+        self.local_status_checks = ScalarGroup("status", initial_capacity)
         for name in _DIGEST_GROUPS:
             setattr(self, name, DigestGroup(initial_capacity, chunk,
                                             compression, self.device))
@@ -1129,12 +1148,18 @@ class MetricStore:
                          else self.timers)
                 group.sample(m.key, m.tags, m.value, m.sample_rate)
             elif t == "set":
-                if "veneurtopk" in m.tags:
+                # the bare tag from DogStatsD, the scope from SSF (whose
+                # "k:v" tags never hold the bare string)
+                if "veneurtopk" in m.tags or m.scope == TOPK_SCOPE:
                     raise NotPortedError("heavy-hitter (veneurtopk) sets "
                                          "are not ported yet")
                 group = (self.local_sets if m.scope == LOCAL_ONLY
                          else self.sets)
                 group.sample(m.key, m.tags, str(m.value))
+            elif t == "status":
+                self.local_status_checks.sample(
+                    m.key, m.tags, float(m.value), m.sample_rate,
+                    message=m.message, hostname=m.hostname)
             else:
                 raise NotPortedError(f"metric type {t!r} is not ported yet")
             self.processed += 1
@@ -1503,6 +1528,8 @@ class MetricStore:
                          self._emit_set_result(res, out, now, fwd_list)))
         for fin, emit in plan:
             emit(fin())
+        # status checks are always local
+        self._flush_status(g.local_status_checks, final, now)
         # global counters/gauges: forwarded by locals, flushed by globals
         if not is_local:
             self._flush_scalars(g.global_counters, MetricType.COUNTER, final,
@@ -1512,7 +1539,7 @@ class MetricStore:
         else:
             for group, out, cast in ((g.global_counters, fwd.counters, int),
                                      (g.global_gauges, fwd.gauges, float)):
-                interner, values = group.snapshot_and_reset()
+                interner, values, _, _ = group.snapshot_and_reset()
                 if forward:
                     out.extend((key.name, interner.tags[row],
                                 cast(values[row]))
@@ -1521,12 +1548,22 @@ class MetricStore:
 
     def _flush_scalars(self, group: ScalarGroup, mtype: MetricType,
                        out: List[InterMetric], now: int):
-        interner, values = group.snapshot_and_reset()
+        interner, values, _, _ = group.snapshot_and_reset()
         for key, row in interner.rows.items():
             tags = interner.tags[row]
             out.append(InterMetric(
                 name=key.name, timestamp=now, value=float(values[row]),
                 tags=tags, type=mtype, sinks=route_info(tags)))
+
+    def _flush_status(self, group: ScalarGroup, out: List[InterMetric],
+                      now: int):
+        interner, values, messages, hostnames = group.snapshot_and_reset()
+        for key, row in interner.rows.items():
+            tags = interner.tags[row]
+            out.append(InterMetric(
+                name=key.name, timestamp=now, value=float(values[row]),
+                tags=tags, type=MetricType.STATUS, message=messages[row],
+                hostname=hostnames[row], sinks=route_info(tags)))
 
     def _emit_digest_result(self, res, percentiles: List[float],
                             aggregates: HistogramAggregates,

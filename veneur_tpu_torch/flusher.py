@@ -1,11 +1,14 @@
-"""One interval's flush: drain the store, forward, hand the rows to sinks.
+"""One interval's flush: events, span sinks, the store, forward, sinks.
 
 Port of ``veneur_tpu/flusher.py``'s ``flush_once`` for the non-columnar
-path (flusher.go:26-132): the store drains into InterMetrics and, on a
-local, the ForwardableState it forwards; the forward runs on its own
-thread off the flush path (flusher.go:66-75) while each metric sink gets
-the batch it accepts, one sink after another. Span sinks, streaming
-egress and self-telemetry are not ported yet.
+path (flusher.go:26-132): the interval's events go to every metric
+sink's ``flush_other_samples`` (flusher.go:42-47); the span sinks flush
+on a thread of their own (flusher.go:49), each sink once; the store
+drains into InterMetrics and, on a local, the ForwardableState it
+forwards; the forward runs on its own thread off the flush path
+(flusher.go:66-75) while each metric sink gets the batch it accepts, one
+sink after another. Streaming egress and self-telemetry are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -29,6 +32,13 @@ def flush_once(server: "Server") -> int:
     that raises is logged and the remaining sinks still flush; a store
     (kernel) failure propagates."""
     now = int(time.time())
+    samples = server.event_worker.flush()
+    for sink in server.metric_sinks:
+        try:
+            sink.flush_other_samples(samples)
+        except Exception:
+            log.exception("sink %s flush_other_samples failed", sink.name)
+    _start_span_flush(server)
     is_local = server.is_local()
     forwarding = is_local and server.forward_fn is not None
     t0 = time.perf_counter()
@@ -56,6 +66,26 @@ def flush_once(server: "Server") -> int:
     server.last_flush_time = time.time()
     server.last_flush_ok = True
     return len(final)
+
+
+def _start_span_flush(server: "Server") -> None:
+    """Flush the span sinks on a thread of their own. A wedged lane can
+    hold its barrier for 9 s, so with a short interval the previous span
+    flush may still run: then this interval's is skipped and counted in
+    ``server.span_flush_skipped``, never stacked onto the same sinks."""
+    if not server._span_workers:
+        return  # not started: no span lanes
+    previous = server.span_flush_thread
+    if previous is not None and previous.is_alive():
+        server._count("span_flush_skipped")
+        log.warning("previous span flush still running; skipping this "
+                    "interval's span flush")
+        return
+    # the lanes are shared between workers: flush each sink once
+    thread = threading.Thread(target=server._span_workers[0].flush,
+                              name="span-flush", daemon=True)
+    server.span_flush_thread = thread
+    thread.start()
 
 
 def _forward(server: "Server", state, deadline: Deadline):

@@ -26,6 +26,7 @@ ported yet; the backlog cap is.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import logging
 import threading
 import time
@@ -555,7 +556,6 @@ class IngestFleet:
                  use_native: Optional[bool] = None,
                  intern_limit: int = 1 << 20):
         from veneur_tpu_torch import networking
-        from veneur_tpu_torch.protocol.addr import ResolvedAddr
 
         self._store = store
         self._stop = stop if stop is not None else threading.Event()
@@ -575,8 +575,8 @@ class IngestFleet:
                 self.bound.append(sock.getsockname())
                 if addr.port == 0:
                     # later lanes share the port the first one got
-                    addr = ResolvedAddr(scheme=addr.scheme, host=addr.host,
-                                        port=sock.getsockname()[1])
+                    addr = dataclasses.replace(
+                        addr, port=sock.getsockname()[1])
                 try:
                     lane = IngestLane(
                         i, sock, max_len, chunk_records, self._stop,

@@ -1,9 +1,9 @@
-"""ctypes bindings for the native (C++) DogStatsD ingest library.
+"""ctypes bindings for the native (C++) DogStatsD and SSF ingest library.
 
-Port of the statsd half of ``veneur_tpu/native/__init__.py``.
+Port of the statsd and SSF halves of ``veneur_tpu/native/__init__.py``.
 ``veneur_ingest.cpp`` beside this file is a byte-for-byte copy of the
-JAX package's source; its SSF (``vs_*``) and TLS (``vt_tls_*``) halves
-compile into the library but are not bound here yet. At first use the
+JAX package's source; its TLS (``vt_tls_*``) half compiles into the
+library but is not bound here yet. At first use the
 source builds with g++ into ``build/native/libveneur_ingest-<hash>.so``
 at the repository root, the hash covering the source and the flags, so
 an edited source never loads a stale build; nothing is written beside
@@ -15,7 +15,14 @@ the source. Exposes:
 - :class:`InternTable`: the C++ (kind, name, tags) -> row memo table;
 - :class:`NativeUDPReader`: the SO_REUSEPORT reader pool, N sockets
   drained with recvmmsg on C++ threads, handing Python parsed batches
-  through double-buffer swaps.
+  through double-buffer swaps;
+- ``decode_spans(datagrams)`` and :class:`NativeSSFReader`: SSFSpan
+  datagrams decoded in C++ (the reader pool's threads, off the GIL) into
+  a :class:`SpanBatch`: span headers, the embedded samples as an
+  ordinary :class:`ParsedBatch` for ``MetricStore.process_batch``, and
+  the raw bytes of slow-lane samples (STATUS, undecodable). Spans reach
+  the span sinks as :class:`LazySpan` facades, which decode the rest of
+  a span with the port's own codec (``protocol/ssf.py``) on first touch.
 
 ``available()`` gates all of it: without a compiler the caller falls
 back to the pure-Python parser, and says so.
@@ -71,6 +78,39 @@ class _VtBatch(ctypes.Structure):
         ("aux_off", ctypes.POINTER(ctypes.c_uint32)),
         ("aux_len", ctypes.POINTER(ctypes.c_uint32)),
         ("arena", ctypes.POINTER(ctypes.c_char)),
+    ]
+
+
+class _VsBatch(ctypes.Structure):
+    """Mirror of ``struct VsBatch`` (veneur_ingest.cpp), field for field."""
+
+    _fields_ = [
+        ("capacity", ctypes.c_uint32),
+        ("count", ctypes.c_uint32),
+        ("arena_cap", ctypes.c_uint32),
+        ("arena_len", ctypes.c_uint32),
+        ("decode_errors", ctypes.c_uint64),
+        ("invalid_samples", ctypes.c_uint64),
+        ("version", ctypes.POINTER(ctypes.c_int32)),
+        ("trace_id", ctypes.POINTER(ctypes.c_int64)),
+        ("span_id", ctypes.POINTER(ctypes.c_int64)),
+        ("parent_id", ctypes.POINTER(ctypes.c_int64)),
+        ("start_ns", ctypes.POINTER(ctypes.c_int64)),
+        ("end_ns", ctypes.POINTER(ctypes.c_int64)),
+        ("error", ctypes.POINTER(ctypes.c_uint8)),
+        ("indicator", ctypes.POINTER(ctypes.c_uint8)),
+        ("service_off", ctypes.POINTER(ctypes.c_uint32)),
+        ("service_len", ctypes.POINTER(ctypes.c_uint32)),
+        ("name_off", ctypes.POINTER(ctypes.c_uint32)),
+        ("name_len", ctypes.POINTER(ctypes.c_uint32)),
+        ("raw_off", ctypes.POINTER(ctypes.c_uint32)),
+        ("raw_len", ctypes.POINTER(ctypes.c_uint32)),
+        ("arena", ctypes.POINTER(ctypes.c_char)),
+        ("metrics", ctypes.POINTER(_VtBatch)),
+        ("slow_cap", ctypes.c_uint32),
+        ("slow_count", ctypes.c_uint32),
+        ("slow_off", ctypes.POINTER(ctypes.c_uint32)),
+        ("slow_len", ctypes.POINTER(ctypes.c_uint32)),
     ]
 
 
@@ -157,6 +197,30 @@ def _bind(lib):
         ctypes.c_void_p, ctypes.POINTER(_VtBatch),
         ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint8),
         ctypes.POINTER(ctypes.c_uint32)]
+    lib.vs_batch_new.restype = ctypes.POINTER(_VsBatch)
+    lib.vs_batch_new.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
+                                 ctypes.c_uint32, ctypes.c_uint32]
+    lib.vs_batch_free.argtypes = [ctypes.POINTER(_VsBatch)]
+    lib.vs_decode_span.restype = ctypes.c_int
+    lib.vs_decode_span.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(_VsBatch),
+        ctypes.c_char_p, ctypes.c_uint32]
+    lib.vs_reader_start.restype = ctypes.c_void_p
+    lib.vs_reader_start.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+        ctypes.c_uint32, ctypes.c_int, ctypes.c_char_p]
+    lib.vs_reader_port.restype = ctypes.c_int
+    lib.vs_reader_port.argtypes = [ctypes.c_void_p]
+    lib.vs_reader_count.restype = ctypes.c_int
+    lib.vs_reader_count.argtypes = [ctypes.c_void_p]
+    lib.vs_reader_swap.restype = ctypes.POINTER(_VsBatch)
+    lib.vs_reader_swap.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.vs_reader_packets.restype = ctypes.c_uint64
+    lib.vs_reader_packets.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.vs_reader_drops.restype = ctypes.c_uint64
+    lib.vs_reader_drops.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.vs_reader_stop.argtypes = [ctypes.c_void_p]
     return lib
 
 
@@ -328,6 +392,198 @@ class NativeUDPReader:
         """Abandon the pool WITHOUT freeing it (disarms stop() and the
         finalizer): for a shutdown where a pump thread may still read its
         batches, a bounded leak at exit beats a use-after-free."""
+        self._handle = None
+
+    def __del__(self):
+        try:
+            self.stop()
+        except Exception:
+            pass
+
+
+class LazySpan:
+    """A decoded SSF span: the hot header fields preloaded from the C++
+    span batch; the rest (tags, embedded metrics, version) decoded from
+    the raw bytes on first touch with the port's codec, so span sinks
+    that never read them never pay a Python decode.
+    ``metrics_extracted`` tells the metric-extraction sink that the C++
+    lane converted the embedded samples already."""
+
+    __slots__ = ("trace_id", "id", "parent_id", "start_timestamp",
+                 "end_timestamp", "error", "indicator", "service",
+                 "name", "metrics_extracted", "_raw", "_pb")
+
+    def __init__(self, trace_id, id, parent_id, start_timestamp,
+                 end_timestamp, error, indicator, service, name, raw):
+        self.trace_id = trace_id
+        self.id = id
+        self.parent_id = parent_id
+        self.start_timestamp = start_timestamp
+        self.end_timestamp = end_timestamp
+        self.error = error
+        self.indicator = indicator
+        self.service = service
+        self.name = name
+        self.metrics_extracted = True
+        self._raw = raw
+        self._pb = None
+
+    @property
+    def pb(self):
+        """The whole span, decoded (``protocol.ssf.SSFSpan``)."""
+        if self._pb is None:
+            from veneur_tpu_torch.protocol import ssf
+
+            self._pb = ssf.decode_span(self._raw)
+        return self._pb
+
+    def SerializeToString(self):  # noqa: N802 - protobuf's name
+        return self._raw
+
+    def __getattr__(self, item):
+        # only names outside __slots__ get here: the cold fields
+        if item.startswith("_"):
+            raise AttributeError(item)
+        return getattr(self.pb, item)
+
+
+class SpanBatch:
+    """numpy/bytes copies of a VsBatch (safe after the C++ batch is
+    reused): span headers, the embedded samples as a ParsedBatch (ready
+    for MetricStore.process_batch), and the raw bytes of slow-lane
+    samples (STATUS, undecodable) for the Python parser."""
+
+    __slots__ = ("count", "decode_errors", "invalid_samples",
+                 "metrics", "slow_samples", "trace_id", "span_id",
+                 "parent_id", "start_ns", "end_ns", "error", "indicator",
+                 "service_off", "service_len", "name_off", "name_len",
+                 "raw_off", "raw_len", "arena")
+
+    def __init__(self, b: _VsBatch):
+        n = b.count
+        self.count = n
+        self.decode_errors = b.decode_errors
+        self.invalid_samples = b.invalid_samples
+
+        def arr(ptr, dtype):
+            if n == 0:
+                return np.empty(0, dtype)
+            return np.ctypeslib.as_array(ptr, shape=(n,)).astype(
+                dtype, copy=True)
+
+        self.trace_id = arr(b.trace_id, np.int64)
+        self.span_id = arr(b.span_id, np.int64)
+        self.parent_id = arr(b.parent_id, np.int64)
+        self.start_ns = arr(b.start_ns, np.int64)
+        self.end_ns = arr(b.end_ns, np.int64)
+        self.error = arr(b.error, np.uint8)
+        self.indicator = arr(b.indicator, np.uint8)
+        self.service_off = arr(b.service_off, np.uint32)
+        self.service_len = arr(b.service_len, np.uint32)
+        self.name_off = arr(b.name_off, np.uint32)
+        self.name_len = arr(b.name_len, np.uint32)
+        self.raw_off = arr(b.raw_off, np.uint32)
+        self.raw_len = arr(b.raw_len, np.uint32)
+        self.arena = ctypes.string_at(b.arena, b.arena_len)
+        self.metrics = ParsedBatch(b.metrics.contents)
+        self.slow_samples = [
+            self.arena[b.slow_off[i]:b.slow_off[i] + b.slow_len[i]]
+            for i in range(b.slow_count)]
+
+    def span(self, i: int) -> LazySpan:
+        ro, rl = self.raw_off[i], self.raw_len[i]
+        so, sl = self.service_off[i], self.service_len[i]
+        no, nl = self.name_off[i], self.name_len[i]
+        return LazySpan(
+            int(self.trace_id[i]), int(self.span_id[i]),
+            int(self.parent_id[i]), int(self.start_ns[i]),
+            int(self.end_ns[i]), bool(self.error[i]),
+            bool(self.indicator[i]),
+            self.arena[so:so + sl].decode("utf-8", "replace"),
+            self.arena[no:no + nl].decode("utf-8", "replace"),
+            self.arena[ro:ro + rl])
+
+    def spans(self) -> List[LazySpan]:
+        return [self.span(i) for i in range(self.count)]
+
+
+def decode_spans(datagrams: List[bytes],
+                 indicator_timer_name: str = "") -> SpanBatch:
+    """Batch-decode bare SSFSpan datagrams natively (tests and direct
+    calls; the server uses NativeSSFReader)."""
+    lib = _require()
+    total = sum(len(d) for d in datagrams)
+    ind = indicator_timer_name.encode()
+    b = lib.vs_batch_new(max(len(datagrams), 16), total + 64,
+                         max(32, len(datagrams) * 9), total * 2 + 1024)
+    try:
+        for d in datagrams:
+            lib.vs_decode_span(d, len(d), b, ind, len(ind))
+        return SpanBatch(b.contents)
+    finally:
+        lib.vs_batch_free(b)
+
+
+class NativeSSFReader:
+    """The C++ SSF reader pool: SO_REUSEPORT sockets drained with
+    recvmmsg, one SSFSpan decoded a datagram on the C++ threads (off the
+    GIL), its embedded samples converted to parsed records in line.
+    ``drain()`` swaps every reader's batch.
+
+    Sizing: a reader takes a datagram only while its batch has room for
+    the span, its bytes and 8 more records (the C++ precheck). A span
+    with more than 8 samples can still fill the record column mid-span:
+    the samples past it go to the slow lane, but an indicator timer past
+    it is skipped uncounted (inherited from the C++). ``metric_cap``
+    therefore defaults to RECORDS_PER_SPAN records a span of
+    ``span_cap``, so a batch never fills its record column before its
+    span column while spans carry at most RECORDS_PER_SPAN - 1 samples."""
+
+    RECORDS_PER_SPAN = 32
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 num_readers: int = 1, rcvbuf: int = 2 * 1024 * 1024,
+                 span_cap: int = 16384, arena_cap: int = 32 * 1024 * 1024,
+                 metric_cap: int = 0, metric_arena: int = 64 * 1024 * 1024,
+                 dgram_max: int = 8192, indicator_timer_name: str = ""):
+        lib = _require()
+        self._lib = lib
+        metric_cap = metric_cap or span_cap * self.RECORDS_PER_SPAN
+        self._handle = lib.vs_reader_start(
+            host.encode(), port, num_readers, rcvbuf, span_cap,
+            arena_cap, metric_cap, metric_arena, dgram_max,
+            indicator_timer_name.encode())
+        if not self._handle:
+            raise OSError(f"could not bind native SSF readers on "
+                          f"{host}:{port}")
+        self.port = lib.vs_reader_port(self._handle)
+        self.num_readers = lib.vs_reader_count(self._handle)
+
+    def drain(self) -> List[SpanBatch]:
+        out = []
+        for i in range(self.num_readers):
+            b = self._lib.vs_reader_swap(self._handle, i)
+            if b.contents.count or b.contents.decode_errors:
+                out.append(SpanBatch(b.contents))
+        return out
+
+    def packets(self) -> int:
+        return sum(self._lib.vs_reader_packets(self._handle, i)
+                   for i in range(self.num_readers))
+
+    def drops(self) -> int:
+        """Datagrams shed because a batch was full (the pump fell
+        behind)."""
+        return sum(self._lib.vs_reader_drops(self._handle, i)
+                   for i in range(self.num_readers))
+
+    def stop(self) -> None:
+        if self._handle:
+            self._lib.vs_reader_stop(self._handle)
+            self._handle = None
+
+    def leak(self) -> None:
+        """See NativeUDPReader.leak."""
         self._handle = None
 
     def __del__(self):

@@ -1,16 +1,20 @@
-"""UDP DogStatsD listeners (SO_REUSEPORT multi-reader).
+"""DogStatsD and SSF listeners (SO_REUSEPORT multi-reader).
 
-Port of the UDP half of ``veneur_tpu/networking.py`` (after
-``veneur/networking.go`` + ``socket_linux.go``): ``num_readers``
-UDP sockets bound to one port with SO_REUSEPORT, so the kernel balances
-datagrams across reader threads. TCP, TLS and SSF listeners are not
-ported yet.
+Port of ``veneur_tpu/networking.py`` without TLS (after
+``veneur/networking.go`` + ``socket_linux.go``): ``num_readers`` UDP
+sockets bound to one port with SO_REUSEPORT, so the kernel balances
+datagrams across reader threads, for statsd lines and for SSF spans
+(one bare SSFSpan a datagram); and UNIX and TCP stream listeners for
+framed SSF, one thread a connection. TCP and TLS statsd listeners are
+not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import errno
 import logging
+import os
 import select
 import socket
 import threading
@@ -54,8 +58,7 @@ def start_statsd(addr_spec: str, num_readers: int, recv_buf: int,
         sock = new_udp_socket(addr, recv_buf, reuse_port=True)
         bound.append(sock.getsockname())
         if addr.port == 0:
-            addr = ResolvedAddr(scheme=addr.scheme, host=addr.host,
-                                port=sock.getsockname()[1])
+            addr = dataclasses.replace(addr, port=sock.getsockname()[1])
         t = threading.Thread(
             target=_udp_read_loop,
             args=(sock, metric_max_length, handle_packet, stop),
@@ -87,3 +90,90 @@ def _udp_read_loop(sock: socket.socket, max_len: int,
                 handle_packet(data)
     finally:
         sock.close()
+
+
+def new_tcp_listener(family: int, host: str, port: int,
+                     backlog: int = 128) -> socket.socket:
+    """A bound, listening TCP socket with SO_REUSEPORT where available."""
+    listener = socket.socket(family, socket.SOCK_STREAM)
+    try:
+        listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        if hasattr(socket, "SO_REUSEPORT"):
+            listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        listener.bind((host, port))
+        listener.listen(backlog)
+    except OSError:
+        listener.close()
+        raise
+    return listener
+
+
+def start_ssf(addr_spec: str, num_readers: int, recv_buf: int,
+              trace_max_length: int,
+              handle_ssf_packet: Callable[[bytes], None],
+              handle_ssf_stream: Callable[[socket.socket], None],
+              stop: threading.Event):
+    """Start the SSF listeners of one address (networking.go:138-223):
+    ``udp://`` runs ``num_readers`` datagram readers, each datagram one
+    bare SSFSpan; ``unix://`` and ``tcp://`` accept streams of framed
+    spans, each connection on its own thread. Returns (threads, already
+    started; bound addresses: (host, port), or the socket path)."""
+    addr = resolve_addr(addr_spec)
+    threads: List[threading.Thread] = []
+    bound: list = []
+    if addr.family == "udp":
+        for i in range(max(1, num_readers)):
+            sock = new_udp_socket(addr, recv_buf, reuse_port=True)
+            bound.append(sock.getsockname())
+            if addr.port == 0:
+                addr = dataclasses.replace(addr,
+                                           port=sock.getsockname()[1])
+            t = threading.Thread(
+                target=_udp_read_loop,
+                args=(sock, trace_max_length, handle_ssf_packet, stop),
+                name=f"ssf-udp-reader-{i}", daemon=True)
+            t.start()
+            threads.append(t)
+        return threads, bound
+    if addr.family == "unix":
+        if os.path.exists(addr.path):
+            os.unlink(addr.path)
+        listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        try:
+            listener.bind(addr.path)
+            listener.listen(128)
+        except OSError:
+            listener.close()
+            raise
+        bound.append(addr.path)
+    else:
+        listener = new_tcp_listener(addr.socket_family, addr.host,
+                                    addr.port)
+        bound.append(listener.getsockname())
+    t = threading.Thread(target=_stream_accept_loop,
+                         args=(listener, handle_ssf_stream, stop),
+                         name=f"ssf-{addr.family}-listener", daemon=True)
+    t.start()
+    threads.append(t)
+    return threads, bound
+
+
+def _stream_accept_loop(listener: socket.socket,
+                        handle_stream: Callable[[socket.socket], None],
+                        stop: threading.Event):
+    """Accept connections until ``stop``; each connection's stream pump
+    runs on a thread of its own and closes the connection."""
+    listener.settimeout(0.5)
+    try:
+        while not stop.is_set():
+            try:
+                conn, _ = listener.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                break
+            conn.settimeout(None)
+            threading.Thread(target=handle_stream, args=(conn,),
+                             name="ssf-stream", daemon=True).start()
+    finally:
+        listener.close()

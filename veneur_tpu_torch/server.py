@@ -1,18 +1,30 @@
-"""Server lifecycle: config -> UDP listeners -> store -> flush loop.
+"""Server lifecycle: config -> listeners -> store -> flush loop.
 
 A slim port of ``veneur_tpu/server.py`` (after
-``veneur/server.go``): DogStatsD datagrams from the UDP listeners reach
-the dense :class:`MetricStore`, and a ticker flushes the store to the
-metric sinks every interval. The store runs on ``cuda`` unless
-``device="cpu"`` is passed.
+``veneur/server.go``): DogStatsD datagrams and SSF spans reach the dense
+:class:`MetricStore`, and a ticker flushes the store to the metric sinks
+every interval. The store runs on ``cuda`` unless ``device="cpu"`` is
+passed.
 
-Each ``udp://`` listener takes the first rung of the reference's ladder
-that comes up: the ingest-lane fleet (``ingest/``, the default), then,
-with ``ingest_lanes: -1``, the C++ reader pool feeding
+Each statsd ``udp://`` listener takes the first rung of the reference's
+ladder that comes up: the ingest-lane fleet (``ingest/``, the default),
+then, with ``ingest_lanes: -1``, the C++ reader pool feeding
 ``MetricStore.process_batch``, then, with ``native_ingest: false`` too
 (or without a compiler), the Python readers and the per-line parser.
-Event and service-check lines the native rungs hand back go through
-:meth:`Server.handle_metric_packet`, which counts them ``not_ported``.
+Event and service-check lines (the native rungs hand them back raw) go
+through :meth:`Server.handle_metric_packet`: events collect in the
+:class:`EventWorker` until the flush hands them to every metric sink's
+``flush_other_samples``; service checks become status rows.
+
+SSF (server.go:722-899): an ``ssf_listen_addresses`` ``udp://`` address
+runs the C++ SSF reader pool (with ``native_ingest``), whose pump feeds
+the embedded samples to ``process_batch`` and the spans, in batches, to
+the span channel; otherwise Python readers decode each datagram. A
+``unix://`` or ``tcp://`` address takes framed spans. Span workers drain
+the channel into one bounded lane a span sink; the metric-extraction
+sink, always last, turns the spans' samples and indicator timers into
+store samples. A full channel sheds spans and counts them
+(``spans_dropped``).
 
 Global aggregation: with ``forward_address`` set the server is a local
 and forwards its sketch state there over HTTP after each flush; with
@@ -23,7 +35,9 @@ its locals forward) beside ``/healthcheck`` and ``/version``.
 from __future__ import annotations
 
 import logging
+import queue
 import threading
+import time
 from typing import List, Optional, Tuple
 
 from veneur_tpu_torch import flusher, native, networking
@@ -32,18 +46,174 @@ from veneur_tpu_torch.core.store import MetricStore
 from veneur_tpu_torch.forward import configure_forwarding
 from veneur_tpu_torch.httpserv import OpsServer
 from veneur_tpu_torch.ingest import IngestFleet, ShardedCounter
+from veneur_tpu_torch.protocol import ssf, wire
 from veneur_tpu_torch.protocol.addr import resolve_addr
 from veneur_tpu_torch.samplers import parser as p
 from veneur_tpu_torch.samplers.intermetric import HistogramAggregates
-from veneur_tpu_torch.sinks.base import MetricSink
+from veneur_tpu_torch.sinks.base import MetricSink, SpanSink
 from veneur_tpu_torch.sinks.blackhole import BlackholeMetricSink
+from veneur_tpu_torch.sinks.ssfmetrics import MetricExtractionSink
 
 log = logging.getLogger("veneur.server")
+
+
+class EventWorker:
+    """Collects events (as SSFSamples) until the flush (worker.go:439-485)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._samples: List[ssf.SSFSample] = []
+
+    def __len__(self) -> int:
+        """Events waiting for the next flush."""
+        with self._lock:
+            return len(self._samples)
+
+    def add(self, sample: ssf.SSFSample):
+        with self._lock:
+            self._samples.append(sample)
+
+    def flush(self) -> List[ssf.SSFSample]:
+        with self._lock:
+            out, self._samples = self._samples, []
+        return out
+
+
+class _SinkIngestor:
+    """One span sink's bounded ingest lane: a thread drains a bounded
+    queue into ``sink.ingest``, so a hung sink wedges only its own lane
+    (the reference's goroutine-a-span with a 9 s timeout,
+    worker.go:541-590): its queue fills and further spans drop, counted
+    in ``ingest_timeouts``, while every other sink keeps draining. The
+    thread exits once ``stop`` is set and its queue is empty."""
+
+    TIMEOUT = 9.0  # worker.go:523
+
+    def __init__(self, sink: SpanSink, stop: threading.Event,
+                 capacity: int = 4096):
+        self.sink = sink
+        self.stop = stop
+        self.queue: "queue.Queue" = queue.Queue(capacity)
+        self.ingest_errors = 0
+        self.ingest_timeouts = 0
+        self._drop_lock = threading.Lock()  # offer() runs on every worker
+        self._flush_thread: Optional[threading.Thread] = None
+        self.thread = threading.Thread(
+            target=self._work, name=f"span-ingest-{sink.name}", daemon=True)
+        self.thread.start()
+
+    def offer(self, item, n: int = 1) -> None:
+        """Queue a span, or a native batch of ``n`` spans as one item."""
+        try:
+            self.queue.put_nowait(item)
+        except queue.Full:
+            with self._drop_lock:
+                self.ingest_timeouts += n
+
+    def _ingest(self, span) -> None:
+        try:
+            self.sink.ingest(span)
+        except Exception:
+            self.ingest_errors += 1
+            log.exception("span sink %s ingest failed", self.sink.name)
+
+    def _work(self):
+        while True:
+            try:
+                item = self.queue.get(timeout=0.5)
+            except queue.Empty:
+                if self.stop.is_set():
+                    return
+                continue
+            try:
+                for span in (item if type(item) is list else (item,)):
+                    self._ingest(span)
+            finally:
+                self.queue.task_done()
+
+    def drain(self, timeout: float = TIMEOUT) -> bool:
+        """Wait (bounded) until every offered span has been ingested;
+        False if the lane is still wedged."""
+        deadline = time.monotonic() + timeout
+        while self.queue.unfinished_tasks:
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.01)
+        return True
+
+    def flush_sink(self, timeout: float = TIMEOUT) -> None:
+        """Run ``sink.flush()`` on a thread of its own, joined up to
+        ``timeout``: a sink whose flush blocks pins only itself, and the
+        next interval skips it while its last flush still runs."""
+        if self._flush_thread is not None and self._flush_thread.is_alive():
+            log.warning("span sink %s previous flush still running; "
+                        "skipping", self.sink.name)
+            return
+
+        def run():
+            try:
+                self.sink.flush()
+            except Exception:
+                log.exception("span sink %s flush failed", self.sink.name)
+
+        t = threading.Thread(target=run, name=f"span-flush-{self.sink.name}",
+                             daemon=True)
+        self._flush_thread = t
+        t.start()
+        t.join(timeout)
+        if t.is_alive():
+            log.warning("span sink %s flush exceeded %.0fs; continuing "
+                        "without it", self.sink.name, timeout)
+
+
+def make_span_lanes(sinks: List[SpanSink],
+                    stop: threading.Event) -> List[_SinkIngestor]:
+    """One lane a sink, shared by every SpanWorker: a sink has one ingest
+    thread, and the flush barrier covers every worker's spans."""
+    return [_SinkIngestor(s, stop) for s in sinks]
+
+
+class SpanWorker:
+    """Drains the span channel into every span sink's lane
+    (worker.go:487-592). It exits once ``stop`` is set and the channel
+    is empty, so spans accepted before a shutdown still reach the
+    sinks."""
+
+    def __init__(self, span_chan: "queue.Queue", stop: threading.Event,
+                 lanes: List[_SinkIngestor]):
+        self.chan = span_chan
+        self.stop = stop
+        self.lanes = lanes
+        self.ingested = 0
+
+    def work(self):
+        while True:
+            try:
+                item = self.chan.get(timeout=0.5)
+            except queue.Empty:
+                if self.stop.is_set():
+                    return
+                continue
+            # a native batch rides every hop as one item
+            n = len(item) if type(item) is list else 1
+            self.ingested += n
+            for lane in self.lanes:
+                lane.offer(item, n)
+
+    def flush(self):
+        for lane in self.lanes:
+            # the flush barrier: in-flight spans get a bounded chance to
+            # land before the sink flushes; a wedged lane is skipped
+            if not lane.drain():
+                log.warning("span sink %s still wedged at flush; %d drops "
+                            "so far", lane.sink.name, lane.ingest_timeouts)
+            lane.flush_sink()
 
 
 class Server:
     def __init__(self, config: Config,
                  metric_sinks: Optional[List[MetricSink]] = None,
+                 span_sinks: Optional[List[SpanSink]] = None,
                  device=None):
         self.config = config
         self.interval = config.interval_seconds
@@ -57,11 +227,25 @@ class Server:
                                  device=device)
         self.metric_sinks = (list(metric_sinks) if metric_sinks is not None
                              else [BlackholeMetricSink()])
+        self.event_worker = EventWorker()
+        self.span_chan: "queue.Queue" = queue.Queue(
+            config.span_channel_capacity)
+        # the extraction sink is how SSF samples reach the store
+        # (server.go:282-290)
+        self.extraction_sink = MetricExtractionSink(
+            self._process_ssf_metric, config.indicator_span_timer_name)
+        self.span_sinks: List[SpanSink] = (list(span_sinks or [])
+                                           + [self.extraction_sink])
         # per-line tallies, added to from reader threads without a lock;
         # the properties below add what the native rungs count
         self._packet_errors = ShardedCounter()
         self._quarantined = ShardedCounter()
         self._not_ported = ShardedCounter()
+        self._spans_dropped = ShardedCounter()
+        self._last_span_drop_log = 0.0
+        # interval span flushes skipped: the previous one still ran
+        self.span_flush_skipped = 0
+        self.span_flush_thread: Optional[threading.Thread] = None
         self.last_flush_time = 0.0
         self.last_flush_ok = True
         # global aggregation (start() wires them from the config)
@@ -77,10 +261,22 @@ class Server:
         # (listen address, rung: "lanes", "native" or "python", bound
         # address), one per statsd listener
         self.listeners: List[Tuple[str, str, tuple]] = []
+        # bound SSF addresses ((host, port), or a unix socket's path) and
+        # (listen address, rung: "native", "python" or "stream", bound)
+        self.ssf_addrs: list = []
+        self.ssf_listeners: List[Tuple[str, str, object]] = []
         self.ingest_fleets: List[IngestFleet] = []
-        self.native_readers: List[native.NativeUDPReader] = []
+        self.native_readers: list = []
+        self.native_ssf_readers: List[native.NativeSSFReader] = []
+        # SSF datagrams the C++ pool shed because its batch was full
+        self.native_ssf_drops = 0
         self._native_pumps: List[threading.Thread] = []
+        self._span_workers: List[SpanWorker] = []
+        self._span_threads: List[threading.Thread] = []
+        self._span_lanes: List[_SinkIngestor] = []
         self._stop = threading.Event()
+        # the span lanes outlive the span workers at shutdown
+        self._span_stop = threading.Event()
         self._threads: List[threading.Thread] = []
         self._counts_lock = threading.Lock()
 
@@ -103,10 +299,15 @@ class Server:
 
     @property
     def not_ported(self) -> int:
-        """Lines of kinds the port does not handle: events and service
-        checks on every path, heavy-hitter sets (per line here, per record
-        in the store on the native paths)."""
+        """Heavy-hitter (veneurtopk) set samples, the one kind the port
+        does not handle yet: per line or SSF sample here, per record in
+        the store on the native paths."""
         return self._not_ported.total() + self.store.not_ported
+
+    @property
+    def spans_dropped(self) -> int:
+        """Spans shed because the span channel was full."""
+        return self._spans_dropped.total()
 
     @property
     def using_native(self) -> bool:
@@ -135,15 +336,16 @@ class Server:
         self._count("import_errors", n_errors)
 
     def handle_metric_packet(self, packet: bytes) -> bool:
-        """Parse one line and route it (server.go:670-720). Returns False
-        on a rejected line: counted in ``packet_errors``, ``quarantined``
-        (poisoned values) or ``not_ported`` (events, service checks,
-        heavy-hitter sets), and logged at debug level."""
+        """Parse one line and route it (server.go:670-720): events to the
+        event worker, service checks and metrics to the store. Returns
+        False on a rejected line: counted in ``packet_errors``,
+        ``quarantined`` (poisoned values) or ``not_ported`` (heavy-hitter
+        sets), and logged at debug level."""
         try:
             if packet.startswith(b"_e{"):
-                p.parse_event(packet)
+                self.event_worker.add(p.parse_event(packet))
             elif packet.startswith(b"_sc"):
-                p.parse_service_check(packet)
+                self.store.process_metric(p.parse_service_check(packet))
             else:
                 self.store.process_metric(p.parse_metric(packet))
         except p.NotPortedError as e:
@@ -165,11 +367,91 @@ class Server:
         for line in p.split_lines(datagram):
             self.handle_metric_packet(line)
 
+    def _process_ssf_metric(self, m: p.UDPMetric):
+        """The extraction sink's store ingest: a heavy-hitter sample is
+        counted ``not_ported`` instead of failing the rest of its span."""
+        try:
+            self.store.process_metric(m)
+        except p.NotPortedError:
+            self._not_ported.add()
+
+    def handle_ssf_packet(self, datagram: bytes):
+        """One UDP datagram = one bare SSFSpan (server.go:827-860); an
+        undecodable one is counted in ``packet_errors``."""
+        try:
+            span = wire.parse_ssf(datagram)
+        except ssf.DecodeError as e:
+            self._packet_errors.add()
+            log.debug("rejected SSF packet: %s", e)
+            return
+        self.handle_ssf(span)
+
+    def _shed_spans(self, count: int):
+        """Count shed spans; warn at most once a second."""
+        self._spans_dropped.add(count)
+        now = time.monotonic()
+        if now - self._last_span_drop_log >= 1.0:
+            self._last_span_drop_log = now
+            log.warning("dropping spans; span channel is full (%d dropped "
+                        "since start)", self.spans_dropped)
+
+    def handle_ssf(self, span):
+        """Hand a span to the span workers (server.go:753-792); a full
+        channel sheds it."""
+        try:
+            self.span_chan.put_nowait(span)
+        except queue.Full:
+            self._shed_spans(1)
+
+    def handle_ssf_batch(self, spans: list):
+        """handle_ssf for a native batch: one channel hop for the batch,
+        shedding counted per span."""
+        if not spans:
+            return
+        try:
+            self.span_chan.put_nowait(spans)
+        except queue.Full:
+            self._shed_spans(len(spans))
+
+    def handle_ssf_stream(self, conn):
+        """Framed-SSF stream pump (server.go:862-899): a framing error
+        poisons the stream and closes the connection; a frame whose body
+        does not decode is counted and skipped (the stream is still at a
+        frame boundary)."""
+        stream = conn.makefile("rb")
+        try:
+            while not self._stop.is_set():
+                try:
+                    span = wire.read_ssf(stream)
+                except wire.FramingError as e:
+                    self._packet_errors.add()
+                    log.warning("SSF framing error, closing stream: %s", e)
+                    return
+                except ssf.DecodeError as e:
+                    self._packet_errors.add()
+                    log.debug("bad SSF message: %s", e)
+                    continue
+                if span is None:
+                    return  # clean EOF at a frame boundary
+                self.handle_ssf(span)
+        finally:
+            stream.close()
+            conn.close()
+
     def start(self):
-        """Bring up the UDP readers and the flush ticker."""
-        for sink in self.metric_sinks:
-            sink.start()
+        """Bring up the span workers, the listeners and the flush ticker
+        (server.go:555-666)."""
         cfg = self.config
+        self._span_lanes = make_span_lanes(self.span_sinks, self._span_stop)
+        for i in range(cfg.num_span_workers):
+            w = SpanWorker(self.span_chan, self._stop, self._span_lanes)
+            t = threading.Thread(target=w.work, name=f"span-worker-{i}",
+                                 daemon=True)
+            t.start()
+            self._span_workers.append(w)
+            self._span_threads.append(t)
+        for sink in self.metric_sinks + self.span_sinks:
+            sink.start()
         if cfg.http_address:
             self.ops_server = OpsServer.for_server(self, cfg.http_address)
             self.ops_server.start()
@@ -184,6 +466,18 @@ class Server:
             self._threads.extend(threads)
             self.statsd_addrs.extend(bound)
             self.listeners.append((spec, "python", bound[0]))
+        for spec in cfg.ssf_listen_addresses:
+            if self._try_native_ssf(spec):
+                continue
+            threads, bound = networking.start_ssf(
+                spec, cfg.num_readers, cfg.read_buffer_size_bytes,
+                cfg.trace_max_length_bytes, self.handle_ssf_packet,
+                self.handle_ssf_stream, self._stop)
+            self._threads.extend(threads)
+            self.ssf_addrs.extend(bound)
+            rung = ("python" if resolve_addr(spec).family == "udp"
+                    else "stream")
+            self.ssf_listeners.append((spec, rung, bound[0]))
         ticker = threading.Thread(target=self._flush_loop,
                                   name="flush-ticker", daemon=True)
         ticker.start()
@@ -276,6 +570,91 @@ class Server:
                 log.exception("native pump iteration failed")
                 self._stop.wait(0.05)
 
+    def _try_native_ssf(self, spec: str) -> bool:
+        """The C++ SSF reader pool for a plain IPv4 UDP SSF listener:
+        datagrams decode on the C++ reader threads (off the GIL) and
+        their embedded samples arrive as parsed records for
+        ``process_batch`` (server.go:827-860 rebuilt native). False
+        falls back to the Python readers."""
+        cfg = self.config
+        if not cfg.native_ingest:
+            return False
+        addr = resolve_addr(spec)
+        if (addr.family != "udp" or addr.scheme.endswith("6")
+                or ":" in addr.host):
+            return False  # the native pool is AF_INET only
+        if not native.available():
+            return False  # logged by the loader
+        host = addr.host or "0.0.0.0"
+        try:
+            reader = native.NativeSSFReader(
+                host=host, port=addr.port,
+                num_readers=max(1, cfg.num_readers),
+                rcvbuf=cfg.read_buffer_size_bytes,
+                dgram_max=cfg.trace_max_length_bytes,
+                indicator_timer_name=cfg.indicator_span_timer_name)
+        except OSError as e:
+            log.warning("native SSF readers failed (%s); using Python "
+                        "readers", e)
+            return False
+        self.native_readers.append(reader)
+        self.native_ssf_readers.append(reader)
+        self.ssf_addrs.append((host, reader.port))
+        self.ssf_listeners.append((spec, "native", (host, reader.port)))
+        t = threading.Thread(target=self._native_ssf_pump, args=(reader,),
+                             name="native-ssf-pump", daemon=True)
+        t.start()
+        self._native_pumps.append(t)
+        log.info("native SSF ingest on udp port %d (%d readers)",
+                 reader.port, reader.num_readers)
+        return True
+
+    def _native_ssf_pump(self, reader: native.NativeSSFReader):
+        """Drain decoded span batches: the embedded samples go through
+        ``process_batch`` (which may launch K2 from this thread), slow-lane
+        samples (STATUS, undecodable) through the port's SSF codec and
+        parser, and the spans, as LazySpan batches, to the span workers.
+        Undecodable datagrams and invalid samples count in
+        ``packet_errors``."""
+        last_drops = 0
+        while not self._stop.is_set():
+            try:
+                batches = reader.drain()
+                drops = reader.drops()
+                if drops != last_drops:
+                    self._count("native_ssf_drops", drops - last_drops)
+                    log.warning("native SSF ingest dropped %d datagrams "
+                                "(pump falling behind)", drops - last_drops)
+                    last_drops = drops
+                if not batches:
+                    self._stop.wait(0.005)
+                    continue
+                for b in batches:
+                    self._packet_errors.add(int(b.decode_errors)
+                                            + int(b.invalid_samples))
+                    if b.metrics.count:
+                        for line in self.store.process_batch(b.metrics):
+                            self.handle_metric_packet(line)
+                    for raw in b.slow_samples:
+                        self._slow_ssf_sample(raw)
+                    self.handle_ssf_batch(b.spans())
+            except Exception:
+                # one bad batch must not kill the listener's only pump
+                log.exception("native SSF pump iteration failed")
+                self._stop.wait(0.05)
+
+    def _slow_ssf_sample(self, raw: bytes):
+        """One slow-lane sample of the native SSF pump, as the Python lane
+        converts it; rejected samples are counted."""
+        try:
+            m = p.parse_metric_ssf(ssf.decode_sample(raw))
+            if p.valid_metric(m):
+                self._process_ssf_metric(m)
+        except p.QuarantineError:
+            self._quarantined.add()
+        except (ssf.DecodeError, p.ParseError):
+            self._packet_errors.add()
+
     def _flush_loop(self):
         while not self._stop.wait(self.interval):
             try:
@@ -303,9 +682,10 @@ class Server:
         return self.last_forward_ok
 
     def shutdown(self, timeout: float = 10.0):
-        """Stop the readers and the ticker, then flush the current
-        interval once more so its data reaches the sinks (and, on a
-        local, its forward lands), and stop the ops server."""
+        """Stop the readers and the ticker, let the span workers and span
+        lanes finish what they accepted, then flush the current interval
+        once more so its data reaches the sinks (and, on a local, its
+        forward lands), and stop the ops server."""
         self._stop.set()
         for t in self._threads + self._native_pumps:
             t.join(timeout=timeout)
@@ -330,6 +710,13 @@ class Server:
                 log.exception("ingest fleet shutdown failed")
         self._threads.clear()
         self._native_pumps.clear()
+        # the workers empty the channel, then the lanes their queues
+        for t in self._span_threads:
+            t.join(timeout=timeout)
+        self._span_stop.set()
+        for lane in self._span_lanes:
+            lane.thread.join(timeout=timeout)
+        self._span_threads.clear()
         try:
             self.flush()
             self.wait_forward(timeout)

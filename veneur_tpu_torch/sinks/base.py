@@ -1,4 +1,5 @@
-"""Sink interfaces (cf. veneur/sinks/sinks.go:31-97)."""
+"""Sink interfaces (cf. veneur/sinks/sinks.go:31-97): metric sinks take
+each flush's rows, span sinks take SSF spans as they arrive."""
 
 from __future__ import annotations
 
@@ -23,6 +24,23 @@ class MetricSink(abc.ABC):
 
     def flush_other_samples(self, samples: Iterable) -> None:
         """Receive non-metric samples (events, ...); default: drop."""
+
+
+class SpanSink(abc.ABC):
+    """A backend receiving SSF spans as they arrive (sinks.go:85-97)."""
+
+    @property
+    @abc.abstractmethod
+    def name(self) -> str: ...
+
+    def start(self) -> None:
+        """Called once at server start."""
+
+    @abc.abstractmethod
+    def ingest(self, span) -> None: ...
+
+    def flush(self) -> None:
+        """Called once a flush interval, off the metric flush's thread."""
 
 
 def filter_acceptable(metrics: List[InterMetric],

@@ -1,8 +1,8 @@
-"""No-op sink, used as the default (cf. veneur/sinks/blackhole)."""
+"""No-op sinks, used as the defaults (cf. veneur/sinks/blackhole)."""
 
 from __future__ import annotations
 
-from .base import MetricSink
+from .base import MetricSink, SpanSink
 
 
 class BlackholeMetricSink(MetricSink):
@@ -14,4 +14,13 @@ class BlackholeMetricSink(MetricSink):
         pass
 
     def flush_other_samples(self, samples) -> None:
+        pass
+
+
+class BlackholeSpanSink(SpanSink):
+    @property
+    def name(self) -> str:
+        return "blackhole"
+
+    def ingest(self, span) -> None:
         pass

@@ -1,11 +1,11 @@
-"""Logging sink (cf. veneur/sinks/debug/debug.go): print every
-flushed metric for debugging."""
+"""Logging sinks (cf. veneur/sinks/debug/debug.go): print every
+flushed metric and ingested span for debugging."""
 
 from __future__ import annotations
 
 import logging
 
-from .base import MetricSink
+from .base import MetricSink, SpanSink
 
 log = logging.getLogger("veneur.sinks.debug")
 
@@ -23,3 +23,12 @@ class DebugMetricSink(MetricSink):
     def flush_other_samples(self, samples) -> None:
         for s in samples:
             log.info("Flushed sample %r", s)
+
+
+class DebugSpanSink(SpanSink):
+    @property
+    def name(self) -> str:
+        return "debug"
+
+    def ingest(self, span) -> None:
+        log.info("Ingested span %r", span)
