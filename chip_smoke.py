@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and its native
-ingest library (g++), side by side, then runs seven phases, each
-printing one JSON line:
+ingest library (g++), side by side, then runs nine phases, each
+printing one JSON line (``--phases a,b`` runs the named main-path
+phases alone, without the kernels phase, the kernel summary and the
+contract's last line):
 
   kernels  K1 drain_quantile and K2 compress_presorted at the flush's
            shape (1,048,576 rows, K=104, the store's 9 quantiles), each
@@ -29,7 +31,9 @@ printing one JSON line:
            K2), 32,768 sets of 16 members, 4,096 counters and gauges,
            256 events and service checks: DogStatsD lines in datagrams of
            at most 1,432 bytes from 2 sender processes x 16 flows, paced
-           so the kernel drops nothing. Two intervals (every series first
+           so the kernel drops nothing; the Server's max_series is
+           2,097,152 (at the default 2^20 the group would freeze
+           first-sight series at 70%). Two intervals (every series first
            seen, then the same traffic), each flushed through K1 and
            held to the traffic: conservation, counters, gauges, digest
            mass, extrema and percentiles, set estimates, the service
@@ -54,6 +58,27 @@ printing one JSON line:
            4,096-series twin: the Python UDP rung, the UNIX stream and
            the native lane emit the same rows on the CPU, and the native
            lane and the UNIX stream on the card agree with the CPU;
+  heavy_hitters
+           veneurtopk sets at the default top-k geometry (depth 4,
+           width 65,536, K 32): 65,536 series x 32 samples, members
+           Zipf(1.1) over 65,536 keys; three quarters into a Server's
+           lane fleet (4 lanes) beside 65,536 histogram series x 8
+           samples (K2 and K1 in the same flush), the rest into a second
+           Server's C++ pool and its unix:// SSF listener. Each series'
+           emitted top-k is held to an exact count (never under it, over
+           it by at most e/w x N but for a share e^-depth, no member in
+           hex), with exact conservation; the count-min update is timed
+           a drain with CUDA events. Then two locals of 4,096 top-k
+           series forward to a global over HTTP in both body formats:
+           the fleet top-k is the sum of the locals' within the bound,
+           and the reference's (gob) body carries no sketch;
+  overload the series cap (max_series 4,096 against 40,000 counter and
+           8,192 histogram series: the overflow rows hold every spilled
+           sample, veneur.* names pass the freeze), the tag cap (the
+           40-tag line and 1,000 like it on the lanes, the C++ pool, the
+           Python readers and SSF) and the shed ladder (a span channel
+           forced full: spans shed at level 2, statsd datagrams at level
+           3, every one counted);
   global_merge
            global aggregation at full width: two forwarding locals on
            cuda (1,048,576 histogram series each, B's distribution
@@ -72,7 +97,8 @@ printing one JSON line:
            reference's (gob/axiomhq).
 
 The launch counts in the kernel summary are the sum over the store,
-ingest (its two intervals), ssf (its main path), global_merge and
+ingest (its two intervals), ssf (its main path), heavy_hitters (its two
+Servers), overload (the series cap's flush), global_merge and
 server_global phases. It
 ends with the kernel summary, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. Any failed check raises
@@ -1147,6 +1173,7 @@ def run_server_global(dev, compat: bool, series: int = 1 << 16,
     finally:
         glob.shutdown()
     rec["imported"] = glob.imported_metrics
+    rec["overload"] = [srv.overload.snapshot() for srv in (local, glob)]
     by = {m.name: m.value for m in rows}
     want_rows = (udp_series * (2 + 1 + len(pcts))
                  + series * len(pcts))
@@ -1212,6 +1239,9 @@ INGEST_SENDERS = 2
 INGEST_SOURCE_SOCKETS = 16       # a sender's flows: REUSEPORT hashes each
 INGEST_MAX_WINDOW = 4096         # datagrams in flight, at most
 INGEST_PERCENTILES = (0.5, 0.75, 0.99)   # example.yaml's
+# the ingest Server's series cap: a 1M-series host raises the default
+# 2^20, whose freeze (70%) and cap would spill a third of its series
+INGEST_MAX_SERIES = 1 << 21
 # the unpaced burst's 64-line cycle (one line a datagram)
 _BURST_LINE = "ingest.h.%d:%d.5|h|#az:z%d,svc:s%d"
 
@@ -1283,6 +1313,30 @@ def _sender_code() -> str:
             .replace("SOURCE_SOCKETS", str(INGEST_SOURCE_SOCKETS)))
 
 
+def _pack_lines(lines, limit: int = INGEST_DGRAM, units=None) -> dict:
+    """DogStatsD lines packed greedily, in order, into datagrams of at
+    most ``limit`` bytes that never split a unit (``units``: the sorted
+    first line of each unit, from 0; default every line its own unit):
+    the blob/d_off/d_len layout _PacedSenders sends, plus each
+    datagram's line count."""
+    n = len(lines)
+    lens = np.fromiter(map(len, lines), np.int64, n)
+    blob = "\n".join(lines).encode()
+    starts = np.concatenate([[0], np.cumsum(lens + 1)[:-1]])
+    ends = starts + lens
+    units = np.arange(n + 1) if units is None else np.r_[units, n]
+    unit_ends = ends[units[1:] - 1]
+    cuts = [0]
+    while cuts[-1] < len(units) - 1:
+        cuts.append(max(cuts[-1] + 1, int(np.searchsorted(
+            unit_ends, starts[units[cuts[-1]]] + limit, "right"))))
+    cuts = units[np.array(cuts)]
+    d_off = starts[cuts[:-1]]
+    return {"blob": blob, "d_off": d_off,
+            "d_len": ends[cuts[1:] - 1] - d_off,
+            "d_lines": np.diff(cuts), "lines": n}
+
+
 def _ingest_traffic(rows: int, set_series: int, scalars: int, raws: int):
     """The ingest phase's DogStatsD traffic, from the seed: ``rows``
     histogram series with 2 tags, 8 samples each in units of 1/8 (exact
@@ -1327,30 +1381,17 @@ def _ingest_traffic(rows: int, set_series: int, scalars: int, raws: int):
     middle = len(lines) - 4 * rows
     lines += half(4)
     del head, tail, vals
-    lens = np.fromiter(map(len, lines), np.int64, len(lines))
-    blob = "\n".join(lines).encode()
-    del lines
-    starts = np.concatenate([[0], np.cumsum(lens + 1)[:-1]])
-    ends = starts + lens
     # the units a datagram never splits: a series' four lines, or a line
     units = np.concatenate([np.arange(0, 4 * rows, 4),
                             4 * rows + np.arange(middle),
-                            4 * rows + middle + np.arange(0, 4 * rows, 4),
-                            [len(lens)]])
-    unit_ends = ends[units[1:] - 1]
-    cuts = [0]
-    while cuts[-1] < len(units) - 1:
-        first = starts[units[cuts[-1]]]
-        cuts.append(max(cuts[-1] + 1, int(np.searchsorted(
-            unit_ends, first + INGEST_DGRAM, "right"))))
-    cuts = units[np.array(cuts)]
-    d_off = starts[cuts[:-1]]
-    d_len = ends[cuts[1:] - 1] - d_off
+                            4 * rows + middle + np.arange(0, 4 * rows, 4)])
+    packed = _pack_lines(lines, units=units)
+    del lines
     mult = int(np.float32(1.0) / np.float32(0.1))
     weights = np.where(np.arange(scalars) % 8 == 0, mult, 1)
-    return {"blob": blob, "d_off": d_off, "d_len": d_len, "q": q,
-            "members": members, "lines": len(lens),
-            "metric_lines": len(lens) - 2 * raws, "raw_lines": 2 * raws,
+    return {**packed, "q": q, "members": members,
+            "metric_lines": packed["lines"] - 2 * raws,
+            "raw_lines": 2 * raws,
             "counters": (cvals * weights).sum(0), "gauges": gvals,
             "rows": rows, "set_series": set_series, "scalars": scalars}
 
@@ -1482,7 +1523,8 @@ def _paced_interval(server, fleet, senders, t, window: int, acc) -> dict:
     acc.update(lane_intern_s=[0.0] * fleet.num_lanes, store_intern_s=0.0,
                merge_s=0.0)
     before = fleet.totals()
-    not_ported0 = server.not_ported
+    shed0 = server.overload.shed_total()
+    changes0 = server.overload.level_changes
     events0 = len(server.event_worker)
     k2 = tc.compress_presorted.launches
     port = fleet.bound[0][1]
@@ -1516,7 +1558,10 @@ def _paced_interval(server, fleet, senders, t, window: int, acc) -> dict:
            "kernel_drops_total": drops, "totals": d,
            "balance_ok": fleet.balance()["ok"],
            "intern_gens": [lane.gen for lane in fleet.lanes],
-           "not_ported": server.not_ported - not_ported0,
+           "overload_shed": server.overload.shed_total() - shed0,
+           "overload_level_changes": (server.overload.level_changes
+                                      - changes0),
+           "spilled": _spilled(server.store),
            "events": len(server.event_worker) - events0,
            "k2_launches": tc.compress_presorted.launches - k2,
            "lane_intern_s": list(acc["lane_intern_s"]),
@@ -1529,10 +1574,16 @@ def _paced_interval(server, fleet, senders, t, window: int, acc) -> dict:
             and d["shed_records"] == d["shed_packets"] == 0
             and d["raws"] == d["merged_raws"] == t["raw_lines"]
             and d["parse_errors"] == d["quarantined"] == 0
-            and rec["not_ported"] == 0
+            and rec["overload_shed"] == rec["spilled"] == 0
             and rec["events"] == t["raw_lines"] // 2):
         raise AssertionError(f"ingest did not conserve the traffic: {rec}")
     return rec
+
+
+def _spilled(store) -> int:
+    """Interns the live generation's overflow rows absorbed, summed over
+    the groups."""
+    return sum(getattr(store, g).spilled for g in store._GEN_GROUPS)
 
 
 def _check_ingest_flush(rows, t, rec):
@@ -1638,7 +1689,8 @@ def run_ingest_lanes(dev, rows: int, set_series: int, scalars: int,
         statsd_listen_addresses=["udp://127.0.0.1:0"], num_readers=lanes,
         interval="86400s", percentiles=list(INGEST_PERCENTILES),
         aggregates=["min", "max", "count"], hostname="smoke",
-        read_buffer_size_bytes=8 << 20), metric_sinks=[sink], device=dev)
+        read_buffer_size_bytes=8 << 20, max_series=INGEST_MAX_SERIES),
+        metric_sinks=[sink], device=dev)
     server.start()
     senders = None
     try:
@@ -2097,7 +2149,7 @@ def _emission_timer(store) -> dict:
     """Wall time of the flush's per-row emission methods."""
     acc = {"emit_s": 0.0}
     for name in ("_emit_digest_result", "_emit_set_result",
-                 "_flush_scalars", "_flush_status"):
+                 "_emit_topk_result", "_flush_scalars", "_flush_status"):
         real = getattr(store, name)
 
         def timed(*args, _real=real, **kwargs):
@@ -2282,7 +2334,8 @@ def run_ssf(dev, t, workdir, sock_path):
             _wait_ssf_window(server, reader, acc, p0, sent)
         want_processed = t["samples"] + t["spans"] + t["raws"]
         # shed spans never arrive: stop waiting, the check below fails
-        _wait_for(lambda: server.spans_dropped or (
+        _wait_for(lambda: server.spans_dropped
+                  or server.overload.shed_total() or (
             server.store.processed >= want_processed
             and span_sink.queue.qsize() >= t["spans"]
             and len(server.event_worker) >= t["raws"]), 600,
@@ -2291,6 +2344,7 @@ def run_ssf(dev, t, workdir, sock_path):
         wall = time.perf_counter() - t0
         k2 = tc.compress_presorted.launches
         processed = server.store.processed
+        spilled = _spilled(server.store)
         t1 = time.perf_counter()
         server.flush()
         flush_s = time.perf_counter() - t1
@@ -2318,7 +2372,8 @@ def run_ssf(dev, t, workdir, sock_path):
            "native_ssf_drops": server.native_ssf_drops,
            "decode_errors_and_invalid": server.packet_errors,
            "quarantined": server.quarantined,
-           "not_ported": server.not_ported,
+           "overload": server.overload.snapshot(),
+           "spilled": spilled,
            "kernel_drops_total": drops, "processed": processed,
            "flush_s": flush_s, "emit_s": emit_acc["emit_s"],
            "emission_share": emit_acc["emit_s"] / flush_s,
@@ -2331,7 +2386,9 @@ def run_ssf(dev, t, workdir, sock_path):
             and rec["spans_to_sinks"] == t["spans"]
             and rec["spans_dropped"] == rec["native_ssf_drops"] == 0
             and rec["decode_errors_and_invalid"] == 0
-            and rec["quarantined"] == rec["not_ported"] == 0
+            and rec["quarantined"] == rec["spilled"] == 0
+            and rec["overload"]["shed"] == {"statsd": 0, "ssf": 0,
+                                            "spans": 0}
             and acc["records"] + acc["slow"] == samples
             and acc["slow"] == t["status"]
             and processed == samples + t["raws"]):
@@ -2468,6 +2525,895 @@ def phase_ssf(dev, card: str) -> dict:
     return counts
 
 
+# the heavy_hitters phase: veneurtopk sets through the port on the card
+
+HH_SERIES = 1 << 16              # veneurtopk set series
+HH_KEYS = 1 << 16                # the members' universe, drawn Zipf(1.1)
+HH_ZIPF_S = 1.1
+HH_SAMPLES = 1 << 21             # top-k samples: 32 a series
+HH_HIST_SERIES = 1 << 16         # histogram series beside them, 8 samples
+HH_EVICT_SERIES = 256            # the eviction subphase: 4,096 samples
+HH_EVICT_SAMPLES = 1 << 20       # a series, so every top-k list evicts
+HH_FWD_SERIES = 4096             # the forward subphase's series a local
+HH_FWD_KEYS = 6                  # its keys a series, 4-27 samples each
+
+
+def _hh_traffic():
+    """The heavy_hitters phase's traffic, from the seed: HH_SERIES top-k
+    set series of 32 samples each, members drawn Zipf(1.1) over HH_KEYS
+    keys, in a shuffled order; series i % 8 == 6 go to the second
+    Server's C++ pool, i % 8 == 7 to its SSF stream, the rest (three
+    quarters) to the first Server's lanes, between the two halves of
+    HH_HIST_SERIES histogram series (4 samples from gamma(2, 10) in
+    units of 1/8, then 4 shifted +1000, a quarter of the series at
+    @0.5, as in the ingest phase, so the shift guard drains through
+    K2)."""
+    gens = iter([np.random.default_rng(s) for s in
+                 np.random.SeedSequence(SEED + 10).spawn(3)])
+    w = 1.0 / np.arange(1, HH_KEYS + 1) ** HH_ZIPF_S
+    keys = next(gens).choice(HH_KEYS, HH_SAMPLES, p=w / w.sum())
+    owner = np.repeat(np.arange(HH_SERIES), HH_SAMPLES // HH_SERIES)
+    order = next(gens).permutation(HH_SAMPLES)
+    keys, owner = keys[order], owner[order]
+    route = np.where(owner % 8 == 6, 1, np.where(owner % 8 == 7, 2, 0))
+    g = next(gens)
+    q = np.concatenate(
+        [np.round(g.gamma(2.0, 10.0, (HH_HIST_SERIES, 4)) * 8),
+         np.round((1000.0 + g.gamma(2.0, 10.0, (HH_HIST_SERIES, 4))) * 8)],
+        axis=1) / 8.0
+    # a series' four samples travel together: the guard looks for a row
+    # whose chunk mass steps off its accumulated bins
+    hist = [[f"hh.h.{i}:{v!r}|h{'|@0.5' if i % 4 == 0 else ''}"
+             for v in vs] for i, vs in enumerate(q.tolist())]
+    first = [ln for h in hist for ln in h[:4]]
+    last = [ln for h in hist for ln in h[4:]]
+    sel = route == 0
+    lanes = first + [f"hh.t.{o}:k{m}|s|#veneurtopk" for o, m in zip(
+        owner[sel].tolist(), keys[sel].tolist())] + last
+    sel = route == 1
+    pool = [f"hh.t.{o}:k{m}|s|#veneurtopk" for o, m in zip(
+        owner[sel].tolist(), keys[sel].tolist())]
+    sel = route == 2
+    return {"lanes": _pack_lines(lanes), "pool": _pack_lines(pool),
+            "ssf": (owner[sel], keys[sel]), "owner": owner, "keys": keys,
+            "route": route, "q": q}
+
+
+def _hh_spans(owner, keys, per: int = 16) -> list:
+    """Framed SSF spans of ``per`` SET samples each (name hh.t.<series>,
+    member k<key>, tag veneurtopk), for a UNIX stream listener."""
+    from veneur_tpu_torch.protocol import ssf, wire
+
+    tag = _tag_entries((("veneurtopk", ""),))
+    samples = [_ld(10, b"\x08\x03" + _ld(2, f"hh.t.{o}".encode())
+                   + _ld(5, f"k{m}".encode()) + tag)
+               for o, m in zip(owner.tolist(), keys.tolist())]
+    frames = []
+    for j in range(0, len(samples), per):
+        body = ssf.encode_span(ssf.SSFSpan(
+            trace_id=j + 1, id=j + 1, start_timestamp=1, end_timestamp=2,
+            service="hh", name="op")) + b"".join(samples[j:j + per])
+        frames.append(wire.FRAME_HEADER.pack(0, len(body)) + body)
+    return frames
+
+
+def _hh_exact(owner, keys) -> dict:
+    """Exact per-(series, key) counts as sorted codes and counts."""
+    codes, counts = np.unique(owner.astype(np.int64) * HH_KEYS + keys,
+                              return_counts=True)
+    return {"codes": codes, "counts": counts, "total": len(owner)}
+
+
+def _check_topk(rows, exact, k: int, depth: int, width: int,
+                prefix: str = "hh.t.") -> dict:
+    """One Server's emitted ``.topk`` rows against the exact counts of
+    what it was sent: no hex member (every member name comes back);
+    every estimate >= its exact count (count-min never undercounts);
+    at most a share e^-depth of them past exact + e/w * N (the
+    count-min guarantee, N the samples into the shared table); every
+    key whose exact count exceeds its series' K-th exact count by e/w *
+    N present. Returns the record."""
+    series, members, est = [], [], []
+    for m in rows:
+        if not m.name.endswith(".topk"):
+            continue
+        key = m.tags[-1]
+        if not key.startswith("key:k"):
+            raise AssertionError(f"top-k member came back as {key!r}")
+        series.append(int(m.name[len(prefix):-len(".topk")]))
+        members.append(int(key[5:]))
+        est.append(m.value)
+    got = np.array(series, np.int64) * HH_KEYS + np.array(members)
+    est = np.array(est)
+    idx = np.searchsorted(exact["codes"], got)
+    idx = np.minimum(idx, len(exact["codes"]) - 1)
+    if not np.all(exact["codes"][idx] == got):
+        raise AssertionError("a top-k row names a key its series never sent")
+    want = exact["counts"][idx]
+    bound = math.e / width * exact["total"]
+    if np.any(est < want):
+        raise AssertionError("a top-k estimate is below its exact count")
+    over_share = float(np.mean(est - want > bound)) if len(est) else 0.0
+    if over_share > math.exp(-depth):
+        raise AssertionError(f"{over_share:.4f} of the estimates exceed "
+                             f"exact + e/w*N = {bound:.1f}")
+    # the K-th exact count of each series, and the keys that must show
+    ser = exact["codes"] // HH_KEYS
+    order = np.lexsort((-exact["counts"], ser))
+    s_sorted, c_sorted = ser[order], exact["counts"][order]
+    starts = np.flatnonzero(np.r_[True, s_sorted[1:] != s_sorted[:-1]])
+    sizes = np.diff(np.r_[starts, len(s_sorted)])
+    kth = np.where(sizes >= k, c_sorted[starts + np.minimum(sizes, k) - 1],
+                   0)
+    kth_of = dict(zip(s_sorted[starts].tolist(), kth.tolist()))
+    need = exact["counts"] > np.array([kth_of[s] for s in ser.tolist()]) \
+        + bound
+    missing = np.setdiff1d(exact["codes"][need], got)
+    if len(missing):
+        raise AssertionError(f"{len(missing)} heavy keys are missing")
+    top1 = c_sorted[starts]
+    top1_codes = exact["codes"][order][starts]
+    return {"topk_rows": len(est), "series": len(starts),
+            "distinct_keys_sent": len(exact["codes"]),
+            "share_of_keys_emitted": len(est) / len(exact["codes"]),
+            "top1_present_share": float(np.isin(top1_codes, got).mean()),
+            "top1_exact_max": int(top1.max()),
+            "over_mean": float(np.mean(est - want)),
+            "over_max": float(np.max(est - want)),
+            "cm_bound": bound, "over_bound_share": over_share,
+            "keys_required": int(need.sum())}
+
+
+def _timed_updates(group) -> list:
+    """CUDA events around each count-min update the group's drains run
+    (the wrapper rides the flush's fresh twin too)."""
+    import torch
+
+    events = []
+    real = group._update
+
+    def timed(sk, *args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(sk, *args)
+        b.record()
+        events.append((a, b))
+        return out
+
+    group._update = timed
+    return events
+
+
+def cm_update_alone(dev, series: int = HH_SERIES, batch: int = 1 << 14,
+                    reps: int = 10) -> dict:
+    """One count-min update at the phase's shape (a [65,536, 32] top-k,
+    the default table, a 16,384-sample drain of Zipf members over random
+    series) with no other thread in the process: CUDA events around each
+    call (the span covers the host's enqueue too, since nothing waits
+    between calls), and the device kernels' own time from a profiler
+    trace of one call (None when the trace holds no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from veneur_tpu_torch.ops import countmin as cm
+
+    gen = np.random.default_rng(SEED + 13)
+    w = 1.0 / np.arange(1, HH_KEYS + 1) ** HH_ZIPF_S
+    sk = cm.init(series, device=dev)
+
+    def batch_args():
+        rows = gen.integers(0, series, batch)
+        keys = gen.choice(HH_KEYS, batch, p=w / w.sum()).astype(np.uint64)
+        hashes = keys * np.uint64(0x9E3779B97F4A7C15)
+        hi = (hashes >> np.uint64(32)).astype(np.uint32).view(np.int32)
+        lo = hashes.astype(np.uint32).view(np.int32)
+        sids = (rows * 2654435761 % (1 << 32)).astype(np.uint32)
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+                (rows, sids.view(np.int32), hi, lo,
+                 np.ones(batch, np.float32))]
+
+    for _ in range(3):
+        sk = cm.update(sk, *batch_args())
+    ms = []
+    for _ in range(reps):
+        args = batch_args()
+        torch.cuda.synchronize(dev)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        sk = cm.update(sk, *args)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    args = batch_args()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sk = cm.update(sk, *args)
+        torch.cuda.synchronize(dev)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = (sum(e.device_time for e in kernels) / 1e3) if kernels else None
+    return {"update_ms_median": float(np.median(ms)),
+            "update_ms_min": float(np.min(ms)),
+            "device_kernels": len(kernels), "device_ms": dev_ms}
+
+
+def _send_paced(senders, counts, done, lines_in, timeout=300):
+    """Send every datagram, one window a call to ``senders.send``,
+    waiting after each until ``done()`` reaches the lines sent so far
+    (``lines_in(n)``: the lines of the first n datagrams)."""
+    per = INGEST_MAX_WINDOW // INGEST_SENDERS
+    sent = 0
+    for a in range(0, max(senders.counts), per):
+        sent += senders.send(a, a + per)
+        target = lines_in(min(2 * (a + per), counts))
+        _wait_for(lambda: done() >= target, timeout,
+                  "the server to take a window")
+    return sent
+
+
+def run_heavy_hitters(dev, t, workdir, sock_path):
+    """The two Servers of the heavy_hitters phase on ``dev``: A on the
+    default lane fleet (4 lanes) takes three quarters of the top-k
+    series and the histograms, B (the C++ pool with ``ingest_lanes:
+    -1``, and a unix:// SSF listener) the rest; each flushed once, held
+    to the exact counts. Returns (record, launch counts)."""
+    import torch
+
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+
+    common = dict(interval="86400s", percentiles=list(INGEST_PERCENTILES),
+                  aggregates=["min", "max", "count"], hostname="smoke",
+                  read_buffer_size_bytes=8 << 20, num_readers=4)
+    sink_a, sink_b = ChannelMetricSink(), ChannelMetricSink()
+    a = Server(Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                      **common), metric_sinks=[sink_a], device=dev)
+    b = Server(Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                      ingest_lanes=-1,
+                      ssf_listen_addresses=[f"unix://{sock_path}"],
+                      span_channel_capacity=4096, **common),
+               metric_sinks=[sink_b], device=dev)
+    a.start()
+    b.start()
+    senders = []
+    rec = {}
+    try:
+        hh = a.store.heavy_hitters
+        cfg = (hh.depth, hh.width, hh.k)
+        if cfg != (4, 1 << 16, 32) or a.listeners[0][1] != "lanes" \
+                or b.listeners[0][1] != "native" \
+                or hh.sketch.table.device.type != dev.type:
+            raise AssertionError(f"the Servers came up as {a.listeners}, "
+                                 f"{b.listeners}, top-k {cfg}")
+        fleet = a.ingest_fleets[0]
+        updates = _timed_updates(hh)
+        emit_a = _emission_timer(a.store)
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts(tc)
+        lanes, pool = t["lanes"], t["pool"]
+        senders.append(_PacedSenders(fleet.bound[0][1], lanes,
+                                     workdir / "a"))
+        cum_a = np.concatenate([[0], np.cumsum(lanes["d_lines"])])
+        t0 = time.perf_counter()
+        sent_a = _send_paced(senders[0], len(lanes["d_len"]),
+                             lambda: fleet.totals()["merged"],
+                             lambda n: cum_a[n])
+        _wait_for(lambda: fleet.totals()["merged"] >= lanes["lines"], 300,
+                  "every line to merge into A")
+        wall_a = time.perf_counter() - t0
+        spilled_a = _spilled(a.store)
+        totals = fleet.totals()
+        senders.append(_PacedSenders(b.statsd_addrs[0][1], pool,
+                                     workdir / "b"))
+        cum_b = np.concatenate([[0], np.cumsum(pool["d_lines"])])
+        t1 = time.perf_counter()
+        sent_b = _send_paced(senders[1], len(pool["d_len"]),
+                             lambda: b.store.processed, lambda n: cum_b[n])
+        frames = _hh_spans(*t["ssf"])
+        with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as tx:
+            tx.connect(sock_path)
+            for j in range(0, len(frames), 256):
+                tx.sendall(b"".join(frames[j:j + 256]))
+                want = pool["lines"] + 16 * min(j + 256, len(frames))
+                want = min(want, pool["lines"] + len(t["ssf"][0]))
+                _wait_for(lambda: b.store.processed >= want
+                          or b.overload.shed_total() or b.spans_dropped,
+                          120, "the SSF stream to merge")
+        wall_b = time.perf_counter() - t1
+        processed_a = a.store.processed
+        processed_b = b.store.processed
+        spilled_b = _spilled(b.store)
+        t2 = time.perf_counter()
+        a.flush()
+        flush_a = time.perf_counter() - t2
+        t3 = time.perf_counter()
+        b.flush()
+        flush_b = time.perf_counter() - t3
+        counts = _counts(tc)
+        rows_a = sink_a.get_flush(timeout=120)
+        rows_b = sink_b.get_flush(timeout=120)
+        torch.cuda.synchronize(dev)
+        drain_ms = [e0.elapsed_time(e1) for e0, e1 in updates]
+        mem = int(torch.cuda.max_memory_allocated(dev))
+        rec.update({
+            "lanes": fleet.num_lanes, "datagrams_a": sent_a,
+            "lines_a": lanes["lines"], "ingest_a_s": wall_a,
+            "records_per_s_a": lanes["lines"] / wall_a,
+            "kernel_drops_a": _udp_drops(fleet.bound[0][1]),
+            "datagrams_b": sent_b, "lines_b": pool["lines"],
+            "ssf_spans_b": len(frames), "ssf_samples_b": len(t["ssf"][0]),
+            "ingest_b_s": wall_b,
+            "records_per_s_b": (processed_b) / wall_b,
+            "kernel_drops_b": _udp_drops(b.statsd_addrs[0][1]),
+            "cm_drains": len(drain_ms),
+            "cm_update_ms_median": float(np.median(drain_ms)),
+            "cm_update_ms_max": float(np.max(drain_ms)),
+            "cm_update_ms_total": float(np.sum(drain_ms)),
+            "flush_a_s": flush_a, "flush_b_s": flush_b,
+            "emit_a_s": emit_a["emit_s"],
+            "emission_share_a": emit_a["emit_s"] / flush_a,
+            "max_memory_allocated": mem, "launches": counts,
+            "overload": [a.overload.snapshot(), b.overload.snapshot()],
+            "spilled": [spilled_a, spilled_b]})
+        cons_a = (totals["packets"] == sent_a == len(lanes["d_len"])
+                  and totals["merged"] == lanes["lines"]
+                  and totals["parse_errors"] == totals["quarantined"] == 0
+                  and totals["shed_packets"] == totals["shed_records"] == 0
+                  and processed_a == lanes["lines"])
+        cons_b = (processed_b == pool["lines"] + len(t["ssf"][0])
+                  and b.packet_errors == b.quarantined == 0
+                  and b.spans_dropped == 0)
+        if not (cons_a and cons_b and rec["kernel_drops_a"] == 0
+                and rec["kernel_drops_b"] == 0
+                and a.overload.shed_total() == b.overload.shed_total() == 0
+                and spilled_a == spilled_b == 0):
+            raise AssertionError(f"heavy hitters did not conserve the "
+                                 f"traffic: {rec} {totals}")
+    finally:
+        for s in senders:
+            s.close()
+        a.shutdown()
+        b.shutdown()
+    route, owner, keys = t["route"], t["owner"], t["keys"]
+    rec["a"] = _check_topk(rows_a, _hh_exact(owner[route == 0],
+                                             keys[route == 0]), cfg[2],
+                           cfg[0], cfg[1])
+    rec["b"] = _check_topk(rows_b, _hh_exact(owner[route > 0],
+                                             keys[route > 0]), cfg[2],
+                           cfg[0], cfg[1])
+    hist = {m.name: m.value for m in rows_a if m.name.startswith("hh.h.")}
+    for i in range(0, HH_HIST_SERIES, 4099):
+        qi = t["q"][i]
+        if (hist[f"hh.h.{i}.count"], hist[f"hh.h.{i}.min"],
+                hist[f"hh.h.{i}.max"]) != (16.0 if i % 4 == 0 else 8.0,
+                                           qi.min(), qi.max()):
+            raise AssertionError(f"hh.h.{i}: count/min/max wrong")
+    if len(hist) != HH_HIST_SERIES * (3 + len(INGEST_PERCENTILES)):
+        raise AssertionError(f"{len(hist)} histogram rows flushed")
+    if counts["compress_presorted.launches"] < 1 \
+            or counts["drain_quantile.launches"] < 1:
+        raise AssertionError(f"want K2 >= 1 and K1 >= 1: {counts}")
+    return rec, counts
+
+
+def run_hh_eviction(dev, batch: int = 4096) -> dict:
+    """Top-k selection under eviction at the default geometry: the main
+    run's series see 32 samples each, so no list ever evicts there.
+    Here HH_EVICT_SERIES series of HH_EVICT_SAMPLES / HH_EVICT_SERIES
+    Zipf(1.1) samples each go through ``process_batch`` (``batch``
+    lines a call) into a store on ``dev`` and one on the CPU, in the
+    same calls, so both drain alike. Their ``.topk`` rows must match
+    exactly (the table sums integer counts below 2^24, exact in any
+    order; the selection sorts stably on both devices), and they are
+    held to the exact counts by _check_topk, whose presence check binds
+    here. Returns the record."""
+    import torch
+
+    from veneur_tpu_torch import native
+    from veneur_tpu_torch.core.store import MetricStore
+    from veneur_tpu_torch.samplers.intermetric import HistogramAggregates
+
+    rng = np.random.default_rng(SEED + 11)
+    w = 1.0 / np.arange(1, HH_KEYS + 1) ** HH_ZIPF_S
+    keys = rng.choice(HH_KEYS, HH_EVICT_SAMPLES, p=w / w.sum())
+    owner = rng.permutation(np.repeat(np.arange(HH_EVICT_SERIES),
+                                      HH_EVICT_SAMPLES // HH_EVICT_SERIES))
+    lines = [f"hh.e.{o}:k{m}|s|#veneurtopk".encode()
+             for o, m in zip(owner.tolist(), keys.tolist())]
+    blobs = [b"\n".join(lines[i:i + batch])
+             for i in range(0, len(lines), batch)]
+    del lines
+    rec, out = {"series": HH_EVICT_SERIES, "samples": HH_EVICT_SAMPLES}, []
+    for d in (dev, torch.device("cpu")):
+        store = MetricStore(device=d)
+        if store.heavy_hitters.sketch.table.device.type != d.type:
+            raise AssertionError("the count-min table is off its device")
+        t0 = time.perf_counter()
+        for blob in blobs:
+            store.process_batch(native.parse_lines(blob))
+        if store.processed != HH_EVICT_SAMPLES:
+            raise AssertionError(f"{store.processed} eviction samples "
+                                 "processed")
+        final, _ = store.flush([], HistogramAggregates.from_names(["count"]),
+                               0)
+        rec[f"{d.type}_s"] = time.perf_counter() - t0
+        out.append({(m.name, tuple(m.tags)): m.value for m in final})
+    if out[0] != out[1]:
+        diff = sum(out[0].get(k) != v for k, v in out[1].items())
+        raise AssertionError(f"the card's top-k differs from the CPU's in "
+                             f"{diff} of {len(out[1])} rows")
+    rec.update(_check_topk(final, _hh_exact(owner, keys), 32, 4, 1 << 16,
+                           prefix="hh.e."))
+    if rec["keys_required"] == 0:
+        raise AssertionError("no key was required: the presence check "
+                             "did not bind")
+    return rec
+
+
+def _hh_local_lines(rng, series: int, keys: int):
+    """Lines of one forwarding local: series hh.f.<i>, keys k0..k<keys-1>
+    with counts 4 * (keys - j) plus 0..3 (so every key recurs over
+    several drains), beside 64 histograms of 4 samples and a global
+    counter (10 x 1) that both body formats carry, shuffled; and the
+    exact counts."""
+    counts = 4 * (keys - np.arange(keys))[None, :] + rng.integers(
+        0, 4, (series, keys))
+    lines = [f"hh.f.{i}:k{j}|s|#veneurtopk"
+             for i in range(series) for j in range(keys)
+             for _ in range(int(counts[i, j]))]
+    lines += [f"hh.fh.{i % 64}:{i}|h" for i in range(256)]
+    lines += ["hh.fc:1|c|#veneurglobalonly"] * 10
+    order = rng.permutation(len(lines))
+    return [lines[j] for j in order], counts
+
+
+def run_hh_forward(dev, compat: bool) -> dict:
+    """Two port locals with HH_FWD_SERIES top-k series each (taken over
+    UDP by their lane fleets) forward to a port global over HTTP, in our
+    body format (the topk_sketch entry) or the reference's (``compat``:
+    no sketch, so each local emits its own top-k). Held to the sums of
+    the locals' exact counts within the count-min bound. Returns the
+    record."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+
+    rng = np.random.default_rng(SEED + 11)
+    gsink = ChannelMetricSink()
+    glob = Server(Config(http_address="127.0.0.1:0", interval="86400s",
+                         percentiles=[0.5], hostname="g"),
+                  metric_sinks=[gsink], device=dev)
+    glob.start()
+    rec = {"format": "reference" if compat else "structured"}
+    exact = np.zeros((HH_FWD_SERIES, HH_FWD_KEYS), np.int64)
+    local_rows, local_exact = [], []
+    try:
+        for n in range(2):
+            lines, counts = _hh_local_lines(rng, HH_FWD_SERIES, HH_FWD_KEYS)
+            exact += counts
+            local_exact.append(counts)
+            lsink = ChannelMetricSink()
+            local = Server(Config(
+                statsd_listen_addresses=["udp://127.0.0.1:0"],
+                interval="86400s", hostname=f"l{n}",
+                forward_address=f"http://127.0.0.1:{glob.ops_server.port}",
+                forward_reference_compatible=compat),
+                metric_sinks=[lsink], device=dev)
+            local.start()
+            try:
+                fleet = local.ingest_fleets[0]
+                packed = _pack_lines(lines)
+                cum = np.concatenate([[0], np.cumsum(packed["d_lines"])])
+                t0 = time.perf_counter()
+                _udp_send(fleet.bound[0][1], _datagrams(packed),
+                          lambda k: fleet.totals()["merged"] >= cum[k])
+                rec[f"local{n}_ingest_s"] = time.perf_counter() - t0
+                state_types = []
+                real = local.forwarder.body
+
+                def body(state, _real=real, _types=state_types):
+                    out = _real(state)
+                    _types.extend(d["type"] for d in out)
+                    return out
+
+                local.forwarder.body = body
+                t1 = time.perf_counter()
+                local.flush()
+                if local.wait_forward(120) is not True:
+                    raise AssertionError("the forward failed")
+                rec[f"local{n}_flush_forward_s"] = time.perf_counter() - t1
+                rec[f"local{n}_body_types"] = sorted(set(state_types))
+                # the sinks flush on the flush's own thread, and only
+                # when the local emitted something
+                local_rows.append(lsink.queue.get_nowait()
+                                  if not lsink.queue.empty() else [])
+            finally:
+                local.shutdown()
+        _wait_for(lambda: glob.ops_server.import_pool.merged_batches >= 2,
+                  120, "the global to merge both bodies")
+        t2 = time.perf_counter()
+        glob.flush()
+        rec["global_flush_s"] = time.perf_counter() - t2
+        grows = gsink.get_flush(timeout=60)
+    finally:
+        glob.shutdown()
+    total = int(exact.sum())
+    bound = math.e / (1 << 16) * total
+
+    def topk(rows):
+        out = {}
+        for m in rows:
+            if m.name.startswith("hh.f.") and m.name.endswith(".topk"):
+                out[(int(m.name[5:-5]), int(m.tags[-1][5:]))] = m.value
+        return out
+
+    fleet = topk(grows)
+    by = {m.name: m.value for m in grows}
+    # the imported digests' median: hh.fh.0 holds 0, 64, 128, 192 twice
+    if by.get("hh.fc") != 20.0 or not 0 <= by.get(
+            "hh.fh.0.50percentile", -1) <= 192:
+        raise AssertionError("the digests and counters did not reach the "
+                             f"global: {by.get('hh.fc')}, "
+                             f"{by.get('hh.fh.0.50percentile')}")
+    if compat:
+        # no sketch on the reference's wire: the global has none, and
+        # each local emitted its own view
+        if fleet or any("topk_sketch" in rec[f"local{n}_body_types"]
+                        for n in range(2)):
+            raise AssertionError("a reference-format forward carried the "
+                                 "heavy-hitter sketch")
+        views = [topk(r) for r in local_rows]
+        for v, ex in zip(views, local_exact):
+            if len(v) != HH_FWD_SERIES * HH_FWD_KEYS or any(
+                    c < ex[i, j] for (i, j), c in v.items()):
+                raise AssertionError("a compat local's own top-k is short "
+                                     "or under its exact counts")
+        rec["local_topk_rows"] = [len(v) for v in views]
+    else:
+        if not all("topk_sketch" in rec[f"local{n}_body_types"]
+                   for n in range(2)) or any(topk(r) for r in local_rows):
+            raise AssertionError("the sketch did not ride the forward, or "
+                                 "a forwarding local emitted top-k rows")
+        if len(fleet) != HH_FWD_SERIES * HH_FWD_KEYS:
+            raise AssertionError(f"{len(fleet)} fleet top-k rows")
+        over = np.array([fleet[(i, j)] - exact[i, j]
+                         for i in range(HH_FWD_SERIES)
+                         for j in range(HH_FWD_KEYS)])
+        if over.min() < 0 or np.mean(over > bound) > math.exp(-4):
+            raise AssertionError(f"fleet top-k off the summed exact counts:"
+                                 f" {over.min()}..{over.max()}, bound "
+                                 f"{bound:.2f}")
+        rec.update(fleet_topk_rows=len(fleet), over_max=float(over.max()),
+                   over_mean=float(over.mean()), cm_bound=bound)
+    rec["samples"] = total
+    return rec
+
+
+def phase_heavy_hitters(dev, card: str) -> dict:
+    """Heavy hitters at the default top-k geometry (run_heavy_hitters),
+    then the local -> global forward in both body formats
+    (run_hh_forward). Returns the launch counts of the main path."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    t = _hh_traffic()
+    rec = {"topk_series": HH_SERIES, "topk_samples": HH_SAMPLES,
+           "zipf_s": HH_ZIPF_S, "keys": HH_KEYS,
+           "histogram_series": HH_HIST_SERIES,
+           "traffic_build_s": time.perf_counter() - t0}
+    workdir = Path(__file__).resolve().parent / "build" / "hh_smoke"
+    sock_dir = Path(tempfile.mkdtemp(prefix="vhh"))
+    try:
+        run, counts = run_heavy_hitters(dev, t, workdir,
+                                        str(sock_dir / "ssf.sock"))
+    finally:
+        (sock_dir / "ssf.sock").unlink(missing_ok=True)
+        sock_dir.rmdir()
+    rec.update(run)
+    del t
+    rec["cm_update_alone"] = cm_update_alone(dev)
+    rec["eviction"] = run_hh_eviction(dev)
+    rec["forward"] = [run_hh_forward(dev, compat) for compat in (False,
+                                                                 True)]
+    rec["phase_s"] = time.perf_counter() - t0
+    emit({"phase": "heavy_hitters", "card": card, **rec})
+    return counts
+
+
+# the overload phase: the default config's bounds and the shed ladder
+
+OV_MAX_SERIES = 4096
+OV_COUNTERS = 40000
+OV_HISTOGRAMS = 8192
+OV_EXEMPT = 256                  # veneur.* gauges sent under the freeze
+OV_TAG_LINES = 1001              # the F1 line and 1,000 like it
+OV_TAGS = [f"t{i}:" + "x" * 40 for i in range(40)]   # 1,789 B joined
+
+
+def _udp_send(port: int, datagrams, done, per: int = 128,
+              timeout: float = 120) -> None:
+    """Send ``datagrams`` to ``port`` from one socket, ``per`` at a time,
+    waiting after each burst until ``done(n)`` holds for the n sent."""
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+        for i in range(0, len(datagrams), per):
+            for d in datagrams[i:i + per]:
+                tx.sendto(d, ("127.0.0.1", port))
+            n = min(i + per, len(datagrams))
+            _wait_for(lambda: done(n), timeout, "the server to take a burst")
+
+
+def run_series_cap(dev) -> tuple:
+    """A Server on the lane fleet with ``max_series: 4096`` and the default
+    watermarks takes 40,000 counter and 8,192 histogram series (one
+    sample each, shuffled), then 256 ``veneur.*`` and 256 other gauges.
+    The counter group passes 70% of its cap, which holds the controller
+    at the freeze tier: from then on every first-sight series spills
+    (the cap binds only where the freeze lags), the ``veneur.*`` ones
+    excepted. Every spilled sample lands in its group's overflow row:
+    the counter sum and the digest count equal the spilled samples, and
+    ``spilled`` equals their number."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+
+    cvals = np.arange(OV_COUNTERS) % 97 + 1
+    lines = [f"ov.c.{i}:{v}|c" for i, v in enumerate(cvals.tolist())]
+    lines += [f"ov.h.{i}:{i % 1000}|h" for i in range(OV_HISTOGRAMS)]
+    order = np.random.default_rng(SEED + 12).permutation(len(lines))
+    lines = [lines[j] for j in order]
+    late = [f"veneur.smoke.g.{i}:{i}|g" for i in range(OV_EXEMPT)]
+    late += [f"ov.g.{i}:{i}|g" for i in range(OV_EXEMPT)]
+    sink = ChannelMetricSink()
+    server = Server(Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                           num_readers=4, max_series=OV_MAX_SERIES,
+                           interval="86400s", percentiles=[0.5],
+                           aggregates=["min", "max", "count"],
+                           hostname="smoke"),
+                    metric_sinks=[sink], device=dev)
+    server.start()
+    ctl = server.overload
+    rec = {"max_series": OV_MAX_SERIES, "counters_sent": OV_COUNTERS,
+           "histograms_sent": OV_HISTOGRAMS}
+    try:
+        fleet = server.ingest_fleets[0]
+        port = fleet.bound[0][1]
+        t0 = time.perf_counter()
+        first = _pack_lines(lines)
+        cum = np.concatenate([[0], np.cumsum(first["d_lines"])])
+        _udp_send(port, _datagrams(first),
+                  lambda n: fleet.totals()["merged"] >= cum[n])
+        _wait_for(lambda: ctl.level() >= 1, 30, "the freeze")
+        rec["level_after_flood"] = ctl.level()
+        rec["pressure_after_flood"] = ctl.pressure()
+        second = _pack_lines(late)
+        _udp_send(port, _datagrams(second),
+                  lambda n: fleet.totals()["merged"]
+                  >= len(lines) + len(late) * n // len(second["d_len"]))
+        _wait_for(lambda: fleet.totals()["merged"] >= len(lines) + len(late),
+                  60, "every line to merge")
+        rec["ingest_s"] = time.perf_counter() - t0
+        store = server.store
+        spilled = {g: getattr(store, g).spilled
+                   for g in ("counters", "histograms", "gauges")}
+        sizes = {g: len(getattr(store, g))
+                 for g in ("counters", "histograms", "gauges")}
+        _reset_counts(tc)
+        t1 = time.perf_counter()
+        server.flush()
+        rec["flush_s"] = time.perf_counter() - t1
+        counts = _counts(tc)
+        rows = sink.get_flush(timeout=60)
+        rec.update(level_changes=ctl.level_changes, spilled=spilled,
+                   group_rows=sizes, shed=dict(ctl.shed),
+                   kernel_drops=_udp_drops(port))
+    finally:
+        server.shutdown()
+    by = {(m.name, tuple(m.tags)): m.value for m in rows}
+    kept_c = [int(n.split(".")[2]) for n, _ in by if n.startswith("ov.c.")]
+    kept_h = {int(n.split(".")[2]) for n, _ in by if n.startswith("ov.h.")
+              and n.endswith(".count")}
+    over_c = by[("veneur.overload.overflow", ("group:counters",))]
+    over_h = by[("veneur.overload.overflow.count", ("group:histograms",))]
+    exempt = [by.get((f"veneur.smoke.g.{i}", ())) for i in range(OV_EXEMPT)]
+    checks = {
+        "counter_rows_capped": sizes["counters"] <= OV_MAX_SERIES,
+        "counters_spilled": spilled["counters"] == OV_COUNTERS - len(kept_c),
+        "counter_overflow_sum": over_c == float(
+            cvals.sum() - cvals[kept_c].sum()),
+        "histograms_spilled": spilled["histograms"]
+        == OV_HISTOGRAMS - len(kept_h) == over_h,
+        "histogram_rows_capped": sizes["histograms"] <= OV_MAX_SERIES,
+        "veneur_exempt": exempt == [float(i) for i in range(OV_EXEMPT)],
+        "others_frozen": spilled["gauges"] == OV_EXEMPT
+        and not any(n.startswith("ov.g.") for n, _ in by),
+        "nothing_shed": sum(rec["shed"].values()) == 0
+        and rec["kernel_drops"] == 0,
+        "k1": counts["drain_quantile.launches"] >= 1}
+    rec["checks"] = checks
+    rec.update(counter_overflow=over_c, histogram_overflow_count=over_h,
+               kept_counters=len(kept_c), kept_histograms=len(kept_h))
+    if not all(checks.values()):
+        raise AssertionError(f"the series cap: {rec}")
+    return rec, counts
+
+
+def run_tag_cap(dev, sock_path) -> dict:
+    """The F1 line (40 tags, 1,789 bytes joined) and 1,000 like it, each
+    its own series, through the default config on every rung: the lane
+    fleet, the C++ pool, the Python readers, and SSF over a unix://
+    listener. Every rung keys the tags truncate_joined_tags leaves (987
+    bytes) and counts each line in ``oversized_tags``."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.protocol import ssf, wire
+    from veneur_tpu_torch.samplers.parser import truncate_joined_tags
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+
+    joined = ",".join(OV_TAGS)
+    cut = truncate_joined_tags(",".join(sorted(OV_TAGS)), 1024)
+    want_tags = tuple(cut.split(","))
+    lines = [f"f1.{i}:1|c|#{joined}".encode() for i in range(OV_TAG_LINES)]
+    rec = {"tags_joined_bytes": len(joined), "cut_bytes": len(cut)}
+    rungs = {"lanes": {}, "native": {"ingest_lanes": -1},
+             "python": {"ingest_lanes": -1, "native_ingest": False,
+                        "ssf_listen_addresses": [f"unix://{sock_path}"],
+                        "span_channel_capacity": 4096}}
+    for rung, extra in rungs.items():
+        sink = ChannelMetricSink()
+        server = Server(Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                               interval="86400s", hostname="smoke",
+                               **extra), metric_sinks=[sink], device=dev)
+        server.start()
+        try:
+            if server.listeners[0][1] != rung:
+                raise AssertionError(f"{rung} came up as "
+                                     f"{server.listeners[0][1]}")
+            t0 = time.perf_counter()
+            _udp_send(server.statsd_addrs[0][1], lines,
+                      lambda n: server.store.processed >= n, per=64)
+            want = OV_TAG_LINES
+            if rung == "python":
+                tags = {t.split(":")[0]: "x" * 40 for t in OV_TAGS}
+                with socket.socket(socket.AF_UNIX,
+                                   socket.SOCK_STREAM) as tx:
+                    tx.connect(sock_path)
+                    for i in range(OV_TAG_LINES):
+                        body = ssf.encode_span(ssf.SSFSpan(
+                            trace_id=i + 1, id=i + 1, start_timestamp=1,
+                            end_timestamp=2, metrics=[ssf.SSFSample(
+                                metric=ssf.SSFSample.COUNTER,
+                                name=f"f1s.{i}", value=1.0, tags=tags)]))
+                        tx.sendall(wire.FRAME_HEADER.pack(0, len(body))
+                                   + body)
+                want += OV_TAG_LINES
+            _wait_for(lambda: server.store.processed >= want
+                      or server.overload.shed_total(), 120,
+                      f"the {rung} rung")
+            wall = time.perf_counter() - t0
+            oversized = server.store.quarantine.snapshot()["oversized_tags"]
+            server.flush()
+            rows = sink.get_flush(timeout=60)
+        finally:
+            server.shutdown()
+        tagsets = {tuple(m.tags) for m in rows}
+        rec[rung] = {"lines": want, "rows": len(rows),
+                     "oversized_tags": oversized, "wall_s": wall,
+                     "shed": server.overload.shed_total()}
+        # the SSF samples' "k:v" tags are the same strings
+        if not (len(rows) == want and oversized == want
+                and tagsets == {want_tags}):
+            raise AssertionError(f"the tag cap on {rung}: {rec[rung]}")
+    return rec
+
+
+def run_shed_ladder(dev, sock_path) -> dict:
+    """A Server on the lane fleet with a unix:// SSF listener; its span
+    channel is forced full (a queue nobody drains stands in for it). At
+    90% the controller sheds spans (level 2), at 100% statsd datagrams
+    at the lanes' sockets (level 3); every shed span and datagram is
+    counted in ``overload.shed``, none lost uncounted. Drained again,
+    the ladder falls to 0 and the same datagrams merge."""
+    import queue as queue_mod
+
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.protocol import ssf, wire
+    from veneur_tpu_torch.server import Server
+
+    server = Server(Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                           num_readers=4,
+                           ssf_listen_addresses=[f"unix://{sock_path}"],
+                           interval="86400s", hostname="smoke"), device=dev)
+    server.start()
+    ctl = server.overload
+    rec = {"watermarks": [ctl.low, ctl.high, ctl.hard]}
+    spans, dgrams = 500, 1000
+    try:
+        fleet = server.ingest_fleets[0]
+        port = fleet.bound[0][1]
+        chan = server.span_chan = queue_mod.Queue(100)
+        for _ in range(90):
+            chan.put_nowait(ssf.SSFSpan(id=0))
+        _wait_for(lambda: ctl.level() == 2, 10, "level 2")
+        rec["level_spans"], rec["pressure_spans"] = ctl.level(), \
+            ctl.pressure()
+        t0 = time.perf_counter()
+        frame = ssf.encode_span(ssf.SSFSpan(trace_id=1, id=1,
+                                            start_timestamp=1,
+                                            end_timestamp=2))
+        with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as tx:
+            tx.connect(sock_path)
+            tx.sendall((wire.FRAME_HEADER.pack(0, len(frame)) + frame)
+                       * spans)
+        _wait_for(lambda: ctl.shed["spans"] >= spans, 30, "spans shed")
+        rec["spans_shed_s"] = time.perf_counter() - t0
+        for _ in range(10):
+            chan.put_nowait(ssf.SSFSpan(id=0))
+        _wait_for(lambda: ctl.level() == 3 and ctl.level_nowait() == 3, 10,
+                  "level 3")
+        rec["level_packets"], rec["pressure_packets"] = ctl.level(), \
+            ctl.pressure()
+        payloads = [f"ladder.c.{i % 16}:1|c".encode() for i in range(dgrams)]
+        t1 = time.perf_counter()
+        _udp_send(port, payloads,
+                  lambda n: fleet.totals()["packets"] >= n)
+        _wait_for(lambda: ctl.shed["statsd"] >= dgrams, 30,
+                  "the merger's shed roll-up")
+        rec["statsd_shed_s"] = time.perf_counter() - t1
+        rec["merged_while_shedding"] = fleet.totals()["merged"]
+        while not chan.empty():
+            chan.get_nowait()
+        _wait_for(lambda: ctl.level() == 0, 10, "level 0")
+        t2 = time.perf_counter()
+        _udp_send(port, payloads,
+                  lambda n: fleet.totals()["merged"] >= n)
+        rec["recovered_s"] = time.perf_counter() - t2
+        totals = fleet.totals()
+        rec.update(shed=dict(ctl.shed), level_changes=ctl.level_changes,
+                   packets=totals["packets"],
+                   shed_packets=totals["shed_packets"],
+                   merged=totals["merged"], spans_dropped=server.spans_dropped,
+                   kernel_drops=_udp_drops(port),
+                   processed=server.store.processed)
+    finally:
+        server.shutdown()
+    if not (rec["shed"] == {"statsd": dgrams, "ssf": 0, "spans": spans}
+            and rec["packets"] == 2 * dgrams == rec["shed_packets"]
+            + rec["merged"] and rec["merged_while_shedding"] == 0
+            and rec["processed"] == dgrams and rec["spans_dropped"] == 0
+            and rec["kernel_drops"] == 0 and rec["level_changes"] >= 3):
+        raise AssertionError(f"the shed ladder: {rec}")
+    return rec
+
+
+def phase_overload(dev, card: str) -> dict:
+    """The series cap (run_series_cap), the tag cap on every rung
+    (run_tag_cap) and the shed ladder (run_shed_ladder). Returns the
+    launch counts of the series-cap Server's flush."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    sock_dir = Path(tempfile.mkdtemp(prefix="vov"))
+    sock = str(sock_dir / "ssf.sock")
+    try:
+        cap, counts = run_series_cap(dev)
+        rec = {"series_cap": cap, "tag_cap": run_tag_cap(dev, sock)}
+        Path(sock).unlink(missing_ok=True)
+        rec["ladder"] = run_shed_ladder(dev, sock)
+    finally:
+        Path(sock).unlink(missing_ok=True)
+        sock_dir.rmdir()
+    rec["phase_s"] = time.perf_counter() - t0
+    emit({"phase": "overload", "card": card, **rec})
+    return counts
+
+
 def _ptxas_summary(logs) -> list:
     """Registers, spills and shared memory of every kernel instance, from
     nvcc's -Xptxas -v output: warp<half,sort_b,drain> / block<...>."""
@@ -2491,6 +3437,10 @@ def _ptxas_summary(logs) -> list:
                     if got:
                         cur[key] = int(got.group(1))
     return out
+
+
+PHASES = ("store", "server", "ingest", "ssf", "heavy_hitters", "overload",
+          "global_merge", "server_global")
 
 
 def main() -> int:
@@ -2537,16 +3487,21 @@ def main() -> int:
           "built": sorted(logs) + ["veneur_ingest"],
           "ptxas": _ptxas_summary(logs)})
     card = card_line()
+    runs = {"store": lambda: phase_store(dev, rows=STORE_ROWS),
+            "server": lambda: phase_server(dev),
+            "ingest": lambda: phase_ingest(dev, card),
+            "ssf": lambda: phase_ssf(dev, card),
+            "heavy_hitters": lambda: phase_heavy_hitters(dev, card),
+            "overload": lambda: phase_overload(dev, card),
+            "global_merge": lambda: phase_global_merge(dev, card),
+            "server_global": lambda: phase_server_global(dev, card)}
     kern = phase_kernels(dev)
     # the main path's launches: each phase resets the counts just before
     # it drives its path and reads them just after
-    launches = phase_store(dev, rows=STORE_ROWS)
-    phase_server(dev)
-    for counts in (phase_ingest(dev, card),
-                   phase_ssf(dev, card),
-                   phase_global_merge(dev, card),
-                   phase_server_global(dev, card)):
-        for key, n in counts.items():
+    launches = {key: 0 for key in (f"{fn}.{c}" for fn in (
+        "drain_quantile", "compress_presorted") for c in _COUNTERS)}
+    for name in PHASES:
+        for key, n in (runs[name]() or {}).items():
             launches[key] += n
     src = "veneur_tpu_torch/csrc/tdigest_merge.cu"
     rows = []

@@ -372,3 +372,34 @@ def test_cli_server_listener_on_cuda(cuda, tmp_path, lanes, rung):
             proc.wait()
     assert proc.returncode == 0, out
     assert "name='cli.count'" in out and "value=11.000000" in out, out
+
+
+def test_heavy_hitters_on_cuda_match_cpu(cuda):
+    """The same veneurtopk lines into a store on the card and one on the
+    CPU: the count-min state lives on the card, and the ``.topk`` rows
+    match exactly (the table sums integer counts, exact in float32 below
+    2^24 in any order, and the candidate selection uses stable sorts on
+    both devices). A Server built without a device puts it there too."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.server import Server
+
+    rng = np.random.default_rng(43)
+    w = 1.0 / np.arange(1, 301) ** 1.1
+    draws = rng.choice(300, 20000, p=w / w.sum())
+    owners = rng.integers(0, 64, 20000)
+    lines = [f"hh.{o}:u{d}|s|#veneurtopk".encode()
+             for o, d in zip(owners.tolist(), draws.tolist())]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        store = MetricStore(chunk=1024, device=dev)
+        for ln in lines:
+            store.process_metric(parse_metric(ln))
+        store.heavy_hitters._drain_samples()
+        assert store.heavy_hitters.sketch.table.device.type == dev.type
+        rows, _ = store.flush([], HistogramAggregates.from_names(["count"]),
+                              0)
+        out.append({(m.name, tuple(m.tags)): m.value for m in rows})
+    assert len(out[1]) > 500 and out[0] == out[1]
+    server = Server(Config(hostname="t"))
+    assert server.store.heavy_hitters.sketch.table.device.type == "cuda"
+    assert server.store.counters.max_series == 1 << 20

@@ -289,7 +289,8 @@ def test_duplicate_set_rows_max_combine():
 def test_precision_mismatch_rejected_per_metric():
     """A set at the wrong precision fails alone; the rest of the body
     merges, with the same counts as the JAX package. A heavy-hitter
-    entry (not ported) counts as one more error on the port."""
+    sketch whose count-min table has another shape than the store's is
+    one more error in both packages (the import's shape check)."""
     good = [{"name": f"s.{i}", "tags": [], "type": "set",
              "hll": base64.b64encode(tconvert.encode_hll(
                  np.full(1 << P, i + 1, np.uint8), P)).decode()}
@@ -307,7 +308,10 @@ def test_precision_mismatch_rejected_per_metric():
                      np.ones(1 << (P + 1), np.uint8))
     topk = {"type": "topk_sketch", "name": "veneur.topk", "tags": [],
             "depth": 1, "width": 1, "table": "AAAAAA==", "series": []}
+    assert jconvert.apply_json_metric_list(j, [topk]) == (0, 1)
     assert tconvert.apply_json_metric_list(t, [topk]) == (0, 1)
+    with pytest.raises(ValueError, match="count-min shape"):
+        t.import_topk(np.zeros((1, 1), np.float32), [])
     (jrows, _), (trows, _) = flush_both(j, t)
     assert_globals_match(trows, jrows, {})
 

@@ -10,7 +10,7 @@
   (``process_metric``) give identical emissions.
 * ``IngestFleet``: lanes over loopback UDP into a CPU store conserve
   every record they receive; raw lines reach the handler; heavy-hitter
-  records are counted ``not_ported``. The JAX package's intern-remap,
+  records land in the heavy-hitter group. The JAX package's intern-remap,
   backlog and shutdown cases, ported.
 * The three places the paths could part: set-member hashing, counter
   truncation, and where each rejected record is counted.
@@ -190,19 +190,32 @@ def test_process_batch_matches_jax_and_per_line(gxx, monkeypatch):
     assert port.flush_epoch == 2
 
 
-def test_process_batch_heavy_hitters_are_not_ported(gxx):
-    """Heavy-hitter records are counted ``not_ported``; events and service
-    checks come back raw, and the service check then flushes as a status
-    row through process_metric."""
+def test_process_batch_heavy_hitters_match_jax(gxx):
+    """Heavy-hitter records land in the heavy-hitter group, as in the JAX
+    package's process_batch: both emit the same ``{name}.topk`` rows
+    exactly, member names from the batch's member bytes. Events and
+    service checks come back raw, and the service check then flushes as
+    a status row through process_metric."""
+    text = (b"top:a|s|#veneurtopk\ntop:b|s|#veneurtopk\ntop:a|s|#veneurtopk"
+            b"\ns:a|s\n_e{1,1}:a|b\n_sc|chk|1")
     store = tstore.MetricStore(device="cpu")
-    pb = tnative.parse_lines(b"top:a|s|#veneurtopk\ntop:b|s|#veneurtopk\n"
-                             b"s:a|s\n_e{1,1}:a|b\n_sc|chk|1")
-    assert store.process_batch(pb) == [b"_e{1,1}:a|b", b"_sc|chk|1"]
-    assert store.not_ported == 2 and store.processed == 1
+    jax = jstore.MetricStore()
+    assert store.process_batch(tnative.parse_lines(text)) == [
+        b"_e{1,1}:a|b", b"_sc|chk|1"]
+    jax.process_batch(jnative.parse_lines(text))
+    # a record that comes back raw counts when it is re-parsed
+    assert store.processed == 4 and len(store.heavy_hitters) == 1
     assert tparser.parse_event(b"_e{1,1}:a|b").name == "a"
     store.process_metric(tparser.parse_service_check(b"_sc|chk|1"))
-    assert sorted((m.name, m.type.value) for m in _flush_port(store)) == [
-        ("chk", "status"), ("s", "gauge")]
+    rows = _flush_port(store)
+    assert sorted((m.name, m.type.value) for m in rows) == [
+        ("chk", "status"), ("s", "gauge"), ("top.topk", "counter"),
+        ("top.topk", "counter")]
+    topk = _by_key(m for m in rows if m.name == "top.topk")
+    assert topk == _by_key(m for m in _flush_jax(jax)
+                           if m.name == "top.topk")
+    assert topk == {("top.topk", ("veneurtopk", "key:a"), "counter"): 2.0,
+                    ("top.topk", ("veneurtopk", "key:b"), "counter"): 1.0}
 
 
 # ---------------------------------------------------------------------------
@@ -293,8 +306,8 @@ def test_fleet_over_udp_conserves_counts(gxx, lanes):
     assert (t["parse_errors"], t["quarantined"]) == (6, 3)
     assert store.quarantine.total() == 3
     assert len(raws) == t["merged_raws"] == 20
-    assert store.not_ported == 7
-    assert store.processed == t["merged"] - 7
+    # the heavy-hitter records merge like every other kind
+    assert store.processed == t["merged"]
     # the raw lines are the events and service checks, which a Server
     # routes to its event worker and to the status group
     events = [tparser.parse_event(r) for r in raws if r.startswith(b"_e{")]
@@ -308,6 +321,8 @@ def test_fleet_over_udp_conserves_counts(gxx, lanes):
     for name, total in counters.items():
         assert fm[name].value == total, name
     assert "top" not in fm and "bad.c" not in fm and "bad.h" not in fm
+    assert (fm["top.topk"].value, fm["top.topk"].tags) == (
+        7.0, ["veneurtopk", "key:a"])
     assert (fm["svc.check"].type.value, fm["svc.check"].value) == (
         "status", 0.0)
     assert {n.split(".")[1] for n in fm if n.startswith("w.")} == {
@@ -411,7 +426,10 @@ def test_all_kinds_flow_through_merge(gxx, use_native):
     assert any(m.name.startswith("h.") for m in final)
     assert any(m.name.startswith("t.") for m in final)
     assert fwd.counters == [("gc", [], 4)]
-    assert store.not_ported == 1
+    # the heavy-hitter record reaches its group with its member name,
+    # forwarded by this local as the sketch
+    assert [(s[0], s[1], s[3]) for s in fwd.topk[1]] == [
+        ("top", ["veneurtopk"], ["a"])]
     # the service check is handed back raw (no raw_handler here)
     assert fleet.unrouted_raws == [b"_sc|chk|0"]
     fleet.shutdown()

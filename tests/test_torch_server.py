@@ -109,13 +109,13 @@ def test_rejected_lines_are_counted():
     server = Server(Config(hostname="test"), device="cpu")
     server.handle_packet(b"a:1|c\n_e{1,1}:t|x\n_sc|svc|0\nbad\nn:nan|h\n"
                          b"top:a|s|#veneurtopk\n")
-    # the counter and the service check reach the store, the event the
-    # event worker; only the heavy-hitter set is not ported
-    assert server.store.processed == 2
+    # the counter, the service check and the heavy-hitter set reach the
+    # store, the event the event worker
+    assert server.store.processed == 3
     assert len(server.store.local_status_checks) == 1
+    assert len(server.store.heavy_hitters) == 1
     assert [e.name for e in server.event_worker.flush()] == ["t"]
-    assert (server.not_ported, server.packet_errors,
-            server.quarantined) == (1, 1, 1)
+    assert (server.packet_errors, server.quarantined) == (1, 1)
 
 
 def test_config_is_loud_about_unported_keys(tmp_path):
@@ -202,16 +202,14 @@ def _rung_run(rung, lines, extra):
         assert server.using_native is native
         assert server.using_recvmmsg is native
         _send(server.statsd_addrs[0][1], lines + extra)
-        _wait(lambda: server.store.processed >= len(lines) + 3
-              and server.not_ported == 3
+        _wait(lambda: server.store.processed >= len(lines) + 6
               and server.packet_errors + server.quarantined == 4)
         server.flush()
         rows = sink.get_flush(timeout=10)
         events = sink.get_other_samples(timeout=10)
     finally:
         server.shutdown()
-    return _by_key(rows), (server.not_ported,
-                           server.packet_errors + server.quarantined,
+    return _by_key(rows), (server.packet_errors + server.quarantined,
                            sorted((e.name, e.message) for e in events))
 
 
@@ -220,7 +218,8 @@ def test_listener_rungs_flush_the_same_rows():
     ``ingest_lanes: -1``, and the Python readers with ``native_ingest:
     false`` too: the same datagrams flush to identical rows (the service
     checks as status rows), the same events reach flush_other_samples,
-    and each rejected or unported line is counted once."""
+    and each rejected line is counted once; the heavy-hitter lines flush
+    as one ``.topk`` row on every rung."""
     import shutil
 
     if shutil.which("g++") is None:
@@ -232,8 +231,9 @@ def test_listener_rungs_flush_the_same_rows():
     out = {rung: _rung_run(rung, lines, extra) for rung in RUNGS}
     rows, counts = out["python"]
     assert len(rows) > 500
-    assert counts == (3, 4, [("title", "text")] * 3)
+    assert counts == (4, [("title", "text")] * 3)
     assert rows[("svc.check", (), "status")] == 0.0
+    assert rows[("top.topk", ("veneurtopk", "key:a"), "counter")] == 3.0
     assert out["lanes"] == (rows, counts)
     # process_batch interns a series before scrubbing its value, as the
     # JAX package's does: the rejected 1e308 histogram leaves an empty

@@ -238,8 +238,8 @@ def test_rung_matches_jax_server(rung, port_runs):
     assert rows[("svc.check", ("k:v",), "status")] == (1.0, "slow", "web1")
     assert rows[("ssf.st.1", ("role:db",), "status")] == (3.0, "", "")
     assert ("svc.check2", (), "status") in rows
-    # every sample merged or counted invalid; nothing shed or unported
-    assert server.spans_dropped == server.not_ported == 0
+    # every sample merged or counted invalid; nothing shed
+    assert server.spans_dropped == server.overload.shed_total() == 0
     if rung == "native":
         assert server.packet_errors == INVALID
     else:
@@ -386,8 +386,9 @@ def test_full_record_column_skips_indicator_timers_uncounted():
 
 def test_slow_lane_and_heavy_hitters_are_counted():
     """STATUS samples take the C++ slow lane into the status group; a
-    heavy-hitter set is counted ``not_ported`` on the native and the
-    Python rung alike; an undecodable datagram is a packet error."""
+    heavy-hitter set lands in the heavy-hitter group, with its member
+    name, on the native and the Python rung alike; an undecodable
+    datagram is a packet error."""
     span = pb.SSFSpan(trace_id=1, id=2, start_timestamp=1, end_timestamp=9)
     top = span.metrics.add(metric=pb.SSFSample.SET, name="top", message="a")
     top.tags["veneurtopk"] = ""
@@ -405,15 +406,16 @@ def test_slow_lane_and_heavy_hitters_are_counted():
             with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
                 tx.sendto(span.SerializeToString(), server.ssf_addrs[0])
                 tx.sendto(b"\x0c", server.ssf_addrs[0])
-            _wait(lambda: server.not_ported == 1
-                  and server.packet_errors == 1
-                  and server.store.processed == 1, rung)
+            _wait(lambda: server.packet_errors == 1
+                  and server.store.processed == 2, rung)
             server.flush()
             rows = sink.get_flush(timeout=10)
         finally:
             server.shutdown()
-        assert [(m.name, m.value, m.type.value) for m in rows] == [
-            ("chk", 2.0, "status")], rung
+        assert sorted((m.name, m.value, m.type.value, tuple(m.tags))
+                      for m in rows) == [
+            ("chk", 2.0, "status", ()),
+            ("top.topk", 1.0, "counter", ("veneurtopk:", "key:a"))], rung
 
 
 def test_full_span_channel_sheds_and_counts():
@@ -458,8 +460,10 @@ def test_stream_framing_error_closes_the_connection():
 def test_span_accounting_under_contention():
     """Sixteen producer threads offer spans to a small span channel that
     twelve span workers drain into one span sink, with a short switch
-    interval: every span is delivered, shed at the channel or shed at
-    the sink's lane, and each is counted exactly once."""
+    interval: every span is delivered, shed by the overload controller
+    (the full channel reads as pressure past the high watermark), shed
+    at the channel or shed at the sink's lane, and each is counted
+    exactly once."""
     import sys
     import threading
 
@@ -496,11 +500,13 @@ def test_span_accounting_under_contention():
     delivered = span_sink.queue.qsize()
     lane_shed = sum(lane.ingest_timeouts for lane in lanes
                     if lane.sink is span_sink)
-    assert delivered + lane_shed + server.spans_dropped == producers * per
+    admission_shed = server.overload.shed["spans"]
+    assert (delivered + lane_shed + server.spans_dropped + admission_shed
+            == producers * per)
     assert sorted(s.id for s in list(span_sink.queue.queue)) == sorted(
         set(s.id for s in list(span_sink.queue.queue)))
     assert sum(w.ingested for w in server._span_workers) == \
-        producers * per - server.spans_dropped
+        producers * per - server.spans_dropped - admission_shed
 
 
 def test_wedged_span_sink_flush_is_skipped_and_counted():

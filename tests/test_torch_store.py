@@ -160,25 +160,42 @@ def test_swap_generation_never_aliases():
     assert len(final)
 
 
-def test_not_ported_lines_raise():
-    """Heavy-hitter sets, from a DogStatsD line or an SSF sample, are the
-    one kind the store refuses; events and service checks now parse, and
-    a service check lands in the status group."""
+def test_heavy_hitter_lines_land_like_jax():
+    """Heavy-hitter sets, from a DogStatsD line or an SSF sample, land in
+    the heavy-hitter group as in the JAX package (nothing raises any
+    more): both stores emit the same ``{name}.topk`` rows, exactly;
+    events and service checks parse, and a service check lands in the
+    status group."""
+    from veneur_tpu.protocol.gen.ssf import sample_pb2 as pb
     from veneur_tpu_torch.protocol import ssf
 
     t = tstore.MetricStore(device="cpu")
-    with pytest.raises(tparser.NotPortedError):
-        t.process_metric(tparser.parse_metric(b"top:a|s|#veneurtopk"))
+    j = jstore.MetricStore()
+    for line in (b"top:a|s|#veneurtopk", b"top:b|s|#veneurtopk",
+                 b"top:a|s|#veneurtopk"):
+        t.process_metric(tparser.parse_metric(line))
+        j.process_metric(jparser.parse_metric(line))
     topk = ssf.SSFSample(metric=ssf.SSFSample.SET, name="top", message="a",
                          tags={"veneurtopk": ""})
-    with pytest.raises(tparser.NotPortedError):
-        t.process_metric(tparser.parse_metric_ssf(topk))
+    t.process_metric(tparser.parse_metric_ssf(topk))
+    j.process_metric(jparser.parse_metric_ssf(pb.SSFSample(
+        metric=pb.SSFSample.SET, name="top", message="a",
+        tags={"veneurtopk": ""})))
     event = tparser.parse_event(b"_e{1,1}:a|b", now=7)
     assert (event.name, event.message, event.timestamp) == ("a", "b", 7)
     t.process_metric(tparser.parse_service_check(b"_sc|svc|2|m:down"))
-    assert t.processed == 1
+    assert t.processed == 5
     final, _ = t.flush(PCTS, HistogramAggregates.from_names(AGGS), 0)
-    assert [(m.name, m.value, m.type.value, m.message) for m in final] == [
+    jfinal, _, _ = j.flush(PCTS, JAggs.from_names(AGGS), False, 0)
+    rows = sorted((m.name, tuple(m.tags), m.value, m.type.value)
+                  for m in final if m.name.endswith(".topk"))
+    assert rows == sorted((m.name, tuple(m.tags), m.value, m.type.value)
+                          for m in jfinal)
+    assert rows == [("top.topk", ("veneurtopk", "key:a"), 2.0, "counter"),
+                    ("top.topk", ("veneurtopk", "key:b"), 1.0, "counter"),
+                    ("top.topk", ("veneurtopk:", "key:a"), 1.0, "counter")]
+    assert [(m.name, m.value, m.type.value, m.message) for m in final
+            if not m.name.endswith(".topk")] == [
         ("svc", 2.0, "status", "down")]
 
 

@@ -16,6 +16,8 @@ import socket
 from dataclasses import dataclass, field
 from typing import List
 
+from veneur_tpu_torch import overload
+
 
 class UnsupportedConfig(ValueError):
     """A configuration key or value this port does not implement yet."""
@@ -88,11 +90,39 @@ class Config:
     trace_max_length_bytes: int = 0
     # name of the duration timer an indicator span yields ("" = none)
     indicator_span_timer_name: str = ""
+    # leave the hostname empty instead of defaulting it to the host's
+    omit_empty_hostname: bool = False
+    # align the flush ticker to wall-clock multiples of the interval
+    synchronize_with_interval: bool = False
+    # the store's staging chunk (samples a device drain takes) and each
+    # group's initial row capacity
+    store_chunk: int = 16384
+    store_initial_capacity: int = 4096
+    # the global's import pool: merge threads and queued bodies
+    http_import_workers: int = 2
+    http_import_queue: int = 64
+    # heavy-hitter (veneurtopk) count-min geometry and top-k size
+    topk_depth: int = 4
+    topk_width: int = 1 << 16
+    topk_k: int = 32
+    # per-scope-class series cap, INCLUDING the one overflow row: past
+    # it first-sight series collapse into veneur.overload.overflow
+    # (0 = 1,048,576; negative refused)
+    max_series: int = 0
+    # joined-tag length cap a series; longer tag sets are cut at a tag
+    # boundary and counted as oversized_tags (0 = 1024; negative refused)
+    max_tag_length: int = 0
+    # admission watermarks over the pressure signal: >= low freezes
+    # first-sight series, >= high sheds spans, >= hard sheds statsd at
+    # the socket (0 = 0.7 / 0.85 / 0.97; 0 < low < high < hard <= 1)
+    overload_low_watermark: float = 0.0
+    overload_high_watermark: float = 0.0
+    overload_hard_watermark: float = 0.0
 
     def __post_init__(self):
         if not self.aggregates:
             self.aggregates = ["min", "max", "count"]
-        if not self.hostname:
+        if not self.hostname and not self.omit_empty_hostname:
             self.hostname = socket.gethostname()
         for spec in self.statsd_listen_addresses:
             if not spec.startswith(("udp://", "udp4://", "udp6://")):
@@ -117,6 +147,32 @@ class Config:
                 f"default, 100; a queue.Queue maxsize <= 0 is unbounded "
                 f"and defeats span shedding), got "
                 f"{self.span_channel_capacity}")
+        if self.max_series < 0:
+            raise ValueError(
+                f"max_series must be positive (0 = use the default, "
+                f"{overload.DEFAULT_MAX_SERIES}; an unbounded store fails "
+                f"open under a cardinality flood), got {self.max_series}")
+        if self.max_tag_length < 0:
+            raise ValueError(
+                f"max_tag_length must be positive (0 = use the default, "
+                f"{overload.DEFAULT_MAX_TAG_LENGTH}), got "
+                f"{self.max_tag_length}")
+        self.max_series = self.max_series or overload.DEFAULT_MAX_SERIES
+        self.max_tag_length = (self.max_tag_length
+                               or overload.DEFAULT_MAX_TAG_LENGTH)
+        self.overload_low_watermark = (self.overload_low_watermark
+                                       or overload.DEFAULT_LOW_WATERMARK)
+        self.overload_high_watermark = (self.overload_high_watermark
+                                        or overload.DEFAULT_HIGH_WATERMARK)
+        self.overload_hard_watermark = (self.overload_hard_watermark
+                                        or overload.DEFAULT_HARD_WATERMARK)
+        marks = (self.overload_low_watermark, self.overload_high_watermark,
+                 self.overload_hard_watermark)
+        if not 0.0 < marks[0] < marks[1] < marks[2] <= 1.0:
+            raise ValueError(
+                f"overload watermarks must satisfy 0 < low < high < "
+                f"hard <= 1 (after 0-means-default substitution), got "
+                f"{marks[0]}/{marks[1]}/{marks[2]}")
         self.span_channel_capacity = self.span_channel_capacity or 100
         self.num_span_workers = self.num_span_workers or 1
         self.trace_max_length_bytes = self.trace_max_length_bytes or 16384

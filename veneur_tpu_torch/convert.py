@@ -2,12 +2,14 @@
 
 The JAX package's device state, fetched to the host as numpy arrays
 (``jax.device_get``), becomes the port's tensors: the t-digest planes,
-the temp bin planes and the HLL registers. :func:`load_digest_group` and
-:func:`load_set_group` fill a port group from a JAX group's planes plus
-its interner order, and :func:`load_scalar_group` a counter, gauge or
-status group from its values (a status group also from its messages and
-hostnames), so an interval in flight on one package can flush on the
-other: the counterpart of loading weights for this system.
+the temp bin planes, the HLL registers and the count-min sketch.
+:func:`load_digest_group`, :func:`load_set_group` and
+:func:`load_heavy_hitter_group` fill a port group from a JAX group's
+planes plus its interner order, and :func:`load_scalar_group` a counter,
+gauge or status group from its values (a status group also from its
+messages and hostnames), so an interval in flight on one package can
+flush on the other: the counterpart of loading weights for this
+system.
 
 Nothing here imports the JAX package: callers hand over plain arrays and
 (name, type, tags) triples.
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from veneur_tpu_torch.device import resolve_device
+from veneur_tpu_torch.ops import countmin as cm_ops
 from veneur_tpu_torch.ops import tdigest as td_ops
 from veneur_tpu_torch.samplers.parser import MetricKey
 
@@ -131,4 +134,55 @@ def load_set_group(group, registers: np.ndarray,
                          f"group's {group.m} (precision differs)")
     group.ensure_capacity(max(n - 1, 0))
     group.registers[:n] = registers_from_numpy(regs, group.device)
+    group._device_dirty = True
+
+
+COUNTMIN_PLANES = ("table", "topk_hi", "topk_lo", "topk_counts", "sids")
+
+
+def _words(a, device) -> torch.Tensor:
+    """uint32 words as the port's int32 bit patterns."""
+    return torch.from_numpy(np.array(a, np.uint32).view(np.int32)).to(device)
+
+
+def countmin_from_numpy(planes: Mapping[str, np.ndarray],
+                        device=None) -> cm_ops.CountMin:
+    """CountMin from the table, topk_hi/lo, topk_counts and sids arrays
+    of a JAX CountMin (uint32 halves and sids, float32 table and
+    counts)."""
+    dev = resolve_device(device)
+    return cm_ops.CountMin(
+        table=_f32(planes["table"], dev),
+        topk_hi=_words(planes["topk_hi"], dev),
+        topk_lo=_words(planes["topk_lo"], dev),
+        topk_counts=_f32(planes["topk_counts"], dev),
+        sids=_words(planes["sids"], dev))
+
+
+def load_heavy_hitter_group(group, planes: Mapping[str, np.ndarray],
+                            series: Iterable[Tuple[str, Sequence[str]]],
+                            sids: np.ndarray,
+                            members: Mapping[int, str]) -> None:
+    """Fill an empty port ``HeavyHitterGroup`` from a JAX
+    HeavyHitterGroup: its sketch's five arrays (``COUNTMIN_PLANES``, the
+    top-k planes in its row order), its (name, tags) series in that
+    order, its host sid array (``_sids_np``) and its member memo."""
+    if len(group):
+        raise ValueError("load_heavy_hitter_group needs an empty group")
+    table = np.asarray(planes["table"])
+    if table.shape != (group.depth, group.width):
+        raise ValueError(f"count-min shape {table.shape} != the group's "
+                         f"({group.depth}, {group.width})")
+    if np.asarray(planes["topk_counts"]).shape[1] != group.k:
+        raise ValueError("top-k size differs from the group's")
+    n = _intern_all(group, ((name, "set", tags) for name, tags in series))
+    group.ensure_capacity(max(n - 1, 0))
+    sk = countmin_from_numpy({p: (np.asarray(planes[p]) if p == "table"
+                                  else np.asarray(planes[p])[:n])
+                              for p in COUNTMIN_PLANES}, group.device)
+    group.sketch.table.copy_(sk.table)
+    for name in COUNTMIN_PLANES[1:]:
+        getattr(group.sketch, name)[:n] = getattr(sk, name)
+    group._sids_np[:n] = np.asarray(sids, np.uint32)[:n]
+    group._members.update(members)
     group._device_dirty = True

@@ -17,13 +17,18 @@ Every scope-class is one dense group:
     local_timers           device t-digest [S, K] + temp bins [S, K]
     sets                   device HLL registers [S, 2^p] (int8)
     local_sets             device HLL registers [S, 2^p] (int8)
+    heavy_hitters          device count-min table [d, w] + top-k [S, K]
     =====================  =============================================
 
 Samples arrive three ways: one parsed line at a time
 (:meth:`MetricStore.process_metric`), a native parsed batch
 (:meth:`MetricStore.process_batch`), or a sealed ingest-lane chunk
 (:meth:`MetricStore.import_lane_chunk`, ``ingest/lanes.py``); rejected
-samples are counted by reason in ``MetricStore.quarantine``.
+samples are counted by reason in ``MetricStore.quarantine``. Every path
+cuts the joined tags at ``max_tag_length`` and interns through
+:meth:`OverloadLimited._intern_row`, so past ``max_series`` (or while the
+overload controller freezes first-sight series) a new series lands in
+its group's ``veneur.overload.overflow`` row.
 
 The per-interval flush drains every digest group through the K1 kernel
 (``ops/tdigest_cuda.drain_quantile``) and every set group through one
@@ -32,9 +37,8 @@ local's flush (``is_local=True``) returns the sketch state it forwards
 (:class:`ForwardableState`), and a global merges forwarded state through
 the ``import_*`` methods, where imported centroids re-enter the binning
 as weighted samples (a shift between imported digests drains the bins
-through the K2 kernel). Heavy hitters, snapshots, overload control and
-columnar egress are not ported yet, and a kernel error propagates (there
-is no fallback rung).
+through the K2 kernel). Snapshots and columnar egress are not ported
+yet, and a kernel error propagates (there is no fallback rung).
 
 Device state is updated in place where the JAX package donates buffers;
 a flush swaps every group for a fresh twin with freshly allocated
@@ -54,8 +58,11 @@ import torch
 from veneur_tpu_torch import native
 from veneur_tpu_torch.core.bucketing import pow2_cap
 from veneur_tpu_torch.device import resolve_device
+from veneur_tpu_torch.ops import countmin as cm_ops
 from veneur_tpu_torch.ops import hll as hll_ops
 from veneur_tpu_torch.ops import tdigest as td_ops
+from veneur_tpu_torch.overload import (OVERFLOW_NAME, Quarantine,
+                                       freeze_exempt)
 from veneur_tpu_torch.samplers.intermetric import (
     Aggregate,
     HistogramAggregates,
@@ -70,8 +77,8 @@ from veneur_tpu_torch.samplers.parser import (
     MIN_SAMPLE_RATE,
     TOPK_SCOPE,
     MetricKey,
-    NotPortedError,
     UDPMetric,
+    truncate_joined_tags,
 )
 
 DEFAULT_CHUNK = 1 << 14
@@ -85,8 +92,7 @@ _STAT_NAMES = ("pcts", "count", "sum", "min", "max", "recip")
 # native ParsedBatch record types (RecordType in native/veneur_ingest.cpp)
 _NATIVE_TYPE_NAMES = ("counter", "gauge", "histogram", "timer", "set")
 # scope-class kinds of the native batch and lane paths; must mirror
-# kind_of() in native/veneur_ingest.cpp. _K_TOPK (heavy-hitter sets) has
-# no group in the port: its records are counted in ``not_ported``
+# kind_of() in native/veneur_ingest.cpp (_K_TOPK: heavy-hitter sets)
 (_K_COUNTER, _K_GLOBAL_COUNTER, _K_GAUGE, _K_GLOBAL_GAUGE, _K_HISTO,
  _K_LOCAL_HISTO, _K_TIMER, _K_LOCAL_TIMER, _K_SET, _K_LOCAL_SET,
  _K_TOPK) = range(11)
@@ -96,14 +102,15 @@ _KIND_RAW = 255  # kind_of()'s sentinel for event/service-check records
 class Interner:
     """MetricKey -> dense row index, plus per-row name/tags for flush-time
     emission (the keys of the reference's map[MetricKey]*sampler,
-    worker.go:54-91)."""
+    worker.go:54-91); ``joined`` keeps each row's comma-joined tags."""
 
-    __slots__ = ("rows", "names", "tags")
+    __slots__ = ("rows", "names", "tags", "joined")
 
     def __init__(self):
         self.rows: Dict[MetricKey, int] = {}
         self.names: List[str] = []
         self.tags: List[List[str]] = []
+        self.joined: List[str] = []
 
     def __len__(self) -> int:
         return len(self.rows)
@@ -115,26 +122,8 @@ class Interner:
             self.rows[key] = row
             self.names.append(key.name)
             self.tags.append(tags)
+            self.joined.append(key.joined_tags)
         return row
-
-
-class Quarantine:
-    """Per-reason tally of rejected samples (the counting half of the
-    JAX package's ``overload.Quarantine``): the groups and the batch
-    path scrub into it, and the ingest fleet folds its lanes' ledgers
-    into it."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.counts: Dict[str, int] = {}
-
-    def count(self, reason: str, n: int = 1) -> None:
-        with self._lock:
-            self.counts[reason] = self.counts.get(reason, 0) + n
-
-    def total(self) -> int:
-        with self._lock:
-            return sum(self.counts.values())
 
 
 def _scrub_counter_batch(quarantine, vals, rates) -> np.ndarray:
@@ -192,18 +181,63 @@ def _scrub_float_batch(quarantine, vals, abs_max=None,
     return ok
 
 
-class _Rejecting:
-    """A group that drops samples its typed lane cannot hold: counted in
-    the group's ``scrubbed`` and, by reason, in the store's
-    ``quarantine`` (set by MetricStore on every generation's groups)."""
+class OverloadLimited:
+    """Bounded cardinality and quarantine plumbing every store group
+    shares. The knobs are class-attribute defaults (unbounded, inert):
+    ``MetricStore`` stamps the instance attributes at construction and
+    re-stamps each generation's fresh twin at the flush swap, so groups
+    built directly (tests) behave as before.
 
+    Past ``max_series`` (which INCLUDES the overflow row itself), or
+    while the overload controller freezes first-sight series, a new
+    series collapses into one per-group overflow row named
+    ``veneur.overload.overflow`` tagged ``group:<name>``: counts are
+    kept and flushed, identities dropped, and the planes stop growing.
+    ``veneur.``-prefixed names are exempt from the freeze, not from the
+    cap. ``spilled`` counts the interns the overflow row absorbed;
+    ``scrubbed`` the samples rejected at the group boundary."""
+
+    max_series = 0          # 0 = unbounded
+    overflow_label = ""     # the group's attribute name, tags the row
+    _overflow_type = "gauge"
+    _overflow_row = -1
+    spilled = 0
     scrubbed = 0
-    quarantine: Optional[Quarantine] = None
+    _overload = None        # overload.OverloadController
+    _quarantine: Optional[Quarantine] = None  # the store's shared ledger
 
-    def _reject(self, reason: str, n: int = 1):
+    def _intern_row(self, key: MetricKey, tags: List[str]) -> int:
+        """Interner hit -> its row; first sight -> a fresh row, or the
+        overflow row past the cap or under an admission freeze. Callers
+        still grow capacity when the returned row is new."""
+        interner = self.interner
+        row = interner.rows.get(key)
+        if row is not None:
+            return row
+        ms = self.max_series
+        if ms and len(interner) >= (ms if self._overflow_row >= 0
+                                    else ms - 1):
+            return self._spill_row()
+        ctl = self._overload
+        if (ctl is not None and ctl.freeze_new_series()
+                and not freeze_exempt(key.name)):
+            return self._spill_row()
+        return interner.intern(key, tags)
+
+    def _spill_row(self) -> int:
+        if self._overflow_row < 0:
+            tag = f"group:{self.overflow_label or 'unknown'}"
+            okey = MetricKey(name=OVERFLOW_NAME, type=self._overflow_type,
+                             joined_tags=tag)
+            self._overflow_row = self.interner.intern(okey, [tag])
+        self.spilled += 1
+        return self._overflow_row
+
+    def _quarantine_samples(self, reason: str, n: int = 1) -> None:
         self.scrubbed += n
-        if self.quarantine is not None:
-            self.quarantine.count(reason, n)
+        q = self._quarantine
+        if q is not None:
+            q.count(reason, n)
 
 
 # ---------------------------------------------------------------------------
@@ -211,13 +245,13 @@ class _Rejecting:
 # ---------------------------------------------------------------------------
 
 
-class ScalarGroup(_Rejecting):
+class ScalarGroup(OverloadLimited):
     """Counters / gauges / status checks: host numpy state.
 
     kind: "counter" (int64 accumulate, samplers.go:141-143), "gauge"
     (float64 last-write, samplers.go:225-227) or "status" (a gauge plus
     the last message and hostname, samplers.go:307-313). Samples the
-    typed lane cannot hold are rejected (``_Rejecting``)."""
+    typed lane cannot hold are rejected and counted."""
 
     def __init__(self, kind: str, capacity: int = DEFAULT_INITIAL_CAPACITY):
         if kind not in ("counter", "gauge", "status"):
@@ -235,7 +269,7 @@ class ScalarGroup(_Rejecting):
         return len(self.interner)
 
     def _row(self, key: MetricKey, tags: List[str]) -> int:
-        row = self.interner.intern(key, tags)
+        row = self._intern_row(key, tags)
         if row >= self.capacity:
             self.capacity *= _GROW_FACTOR
             self.values = np.concatenate(
@@ -249,18 +283,18 @@ class ScalarGroup(_Rejecting):
     def sample(self, key: MetricKey, tags: List[str], value: float,
                sample_rate: float, message: str = "", hostname: str = ""):
         if not math.isfinite(value):
-            self._reject("not_finite")
+            self._quarantine_samples("not_finite")
             return
         if self.kind == "counter":
             # Go semantics: value += int64(sample) * int64(1/rate), the
             # reciprocal a float32 division (samplers.go:141-143)
             if not MIN_SAMPLE_RATE <= sample_rate <= 1:
-                self._reject("bad_rate")
+                self._quarantine_samples("bad_rate")
                 return
             contrib = (int(value)
                        * int(np.float32(1.0) / np.float32(sample_rate)))
             if abs(contrib) >= COUNTER_CONTRIB_MAX:
-                self._reject("out_of_range")
+                self._quarantine_samples("out_of_range")
                 return
             row = self._row(key, tags)  # may grow (replace) values
             self.values[row] += contrib
@@ -295,15 +329,16 @@ class ScalarGroup(_Rejecting):
     def combine(self, key: MetricKey, tags: List[str], value: float):
         """Merge imported state: counters add, gauges overwrite
         (samplers.go:195-212, 276-289). Values the typed lane cannot
-        hold are rejected."""
+        hold are rejected; an out-of-range counter after its row is
+        interned, as in the JAX package."""
         if not math.isfinite(value):
-            self._reject("not_finite")
-            return
-        if self.kind == "counter" and abs(value) >= COUNTER_CONTRIB_MAX:
-            self._reject("out_of_range")
+            self._quarantine_samples("not_finite")
             return
         row = self._row(key, tags)
         if self.kind == "counter":
+            if abs(value) >= COUNTER_CONTRIB_MAX:
+                self._quarantine_samples("out_of_range")
+                return
             self.values[row] += int(value)
         else:
             self.values[row] = value
@@ -322,9 +357,7 @@ class ScalarGroup(_Rejecting):
 
     def fresh(self) -> "ScalarGroup":
         """Empty same-config twin (swap-on-flush generation swap)."""
-        twin = ScalarGroup(self.kind, self.capacity)
-        twin.quarantine = self.quarantine
-        return twin
+        return ScalarGroup(self.kind, self.capacity)
 
 
 # ---------------------------------------------------------------------------
@@ -383,7 +416,7 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-class DigestGroup(_Rejecting):
+class DigestGroup(OverloadLimited):
     """One scope-class of histograms/timers as a dense t-digest batch."""
 
     # set by MetricStore._swap_generation: a retired group's flush drops
@@ -443,7 +476,7 @@ class DigestGroup(_Rejecting):
         return len(self.interner)
 
     def _row(self, key: MetricKey, tags: List[str]) -> int:
-        row = self.interner.intern(key, tags)
+        row = self._intern_row(key, tags)
         if row >= self.capacity:
             self._grow()
         return row
@@ -484,10 +517,8 @@ class DigestGroup(_Rejecting):
     def fresh(self) -> "DigestGroup":
         """Empty same-config twin with newly allocated planes. Carries the
         grown capacity so a steady cardinality never re-grows."""
-        twin = DigestGroup(self.capacity, self.chunk, self.compression,
+        return DigestGroup(self.capacity, self.chunk, self.compression,
                            self.device)
-        twin.quarantine = self.quarantine
-        return twin
 
     def sample_many(self, rows: np.ndarray, vals: np.ndarray,
                     wts: np.ndarray):
@@ -496,7 +527,7 @@ class DigestGroup(_Rejecting):
         non-positive or non-finite weights are rejected."""
         vals = np.asarray(vals, np.float32)
         wts = np.asarray(wts, np.float32)
-        ok = _scrub_float_batch(self.quarantine, vals, weights=wts)
+        ok = _scrub_float_batch(self._quarantine, vals, weights=wts)
         if not ok.all():
             self.scrubbed += int((~ok).sum())
             rows, vals, wts = rows[ok], vals[ok], wts[ok]
@@ -516,13 +547,13 @@ class DigestGroup(_Rejecting):
     def sample(self, key: MetricKey, tags: List[str], value: float,
                sample_rate: float):
         if not math.isfinite(value):
-            self._reject("not_finite")
+            self._quarantine_samples("not_finite")
             return
         if abs(value) > F32_ABS_MAX:
-            self._reject("out_of_range")
+            self._quarantine_samples("out_of_range")
             return
         if not MIN_SAMPLE_RATE <= sample_rate <= 1:
-            self._reject("bad_rate")
+            self._quarantine_samples("bad_rate")
             return
         row = self._row(key, tags)
         i = self._fill
@@ -813,7 +844,7 @@ def _merge_registers(registers, rows: np.ndarray, updates: np.ndarray):
     registers[idx] = torch.maximum(registers[idx], upd)
 
 
-class SetGroup:
+class SetGroup(OverloadLimited):
     """One scope-class of Set metrics as a dense [S, 2^p] int8 register
     tensor (at precision 14 a series costs 16 KiB of device memory)."""
 
@@ -846,7 +877,7 @@ class SetGroup:
         return len(self.interner)
 
     def _row(self, key: MetricKey, tags: List[str]) -> int:
-        row = self.interner.intern(key, tags)
+        row = self._intern_row(key, tags)
         if row >= self.capacity:
             self._grow()
         return row
@@ -987,6 +1018,274 @@ class SetGroup:
         self._device_dirty = False
 
 
+# ---------------------------------------------------------------------------
+# Device-side heavy hitters (count-min + top-k)
+# ---------------------------------------------------------------------------
+
+
+class HeavyHitterGroup(OverloadLimited):
+    """Set-type metrics tagged ``veneurtopk``: instead of a cardinality,
+    count per-member frequencies in one shared salted count-min table
+    (``ops/countmin.py``) and keep a per-series top-k list.
+
+    A flush emits ``{name}.topk`` counters tagged ``key:<member>`` for
+    each surviving heavy hitter. Member strings are memoized on the host
+    (the sketch sees only 64-bit hashes); the memo is bounded and an
+    unknown hash emits as hex, so key cardinality cannot exhaust host
+    memory. Across instances, a local forwards (table, top-k candidates,
+    members) as the JSON ``topk_sketch`` entry, and the global adds the
+    tables and re-ranks the fleet top-k (:meth:`import_sketch`). The
+    count-min update runs only under the store lock, on whichever
+    thread drains the group's staging."""
+
+    MEMO_LIMIT = 1 << 20
+    _retired = False  # see DigestGroup._retired
+
+    def __init__(self, capacity: int = DEFAULT_INITIAL_CAPACITY,
+                 chunk: int = DEFAULT_CHUNK, depth: int = 4,
+                 width: int = 1 << 16, k: int = 32, device=None):
+        self.device = resolve_device(device)
+        self.interner = Interner()
+        self.capacity = capacity
+        self.chunk = chunk
+        self.depth, self.width, self.k = depth, width, k
+        self.sketch = cm_ops.init(capacity, depth, width, k, self.device)
+        self._device_dirty = False
+        self._members: Dict[int, str] = {}
+        # the drain's update, instance-bound so a caller can time it (a
+        # fresh twin carries the wrapper)
+        self._update = cm_ops.update
+        # stable per-row series ids (+1 slot for the staging sentinel);
+        # see CountMin.sids for why these must be instance-independent
+        self._sids_np = np.zeros(capacity + 1, np.uint32)
+        self._new_sample_buffers()
+
+    def fresh(self) -> "HeavyHitterGroup":
+        """Empty same-config twin (swap-on-flush generation swap)."""
+        g = HeavyHitterGroup(self.capacity, self.chunk, self.depth,
+                             self.width, self.k, self.device)
+        g._update = self._update
+        return g
+
+    def _new_sample_buffers(self):
+        self._rows = np.full(self.chunk, self.capacity, np.int32)
+        self._hi = np.zeros(self.chunk, np.uint32)
+        self._lo = np.zeros(self.chunk, np.uint32)
+        self._wts = np.zeros(self.chunk, np.float32)
+        self._fill = 0
+
+    def __len__(self):
+        return len(self.interner)
+
+    @staticmethod
+    def stable_sid(name: str, joined_tags: str) -> int:
+        """Instance-independent 32-bit series id: fnv1a over the series
+        identity. Every instance derives the same sid for the same
+        series, as the table's columns are salted with it."""
+        h = 2166136261
+        for b in f"{name}|set|{joined_tags}".encode("utf-8"):
+            h = ((h ^ b) * 16777619) & 0xFFFFFFFF
+        return h
+
+    def _row(self, key: MetricKey, tags: List[str]) -> int:
+        row = self._intern_row(key, tags)
+        if row >= self.capacity:
+            self.ensure_capacity(row)
+        if self._sids_np[row] == 0:  # first sight (or the 2^-32 rehash)
+            # the sid comes from the row's INTERNED identity: past the cap
+            # the row is the overflow row and hashes as such everywhere
+            self._sids_np[row] = self.stable_sid(self.interner.names[row],
+                                                 self.interner.joined[row])
+        return row
+
+    def ensure_capacity(self, max_row: int):
+        while max_row >= self.capacity:
+            self._drain_samples()
+            old = self.capacity
+            self.capacity *= _GROW_FACTOR
+            pad = self.capacity - old
+            sk = self.sketch
+            for name in ("topk_hi", "topk_lo", "topk_counts"):
+                t = getattr(sk, name)
+                setattr(sk, name, torch.cat([t, t.new_zeros((pad, self.k))]))
+            sk.sids = torch.cat([sk.sids, sk.sids.new_zeros(pad)])
+            sids = np.zeros(self.capacity + 1, np.uint32)
+            sids[:old + 1] = self._sids_np
+            sids[old] = 0  # the old sentinel slot is now a real row
+            self._sids_np = sids
+            self._rows[self._fill:] = self.capacity
+
+    def _memoize(self, h: int, member: str):
+        if len(self._members) < self.MEMO_LIMIT:
+            self._members[h] = member
+
+    def sample(self, key: MetricKey, tags: List[str], member: str,
+               weight: float = 1.0):
+        row = self._row(key, tags)
+        h = hll_ops.hash_member(member.encode("utf-8"))
+        self._memoize(h, member)
+        i = self._fill
+        self._rows[i] = row
+        self._hi[i] = h >> 32
+        self._lo[i] = h & 0xFFFFFFFF
+        self._wts[i] = weight
+        self._fill = i + 1
+        if self._fill == self.chunk:
+            self._drain_samples()
+
+    def sample_many(self, rows: np.ndarray, hashes: np.ndarray,
+                    members=None):
+        """Bulk append of pre-interned rows and pre-hashed members
+        (uint64); ``members`` (bytes) feed the member memo."""
+        if members is not None:
+            for h, mb in zip(hashes.tolist(), members):
+                self._memoize(h, mb.decode("utf-8", "replace"))
+        his, los = hll_ops.split_hashes(hashes)
+        n = len(rows)
+        start = 0
+        while start < n:
+            if self._fill == self.chunk:
+                self._drain_samples()
+            take = min(self.chunk - self._fill, n - start)
+            i = self._fill
+            self._rows[i:i + take] = rows[start:start + take]
+            self._hi[i:i + take] = his[start:start + take]
+            self._lo[i:i + take] = los[start:start + take]
+            self._wts[i:i + take] = 1.0
+            self._fill = i + take
+            start += take
+        if self._fill == self.chunk:
+            self._drain_samples()
+
+    def _drain_samples(self):
+        if self._fill == 0:
+            return
+        self._device_dirty = True
+        rows, hi, lo, wts = self._rows, self._hi, self._lo, self._wts
+        self._new_sample_buffers()
+        dev = self.device
+        # 32-bit words travel as their int32 bit patterns
+        self.sketch = self._update(
+            self.sketch, torch.from_numpy(rows).to(dev),
+            torch.from_numpy(self._sids_np[rows].view(np.int32)).to(dev),
+            torch.from_numpy(hi.view(np.int32)).to(dev),
+            torch.from_numpy(lo.view(np.int32)).to(dev),
+            torch.from_numpy(wts).to(dev))
+
+    def _drain_staging(self):
+        self._drain_samples()
+
+    def import_sketch(self, table: np.ndarray, series: List[tuple]):
+        """Merge a forwarded heavy-hitter sketch: the count-min table adds
+        elementwise, and each series' forwarded top-k keys become
+        candidates re-estimated against the combined table.
+
+        table: [depth, width] float32 (the shape must match: both ends
+        run the same config). series: [(key, tags, [(hi, lo), ...],
+        [member-or-None, ...])]."""
+        table = np.asarray(table)
+        if table.shape != (self.depth, self.width):
+            raise ValueError(
+                f"forwarded count-min shape {table.shape} != local "
+                f"({self.depth}, {self.width})")
+        self._drain_samples()  # candidates estimate against a settled table
+        self._device_dirty = True
+        rows, sids, his, los, slots = [], [], [], [], []
+        for key, tags, keys, members in series:
+            row = self._row(key, list(tags))
+            sid = int(self._sids_np[row])
+            for j, (hi, lo) in enumerate(keys):
+                rows.append(row)
+                sids.append(sid)
+                his.append(hi)
+                los.append(lo)
+                slots.append(j)
+                if members and j < len(members) and members[j]:
+                    self._memoize((int(hi) << 32) | int(lo), members[j])
+        dev = self.device
+        self.sketch = cm_ops.add_table(
+            self.sketch, torch.from_numpy(np.array(table, np.float32)))
+
+        def words(v):
+            return torch.from_numpy(np.asarray(v, np.uint32).view(
+                np.int32)).to(dev)
+
+        if rows:
+            self.sketch = cm_ops.inject_candidates(
+                self.sketch, torch.tensor(rows, dtype=torch.int64,
+                                          device=dev),
+                words(sids), words(his), words(los),
+                torch.tensor(slots, dtype=torch.int64, device=dev))
+
+    def flush(self, want_forward: bool = False):
+        """Returns (interner, [(row, member, count), ...], forwardable)
+        and resets. forwardable is None unless want_forward: then it is
+        (table ndarray, [(name, tags, [(hi, lo)...], [member...])])."""
+        return self.flush_begin(want_forward)()
+
+    def flush_begin(self, want_forward: bool = False):
+        """Two-phase flush: the live top-k plane slices (and the table,
+        when forwarding) are taken now and the group resets at once;
+        ``finish()`` copies them to the host and assembles the member
+        emissions."""
+        self._drain_samples()
+        n = len(self.interner)
+        interner, self.interner = self.interner, Interner()
+        if n == 0 and not self._device_dirty:
+            # pristine sketch: skip the device reallocation entirely
+            return lambda: (interner, [], None)
+        refs = self._live_topk(n) if n else None
+        table_ref = self.sketch.table if (n and want_forward) else None
+        members, self._members = self._members, {}
+        if self._retired:
+            self.sketch = None  # never reused
+        else:
+            self._reset_sketch()
+            self._sids_np = np.zeros(self.capacity + 1, np.uint32)
+            self._new_sample_buffers()
+        self._device_dirty = False
+
+        def finish():
+            out = []
+            fwd = None
+            if n:
+                hi, lo, ct = (_to_host(t) for t in refs)
+                hi, lo = hi.view(np.uint32), lo.view(np.uint32)
+                # the live slots in (row, slot) order, as the reference's
+                # row-by-row loop visits them
+                live_r, live_c = np.nonzero(ct > 0)
+                his = hi[live_r, live_c].tolist()
+                los = lo[live_r, live_c].tolist()
+                cts = ct[live_r, live_c].tolist()
+                by_row = {} if want_forward else None
+                for row, h32, l32, c in zip(live_r.tolist(), his, los, cts):
+                    h = (h32 << 32) | l32
+                    member = members.get(h)
+                    out.append((row, member or f"0x{h:016x}", c))
+                    if by_row is not None:
+                        keys, mems = by_row.setdefault(row, ([], []))
+                        keys.append((h32, l32))
+                        mems.append(member)
+                if want_forward:
+                    table = _to_host(table_ref)
+                    fwd = (table, [
+                        (key.name, interner.tags[row]) + by_row[row]
+                        for key, row in interner.rows.items()
+                        if row in by_row])
+            return interner, out, fwd
+
+        return finish
+
+    def _live_topk(self, n: int):
+        """The live rows' top-k planes, interner order."""
+        return (self.sketch.topk_hi[:n], self.sketch.topk_lo[:n],
+                self.sketch.topk_counts[:n])
+
+    def _reset_sketch(self):
+        self.sketch = cm_ops.init(self.capacity, self.depth, self.width,
+                                  self.k, self.device)
+
+
 _DIGEST_GROUPS = ("histograms", "timers", "local_histograms", "local_timers")
 _SET_GROUPS = ("sets", "local_sets")
 
@@ -995,7 +1294,8 @@ _SET_GROUPS = ("sets", "local_sets")
 class ForwardableState:
     """Sketch state a local forwards to the global tier
     (worker.go:161-183): global counters/gauges by value, digests as
-    centroid lists, sets as register arrays.
+    centroid lists, sets as register arrays, heavy hitters as one
+    count-min table plus each series' top-k candidates.
 
     A flush leaves each forwarded digest group in ``histograms_columnar``
     / ``timers_columnar`` as its dense planes, (names, tags, mean [n, K],
@@ -1012,13 +1312,17 @@ class ForwardableState:
     timers_columnar: Optional[tuple] = None
     # (name, tags, registers uint8 [2^p], precision)
     sets: List[tuple] = field(default_factory=list)
+    # heavy hitters: (table ndarray [depth, width],
+    # [(name, tags, [(hi, lo)...], [member-or-None...])]) or None
+    topk: Optional[tuple] = None
 
     def __len__(self):
         return (len(self.counters) + len(self.gauges) + len(self.histograms)
                 + len(self.timers) + len(self.sets)
                 + sum(len(col[0]) for col in (self.histograms_columnar,
                                               self.timers_columnar)
-                      if col is not None))
+                      if col is not None)
+                + (len(self.topk[1]) if self.topk else 0))
 
     def materialize_digests(self):
         """Convert the dense digest planes into per-row tuples holding only
@@ -1073,7 +1377,7 @@ class _Generation:
     __slots__ = ("counters", "global_counters", "gauges", "global_gauges",
                  "local_status_checks", "histograms", "timers",
                  "local_histograms", "local_timers", "sets", "local_sets",
-                 "processed", "imported")
+                 "heavy_hitters", "processed", "imported")
 
 
 class MetricStore:
@@ -1082,16 +1386,29 @@ class MetricStore:
     # every group swapped per flush, in flush order
     _GEN_GROUPS = ("counters", "global_counters", "gauges", "global_gauges",
                    "local_status_checks", "histograms", "timers",
-                   "local_histograms", "local_timers", "sets", "local_sets")
+                   "local_histograms", "local_timers", "sets", "local_sets",
+                   "heavy_hitters")
+    # the metric type each group's keys carry (its overflow row's type)
+    _GROUP_TYPES = {
+        "counters": "counter", "global_counters": "counter",
+        "gauges": "gauge", "global_gauges": "gauge",
+        "local_status_checks": "status",
+        "histograms": "histogram", "local_histograms": "histogram",
+        "timers": "timer", "local_timers": "timer",
+        "sets": "set", "local_sets": "set", "heavy_hitters": "set"}
 
     def __init__(self, initial_capacity: int = DEFAULT_INITIAL_CAPACITY,
                  chunk: int = DEFAULT_CHUNK,
                  compression: float = td_ops.DEFAULT_COMPRESSION,
                  hll_precision: int = hll_ops.DEFAULT_PRECISION,
-                 device=None):
+                 topk_depth: int = cm_ops.DEFAULT_DEPTH,
+                 topk_width: int = cm_ops.DEFAULT_WIDTH,
+                 topk_k: int = cm_ops.DEFAULT_TOPK, max_series: int = 0,
+                 max_tag_length: int = 0, overload=None, device=None):
         self.device = resolve_device(device)
         # samples the store rejects, by reason (cumulative): the groups'
-        # scrubs, process_batch's and the ingest lanes' ledgers
+        # scrubs, process_batch's and the ingest lanes' ledgers, and the
+        # tag-length cap's cuts
         self.quarantine = Quarantine()
         self._lock = threading.RLock()
         # serializes whole flush() calls; the store lock itself is held
@@ -1108,27 +1425,74 @@ class MetricStore:
         for name in _SET_GROUPS:
             setattr(self, name, SetGroup(initial_capacity, chunk,
                                          hll_precision, self.device))
-        for name in self._GEN_GROUPS:
-            if name not in _SET_GROUPS:
-                getattr(self, name).quarantine = self.quarantine
+        self.heavy_hitters = HeavyHitterGroup(initial_capacity, chunk,
+                                              topk_depth, topk_width,
+                                              topk_k, self.device)
         self.hll_precision = hll_precision
+        # bounded cardinality and the tag-length cap (0 = off: a Server
+        # passes its config's defaults), and the admission controller a
+        # Server attaches (overload.py)
+        self.max_series = max_series
+        self.max_tag_length = max_tag_length
+        self._overload = overload
+        self._configure_overload_groups()
         self.processed = 0
         # forwarded metrics merged this interval (import_*)
         self.imported = 0
         # bumped by every generation swap: an ingest lane's resolver drops
         # its lane-row -> store-row remap when the epoch moved
         self.flush_epoch = 0
-        # heavy-hitter (veneurtopk) records of the batch and lane paths
-        # (cumulative; the per-line path raises NotPortedError instead)
-        self.not_ported = 0
         # the C++ (kind, name, tags) -> row memo of process_batch, and the
         # kind -> group table; both restart with every generation
         self._native_table: Optional[native.InternTable] = None
         self._kind_groups: Optional[tuple] = None
 
+    # -- overload plumbing (overload.py) -------------------------------------
+
+    def set_overload(self, controller) -> None:
+        """Attach the server's admission controller; the groups consult it
+        for the first-sight series freeze (level >= 1)."""
+        self._overload = controller
+        self._configure_overload_groups()
+
+    def _configure_overload_groups(self) -> None:
+        for name in self._GEN_GROUPS:
+            self._apply_overload_attrs(name, getattr(self, name))
+
+    def _apply_overload_attrs(self, name: str, g) -> None:
+        """Stamp one group's overload attributes (OverloadLimited's class
+        defaults keep groups built directly inert); re-run on every fresh
+        twin at the generation swap."""
+        g.max_series = self.max_series
+        g.overflow_label = name
+        g._overflow_type = self._GROUP_TYPES[name]
+        g._overload = self._overload
+        g._quarantine = self.quarantine
+
+    def _truncate_tags(self, joined: str) -> str:
+        """The per-series tag-length cap: cut the joined tags at the last
+        whole tag inside ``max_tag_length`` (identities merge past it).
+        Counted per occurrence."""
+        limit = self.max_tag_length
+        if not limit or len(joined) <= limit:
+            return joined
+        self.quarantine.count("oversized_tags")
+        return truncate_joined_tags(joined, limit)
+
+    # -- ingest --------------------------------------------------------------
+
     def process_metric(self, m: UDPMetric):
         """Dispatch one parsed sample to its scope-class
-        (worker.go:267-310)."""
+        (worker.go:267-310). The tag-length cap applies again here, the
+        one choke point every per-line path shares: the statsd parser
+        caps at parse, but SSF samples arrive with their tags whole."""
+        key = m.key
+        if (self.max_tag_length
+                and len(key.joined_tags) > self.max_tag_length):
+            joined = self._truncate_tags(key.joined_tags)
+            m.key = MetricKey(name=key.name, type=key.type,
+                              joined_tags=joined)
+            m.tags = joined.split(",") if joined else []
         with self._lock:
             t = m.key.type
             if t == "counter":
@@ -1151,17 +1515,16 @@ class MetricStore:
                 # the bare tag from DogStatsD, the scope from SSF (whose
                 # "k:v" tags never hold the bare string)
                 if "veneurtopk" in m.tags or m.scope == TOPK_SCOPE:
-                    raise NotPortedError("heavy-hitter (veneurtopk) sets "
-                                         "are not ported yet")
-                group = (self.local_sets if m.scope == LOCAL_ONLY
-                         else self.sets)
-                group.sample(m.key, m.tags, str(m.value))
+                    self.heavy_hitters.sample(m.key, m.tags, str(m.value))
+                else:
+                    group = (self.local_sets if m.scope == LOCAL_ONLY
+                             else self.sets)
+                    group.sample(m.key, m.tags, str(m.value))
             elif t == "status":
                 self.local_status_checks.sample(
                     m.key, m.tags, float(m.value), m.sample_rate,
                     message=m.message, hostname=m.hostname)
-            else:
-                raise NotPortedError(f"metric type {t!r} is not ported yet")
+            # unknown types are dropped, as in the reference
             self.processed += 1
 
     def process_batch(self, batch) -> List[bytes]:
@@ -1175,8 +1538,7 @@ class MetricStore:
         Semantics of process_metric: worker sharding collapses to row
         interning (server.go:670-720), Go counter truncation and gauge
         last-write-wins (samplers.go:141-143, 225-227). Rejected samples
-        are counted in ``quarantine``, heavy-hitter records in
-        ``not_ported``."""
+        are counted in ``quarantine``."""
         raws: List[bytes] = []
         if batch.count == 0:
             return raws
@@ -1198,8 +1560,6 @@ class MetricStore:
                 table = self._native_table
                 for j in miss:
                     j = int(j)
-                    if kinds[j] == _K_TOPK:
-                        continue  # no group to intern into
                     t, sc = int(types[j]), int(scopes[j])
                     no, nl = noffs[j], nlens[j]
                     to, tl = toffs[j], tlens[j]
@@ -1220,10 +1580,6 @@ class MetricStore:
                     raws.extend(arena[aoffs[j]:aoffs[j] + alens[j]]
                                 for j in sel)
                     processed -= len(sel)  # counted when re-parsed
-                    continue
-                if kind == _K_TOPK:
-                    self.not_ported += len(sel)
-                    processed -= len(sel)
                     continue
                 grp_rows = rows[sel].astype(np.int64)
                 group = self._group_for_kind(kind)
@@ -1248,6 +1604,14 @@ class MetricStore:
                         member_hashes = batch.member_hashes()
                     group.sample_many(grp_rows.astype(np.int32),
                                       member_hashes[sel])
+                elif kind == _K_TOPK:
+                    if member_hashes is None:
+                        member_hashes = batch.member_hashes()
+                    aoffs, alens = batch.aux_off, batch.aux_len
+                    group.sample_many(grp_rows.astype(np.int32),
+                                      member_hashes[sel],
+                                      [arena[aoffs[j]:aoffs[j] + alens[j]]
+                                       for j in sel])
                 else:  # histograms / timers, both scopes
                     # scrub the float64 values before the f32 cast, so an
                     # out-of-range sample is rejected, not made inf
@@ -1263,25 +1627,23 @@ class MetricStore:
         return raws
 
     def _group_for_kind(self, kind: int):
-        """The live group of a scope-class kind (caller holds _lock);
-        None for _K_TOPK."""
+        """The live group of a scope-class kind (caller holds _lock)."""
         if self._kind_groups is None:
             self._kind_groups = (
                 self.counters, self.global_counters, self.gauges,
                 self.global_gauges, self.histograms, self.local_histograms,
                 self.timers, self.local_timers, self.sets, self.local_sets,
-                None)
+                self.heavy_hitters)
         return self._kind_groups[kind]
 
     def _intern_native(self, t: int, sc: int, name_b: bytes,
                        tags_b: bytes) -> Tuple[int, object, int]:
         """Slow path of the native and lane paths (caller holds _lock):
         decode the strings, pick the scope-class group (kind_of() of
-        veneur_ingest.cpp, worker.go:96-157) and intern the row. Returns
-        (kind, group, row). The port has no ``max_tag_length``, so tags
-        are never truncated."""
+        veneur_ingest.cpp, worker.go:96-157) and intern the row, the tags
+        cut at ``max_tag_length``. Returns (kind, group, row)."""
         name = name_b.decode("utf-8", "replace")
-        joined = tags_b.decode("utf-8", "replace")
+        joined = self._truncate_tags(tags_b.decode("utf-8", "replace"))
         tags = joined.split(",") if joined else []
         key = MetricKey(name=name, type=_NATIVE_TYPE_NAMES[t],
                         joined_tags=joined)
@@ -1293,6 +1655,8 @@ class MetricStore:
             kind = _K_LOCAL_HISTO if sc == LOCAL_ONLY else _K_HISTO
         elif t == 3:
             kind = _K_LOCAL_TIMER if sc == LOCAL_ONLY else _K_TIMER
+        elif sc == TOPK_SCOPE:
+            kind = _K_TOPK
         else:
             kind = _K_LOCAL_SET if sc == LOCAL_ONLY else _K_SET
         group = self._group_for_kind(kind)
@@ -1307,7 +1671,8 @@ class MetricStore:
         _K_GAUGE: (1, 0), _K_GLOBAL_GAUGE: (1, GLOBAL_ONLY),
         _K_HISTO: (2, 0), _K_LOCAL_HISTO: (2, LOCAL_ONLY),
         _K_TIMER: (3, 0), _K_LOCAL_TIMER: (3, LOCAL_ONLY),
-        _K_SET: (4, 0), _K_LOCAL_SET: (4, LOCAL_ONLY)}
+        _K_SET: (4, 0), _K_LOCAL_SET: (4, LOCAL_ONLY),
+        _K_TOPK: (4, TOPK_SCOPE)}
 
     def import_lane_chunk(self, chunk, resolver) -> List[bytes]:
         """Merge one sealed ingest-lane chunk under ONE store-lock hold:
@@ -1320,7 +1685,7 @@ class MetricStore:
         (the fresh generation's interners start empty) and rebuilt
         lazily. Values arrive scrubbed and in Go semantics (contribs
         truncated, weights float32 reciprocals), the bits process_batch
-        would stage. Heavy-hitter spans are counted in ``not_ported``.
+        would stage.
 
         Returns the chunk's raw event/service-check lines for the caller
         to route through the Python parser OUTSIDE the lock. A digest
@@ -1332,13 +1697,8 @@ class MetricStore:
                 resolver.epoch = self.flush_epoch
             for kind, new in chunk.new_entries.items():
                 resolver.entries[kind].extend(new)
-            records = chunk.records
             for kind, span in chunk.spans.items():
                 rows = span[0]
-                if kind == _K_TOPK:
-                    self.not_ported += len(rows)
-                    records -= len(rows)
-                    continue
                 grp_rows = self._lane_remap(kind, resolver, rows)[rows]
                 group = self._group_for_kind(kind)
                 group.ensure_capacity(int(grp_rows.max()))
@@ -1348,10 +1708,13 @@ class MetricStore:
                     group.set_many(grp_rows, span[1])
                 elif kind in (_K_SET, _K_LOCAL_SET):
                     group.sample_many(grp_rows.astype(np.int32), span[1])
+                elif kind == _K_TOPK:
+                    group.sample_many(grp_rows.astype(np.int32), span[1],
+                                      span[3])
                 else:
                     group.sample_many(grp_rows.astype(np.int32), span[1],
                                       span[2])
-            self.processed += records
+            self.processed += chunk.records
         return chunk.raws
 
     def _lane_remap(self, kind: int, resolver, rows) -> np.ndarray:
@@ -1445,11 +1808,24 @@ class MetricStore:
             self.imported += 1
             self.sets.import_registers(key, tags, registers)
 
+    def import_topk(self, table: np.ndarray, series: List[tuple]):
+        """Merge a forwarded heavy-hitter sketch (see
+        HeavyHitterGroup.import_sketch); series entries carry plain
+        (name, tags, keys, members), keyed here."""
+        with self._lock:
+            self.imported += 1
+            entries = [(MetricKey(name=name, type="set",
+                                  joined_tags=",".join(tags)),
+                        tags, keys, members)
+                       for name, tags, keys, members in series]
+            self.heavy_hitters.import_sketch(table, entries)
+
     # -- flush ---------------------------------------------------------------
 
     def flush(self, percentiles: List[float],
               aggregates: HistogramAggregates, now: int,
-              is_local: bool = False, forward: bool = True):
+              is_local: bool = False, forward: bool = True,
+              forward_topk: bool = True):
         """Drain everything and reset all groups; returns (InterMetrics
         for the sinks, the :class:`ForwardableState` a local forwards).
         Mirrors generateInterMetrics (flusher.go:189-254): a local
@@ -1457,7 +1833,9 @@ class MetricStore:
         and, with ``forward``, forwards them with the mixed sets and the
         global counters/gauges instead of flushing those; local-only
         groups always flush in full. A global emits everything and
-        forwards nothing.
+        forwards nothing. Heavy hitters follow the mixed-set rule, unless
+        the transport cannot carry the sketch (``forward_topk`` False):
+        then the local emits its own top-k.
 
         SWAP-ON-FLUSH: the store lock is held only for the generation
         swap; the device programs and fetches run on the retired
@@ -1467,7 +1845,7 @@ class MetricStore:
             with self._lock:
                 gen = self._swap_generation()
             return self._flush_generation(gen, percentiles, aggregates, now,
-                                          is_local, forward)
+                                          is_local, forward, forward_topk)
 
     def _swap_generation(self) -> _Generation:
         """Retire every group behind an empty twin (caller holds _lock).
@@ -1478,7 +1856,10 @@ class MetricStore:
             old = getattr(self, attr)
             old._retired = True  # its flush frees state, not reinits it
             setattr(gen, attr, old)
-            setattr(self, attr, old.fresh())
+            fresh = old.fresh()
+            # a fresh twin starts with the class-default overload attrs
+            self._apply_overload_attrs(attr, fresh)
+            setattr(self, attr, fresh)
         gen.processed, gen.imported = self.processed, self.imported
         self.processed = self.imported = 0
         self.flush_epoch += 1
@@ -1488,7 +1869,8 @@ class MetricStore:
         return gen
 
     def _flush_generation(self, g: _Generation, percentiles, aggregates,
-                          now, is_local=False, forward=True):
+                          now, is_local=False, forward=True,
+                          forward_topk=True):
         """Drain a retired generation into emissions and forwardable
         state. Every device group dispatches its flush program before any
         fetch blocks; the fetches and emissions then run in plan order."""
@@ -1526,6 +1908,13 @@ class MetricStore:
                 want_registers=fwd_list is not None)
             plan.append((fin, lambda res, out=out, fwd_list=fwd_list:
                          self._emit_set_result(res, out, now, fwd_list)))
+        # heavy hitters follow the mixed-set rule: a forwarding local ships
+        # its sketch and emits nothing (the global emits the fleet top-k);
+        # when the transport cannot carry it, the local emits its own view
+        want_hh_fwd = is_local and forward and forward_topk
+        plan.append((g.heavy_hitters.flush_begin(want_forward=want_hh_fwd),
+                     lambda res: self._emit_topk_result(
+                         res, final, now, fwd, want_hh_fwd)))
         for fin, emit in plan:
             emit(fin())
         # status checks are always local
@@ -1612,6 +2001,22 @@ class MetricStore:
                     name=f"{name}.{int(p * 100)}percentile", timestamp=now,
                     value=float(r["percentiles"][row, i]), tags=list(tags),
                     type=MetricType.GAUGE, sinks=sinks))
+
+    @staticmethod
+    def _emit_topk_result(res, out: List[InterMetric], now: int,
+                          fwd: ForwardableState, forwarding: bool):
+        """``{name}.topk`` counters tagged ``key:<member>``, one per live
+        top-k entry; a forwarding flush leaves the sketch on ``fwd``."""
+        interner, entries, sketch = res
+        fwd.topk = sketch
+        if forwarding:
+            return
+        for row, member, count in entries:
+            tags = interner.tags[row]
+            out.append(InterMetric(
+                name=f"{interner.names[row]}.topk", timestamp=now,
+                value=count, tags=list(tags) + [f"key:{member}"],
+                type=MetricType.COUNTER, sinks=route_info(tags)))
 
     def _emit_set_result(self, res, out: Optional[List[InterMetric]],
                          now: int, fwd_list: Optional[list] = None):

@@ -41,10 +41,13 @@ def flush_once(server: "Server") -> int:
     _start_span_flush(server)
     is_local = server.is_local()
     forwarding = is_local and server.forward_fn is not None
+    # the heavy-hitter sketch rides our JSON body, never the reference's
+    # (forward_reference_compatible): then the local emits its own top-k
+    topk_ok = getattr(server.forwarder, "supports_topk", True)
     t0 = time.perf_counter()
     final, forwardable = server.store.flush(
         server.histogram_percentiles, server.histogram_aggregates, now,
-        is_local=is_local, forward=forwarding)
+        is_local=is_local, forward=forwarding, forward_topk=topk_ok)
     log.debug("store flush of %d metrics took %.1f ms", len(final),
               (time.perf_counter() - t0) * 1e3)
     if forwarding and len(forwardable):

@@ -13,10 +13,11 @@ formats, both accepted on import:
   Go local can POST to a port global and a port local can forward into a
   Go global (``forward_reference_compatible``).
 
-The protobuf (gRPC) wire is not ported: it needs the generated
-``forward_pb2`` modules. Heavy-hitter (``topk_sketch``) entries are
-counted as errors on import, like an unknown type, because the port has
-no heavy-hitter group.
+Our format also carries one ``topk_sketch`` entry, the heavy-hitter
+count-min table (base64 float32) and each series' top-k candidates; the
+reference's format never does (a Go global would count an unknown
+type). The protobuf (gRPC) wire is not ported: it needs the generated
+``forward_pb2`` modules.
 """
 
 from __future__ import annotations
@@ -95,12 +96,15 @@ def _apply_ops(store, others, digests) -> tuple:
                 store.import_counter(key, tags, payload)
             elif kind == "gauge":
                 store.import_gauge(key, tags, payload)
-            else:
+            elif kind == "set":
                 store.import_set(key, tags, payload)
+            else:  # topk: payload = (table, series)
+                store.import_topk(*payload)
             n_ok += 1
         except Exception as e:
             n_err += 1
-            log.debug("store rejected imported metric %s: %s", key.name, e)
+            log.debug("store rejected imported metric %s: %s",
+                      key if isinstance(key, str) else key.name, e)
     if digests:
         try:
             store.import_digests_bulk(digests)
@@ -155,7 +159,8 @@ def json_metrics_from_state(state, compression: float = 100.0
                             ) -> List[Dict]:
     """ForwardableState -> our structured JSON entries, the replacement
     for ``JSONMetric``'s gob blob (flusher.go:292-385). The caller
-    materializes the digest planes first."""
+    materializes the digest planes first. A state flushed with
+    ``forward_topk=False`` carries no heavy-hitter sketch."""
     out: List[Dict] = []
     for name, tags, value in state.counters:
         out.append({"name": name, "tags": tags, "type": "counter",
@@ -177,7 +182,38 @@ def json_metrics_from_state(state, compression: float = 100.0
         out.append({"name": name, "tags": tags, "type": "set",
                     "hll": base64.b64encode(
                         encode_hll(registers, precision)).decode()})
+    if state.topk is not None:
+        table, series = state.topk
+        table = np.ascontiguousarray(table, np.float32)
+        out.append({
+            "type": "topk_sketch",
+            "name": "veneur.topk",  # a routing/debug label only
+            "tags": [],
+            "depth": int(table.shape[0]),
+            "width": int(table.shape[1]),
+            # the body is deflated whole, so the sparse table compresses
+            # well despite base64
+            "table": base64.b64encode(table.tobytes()).decode(),
+            "series": [
+                {"name": name, "tags": list(tags),
+                 "keys": [[int(hi), int(lo)] for hi, lo in keys],
+                 "members": list(members)}
+                for name, tags, keys, members in series],
+        })
     return out
+
+
+def decode_topk_sketch(d: Dict) -> tuple:
+    """A JSON ``topk_sketch`` entry -> the (table, series) pair
+    ``MetricStore.import_topk`` takes."""
+    table = np.frombuffer(base64.b64decode(d["table"]),
+                          np.float32).reshape(int(d["depth"]),
+                                              int(d["width"]))
+    series = [(s["name"], list(s.get("tags") or []),
+               [(int(hi), int(lo)) for hi, lo in s["keys"]],
+               list(s.get("members") or []))
+              for s in d.get("series", [])]
+    return table, series
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +272,8 @@ def _parse_json(d: Dict) -> tuple:
     if mtype == "set":
         registers, _ = decode_hll(base64.b64decode(d["hll"]))
         return None, ("set", key, tags, registers)
-    # includes "topk_sketch": the heavy-hitter group is not ported
+    if mtype == "topk_sketch":
+        return None, ("topk", d["name"], tags, decode_topk_sketch(d))
     raise ValueError(f"unknown JSON metric type {mtype!r}")
 
 
@@ -276,5 +313,7 @@ def apply_json_metric(store, d: Dict):
         store.import_counter(key, tags, payload)
     elif kind == "gauge":
         store.import_gauge(key, tags, payload)
-    else:
+    elif kind == "set":
         store.import_set(key, tags, payload)
+    else:
+        store.import_topk(*payload)

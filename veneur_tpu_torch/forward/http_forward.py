@@ -55,7 +55,8 @@ class HTTPForwarder:
 
     ``reference_compat`` emits the reference's own JSONMetric format
     (gob digests, axiomhq sets, LE scalars), for forwarding into a Go
-    global."""
+    global; that format cannot carry the heavy-hitter sketch
+    (``supports_topk`` False), so such a local emits its own top-k."""
 
     def __init__(self, addr: str, timeout: float = 10.0,
                  compression: float = 100.0,
@@ -67,6 +68,7 @@ class HTTPForwarder:
         self.timeout = timeout
         self.compression = compression
         self.reference_compat = reference_compat
+        self.supports_topk = not reference_compat
         self.retry_policy = retry_policy or RetryPolicy()
         self.breaker = breaker
         # forward() runs on a fresh thread each flush; guard the counters

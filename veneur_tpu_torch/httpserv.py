@@ -242,7 +242,10 @@ class OpsServer:
                             len(metrics))
             return n_ok
 
-        return cls(addr, import_fn=import_metrics)
+        cfg = server.config
+        return cls(addr, import_fn=import_metrics,
+                   import_workers=cfg.http_import_workers,
+                   import_queue=cfg.http_import_queue)
 
     @property
     def port(self) -> int:

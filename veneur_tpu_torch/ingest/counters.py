@@ -57,7 +57,7 @@ class ShardedCounter:
 class LaneLedger:
     """Single-writer per-reason quarantine tally for one ingest lane.
 
-    Duck-types ``core.store.Quarantine.count`` so the store's
+    Duck-types ``overload.Quarantine.count`` so the store's
     ``_scrub_*_batch`` helpers can account poison into it WITHOUT the
     shared ledger's lock — the lane thread is the only writer; the
     merger folds deltas into the shared ``Quarantine`` at the group

@@ -19,8 +19,11 @@ one that launches K2 (the shift guard) on the store's device.
 
 Reference shape: per-core readers (socket_linux.go:12-76) feeding
 share-nothing workers (worker.go:54-91), with the merge at the chunk
-boundary. Overload shedding at the socket and stage tracing are not
-ported yet; the backlog cap is.
+boundary. Overload: at ``LEVEL_SHED_PACKETS`` a lane sheds whole recv
+batches at the socket (read lock-free through ``level_nowait``), and the
+merger drives the controller's ``level()`` on its tick and rolls the
+lanes' shed tallies into ``OverloadController.shed``; the backlog cap
+sheds the same way. Stage tracing is not ported yet.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from veneur_tpu_torch.core.store import (_K_COUNTER, _K_GAUGE,
 from veneur_tpu_torch.ingest.counters import LaneLedger
 from veneur_tpu_torch.ingest.recvmmsg import BatchReceiver
 from veneur_tpu_torch.ops import hll as hll_ops
+from veneur_tpu_torch.overload import LEVEL_SHED_PACKETS
 from veneur_tpu_torch.samplers import parser as p
 from veneur_tpu_torch.samplers.parser import (F32_ABS_MAX, GLOBAL_ONLY,
                                               LOCAL_ONLY)
@@ -83,9 +87,10 @@ _HASH_KINDS = (_K_SET, _K_LOCAL_SET, _K_TOPK)
 class _KindStage:
     """One kind's lane-local staging columns: the rows/vals/wts layout
     the store groups stage in, so a sealed span feeds ``add_many`` /
-    ``set_many`` / ``sample_many`` without reshaping."""
+    ``set_many`` / ``sample_many`` without reshaping. Heavy hitters also
+    carry their member bytes, for the group's member memo."""
 
-    __slots__ = ("kind", "rows", "a", "b", "fill")
+    __slots__ = ("kind", "rows", "a", "b", "members", "fill")
 
     def __init__(self, kind: int, chunk: int):
         self.kind = kind
@@ -100,24 +105,30 @@ class _KindStage:
         else:
             self.a = np.empty(chunk, np.float32)    # digest values
             self.b = np.empty(chunk, np.float32)    # digest weights
+        self.members: Optional[list] = [] if kind == _K_TOPK else None
         self.fill = 0
 
-    def put(self, rows, a, b=None) -> None:
+    def put(self, rows, a, b=None, members=None) -> None:
         i, n = self.fill, len(rows)
         self.rows[i:i + n] = rows
         self.a[i:i + n] = a
         if b is not None:
             self.b[i:i + n] = b
+        if members is not None:
+            self.members.extend(members)
         self.fill = i + n
 
     def take(self):
-        """Trimmed copies of the staged span; resets the stage. The
-        copies are what seal publishes: the columns are reusable by the
-        lane thread at once."""
+        """Trimmed copies of the staged span, (rows, a, b, members);
+        resets the stage. The copies are what seal publishes: the columns
+        are reusable by the lane thread at once."""
         n = self.fill
         self.fill = 0
         b = self.b[:n].copy() if self.b is not None else None
-        return (self.rows[:n].copy(), self.a[:n].copy(), b)
+        members = None
+        if self.members is not None:
+            members, self.members = self.members, []
+        return (self.rows[:n].copy(), self.a[:n].copy(), b, members)
 
 
 class SealedChunk:
@@ -182,10 +193,11 @@ class IngestLane:
                  chunk_records: int, stop: threading.Event,
                  max_backlog: int = DEFAULT_MAX_BACKLOG,
                  intern_limit: int = 1 << 20,
-                 use_native: Optional[bool] = None):
+                 use_native: Optional[bool] = None, overload=None):
         self.lane_id = lane_id
         self.sock = sock
         self._stop = stop
+        self._overload = overload
         self._chunk = max(256, chunk_records)
         self._max_backlog = max(1, max_backlog)
         self._intern_limit = max(1024, intern_limit)
@@ -198,6 +210,8 @@ class IngestLane:
         # single-writer counters (read-side sums never lock)
         self.packets = 0
         self.shed_packets = 0
+        # shed_packets already rolled into the controller (merger-side)
+        self._shed_reported = 0
         self.parsed = 0
         self.parse_errors = 0
         self.staged = 0
@@ -277,10 +291,15 @@ class IngestLane:
         now = time.monotonic()
         n = len(datagrams)
         self.packets += n
-        if len(self.sealed) >= self._max_backlog:
-            # a wedged merger must cost BOUNDED memory: shed whole packets
-            # before decode, so neither sealed chunks nor intern entries
-            # keep accumulating; staged residue still honours SEAL_MAX_AGE
+        ctl = self._overload
+        if (len(self.sealed) >= self._max_backlog
+                or (ctl is not None
+                    and ctl.level_nowait() >= LEVEL_SHED_PACKETS)):
+            # statsd sheds AT the socket at the overload ladder's top
+            # tier; and a wedged merger must cost BOUNDED memory: shed
+            # whole packets before decode, so neither sealed chunks nor
+            # intern entries keep accumulating. Staged residue still
+            # honours SEAL_MAX_AGE
             self.shed_packets += n
             if (self._staged_total or self._raws) and (
                     now - self._first_stage_t >= SEAL_MAX_AGE):
@@ -345,7 +364,13 @@ class IngestLane:
             elif kind in _HASH_KINDS:
                 if member_hashes is None:
                     member_hashes = pb.member_hashes()
-                self._stage_span(kind, krows, member_hashes[sel])
+                members = None
+                if kind == _K_TOPK:
+                    aoffs, alens = pb.aux_off, pb.aux_len
+                    members = [arena[aoffs[j]:aoffs[j] + alens[j]]
+                               for j in sel]
+                self._stage_span(kind, krows, member_hashes[sel],
+                                 members=members)
             else:  # digests: histograms / timers, both scopes
                 # scrub the float64 values BEFORE the f32 cast, so an
                 # out-of-f32-range sample is rejected, not made inf
@@ -424,23 +449,25 @@ class IngestLane:
         elif kind in _GAUGE_KINDS:
             self._put_one(kind, row, float(m.value))
         elif kind in _HASH_KINDS:
-            h = hll_ops.hash_member(str(m.value).encode("utf-8"))
-            self._put_one(kind, row, np.uint64(h))
+            member = str(m.value).encode("utf-8")
+            self._put_one(kind, row, np.uint64(hll_ops.hash_member(member)),
+                          member=member if kind == _K_TOPK else None)
         else:
             # the parser bounded the value and the rate already
             self._put_one(kind, row, np.float32(m.value),
                           np.float32(1.0) / np.float32(m.sample_rate))
 
-    def _put_one(self, kind, row, a, b=None) -> None:
+    def _put_one(self, kind, row, a, b=None, member=None) -> None:
         if self._chunk - self._staged_total == 0:
             self._seal()
         st = self._stages[kind]
         if st is None:
             st = self._stages[kind] = _KindStage(kind, self._chunk)
-        st.put([row], [a], None if b is None else [b])
+        st.put([row], [a], None if b is None else [b],
+                None if member is None else [member])
         self._staged_total += 1
 
-    def _stage_span(self, kind, rows, a, b=None) -> None:
+    def _stage_span(self, kind, rows, a, b=None, members=None) -> None:
         st = self._stages[kind]
         if st is None:
             st = self._stages[kind] = _KindStage(kind, self._chunk)
@@ -453,7 +480,8 @@ class IngestLane:
                 room = self._chunk
             end = start + min(room, n - start)
             st.put(rows[start:end], a[start:end],
-                   b[start:end] if b is not None else None)
+                   b[start:end] if b is not None else None,
+                   members[start:end] if members is not None else None)
             self._staged_total += end - start
             start = end
 
@@ -545,7 +573,8 @@ class IngestFleet:
     """N lanes on one SO_REUSEPORT UDP address plus the merger thread
     that folds sealed chunks into the store at the group boundary and
     rolls the lanes' quarantine tallies into the store's ledger, once a
-    tick instead of once a packet."""
+    tick instead of once a packet. The merger also drives the overload
+    controller's pressure recompute and rolls up the lanes' sheds."""
 
     def __init__(self, store, addr, num_lanes: int, recv_buf: int,
                  max_len: int, chunk_records: int = 1 << 14,
@@ -554,10 +583,11 @@ class IngestFleet:
                  drain_tick: float = DRAIN_TICK,
                  max_backlog: int = DEFAULT_MAX_BACKLOG,
                  use_native: Optional[bool] = None,
-                 intern_limit: int = 1 << 20):
+                 intern_limit: int = 1 << 20, overload=None):
         from veneur_tpu_torch import networking
 
         self._store = store
+        self._overload = overload
         self._stop = stop if stop is not None else threading.Event()
         self._raw_handler = raw_handler
         self._tick = drain_tick
@@ -581,7 +611,7 @@ class IngestFleet:
                     lane = IngestLane(
                         i, sock, max_len, chunk_records, self._stop,
                         max_backlog=max_backlog, intern_limit=intern_limit,
-                        use_native=use_native)
+                        use_native=use_native, overload=overload)
                 except BaseException:
                     sock.close()
                     raise
@@ -649,10 +679,23 @@ class IngestFleet:
         for reason, d in lane.ledger.take_deltas().items():
             self._store.quarantine.count(reason, d)
 
+    def _rollup_sheds(self) -> None:
+        ctl = self._overload
+        if ctl is None:
+            return
+        for lane in self.lanes:
+            d = lane.shed_packets - lane._shed_reported
+            if d:
+                lane._shed_reported += d
+                ctl.account_shed("statsd", d)
+
     def _merge_loop(self) -> None:
         while not self._stop.is_set():
             try:
                 self.merge_sealed()
+                if self._overload is not None:
+                    self._overload.level()  # the periodic recompute
+                    self._rollup_sheds()
             except Exception:
                 log.exception("ingest merge pass failed")
             self._stop.wait(self._tick)
@@ -661,6 +704,7 @@ class IngestFleet:
             t.join(timeout=5.0)
         try:
             self.merge_sealed()
+            self._rollup_sheds()
         except Exception:
             log.exception("final ingest merge failed")
 
@@ -682,6 +726,14 @@ class IngestFleet:
                 lane.sock.close()
 
     # -- read-side counters ----------------------------------------------------
+
+    def pressure(self) -> float:
+        """Backlog fill ratio feeding the overload watermarks: sealed
+        chunks waiting on the merger, against the per-lane shed cap."""
+        p = 0.0
+        for lane in self.lanes:
+            p = max(p, len(lane.sealed) / lane._max_backlog)
+        return min(p, 1.0)
 
     def parse_errors(self) -> int:
         return sum(lane.parse_errors for lane in self.lanes)

@@ -18,7 +18,7 @@ import os
 import select
 import socket
 import threading
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 from veneur_tpu_torch.protocol.addr import ResolvedAddr, resolve_addr
 
@@ -46,11 +46,14 @@ def new_udp_socket(addr: ResolvedAddr, recv_buf: int,
 def start_statsd(addr_spec: str, num_readers: int, recv_buf: int,
                  metric_max_length: int,
                  handle_packet: Callable[[bytes], None],
-                 stop: threading.Event):
+                 stop: threading.Event,
+                 admit: Optional[Callable[[], bool]] = None):
     """Start ``num_readers`` UDP reader threads for one ``udp://`` address
     (networking.go:18-35). Returns (reader threads, already started;
     bound addresses). With port 0 every reader shares the port the first
-    one was given."""
+    one was given. ``admit`` is the overload controller's gate: when it
+    returns False the datagram is dropped at the socket (the controller
+    counts the shed)."""
     addr = resolve_addr(addr_spec)
     threads: List[threading.Thread] = []
     bound: List[tuple] = []
@@ -61,7 +64,7 @@ def start_statsd(addr_spec: str, num_readers: int, recv_buf: int,
             addr = dataclasses.replace(addr, port=sock.getsockname()[1])
         t = threading.Thread(
             target=_udp_read_loop,
-            args=(sock, metric_max_length, handle_packet, stop),
+            args=(sock, metric_max_length, handle_packet, stop, admit),
             name=f"statsd-udp-reader-{i}", daemon=True)
         t.start()
         threads.append(t)
@@ -70,7 +73,8 @@ def start_statsd(addr_spec: str, num_readers: int, recv_buf: int,
 
 def _udp_read_loop(sock: socket.socket, max_len: int,
                    handle_packet: Callable[[bytes], None],
-                   stop: threading.Event):
+                   stop: threading.Event,
+                   admit: Optional[Callable[[], bool]] = None):
     """Per-reader receive loop (server.go:795-825): one datagram may hold
     several newline-separated metrics; the socket is polled so the loop
     notices ``stop`` within half a second."""
@@ -86,8 +90,11 @@ def _udp_read_loop(sock: socket.socket, max_len: int,
                     break
                 log.warning("UDP recv error: %s", e)
                 continue
-            if data:  # zero-length datagrams are valid UDP; ignore
-                handle_packet(data)
+            if not data:  # zero-length datagrams are valid UDP; ignore
+                continue
+            if admit is not None and not admit():
+                continue  # shed at the socket; the controller counts it
+            handle_packet(data)
     finally:
         sock.close()
 
@@ -112,12 +119,15 @@ def start_ssf(addr_spec: str, num_readers: int, recv_buf: int,
               trace_max_length: int,
               handle_ssf_packet: Callable[[bytes], None],
               handle_ssf_stream: Callable[[socket.socket], None],
-              stop: threading.Event):
+              stop: threading.Event,
+              admit: Optional[Callable[[], bool]] = None):
     """Start the SSF listeners of one address (networking.go:138-223):
     ``udp://`` runs ``num_readers`` datagram readers, each datagram one
     bare SSFSpan; ``unix://`` and ``tcp://`` accept streams of framed
     spans, each connection on its own thread. Returns (threads, already
-    started; bound addresses: (host, port), or the socket path)."""
+    started; bound addresses: (host, port), or the socket path).
+    ``admit`` gates the UDP datagrams as in :func:`start_statsd` (spans
+    shed before statsd does)."""
     addr = resolve_addr(addr_spec)
     threads: List[threading.Thread] = []
     bound: list = []
@@ -130,7 +140,8 @@ def start_ssf(addr_spec: str, num_readers: int, recv_buf: int,
                                            port=sock.getsockname()[1])
             t = threading.Thread(
                 target=_udp_read_loop,
-                args=(sock, trace_max_length, handle_ssf_packet, stop),
+                args=(sock, trace_max_length, handle_ssf_packet, stop,
+                      admit),
                 name=f"ssf-udp-reader-{i}", daemon=True)
             t.start()
             threads.append(t)

@@ -14,6 +14,7 @@ import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Union
 
+from veneur_tpu_torch.overload import F32_ABS_MAX, MIN_SAMPLE_RATE
 from veneur_tpu_torch.protocol import constants as dogstatsd
 from veneur_tpu_torch.protocol import ssf
 
@@ -23,11 +24,6 @@ LOCAL_ONLY = 1
 GLOBAL_ONLY = 2
 TOPK_SCOPE = 3  # veneur_ingest.cpp Scope::kTopK: heavy-hitter SSF sets
 
-# numeric bounds of the store lanes (veneur_tpu/overload.py): past these a
-# value would launder into inf (f32 digest staging), and a rate below
-# MIN_SAMPLE_RATE overflows its float32 reciprocal weight
-F32_ABS_MAX = 3.4028235e38
-MIN_SAMPLE_RATE = 1e-38
 # int64 counter lanes overflow past 2^63
 _COUNTER_ABS_MAX = float(1 << 63)
 
@@ -83,11 +79,6 @@ class QuarantineError(ParseError):
         self.reason = reason
 
 
-class NotPortedError(ParseError):
-    """A well-formed line of a kind this port does not handle yet
-    (heavy-hitter ``veneurtopk`` sets)."""
-
-
 _TYPE_BY_LEAD = {
     ord("c"): "counter",
     ord("g"): "gauge",
@@ -130,11 +121,24 @@ def _check_numeric(value: float, mtype: str, raw) -> None:
             "out_of_range", f"Value exceeds float32 range: {raw!r}")
 
 
-def parse_metric(packet: bytes) -> UDPMetric:
+def truncate_joined_tags(joined: str, limit: int) -> str:
+    """Cut a joined tag string at the last whole tag within ``limit``
+    (the per-series tag-length cap; identities merge past it)."""
+    if not limit or len(joined) <= limit:
+        return joined
+    cut = joined.rfind(",", 0, limit + 1)
+    return joined[:cut] if cut > 0 else joined[:limit]
+
+
+def parse_metric(packet: bytes, max_tag_length: int = 0,
+                 quarantine=None) -> UDPMetric:
     """Parse one DogStatsD metric line (parser.go:232-363).
 
     Grammar: ``name:value|type[|@rate][|#tag1,tag2]``; sections after the
-    type may appear in any order but at most once each."""
+    type may appear in any order but at most once each.
+    ``max_tag_length`` caps the joined tag string: an oversized tag set
+    is cut at a tag boundary and counted in ``quarantine`` under
+    ``oversized_tags``."""
     chunks = bytes(packet).split(b"|")
     head = chunks[0]
     colon = head.find(b":")
@@ -194,6 +198,11 @@ def parse_metric(packet: bytes) -> UDPMetric:
             tags = sorted(chunk[1:].decode("utf-8", "replace").split(","))
             tags, scope = _extract_scope_tags(tags)
             joined = ",".join(tags)
+            if max_tag_length and len(joined) > max_tag_length:
+                if quarantine is not None:
+                    quarantine.count("oversized_tags")
+                joined = truncate_joined_tags(joined, max_tag_length)
+                tags = joined.split(",") if joined else []
             h = fnv1a_32(joined, h)
         else:
             raise ParseError(

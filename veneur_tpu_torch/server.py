@@ -26,6 +26,17 @@ sink, always last, turns the spans' samples and indicator timers into
 store samples. A full channel sheds spans and counts them
 (``spans_dropped``).
 
+Overload (``overload.py``): the server builds an
+:class:`~veneur_tpu_torch.overload.OverloadController` from its config
+and attaches it, as the JAX server does. Its pressure (span channel,
+span lanes, ingest-fleet backlogs, group occupancy) freezes first-sight
+series at the low watermark, sheds spans at the high one (``admit_span``
+before the channel; ``admit_packet("ssf")`` on the Python SSF readers)
+and statsd datagrams at the hard one (the lanes at the socket,
+``admit_packet("statsd")`` on the Python readers); every shed lands in
+``overload.shed``. The store caps each group at ``max_series`` and the
+joined tags at ``max_tag_length`` on every path.
+
 Global aggregation: with ``forward_address`` set the server is a local
 and forwards its sketch state there over HTTP after each flush; with
 ``http_address`` set it serves ``POST /import`` (a global merges what
@@ -35,12 +46,13 @@ its locals forward) beside ``/healthcheck`` and ``/version``.
 from __future__ import annotations
 
 import logging
+import math
 import queue
 import threading
 import time
 from typing import List, Optional, Tuple
 
-from veneur_tpu_torch import flusher, native, networking
+from veneur_tpu_torch import flusher, native, networking, overload
 from veneur_tpu_torch.config import Config
 from veneur_tpu_torch.core.store import MetricStore
 from veneur_tpu_torch.forward import configure_forwarding
@@ -210,6 +222,11 @@ class SpanWorker:
             lane.flush_sink()
 
 
+def calculate_tick_delay(interval: float, now: float) -> float:
+    """Seconds until the next interval boundary (server.go:1163-1177)."""
+    return interval - math.fmod(now, interval)
+
+
 class Server:
     def __init__(self, config: Config,
                  metric_sinks: Optional[List[MetricSink]] = None,
@@ -222,25 +239,34 @@ class Server:
         self.histogram_percentiles = list(config.percentiles)
         self.histogram_aggregates = HistogramAggregates.from_names(
             config.aggregates)
-        self.store = MetricStore(compression=config.tdigest_compression,
-                                 hll_precision=config.hll_precision,
-                                 device=device)
+        self.overload = overload.from_config(config)
+        self.store = MetricStore(
+            initial_capacity=config.store_initial_capacity,
+            chunk=config.store_chunk,
+            compression=config.tdigest_compression,
+            hll_precision=config.hll_precision,
+            topk_depth=config.topk_depth, topk_width=config.topk_width,
+            topk_k=config.topk_k, max_series=config.max_series,
+            max_tag_length=config.max_tag_length, overload=self.overload,
+            device=device)
         self.metric_sinks = (list(metric_sinks) if metric_sinks is not None
                              else [BlackholeMetricSink()])
         self.event_worker = EventWorker()
         self.span_chan: "queue.Queue" = queue.Queue(
             config.span_channel_capacity)
+        # the pressure sources (span channel, lanes, groups) are read
+        # through the server
+        self.overload.attach(self)
         # the extraction sink is how SSF samples reach the store
         # (server.go:282-290)
         self.extraction_sink = MetricExtractionSink(
-            self._process_ssf_metric, config.indicator_span_timer_name)
+            self.store.process_metric, config.indicator_span_timer_name)
         self.span_sinks: List[SpanSink] = (list(span_sinks or [])
                                            + [self.extraction_sink])
         # per-line tallies, added to from reader threads without a lock;
         # the properties below add what the native rungs count
         self._packet_errors = ShardedCounter()
         self._quarantined = ShardedCounter()
-        self._not_ported = ShardedCounter()
         self._spans_dropped = ShardedCounter()
         self._last_span_drop_log = 0.0
         # interval span flushes skipped: the previous one still ran
@@ -294,15 +320,8 @@ class Server:
     @property
     def quarantined(self) -> int:
         """Poisoned samples: per-line rejections plus the store's ledger
-        of the batch and lane paths."""
+        of the batch and lane paths (cut tag sets included)."""
         return self._quarantined.total() + self.store.quarantine.total()
-
-    @property
-    def not_ported(self) -> int:
-        """Heavy-hitter (veneurtopk) set samples, the one kind the port
-        does not handle yet: per line or SSF sample here, per record in
-        the store on the native paths."""
-        return self._not_ported.total() + self.store.not_ported
 
     @property
     def spans_dropped(self) -> int:
@@ -338,20 +357,18 @@ class Server:
     def handle_metric_packet(self, packet: bytes) -> bool:
         """Parse one line and route it (server.go:670-720): events to the
         event worker, service checks and metrics to the store. Returns
-        False on a rejected line: counted in ``packet_errors``,
-        ``quarantined`` (poisoned values) or ``not_ported`` (heavy-hitter
-        sets), and logged at debug level."""
+        False on a rejected line: counted in ``packet_errors`` or
+        ``quarantined`` (poisoned values), and logged at debug level. A
+        tag set past ``max_tag_length`` is cut and counted."""
         try:
             if packet.startswith(b"_e{"):
                 self.event_worker.add(p.parse_event(packet))
             elif packet.startswith(b"_sc"):
                 self.store.process_metric(p.parse_service_check(packet))
             else:
-                self.store.process_metric(p.parse_metric(packet))
-        except p.NotPortedError as e:
-            self._not_ported.add()
-            log.debug("unported packet %r: %s", packet[:100], e)
-            return False
+                self.store.process_metric(p.parse_metric(
+                    packet, max_tag_length=self.store.max_tag_length,
+                    quarantine=self.store.quarantine))
         except p.QuarantineError as e:
             self._quarantined.add()
             log.debug("quarantined packet %r: %s", packet[:100], e)
@@ -366,14 +383,6 @@ class Server:
         """Split a datagram into metric lines (server.go:806-819)."""
         for line in p.split_lines(datagram):
             self.handle_metric_packet(line)
-
-    def _process_ssf_metric(self, m: p.UDPMetric):
-        """The extraction sink's store ingest: a heavy-hitter sample is
-        counted ``not_ported`` instead of failing the rest of its span."""
-        try:
-            self.store.process_metric(m)
-        except p.NotPortedError:
-            self._not_ported.add()
 
     def handle_ssf_packet(self, datagram: bytes):
         """One UDP datagram = one bare SSFSpan (server.go:827-860); an
@@ -396,8 +405,11 @@ class Server:
                         "since start)", self.spans_dropped)
 
     def handle_ssf(self, span):
-        """Hand a span to the span workers (server.go:753-792); a full
-        channel sheds it."""
+        """Hand a span to the span workers (server.go:753-792). Under
+        overload the controller sheds raw spans before the channel
+        (counted in ``overload.shed``); a full channel sheds too."""
+        if not self.overload.admit_span():
+            return
         try:
             self.span_chan.put_nowait(span)
         except queue.Full:
@@ -407,6 +419,8 @@ class Server:
         """handle_ssf for a native batch: one channel hop for the batch,
         shedding counted per span."""
         if not spans:
+            return
+        if not self.overload.admit_span(len(spans)):
             return
         try:
             self.span_chan.put_nowait(spans)
@@ -462,7 +476,8 @@ class Server:
                 continue
             threads, bound = networking.start_statsd(
                 spec, cfg.num_readers, cfg.read_buffer_size_bytes,
-                cfg.metric_max_length, self.handle_packet, self._stop)
+                cfg.metric_max_length, self.handle_packet, self._stop,
+                admit=lambda: self.overload.admit_packet("statsd"))
             self._threads.extend(threads)
             self.statsd_addrs.extend(bound)
             self.listeners.append((spec, "python", bound[0]))
@@ -472,7 +487,8 @@ class Server:
             threads, bound = networking.start_ssf(
                 spec, cfg.num_readers, cfg.read_buffer_size_bytes,
                 cfg.trace_max_length_bytes, self.handle_ssf_packet,
-                self.handle_ssf_stream, self._stop)
+                self.handle_ssf_stream, self._stop,
+                admit=lambda: self.overload.admit_packet("ssf"))
             self._threads.extend(threads)
             self.ssf_addrs.extend(bound)
             rung = ("python" if resolve_addr(spec).family == "udp"
@@ -495,7 +511,8 @@ class Server:
             fleet = IngestFleet(
                 self.store, resolve_addr(spec), num_lanes,
                 cfg.read_buffer_size_bytes, cfg.metric_max_length,
-                stop=self._stop, raw_handler=self.handle_metric_packet)
+                stop=self._stop, raw_handler=self.handle_metric_packet,
+                overload=self.overload)
         except OSError as e:
             log.warning("ingest lanes failed to bind (%s); falling back "
                         "to the legacy readers", e)
@@ -649,13 +666,19 @@ class Server:
         try:
             m = p.parse_metric_ssf(ssf.decode_sample(raw))
             if p.valid_metric(m):
-                self._process_ssf_metric(m)
+                self.store.process_metric(m)
         except p.QuarantineError:
             self._quarantined.add()
         except (ssf.DecodeError, p.ParseError):
             self._packet_errors.add()
 
     def _flush_loop(self):
+        """Interval ticker, optionally aligned to wall-clock interval
+        boundaries (server.go:638-665)."""
+        if self.config.synchronize_with_interval:
+            if self._stop.wait(calculate_tick_delay(self.interval,
+                                                    time.time())):
+                return
         while not self._stop.wait(self.interval):
             try:
                 self.flush()
