@@ -4,10 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and its native
-ingest library (g++), side by side, then runs nine phases, each
-printing one JSON line (``--phases a,b`` runs the named main-path
-phases alone, without the kernels phase, the kernel summary and the
-contract's last line):
+ingest and egress libraries (g++), side by side, then runs nine phases,
+each printing one JSON line:
 
   kernels  K1 drain_quantile and K2 compress_presorted at the flush's
            shape (1,048,576 rows, K=104, the store's 9 quantiles), each
@@ -38,10 +36,18 @@ contract's last line):
            held to the traffic: conservation, counters, gauges, digest
            mass, extrema and percentiles, set estimates, the service
            checks' status rows and the events in flush_other_samples.
-           Then a
+           Each flush runs the default shape (columnar, pipelined,
+           streaming): a Datadog sink POSTs deflated bodies from the
+           native serializer to an in-process receiver on 127.0.0.1,
+           which inflates every body (its series count must equal the
+           blocks' rows) and parses the first chunk back to its blocks;
+           a recording sink keeps the ColumnarFlush, whose arrays are
+           checked; the flush wall and its stages are printed. Then a
            4,096-series twin (one lane and the per-line path emit the
            same on the CPU; one lane on cuda agrees with the CPU as the
-           kernels do) and an unpaced 5 s burst at 1 and 4 lanes;
+           kernels do; both flush per row, and a columnar twin on cuda
+           archives the same rows through the local-file plugin) and an
+           unpaced 5 s burst at 1 and 4 lanes;
   ssf      SSF into a Server on cuda: the native SSF reader pool (4
            readers) and a unix:// SSF listener, indicator_span_timer_name
            set, a channel metric sink and a channel span sink. 262,144
@@ -91,10 +97,11 @@ contract's last line):
            are;
   server_global
            a global Server (http_address) and a local Server (UDP in,
-           forward_address) in this process: 65,536 series forwarded as
-           one deflated POST /import, merged by the global's pool and
-           flushed into a channel sink, in our body format and in the
-           reference's (gob/axiomhq).
+           forward_address) in this process: 65,536 series forwarded
+           with streaming on (the histogram group POSTs as a deflated
+           /import part of its own, the rest as a second), merged by
+           the global's pool and flushed into a channel sink, in our
+           body format and in the reference's (gob/axiomhq).
 
 The launch counts in the kernel summary are the sum over the store,
 ingest (its two intervals), ssf (its main path), heavy_hitters (its two
@@ -117,6 +124,7 @@ import subprocess
 import sys
 import threading
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -528,10 +536,11 @@ def phase_store(dev, rows: int = ROWS, set_series: int = SET_SERIES,
     k1_ingest = tc.drain_quantile.launches
 
     t0 = time.perf_counter()
-    final, _ = store.flush(list(PERCENTILES),
-                           HistogramAggregates.from_names(["min", "max",
-                                                           "count"]), 0)
+    flushed, _ = store.flush(list(PERCENTILES),
+                             HistogramAggregates.from_names(["min", "max",
+                                                             "count"]), 0)
     flush_s = time.perf_counter() - t0
+    final = flushed.to_intermetrics()
     torch.cuda.synchronize()
     flush_program_ms = events[0].elapsed_time(events[1])
     counts = _counts(tc)
@@ -782,8 +791,9 @@ def _forwarding_local(dev, chunk, vals, set_owner, set_hashes, set_series,
     hist._fetch_planes = timed("digest_fetch_s", hist._fetch_planes)
     store._emit_digest_result = timed("emit_s", store._emit_digest_result)
     t0 = time.perf_counter()
-    final, fwd = store.flush(list(PERCENTILES), aggs, 0, is_local=True)
+    flushed, fwd = store.flush(list(PERCENTILES), aggs, 0, is_local=True)
     split["flush_s"] = time.perf_counter() - t0
+    final = flushed.to_intermetrics()
     t0 = time.perf_counter()
     fwd.materialize_digests()
     split["forward_list_s"] = time.perf_counter() - t0
@@ -922,7 +932,7 @@ def run_global_merge(dev, rows: int, set_series: int, gcounters: int,
     tc.launch_drain_quantile = k1_timed
     try:
         t0 = time.perf_counter()
-        final, _ = glob.flush(list(PERCENTILES), aggs, 0)
+        flushed, _ = glob.flush(list(PERCENTILES), aggs, 0)
         rec["global_flush_s"] = time.perf_counter() - t0
     finally:
         store_mod._flush_digests = real_flush
@@ -931,6 +941,7 @@ def run_global_merge(dev, rows: int, set_series: int, gcounters: int,
     merged = [x[:rows].cpu() for x in (digest.mean, digest.weight,
                                        digest.min, digest.max)]
     merged.append(pcts[:rows, :-1].cpu())
+    final = flushed.to_intermetrics()
     _check_global_merge(t, states, merged, final, rows, set_series,
                         gcounters, rec)
     return rec, merged
@@ -1096,12 +1107,14 @@ def run_server_global(dev, compat: bool, series: int = 1 << 16,
         pool = glob.ops_server.import_pool
         real_handle = pool._handle
 
+        rec["import_s"] = 0.0
+
         def timed_handle(metrics):
             t0 = time.perf_counter()
             try:
                 return real_handle(metrics)
             finally:
-                rec["import_s"] = time.perf_counter() - t0
+                rec["import_s"] += time.perf_counter() - t0
 
         pool._handle = timed_handle
         local = Server(Config(
@@ -1139,12 +1152,14 @@ def run_server_global(dev, compat: bool, series: int = 1 << 16,
             fwd = local.forwarder
             real_body = fwd.body
 
+            rec["body_build_s"] = 0.0
+
             def timed_body(state):
                 t0 = time.perf_counter()
                 try:
                     return real_body(state)
                 finally:
-                    rec["body_build_s"] = time.perf_counter() - t0
+                    rec["body_build_s"] += time.perf_counter() - t0
 
             fwd.body = timed_body
             t0 = time.perf_counter()
@@ -1152,12 +1167,19 @@ def run_server_global(dev, compat: bool, series: int = 1 << 16,
             rec["local_flush_s"] = time.perf_counter() - t0
             if local.wait_forward(600) is not True:
                 raise AssertionError(f"forward failed ({fwd.errors} errors)")
-            rec["post_s"] = fwd.post_durations[-1]
-            rec["body_bytes"] = fwd.post_content_lengths[-1]
+            # streaming forward: the histogram group's planes POST as a
+            # part of their own, the rest of the state as a second body
+            posts = len(fwd.post_durations)
+            if posts < 2:
+                raise AssertionError(f"the local POSTed {posts} bodies; "
+                                     "streaming should have split it")
+            rec["posts"] = posts
+            rec["post_s"] = sum(fwd.post_durations)
+            rec["body_bytes"] = sum(fwd.post_content_lengths)
             rec["forwarded"] = fwd.forwarded
             rec["retries"] = fwd.retries
             deadline = time.time() + 600
-            while pool.merged_batches + pool.failed_batches < 1:
+            while pool.merged_batches + pool.failed_batches < posts:
                 if time.time() > deadline:
                     raise AssertionError("the global never merged the body")
                 time.sleep(0.05)
@@ -1238,6 +1260,15 @@ INGEST_DGRAM = 1432              # the DogStatsD clients' default payload
 INGEST_SENDERS = 2
 INGEST_SOURCE_SOCKETS = 16       # a sender's flows: REUSEPORT hashes each
 INGEST_MAX_WINDOW = 4096         # datagrams in flight, at most
+INGEST_INTERVAL_S = 86400        # the flushes are driven, not ticked
+# an ingest flush's wall, the busy seconds of its stages and its bodies
+FLUSH_KEYS = ("flush_s", "dispatch_s", "fetch_s", "emit_s", "serialize_s",
+              "post_s", "post_max_s", "post_retries", "receiver_max_s",
+              "gc_pause_s", "gc_pause_max_s", "python_gap_max_s",
+              "emission_share",
+              "chunks", "bodies",
+              "series_posted", "body_bytes_deflated", "body_bytes_inflated",
+              "rows_flushed", "k1_launches")
 INGEST_PERCENTILES = (0.5, 0.75, 0.99)   # example.yaml's
 # the ingest Server's series cap: a 1M-series host raises the default
 # 2^20, whose freeze (70%) and cap would spill a third of its series
@@ -1586,57 +1617,96 @@ def _spilled(store) -> int:
     return sum(getattr(store, g).spilled for g in store._GEN_GROUPS)
 
 
-def _check_ingest_flush(rows, t, rec):
-    """One interval's flushed rows against the traffic: the row count;
-    counters and gauges exact; on 4,096 seeded histogram series, the
-    count (the sum of 1/rate) at rtol 1e-6, min/max exact and the
-    percentiles within 1e-3 x span of the exact digest of the samples;
-    set estimates within 1e-4 of a numpy HLL of the members; each
-    service check a status row with its value and message."""
+def _arena_strings(arenas) -> list:
+    """The strings of an EmissionBlock's (blob, offsets, lengths)."""
+    blob, off, ln = arenas
+    return [blob[o:o + n].decode() for o, n in zip(off.tolist(),
+                                                   ln.tolist())]
+
+
+def _block_matrix(blk):
+    """A block's emissions as an [S, suffixes] matrix of values, after
+    checking that every (row, suffix) cell is emitted exactly once."""
+    nsfx, n = len(blk.suffixes), len(blk.names[1])
+    cell = blk.rows.astype(np.int64) * nsfx + blk.suffix_idx
+    if not np.array_equal(np.bincount(cell, minlength=n * nsfx),
+                          np.ones(n * nsfx, np.int64)):
+        raise AssertionError("a block does not emit every (series, "
+                             "suffix) exactly once")
+    out = np.empty(n * nsfx, np.float64)
+    out[cell] = blk.values
+    return out.reshape(n, nsfx)
+
+
+def _check_ingest_flush(col, t, rec):
+    """One interval's ColumnarFlush against the traffic, on the blocks'
+    arrays: the row count; counters and gauges exact; on 4,096 seeded
+    histogram series, the count (the sum of 1/rate) at rtol 1e-6,
+    min/max exact and the percentiles within 1e-3 x span of the exact
+    digest of the samples; set estimates within 1e-4 of a numpy HLL of
+    the members; each service check a status row (an extra) with its
+    value and message."""
+    from veneur_tpu_torch.core.columnar import TYPE_COUNTER
     from veneur_tpu_torch.ops import hll as hll_ops
 
     n, sets, scalars = t["rows"], t["set_series"], t["scalars"]
     checks = t["raw_lines"] // 2
     want_rows = (n * (3 + len(INGEST_PERCENTILES)) + sets + 2 * scalars
                  + checks)
-    if len(rows) != want_rows:
-        raise AssertionError(f"{len(rows)} rows flushed, want {want_rows}")
-    status = {m.name: (m.value, m.message) for m in rows
+    if len(col) != want_rows:
+        raise AssertionError(f"{len(col)} rows flushed, want {want_rows}")
+    status = {m.name: (m.value, m.message) for m in col.extras
               if m.type.value == "status"}
-    if status != {f"ingest.check.{i}": (float(i % 4), f"m{i}")
-                  for i in range(checks)}:
-        raise AssertionError("the service checks' status rows differ from "
-                             "what was sent")
+    if len(status) != len(col.extras) or status != {
+            f"ingest.check.{i}": (float(i % 4), f"m{i}")
+            for i in range(checks)}:
+        raise AssertionError("the extras differ from the service checks' "
+                             "status rows")
+    blocks = {}
+    for blk in col.blocks:
+        first = blk.names[0][:blk.names[2][0]].decode()
+        blocks[first.rsplit(".", 1)[0]] = blk
+    if sorted(blocks) != ["ingest.c", "ingest.g", "ingest.h", "ingest.s"]:
+        raise AssertionError(f"unexpected blocks {sorted(blocks)}")
+
+    def by_index(blk, prefix):
+        idx = np.array([int(x[len(prefix) + 1:])
+                        for x in _arena_strings(blk.names)])
+        vals = _block_matrix(blk)[:, 0]
+        out = np.full(len(idx), np.nan)
+        out[idx] = vals
+        return out, idx
+
+    counters, _ = by_index(blocks["ingest.c"], "ingest.c")
+    gauges, _ = by_index(blocks["ingest.g"], "ingest.g")
+    if not (np.all(blocks["ingest.c"].type_codes == TYPE_COUNTER)
+            and np.array_equal(counters, t["counters"])
+            and np.array_equal(gauges, t["gauges"])):
+        raise AssertionError("ingest.c/g differ from what was sent")
+    hb = blocks["ingest.h"]
+    sfx = [b".max", b".min", b".count"] + [
+        f".{int(p * 100)}percentile".encode() for p in INGEST_PERCENTILES]
+    if hb.suffixes != sfx:
+        raise AssertionError(f"histogram suffixes {hb.suffixes}")
+    mat = _block_matrix(hb)
+    row_of = {name: r for r, name in enumerate(_arena_strings(hb.names))}
     rng = np.random.default_rng(SEED + 7)
     pick = rng.choice(n, min(4096, n), replace=False)
-    sfx = ["count", "min", "max"] + [f"{int(p * 100)}percentile"
-                                     for p in INGEST_PERCENTILES]
-    wanted = {f"ingest.h.{i}.{s}" for i in pick for s in sfx}
-    wanted.update(f"ingest.c.{i}" for i in range(scalars))
-    wanted.update(f"ingest.g.{i}" for i in range(scalars))
-    wanted.update(f"ingest.s.{j}" for j in range(sets))
-    by = {m.name: m.value for m in rows if m.name in wanted}
-    for i in range(scalars):
-        if by[f"ingest.c.{i}"] != t["counters"][i] \
-                or by[f"ingest.g.{i}"] != t["gauges"][i]:
-            raise AssertionError(f"ingest.c/g.{i} differ from what was sent")
-    worst = mass_err = 0.0
-    for i in pick:
-        samples = (t["q"][i] / 8.0).astype(np.float32)
-        mass = 8.0 * (2.0 if i % 4 == 0 else 1.0)
-        mass_err = max(mass_err, abs(by[f"ingest.h.{i}.count"] - mass)
-                       / mass)
-        if by[f"ingest.h.{i}.min"] != samples.min() \
-                or by[f"ingest.h.{i}.max"] != samples.max():
-            raise AssertionError(f"ingest.h.{i}: min/max wrong")
-        got = np.array([by[f"ingest.h.{i}.{s}"] for s in sfx[3:]])
-        want = _digest_reference(samples, INGEST_PERCENTILES)
-        span = float(samples.max() - samples.min())
-        worst = max(worst, float(np.max(np.abs(got - want))) / span)
+    sel = mat[[row_of[f"ingest.h.{i}"] for i in pick]]
+    samples = (t["q"][pick] / 8.0).astype(np.float32)
+    mass = 8.0 * np.where(pick % 4 == 0, 2.0, 1.0)
+    mass_err = float(np.max(np.abs(sel[:, 2] - mass) / mass))
+    if not (np.array_equal(sel[:, 0], samples.max(1))
+            and np.array_equal(sel[:, 1], samples.min(1))):
+        raise AssertionError("ingest.h: min/max wrong")
+    want = np.stack([_digest_reference(row, INGEST_PERCENTILES)
+                     for row in samples])
+    span = (samples.max(1) - samples.min(1)).astype(np.float64)
+    worst = float(np.max(np.abs(sel[:, 3:] - want) / span[:, None]))
     if mass_err > 1e-6 or worst > 1e-3:
         raise AssertionError(f"histograms off: mass {mass_err:.3g}, "
                              f"percentiles {worst:.3g} of the span")
-    est = np.array([by[f"ingest.s.{j}"] for j in range(sets)])
+    est, _ = by_index(blocks["ingest.s"], "ingest.s")
     rel = np.abs(est - 16.0) / 16.0
     ref_err = 0.0
     for j in rng.choice(sets, min(512, sets), replace=False):
@@ -1647,10 +1717,217 @@ def _check_ingest_flush(rows, t, rec):
     if ref_err > 1e-4:
         raise AssertionError(f"set estimates off the numpy HLL by "
                              f"{ref_err:.3g}")
-    rec.update({"rows_flushed": len(rows), "hist_mass_rel_err": mass_err,
+    rec.update({"rows_flushed": len(col), "blocks": len(col.blocks),
+                "hist_mass_rel_err": mass_err,
                 "pct_err_vs_exact_digest": worst,
                 "set_err_vs_numpy_hll": ref_err,
                 "set_rel_err_max": float(rel.max())})
+
+
+class _DatadogReceiver:
+    """A stdlib HTTP server on 127.0.0.1 standing in for the Datadog API:
+    it keeps every request body as received and answers 202.
+    ``handle_max_s`` is the longest a request spent in its handler, from
+    reading the body to the response: a POST slower than that on the
+    client waited before the handler ran (connect, accept, the
+    interpreter lock)."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        bodies = self.bodies = []
+        receiver = self
+        self.handle_max_s = 0.0
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                t0 = time.perf_counter()
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                bodies.append((self.path.split("?", 1)[0], body,
+                               self.headers.get("Content-Encoding")))
+                self.send_response(202)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                receiver.handle_max_s = max(receiver.handle_max_s,
+                                            time.perf_counter() - t0)
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=10)
+
+
+class _Heartbeat:
+    """A thread that wakes every 5 ms: ``max_gap`` is the longest it went
+    between wakes since ``reset``, the longest no Python thread of the
+    process could run (the interpreter lock held, a collector pause)."""
+
+    def __init__(self):
+        self.max_gap = 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        last = time.perf_counter()
+        while not self._stop.wait(0.005):
+            now = time.perf_counter()
+            self.max_gap = max(self.max_gap, now - last)
+            last = now
+
+    def reset(self):
+        self.max_gap = 0.0
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
+class _ColumnarRecorder:
+    """A columnar metric sink that keeps each flush's ColumnarFlush and
+    events; a per-row batch reaching it is a failure."""
+
+    name = "record"
+
+    def __init__(self):
+        import queue
+
+        self.flushes, self.events = queue.Queue(), queue.Queue()
+
+    def start(self):
+        pass
+
+    def flush(self, metrics):
+        raise AssertionError("per-row rows reached the columnar sink")
+
+    def flush_columnar(self, batch):
+        self.flushes.put(batch)
+
+    def flush_other_samples(self, samples):
+        self.events.put(list(samples))
+
+
+def _flush_timers(store, dd) -> dict:
+    """Busy seconds of each flush stage, summed over its threads: the
+    flush thread's dispatch (every group's flush_begin) and fetch (each
+    returned finish), the serializer lane's block building (the store's
+    emission methods), the stream worker's serialize (the native
+    serializer) and POST (each chunk body)."""
+    from veneur_tpu_torch.core import store as store_mod
+
+    acc = dict(dispatch_s=0.0, fetch_s=0.0, emit_s=0.0, serialize_s=0.0,
+               post_s=0.0, post_max_s=0.0)
+    lock = threading.Lock()
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with lock:
+                    acc[key] += time.perf_counter() - t0
+        return run
+
+    def begin_timed(real):
+        def begin(self, *args, **kwargs):
+            return timed(timed(real, "dispatch_s")(self, *args, **kwargs),
+                         "fetch_s")
+        return begin
+
+    classes = (store_mod.DigestGroup, store_mod.SetGroup,
+               store_mod.HeavyHitterGroup)
+    reals = [cls.flush_begin for cls in classes]
+    for cls in classes:
+        cls.flush_begin = begin_timed(cls.flush_begin)
+    for name in ("_emit_digest_result", "_emit_set_result",
+                 "_emit_topk_result", "_flush_scalars", "_flush_status"):
+        setattr(store, name, timed(getattr(store, name), "emit_s"))
+    real_serialize = dd._serialize_block
+    acc["serialized"] = []
+
+    def serialize(blk, timestamp):
+        bodies = real_serialize(blk, timestamp)
+        acc["serialized"].append((blk, len(bodies)))
+        return bodies
+
+    dd._serialize_block = timed(serialize, "serialize_s")
+    real_post = dd._post_chunk_body
+
+    def post(body, nrows):
+        t0 = time.perf_counter()
+        try:
+            return real_post(body, nrows)
+        finally:
+            dt = time.perf_counter() - t0
+            with lock:
+                acc["post_s"] += dt
+                acc["post_max_s"] = max(acc["post_max_s"], dt)
+
+    dd._post_chunk_body = post
+
+    def restore():
+        for cls, real in zip(classes, reals):
+            cls.flush_begin = real
+    return acc, restore
+
+
+def _check_bodies(recv, col, first_chunk, rec):
+    """The receiver's series bodies of one flush: every body inflates,
+    and their series count equals the blocks' rows; the first chunk's
+    bodies (counters and gauges) parse back to their blocks exactly
+    (names, types, values, the counters as rates). Empties the
+    receiver."""
+    from veneur_tpu_torch.core.columnar import TYPE_COUNTER
+
+    series = [(raw, enc) for path, raw, enc in recv.bodies
+              if path == "/api/v1/series"]
+    recv.bodies.clear()
+    if any(enc != "deflate" for _, enc in series):
+        raise AssertionError("a series body was not deflated")
+    n_first = sum(nbodies for _, nbodies in first_chunk)
+    count = inflated = 0
+    first = []
+    for i, (raw, _) in enumerate(series):
+        body = zlib.decompress(raw)
+        count += body.count(b'{"metric":')
+        inflated += len(body)
+        if i < n_first:
+            first.append(body)
+    want = sum(len(b) for b in col.blocks)
+    if count != want:
+        raise AssertionError(f"the receiver got {count} series, the "
+                             f"blocks hold {want}")
+    k = 0
+    for blk, nbodies in first_chunk:
+        got = [s for body in first[k:k + nbodies]
+               for s in json.loads(body)["series"]]
+        k += nbodies
+        names = _arena_strings(blk.names)
+        expect = [(names[r] + blk.suffixes[x].decode(),
+                   "rate" if ty == TYPE_COUNTER else "gauge",
+                   v / INGEST_INTERVAL_S if ty == TYPE_COUNTER else v)
+                  for r, x, v, ty in zip(blk.rows.tolist(),
+                                         blk.suffix_idx.tolist(),
+                                         blk.values.tolist(),
+                                         blk.type_codes.tolist())]
+        if [(s["metric"], s["type"], s["points"][0][1]) for s in got] \
+                != expect or any(s["host"] != "smoke" for s in got):
+            raise AssertionError("a first-chunk body differs from its block")
+    rec.update(bodies=len(series), series_posted=count,
+               body_bytes_deflated=sum(len(raw) for raw, _ in series),
+               body_bytes_inflated=inflated,
+               first_chunk_series_parsed=sum(len(b) for b, _ in first_chunk))
 
 
 def _ingest_window(fleet) -> int:
@@ -1669,12 +1946,15 @@ def run_ingest_lanes(dev, rows: int, set_series: int, scalars: int,
                      raws: int, lanes: int, workdir):
     """A Server on ``dev`` whose UDP listener is the lane fleet takes the
     traffic twice (interval 1: every series first seen; interval 2: the
-    same, after the flush bumped the epoch), each interval flushed.
-    Returns (record, launch counts of the two intervals)."""
+    same, after the flush bumped the epoch), each interval flushed in
+    the default shape: columnar, pipelined and streaming, to a Datadog
+    sink that POSTs to an in-process receiver and to a columnar
+    recording sink. Returns (record, launch counts of the two
+    intervals)."""
     from veneur_tpu_torch.config import Config
     from veneur_tpu_torch.ops import tdigest_cuda as tc
     from veneur_tpu_torch.server import Server
-    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    from veneur_tpu_torch.sinks.datadog import DatadogMetricSink
 
     t0 = time.perf_counter()
     t = _ingest_traffic(rows, set_series, scalars, raws)
@@ -1684,15 +1964,37 @@ def run_ingest_lanes(dev, rows: int, set_series: int, scalars: int,
            "lines": t["lines"], "datagrams": len(t["d_len"]),
            "datagram_bytes_max": int(t["d_len"].max()),
            "traffic_build_s": time.perf_counter() - t0}
-    sink = ChannelMetricSink()
-    server = Server(Config(
+    recv = _DatadogReceiver()
+    cfg = Config(
         statsd_listen_addresses=["udp://127.0.0.1:0"], num_readers=lanes,
-        interval="86400s", percentiles=list(INGEST_PERCENTILES),
+        interval=f"{INGEST_INTERVAL_S}s",
+        percentiles=list(INGEST_PERCENTILES),
         aggregates=["min", "max", "count"], hostname="smoke",
-        read_buffer_size_bytes=8 << 20, max_series=INGEST_MAX_SERIES),
-        metric_sinks=[sink], device=dev)
+        read_buffer_size_bytes=8 << 20, max_series=INGEST_MAX_SERIES)
+    if not (cfg.flush_columnar and cfg.flush_streaming
+            and cfg.flush_pipeline_depth == 2):
+        raise AssertionError("the default flush shape changed")
+    dd = DatadogMetricSink(
+        interval=cfg.interval_seconds,
+        flush_max_per_body=cfg.datadog_flush_max_per_body,
+        hostname=cfg.hostname, tags=cfg.tags, dd_hostname=recv.url,
+        api_key="smoke", requeue_max_bytes=cfg.sink_requeue_max_bytes)
+    sink = _ColumnarRecorder()
+    server = Server(cfg, metric_sinks=[dd, sink], device=dev)
     server.start()
-    senders = None
+    senders = restore = None
+    # the interpreter's collector pauses every Python thread, the
+    # in-process receiver's too: each pause of a flush, in seconds
+    gc_pauses, gc_start = [], []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_start[:] = [time.perf_counter()]
+        elif gc_start:
+            gc_pauses.append(time.perf_counter() - gc_start.pop())
+
+    gc.callbacks.append(on_gc)
+    beat = _Heartbeat()
     try:
         fleet = server.ingest_fleets[0]
         rec.update(lanes=fleet.num_lanes, listener=server.listeners[0][1],
@@ -1706,6 +2008,7 @@ def run_ingest_lanes(dev, rows: int, set_series: int, scalars: int,
             raise AssertionError(f"the lanes did not come up native with "
                                  f"recvmmsg: {rec}")
         acc = _instrument(server.store, fleet)
+        stages, restore = _flush_timers(server.store, dd)
         rec["window"] = window = _ingest_window(fleet)
         senders = _PacedSenders(fleet.bound[0][1], t, workdir)
         _reset_counts(tc)
@@ -1713,14 +2016,41 @@ def run_ingest_lanes(dev, rows: int, set_series: int, scalars: int,
         for _ in range(2):
             r = _paced_interval(server, fleet, senders, t, window, acc)
             k1 = tc.drain_quantile.launches
+            for key in stages:
+                stages[key] = [] if key == "serialized" else 0.0
+            chunks0, acked0 = dd.chunks_flushed, dd.chunk_rows_acked
+            retries0 = dd.retries
+            recv.bodies.clear()
+            recv.handle_max_s = 0.0
+            gc_pauses.clear()
+            beat.reset()
             t1 = time.perf_counter()
             server.flush()
             r["flush_s"] = time.perf_counter() - t1
+            r["python_gap_max_s"] = beat.max_gap
+            r["receiver_max_s"] = recv.handle_max_s
+            r["gc_pause_s"] = sum(gc_pauses)
+            r["gc_pause_max_s"] = max(gc_pauses, default=0.0)
             r["k1_launches"] = tc.drain_quantile.launches - k1
-            flushed = sink.get_flush(timeout=60)
-            _check_ingest_flush(flushed, t, r)
-            del flushed
-            events = sink.get_other_samples(timeout=60)
+            col = sink.flushes.get(timeout=60)
+            r.update({k: v for k, v in stages.items() if k != "serialized"})
+            r["emission_share"] = stages["emit_s"] / r["flush_s"]
+            r["chunks"] = dd.chunks_flushed - chunks0
+            r["chunk_rows_acked"] = dd.chunk_rows_acked - acked0
+            r["post_retries"] = dd.retries - retries0
+            if dd.chunk_rows_pending() or dd.chunk_rows_dropped \
+                    or dd.flush_errors:
+                raise AssertionError("the Datadog sink did not ack every "
+                                     "chunk row")
+            _check_ingest_flush(col, t, r)
+            scalars_blocks = sum(1 for b in col.blocks
+                                 if b.names[0].startswith(b"ingest.c")
+                                 or b.names[0].startswith(b"ingest.g"))
+            _check_bodies(recv, col, stages["serialized"][:scalars_blocks],
+                          r)
+            del col
+            stages["serialized"] = []
+            events = sink.events.get(timeout=60)
             if [(e.name, e.message) for e in events] != [
                     ("title", "text")] * (t["raw_lines"] // 2):
                 raise AssertionError("the interval's events did not reach "
@@ -1728,9 +2058,14 @@ def run_ingest_lanes(dev, rows: int, set_series: int, scalars: int,
             rec["intervals"].append(r)
         counts = _counts(tc)
     finally:
+        gc.callbacks.remove(on_gc)
+        beat.close()
+        if restore is not None:
+            restore()
         if senders is not None:
             senders.close()
         server.shutdown()
+        recv.close()
     first = rec["intervals"][0]
     if first["k2_launches"] < 1 or any(r["k1_launches"] < 1
                                        for r in rec["intervals"]):
@@ -1739,11 +2074,12 @@ def run_ingest_lanes(dev, rows: int, set_series: int, scalars: int,
     return rec, counts
 
 
-def _lane_twin(dev, t):
+def _lane_twin(dev, t, columnar: bool = False):
     """The traffic through one lane (staged by hand, in order, 64
     datagrams a recv) into a store on ``dev`` that starts at full
-    capacity, then one flush. Returns (emissions by key, the flush's
-    digest planes and percentiles on the host, or None)."""
+    capacity, then one flush, per row (``flush_columnar: false``) or
+    columnar. Returns (per-row emissions by key, or the ColumnarFlush;
+    the flush's digest planes and percentiles on the host)."""
     from veneur_tpu_torch.core import store as store_mod
     from veneur_tpu_torch.ingest import IngestFleet
     from veneur_tpu_torch.protocol.addr import resolve_addr
@@ -1773,28 +2109,76 @@ def _lane_twin(dev, t):
     try:
         final, _ = store.flush(list(INGEST_PERCENTILES),
                                HistogramAggregates.from_names(
-                                   ["min", "max", "count"]), 0)
+                                   ["min", "max", "count"]), 0,
+                               columnar=columnar)
     finally:
         store_mod._flush_digests = real
     n = t["rows"]
     digest, pcts = captured[0][:2]
     planes = [x[:n].cpu() for x in (digest.mean, digest.weight, digest.min,
                                     digest.max)] + [pcts[:n, :-1].cpu()]
-    return {(m.name, tuple(m.tags)): m.value for m in final}, planes
+    if columnar:
+        return final, planes
+    return {(m.name, tuple(m.tags)): m.value
+            for m in final.to_intermetrics()}, planes
 
 
-def ingest_twin(dev, rows: int = 4096):
+def _columnar_twin(dev, t, per_row: dict, workdir) -> dict:
+    """The twin's traffic through a columnar flush on ``dev``, archived
+    by the local-file plugin (the native TSV serializer); the TSV's rows
+    must be the per-row twin's on the same device: the same (name, tags)
+    keys, every value, percentiles too, within 1e-12 relative (the TSV
+    writes the shortest decimal that round-trips; the counters pass
+    through a rate and back)."""
+    import csv
+    import gzip
+
+    from veneur_tpu_torch.plugins.localfile import LocalFilePlugin
+
+    col, _ = _lane_twin(dev, t, columnar=True)
+    path = Path(workdir) / "twin.tsv.gz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    interval = 10
+    LocalFilePlugin(str(path), "smoke", interval).flush_columnar(col)
+    with gzip.open(path, "rt") as f:
+        rows = list(csv.reader(f, delimiter="\t"))
+    got = {}
+    for name, tags, mtype, *_, value, _part in rows:
+        key = (name, tuple(tags[1:-1].split(",")) if tags != "{}" else ())
+        got[key] = float(value) * (interval if mtype == "rate" else 1)
+    if len(got) != len(rows) or set(got) != set(per_row):
+        raise AssertionError("the columnar twin's TSV rows differ from the "
+                             "per-row twin's keys")
+    worst = 0.0
+    for (name, tags), value in per_row.items():
+        g = got[(name, tags)]
+        rel = abs(g - value) / max(1.0, abs(value))
+        if rel > 1e-12:
+            raise AssertionError(f"columnar twin {name}: {g} != {value}")
+        worst = max(worst, rel)
+    path.unlink()
+    return {"columnar_twin_rows": len(rows),
+            "columnar_twin_blocks": len(col.blocks),
+            "columnar_twin_rel_err": worst}
+
+
+def ingest_twin(dev, rows: int = 4096, workdir=None):
     """A 4,096-series cut of the ingest traffic: through one lane into a
     CPU store and through process_metric into another CPU store, the
     emissions must be identical; through one lane on ``dev``, the merged
     digests must agree with the CPU lane's as the kernels agree with
-    their plain versions. Returns the record."""
+    their plain versions. These twins flush per row (``flush_columnar:
+    false``); a columnar twin on ``dev`` archives the same traffic
+    through the local-file plugin (_columnar_twin). Returns the
+    record."""
     import torch
 
     from veneur_tpu_torch.core.store import MetricStore
     from veneur_tpu_torch.samplers import parser as p
     from veneur_tpu_torch.samplers.intermetric import HistogramAggregates
 
+    workdir = workdir or Path(__file__).resolve().parent / "build" / "twin"
     t = _ingest_traffic(rows, 128, 64, 8)
     cpu_rows, cpu_planes = _lane_twin(torch.device("cpu"), t)
     by_line = MetricStore(initial_capacity=rows, device="cpu")
@@ -1805,10 +2189,11 @@ def ingest_twin(dev, rows: int = 4096):
     final, _ = by_line.flush(list(INGEST_PERCENTILES),
                              HistogramAggregates.from_names(
                                  ["min", "max", "count"]), 0)
-    if {(m.name, tuple(m.tags)): m.value for m in final} != cpu_rows:
+    if {(m.name, tuple(m.tags)): m.value
+            for m in final.to_intermetrics()} != cpu_rows:
         raise AssertionError("the lane and the per-line path emit "
                              "differently on the CPU")
-    _, dev_planes = _lane_twin(dev, t)
+    dev_rows, dev_planes = _lane_twin(dev, t)
     gm, gw, gmin, gmax, gp = dev_planes
     pm, pw, pmin, pmax, pp = cpu_planes
     if not (torch.equal(gmin, pmin) and torch.equal(gmax, pmax)):
@@ -1816,7 +2201,8 @@ def ingest_twin(dev, rows: int = 4096):
     err = _compare("ingest cpu twin", (gm, gw, gp), (pm, pw, pp), pw,
                    torch.zeros_like(pw), (pmax - pmin).float())
     return {"cpu_twin_rows": rows, "cpu_twin_emissions": len(cpu_rows),
-            "cpu_twin_max_abs_err": err}
+            "cpu_twin_max_abs_err": err,
+            **_columnar_twin(dev, t, dev_rows, workdir)}
 
 
 def ingest_burst(dev, lanes: int, seconds: float = 5.0) -> dict:
@@ -1919,12 +2305,15 @@ def phase_ingest(dev, card: str, rows: int = ROWS,
                                    lanes, workdir)
     rec["max_memory_allocated"] = int(torch.cuda.max_memory_allocated(dev))
     rec["launches"] = counts
-    rec.update(ingest_twin(dev))
+    rec.update(ingest_twin(dev, workdir=workdir))
     rec["burst"] = [ingest_burst(dev, n) for n in (1, lanes)]
     rec["lane_decode_records_per_s"] = {
         str(n): lane_decode_rate(n) for n in (1, lanes)}
     rec["phase_s"] = time.perf_counter() - t0
     emit({"phase": "ingest", "card": card, **rec})
+    # the flush numbers alone, one line
+    emit({"phase": "ingest_flush", "card": card, "intervals": [
+        {k: r[k] for k in FLUSH_KEYS} for r in rec["intervals"]]})
     return counts
 
 
@@ -2940,8 +3329,8 @@ def run_hh_eviction(dev, batch: int = 4096) -> dict:
         if store.processed != HH_EVICT_SAMPLES:
             raise AssertionError(f"{store.processed} eviction samples "
                                  "processed")
-        final, _ = store.flush([], HistogramAggregates.from_names(["count"]),
-                               0)
+        final = store.flush([], HistogramAggregates.from_names(["count"]),
+                            0)[0].to_intermetrics()
         rec[f"{d.type}_s"] = time.perf_counter() - t0
         out.append({(m.name, tuple(m.tags)): m.value for m in final})
     if out[0] != out[1]:
@@ -3029,8 +3418,8 @@ def run_hh_forward(dev, compat: bool) -> dict:
                     raise AssertionError("the forward failed")
                 rec[f"local{n}_flush_forward_s"] = time.perf_counter() - t1
                 rec[f"local{n}_body_types"] = sorted(set(state_types))
-                # the sinks flush on the flush's own thread, and only
-                # when the local emitted something
+                # the sinks have flushed when flush() returns, and
+                # only when the local emitted something
                 local_rows.append(lsink.queue.get_nowait()
                                   if not lsink.queue.empty() else [])
             finally:
@@ -3455,6 +3844,7 @@ def main() -> int:
         return 2
     try:
         from veneur_tpu_torch import native
+        from veneur_tpu_torch.native import egress
         from veneur_tpu_torch.ops import cuda_build
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -3464,27 +3854,36 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    # g++ (the native ingest library) beside nvcc (the kernels)
+    # g++ (the native ingest and egress libraries, one process each)
+    # beside nvcc (the kernels)
     gxx = {}
 
-    def build_native():
+    def build_native(name, build):
         t = time.perf_counter()
         try:
-            gxx["path"] = str(native.build())
+            gxx[name] = str(build())
         finally:
-            gxx["seconds"] = time.perf_counter() - t
+            gxx[f"{name}_seconds"] = time.perf_counter() - t
 
-    gxx_thread = threading.Thread(target=build_native)
-    gxx_thread.start()
+    gxx_threads = [threading.Thread(target=build_native, args=args)
+                   for args in (("veneur_ingest", native.build),
+                                ("veneur_egress", egress.build))]
+    for th in gxx_threads:
+        th.start()
     t0 = time.perf_counter()
     logs = cuda_build.build()
     nvcc_s = time.perf_counter() - t0
-    gxx_thread.join()
-    if "path" not in gxx or not native.available():
+    for th in gxx_threads:
+        th.join()
+    if not ("veneur_ingest" in gxx and native.available()):
         raise RuntimeError("the native ingest library did not build")
+    if not ("veneur_egress" in gxx and egress.available()):
+        raise RuntimeError("the native egress library did not build")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": nvcc_s, "gxx_seconds": gxx["seconds"],
-          "built": sorted(logs) + ["veneur_ingest"],
+          "nvcc_seconds": nvcc_s,
+          "gxx_seconds": {k: gxx[f"{k}_seconds"]
+                          for k in ("veneur_ingest", "veneur_egress")},
+          "built": sorted(logs) + ["veneur_ingest", "veneur_egress"],
           "ptxas": _ptxas_summary(logs)})
     card = card_line()
     runs = {"store": lambda: phase_store(dev, rows=STORE_ROWS),

@@ -184,7 +184,8 @@ def test_store_on_cuda_matches_cpu(cuda):
         for ln in lines:
             store.process_metric(parse_metric(ln.encode()))
         rows, _ = store.flush([0.5, 0.99], aggs, 0)
-        out.append({(m.name, tuple(m.tags)): m.value for m in rows})
+        out.append({(m.name, tuple(m.tags)): m.value
+                    for m in rows.to_intermetrics()})
     assert tc.compress_presorted.launches > k2
     got, want = out
     assert set(got) == set(want)
@@ -252,7 +253,7 @@ def _local_to_global(dev, monkeypatch, rows=512):
         return out
 
     monkeypatch.setattr(tstore, "_flush_digests", capture)
-    out, _ = glob.flush(pcts, aggs, 0)
+    out = glob.flush(pcts, aggs, 0)[0].to_intermetrics()
     monkeypatch.setattr(tstore, "_flush_digests", real)
     d, p = drained[0]
     n = rows
@@ -398,8 +399,36 @@ def test_heavy_hitters_on_cuda_match_cpu(cuda):
         assert store.heavy_hitters.sketch.table.device.type == dev.type
         rows, _ = store.flush([], HistogramAggregates.from_names(["count"]),
                               0)
-        out.append({(m.name, tuple(m.tags)): m.value for m in rows})
+        out.append({(m.name, tuple(m.tags)): m.value
+                    for m in rows.to_intermetrics()})
     assert len(out[1]) > 500 and out[0] == out[1]
     server = Server(Config(hostname="t"))
     assert server.store.heavy_hitters.sketch.table.device.type == "cuda"
     assert server.store.counters.max_series == 1 << 20
+
+
+def test_columnar_flush_on_cuda_matches_per_row(cuda):
+    """The default flush shape on the card: a pipelined columnar flush
+    of a store on cuda emits, through to_intermetrics, exactly the rows
+    its per-row flush of the same lines does (the same device, the same
+    kernels); the blocks are host numpy arrays."""
+    from veneur_tpu_torch.core.columnar import ColumnarFlush
+
+    rng = np.random.default_rng(37)
+    lines = [f"h.{i}:{rng.gamma(2.0, 10.0):.5f}|h" for i in range(300)
+             for _ in range(8)]
+    lines += [f"c.{i}:{i}|c" for i in range(50)]
+    lines += [f"s.{i}:m{i % 7}|s" for i in range(50)]
+    aggs = HistogramAggregates.from_names(["min", "max", "count"])
+    out = []
+    for columnar in (False, True):
+        store = MetricStore(chunk=512, device=cuda)
+        for ln in lines:
+            store.process_metric(parse_metric(ln.encode()))
+        final, _ = store.flush([0.5, 0.99], aggs, 0, columnar=columnar)
+        assert isinstance(final, ColumnarFlush)
+        assert bool(final.blocks) == columnar
+        assert all(isinstance(b.values, np.ndarray) for b in final.blocks)
+        out.append(sorted((m.name, tuple(m.tags), m.type.value, m.value)
+                          for m in final.to_intermetrics()))
+    assert out[0] == out[1] and len(out[0]) == 300 * 5 + 100

@@ -139,7 +139,7 @@ def locals_():
                           is_local=True)
     jfwd.materialize_digests()
     tfwd.materialize_digests()
-    return {"jax": (jrows, jfwd), "port": (trows, tfwd)}
+    return {"jax": (jrows, jfwd), "port": (trows.to_intermetrics(), tfwd)}
 
 
 def body(pkg, state, fmt):
@@ -160,7 +160,7 @@ def global_rows(pkg, metrics, chunk=CHUNK):
     g = tstore.MetricStore(chunk=chunk, device="cpu")
     assert tconvert.apply_json_metric_list(g, metrics)[1] == 0
     rows, _ = g.flush(PCTS, HistogramAggregates.from_names(AGGS), 0)
-    return rows
+    return rows.to_intermetrics()
 
 
 def test_local_flush_matches_jax(locals_):
@@ -248,7 +248,8 @@ def test_http_wire_both_directions(locals_, fmt):
         body("port", locals_["port"][1], fmt))
     jrows, _, _ = jglobal.flush(PCTS, JAggs.from_names(AGGS),
                                 is_local=False, now=0)
-    trows, _ = tglobal.flush(PCTS, HistogramAggregates.from_names(AGGS), 0)
+    trows = tglobal.flush(PCTS, HistogramAggregates.from_names(AGGS),
+                          0)[0].to_intermetrics()
     # over the wire == merged directly, value for value
     assert by_key(jrows) == by_key(global_rows(
         "jax", body("port", locals_["port"][1], fmt)))
@@ -259,7 +260,8 @@ def test_http_wire_both_directions(locals_, fmt):
 def test_port_servers_local_to_global():
     """A port Server local (UDP in, forward_address set) and a port Server
     global (http_address) end to end: one local flush forwards over
-    HTTP, the global's pool merges it, one global flush emits what the
+    HTTP (its digest groups streamed as parts of their own), the
+    global's pool merges every body, one global flush emits what the
     JAX global emits for the JAX local's body of the same lines."""
     gsink, lsink = ChannelMetricSink(), ChannelMetricSink()
     glob = Server(Config(http_address="127.0.0.1:0", interval="3600s",
@@ -282,7 +284,13 @@ def test_port_servers_local_to_global():
             _wait(lambda: local.store.processed == len(LINES))
             local.flush()
             assert local.wait_forward(30) is True
-            _wait(lambda: glob.ops_server.import_pool.merged_batches == 1)
+            # streaming egress (the default) POSTs each forwarded digest
+            # group as its own part beside the rest of the state: wait
+            # for every POST the local made
+            posts = len(local.forwarder.post_durations)
+            assert posts >= 2
+            _wait(lambda: glob.ops_server.import_pool.merged_batches
+                  == posts)
             glob.flush()
             rows = gsink.get_flush(timeout=10)
         finally:

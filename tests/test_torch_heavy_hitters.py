@@ -72,7 +72,7 @@ def _jax_store(**kw):
 def _topk_port(store, is_local=False, forward=False):
     final, fwd = store.flush([], HistogramAggregates.from_names(AGG), 0,
                              is_local=is_local, forward=forward)
-    return _topk_rows(final), fwd
+    return _topk_rows(final.to_intermetrics()), fwd
 
 
 def _topk_jax(store, is_local=False, forward=False):
@@ -262,7 +262,8 @@ def test_reference_compatible_body_suppresses_topk():
                          is_local=True, forward=True,
                          forward_topk=compat.supports_topk)
     assert fwd.topk is None
-    assert {k[1][-1][4:]: v for k, v in _topk_rows(final).items()} == {
+    assert {k[1][-1][4:]: v for k, v in
+            _topk_rows(final.to_intermetrics()).items()} == {
         m: float(n) for m, n in HOST_A.items()}
     assert [d["type"] for d in compat.body(fwd)] == ["counter"]
     j = _local(_jax_store, jparser.parse_metric, HOST_A)

@@ -77,7 +77,7 @@ def flush_both(j, t, is_local=False):
                              now=0)
     trows, tfwd = t.flush(PCTS, HistogramAggregates.from_names(AGGS), 0,
                           is_local=is_local)
-    return (jrows, jfwd), (trows, tfwd)
+    return (jrows, jfwd), (trows.to_intermetrics(), tfwd)
 
 
 def by_key(rows):
@@ -345,7 +345,7 @@ def test_concurrent_imports_and_flushes_conserve_counts():
 
     def flusher():
         while not done.is_set():
-            emitted.extend(t.flush(PCTS, aggs, 0)[0])
+            emitted.extend(t.flush(PCTS, aggs, 0)[0].to_intermetrics())
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
@@ -364,7 +364,7 @@ def test_concurrent_imports_and_flushes_conserve_counts():
     assert not errors, errors
     assert not flush_thread.is_alive()
     assert not any(th.is_alive() for th in threads)
-    emitted.extend(t.flush(PCTS, aggs, 0)[0])
+    emitted.extend(t.flush(PCTS, aggs, 0)[0].to_intermetrics())
     totals = {}
     for m in emitted:
         if m.name.startswith("c."):

@@ -92,7 +92,8 @@ def pack(lines, per=7):
 
 
 def _flush_port(store):
-    return store.flush(PCTS, HistogramAggregates.from_names(AGGS), 0)[0]
+    return store.flush(PCTS, HistogramAggregates.from_names(AGGS),
+                       0)[0].to_intermetrics()
 
 
 def _flush_jax(store):
@@ -237,7 +238,7 @@ def make_fleet(store, lanes=1, **kw):
 
 def flush_map(store):
     return {m.name: m for m in store.flush([], HistogramAggregates(),
-                                           0)[0]}
+                                           0)[0].to_intermetrics()}
 
 
 def _stage(lane, lines):
@@ -417,8 +418,9 @@ def test_all_kinds_flow_through_merge(gxx, use_native):
                   b"top:a|s|#veneurtopk", b"_sc|chk|0"])
     lane._seal()
     fleet.merge_sealed()
-    final, fwd = store.flush([0.5], HistogramAggregates(), 0,
-                             is_local=True)
+    flushed, fwd = store.flush([0.5], HistogramAggregates(), 0,
+                               is_local=True)
+    final = flushed.to_intermetrics()
     fm = {m.name: m for m in final}
     assert fm["c"].value == 3
     assert fm["g"].value == 2.5

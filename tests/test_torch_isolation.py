@@ -94,6 +94,16 @@ def test_ingest_modules_are_covered():
             "veneur_tpu_torch.sinks.ssfmetrics"} <= set(_modules())
 
 
+def test_egress_modules_are_covered():
+    """The flush-egress slice's modules are scanned and imported too, and
+    its C++ source is the port's own copy beside its bindings."""
+    assert {"veneur_tpu_torch.native.egress", "veneur_tpu_torch.core.columnar",
+            "veneur_tpu_torch.core.pipeline", "veneur_tpu_torch.sinks.datadog",
+            "veneur_tpu_torch.plugins", "veneur_tpu_torch.plugins.localfile",
+            "veneur_tpu_torch.plugins.csv_encode"} <= set(_modules())
+    assert (PKG / "native" / "veneur_egress.cpp").is_file()
+
+
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"

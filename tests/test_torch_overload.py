@@ -100,7 +100,7 @@ def _feed(pkg, store, rung, lines, ssf_samples=()):
 
 def _rows_port(store):
     final, _ = store.flush([0.5], HistogramAggregates.from_names(AGG), 0)
-    return _by_key(final)
+    return _by_key(final.to_intermetrics())
 
 
 def _rows_jax(store):
@@ -330,8 +330,8 @@ def test_lanes_shed_at_the_socket_and_roll_up(gxx, fake_clock):
     finally:
         fleet.shutdown()
     assert ctl.shed["statsd"] == 5 and lane.parsed == 1
-    assert [m.name for m in store.flush([], HistogramAggregates(), 0)[0]] \
-        == ["kept"]
+    assert [m.name for m in store.flush([], HistogramAggregates(),
+                                        0)[0].to_intermetrics()] == ["kept"]
 
 
 def _ingest_until(lane, packets, timeout=10.0):

@@ -320,7 +320,7 @@ def test_heavy_tailed_timers_match_jax():
         (jm,) = jparser.convert_indicator_metrics(jspan, TIMER)
         js.process_metric(jm)
     got = {(m.name, tuple(m.tags)): m.value for m in ts.flush(
-        PCTS, HistogramAggregates.from_names(AGGS), 0)[0]}
+        PCTS, HistogramAggregates.from_names(AGGS), 0)[0].to_intermetrics()}
     want = {(m.name, tuple(m.tags)): m.value for m in js.flush(
         PCTS, JA.from_names(AGGS), is_local=False, now=0, forward=False)[0]}
     assert set(got) == set(want) and len(got) == 64 * 6

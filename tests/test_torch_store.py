@@ -77,7 +77,7 @@ def _flush_jax(store):
 
 def _flush_port(store):
     out, _ = store.flush(PCTS, HistogramAggregates.from_names(AGGS), 0)
-    return out
+    return out.to_intermetrics()
 
 
 def _by_key(metrics):
@@ -185,7 +185,8 @@ def test_heavy_hitter_lines_land_like_jax():
     assert (event.name, event.message, event.timestamp) == ("a", "b", 7)
     t.process_metric(tparser.parse_service_check(b"_sc|svc|2|m:down"))
     assert t.processed == 5
-    final, _ = t.flush(PCTS, HistogramAggregates.from_names(AGGS), 0)
+    final = t.flush(PCTS, HistogramAggregates.from_names(AGGS),
+                    0)[0].to_intermetrics()
     jfinal, _, _ = j.flush(PCTS, JAggs.from_names(AGGS), False, 0)
     rows = sorted((m.name, tuple(m.tags), m.value, m.type.value)
                   for m in final if m.name.endswith(".topk"))
@@ -294,7 +295,9 @@ def test_convert_scalar_group(kind):
                                       [("x", kind, [])], ["m"], ["h"])
     want, _, _ = js.flush(PCTS, JAggs.from_names(AGGS), is_local=False,
                           now=0, forward=False)
-    got, _ = ts.flush(PCTS, HistogramAggregates.from_names(AGGS), 0)
+    got = ts.flush(PCTS, HistogramAggregates.from_names(AGGS),
+                   0)[0].to_intermetrics()
+
     def rows(final):
         return sorted((m.name, tuple(m.tags), m.type.value, m.value,
                        m.message, m.hostname) for m in final)

@@ -11,6 +11,7 @@ never needs it.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import re
 import socket
 from dataclasses import dataclass, field
@@ -18,6 +19,7 @@ from typing import List
 
 from veneur_tpu_torch import overload
 
+log = logging.getLogger("veneur.config")
 
 class UnsupportedConfig(ValueError):
     """A configuration key or value this port does not implement yet."""
@@ -118,6 +120,33 @@ class Config:
     overload_low_watermark: float = 0.0
     overload_high_watermark: float = 0.0
     overload_hard_watermark: float = 0.0
+    # columnar flush egress: counters, gauges, set estimates and digest
+    # aggregates stay flat arrays from the store through the native
+    # serializer (native/egress.py); a library that cannot build fails
+    # the flush instead of falling back (false = per-row emission)
+    flush_columnar: bool = True
+    # overlapped flush: every group's program dispatches before any
+    # blocking fetch, one serializer thread emits while the next fetch
+    # blocks, at most this many fetched results resident (0 = each
+    # group drained in turn; negative refused)
+    flush_pipeline_depth: int = 2
+    # streaming egress: chunk-capable sinks (and the HTTP forwarder) POST
+    # each completed group as it exists; needs flush_columnar and
+    # flush_pipeline_depth > 0
+    flush_streaming: bool = True
+    # bytes of unacked streamed sink bodies parked for a retry next
+    # interval; past it the oldest drop, counted (0 = 32 MiB; negative
+    # refused)
+    sink_requeue_max_bytes: int = 0
+    # the Datadog metric sink: built when both are set
+    datadog_api_hostname: str = ""
+    datadog_api_key: str = ""
+    # series a Datadog body holds at most (0 = 25,000)
+    datadog_flush_max_per_body: int = 0
+    # deprecated spelling of datadog_flush_max_per_body
+    flush_max_per_body: int = 0
+    # the local-file plugin: a gzip TSV member appended each flush
+    flush_file: str = ""
 
     def __post_init__(self):
         if not self.aggregates:
@@ -191,6 +220,25 @@ class Config:
             self.breaker_failure_threshold = _BREAKER_THRESHOLD_DEFAULT
         if self.retry_max < 0:
             self.retry_max = 2
+        if self.flush_pipeline_depth < 0:
+            raise ValueError(
+                f"flush_pipeline_depth must be >= 0 (0 = sequential "
+                f"flush, N = overlapped pipeline bounded at N in-flight "
+                f"chunks), got {self.flush_pipeline_depth}")
+        if self.sink_requeue_max_bytes < 0:
+            raise ValueError(
+                f"sink_requeue_max_bytes must be >= 0 (0 = use the "
+                f"default, 32 MiB; the parked-body budget cannot be "
+                f"unbounded), got {self.sink_requeue_max_bytes}")
+        self.sink_requeue_max_bytes = (self.sink_requeue_max_bytes
+                                       or 32 * 1048576)
+        if self.flush_max_per_body:
+            log.warning("flush_max_per_body has been replaced by "
+                        "datadog_flush_max_per_body and will be removed")
+            if not self.datadog_flush_max_per_body:
+                self.datadog_flush_max_per_body = self.flush_max_per_body
+        self.datadog_flush_max_per_body = (self.datadog_flush_max_per_body
+                                           or 25000)
         self.forward_timeout = self.forward_timeout or "10s"
         self.retry_base_interval = self.retry_base_interval or "100ms"
         self.breaker_reset_timeout = self.breaker_reset_timeout or "30s"

@@ -1,0 +1,274 @@
+"""Overlapped flush egress: the pipeline plumbing between the store's
+generation drain and the streaming consumers.
+
+Port of ``veneur_tpu/core/pipeline.py``. A flush whose stages run one
+after another costs their SUM: device compute, the per-group
+device->host fetch, serialize and deflate, POST. Two host-side lanes
+make it MAX-shaped:
+
+- :class:`SerializerLane`: ONE worker thread and a bounded handoff
+  queue between the store's fetch loop and the emission/serialization
+  work, so serializing group k overlaps fetching group k+1 while chunk
+  order stays deterministic and at most ``flush_pipeline_depth``
+  fetched-but-unserialized results are ever resident (host memory
+  stays flat).
+- :class:`ChunkStream`: per-sink worker threads that POST each
+  completed chunk as it exists (behind the sink's own retry, breaker
+  and deadline), plus an optional forward lane that ships forwardable
+  digest parts upstream the same way. A terminal POST failure requeues
+  the unacked chunk: the sink keeps its serialized bodies for a retry
+  next interval, the forward lane re-merges the part into the live
+  store with import semantics. So ingested == emitted + requeued +
+  counted drops, late but never lost.
+
+The workers hold no store lock and touch only host numpy arrays: the
+flush thread has fetched every array before it is submitted, so no CUDA
+tensor crosses to these threads. The ``rec`` hooks take a stage
+recorder (``record_abs(name, t0_ns, t1_ns, **attrs)``); the port passes
+None until its self-telemetry lands.
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import queue
+import threading
+import time
+from typing import List, NamedTuple, Optional
+
+log = logging.getLogger("veneur.pipeline")
+
+# every ChunkStream (one per flush interval per process) draws a unique
+# cycle id here; itertools.count is GIL-atomic
+_flush_cycles = itertools.count(1)
+
+
+class FlushChunk(NamedTuple):
+    """One streamed unit of egress: a completed group's emission
+    blocks, POSTable on their own."""
+
+    seq: int
+    name: str        # source group/stage name ("histograms", "scalars")
+    blocks: list     # core/columnar.py EmissionBlock list
+    rows: int        # total emission rows aboard (conservation unit)
+    timestamp: int
+    # the owning stream's process-unique flush-cycle id: the requeue
+    # repost dedup key. The integer-second timestamp CANNOT be the key
+    # — sub-second flush cadences (driven soak/bench intervals) collide
+    # on it and parked bodies would strand un-retried. 0 = hand-built
+    # chunk (tests); sinks fall back to the timestamp then.
+    cycle: int = 0
+
+
+class SerializerLane:
+    """Single serializer worker + bounded handoff queue.
+
+    The store's fetch loop submits ``(name, emit, result)`` as each
+    group's device→host fetch lands; the worker runs ``emit(result)``
+    (columnar block build + chunk handoff to the stream) in submission
+    order. ``depth`` bounds the queue, so a slow serializer
+    backpressures the fetch loop instead of accumulating fetched
+    planes. The first emit error is re-raised from :meth:`close` —
+    emission failures fail the flush exactly as they did inline."""
+
+    def __init__(self, depth: int, rec=None):
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, int(depth)))
+        self._rec = rec
+        self._err: Optional[BaseException] = None
+        self._t: Optional[threading.Thread] = threading.Thread(
+            target=self._run, name="flush-serialize", daemon=True)
+        self._t.start()
+
+    def submit(self, name: str, emit, result) -> None:
+        self._q.put((name, emit, result))
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            name, emit, result = item
+            t0 = time.monotonic_ns()
+            try:
+                if self._err is None:
+                    emit(result)
+            except BaseException as e:  # re-raised at close
+                self._err = e
+                log.exception("flush emission for %s failed", name)
+            finally:
+                if self._rec is not None:
+                    self._rec.record_abs(f"serialize.{name}", t0,
+                                         time.monotonic_ns())
+
+    def close(self) -> None:
+        """Drain + join the worker; re-raise the first emit error."""
+        t, self._t = self._t, None
+        if t is None:
+            return
+        self._q.put(None)
+        t.join()
+        if self._err is not None:
+            raise self._err
+
+
+class ChunkStream:
+    """Per-sink streaming egress for one flush interval.
+
+    ``emit(name, blocks, rows)`` fans a completed chunk to every
+    streaming sink's bounded queue; each sink worker calls
+    ``sink.flush_chunk(chunk)`` — serialize + deflate + POST, behind
+    the sink's own retry/breaker ladder and the interval's shared
+    flush deadline (the flusher stamps ``set_flush_deadline`` before
+    the store drain starts). An optional forward lane POSTs
+    forwardable digest parts upstream as they complete and re-merges a
+    terminally-failed part into the live store (``forward_requeue``).
+
+    ``close()`` is the interval barrier: it joins every worker, so by
+    the time the flusher's ``post`` stage ends, every chunk is either
+    acked or requeued."""
+
+    def __init__(self, sinks, timestamp: int, depth: int = 2, rec=None,
+                 forward_fn=None, forward_requeue=None):
+        self.timestamp = int(timestamp)
+        # process-unique flush-cycle id: the one-repost-per-interval
+        # key (see FlushChunk.cycle)
+        self.cycle = next(_flush_cycles)
+        self._rec = rec
+        self._seq = 0
+        self.chunks = 0
+        self.rows = 0
+        self.forward_parts = 0
+        self.forward_rows = 0
+        self.forward_requeued_rows = 0
+        self._closed = False
+        self._workers: List[tuple] = []
+        qsize = max(1, int(depth))
+        for sink in sinks:
+            q: "queue.Queue" = queue.Queue(maxsize=qsize)
+            t = threading.Thread(target=self._sink_worker,
+                                 args=(sink, q),
+                                 name=f"stream-{sink.name}", daemon=True)
+            t.start()
+            self._workers.append((q, t))
+        self._fwd_q: Optional["queue.Queue"] = None
+        if forward_fn is not None:
+            self._fwd_q = queue.Queue(maxsize=qsize)
+            t = threading.Thread(
+                target=self._forward_worker,
+                args=(self._fwd_q, forward_fn, forward_requeue),
+                name="stream-forward", daemon=True)
+            t.start()
+            self._workers.append((self._fwd_q, t))
+
+    @property
+    def forward_streaming(self) -> bool:
+        """True when a forward lane is attached: the store routes
+        forwardable digest parts here instead of onto
+        ForwardableState."""
+        return self._fwd_q is not None
+
+    def emit(self, name: str, blocks: list, rows: int) -> None:
+        """Hand one completed chunk to every streaming sink (bounded
+        queues: a slow sink backpressures the serializer lane, keeping
+        host memory flat)."""
+        if not blocks or self._closed:
+            return
+        chunk = FlushChunk(self._seq, name, list(blocks), int(rows),
+                           self.timestamp, self.cycle)
+        self._seq += 1
+        self.chunks += 1
+        self.rows += chunk.rows
+        for q, _t in self._workers:
+            if q is not self._fwd_q:
+                q.put(chunk)
+
+    def emit_forward(self, name: str, attr: str, part, rows: int) -> None:
+        """Hand one forwardable digest part to the forward lane."""
+        if self._closed:
+            return
+        self.forward_parts += 1
+        self.forward_rows += int(rows)
+        self._fwd_q.put((name, attr, part, int(rows)))
+
+    def _sink_worker(self, sink, q: "queue.Queue") -> None:
+        repost = getattr(sink, "repost_requeued", None)
+        if repost is not None:
+            # the PREVIOUS interval's parked bodies get their retry at
+            # this interval's start: fired from the worker, so it runs
+            # even when this interval produces no chunks for the sink
+            # and never blocks the flusher
+            try:
+                repost(self.cycle)
+            except Exception:
+                log.exception("sink %s requeue repost failed", sink.name)
+        while True:
+            chunk = q.get()
+            if chunk is None:
+                return
+            try:
+                sink.flush_chunk(chunk)
+            except Exception:
+                # the sink's own requeue accounting already ran (or
+                # could not); either way the stream keeps draining
+                log.exception("sink %s streamed chunk %d failed",
+                              sink.name, chunk.seq)
+            if self._closed and q.empty():
+                # the barrier may have dropped this worker's sentinel
+                # against a full queue; after close nothing new is
+                # emitted, so a drained queue means this lane is done:
+                # never park on a get() whose sentinel will not come
+                return
+
+    def _forward_worker(self, q: "queue.Queue", forward_fn,
+                        forward_requeue) -> None:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            name, attr, part, rows = item
+            t0 = time.monotonic_ns()
+            ok = False
+            try:
+                ok = bool(forward_fn(attr, part))
+            except Exception:
+                log.exception("streamed forward part %s failed", name)
+            if not ok and forward_requeue is not None:
+                try:
+                    forward_requeue(attr, part)
+                    self.forward_requeued_rows += rows
+                except Exception:
+                    log.exception("streamed forward part %s could not "
+                                  "requeue; its interval is lost", name)
+            if self._rec is not None:
+                self._rec.record_abs(
+                    "post.forward", t0, time.monotonic_ns(), part=attr,
+                    rows=rows, requeued=not ok)
+            if self._closed and q.empty():
+                # same dropped-sentinel exit as the sink workers
+                return
+
+    def close(self) -> None:
+        """Interval barrier: drain every lane and join its worker. A
+        worker that outlives the bounded join (a POST wedged past the
+        deadline ladder) is reported — the interval's accounting may
+        then under-count it (rows neither acked nor requeued yet), the
+        same wedged-sink condition the flush-overrun watchdog names."""
+        if self._closed:
+            return
+        self._closed = True
+        for q, _t in self._workers:
+            try:
+                # bounded: a wedged worker behind a FULL queue must not
+                # turn the sentinel put into a forever-block (the join
+                # below is the report path for that worker)
+                q.put(None, timeout=60.0)
+            except queue.Full:
+                pass
+        for _q, t in self._workers:
+            t.join(timeout=60.0)
+            if t.is_alive():
+                log.warning(
+                    "stream worker %s still running after the interval "
+                    "barrier; its chunks are not yet acked or requeued",
+                    t.name)

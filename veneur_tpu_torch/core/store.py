@@ -37,8 +37,14 @@ local's flush (``is_local=True``) returns the sketch state it forwards
 (:class:`ForwardableState`), and a global merges forwarded state through
 the ``import_*`` methods, where imported centroids re-enter the binning
 as weighted samples (a shift between imported digests drains the bins
-through the K2 kernel). Snapshots and columnar egress are not ported
-yet, and a kernel error propagates (there is no fallback rung).
+through the K2 kernel). A flush is a plan of per-group units: every
+group's device program dispatches before any fetch blocks, and one
+serializer thread emits each fetched result (``flush_pipeline_depth``,
+``core/pipeline.py``). A columnar flush emits ``EmissionBlock`` columns
+(``core/columnar.py``) that the native serializers turn into sink bodies,
+and streams each group's blocks to the sinks as it completes. Snapshots
+are not ported yet, and a kernel error propagates (there is no fallback
+rung).
 
 Device state is updated in place where the JAX package donates buffers;
 a flush swaps every group for a fresh twin with freshly allocated
@@ -56,7 +62,10 @@ import numpy as np
 import torch
 
 from veneur_tpu_torch import native
+from veneur_tpu_torch.core import columnar
 from veneur_tpu_torch.core.bucketing import pow2_cap
+from veneur_tpu_torch.core.columnar import ColumnarFlush
+from veneur_tpu_torch.core.pipeline import SerializerLane
 from veneur_tpu_torch.device import resolve_device
 from veneur_tpu_torch.ops import countmin as cm_ops
 from veneur_tpu_torch.ops import hll as hll_ops
@@ -1404,7 +1413,8 @@ class MetricStore:
                  topk_depth: int = cm_ops.DEFAULT_DEPTH,
                  topk_width: int = cm_ops.DEFAULT_WIDTH,
                  topk_k: int = cm_ops.DEFAULT_TOPK, max_series: int = 0,
-                 max_tag_length: int = 0, overload=None, device=None):
+                 max_tag_length: int = 0, overload=None,
+                 flush_pipeline_depth: int = 2, device=None):
         self.device = resolve_device(device)
         # samples the store rejects, by reason (cumulative): the groups'
         # scrubs, process_batch's and the ingest lanes' ledgers, and the
@@ -1414,6 +1424,10 @@ class MetricStore:
         # serializes whole flush() calls; the store lock itself is held
         # only for the generation swap
         self._flush_gate = threading.Lock()
+        # overlapped flush: 0 = each group drained in turn; N > 0 = every
+        # group's program dispatched before any fetch, with at most N
+        # fetched-but-unemitted results resident (core/pipeline.py)
+        self.flush_pipeline_depth = max(0, int(flush_pipeline_depth))
         self.counters = ScalarGroup("counter", initial_capacity)
         self.global_counters = ScalarGroup("counter", initial_capacity)
         self.gauges = ScalarGroup("gauge", initial_capacity)
@@ -1825,9 +1839,10 @@ class MetricStore:
     def flush(self, percentiles: List[float],
               aggregates: HistogramAggregates, now: int,
               is_local: bool = False, forward: bool = True,
-              forward_topk: bool = True):
-        """Drain everything and reset all groups; returns (InterMetrics
-        for the sinks, the :class:`ForwardableState` a local forwards).
+              forward_topk: bool = True, columnar: bool = False,
+              stream=None):
+        """Drain everything and reset all groups; returns (the rows for
+        the sinks, the :class:`ForwardableState` a local forwards).
         Mirrors generateInterMetrics (flusher.go:189-254): a local
         (``is_local``) emits no percentiles for mixed histograms/timers
         and, with ``forward``, forwards them with the mixed sets and the
@@ -1837,6 +1852,18 @@ class MetricStore:
         the transport cannot carry the sketch (``forward_topk`` False):
         then the local emits its own top-k.
 
+        The rows come back as a :class:`~veneur_tpu_torch.core.columnar.
+        ColumnarFlush`. With ``columnar``, counters, gauges, set estimates
+        and digest aggregates are its ``EmissionBlock`` columns, and the
+        low-cardinality rows (status checks, top-k, a group with
+        ``veneursinkonly:`` routing) its per-row extras; without it,
+        every row is an extra (``to_intermetrics()`` gives the list).
+
+        ``stream`` (a :class:`~veneur_tpu_torch.core.pipeline.ChunkStream`)
+        hands each completed group's blocks to the streaming sinks as one
+        chunk the moment they exist, and with a forward lane ships each
+        forwarded digest group's planes upstream as its own part.
+
         SWAP-ON-FLUSH: the store lock is held only for the generation
         swap; the device programs and fetches run on the retired
         generation off-lock, so ingest and imports never stall behind a
@@ -1845,7 +1872,8 @@ class MetricStore:
             with self._lock:
                 gen = self._swap_generation()
             return self._flush_generation(gen, percentiles, aggregates, now,
-                                          is_local, forward, forward_topk)
+                                          is_local, forward, forward_topk,
+                                          columnar, stream)
 
     def _swap_generation(self) -> _Generation:
         """Retire every group behind an empty twin (caller holds _lock).
@@ -1870,18 +1898,28 @@ class MetricStore:
 
     def _flush_generation(self, g: _Generation, percentiles, aggregates,
                           now, is_local=False, forward=True,
-                          forward_topk=True):
+                          forward_topk=True, columnar=False, stream=None):
         """Drain a retired generation into emissions and forwardable
-        state. Every device group dispatches its flush program before any
-        fetch blocks; the fetches and emissions then run in plan order."""
-        final: List[InterMetric] = []
+        state. The drain is a plan of per-group units run by
+        :meth:`_run_flush_units`: in turn with ``flush_pipeline_depth``
+        0, else pipelined (every unit's device program dispatched before
+        any fetch blocks)."""
+        flushed = ColumnarFlush(timestamp=now)
+        final = flushed.extras  # the per-row rows land in the extras
+        # the emitters write blocks into col, or rows into final
+        col = flushed if columnar else None
         fwd = ForwardableState()
         fwd_digests = is_local and forward
-        self._flush_scalars(g.counters, MetricType.COUNTER, final, now)
-        self._flush_scalars(g.gauges, MetricType.GAUGE, final, now)
+        # counters and gauges are host numpy: they flush, and stream as
+        # the interval's first chunk, before any device fetch can block
+        self._flush_scalars(g.counters, MetricType.COUNTER, final, now, col)
+        self._flush_scalars(g.gauges, MetricType.GAUGE, final, now, col)
+        if stream is not None and col is not None and col.blocks:
+            stream.emit("scalars", col.blocks,
+                        sum(len(b) for b in col.blocks))
         # mixed histograms/timers: no percentiles on a local instance
         mixed_pcts = [] if is_local else list(percentiles)
-        plan = []
+        units = []
         for name, pcts, fwd_attr in (
                 ("histograms", mixed_pcts,
                  "histograms_columnar" if fwd_digests else None),
@@ -1891,35 +1929,45 @@ class MetricStore:
                 ("local_timers", list(percentiles), None)):
             want, want_stats = _digest_want(pcts, aggregates,
                                              fwd_attr is not None)
-            fin = getattr(g, name).flush_begin(pcts, want_digests=want,
-                                               want_stats=want_stats)
-            plan.append((fin, lambda res, pcts=pcts, fwd_attr=fwd_attr:
-                         self._emit_digest_result(
-                             res, pcts, aggregates, final, now, fwd,
-                             fwd_attr)))
+            group = getattr(g, name)
+            units.append((
+                name,
+                lambda group=group, pcts=pcts, want=want,
+                want_stats=want_stats: group.flush_begin(
+                    pcts, want_digests=want, want_stats=want_stats),
+                lambda res, name=name, pcts=pcts, fwd_attr=fwd_attr:
+                    self._emit_digest_result(
+                        name, res, pcts, aggregates, final, now, fwd,
+                        fwd_attr, col, stream)))
         # local sets always flush; mixed sets flush only on a global and
         # are forwarded by a local
         for name, out, fwd_list in (
                 ("local_sets", final, None),
                 ("sets", None if is_local else final,
                  fwd.sets if fwd_digests else None)):
-            fin = getattr(g, name).flush_begin(
-                want_estimates=out is not None,
-                want_registers=fwd_list is not None)
-            plan.append((fin, lambda res, out=out, fwd_list=fwd_list:
-                         self._emit_set_result(res, out, now, fwd_list)))
+            group = getattr(g, name)
+            units.append((
+                name,
+                lambda group=group, out=out, fwd_list=fwd_list:
+                    group.flush_begin(want_estimates=out is not None,
+                                      want_registers=fwd_list is not None),
+                lambda res, name=name, out=out, fwd_list=fwd_list:
+                    self._emit_set_result(name, res, out, now, fwd_list,
+                                          col, stream)))
         # heavy hitters follow the mixed-set rule: a forwarding local ships
         # its sketch and emits nothing (the global emits the fleet top-k);
         # when the transport cannot carry it, the local emits its own view
         want_hh_fwd = is_local and forward and forward_topk
-        plan.append((g.heavy_hitters.flush_begin(want_forward=want_hh_fwd),
-                     lambda res: self._emit_topk_result(
-                         res, final, now, fwd, want_hh_fwd)))
-        for fin, emit in plan:
-            emit(fin())
+        units.append((
+            "topk",
+            lambda: g.heavy_hitters.flush_begin(want_forward=want_hh_fwd),
+            lambda res: self._emit_topk_result(res, final, now, fwd,
+                                               want_hh_fwd)))
+        self._run_flush_units(units)
         # status checks are always local
         self._flush_status(g.local_status_checks, final, now)
         # global counters/gauges: forwarded by locals, flushed by globals
+        # (per row, after the stream: extras, as in the JAX package)
         if not is_local:
             self._flush_scalars(g.global_counters, MetricType.COUNTER, final,
                                 now)
@@ -1933,11 +1981,51 @@ class MetricStore:
                     out.extend((key.name, interner.tags[row],
                                 cast(values[row]))
                                for key, row in interner.rows.items())
-        return final, fwd
+        return flushed, fwd
+
+    def _run_flush_units(self, units: List[tuple]):
+        """Run the generation's flush plan of ``(name, begin, emit)``
+        units: ``begin()`` dispatches a group's device program and
+        returns its ``finish()``, which fetches the result; ``emit``
+        turns the fetched result into rows.
+
+        Sequential (``flush_pipeline_depth`` 0): begin, finish and emit
+        a unit at a time, in plan order. Pipelined: every unit's program
+        dispatches first; the fetches then run in plan order on this
+        thread while one serializer thread (:class:`SerializerLane`)
+        emits, and streams, each fetched result, so group k's emission
+        overlaps group k+1's fetch. The lane's bounded queue keeps at
+        most ``flush_pipeline_depth`` results resident, and emission
+        order stays deterministic. A unit that fails propagates (there
+        is no fallback rung)."""
+        depth = self.flush_pipeline_depth
+        if depth <= 0:
+            for _name, begin, emit in units:
+                emit(begin()())
+            return
+        plan = [(name, begin(), emit) for name, begin, emit in units]
+        lane = SerializerLane(depth)
+        try:
+            for name, fin, emit in plan:
+                lane.submit(name, emit, fin())
+        finally:
+            # joins the serializer; re-raises the first emit error
+            lane.close()
 
     def _flush_scalars(self, group: ScalarGroup, mtype: MetricType,
-                       out: List[InterMetric], now: int):
+                       out: List[InterMetric], now: int,
+                       col: Optional[ColumnarFlush] = None):
         interner, values, _, _ = group.snapshot_and_reset()
+        if col is not None and len(interner):
+            block = columnar.scalar_block(
+                interner, values,
+                columnar.TYPE_COUNTER if mtype == MetricType.COUNTER
+                else columnar.TYPE_GAUGE)
+            if not columnar.has_sink_routing(block.tags[0]):
+                col.add_block(block)
+                return
+            # sink-routed rows present (rare): per-row emission keeps
+            # the routing
         for key, row in interner.rows.items():
             tags = interner.tags[row]
             out.append(InterMetric(
@@ -1954,29 +2042,57 @@ class MetricStore:
                 tags=tags, type=MetricType.STATUS, message=messages[row],
                 hostname=hostnames[row], sinks=route_info(tags)))
 
-    def _emit_digest_result(self, res, percentiles: List[float],
+    def _emit_digest_result(self, name: str, res, percentiles: List[float],
                             aggregates: HistogramAggregates,
                             out: List[InterMetric], now: int,
-                            fwd: Optional[ForwardableState] = None,
-                            fwd_attr: Optional[str] = None):
-        """Emission rules of Histo.Flush (samplers.go:511-636) for one
-        digest group's fetched result; a forwarding group also leaves its
-        drained planes on ``fwd`` (see ForwardableState)."""
+                            fwd: ForwardableState,
+                            fwd_attr: Optional[str] = None,
+                            col: Optional[ColumnarFlush] = None,
+                            stream=None):
+        """Emission half of one digest group's flush, on its fetched
+        result (the serializer lane runs it in a pipelined flush):
+        the columnar block, or the per-row rows of Histo.Flush
+        (samplers.go:511-636) without ``col`` or for a sink-routed group.
+        A forwarding group also hands on its drained planes (see
+        ForwardableState): to the stream's forward lane when one is
+        attached and the group emitted a block, else on ``fwd``."""
         interner, r = res
-        if fwd_attr is not None and len(interner):
-            setattr(fwd, fwd_attr, (
-                interner.names, interner.tags, r["digest_mean"],
-                r["digest_weight"], r["digest_min"], r["digest_max"]))
         agg = aggregates.value
+        part = None
+        if fwd_attr is not None and len(interner):
+            part = (interner.names, interner.tags, r["digest_mean"],
+                    r["digest_weight"], r["digest_min"], r["digest_max"])
+        if col is not None and len(interner):
+            names = columnar.build_arenas(interner.names)
+            tags = columnar.build_arenas(interner.joined)
+            if not columnar.has_sink_routing(tags[0]):
+                block = columnar.digest_block(names, tags, r, agg,
+                                              percentiles)
+                col.add_block(block)
+                if part is not None:
+                    if stream is not None and stream.forward_streaming:
+                        # this group's planes POST upstream now; a failed
+                        # part re-merges into the live store
+                        stream.emit_forward(name, fwd_attr, part,
+                                            len(interner))
+                    else:
+                        setattr(fwd, fwd_attr, part)
+                if stream is not None and block is not None:
+                    stream.emit(name, [block], len(block))
+                return
+            # sink-routed rows present (rare): per-row emission keeps
+            # the routing
+        if part is not None:
+            setattr(fwd, fwd_attr, part)
         for key, row in interner.rows.items():
             tags = interner.tags[row]
             sinks = route_info(tags)
-            name = key.name
+            key_name = key.name
 
             def emit(suffix: str, value: float,
                      mtype: MetricType = MetricType.GAUGE):
                 out.append(InterMetric(
-                    name=f"{name}.{suffix}", timestamp=now, value=value,
+                    name=f"{key_name}.{suffix}", timestamp=now, value=value,
                     tags=list(tags), type=mtype, sinks=sinks))
 
             vmax, vmin = float(r["max"][row]), float(r["min"][row])
@@ -1998,9 +2114,9 @@ class MetricStore:
                 emit("hmean", cnt / recip)
             for i, p in enumerate(percentiles):
                 out.append(InterMetric(
-                    name=f"{name}.{int(p * 100)}percentile", timestamp=now,
-                    value=float(r["percentiles"][row, i]), tags=list(tags),
-                    type=MetricType.GAUGE, sinks=sinks))
+                    name=f"{key_name}.{int(p * 100)}percentile",
+                    timestamp=now, value=float(r["percentiles"][row, i]),
+                    tags=list(tags), type=MetricType.GAUGE, sinks=sinks))
 
     @staticmethod
     def _emit_topk_result(res, out: List[InterMetric], now: int,
@@ -2018,9 +2134,23 @@ class MetricStore:
                 value=count, tags=list(tags) + [f"key:{member}"],
                 type=MetricType.COUNTER, sinks=route_info(tags)))
 
-    def _emit_set_result(self, res, out: Optional[List[InterMetric]],
-                         now: int, fwd_list: Optional[list] = None):
+    def _emit_set_result(self, name: str, res,
+                         out: Optional[List[InterMetric]], now: int,
+                         fwd_list: Optional[list] = None,
+                         col: Optional[ColumnarFlush] = None, stream=None):
+        """Emission half of one set group's flush: the estimates as a
+        columnar block (or per-row gauges), the registers a local
+        forwards as per-row entries."""
         interner, estimates, registers = res
+        if (col is not None and out is not None and fwd_list is None
+                and len(interner)):
+            block = columnar.scalar_block(interner, estimates,
+                                          columnar.TYPE_GAUGE)
+            if not columnar.has_sink_routing(block.tags[0]):
+                col.add_block(block)
+                if stream is not None:
+                    stream.emit(name, [block], len(block))
+                return
         for key, row in interner.rows.items():
             tags = interner.tags[row]
             if out is not None:

@@ -29,19 +29,26 @@ log = logging.getLogger("veneur.forward.http")
 
 
 def post_helper(url: str, payload, timeout: float = 10.0,
-                compress: bool = True, out_info: dict = None) -> int:
-    """POST a JSON payload, deflated unless ``compress`` is False
-    (http/http.go:123-247). Returns the HTTP status (including non-2xx);
-    raises only on transport errors. ``out_info`` (if given) receives
+                compress: bool = True, method: str = "POST",
+                precompressed: bool = False, out_info: dict = None) -> int:
+    """Send a JSON payload, deflated unless ``compress`` is False
+    (http/http.go:123-247); ``precompressed`` sends ``payload`` bytes as
+    an already-deflated JSON body (the native serializer's output).
+    Returns the HTTP status (including non-2xx); raises only on
+    transport errors. ``out_info`` (if given) receives
     ``content_length``, the size of the body as sent."""
     hdrs = {"Content-Type": "application/json"}
-    body = json.dumps(payload).encode("utf-8")
-    if compress:
-        body = zlib.compress(body)
+    if precompressed:
+        body = payload
         hdrs["Content-Encoding"] = "deflate"
+    else:
+        body = json.dumps(payload).encode("utf-8")
+        if compress:
+            body = zlib.compress(body)
+            hdrs["Content-Encoding"] = "deflate"
     if out_info is not None:
         out_info["content_length"] = len(body)
-    req = urllib.request.Request(url, data=body, headers=hdrs, method="POST")
+    req = urllib.request.Request(url, data=body, headers=hdrs, method=method)
     try:
         with urllib.request.urlopen(req, timeout=timeout) as resp:
             return resp.status
@@ -69,6 +76,10 @@ class HTTPForwarder:
         self.compression = compression
         self.reference_compat = reference_compat
         self.supports_topk = not reference_compat
+        # streaming egress (core/pipeline.py ChunkStream): /import merges
+        # partial bodies, so a ForwardableState carrying one digest
+        # group's planes is a valid POST on its own
+        self.supports_chunked_forward = True
         self.retry_policy = retry_policy or RetryPolicy()
         self.breaker = breaker
         # forward() runs on a fresh thread each flush; guard the counters

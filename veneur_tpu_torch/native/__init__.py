@@ -114,39 +114,52 @@ class _VsBatch(ctypes.Structure):
     ]
 
 
+def _library_path(source: Path, flags, stem: str) -> Path:
+    """``build/native/<stem>-<hash>.so``, the hash covering the source and
+    the compile flags."""
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()
+    return BUILD_DIR / f"{stem}-{digest[:16]}.so"
+
+
 def library_path() -> Path:
     """Where the build of the current source and flags lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(GXX_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libveneur_ingest-{digest[:16]}.so"
+    return _library_path(SOURCE, GXX_FLAGS, "libveneur_ingest")
 
 
-def build() -> Path:
-    """Compile the library unless this source is built already; returns
-    its path. Raises RuntimeError with the compiler's output on failure.
-    Concurrent builds each compile into a temporary file and rename it
-    into place, so a reader never sees half a library."""
-    out = library_path()
+def compile_library(source: Path, flags, libs, out: Path) -> Path:
+    """Compile ``source`` with g++ into ``out`` unless it is built
+    already; returns ``out``. Raises RuntimeError with the compiler's
+    output on failure. Concurrent builds each compile into a temporary
+    file and rename it into place, so a reader never sees half a
+    library."""
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
-        subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, str(SOURCE), "-ldl"],
+        subprocess.run(["g++", *flags, "-o", tmp, str(source), *libs],
                        check=True, capture_output=True, timeout=300)
         os.replace(tmp, out)
     except FileNotFoundError:
         raise RuntimeError("g++ not found") from None
     except subprocess.TimeoutExpired:
-        raise RuntimeError("native build timed out") from None
+        raise RuntimeError(f"native build of {source.name} timed out") \
+            from None
     except subprocess.CalledProcessError as e:
-        raise RuntimeError("native build failed: "
+        raise RuntimeError(f"native build of {source.name} failed: "
                            + e.stderr.decode(errors="replace")) from None
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build() -> Path:
+    """Compile the ingest library unless this source is built already;
+    returns its path (see :func:`compile_library`)."""
+    return compile_library(SOURCE, GXX_FLAGS, ("-ldl",), library_path())
 
 
 def _load():

@@ -1,0 +1,1590 @@
+// Native flush egress + MetricList wire codecs: the import/export twin of
+// veneur_ingest.cpp's batch parser.
+//
+// The round-2 finding was that the kernels were fast but the server was
+// not: the flush assembled ~15 Python InterMetric objects per series and
+// the gRPC import decoded protobuf per metric in Python — minutes of
+// GIL-bound work at multi-million-series scale. This file moves the three
+// byte-bound egress paths native, operating on the store's columnar flush
+// output (flat numpy arrays + interner arenas) without per-row Python:
+//
+//  1. vt_dd_series_json — Datadog /api/v1/series bodies straight from
+//     columns, streaming zlib-deflated, chunked like the reference's
+//     flushMaxPerBody split (sinks/datadog/datadog.go:62-68 field layout
+//     incl. omitempty, :245-330 finalize rules: magic host:/device: tags,
+//     counters→rates).
+//  2. vt_mlist_decode / vt_mintern_* — forwardrpc.MetricList protobuf →
+//     struct-of-arrays batch + (type,name,tags)→row interning, feeding the
+//     store's bulk import staging (the import-side twin of
+//     veneur_ingest.cpp's parse + InternTable.assign; reference merge path
+//     importsrv/server.go:101-132, worker.go:354-398).
+//  3. vt_mlist_encode_digests — columnar digest planes [S,K] → serialized
+//     MetricList bytes, chunked by body size, with the packed parallel
+//     centroid arrays (tdigestpb fields 14/15) and optionally the
+//     reference's repeated Centroid schema (samplers/metricpb/metric.proto,
+//     flusher.go:424-473).
+//
+// Wire format notes: hand-rolled proto3 — varints, length-delimited
+// submessages, fields in any order, unknown fields skipped, repeated
+// doubles accepted both packed (wire type 2) and unpacked (wire type 1).
+
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <zlib.h>
+
+#include <cmath>
+#include <cstring>
+#include <vector>
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// growable byte buffer
+// ---------------------------------------------------------------------------
+
+struct Buf {
+  char* p = nullptr;
+  size_t len = 0, cap = 0;
+
+  void reserve(size_t need) {
+    if (len + need <= cap) return;
+    size_t ncap = cap ? cap * 2 : 4096;
+    while (ncap < len + need) ncap *= 2;
+    p = static_cast<char*>(realloc(p, ncap));
+    cap = ncap;
+  }
+  void put(const void* d, size_t n) {
+    if (n == 0) return;  // memcpy on a never-allocated buffer is UB
+    reserve(n);
+    memcpy(p + len, d, n);
+    len += n;
+  }
+  void put_str(const char* s) { put(s, strlen(s)); }
+  void put_ch(char c) {
+    reserve(1);
+    p[len++] = c;
+  }
+  char* take() {  // ownership out; buffer resets
+    char* out = p;
+    p = nullptr;
+    len = cap = 0;
+    return out;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// number formatting (JSON)
+// ---------------------------------------------------------------------------
+
+// itoa into caller buffer (backward fill); returns length
+int fmt_i64(char* dst, int64_t v) {
+  char tmp[24];
+  char* p = tmp + 24;
+  bool neg = v < 0;
+  uint64_t u = neg ? 0 - static_cast<uint64_t>(v) : static_cast<uint64_t>(v);
+  do {
+    *--p = '0' + static_cast<char>(u % 10);
+    u /= 10;
+  } while (u);
+  if (neg) *--p = '-';
+  int n = static_cast<int>(tmp + 24 - p);
+  memcpy(dst, p, n);
+  return n;
+}
+
+void put_i64(Buf& b, int64_t v) {
+  b.reserve(24);
+  b.len += fmt_i64(b.p + b.len, v);
+}
+
+// Fast metric-value formatter. Integers print exact; fractional values in
+// a sane magnitude range print with 9 significant digits, VERIFIED to
+// round-trip (digest-derived values come from float32 device planes where
+// 9 digits always suffice, but counter rates and gauges are host-side
+// float64 — those fall back to a 17-digit render when 9 digits lose
+// precision). Extreme magnitudes fall back to snprintf scientific.
+// snprintf+strtod per value was the serializer's bottleneck (~0.6us each).
+void put_double(Buf& b, double v) {
+  if (!std::isfinite(v)) {  // JSON has no inf/nan; Datadog rejects them
+    b.put_ch('0');
+    return;
+  }
+  double r = nearbyint(v);
+  if (r == v && fabs(v) < 9.007199254740992e15) {
+    put_i64(b, static_cast<int64_t>(r));
+    return;
+  }
+  double a = fabs(v);
+  if (a >= 1e-4 && a < 1e15) {
+    b.reserve(40);
+    char* dst = b.p + b.len;
+    int n = 0;
+    if (v < 0) {
+      dst[n++] = '-';
+      a = -v;
+    }
+    // split integer/fraction; fraction scaled so int+frac carry >= 9
+    // significant digits, trailing zeros trimmed
+    uint64_t ip = static_cast<uint64_t>(a);
+    int int_digits = 1;
+    for (uint64_t t = ip; t >= 10; t /= 10) int_digits++;
+    int frac_digits = ip ? (int_digits >= 9 ? 1 : 9 - int_digits) : 12;
+    static const double kPow10[13] = {1,    1e1,  1e2,  1e3,  1e4,
+                                      1e5,  1e6,  1e7,  1e8,  1e9,
+                                      1e10, 1e11, 1e12};
+    double scale = kPow10[frac_digits];
+    uint64_t fp = static_cast<uint64_t>(nearbyint((a - ip) * scale));
+    if (fp >= static_cast<uint64_t>(scale)) {  // rounded up to next int
+      ip += 1;
+      fp = 0;
+    }
+    // round-trip check: the emitted decimal is exactly ip + fp/scale;
+    // only commit the fast render when that reconstructs the input
+    if (static_cast<double>(ip) + static_cast<double>(fp) / scale == a) {
+      n += fmt_i64(dst + n, static_cast<int64_t>(ip));
+      if (fp) {
+        dst[n++] = '.';
+        // zero-padded fraction, then trim trailing zeros
+        char tmp[16];
+        int fn = fmt_i64(tmp, static_cast<int64_t>(fp));
+        for (int z = fn; z < frac_digits; z++) dst[n++] = '0';
+        while (fn > 0 && tmp[fn - 1] == '0') fn--;
+        memcpy(dst + n, tmp, fn);
+        n += fn;
+      }
+      b.len += n;
+      return;
+    }
+    char tmp[32];
+    int fn = snprintf(tmp, sizeof tmp, "%.17g", v);
+    b.put(tmp, fn);
+    return;
+  }
+  char tmp[32];
+  int n = snprintf(tmp, sizeof tmp, "%.9g", v);
+  if (strtod(tmp, nullptr) != v)  // rare branch: strtod check is fine
+    n = snprintf(tmp, sizeof tmp, "%.17g", v);
+  b.put(tmp, n);
+}
+
+// ---------------------------------------------------------------------------
+// JSON string escaping
+// ---------------------------------------------------------------------------
+
+bool needs_escape(const char* s, uint32_t n) {
+  for (uint32_t i = 0; i < n; i++) {
+    unsigned char c = s[i];
+    if (c == '"' || c == '\\' || c < 0x20) return true;
+  }
+  return false;
+}
+
+void put_json_escaped(Buf& b, const char* s, uint32_t n) {
+  for (uint32_t i = 0; i < n; i++) {
+    unsigned char c = s[i];
+    if (c == '"' || c == '\\') {
+      b.put_ch('\\');
+      b.put_ch(c);
+    } else if (c < 0x20) {
+      char tmp[8];
+      int m = snprintf(tmp, sizeof tmp, "\\u%04x", c);
+      b.put(tmp, m);
+    } else {
+      b.put_ch(c);
+    }
+  }
+}
+
+void put_json_str_body(Buf& b, const char* s, uint32_t n) {
+  if (needs_escape(s, n))
+    put_json_escaped(b, s, n);
+  else
+    b.put(s, n);
+}
+
+// ---------------------------------------------------------------------------
+// body list handed back to Python
+// ---------------------------------------------------------------------------
+
+struct VtBodiesImpl {
+  std::vector<char*> ptrs;
+  std::vector<uint64_t> lens;
+};
+
+}  // namespace
+
+extern "C" struct VtBodies {
+  uint32_t count;
+  char** ptr;
+  uint64_t* len;
+  void* impl;
+};
+
+static VtBodies* bodies_finish(VtBodiesImpl* impl) {
+  VtBodies* out = new VtBodies();
+  out->count = static_cast<uint32_t>(impl->ptrs.size());
+  out->ptr = impl->ptrs.data();
+  out->len = impl->lens.data();
+  out->impl = impl;
+  return out;
+}
+
+extern "C" void vt_bodies_free(VtBodies* b) {
+  if (!b) return;
+  VtBodiesImpl* impl = static_cast<VtBodiesImpl*>(b->impl);
+  for (char* p : impl->ptrs) free(p);
+  delete impl;
+  delete b;
+}
+
+namespace {
+
+// streaming JSON→deflate writer: JSON accumulates in a scratch buffer and
+// deflates in cache-sized slabs, so serialize+compress run in one pass
+struct BodyWriter {
+  int level;  // 0 = no compression (raw JSON body)
+  Buf out;
+  Buf scratch;
+  z_stream zs;
+  bool open = false;
+  static constexpr size_t kSlab = 1 << 20;
+
+  void begin(int lvl) {
+    level = lvl;
+    open = true;
+    out = Buf();
+    scratch = Buf();
+    if (level > 0) {
+      memset(&zs, 0, sizeof zs);
+      deflateInit(&zs, level);
+    }
+  }
+  void flush_scratch(bool final_block) {
+    if (level <= 0) return;
+    zs.next_in = reinterpret_cast<Bytef*>(scratch.p);
+    zs.avail_in = static_cast<uInt>(scratch.len);
+    do {
+      out.reserve(deflateBound(&zs, zs.avail_in) + 64);
+      zs.next_out = reinterpret_cast<Bytef*>(out.p + out.len);
+      zs.avail_out = static_cast<uInt>(out.cap - out.len);
+      int rc = deflate(&zs, final_block ? Z_FINISH : Z_NO_FLUSH);
+      out.len = out.cap - zs.avail_out;
+      if (rc == Z_STREAM_END) break;
+    } while (zs.avail_in > 0 || (final_block && zs.avail_out == 0));
+    scratch.len = 0;
+  }
+  Buf& sink() { return level > 0 ? scratch : out; }
+  void maybe_drain() {
+    if (level > 0 && scratch.len >= kSlab) flush_scratch(false);
+  }
+  // finish one body, append to the list
+  void end(VtBodiesImpl* impl) {
+    if (level > 0) {
+      flush_scratch(true);
+      deflateEnd(&zs);
+      free(scratch.p);
+    }
+    impl->lens.push_back(out.len);
+    impl->ptrs.push_back(out.take());
+    open = false;
+  }
+};
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// 1. Datadog series JSON from columns
+// ---------------------------------------------------------------------------
+//
+// Emissions are flat parallel arrays (row, suffix index, value, type code)
+// produced by vectorized numpy masking on the flush results. Per-row
+// fragments (escaped name, finalized tags JSON, host, device) are
+// precomputed once and reused across that row's emissions.
+
+extern "C" VtBodies* vt_dd_series_json(
+    const char* name_arena, const uint32_t* name_off, const uint32_t* name_len,
+    const char* tags_arena, const uint32_t* tags_off, const uint32_t* tags_len,
+    uint32_t nrows, const char* suffix_blob, const uint32_t* suffix_off,
+    const uint32_t* suffix_len, uint32_t nsuffix, const uint32_t* em_rows,
+    const uint8_t* em_suffix, const double* em_values, const uint8_t* em_type,
+    uint64_t nem, int64_t timestamp, int32_t interval,
+    const char* default_host, const char* common_tags_json,
+    uint32_t max_per_body, int compress_level) {
+  (void)nsuffix;
+  // per-row finalized fragments, all offsets into one scratch arena
+  Buf frag;
+  std::vector<uint64_t> tag_o(nrows), host_o(nrows), dev_o(nrows);
+  std::vector<uint32_t> tag_l(nrows), host_l(nrows), dev_l(nrows);
+  uint32_t dh_len = static_cast<uint32_t>(strlen(default_host));
+  uint32_t common_len = static_cast<uint32_t>(strlen(common_tags_json));
+  for (uint32_t r = 0; r < nrows; r++) {
+    const char* tags = tags_arena + tags_off[r];
+    uint32_t tlen = tags_len[r];
+    // tags fragment: `"t1","t2"` with host:/device: extracted
+    // (datadog.go:257-271); common tags (pre-escaped) come first
+    uint64_t t0 = frag.len;
+    frag.put(common_tags_json, common_len);
+    bool any = common_len > 0;
+    uint64_t host_at = UINT64_MAX, dev_at = UINT64_MAX;
+    uint32_t host_n = 0, dev_n = 0;
+    uint32_t i = 0;
+    while (i < tlen) {
+      uint32_t j = i;
+      while (j < tlen && tags[j] != ',') j++;
+      uint32_t n = j - i;
+      if (n >= 5 && memcmp(tags + i, "host:", 5) == 0) {
+        host_at = tags_off[r] + i + 5;
+        host_n = n - 5;
+      } else if (n >= 7 && memcmp(tags + i, "device:", 7) == 0) {
+        dev_at = tags_off[r] + i + 7;
+        dev_n = n - 7;
+      } else if (n > 0) {
+        if (any) frag.put_ch(',');
+        frag.put_ch('"');
+        put_json_str_body(frag, tags + i, n);
+        frag.put_ch('"');
+        any = true;
+      }
+      i = j + 1;
+    }
+    tag_o[r] = t0;
+    tag_l[r] = static_cast<uint32_t>(frag.len - t0);
+    // host: magic tag else default (escaped)
+    uint64_t h0 = frag.len;
+    if (host_at != UINT64_MAX)
+      put_json_str_body(frag, tags_arena + host_at, host_n);
+    else
+      put_json_str_body(frag, default_host, dh_len);
+    host_o[r] = h0;
+    host_l[r] = static_cast<uint32_t>(frag.len - h0);
+    uint64_t d0 = frag.len;
+    if (dev_at != UINT64_MAX)
+      put_json_str_body(frag, tags_arena + dev_at, dev_n);
+    dev_o[r] = d0;
+    dev_l[r] = static_cast<uint32_t>(frag.len - d0);
+  }
+
+  char ts_str[24];
+  int ts_n = snprintf(ts_str, sizeof ts_str, "%lld",
+                      static_cast<long long>(timestamp));
+  char interval_str[16];
+  int interval_n =
+      snprintf(interval_str, sizeof interval_str, "%d", interval);
+
+  VtBodiesImpl* impl = new VtBodiesImpl();
+  BodyWriter w;
+  uint32_t in_body = 0;
+  if (max_per_body == 0) max_per_body = UINT32_MAX;
+// literal append with compile-time length (put_str's strlen doesn't
+// constant-fold through the out-of-line call and shows in profiles)
+#define PUT_LIT(buf, lit) (buf).put(lit, sizeof(lit) - 1)
+  for (uint64_t e = 0; e < nem; e++) {
+    if (!w.open) {
+      w.begin(compress_level);
+      PUT_LIT(w.sink(), "{\"series\":[");
+      in_body = 0;
+    }
+    Buf& b = w.sink();
+    uint32_t r = em_rows[e];
+    uint8_t s = em_suffix[e];
+    // one reserve for everything this emission can write, then raw puts
+    b.reserve(128 + name_len[r] + suffix_len[s] + tag_l[r] + host_l[r] +
+              dev_l[r]);
+    if (in_body) b.put_ch(',');
+    PUT_LIT(b, "{\"metric\":\"");
+    put_json_str_body(b, name_arena + name_off[r], name_len[r]);
+    if (suffix_len[s]) b.put(suffix_blob + suffix_off[s], suffix_len[s]);
+    PUT_LIT(b, "\",\"points\":[[");
+    b.put(ts_str, ts_n);
+    b.put_ch(',');
+    put_double(b, em_values[e]);
+    PUT_LIT(b, "]]");
+    if (tag_l[r]) {  // omitempty, like the reference's DDMetric
+      PUT_LIT(b, ",\"tags\":[");
+      b.put(frag.p + tag_o[r], tag_l[r]);
+      b.put_ch(']');
+    }
+    if (em_type[e])
+      PUT_LIT(b, ",\"type\":\"rate\"");
+    else
+      PUT_LIT(b, ",\"type\":\"gauge\"");
+    if (host_l[r]) {
+      PUT_LIT(b, ",\"host\":\"");
+      b.put(frag.p + host_o[r], host_l[r]);
+      b.put_ch('"');
+    }
+    if (dev_l[r]) {
+      PUT_LIT(b, ",\"device_name\":\"");
+      b.put(frag.p + dev_o[r], dev_l[r]);
+      b.put_ch('"');
+    }
+    PUT_LIT(b, ",\"interval\":");
+    b.put(interval_str, interval_n);
+    b.put_ch('}');
+    in_body++;
+    w.maybe_drain();
+    if (in_body >= max_per_body) {
+      PUT_LIT(w.sink(), "]}");
+      w.end(impl);
+    }
+  }
+  if (w.open) {
+    PUT_LIT(w.sink(), "]}");
+    w.end(impl);
+  }
+#undef PUT_LIT
+  free(frag.p);
+  return bodies_finish(impl);
+}
+
+// ---------------------------------------------------------------------------
+// 1b. SignalFx datapoint JSON from columns
+// ---------------------------------------------------------------------------
+//
+// Body shape: {"gauge":[{...}],"counter":[{...}]} (v2/datapoint), each
+// point {"metric","value","timestamp" (ms),"dimensions":{k:v,...}}.
+// Dimension semantics mirror the Python sink's _dimensions(): tag
+// "k:v" pairs with LAST duplicate winning, the hostname dim unless a
+// tag/common dim overrides it, common dimensions overriding tag dims,
+// excluded keys (and "veneursinkonly") dropped. The vary-by client
+// fanout is NOT handled here — the caller falls back to the per-row
+// path when that is configured.
+
+namespace {
+
+struct KeyList {  // small (few entries): linear scan is fine
+  const char* blob;
+  const uint32_t* off;
+  const uint32_t* len;
+  uint32_t n;
+
+  bool contains(const char* k, uint32_t kn) const {
+    for (uint32_t i = 0; i < n; i++)
+      if (len[i] == kn && memcmp(blob + off[i], k, kn) == 0) return true;
+    return false;
+  }
+};
+
+}  // namespace
+
+extern "C" VtBodies* vt_sfx_datapoints_json(
+    const char* name_arena, const uint32_t* name_off, const uint32_t* name_len,
+    const char* tags_arena, const uint32_t* tags_off, const uint32_t* tags_len,
+    uint32_t nrows, const char* suffix_blob, const uint32_t* suffix_off,
+    const uint32_t* suffix_len, uint32_t nsuffix, const uint32_t* em_rows,
+    const uint8_t* em_suffix, const double* em_values, const uint8_t* em_type,
+    uint64_t nem, int64_t timestamp_ms, const char* hostname_tag,
+    const char* hostname, const char* common_dims_json,
+    const char* common_keys_blob, const uint32_t* common_keys_off,
+    const uint32_t* common_keys_len, uint32_t n_common_keys,
+    const char* excl_blob, const uint32_t* excl_off, const uint32_t* excl_len,
+    uint32_t n_excl) {
+  (void)nsuffix;
+  KeyList common{common_keys_blob, common_keys_off, common_keys_len,
+                 n_common_keys};
+  KeyList excl{excl_blob, excl_off, excl_len, n_excl};
+  uint32_t ht_len = static_cast<uint32_t>(strlen(hostname_tag));
+  uint32_t common_len = static_cast<uint32_t>(strlen(common_dims_json));
+
+  // per-row dimensions fragment: `"k":"v","k2":"v2"` (no braces)
+  Buf frag;
+  std::vector<uint64_t> dim_o(nrows);
+  std::vector<uint32_t> dim_l(nrows);
+  std::vector<std::pair<uint32_t, uint32_t>> kv;  // (off,len) spans in tags
+  for (uint32_t r = 0; r < nrows; r++) {
+    const char* tags = tags_arena + tags_off[r];
+    uint32_t tlen = tags_len[r];
+    kv.clear();
+    uint32_t i = 0;
+    while (i < tlen) {
+      uint32_t j = i;
+      while (j < tlen && tags[j] != ',') j++;
+      if (j > i) kv.emplace_back(i, j - i);
+      i = j + 1;
+    }
+    uint64_t f0 = frag.len;
+    bool any = false;
+    bool host_overridden = false;
+    // LAST duplicate wins: walk in reverse, skip keys already emitted
+    // (tracked as spans into this row's emitted region)
+    std::vector<std::pair<uint32_t, uint32_t>> seen;  // key spans in tags
+    for (size_t t = kv.size(); t-- > 0;) {
+      const char* tag = tags + kv[t].first;
+      uint32_t n = kv[t].second;
+      uint32_t kn = 0;
+      while (kn < n && tag[kn] != ':') kn++;
+      bool has_sep = kn < n;
+      const char* val = has_sep ? tag + kn + 1 : tag + n;
+      uint32_t vn = has_sep ? n - kn - 1 : 0;
+      bool dup = false;
+      for (auto& s : seen)
+        if (s.second == kn && memcmp(tags + s.first, tag, kn) == 0) {
+          dup = true;
+          break;
+        }
+      if (dup) continue;
+      seen.emplace_back(kv[t].first, kn);
+      if (kn == ht_len && memcmp(tag, hostname_tag, kn) == 0)
+        host_overridden = true;
+      if ((kn == 14 && memcmp(tag, "veneursinkonly", 14) == 0)
+          || excl.contains(tag, kn) || common.contains(tag, kn))
+        continue;
+      if (any) frag.put_ch(',');
+      frag.put_ch('"');
+      put_json_str_body(frag, tag, kn);
+      frag.put(&"\":\""[0], 3);
+      put_json_str_body(frag, val, vn);
+      frag.put_ch('"');
+      any = true;
+    }
+    if (!host_overridden && ht_len && !excl.contains(hostname_tag, ht_len)
+        && !common.contains(hostname_tag, ht_len)) {
+      if (any) frag.put_ch(',');
+      frag.put_ch('"');
+      put_json_str_body(frag, hostname_tag, ht_len);
+      frag.put(&"\":\""[0], 3);
+      put_json_str_body(frag, hostname,
+                        static_cast<uint32_t>(strlen(hostname)));
+      frag.put_ch('"');
+      any = true;
+    }
+    if (common_len) {
+      if (any) frag.put_ch(',');
+      frag.put(common_dims_json, common_len);
+    }
+    dim_o[r] = f0;
+    dim_l[r] = static_cast<uint32_t>(frag.len - f0);
+  }
+
+  char ts_str[24];
+  int ts_n = snprintf(ts_str, sizeof ts_str, "%lld",
+                      static_cast<long long>(timestamp_ms));
+
+  // two passes: gauges then counters, one body
+  VtBodiesImpl* impl = new VtBodiesImpl();
+  BodyWriter w;
+  w.begin(0);  // the SignalFx client posts uncompressed
+  Buf& b = w.sink();
+#define PUT_LIT(buf, lit) (buf).put(lit, sizeof(lit) - 1)
+  PUT_LIT(b, "{");
+  const char* section_names[2] = {"\"gauge\":[", "\"counter\":["};
+  bool wrote_section = false;
+  for (int want_counter = 0; want_counter < 2; want_counter++) {
+    bool opened = false;
+    uint64_t in_section = 0;
+    for (uint64_t e = 0; e < nem; e++) {
+      if ((em_type[e] != 0) != (want_counter != 0)) continue;
+      if (!opened) {
+        if (wrote_section) b.put_ch(',');
+        b.put_str(section_names[want_counter]);
+        opened = true;
+        wrote_section = true;
+      }
+      uint32_t r = em_rows[e];
+      uint8_t s = em_suffix[e];
+      b.reserve(96 + name_len[r] + suffix_len[s] + dim_l[r]);
+      if (in_section++) b.put_ch(',');
+      PUT_LIT(b, "{\"metric\":\"");
+      put_json_str_body(b, name_arena + name_off[r], name_len[r]);
+      if (suffix_len[s]) b.put(suffix_blob + suffix_off[s], suffix_len[s]);
+      PUT_LIT(b, "\",\"value\":");
+      if (want_counter)  // counters submit as integers
+        put_i64(b, static_cast<int64_t>(em_values[e]));
+      else
+        put_double(b, em_values[e]);
+      PUT_LIT(b, ",\"timestamp\":");
+      b.put(ts_str, ts_n);
+      PUT_LIT(b, ",\"dimensions\":{");
+      b.put(frag.p + dim_o[r], dim_l[r]);
+      PUT_LIT(b, "}}");
+    }
+    if (opened) b.put_ch(']');
+  }
+  PUT_LIT(b, "}");
+#undef PUT_LIT
+  w.end(impl);
+  free(frag.p);
+  return bodies_finish(impl);
+}
+
+// ---------------------------------------------------------------------------
+// 1c. archival TSV rows from columns (plugins/s3 + localfile)
+// ---------------------------------------------------------------------------
+//
+// Column order and semantics mirror the reference's csv.go:17-92 (via
+// plugins/csv_encode.py): Name, {tags}, rate|gauge (counters divided by
+// the interval on the Python side), hostname, interval, timestamp
+// string, value, partition string. Fields containing a tab, newline,
+// quote, or CR are quoted with "" doubling, like csv.Writer.
+
+namespace {
+
+// full-precision, never-exponential value formatting matching the
+// Python encoder's _format_value (Go FormatFloat(v,'f',-1,64) parity):
+// shortest round-trip decimal, NaN/+Inf/-Inf spellings, plain notation
+void put_tsv_value(Buf& b, double v) {
+  if (std::isnan(v)) {
+    b.put("NaN", 3);
+    return;
+  }
+  if (std::isinf(v)) {
+    b.put(v > 0 ? "+Inf" : "-Inf", 4);
+    return;
+  }
+  double r = nearbyint(v);
+  if (r == v && fabs(v) < 1e16) {
+    put_i64(b, static_cast<int64_t>(r));
+    return;
+  }
+  char tmp[40];
+  int n = 0;
+  for (int prec = 15; prec <= 17; prec++) {  // shortest that round-trips
+    n = snprintf(tmp, sizeof tmp, "%.*g", prec, v);
+    if (strtod(tmp, nullptr) == v) break;
+  }
+  if (!memchr(tmp, 'e', n)) {
+    b.put(tmp, n);
+    return;
+  }
+  // %g went scientific: re-render plain and trim, like the Python
+  // fallback format(v, ".17f").rstrip("0").rstrip(".")
+  char big[512];
+  n = snprintf(big, sizeof big, "%.17f", v);
+  while (n > 0 && big[n - 1] == '0') n--;
+  if (n > 0 && big[n - 1] == '.') n--;
+  b.put(big, n);
+}
+
+void put_tsv_field(Buf& b, const char* s, uint32_t n) {
+  bool needs_quote = false;
+  for (uint32_t i = 0; i < n; i++) {
+    char c = s[i];
+    if (c == '\t' || c == '\n' || c == '\r' || c == '"') {
+      needs_quote = true;
+      break;
+    }
+  }
+  if (!needs_quote) {
+    b.put(s, n);
+    return;
+  }
+  b.put_ch('"');
+  for (uint32_t i = 0; i < n; i++) {
+    if (s[i] == '"') b.put_ch('"');
+    b.put_ch(s[i]);
+  }
+  b.put_ch('"');
+}
+
+}  // namespace
+
+extern "C" VtBodies* vt_tsv_rows(
+    const char* name_arena, const uint32_t* name_off, const uint32_t* name_len,
+    const char* tags_arena, const uint32_t* tags_off, const uint32_t* tags_len,
+    uint32_t nrows, const char* suffix_blob, const uint32_t* suffix_off,
+    const uint32_t* suffix_len, uint32_t nsuffix, const uint32_t* em_rows,
+    const uint8_t* em_suffix, const double* em_values, const uint8_t* em_type,
+    uint64_t nem, const char* hostname, const char* interval_str,
+    const char* timestamp_str, const char* partition_str) {
+  (void)nsuffix;
+  // shared trailing fragment: \t hostname \t interval \t timestamp \t
+  // (dynamic: hostnames can approach the 253-char FQDN bound)
+  Buf tailb;
+  tailb.put_ch('\t');
+  tailb.put_str(hostname);
+  tailb.put_ch('\t');
+  tailb.put_str(interval_str);
+  tailb.put_ch('\t');
+  tailb.put_str(timestamp_str);
+  tailb.put_ch('\t');
+  const char* tail = tailb.p;
+  int tail_n = static_cast<int>(tailb.len);
+  uint32_t part_n = static_cast<uint32_t>(strlen(partition_str));
+  VtBodiesImpl* impl = new VtBodiesImpl();
+  BodyWriter w;
+  w.begin(0);
+  Buf& b = w.sink();
+  for (uint64_t e = 0; e < nem; e++) {
+    uint32_t r = em_rows[e];
+    uint8_t s = em_suffix[e];
+    b.reserve(96 + name_len[r] + suffix_len[s] + tags_len[r] + tail_n
+              + part_n);
+    // Name (+suffix): the parsers reject tabs/quotes in names, but
+    // imported names are untrusted — quote when needed
+    {
+      Buf tmp;  // suffix concat for quoting; fast path avoids the copy
+      const char* np = name_arena + name_off[r];
+      if (suffix_len[s] == 0) {
+        put_tsv_field(b, np, name_len[r]);
+      } else {
+        tmp.put(np, name_len[r]);
+        tmp.put(suffix_blob + suffix_off[s], suffix_len[s]);
+        put_tsv_field(b, tmp.p, static_cast<uint32_t>(tmp.len));
+        free(tmp.p);
+      }
+    }
+    b.put_ch('\t');
+    // {tags}
+    {
+      Buf tmp;
+      tmp.put_ch('{');
+      tmp.put(tags_arena + tags_off[r], tags_len[r]);
+      tmp.put_ch('}');
+      put_tsv_field(b, tmp.p, static_cast<uint32_t>(tmp.len));
+      free(tmp.p);
+    }
+    b.put_ch('\t');
+    if (em_type[e])
+      b.put("rate", 4);
+    else
+      b.put("gauge", 5);
+    b.put(tail, tail_n);
+    put_tsv_value(b, em_values[e]);
+    b.put_ch('\t');
+    b.put(partition_str, part_n);
+    b.put_ch('\n');
+  }
+  w.end(impl);
+  free(tailb.p);
+  return bodies_finish(impl);
+}
+
+// ---------------------------------------------------------------------------
+// protobuf primitives
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct Cursor {
+  const uint8_t* p;
+  const uint8_t* end;
+  bool ok = true;
+
+  uint64_t varint() {
+    uint64_t v = 0;
+    int shift = 0;
+    while (p < end && shift < 64) {
+      uint8_t b = *p++;
+      v |= static_cast<uint64_t>(b & 0x7F) << shift;
+      if (!(b & 0x80)) return v;
+      shift += 7;
+    }
+    ok = false;
+    return 0;
+  }
+  uint64_t fixed64() {
+    if (end - p < 8) {
+      ok = false;
+      return 0;
+    }
+    uint64_t v;
+    memcpy(&v, p, 8);
+    p += 8;
+    return v;
+  }
+  double f64() {
+    uint64_t v = fixed64();
+    double d;
+    memcpy(&d, &v, 8);
+    return d;
+  }
+  // returns (field_number << 3 | wire_type), 0 at end/error
+  uint32_t tag() {
+    if (p >= end) return 0;
+    uint64_t t = varint();
+    return ok ? static_cast<uint32_t>(t) : 0;
+  }
+  Cursor sub() {  // length-delimited submessage
+    uint64_t n = varint();
+    if (!ok || static_cast<uint64_t>(end - p) < n) {
+      ok = false;
+      return {p, p};
+    }
+    Cursor c{p, p + n};
+    p += n;
+    return c;
+  }
+  void skip(uint32_t wire_type) {
+    switch (wire_type) {
+      case 0:
+        varint();
+        break;
+      case 1:
+        if (end - p >= 8)
+          p += 8;
+        else
+          ok = false;
+        break;
+      case 2: {
+        uint64_t n = varint();
+        if (ok && static_cast<uint64_t>(end - p) >= n)
+          p += n;
+        else
+          ok = false;
+        break;
+      }
+      case 5:
+        if (end - p >= 4)
+          p += 4;
+        else
+          ok = false;
+        break;
+      default:
+        ok = false;
+    }
+  }
+};
+
+size_t varint_size(uint64_t v) {
+  size_t n = 1;
+  while (v >= 0x80) {
+    v >>= 7;
+    n++;
+  }
+  return n;
+}
+
+void put_varint(Buf& b, uint64_t v) {
+  b.reserve(10);
+  while (v >= 0x80) {
+    b.p[b.len++] = static_cast<char>(v) | 0x80;
+    v >>= 7;
+  }
+  b.p[b.len++] = static_cast<char>(v);
+}
+
+void put_f64_field(Buf& b, uint32_t field, double v) {
+  put_varint(b, (field << 3) | 1);
+  b.put(&v, 8);
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// 2. MetricList decode to a struct-of-arrays batch
+// ---------------------------------------------------------------------------
+
+// payload kinds (which oneof was present)
+enum : uint8_t {
+  kPayloadNone = 0,
+  kPayloadCounter = 1,
+  kPayloadGauge = 2,
+  kPayloadHistogram = 3,
+  kPayloadSet = 4,
+};
+
+extern "C" struct VtMetricBatch {
+  uint32_t count;
+  uint64_t arena_len;
+  uint64_t ncent;
+  // MetricList.topk extension (field 14): span into the INPUT buffer,
+  // len 0 when absent — Python parses the small submessage itself
+  uint64_t topk_off;
+  uint64_t topk_len;
+  uint8_t* type;     // metricpb.Type enum value
+  uint8_t* payload;  // kPayload*
+  uint32_t* name_off;
+  uint32_t* name_len;
+  uint32_t* tags_off;  // tags joined with ',' in the arena
+  uint32_t* tags_len;
+  int64_t* ivalue;      // counter value
+  double* dvalue;       // gauge value
+  double* compression;  // digest metadata
+  double* dmin;
+  double* dmax;
+  uint64_t* cent_off;  // span into means/weights
+  uint32_t* cent_len;
+  uint64_t* hll_off;  // span into the INPUT buffer (zero copy)
+  uint64_t* hll_len;
+  char* arena;
+  double* means;
+  double* weights;
+  void* impl;
+};
+
+namespace {
+
+struct VtMetricBatchImpl {
+  std::vector<uint8_t> type, payload;
+  std::vector<uint32_t> name_off, name_len, tags_off, tags_len, cent_len;
+  std::vector<int64_t> ivalue;
+  std::vector<double> dvalue, compression, dmin, dmax, means, weights;
+  std::vector<uint64_t> cent_off, hll_off, hll_len;
+  Buf arena;
+};
+
+// one t_digest submessage → centroid arrays; prefers the packed parallel
+// arrays (fields 14/15: one memcpy) over repeated Centroid messages
+void parse_tdigest(Cursor td, VtMetricBatchImpl* b) {
+  const uint8_t* packed_means = nullptr;
+  const uint8_t* packed_weights = nullptr;
+  const uint8_t* quant_means = nullptr;
+  const uint8_t* quant_weights = nullptr;
+  uint64_t pm_n = 0, pw_n = 0, qm_n = 0, qw_n = 0;
+  // proto3 omits zero-valued scalar fields, so an absent min/max means
+  // 0.0 (a perfectly valid extremum), NOT "unknown" — only an EMPTY
+  // digest normalizes to (inf, -inf), matching the Python decoder
+  double comp = 0, mn = 0.0, mx = 0.0;
+  Cursor scan = td;
+  std::vector<Cursor> main_cents;
+  while (scan.ok) {
+    uint32_t t = scan.tag();
+    if (!t) break;
+    uint32_t field = t >> 3, wt = t & 7;
+    if (field == 14 && wt == 2) {
+      Cursor s = scan.sub();
+      packed_means = s.p;
+      pm_n = (s.end - s.p) / 8;
+    } else if (field == 15 && wt == 2) {
+      Cursor s = scan.sub();
+      packed_weights = s.p;
+      pw_n = (s.end - s.p) / 8;
+    } else if (field == 16 && wt == 2) {
+      // framework extension v2: u16 range-quantized means (LE)
+      Cursor s = scan.sub();
+      quant_means = s.p;
+      qm_n = (s.end - s.p) / 2;
+    } else if (field == 17 && wt == 2) {
+      // framework extension v2: u16 bfloat16 weight bit patterns (LE)
+      Cursor s = scan.sub();
+      quant_weights = s.p;
+      qw_n = (s.end - s.p) / 2;
+    } else if (field == 2 && wt == 1) {
+      comp = scan.f64();
+    } else if (field == 3 && wt == 1) {
+      mn = scan.f64();
+    } else if (field == 4 && wt == 1) {
+      mx = scan.f64();
+    } else if (field == 1 && wt == 2) {
+      main_cents.push_back(scan.sub());
+    } else {
+      scan.skip(wt);
+    }
+  }
+  uint64_t c0 = b->means.size();
+  if (quant_means && quant_weights && qm_n == qw_n && qm_n > 0) {
+    // dequantize AFTER the scan: min/max may serialize after fields
+    // 16/17, and mean = min + q/65535 * (max-min)
+    b->means.resize(c0 + qm_n);
+    b->weights.resize(c0 + qm_n);
+    double span = (mx - mn) / 65535.0;
+    if (!std::isfinite(span)) span = 0.0;
+    for (uint64_t i = 0; i < qm_n; i++) {
+      uint16_t q, wbits;
+      memcpy(&q, quant_means + i * 2, 2);
+      memcpy(&wbits, quant_weights + i * 2, 2);
+      uint32_t f32bits = static_cast<uint32_t>(wbits) << 16;
+      float w;
+      memcpy(&w, &f32bits, 4);
+      b->means[c0 + i] = mn + q * span;
+      b->weights[c0 + i] = w;
+    }
+  } else if (packed_means && packed_weights && pm_n == pw_n && pm_n > 0) {
+    b->means.resize(c0 + pm_n);
+    b->weights.resize(c0 + pm_n);
+    memcpy(b->means.data() + c0, packed_means, pm_n * 8);
+    memcpy(b->weights.data() + c0, packed_weights, pw_n * 8);
+  } else {
+    for (Cursor c : main_cents) {
+      double mean = 0, weight = 0;
+      while (c.ok) {
+        uint32_t t = c.tag();
+        if (!t) break;
+        uint32_t field = t >> 3, wt = t & 7;
+        if (field == 1 && wt == 1)
+          mean = c.f64();
+        else if (field == 2 && wt == 1)
+          weight = c.f64();
+        else
+          c.skip(wt);
+      }
+      b->means.push_back(mean);
+      b->weights.push_back(weight);
+    }
+  }
+  uint64_t n = b->means.size() - c0;
+  b->cent_off.push_back(c0);
+  b->cent_len.push_back(static_cast<uint32_t>(n));
+  b->compression.push_back(comp);
+  // empty digests normalize to (inf, -inf) like the Python decoder
+  b->dmin.push_back(n ? mn : HUGE_VAL);
+  b->dmax.push_back(n ? mx : -HUGE_VAL);
+}
+
+}  // namespace
+
+extern "C" VtMetricBatch* vt_mlist_decode(const char* buf, size_t len) {
+  VtMetricBatchImpl* b = new VtMetricBatchImpl();
+  const uint8_t* base = reinterpret_cast<const uint8_t*>(buf);
+  uint64_t topk_off = 0, topk_len = 0;
+  Cursor top{base, base + len};
+  while (top.ok) {
+    uint32_t t = top.tag();
+    if (!t) break;
+    if ((t >> 3) == 14 && (t & 7) == 2) {  // MetricList.topk extension
+      Cursor s = top.sub();
+      topk_off = static_cast<uint64_t>(s.p - base);
+      topk_len = static_cast<uint64_t>(s.end - s.p);
+      continue;
+    }
+    if ((t >> 3) != 1 || (t & 7) != 2) {  // MetricList.metrics
+      top.skip(t & 7);
+      continue;
+    }
+    Cursor m = top.sub();
+    uint32_t name_o = static_cast<uint32_t>(b->arena.len), name_n = 0;
+    // tag spans collect first and join after the field loop: a
+    // nonstandard encoder may interleave other fields between tag
+    // entries, which would corrupt an incrementally-joined arena span
+    std::vector<std::pair<const uint8_t*, uint32_t>> tag_spans;
+    uint8_t mtype = 0, payload = kPayloadNone;
+    int64_t ival = 0;
+    double dval = 0;
+    uint64_t hll_o = 0, hll_n = 0;
+    bool have_digest = false;
+    Cursor digest_cur{nullptr, nullptr};
+    while (m.ok) {
+      uint32_t mt = m.tag();
+      if (!mt) break;
+      uint32_t field = mt >> 3, wt = mt & 7;
+      if (field == 1 && wt == 2) {  // name
+        Cursor s = m.sub();
+        name_o = static_cast<uint32_t>(b->arena.len);
+        name_n = static_cast<uint32_t>(s.end - s.p);
+        b->arena.put(s.p, name_n);
+      } else if (field == 2 && wt == 2) {  // tags
+        Cursor s = m.sub();
+        tag_spans.emplace_back(s.p, static_cast<uint32_t>(s.end - s.p));
+      } else if (field == 3 && wt == 0) {  // type enum
+        mtype = static_cast<uint8_t>(m.varint());
+      } else if (field == 5 && wt == 2) {  // counter
+        Cursor s = m.sub();
+        while (s.ok) {
+          uint32_t st = s.tag();
+          if (!st) break;
+          if ((st >> 3) == 1 && (st & 7) == 0)
+            ival = static_cast<int64_t>(s.varint());
+          else
+            s.skip(st & 7);
+        }
+        payload = kPayloadCounter;
+      } else if (field == 6 && wt == 2) {  // gauge
+        Cursor s = m.sub();
+        while (s.ok) {
+          uint32_t st = s.tag();
+          if (!st) break;
+          if ((st >> 3) == 1 && (st & 7) == 1)
+            dval = s.f64();
+          else
+            s.skip(st & 7);
+        }
+        payload = kPayloadGauge;
+      } else if (field == 7 && wt == 2) {  // histogram{t_digest}
+        Cursor s = m.sub();
+        while (s.ok) {
+          uint32_t st = s.tag();
+          if (!st) break;
+          if ((st >> 3) == 1 && (st & 7) == 2) {
+            digest_cur = s.sub();
+            have_digest = true;
+          } else {
+            s.skip(st & 7);
+          }
+        }
+        payload = kPayloadHistogram;
+      } else if (field == 8 && wt == 2) {  // set{hyper_log_log}
+        Cursor s = m.sub();
+        while (s.ok) {
+          uint32_t st = s.tag();
+          if (!st) break;
+          if ((st >> 3) == 1 && (st & 7) == 2) {
+            Cursor h = s.sub();
+            hll_o = static_cast<uint64_t>(h.p - base);
+            hll_n = static_cast<uint64_t>(h.end - h.p);
+          } else {
+            s.skip(st & 7);
+          }
+        }
+        payload = kPayloadSet;
+      } else {
+        m.skip(wt);
+      }
+    }
+    uint32_t tags_o = static_cast<uint32_t>(b->arena.len);
+    for (size_t k = 0; k < tag_spans.size(); k++) {
+      if (k) b->arena.put_ch(',');
+      b->arena.put(tag_spans[k].first, tag_spans[k].second);
+    }
+    uint32_t tags_n = static_cast<uint32_t>(b->arena.len) - tags_o;
+    b->type.push_back(mtype);
+    b->payload.push_back(payload);
+    b->name_off.push_back(name_o);
+    b->name_len.push_back(name_n);
+    b->tags_off.push_back(tags_n ? tags_o : 0);
+    b->tags_len.push_back(tags_n);
+    b->ivalue.push_back(ival);
+    b->dvalue.push_back(dval);
+    b->hll_off.push_back(hll_o);
+    b->hll_len.push_back(hll_n);
+    if (payload == kPayloadHistogram && have_digest) {
+      parse_tdigest(digest_cur, b);
+    } else {
+      b->cent_off.push_back(b->means.size());
+      b->cent_len.push_back(0);
+      b->compression.push_back(0);
+      b->dmin.push_back(HUGE_VAL);
+      b->dmax.push_back(-HUGE_VAL);
+    }
+  }
+
+  VtMetricBatch* out = new VtMetricBatch();
+  out->count = static_cast<uint32_t>(b->type.size());
+  out->arena_len = b->arena.len;
+  out->ncent = b->means.size();
+  out->topk_off = topk_off;
+  out->topk_len = topk_len;
+  out->type = b->type.data();
+  out->payload = b->payload.data();
+  out->name_off = b->name_off.data();
+  out->name_len = b->name_len.data();
+  out->tags_off = b->tags_off.data();
+  out->tags_len = b->tags_len.data();
+  out->ivalue = b->ivalue.data();
+  out->dvalue = b->dvalue.data();
+  out->compression = b->compression.data();
+  out->dmin = b->dmin.data();
+  out->dmax = b->dmax.data();
+  out->cent_off = b->cent_off.data();
+  out->cent_len = b->cent_len.data();
+  out->hll_off = b->hll_off.data();
+  out->hll_len = b->hll_len.data();
+  out->arena = b->arena.p;
+  out->means = b->means.data();
+  out->weights = b->weights.data();
+  out->impl = b;
+  return out;
+}
+
+// layout-independent accessor (the fuzz driver must not depend on the
+// struct's field order)
+extern "C" uint32_t vt_mbatch_count(const VtMetricBatch* m) {
+  return m ? m->count : 0;
+}
+
+extern "C" void vt_mbatch_free(VtMetricBatch* m) {
+  if (!m) return;
+  VtMetricBatchImpl* impl = static_cast<VtMetricBatchImpl*>(m->impl);
+  free(impl->arena.p);
+  delete impl;
+  delete m;
+}
+
+// ---------------------------------------------------------------------------
+// import interning: (type, name, tags) -> row
+// ---------------------------------------------------------------------------
+//
+// Same memoization contract as veneur_ingest.cpp's InternTable: only rows
+// Python assigned are known; misses come back for Python to resolve and
+// teach with put. Open addressing, fnv1a-64, power-of-two sizing.
+
+namespace {
+
+struct MEntry {
+  uint64_t hash = 0;
+  uint32_t key_off = 0;  // key bytes: [type u8][name][0x1f][tags]
+  uint32_t key_len = 0;
+  uint32_t row = 0;
+  bool used = false;
+};
+
+struct MTable {
+  std::vector<MEntry> slots;
+  Buf arena;
+  size_t count = 0;
+
+  MTable() { slots.resize(1 << 12); }
+};
+
+uint64_t fnv1a64(const void* data, size_t n, uint64_t h = 1469598103934665603ULL) {
+  const uint8_t* p = static_cast<const uint8_t*>(data);
+  for (size_t i = 0; i < n; i++) {
+    h ^= p[i];
+    h *= 1099511628211ULL;
+  }
+  return h;
+}
+
+// The key includes the PAYLOAD kind (which value-oneof was present), not
+// just the type enum: row indices are only meaningful within one group,
+// and the group applied to is chosen by the payload at apply time — a
+// malformed/adversarial forwarder repeating (type, name, tags) with a
+// different oneof must MISS here so Python re-resolves against the right
+// group's interner instead of writing through a foreign row index
+// (ADVICE round-3, medium).
+uint64_t mkey_hash(uint8_t type, uint8_t payload, const char* name,
+                   uint32_t name_n, const char* tags, uint32_t tags_n) {
+  uint64_t h = fnv1a64(&type, 1);
+  h = fnv1a64(&payload, 1, h);
+  h = fnv1a64(name, name_n, h);
+  uint8_t sep = 0x1f;
+  h = fnv1a64(&sep, 1, h);
+  return fnv1a64(tags, tags_n, h);
+}
+
+bool mkey_eq(const MTable* t, const MEntry& e, uint8_t type, uint8_t payload,
+             const char* name, uint32_t name_n, const char* tags,
+             uint32_t tags_n) {
+  if (e.key_len != 2 + name_n + 1 + tags_n) return false;
+  const char* k = t->arena.p + e.key_off;
+  if (static_cast<uint8_t>(k[0]) != type) return false;
+  if (static_cast<uint8_t>(k[1]) != payload) return false;
+  if (memcmp(k + 2, name, name_n) != 0) return false;
+  if (k[2 + name_n] != 0x1f) return false;
+  return memcmp(k + 3 + name_n, tags, tags_n) == 0;
+}
+
+void mtable_grow(MTable* t) {
+  std::vector<MEntry> old = std::move(t->slots);
+  t->slots.assign(old.size() * 2, MEntry{});
+  size_t mask = t->slots.size() - 1;
+  for (const MEntry& e : old) {
+    if (!e.used) continue;
+    size_t i = e.hash & mask;
+    while (t->slots[i].used) i = (i + 1) & mask;
+    t->slots[i] = e;
+  }
+}
+
+}  // namespace
+
+extern "C" MTable* vt_mintern_new() { return new MTable(); }
+
+extern "C" void vt_mintern_free(MTable* t) {
+  if (t) free(t->arena.p);
+  delete t;
+}
+
+extern "C" void vt_mintern_reset(MTable* t) {
+  t->slots.assign(t->slots.size(), MEntry{});
+  t->arena.len = 0;
+  t->count = 0;
+}
+
+extern "C" void vt_mintern_put(MTable* t, uint8_t type, uint8_t payload,
+                               const char* name, uint32_t name_n,
+                               const char* tags, uint32_t tags_n,
+                               uint32_t row) {
+  if (t->count * 2 >= t->slots.size()) mtable_grow(t);
+  uint64_t h = mkey_hash(type, payload, name, name_n, tags, tags_n);
+  size_t mask = t->slots.size() - 1;
+  size_t i = h & mask;
+  while (t->slots[i].used) {
+    if (t->slots[i].hash == h &&
+        mkey_eq(t, t->slots[i], type, payload, name, name_n, tags, tags_n)) {
+      t->slots[i].row = row;
+      return;
+    }
+    i = (i + 1) & mask;
+  }
+  MEntry& e = t->slots[i];
+  e.used = true;
+  e.hash = h;
+  e.row = row;
+  e.key_off = static_cast<uint32_t>(t->arena.len);
+  e.key_len = 2 + name_n + 1 + tags_n;
+  char sep = 0x1f;
+  t->arena.put(&type, 1);
+  t->arena.put(&payload, 1);
+  t->arena.put(name, name_n);
+  t->arena.put(&sep, 1);
+  t->arena.put(tags, tags_n);
+  t->count++;
+}
+
+// rows_out[i] = row or UINT32_MAX on miss; returns number of misses (their
+// indices in miss_out)
+extern "C" uint32_t vt_mintern_assign(MTable* t, const VtMetricBatch* b,
+                                      uint32_t* rows_out,
+                                      uint32_t* miss_out) {
+  uint32_t nmiss = 0;
+  size_t mask = t->slots.size() - 1;
+  for (uint32_t i = 0; i < b->count; i++) {
+    const char* name = b->arena + b->name_off[i];
+    const char* tags = b->arena + b->tags_off[i];
+    uint8_t type = b->type[i];
+    uint8_t payload = b->payload[i];
+    uint64_t h =
+        mkey_hash(type, payload, name, b->name_len[i], tags, b->tags_len[i]);
+    size_t s = h & mask;
+    uint32_t row = UINT32_MAX;
+    while (t->slots[s].used) {
+      if (t->slots[s].hash == h &&
+          mkey_eq(t, t->slots[s], type, payload, name, b->name_len[i], tags,
+                  b->tags_len[i])) {
+        row = t->slots[s].row;
+        break;
+      }
+      s = (s + 1) & mask;
+    }
+    rows_out[i] = row;
+    if (row == UINT32_MAX) miss_out[nmiss++] = i;
+  }
+  return nmiss;
+}
+
+// ---------------------------------------------------------------------------
+// 3. MetricList encode from columnar digest planes
+// ---------------------------------------------------------------------------
+//
+// means/weights are the store's flushed [S, K] float32 planes; centroids
+// with weight <= 0 are padding and are skipped on the wire. Bodies split
+// at max_body_bytes; each body is a complete MetricList serialization
+// (protobuf messages concatenate, so the Python side can append scalar/set
+// metrics serialized by protobuf to any one body).
+
+namespace {
+
+// shared Metric framing for the two digest encoders: the size pass and
+// the write pass MUST stay byte-exact with each other, so both live here
+
+uint64_t metric_header_size(uint32_t name_n, const char* tags, uint32_t tlen,
+                            uint8_t pb_type) {
+  uint64_t sz = 1 + varint_size(name_n) + name_n;
+  uint32_t i = 0;
+  while (i < tlen) {  // tags: split joined on ','
+    uint32_t j = i;
+    while (j < tlen && tags[j] != ',') j++;
+    uint32_t n = j - i;
+    sz += 1 + varint_size(n) + n;
+    i = j + 1;
+  }
+  if (pb_type) sz += 1 + varint_size(pb_type);
+  return sz;
+}
+
+// chunk-split check + MetricList.metrics record open
+void open_metric_record(Buf& body, VtBodiesImpl* impl, uint64_t metric_sz,
+                        uint64_t max_body_bytes) {
+  if (body.len &&
+      body.len + metric_sz + 1 + varint_size(metric_sz) > max_body_bytes) {
+    impl->lens.push_back(body.len);
+    impl->ptrs.push_back(body.take());
+  }
+  put_varint(body, (1 << 3) | 2);  // MetricList.metrics
+  put_varint(body, metric_sz);
+}
+
+// Metric.name + Metric.tags + Metric.type, then the t_digest envelope
+void write_digest_metric_header(Buf& body, const char* name, uint32_t name_n,
+                                const char* tags, uint32_t tlen,
+                                uint8_t pb_type, uint64_t td_sz) {
+  put_varint(body, (1 << 3) | 2);  // Metric.name
+  put_varint(body, name_n);
+  body.put(name, name_n);
+  uint32_t i = 0;
+  while (i < tlen) {
+    uint32_t j = i;
+    while (j < tlen && tags[j] != ',') j++;
+    uint32_t n = j - i;
+    put_varint(body, (2 << 3) | 2);  // Metric.tags
+    put_varint(body, n);
+    body.put(tags + i, n);
+    i = j + 1;
+  }
+  if (pb_type) {
+    put_varint(body, (3 << 3) | 0);  // Metric.type
+    put_varint(body, pb_type);
+  }
+  uint64_t hv_sz = 1 + varint_size(td_sz) + td_sz;
+  put_varint(body, (7 << 3) | 2);  // Metric.histogram
+  put_varint(body, hv_sz);
+  put_varint(body, (1 << 3) | 2);  // HistogramValue.t_digest
+  put_varint(body, td_sz);
+}
+
+}  // namespace
+
+extern "C" VtBodies* vt_mlist_encode_digests(
+    const char* name_arena, const uint32_t* name_off, const uint32_t* name_len,
+    const char* tags_arena, const uint32_t* tags_off, const uint32_t* tags_len,
+    const float* means, const float* weights, uint32_t K, const float* dmins,
+    const float* dmaxs, uint32_t nrows, uint8_t pb_type, double compression,
+    uint64_t max_body_bytes, int reference_compat) {
+  VtBodiesImpl* impl = new VtBodiesImpl();
+  Buf body;
+  if (max_body_bytes == 0) max_body_bytes = UINT64_MAX;
+  std::vector<uint32_t> live;
+  live.reserve(K);
+  for (uint32_t r = 0; r < nrows; r++) {
+    const float* wrow = weights + static_cast<uint64_t>(r) * K;
+    const float* mrow = means + static_cast<uint64_t>(r) * K;
+    live.clear();
+    for (uint32_t k = 0; k < K; k++)
+      if (wrow[k] > 0.0f) live.push_back(k);
+    uint64_t nc = live.size();
+
+    // --- sizes, inside out
+    // t_digest body: compression(9) + min(9) + max(9) + packed arrays
+    uint64_t packed_bytes = nc * 8;
+    uint64_t td_sz = 9 + 9 + 9;
+    if (nc) {
+      td_sz += 1 + varint_size(packed_bytes) + packed_bytes;  // field 14
+      td_sz += 1 + varint_size(packed_bytes) + packed_bytes;  // field 15
+      if (reference_compat) td_sz += nc * 20;  // Centroid{mean,weight} = 18+2
+    }
+    uint64_t hv_sz = 1 + varint_size(td_sz) + td_sz;  // HistogramValue.t_digest
+    const char* tags = tags_arena + tags_off[r];
+    uint32_t tlen = tags_len[r];
+    uint64_t metric_sz = metric_header_size(name_len[r], tags, tlen, pb_type)
+                         + 1 + varint_size(hv_sz) + hv_sz;
+
+    // --- write
+    open_metric_record(body, impl, metric_sz, max_body_bytes);
+    write_digest_metric_header(body, name_arena + name_off[r], name_len[r],
+                               tags, tlen, pb_type, td_sz);
+    if (nc && reference_compat) {
+      for (uint32_t k : live) {  // tdigest.main_centroids (reference schema)
+        put_varint(body, (1 << 3) | 2);
+        put_varint(body, 18);
+        put_f64_field(body, 1, static_cast<double>(mrow[k]));
+        put_f64_field(body, 2, static_cast<double>(wrow[k]));
+      }
+    }
+    put_f64_field(body, 2, compression);
+    put_f64_field(body, 3, static_cast<double>(dmins[r]));
+    put_f64_field(body, 4, static_cast<double>(dmaxs[r]));
+    if (nc) {
+      put_varint(body, (14 << 3) | 2);  // packed_means
+      put_varint(body, packed_bytes);
+      body.reserve(packed_bytes);
+      for (uint32_t k : live) {
+        double d = static_cast<double>(mrow[k]);
+        memcpy(body.p + body.len, &d, 8);
+        body.len += 8;
+      }
+      put_varint(body, (15 << 3) | 2);  // packed_weights
+      put_varint(body, packed_bytes);
+      body.reserve(packed_bytes);
+      for (uint32_t k : live) {
+        double d = static_cast<double>(wrow[k]);
+        memcpy(body.p + body.len, &d, 8);
+        body.len += 8;
+      }
+    }
+  }
+  if (body.len) {
+    impl->lens.push_back(body.len);
+    impl->ptrs.push_back(body.take());
+  }
+  free(body.p);
+  return bodies_finish(impl);
+}
+
+// Packed-plane variant: input is the device-compacted layout (per-row
+// live-centroid counts + flat u16 quantized means / bfloat16 weight bit
+// patterns) produced by core/slab.py:_pack_slab — the forward path that
+// never fetches raw [S, K] f32 planes. Wire format:
+//   reference_compat=0: tdigest fields 16/17 (the quantized arrays
+//     verbatim, 4 bytes/centroid; decoded by parse_tdigest above) —
+//   reference_compat=1: dequantized repeated Centroid messages plus the
+//     packed f64 arrays, byte-layout-identical to what
+//     vt_mlist_encode_digests emits for a reference global.
+extern "C" VtBodies* vt_mlist_encode_digests_packed(
+    const char* name_arena, const uint32_t* name_off, const uint32_t* name_len,
+    const char* tags_arena, const uint32_t* tags_off, const uint32_t* tags_len,
+    const uint16_t* counts, const uint16_t* means_q, const uint16_t* weights_bf,
+    const float* dmins, const float* dmaxs, uint32_t nrows, uint8_t pb_type,
+    double compression, uint64_t max_body_bytes, int reference_compat) {
+  VtBodiesImpl* impl = new VtBodiesImpl();
+  Buf body;
+  if (max_body_bytes == 0) max_body_bytes = UINT64_MAX;
+  uint64_t c0 = 0;
+  for (uint32_t r = 0; r < nrows; r++) {
+    uint64_t nc = counts[r];
+    const uint16_t* mq = means_q + c0;
+    const uint16_t* wb = weights_bf + c0;
+    c0 += nc;
+
+    // --- sizes, inside out
+    uint64_t td_sz = 9 + 9 + 9;  // compression + min + max
+    if (nc) {
+      if (reference_compat) {
+        uint64_t packed_bytes = nc * 8;
+        td_sz += 1 + varint_size(packed_bytes) + packed_bytes;  // field 14
+        td_sz += 1 + varint_size(packed_bytes) + packed_bytes;  // field 15
+        td_sz += nc * 20;  // Centroid{mean,weight} = 18+2
+      } else {
+        uint64_t quant_bytes = nc * 2;
+        td_sz += 2 + varint_size(quant_bytes) + quant_bytes;  // field 16
+        td_sz += 2 + varint_size(quant_bytes) + quant_bytes;  // field 17
+      }
+    }
+    uint64_t hv_sz = 1 + varint_size(td_sz) + td_sz;  // HistogramValue.t_digest
+    const char* tags = tags_arena + tags_off[r];
+    uint32_t tlen = tags_len[r];
+    uint64_t metric_sz = metric_header_size(name_len[r], tags, tlen, pb_type)
+                         + 1 + varint_size(hv_sz) + hv_sz;
+
+    // --- write
+    open_metric_record(body, impl, metric_sz, max_body_bytes);
+    write_digest_metric_header(body, name_arena + name_off[r], name_len[r],
+                               tags, tlen, pb_type, td_sz);
+    double mn = static_cast<double>(dmins[r]);
+    double span = (static_cast<double>(dmaxs[r]) - mn) / 65535.0;
+    if (!std::isfinite(span)) span = 0.0;
+    if (nc && reference_compat) {
+      for (uint64_t k = 0; k < nc; k++) {  // tdigest.main_centroids
+        uint32_t f32bits = static_cast<uint32_t>(wb[k]) << 16;
+        float w;
+        memcpy(&w, &f32bits, 4);
+        put_varint(body, (1 << 3) | 2);
+        put_varint(body, 18);
+        put_f64_field(body, 1, mn + mq[k] * span);
+        put_f64_field(body, 2, static_cast<double>(w));
+      }
+    }
+    put_f64_field(body, 2, compression);
+    put_f64_field(body, 3, static_cast<double>(dmins[r]));
+    put_f64_field(body, 4, static_cast<double>(dmaxs[r]));
+    if (nc) {
+      if (reference_compat) {
+        uint64_t packed_bytes = nc * 8;
+        put_varint(body, (14 << 3) | 2);  // packed_means (f64)
+        put_varint(body, packed_bytes);
+        body.reserve(packed_bytes);
+        for (uint64_t k = 0; k < nc; k++) {
+          double d = mn + mq[k] * span;
+          memcpy(body.p + body.len, &d, 8);
+          body.len += 8;
+        }
+        put_varint(body, (15 << 3) | 2);  // packed_weights (f64)
+        put_varint(body, packed_bytes);
+        body.reserve(packed_bytes);
+        for (uint64_t k = 0; k < nc; k++) {
+          uint32_t f32bits = static_cast<uint32_t>(wb[k]) << 16;
+          float w;
+          memcpy(&w, &f32bits, 4);
+          double d = static_cast<double>(w);
+          memcpy(body.p + body.len, &d, 8);
+          body.len += 8;
+        }
+      } else {
+        uint64_t quant_bytes = nc * 2;
+        put_varint(body, (16 << 3) | 2);  // quantized_means (u16 LE)
+        put_varint(body, quant_bytes);
+        body.put(reinterpret_cast<const char*>(mq), quant_bytes);
+        put_varint(body, (17 << 3) | 2);  // quantized_weights (bf16 LE)
+        put_varint(body, quant_bytes);
+        body.put(reinterpret_cast<const char*>(wb), quant_bytes);
+      }
+    }
+  }
+  if (body.len) {
+    impl->lens.push_back(body.len);
+    impl->ptrs.push_back(body.take());
+  }
+  free(body.p);
+  return bodies_finish(impl);
+}

@@ -37,6 +37,12 @@ and statsd datagrams at the hard one (the lanes at the socket,
 ``overload.shed``. The store caps each group at ``max_series`` and the
 joined tags at ``max_tag_length`` on every path.
 
+Each flush (``flusher.py``) is columnar, pipelined and streaming by
+default (``flush_columnar``, ``flush_pipeline_depth``,
+``flush_streaming``): the metric sinks, then the ``plugins``, get the
+store's rows; ``cli/server.py`` builds the Datadog sink and the
+local-file plugin from the config.
+
 Global aggregation: with ``forward_address`` set the server is a local
 and forwards its sketch state there over HTTP after each flush; with
 ``http_address`` set it serves ``POST /import`` (a global merges what
@@ -231,7 +237,7 @@ class Server:
     def __init__(self, config: Config,
                  metric_sinks: Optional[List[MetricSink]] = None,
                  span_sinks: Optional[List[SpanSink]] = None,
-                 device=None):
+                 device=None, plugins: Optional[list] = None):
         self.config = config
         self.interval = config.interval_seconds
         self.hostname = config.hostname
@@ -248,9 +254,11 @@ class Server:
             topk_depth=config.topk_depth, topk_width=config.topk_width,
             topk_k=config.topk_k, max_series=config.max_series,
             max_tag_length=config.max_tag_length, overload=self.overload,
-            device=device)
+            flush_pipeline_depth=config.flush_pipeline_depth, device=device)
         self.metric_sinks = (list(metric_sinks) if metric_sinks is not None
                              else [BlackholeMetricSink()])
+        # archival plugins, flushed after the metric sinks
+        self.plugins = list(plugins or [])
         self.event_worker = EventWorker()
         self.span_chan: "queue.Queue" = queue.Queue(
             config.span_channel_capacity)

@@ -10,7 +10,18 @@ from veneur_tpu_torch.samplers.intermetric import InterMetric
 
 
 class MetricSink(abc.ABC):
-    """A backend receiving the full flushed-metric batch every interval."""
+    """A backend receiving the full flushed-metric batch every interval.
+
+    A sink may also take a flush as columns (``flush_columnar(batch)``,
+    a :class:`~veneur_tpu_torch.core.columnar.ColumnarFlush`) and, for
+    streaming egress, each completed group as it exists
+    (``flush_chunk(chunk)``, a :class:`~veneur_tpu_torch.core.pipeline.
+    FlushChunk`); the flusher checks for those methods."""
+
+    # the interval's egress budget, set by the flusher before the sink's
+    # flush starts; retry loops clamp their backoff to it so no sink
+    # pushes a flush past the interval boundary
+    flush_deadline = None
 
     @property
     @abc.abstractmethod
@@ -18,6 +29,9 @@ class MetricSink(abc.ABC):
 
     def start(self) -> None:
         """Called once at server start."""
+
+    def set_flush_deadline(self, deadline) -> None:
+        self.flush_deadline = deadline
 
     @abc.abstractmethod
     def flush(self, metrics: List[InterMetric]) -> None: ...
