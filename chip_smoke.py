@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and its native
-ingest and egress libraries (g++), side by side, then runs nine phases,
+ingest and egress libraries (g++), side by side, then runs ten phases,
 each printing one JSON line:
 
   kernels  K1 drain_quantile and K2 compress_presorted at the flush's
@@ -86,27 +86,41 @@ each printing one JSON line:
            forced full: spans shed at level 2, statsd datagrams at level
            3, every one counted);
   global_merge
-           global aggregation at full width: two forwarding locals on
-           cuda (1,048,576 histogram series each, B's distribution
-           shifted from A's, 32,768 sets in both, 4,096 global-only
-           counters) and a global that imports both states (digests
-           through import_digests_bulk, the rest through the JSON body)
-           and flushes; held to conservation, extrema, the union's
+           global aggregation over the JSON body: two forwarding locals
+           on cuda (262,144 histogram series each since the native leg
+           came, to keep the script inside its time: 1,048,576 took
+           174 s of a 627 s run on an NVIDIA H100 80GB HBM3 at 700 W;
+           B's distribution shifted from A's, 32,768 sets in both,
+           4,096 global-only counters) and a global that imports both
+           states (digests through import_digests_bulk, the rest
+           through the JSON body) and flushes; held to conservation, extrema, the union's
            percentiles, counters and set cardinalities, and a 4,096-row
            slice run on cuda and on the CPU twin-checked as the kernels
            are;
+  native_merge
+           the packed binary forward at full width: the global_merge
+           traffic, each local flushed with digest_format="packed" (the
+           pack on the card, held bit for bit against its CPU run on
+           65,536 rows) and sent by a NativeForwarder over loopback TCP
+           into a NativeImportServer on a port global (C++ decode, the
+           C++ MetricList table, numpy staging, K2 on the import
+           drains), which flushes columnar (K1); held to the same
+           checks as global_merge, and printed beside its JSON leg's
+           import and flush seconds;
   server_global
            a global Server (http_address) and a local Server (UDP in,
            forward_address) in this process: 65,536 series forwarded
            with streaming on (the histogram group POSTs as a deflated
            /import part of its own, the rest as a second), merged by
            the global's pool and flushed into a channel sink, in our
-           body format and in the reference's (gob/axiomhq).
+           body format and in the reference's (gob/axiomhq); then the
+           same over native:// into native_import_address, with packed
+           digests and with forward_packed_digests false.
 
 The launch counts in the kernel summary are the sum over the store,
 ingest (its two intervals), ssf (its main path), heavy_hitters (its two
-Servers), overload (the series cap's flush), global_merge and
-server_global phases. It
+Servers), overload (the series cap's flush), global_merge, native_merge
+and server_global phases. It
 ends with the kernel summary, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits 2 before
@@ -142,6 +156,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM non-tensor fp32 peak
 TIMED_LAUNCHES = 20
 PLAIN_RUNS = 3
+NATIVE_TWIN_ROWS = 1 << 16       # native_merge's pack twin: rows compared
+GLOBAL_MERGE_ROWS = 1 << 18      # the JSON leg's series a local (see above)
+_RECORDS = {}                    # phase records a later phase reports
 
 
 def emit(obj) -> None:
@@ -1016,14 +1033,15 @@ def _check_global_merge(t, states, merged, final, rows, set_series,
                 "set_rel_err_p99": float(np.percentile(rel, 99))})
 
 
-def phase_global_merge(dev, card: str, rows: int = ROWS,
+def phase_global_merge(dev, card: str, rows: int = GLOBAL_MERGE_ROWS,
                        set_series: int = SET_SERIES, gcounters: int = 4096,
                        chunk: int = 1 << 14, twin_rows: int = 4096):
-    """Global aggregation at full width on the card (run_global_merge at
-    1,048,576 histogram series), then a 4,096-row slice of the same
+    """Global aggregation over the JSON body on the card
+    (run_global_merge at GLOBAL_MERGE_ROWS histogram series a local;
+    native_merge runs the full width), then a 4,096-row slice of the same
     traffic through the same path on the card and on the CPU (the plain
     versions): the twins' merged digests must agree as the kernels do.
-    Returns the launch counts of the full-width run."""
+    Returns the launch counts of its main run."""
     import torch
 
     from veneur_tpu_torch.ops import tdigest_cuda as tc
@@ -1055,6 +1073,366 @@ def phase_global_merge(dev, card: str, rows: int = ROWS,
         "global_merge cpu twin", (gm, gw, gp), (pm, pw, pp), pw,
         torch.zeros_like(pw), (pmax - pmin).float())
     emit({"phase": "global_merge", "card": card, **rec})
+    _RECORDS["global_merge"] = rec
+    return counts
+
+
+# the native_merge phase: the packed binary forward at full width
+
+
+def _packed_row_weights(planes) -> np.ndarray:
+    """Each row's forwarded mass (float64) from PackedDigestPlanes."""
+    counts = planes.counts.astype(np.int64)
+    return np.bincount(np.repeat(np.arange(len(counts)), counts),
+                       weights=planes.weights_f32().astype(np.float64),
+                       minlength=len(counts))
+
+
+def _native_local(dev, chunk, vals, set_owner, set_hashes, set_series,
+                  ctrs, aggs, fwd):
+    """One port local on ``dev``, fed as ``_forwarding_local`` feeds it,
+    flushed as a forwarding local in the default columnar shape with
+    ``digest_format="packed"``; ``fwd`` (a NativeForwarder) sends its
+    state over loopback TCP. Returns (record, the histogram group's
+    PackedDigestPlanes)."""
+    import torch
+
+    from veneur_tpu_torch.core import slab as slab_mod
+    from veneur_tpu_torch.core import store as store_mod
+    from veneur_tpu_torch.core.store import MetricStore
+    from veneur_tpu_torch.samplers.parser import MetricKey, parse_metric
+
+    rows = len(vals)
+    store = MetricStore(initial_capacity=1024, chunk=chunk, device=dev)
+    hist, sets = store.histograms, store.sets
+    for i in range(rows):
+        hist.interner.intern(MetricKey(f"h.{i}", "histogram", ""), [])
+    hist.ensure_capacity(rows - 1)
+    for i in range(set_series):
+        sets.interner.intern(MetricKey(f"s.{i}", "set", ""), [])
+    sets.ensure_capacity(set_series - 1)
+    with store._lock:
+        hist.sample_many(np.repeat(np.arange(rows, dtype=np.int32), 4),
+                         vals.reshape(-1),
+                         np.full(vals.size, 2.0, np.float32))
+        sets.sample_many(set_owner, set_hashes)
+    for i, v in enumerate(ctrs):
+        store.process_metric(parse_metric(
+            f"g.c.{i}:{int(v)}|c|#veneurglobalonly".encode()))
+    _sync(dev)
+
+    rec = {"dispatch_s": 0.0, "pack_s": 0.0, "fetch_s": 0.0,
+           "fetched_bytes": 0}
+    twin = {}
+    real_pack = store_mod._pack_slab
+    real_slice, real_gather = slab_mod._slice_pack, slab_mod._gather_pack
+
+    def pack(mean, weight, dmin, dmax):
+        # the pack alone on the device: synchronized before and after
+        _sync(dev)
+        t = time.perf_counter()
+        out = real_pack(mean, weight, dmin, dmax)
+        _sync(dev)
+        rec["pack_s"] += time.perf_counter() - t
+        if not twin:
+            n = NATIVE_TWIN_ROWS
+            twin["in"] = [x[:n].cpu() for x in (mean, weight, dmin, dmax)]
+            twin["out"] = [x[:n].cpu() for x in out]
+        return out
+
+    def fetched(fn):
+        def run(*args):
+            out = fn(*args)
+            parts = out if isinstance(out, tuple) else (out,)
+            rec["fetched_bytes"] += sum(p.numel() * p.element_size()
+                                        for p in parts)
+            return out
+        return run
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                rec[key] += time.perf_counter() - t
+        return run
+
+    store_mod._pack_slab = pack
+    slab_mod._slice_pack = fetched(real_slice)
+    slab_mod._gather_pack = fetched(real_gather)
+    hist._flush_dispatch = timed("dispatch_s", hist._flush_dispatch)
+    hist._fetch_planes = timed("fetch_s", hist._fetch_planes)
+    try:
+        t0 = time.perf_counter()
+        flushed, state = store.flush(list(PERCENTILES), aggs, 0,
+                                     is_local=True, columnar=True,
+                                     digest_format="packed")
+        rec["flush_s"] = time.perf_counter() - t0
+    finally:
+        store_mod._pack_slab = real_pack
+        slab_mod._slice_pack, slab_mod._gather_pack = real_slice, \
+            real_gather
+    # the dispatch's own host time: the pack (and the wait for K1 before
+    # it) are timed apart
+    rec["dispatch_s"] -= rec["pack_s"]
+    planes = state.histograms_columnar[2]
+    if planes.nrows != rows or len(state.sets) != set_series \
+            or len(state.counters) != len(ctrs) or len(flushed) != 3 * rows:
+        raise AssertionError(f"local flushed {len(flushed)} rows, packed "
+                             f"{planes.nrows} digests, {len(state.sets)} "
+                             f"sets, {len(state.counters)} counters")
+    # counts (int32) and the extrema cross with the live bytes
+    rec["fetched_bytes"] += rows * (4 + 4 + 4)
+    rec["dense_fetch_bytes"] = rows * (2 * hist.k * 4 + 2 * 4)
+    rec["live_centroids"] = int(planes.counts.astype(np.int64).sum())
+    rec["packed_bytes"] = planes.nbytes
+    # the pack on the card against its CPU run on the same planes
+    cpu_out = real_pack(*twin["in"])
+    for got, want in zip(twin["out"], cpu_out):
+        if not torch.equal(got, want):
+            raise AssertionError("the pack on the card differs from the "
+                                 "CPU's")
+    rec["pack_twin_rows"] = NATIVE_TWIN_ROWS
+    frames0, bytes0 = len(fwd.post_content_lengths), \
+        sum(fwd.post_content_lengths)
+    weights = _packed_row_weights(planes)
+    if fwd.forward(state) is not True:
+        raise AssertionError(f"native forward failed ({fwd.errors} errors, "
+                             f"{fwd.retries} retries)")
+    rec.update(encode_s=fwd.encode_durations[-1],
+               send_s=fwd.post_durations[-1],
+               frames=len(fwd.post_content_lengths) - frames0,
+               wire_bytes=sum(fwd.post_content_lengths) - bytes0)
+    return rec, weights
+
+
+def run_native_merge(dev, rows: int, set_series: int, gcounters: int,
+                     chunk: int):
+    """Two port locals A and B (the global_merge traffic) flush with
+    digest_format="packed" and send through real NativeForwarders over
+    loopback TCP into a real NativeImportServer on a port global, which
+    decodes the frames in C++, assigns rows through the C++ MetricList
+    table, bulk-stages them (import_columnar; K2 on the import drains)
+    and flushes in the default columnar shape (K1). Checks
+    conservation, extrema, percentiles, counters and set estimates.
+    Returns the record."""
+    from veneur_tpu_torch.core import store as store_mod
+    from veneur_tpu_torch.core.store import MetricStore
+    from veneur_tpu_torch.forward.native_transport import (
+        NativeForwarder, NativeImportServer)
+    from veneur_tpu_torch.native import egress
+    from veneur_tpu_torch.ops import tdigest as td
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.samplers.intermetric import HistogramAggregates
+
+    aggs = HistogramAggregates.from_names(["min", "max", "count"])
+    t = _global_merge_traffic(rows, set_series, gcounters)
+    rec = {"histogram_series": rows, "set_series": set_series,
+           "global_counters": gcounters, "chunk": chunk}
+    glob = MetricStore(initial_capacity=1024, chunk=chunk, device=dev)
+    gh = glob.histograms
+    srv = NativeImportServer(glob)
+    split = {"decode_s": 0.0, "miss_loop_s": 0.0, "import_columnar_s": 0.0,
+             "drains_s": 0.0, "merge_s": 0.0}
+    counts = {"import_drains": 0, "guard_drains": 0}
+    real = {"decode": egress.decode_metric_list, "drain": td.drain_temp}
+
+    def timed(key, fn, sync=False):
+        def run(*args, **kwargs):
+            if sync:
+                _sync(dev)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                if sync:
+                    _sync(dev)
+                split[key] += time.perf_counter() - t0
+        return run
+
+    real_drain_imports = gh._drain_imports
+
+    def drain_imports():
+        if gh._imp_fill:
+            counts["import_drains"] += 1
+        real_drain_imports()
+
+    def drain_temp(*args, **kwargs):
+        counts["guard_drains"] += 1
+        return real["drain"](*args, **kwargs)
+
+    egress.decode_metric_list = timed("decode_s", real["decode"])
+    td.drain_temp = drain_temp
+    gh._drain_imports = timed("drains_s", drain_imports, sync=True)
+    glob._intern_mlist = timed("miss_loop_s", glob._intern_mlist)
+    glob.import_columnar = timed("import_columnar_s", glob.import_columnar)
+    srv._merge = timed("merge_s", srv._merge)
+    srv.start("127.0.0.1:0")
+    fwd_weights = []
+    try:
+        for label in ("a", "b"):
+            keep = t[f"{label}_keep"]
+            fwd = NativeForwarder(f"native://127.0.0.1:{srv.port}",
+                                  timeout=600.0)
+            try:
+                local, weights = _native_local(
+                    dev, chunk, t[label], t["owner"][keep],
+                    t["universe"][keep], set_series, t[f"{label}_ctr"],
+                    aggs, fwd)
+            finally:
+                fwd.close()
+            rec[f"local_{label}"] = local
+            fwd_weights.append(weights)
+        t0 = time.perf_counter()
+        with glob._lock:
+            gh._drain_staging()
+            glob.sets._drain_staging()
+        _sync(dev)
+        split["final_drain_s"] = time.perf_counter() - t0
+    finally:
+        srv.stop()
+        egress.decode_metric_list = real["decode"]
+        td.drain_temp = real["drain"]
+    if srv.import_errors or srv.received != 2 * (rows + set_series
+                                                 + gcounters):
+        raise AssertionError(f"native import: {srv.received} merged, "
+                             f"{srv.import_errors} errors")
+    # the import: decode (C++), the row assignment with its miss loop,
+    # the numpy staging and the device drains it runs (K2 on the guard)
+    split["staging_s"] = (split["import_columnar_s"] - split["miss_loop_s"]
+                          - split["drains_s"])
+    split["drains_s"] += split["final_drain_s"]
+    rec["import_s"] = split["merge_s"] + split["final_drain_s"]
+    rec["import_split"] = split
+    rec.update(counts)
+    rec["imported"] = glob.imported
+
+    captured = []
+    real_flush = store_mod._flush_digests
+
+    def capture(*args):
+        out = real_flush(*args)
+        captured.append(out[:2])
+        return out
+
+    real_launch = tc.launch_drain_quantile
+
+    def k1_timed(*args, **kwargs):
+        out, ms = _events_ms(dev, lambda: real_launch(*args, **kwargs))
+        rec.setdefault("global_flush_k1_device_ms", ms)
+        return out
+
+    store_mod._flush_digests = capture
+    tc.launch_drain_quantile = k1_timed
+    try:
+        t0 = time.perf_counter()
+        flushed, _ = glob.flush(list(PERCENTILES), aggs, 0, columnar=True)
+        rec["global_flush_s"] = time.perf_counter() - t0
+    finally:
+        store_mod._flush_digests = real_flush
+        tc.launch_drain_quantile = real_launch
+    digest, pcts = captured[0]
+    merged = [x[:rows].cpu().numpy() for x in (digest.weight, digest.min,
+                                                digest.max)]
+    _check_native_merge(t, fwd_weights, merged, pcts[:rows, :-1].cpu()
+                        .numpy(), flushed, rows, set_series, gcounters, rec)
+    return rec
+
+
+def _check_native_merge(t, fwd_weights, merged, pcts, flushed, rows,
+                        set_series, gcounters, rec):
+    """The global against the raw data: each row's merged weight equals
+    A's plus B's forwarded weight and the sample mass (16) exactly (every
+    weight is an integer below 256, which bfloat16 holds); min/max
+    exact; percentiles within 0.02 x span of the exact digest of the
+    union of both locals' samples; counters exact; set estimates within
+    the HLL error of the union cardinality and within 1e-4 of a numpy
+    HLL of the union (the registers travel exactly)."""
+    from veneur_tpu_torch.core.columnar import arena_strings
+
+    weight, mn, mx = merged
+    mass = weight.astype(np.float64).sum(1)
+    if not (np.array_equal(mass, fwd_weights[0] + fwd_weights[1])
+            and np.array_equal(mass, np.full(rows, 16.0))):
+        raise AssertionError("merged weights differ from the forwarded")
+    raw = np.concatenate([t["a"], t["b"]], axis=1)
+    if not (np.array_equal(mn, raw.min(1)) and np.array_equal(mx, raw.max(1))):
+        raise AssertionError("merged min/max differ from the raw samples")
+    rng = np.random.default_rng(SEED + 13)
+    worst = 0.0
+    for i in rng.choice(rows, min(512, rows), replace=False):
+        want = _digest_reference(raw[i], PERCENTILES)
+        span = float(raw[i].max() - raw[i].min())
+        worst = max(worst, float(np.max(np.abs(pcts[i] - want))) / span)
+    if worst > 0.02:
+        raise AssertionError(f"global percentiles off the union's exact "
+                             f"digest by {worst:.3g} of the span")
+    by_block = {}
+    for blk in flushed.blocks:
+        names = arena_strings(blk.names)
+        by_block[names[0].split(".")[0]] = (names, blk)
+    hnames, hblk = by_block["h"]
+    if len(hnames) != rows or len(hblk) != rows * len(PERCENTILES):
+        raise AssertionError(f"the histogram block holds {len(hblk)} "
+                             "emissions")
+    extras = {m.name: m.value for m in flushed.extras}
+    for i in range(gcounters):
+        want = int(t["a_ctr"][i]) + int(t["b_ctr"][i])
+        if extras.get(f"g.c.{i}") != want:
+            raise AssertionError(f"g.c.{i}: {extras.get(f'g.c.{i}')} != "
+                                 f"{want}")
+    snames, sblk = by_block["s"]
+    est = np.zeros(set_series)
+    est[[int(n[2:]) for n in snames]] = sblk.values[np.argsort(sblk.rows)]
+    union = t["a_keep"] | t["b_keep"]
+    card = np.bincount(t["owner"][union], minlength=set_series)
+    rel = np.abs(est - card) / card
+    starts = np.concatenate([[0], np.cumsum(t["card"])])
+    ref_err = 0.0
+    for i in rng.choice(set_series, min(256, set_series), replace=False):
+        lo, hi = starts[i], starts[i + 1]
+        ref = _hll_reference(t["universe"][lo:hi][union[lo:hi]], 14)
+        ref_err = max(ref_err, abs(est[i] - ref) / ref)
+    if ref_err > 1e-4 or np.percentile(rel, 99) > 0.02 or rel.max() > 0.05:
+        raise AssertionError(f"set estimates: {ref_err:.3g} off the numpy "
+                             f"HLL, p99 {np.percentile(rel, 99):.3g} and "
+                             f"max {rel.max():.3g} off the union")
+    rec.update({"pct_err_vs_exact_union_digest": worst,
+                "set_err_vs_numpy_hll": ref_err,
+                "set_rel_err_p99": float(np.percentile(rel, 99))})
+
+
+def phase_native_merge(dev, card: str, rows: int = ROWS,
+                       set_series: int = SET_SERIES, gcounters: int = 4096,
+                       chunk: int = 1 << 14):
+    """The packed binary forward and import at full width
+    (run_native_merge at 1,048,576 histogram series a local), beside the
+    global_merge JSON leg's import and flush seconds of the same run.
+    Returns the launch counts."""
+    import torch
+
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts(tc)
+    t0 = time.perf_counter()
+    rec = run_native_merge(dev, rows, set_series, gcounters, chunk)
+    rec["phase_s"] = time.perf_counter() - t0
+    counts = _counts(tc)
+    rec["max_memory_allocated"] = int(torch.cuda.max_memory_allocated(dev))
+    k1, k2 = counts["drain_quantile.launches"], \
+        counts["compress_presorted.launches"]
+    if k1 < 3 or k2 < 1 or k2 != rec["guard_drains"]:
+        raise AssertionError(f"native_merge launched K1 {k1}x, K2 {k2}x "
+                             f"({rec['guard_drains']} guard drains); want "
+                             "K1 >= 3 (two locals, the global) and one K2 "
+                             "per guard drain, at least one")
+    rec["launches"] = counts
+    json_leg = _RECORDS.get("global_merge", {})
+    rec["json_leg"] = {k: json_leg.get(k) for k in (
+        "histogram_series", "import_s", "global_flush_s")}
+    emit({"phase": "native_merge", "card": card, **rec})
     return counts
 
 
@@ -1081,14 +1459,19 @@ def _udp_lines(rng, series: int):
 
 
 def run_server_global(dev, compat: bool, series: int = 1 << 16,
-                      udp_series: int = 25):
+                      udp_series: int = 25, native: bool = False,
+                      packed: bool = True):
     """A port global Server (http_address) and a port local Server (UDP
     in, forward_address pointing at the global) in this process on
     ``dev``. DogStatsD lines go over UDP, then ``series`` histogram
     series fill the local through its store; one local flush POSTs the
     deflated JSON body to /import, the global's pool merges it, and one
     global flush emits into a channel sink. The emissions are held to
-    the numpy reference of what was sent."""
+    the numpy reference of what was sent. With ``native`` the global
+    serves native_import_address instead and the local forwards to
+    native://...: its flush packs the digests on the card (dense with
+    ``packed`` False: forward_packed_digests false) and sends MetricList
+    frames, which the global's NativeImportServer imports."""
     from veneur_tpu_torch.config import Config
     from veneur_tpu_torch.samplers.parser import MetricKey
     from veneur_tpu_torch.server import Server
@@ -1099,27 +1482,28 @@ def run_server_global(dev, compat: bool, series: int = 1 << 16,
     common = dict(interval="3600s", percentiles=pcts,
                   aggregates=["min", "max", "count"], hostname="smoke")
     sink = ChannelMetricSink()
-    glob = Server(Config(http_address="127.0.0.1:0", **common),
-                  metric_sinks=[sink], device=dev)
-    rec = {"reference_compatible": compat, "histogram_series": series}
+    listen = ({"native_import_address": "127.0.0.1:0"} if native
+              else {"http_address": "127.0.0.1:0"})
+    glob = Server(Config(**listen, **common), metric_sinks=[sink],
+                  device=dev)
+    rec = {"reference_compatible": compat, "histogram_series": series,
+           "transport": "native" if native else "http"}
+    if native:
+        rec["packed"] = packed
     glob.start()
     try:
-        pool = glob.ops_server.import_pool
-        real_handle = pool._handle
-
         rec["import_s"] = 0.0
-
-        def timed_handle(metrics):
-            t0 = time.perf_counter()
-            try:
-                return real_handle(metrics)
-            finally:
-                rec["import_s"] += time.perf_counter() - t0
-
-        pool._handle = timed_handle
+        if native:
+            nsrv = glob.native_import_server
+            nsrv._merge = _timed_into(rec, "import_s", nsrv._merge)
+            address = f"native://127.0.0.1:{nsrv.port}"
+        else:
+            pool = glob.ops_server.import_pool
+            pool._handle = _timed_into(rec, "import_s", pool._handle)
+            address = f"http://127.0.0.1:{glob.ops_server.port}"
         local = Server(Config(
             statsd_listen_addresses=["udp://127.0.0.1:0"],
-            forward_address=f"http://127.0.0.1:{glob.ops_server.port}",
+            forward_address=address, forward_packed_digests=packed,
             forward_reference_compatible=compat, forward_timeout="600s",
             **common), device=dev)
         local.start()
@@ -1150,42 +1534,48 @@ def run_server_global(dev, compat: bool, series: int = 1 << 16,
                                         dtype=np.int32), 4),
                     vals.reshape(-1), np.ones(vals.size, np.float32))
             fwd = local.forwarder
-            real_body = fwd.body
-
             rec["body_build_s"] = 0.0
-
-            def timed_body(state):
-                t0 = time.perf_counter()
-                try:
-                    return real_body(state)
-                finally:
-                    rec["body_build_s"] += time.perf_counter() - t0
-
-            fwd.body = timed_body
+            if not native:
+                fwd.body = _timed_into(rec, "body_build_s", fwd.body)
             t0 = time.perf_counter()
             local.flush()
             rec["local_flush_s"] = time.perf_counter() - t0
             if local.wait_forward(600) is not True:
                 raise AssertionError(f"forward failed ({fwd.errors} errors)")
-            # streaming forward: the histogram group's planes POST as a
-            # part of their own, the rest of the state as a second body
-            posts = len(fwd.post_durations)
-            if posts < 2:
-                raise AssertionError(f"the local POSTed {posts} bodies; "
-                                     "streaming should have split it")
-            rec["posts"] = posts
-            rec["post_s"] = sum(fwd.post_durations)
-            rec["body_bytes"] = sum(fwd.post_content_lengths)
             rec["forwarded"] = fwd.forwarded
             rec["retries"] = fwd.retries
-            deadline = time.time() + 600
-            while pool.merged_batches + pool.failed_batches < posts:
-                if time.time() > deadline:
-                    raise AssertionError("the global never merged the body")
-                time.sleep(0.05)
-            if pool.failed_batches or glob.import_errors:
-                raise AssertionError(f"import failed: {glob.import_errors} "
-                                     "metric errors")
+            rec["post_s"] = sum(fwd.post_durations)
+            rec["body_bytes"] = sum(fwd.post_content_lengths)
+            if native:
+                # one forward: the digest frames, then the rest; each
+                # frame is merged before its ack, so the forward's end
+                # is the import's
+                rec["body_build_s"] = sum(fwd.encode_durations)
+                rec["frames"] = len(fwd.post_content_lengths)
+                if rec["frames"] < 2 or nsrv.import_errors:
+                    raise AssertionError(
+                        f"native forward: {rec['frames']} frames, "
+                        f"{nsrv.import_errors} import errors")
+            else:
+                # streaming forward: the histogram group's planes POST as
+                # a part of their own, the rest of the state as a second
+                # body
+                posts = len(fwd.post_durations)
+                if posts < 2:
+                    raise AssertionError(f"the local POSTed {posts} "
+                                         "bodies; streaming should have "
+                                         "split it")
+                rec["posts"] = posts
+                deadline = time.time() + 600
+                while pool.merged_batches + pool.failed_batches < posts:
+                    if time.time() > deadline:
+                        raise AssertionError("the global never merged the "
+                                             "body")
+                    time.sleep(0.05)
+                if pool.failed_batches or glob.import_errors:
+                    raise AssertionError(f"import failed: "
+                                         f"{glob.import_errors} metric "
+                                         "errors")
             t0 = time.perf_counter()
             glob.flush()
             rec["global_flush_s"] = time.perf_counter() - t0
@@ -1194,7 +1584,8 @@ def run_server_global(dev, compat: bool, series: int = 1 << 16,
             local.shutdown()
     finally:
         glob.shutdown()
-    rec["imported"] = glob.imported_metrics
+    rec["imported"] = (glob.native_import_server.received if native
+                       else glob.imported_metrics)
     rec["overload"] = [srv.overload.snapshot() for srv in (local, glob)]
     by = {m.name: m.value for m in rows}
     want_rows = (udp_series * (2 + 1 + len(pcts))
@@ -1236,17 +1627,32 @@ def run_server_global(dev, compat: bool, series: int = 1 << 16,
     return rec
 
 
+def _timed_into(rec: dict, key: str, fn):
+    """fn, adding its wall seconds to rec[key] each call."""
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            rec[key] += time.perf_counter() - t0
+    return run
+
+
 def phase_server_global(dev, card: str):
     """run_server_global in our structured body format, then in the
-    reference's (gob digests, axiomhq sets, LE scalars). Returns the
-    launch counts of both runs."""
+    reference's (gob digests, axiomhq sets, LE scalars), then over the
+    framed-TCP lane (native://, native_import_address) with packed
+    digests and with forward_packed_digests false. Returns the launch
+    counts of the four runs."""
     from veneur_tpu_torch.ops import tdigest_cuda as tc
 
     _reset_counts(tc)
     recs = [run_server_global(dev, compat) for compat in (False, True)]
+    recs += [run_server_global(dev, False, native=True, packed=packed)
+             for packed in (True, False)]
     counts = _counts(tc)
     # a local flush and a global flush per run
-    if counts["drain_quantile.launches"] < 4:
+    if counts["drain_quantile.launches"] < 8:
         raise AssertionError(f"server_global launched K1 "
                              f"{counts['drain_quantile.launches']}x")
     emit({"phase": "server_global", "card": card, "runs": recs,
@@ -1617,13 +2023,6 @@ def _spilled(store) -> int:
     return sum(getattr(store, g).spilled for g in store._GEN_GROUPS)
 
 
-def _arena_strings(arenas) -> list:
-    """The strings of an EmissionBlock's (blob, offsets, lengths)."""
-    blob, off, ln = arenas
-    return [blob[o:o + n].decode() for o, n in zip(off.tolist(),
-                                                   ln.tolist())]
-
-
 def _block_matrix(blk):
     """A block's emissions as an [S, suffixes] matrix of values, after
     checking that every (row, suffix) cell is emitted exactly once."""
@@ -1646,7 +2045,7 @@ def _check_ingest_flush(col, t, rec):
     digest of the samples; set estimates within 1e-4 of a numpy HLL of
     the members; each service check a status row (an extra) with its
     value and message."""
-    from veneur_tpu_torch.core.columnar import TYPE_COUNTER
+    from veneur_tpu_torch.core.columnar import TYPE_COUNTER, arena_strings
     from veneur_tpu_torch.ops import hll as hll_ops
 
     n, sets, scalars = t["rows"], t["set_series"], t["scalars"]
@@ -1671,7 +2070,7 @@ def _check_ingest_flush(col, t, rec):
 
     def by_index(blk, prefix):
         idx = np.array([int(x[len(prefix) + 1:])
-                        for x in _arena_strings(blk.names)])
+                        for x in arena_strings(blk.names)])
         vals = _block_matrix(blk)[:, 0]
         out = np.full(len(idx), np.nan)
         out[idx] = vals
@@ -1689,7 +2088,7 @@ def _check_ingest_flush(col, t, rec):
     if hb.suffixes != sfx:
         raise AssertionError(f"histogram suffixes {hb.suffixes}")
     mat = _block_matrix(hb)
-    row_of = {name: r for r, name in enumerate(_arena_strings(hb.names))}
+    row_of = {name: r for r, name in enumerate(arena_strings(hb.names))}
     rng = np.random.default_rng(SEED + 7)
     pick = rng.choice(n, min(4096, n), replace=False)
     sel = mat[[row_of[f"ingest.h.{i}"] for i in pick]]
@@ -1888,7 +2287,7 @@ def _check_bodies(recv, col, first_chunk, rec):
     bodies (counters and gauges) parse back to their blocks exactly
     (names, types, values, the counters as rates). Empties the
     receiver."""
-    from veneur_tpu_torch.core.columnar import TYPE_COUNTER
+    from veneur_tpu_torch.core.columnar import TYPE_COUNTER, arena_strings
 
     series = [(raw, enc) for path, raw, enc in recv.bodies
               if path == "/api/v1/series"]
@@ -1913,7 +2312,7 @@ def _check_bodies(recv, col, first_chunk, rec):
         got = [s for body in first[k:k + nbodies]
                for s in json.loads(body)["series"]]
         k += nbodies
-        names = _arena_strings(blk.names)
+        names = arena_strings(blk.names)
         expect = [(names[r] + blk.suffixes[x].decode(),
                    "rate" if ty == TYPE_COUNTER else "gauge",
                    v / INGEST_INTERVAL_S if ty == TYPE_COUNTER else v)
@@ -3829,7 +4228,7 @@ def _ptxas_summary(logs) -> list:
 
 
 PHASES = ("store", "server", "ingest", "ssf", "heavy_hitters", "overload",
-          "global_merge", "server_global")
+          "global_merge", "native_merge", "server_global")
 
 
 def main() -> int:
@@ -3893,6 +4292,7 @@ def main() -> int:
             "heavy_hitters": lambda: phase_heavy_hitters(dev, card),
             "overload": lambda: phase_overload(dev, card),
             "global_merge": lambda: phase_global_merge(dev, card),
+            "native_merge": lambda: phase_native_merge(dev, card),
             "server_global": lambda: phase_server_global(dev, card)}
     kern = phase_kernels(dev)
     # the main path's launches: each phase resets the counts just before

@@ -432,3 +432,67 @@ def test_columnar_flush_on_cuda_matches_per_row(cuda):
         out.append(sorted((m.name, tuple(m.tags), m.type.value, m.value)
                           for m in final.to_intermetrics()))
     assert out[0] == out[1] and len(out[0]) == 300 * 5 + 100
+
+
+def test_pack_on_cuda_matches_cpu(cuda):
+    """The forward path's on-device pack (core/slab.py) on the card
+    equals its CPU run bit for bit: counts, prefix planes and the
+    fetched live centroids, through both fetch strategies."""
+    from veneur_tpu_torch.core import slab
+
+    rng = np.random.default_rng(41)
+    for heavy in (False, True):
+        ma, wa, _mb, _wb, mn, mx = _halves(rng, 4096, dead_means=True)
+        wa = np.where(rng.random(wa.shape) < 0.1, wa, 0).astype(np.float32)
+        if heavy:
+            wa[5] = 1.0
+        planes = [torch.from_numpy(a) for a in (ma, wa, mn, mx)]
+        cpu = slab._pack_slab(*planes)
+        card = slab._pack_slab(*(p.to(cuda) for p in planes))
+        for got, want in zip(card, cpu):
+            assert torch.equal(got.cpu(), want)
+        for got, want in zip(slab._fetch_packed(*card, 4000),
+                             slab._fetch_packed(*cpu, 4000)):
+            np.testing.assert_array_equal(got, want)
+
+
+def test_native_forward_on_cuda_matches_cpu(cuda):
+    """A port local on the card packs, encodes and sends MetricList
+    frames over loopback TCP to a port global on the card: its rows
+    equal the same pair's on the CPU (percentiles within 1e-4 x span)."""
+    from veneur_tpu_torch.forward.native_transport import (
+        NativeForwarder, NativeImportServer)
+
+    rng = np.random.default_rng(42)
+    lines = [f"n.h.{i % 300}:{rng.gamma(2.0, 10.0):.4f}|h".encode()
+             for i in range(3000)]
+    lines += [f"n.c.{i}:{i}|c|#veneurglobalonly".encode() for i in range(9)]
+    lines += [f"n.s.{i % 7}:m{i}|s".encode() for i in range(200)]
+    aggs = HistogramAggregates.from_names(["min", "max", "count"])
+    out = {}
+    for dev in ("cpu", cuda):
+        local = MetricStore(chunk=512, device=dev)
+        glob = MetricStore(chunk=512, device=dev)
+        for line in lines:
+            local.process_metric(parse_metric(line))
+        state = local.flush([0.5, 0.99], aggs, 0, is_local=True,
+                            columnar=True, digest_format="packed")[1]
+        srv = NativeImportServer(glob)
+        srv.start("127.0.0.1:0")
+        fwd = NativeForwarder(f"native://127.0.0.1:{srv.port}", timeout=5.0)
+        try:
+            assert fwd.forward(state) is True
+        finally:
+            fwd.close()
+            srv.stop()
+        assert srv.import_errors == 0 and srv.received == 300 + 9 + 7
+        out[str(dev)] = {(m.name, m.type.value): m.value for m in
+                         glob.flush([0.5, 0.99], aggs, 0)[0]
+                         .to_intermetrics()}
+    got, want = out[str(cuda)], out["cpu"]
+    assert set(got) == set(want) and len(want) == 2 * 300 + 9 + 7
+    for key, value in want.items():
+        if "percentile" in key[0]:
+            assert abs(got[key] - value) <= 1e-4 * 60, key
+        else:
+            assert got[key] == value, key

@@ -345,7 +345,8 @@ def _global_counts(pair, name, fail_first_part=False):
     def forward(state, deadline=None):
         if fail_first_part and not failed and (
                 state.histograms_columnar is not None):
-            failed.append(len(state.histograms_columnar[0]))
+            # the part's names arenas: (blob, offsets, lengths)
+            failed.append(len(state.histograms_columnar[0][1]))
             return False
         return real(state, deadline=deadline)
 

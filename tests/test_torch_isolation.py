@@ -104,6 +104,13 @@ def test_egress_modules_are_covered():
     assert (PKG / "native" / "veneur_egress.cpp").is_file()
 
 
+def test_native_forward_modules_are_covered():
+    """The packed binary forward's modules (the MetricList codec, the
+    on-card pack, the framed-TCP lane) are scanned and imported too."""
+    assert {"veneur_tpu_torch.protocol.mlist", "veneur_tpu_torch.core.slab",
+            "veneur_tpu_torch.forward.native_transport"} <= set(_modules())
+
+
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"

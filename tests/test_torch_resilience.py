@@ -269,7 +269,8 @@ def test_config_knobs_match_jax_defaults():
         Config(hostname="h", breaker_failure_threshold=-1)
     with pytest.raises(UnsupportedConfig):
         Config(hostname="h", forward_address="x:1", forward_use_grpc=True)
-    with pytest.raises(UnsupportedConfig):
-        Config(hostname="h", forward_address="native://x:1")
+    # the framed-TCP lane is ported: native:// is a forward address
+    assert Config(hostname="h", forward_address="native://x:1") \
+        .forward_address == "native://x:1"
     with pytest.raises(ValueError, match="duration"):
         Config(hostname="h", forward_timeout="ten seconds")

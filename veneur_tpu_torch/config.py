@@ -58,10 +58,13 @@ class Config:
     # (num_readers); N > 0 = N lanes; -1 = off (the C++ reader pool, else
     # the Python readers)
     ingest_lanes: int = 0
-    # global aggregation: a local forwards to forward_address; a global
+    # global aggregation: a local forwards to forward_address (http://
+    # or native://host:port, the framed-TCP MetricList lane); a global
     # serves POST /import (and /healthcheck, /version) on http_address
+    # and the framed-TCP import on native_import_address
     forward_address: str = ""
     http_address: str = ""
+    native_import_address: str = ""
     # per-flush forward budget: retries never push a forward past it
     forward_timeout: str = ""
     # forward in the reference's JSONMetric format (gob digests, axiomhq
@@ -69,8 +72,9 @@ class Config:
     forward_reference_compatible: bool = False
     # only false: the gRPC transport is not ported
     forward_use_grpc: bool = False
-    # accepted and unused: it shapes only the gRPC wire (as in the
-    # reference, HTTP forwarding ignores it)
+    # native:// forwarding ships device-packed digests (u16 means,
+    # bfloat16 weights: tdigest fields 16/17); false keeps the dense
+    # float64 wire a global without those fields reads (HTTP ignores it)
     forward_packed_digests: bool = True
     # RE-tries per forward (0 = one attempt; -1 = unset, defaults to 2)
     retry_max: int = -1
@@ -158,11 +162,11 @@ class Config:
                 raise UnsupportedConfig(
                     f"statsd_listen_addresses: {spec!r} is not a udp:// "
                     "address; TCP and UNIX listeners are not ported yet")
-        if self.forward_use_grpc \
-                or self.forward_address.startswith("native://"):
+        if self.forward_use_grpc:
             raise UnsupportedConfig(
-                "only HTTP forwarding is ported: forward_use_grpc and "
-                "native:// forward addresses need veneur_tpu")
+                "only HTTP forwarding and native:// are ported: "
+                "forward_use_grpc needs grpcio and protobuf (run "
+                "veneur_tpu for it)")
         for spec in self.ssf_listen_addresses:
             if not spec.startswith(_SSF_SCHEMES):
                 raise UnsupportedConfig(

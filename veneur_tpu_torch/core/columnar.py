@@ -62,6 +62,24 @@ def build_arenas(strs: List[str]) -> Arenas:
     return blob, offs.astype(np.uint32), (ends - offs).astype(np.uint32)
 
 
+def arena_strings(arenas: Arenas) -> List[str]:
+    """The strings of (blob, offsets, lengths), the inverse of
+    :func:`build_arenas`: one decode and split when the spans are its
+    NUL-separated layout, else a decode a span."""
+    blob, offs, lens = arenas
+    n = len(offs)
+    lens64 = np.asarray(lens, np.int64)
+    starts = np.cumsum(lens64 + 1) - lens64 - 1
+    if n and np.array_equal(np.asarray(offs, np.int64), starts) \
+            and int(starts[-1] + lens64[-1]) == len(blob):
+        parts = blob.decode("utf-8", "replace").split("\x00")
+        if len(parts) == n and np.array_equal(
+                np.fromiter(map(len, parts), np.int64, n), lens64):
+            return parts
+    return [blob[o:o + ln].decode("utf-8", "replace")
+            for o, ln in zip(offs.tolist(), lens.tolist())]
+
+
 @dataclass
 class EmissionBlock:
     """One group's flush output as columns: S rows (names/tags arenas)

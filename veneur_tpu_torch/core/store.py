@@ -34,10 +34,12 @@ The per-interval flush drains every digest group through the K1 kernel
 (``ops/tdigest_cuda.drain_quantile``) and every set group through one
 batched estimate. The store plays either role of global aggregation: a
 local's flush (``is_local=True``) returns the sketch state it forwards
-(:class:`ForwardableState`), and a global merges forwarded state through
-the ``import_*`` methods, where imported centroids re-enter the binning
-as weighted samples (a shift between imported digests drains the bins
-through the K2 kernel). A flush is a plan of per-group units: every
+(:class:`ForwardableState`; with ``digest_format="packed"`` its digest
+planes are packed on the device, ``core/slab.py``), and a global merges
+forwarded state through the ``import_*`` methods (``import_columnar``
+for a MetricList frame decoded in C++), where imported centroids
+re-enter the binning as weighted samples (a shift between imported
+digests drains the bins through the K2 kernel). A flush is a plan of per-group units: every
 group's device program dispatches before any fetch blocks, and one
 serializer thread emits each fetched result (``flush_pipeline_depth``,
 ``core/pipeline.py``). A columnar flush emits ``EmissionBlock`` columns
@@ -53,10 +55,11 @@ planes, so a retired generation never aliases the live one.
 
 from __future__ import annotations
 
+import logging
 import math
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +69,7 @@ from veneur_tpu_torch.core import columnar
 from veneur_tpu_torch.core.bucketing import pow2_cap
 from veneur_tpu_torch.core.columnar import ColumnarFlush
 from veneur_tpu_torch.core.pipeline import SerializerLane
+from veneur_tpu_torch.core.slab import _fetch_packed, _pack_slab
 from veneur_tpu_torch.device import resolve_device
 from veneur_tpu_torch.ops import countmin as cm_ops
 from veneur_tpu_torch.ops import hll as hll_ops
@@ -89,6 +93,8 @@ from veneur_tpu_torch.samplers.parser import (
     UDPMetric,
     truncate_joined_tags,
 )
+
+log = logging.getLogger("veneur.store")
 
 DEFAULT_CHUNK = 1 << 14
 DEFAULT_INITIAL_CAPACITY = 1 << 10
@@ -716,16 +722,18 @@ class DigestGroup(OverloadLimited):
         self._drain_samples()
         self._drain_imports()
 
-    def flush(self, percentiles: List[float], want_digests: bool = False,
+    def flush(self, percentiles: List[float], want_digests=False,
               want_stats=None):
         """Run the flush program; returns (interner, host result dict) and
         resets the group. ``want_stats`` (None = all) selects the per-row
         stat columns fetched; ``want_digests`` (a forwarding flush) also
-        fetches the drained digests' mean/weight planes and extrema."""
+        fetches the drained digests: True their mean/weight planes and
+        extrema, ``"packed"`` only their live centroids, compacted and
+        quantized on the device (``core/slab.py``), and the extrema."""
         return self.flush_begin(percentiles, want_digests, want_stats)()
 
-    def flush_begin(self, percentiles: List[float],
-                    want_digests: bool = False, want_stats=None):
+    def flush_begin(self, percentiles: List[float], want_digests=False,
+                    want_stats=None):
         """Two-phase flush: drain staging and DISPATCH the flush program
         now (kernel launches are asynchronous), and return a ``finish()``
         whose device->host copy blocks later, so the store can dispatch
@@ -770,8 +778,17 @@ class DigestGroup(OverloadLimited):
             self.compression)
         stats = {"pcts": pcts, "count": count, "sum": vsum, "min": vmin,
                  "max": vmax, "recip": recip}
-        planes = ((digest.mean[:n], digest.weight[:n], digest.min[:n],
-                   digest.max[:n]) if want_digests else ())
+        if want_digests == "packed":
+            # the pack runs on the whole capacity, as JAX's _pack_slab on
+            # the slab; the fetch takes the first n rows
+            planes = ("packed",) + _pack_slab(
+                digest.mean, digest.weight, digest.min, digest.max) + (
+                digest.min[:n], digest.max[:n])
+        elif want_digests:
+            planes = ("dense", digest.mean[:n], digest.weight[:n],
+                      digest.min[:n], digest.max[:n])
+        else:
+            planes = ()
         return sel, tuple(stats[nm][:n] for nm in sel), planes
 
     def _flush_collect(self, pending, n: int, percentiles) -> dict:
@@ -792,14 +809,23 @@ class DigestGroup(OverloadLimited):
             out["percentiles"] = np.zeros((n, len(percentiles)), np.float32)
             out["median"] = zeros
         if planes:
-            out.update(self._fetch_planes(planes))
+            out.update(self._fetch_planes(planes, n))
         return out
 
     @staticmethod
-    def _fetch_planes(planes) -> dict:
-        """The drained digests a forwarding flush ships: [n, K] mean and
-        weight planes plus [n] extrema, copied to the host."""
-        mean, weight, dmin, dmax = (_to_host(t) for t in planes)
+    def _fetch_planes(planes, n: int) -> dict:
+        """The drained digests a forwarding flush ships, copied to the
+        host: dense, the [n, K] mean and weight planes; packed, the live
+        centroids (``packed_counts``/``_means``/``_weights``, see
+        PackedDigestPlanes); both with the [n] extrema."""
+        kind, *refs = planes
+        if kind == "packed":
+            counts, q_pref, wb_pref, dmin, dmax = refs
+            pc, pm, pw = _fetch_packed(counts, q_pref, wb_pref, n)
+            return {"packed_counts": pc, "packed_means": pm,
+                    "packed_weights": pw, "digest_min": _to_host(dmin),
+                    "digest_max": _to_host(dmax)}
+        mean, weight, dmin, dmax = (_to_host(t) for t in refs)
         return {"digest_mean": mean, "digest_weight": weight,
                 "digest_min": dmin, "digest_max": dmax}
 
@@ -943,12 +969,21 @@ class SetGroup(OverloadLimited):
         """Merge a forwarded sketch: elementwise register max
         (samplers.go:423-435). A precision mismatch raises for this
         metric alone (cf. Set.Combine's error), never for the batch."""
+        registers = self._checked(registers)
+        self.import_registers_row(self._row(key, tags), registers)
+
+    def _checked(self, registers) -> np.ndarray:
         registers = np.asarray(registers)
         if registers.shape != (self.m,):
             raise ValueError(
                 f"HLL precision mismatch: got {registers.shape}, "
                 f"want ({self.m},)")
-        row = self._row(key, tags)
+        return registers
+
+    def import_registers_row(self, row: int, registers: np.ndarray):
+        """Row-addressed variant for the columnar import (the row came
+        from the C++ MetricList table); the same precision check."""
+        registers = self._checked(registers)
         self._imp_rows.append(row)
         self._imp_regs.append(registers)
         if len(self._imp_rows) >= IMPORT_DRAIN_BATCH:
@@ -1299,6 +1334,59 @@ _DIGEST_GROUPS = ("histograms", "timers", "local_histograms", "local_timers")
 _SET_GROUPS = ("sets", "local_sets")
 
 
+class PackedDigestPlanes(NamedTuple):
+    """Device-packed digest planes for the forward path: only the live
+    centroids, 4 bytes each (a u16 range-quantized mean and a u16
+    bfloat16 weight), packed on the device by ``core/slab.py``
+    ``_pack_slab``, so a million-series forward never fetches the raw
+    [S, K] float32 planes. Row r owns
+    ``means_q[starts[r]:starts[r] + counts[r]]``, with
+    ``mean = dmin[r] + q/65535 * (dmax[r] - dmin[r])``."""
+
+    counts: np.ndarray      # [S] u16 live centroids a row
+    means_q: np.ndarray     # [L] u16 quantized means
+    weights_bf: np.ndarray  # [L] u16 bfloat16 bit patterns
+    dmin: np.ndarray        # [S] f32 digest minima (+inf when empty)
+    dmax: np.ndarray        # [S] f32 digest maxima (-inf when empty)
+
+    @property
+    def nrows(self) -> int:
+        return len(self.counts)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(a.nbytes for a in self)
+
+    def weights_f32(self) -> np.ndarray:
+        return (self.weights_bf.astype(np.uint32) << 16).view(np.float32)
+
+    def means_f64(self) -> np.ndarray:
+        """Dequantized means, flat over all rows in row order."""
+        counts = self.counts.astype(np.int64)
+        span = (self.dmax.astype(np.float64)
+                - self.dmin.astype(np.float64)) / 65535.0
+        base = np.repeat(self.dmin.astype(np.float64), counts)
+        return base + self.means_q.astype(np.float64) * np.repeat(span,
+                                                                  counts)
+
+    def row_slices(self):
+        """(starts, ends, means f64 [L], weights f64 [L]): row r's
+        centroids are ``means[starts[r]:ends[r]]``; the one place the
+        quantization is decoded on the host."""
+        counts = self.counts.astype(np.int64)
+        ends = np.cumsum(counts)
+        return (ends - counts, ends, self.means_f64(),
+                self.weights_f32().astype(np.float64))
+
+
+def _packed_planes_from_result(r: dict) -> PackedDigestPlanes:
+    """The PackedDigestPlanes of a group's packed flush result."""
+    return PackedDigestPlanes(
+        r["packed_counts"], r["packed_means"], r["packed_weights"],
+        np.asarray(r["digest_min"], np.float32),
+        np.asarray(r["digest_max"], np.float32))
+
+
 @dataclass
 class ForwardableState:
     """Sketch state a local forwards to the global tier
@@ -1307,10 +1395,12 @@ class ForwardableState:
     count-min table plus each series' top-k candidates.
 
     A flush leaves each forwarded digest group in ``histograms_columnar``
-    / ``timers_columnar`` as its dense planes, (names, tags, mean [n, K],
-    weight [n, K], dmin [n], dmax [n]); :meth:`materialize_digests` turns
-    them into the per-row tuples the JSON wire needs, off the flush's
-    emission path."""
+    / ``timers_columnar`` as (names arenas, tags arenas, planes...): the
+    dense planes spread inline, (names, tags, mean [n, K], weight [n, K],
+    dmin [n], dmax [n]), or one :class:`PackedDigestPlanes`, (names,
+    tags, planes). The native forwarder's C++ encoders take them as they
+    are; :meth:`materialize_digests` turns them into the per-row tuples
+    the JSON wire needs, off the flush's emission path."""
 
     counters: List[Tuple[str, List[str], int]] = field(default_factory=list)
     gauges: List[Tuple[str, List[str], float]] = field(default_factory=list)
@@ -1325,43 +1415,58 @@ class ForwardableState:
     # [(name, tags, [(hi, lo)...], [member-or-None...])]) or None
     topk: Optional[tuple] = None
 
+    @staticmethod
+    def _columnar_rows(col) -> int:
+        return 0 if col is None else len(col[0][1])
+
     def __len__(self):
         return (len(self.counters) + len(self.gauges) + len(self.histograms)
                 + len(self.timers) + len(self.sets)
-                + sum(len(col[0]) for col in (self.histograms_columnar,
-                                              self.timers_columnar)
-                      if col is not None)
+                + self._columnar_rows(self.histograms_columnar)
+                + self._columnar_rows(self.timers_columnar)
                 + (len(self.topk[1]) if self.topk else 0))
 
     def materialize_digests(self):
-        """Convert the dense digest planes into per-row tuples holding only
-        the live centroids (weight > 0) in mean order, as float64."""
+        """Convert the columnar digest planes into per-row tuples holding
+        only the live centroids (weight > 0) in mean order, as float64;
+        packed planes dequantize."""
         for attr, col_attr in (("histograms", "histograms_columnar"),
                                ("timers", "timers_columnar")):
             col = getattr(self, col_attr)
             if col is None:
                 continue
-            names, tags, means, weights, dmins, dmaxs = col
-            live = weights > 0
-            ends = np.cumsum(live.sum(1))
-            flat_m = means[live].astype(np.float64)
-            flat_w = weights[live].astype(np.float64)
-            out = getattr(self, attr)
-            start = 0
-            for r, end in enumerate(ends.tolist()):
-                out.append((names[r], tags[r], flat_m[start:end],
-                            flat_w[start:end], float(dmins[r]),
-                            float(dmaxs[r])))
-                start = end
+            names = columnar.arena_strings(col[0])
+            tags = [j.split(",") if j else []
+                    for j in columnar.arena_strings(col[1])]
+            if isinstance(col[2], PackedDigestPlanes):
+                p = col[2]
+                starts, ends, flat_m, flat_w = p.row_slices()
+                dmins, dmaxs = p.dmin, p.dmax
+            else:
+                means, weights, dmins, dmaxs = col[2:]
+                live = weights > 0
+                ends = np.cumsum(live.sum(1))
+                starts = ends - live.sum(1)
+                flat_m = means[live].astype(np.float64)
+                flat_w = weights[live].astype(np.float64)
+            getattr(self, attr).extend(
+                (names[r], tags[r], flat_m[a:b], flat_w[a:b],
+                 float(dmins[r]), float(dmaxs[r]))
+                for r, (a, b) in enumerate(zip(starts.tolist(),
+                                               ends.tolist())))
             setattr(self, col_attr, None)
 
 
 def _digest_want(percentiles, aggregates: HistogramAggregates,
-                 forwarding: bool):
+                 forwarding: bool, digest_format: str = "dense"):
     """(want_digests, want_stats) of one digest group's flush: the digest
-    planes only when the group forwards, and the per-row stat columns
-    this aggregate config reads; the rest are zero-filled and never
-    emitted, because the same mask gates their emissions."""
+    planes only when the group forwards (``"packed"`` with
+    ``digest_format="packed"``), and the per-row stat columns this
+    aggregate config reads; the rest are zero-filled and never emitted,
+    because the same mask gates their emissions."""
+    want = forwarding
+    if forwarding and digest_format == "packed":
+        want = "packed"
     agg = aggregates.value
     want_stats = set()
     if agg & (Aggregate.COUNT | Aggregate.AVERAGE
@@ -1377,7 +1482,7 @@ def _digest_want(percentiles, aggregates: HistogramAggregates,
         want_stats.add("recip")
     if (agg & Aggregate.MEDIAN) or percentiles:
         want_stats.add("pcts")
-    return forwarding, want_stats
+    return want, want_stats
 
 
 class _Generation:
@@ -1460,6 +1565,9 @@ class MetricStore:
         # kind -> group table; both restart with every generation
         self._native_table: Optional[native.InternTable] = None
         self._kind_groups: Optional[tuple] = None
+        # import_columnar's C++ (type, payload, name, tags) -> row memo;
+        # it too restarts with every generation
+        self._mlist_table = None
 
     # -- overload plumbing (overload.py) -------------------------------------
 
@@ -1834,13 +1942,155 @@ class MetricStore:
                        for name, tags, keys, members in series]
             self.heavy_hitters.import_sketch(table, entries)
 
+    def _intern_mlist(self, dec) -> np.ndarray:
+        """import_columnar's row assignment (caller holds _lock): the C++
+        table's hits, then a Python pass over the first-seen misses that
+        interns each in the group its payload picks and teaches the
+        table. Rows of metrics with an unknown type or no value stay
+        ``MISS``."""
+        from veneur_tpu_torch.forward.convert import type_name
+        from veneur_tpu_torch.native import egress
+        from veneur_tpu_torch.protocol import mlist
+
+        if self._mlist_table is None:
+            self._mlist_table = egress.MListInternTable()
+        table = self._mlist_table
+        rows, miss = table.assign(dec)
+        arena = dec.arena
+        for i in miss.tolist():
+            t, pay = int(dec.type[i]), int(dec.payload[i])
+            try:
+                tname = type_name(t)
+            except ValueError:
+                continue
+            if pay == egress.PAYLOAD_COUNTER:
+                group = self.global_counters
+            elif pay == egress.PAYLOAD_GAUGE:
+                group = self.global_gauges
+            elif pay == egress.PAYLOAD_HISTOGRAM:
+                group = self.timers if t == mlist.TIMER else self.histograms
+            elif pay == egress.PAYLOAD_SET:
+                group = self.sets
+            else:
+                continue
+            no, nl = int(dec.name_off[i]), int(dec.name_len[i])
+            to, tl = int(dec.tags_off[i]), int(dec.tags_len[i])
+            name_b, tags_b = arena[no:no + nl], arena[to:to + tl]
+            joined = self._truncate_tags(tags_b.decode("utf-8", "replace"))
+            key = MetricKey(name=name_b.decode("utf-8", "replace"),
+                            type=tname, joined_tags=joined)
+            row = group._row(key, joined.split(",") if joined else [])
+            rows[i] = row
+            table.put(t, pay, name_b, tags_b, row)
+        return rows
+
+    def import_columnar(self, dec, data: bytes) -> Tuple[int, int]:
+        """Merge a MetricList decoded in C++ (``native/egress.py``
+        DecodedMetricList) in one pass: rows assigned by the C++
+        MetricList table, the first-seen misses resolved in Python and
+        taught back, then numpy bulk staging a payload kind (counters,
+        gauges, digests through ``import_centroids_bulk``, set
+        registers, the top-k sketch). ``data`` is the frame (the set
+        spans index into it). Returns (n_ok, n_err): a metric with an
+        unknown type or no value, or one the store rejects, is an error;
+        a failing digest batch counts its digests as errors.
+
+        Reference path: importsrv.SendMetrics' group-by-worker and
+        ImportMetricGRPC's per-sampler Merge (importsrv/server.go:101-132,
+        worker.go:354-398)."""
+        from veneur_tpu_torch.forward.convert import (decode_hll,
+                                                      decode_topk_sketch)
+        from veneur_tpu_torch.native import egress
+        from veneur_tpu_torch.protocol import mlist
+
+        n_err = 0
+        with self._lock:
+            rows = self._intern_mlist(dec)
+            ok = rows != egress.MISS
+            n_err += int((~ok).sum())
+            payload = dec.payload
+            n_ok = 0
+            sel = np.flatnonzero(ok & (payload == egress.PAYLOAD_COUNTER))
+            if len(sel):
+                grp_rows = rows[sel].astype(np.int64)
+                self.global_counters.ensure_capacity(int(grp_rows.max()))
+                self.global_counters.add_many(grp_rows, dec.ivalue[sel])
+                n_ok += len(sel)
+            sel = np.flatnonzero(ok & (payload == egress.PAYLOAD_GAUGE))
+            if len(sel):
+                grp_rows = rows[sel].astype(np.int64)
+                self.global_gauges.ensure_capacity(int(grp_rows.max()))
+                self.global_gauges.set_many(grp_rows, dec.dvalue[sel])
+                n_ok += len(sel)
+
+            histo_sel = ok & (payload == egress.PAYLOAD_HISTOGRAM)
+            for group, type_match in ((self.histograms,
+                                       dec.type != mlist.TIMER),
+                                      (self.timers, dec.type == mlist.TIMER)):
+                sel = np.flatnonzero(histo_sel & type_match)
+                if not len(sel):
+                    continue
+                grp_rows = rows[sel]
+                group.ensure_capacity(int(grp_rows.max()))
+                lens = dec.cent_len[sel].astype(np.int64)
+                starts = dec.cent_off[sel].astype(np.int64)
+                # grouped-arange gather of each digest's centroid span
+                total = int(lens.sum())
+                span_ends = np.cumsum(lens)
+                idx = (np.repeat(starts - (span_ends - lens), lens)
+                       + np.arange(total, dtype=np.int64))
+                stat_mask = np.isfinite(dec.dmin[sel])
+                try:
+                    group.import_centroids_bulk(
+                        np.repeat(grp_rows, lens).astype(np.int32),
+                        dec.means[idx], dec.weights[idx],
+                        grp_rows[stat_mask].astype(np.int32),
+                        dec.dmin[sel][stat_mask].astype(np.float32),
+                        dec.dmax[sel][stat_mask].astype(np.float32))
+                    n_ok += len(sel)
+                except Exception:
+                    # not transactional: a prefix may be staged already,
+                    # so the batch counts as errors and is not retried
+                    n_err += len(sel)
+                    log.exception("bulk digest import failed; dropping %d "
+                                  "digests", len(sel))
+
+            for i in np.flatnonzero(ok & (payload == egress.PAYLOAD_SET)):
+                ho, hn = int(dec.hll_off[i]), int(dec.hll_len[i])
+                try:
+                    registers, _ = decode_hll(data[ho:ho + hn])
+                    self.sets.import_registers_row(int(rows[i]), registers)
+                    n_ok += 1
+                except Exception as e:
+                    n_err += 1
+                    log.debug("store rejected an imported set: %s", e)
+
+            if dec.topk_len:
+                off = int(dec.topk_off)
+                try:
+                    cm_table, series = decode_topk_sketch(mlist.decode_topk(
+                        data[off:off + int(dec.topk_len)]))
+                    self.heavy_hitters.import_sketch(cm_table, [
+                        (MetricKey(name=name, type="set",
+                                   joined_tags=",".join(tags)),
+                         tags, keys, members)
+                        for name, tags, keys, members in series])
+                    n_ok += 1
+                except Exception as e:
+                    n_err += 1
+                    log.debug("store rejected an imported top-k sketch: %s",
+                              e)
+
+            self.imported += n_ok
+            return n_ok, n_err
+
     # -- flush ---------------------------------------------------------------
 
     def flush(self, percentiles: List[float],
               aggregates: HistogramAggregates, now: int,
               is_local: bool = False, forward: bool = True,
               forward_topk: bool = True, columnar: bool = False,
-              stream=None):
+              digest_format: str = "dense", stream=None):
         """Drain everything and reset all groups; returns (the rows for
         the sinks, the :class:`ForwardableState` a local forwards).
         Mirrors generateInterMetrics (flusher.go:189-254): a local
@@ -1859,6 +2109,11 @@ class MetricStore:
         ``veneursinkonly:`` routing) its per-row extras; without it,
         every row is an extra (``to_intermetrics()`` gives the list).
 
+        ``digest_format="packed"`` makes the forwarded digest groups pack
+        their drained planes on the device (:class:`PackedDigestPlanes`:
+        the live centroids, 4 bytes each) instead of fetching the raw
+        [S, K] float32 planes; it matters only on a forwarding local.
+
         ``stream`` (a :class:`~veneur_tpu_torch.core.pipeline.ChunkStream`)
         hands each completed group's blocks to the streaming sinks as one
         chunk the moment they exist, and with a forward lane ships each
@@ -1873,7 +2128,7 @@ class MetricStore:
                 gen = self._swap_generation()
             return self._flush_generation(gen, percentiles, aggregates, now,
                                           is_local, forward, forward_topk,
-                                          columnar, stream)
+                                          columnar, digest_format, stream)
 
     def _swap_generation(self) -> _Generation:
         """Retire every group behind an empty twin (caller holds _lock).
@@ -1892,13 +2147,15 @@ class MetricStore:
         self.processed = self.imported = 0
         self.flush_epoch += 1
         self._kind_groups = None  # it holds the retired groups
-        if self._native_table is not None:
-            self._native_table.reset()  # rows restart in the fresh twins
+        for table in (self._native_table, self._mlist_table):
+            if table is not None:
+                table.reset()  # rows restart in the fresh twins
         return gen
 
     def _flush_generation(self, g: _Generation, percentiles, aggregates,
                           now, is_local=False, forward=True,
-                          forward_topk=True, columnar=False, stream=None):
+                          forward_topk=True, columnar=False,
+                          digest_format="dense", stream=None):
         """Drain a retired generation into emissions and forwardable
         state. The drain is a plan of per-group units run by
         :meth:`_run_flush_units`: in turn with ``flush_pipeline_depth``
@@ -1928,7 +2185,8 @@ class MetricStore:
                 ("local_histograms", list(percentiles), None),
                 ("local_timers", list(percentiles), None)):
             want, want_stats = _digest_want(pcts, aggregates,
-                                             fwd_attr is not None)
+                                             fwd_attr is not None,
+                                             digest_format)
             group = getattr(g, name)
             units.append((
                 name,
@@ -2059,12 +2317,17 @@ class MetricStore:
         interner, r = res
         agg = aggregates.value
         part = None
-        if fwd_attr is not None and len(interner):
-            part = (interner.names, interner.tags, r["digest_mean"],
-                    r["digest_weight"], r["digest_min"], r["digest_max"])
-        if col is not None and len(interner):
+        if (fwd_attr is not None or col is not None) and len(interner):
             names = columnar.build_arenas(interner.names)
             tags = columnar.build_arenas(interner.joined)
+        if fwd_attr is not None and len(interner):
+            # the arenas the C++ encoders take, shared with the block
+            if "packed_counts" in r:
+                part = (names, tags, _packed_planes_from_result(r))
+            else:
+                part = (names, tags, r["digest_mean"], r["digest_weight"],
+                        r["digest_min"], r["digest_max"])
+        if col is not None and len(interner):
             if not columnar.has_sink_routing(tags[0]):
                 block = columnar.digest_block(names, tags, r, agg,
                                               percentiles)

@@ -5,7 +5,9 @@ the interval's events go to every metric sink's ``flush_other_samples``
 (flusher.go:42-47); the span sinks flush on a thread of their own
 (flusher.go:49), each sink once; the store drains into the sinks' rows
 and, on a local, the ForwardableState it forwards; the forward runs on
-its own thread off the flush path (flusher.go:66-75); each metric sink
+its own thread off the flush path (flusher.go:66-75), its digest groups
+packed on the device when the forwarder asks for them (the native
+lane's ``wants_packed_digests``); each metric sink
 flushes on a thread of its own (flusher.go:82-93), and the plugins run
 after the sinks (flusher.go:95-109).
 
@@ -63,6 +65,11 @@ def flush_once(server: "Server") -> int:
     use_columnar = server.config.flush_columnar
     if use_columnar:
         egress.load()  # the first call builds the library; raises if not
+    # device-packed digest planes whenever the forwarder takes them (the
+    # native lane): only live centroids cross to the host, 4 bytes each
+    digest_format = "packed" if (
+        forwarding and getattr(server.forwarder, "wants_packed_digests",
+                               False)) else "dense"
     stream, stream_sinks = _build_stream(server, now, deadline,
                                          use_columnar, forwarding)
     try:
@@ -70,7 +77,8 @@ def flush_once(server: "Server") -> int:
         final, forwardable = server.store.flush(
             server.histogram_percentiles, server.histogram_aggregates, now,
             is_local=is_local, forward=forwarding, forward_topk=topk_ok,
-            columnar=use_columnar, stream=stream)
+            columnar=use_columnar, digest_format=digest_format,
+            stream=stream)
         log.debug("store flush of %d rows took %.1f ms", len(final),
                   (time.perf_counter() - t0) * 1e3)
         if forwarding and len(forwardable):

@@ -1,11 +1,12 @@
 """Forwarding tier of the port: a local's sketch state to a global over
-HTTP ``POST /import`` (flusher.go:292-385, http.go:41-143).
+HTTP ``POST /import`` (flusher.go:292-385, http.go:41-143) or over the
+framed-TCP MetricList lane (``native://``, ``native_transport.py``).
 
-Port of the HTTP half of ``veneur_tpu/forward/``. The import side reads
+Port of ``veneur_tpu/forward/`` but for gRPC. The HTTP import side reads
 both our structured JSON and the reference's gob/axiomhq entries, and
 ``forward_reference_compatible`` makes a local send the reference's
-format. The gRPC transport and the framed native transport are not
-ported: :class:`~veneur_tpu_torch.config.Config` refuses them.
+format. The gRPC transport needs protobuf and grpc, which the card's
+machine lacks: :class:`~veneur_tpu_torch.config.Config` refuses it.
 """
 
 from veneur_tpu_torch.forward.convert import (apply_json_metric,
@@ -26,23 +27,34 @@ __all__ = [
 
 
 def configure_forwarding(server):
-    """Attach the configured HTTP forwarder to a local server
-    (flusher.go:66-75), with the retry policy, a breaker for the one
-    upstream destination and ``forward_timeout`` as its per-flush
-    budget. Returns the forwarder, or None when ``forward_address`` is
-    unset."""
+    """Attach the configured forwarder to a local server
+    (flusher.go:66-75): ``native://host:port`` the framed-TCP one, any
+    other address the HTTP one; each with the retry policy, a breaker
+    for the one upstream destination and ``forward_timeout`` as its
+    per-flush budget. ``forward_packed_digests: false`` keeps the
+    native wire's digests dense (float64 centroids). Returns the
+    forwarder, or None when ``forward_address`` is unset."""
     from veneur_tpu_torch.resilience import CircuitBreaker, RetryPolicy
 
     cfg = server.config
     if not cfg.forward_address:
         return None
-    fwd = HTTPForwarder(
-        cfg.forward_address, timeout=cfg.forward_timeout_seconds,
+    resilience = dict(
+        timeout=cfg.forward_timeout_seconds,
         reference_compat=cfg.forward_reference_compatible,
         retry_policy=RetryPolicy.from_config(cfg),
         breaker=CircuitBreaker(
             failure_threshold=cfg.breaker_failure_threshold,
             reset_timeout=cfg.breaker_reset_timeout_seconds,
             name=cfg.forward_address))
+    if cfg.forward_address.startswith("native://"):
+        from veneur_tpu_torch.forward.native_transport import \
+            NativeForwarder
+
+        fwd = NativeForwarder(cfg.forward_address, **resilience)
+        if not cfg.forward_packed_digests:
+            fwd.wants_packed_digests = False
+    else:
+        fwd = HTTPForwarder(cfg.forward_address, **resilience)
     server.forward_fn = fwd.forward
     return fwd

@@ -1,7 +1,8 @@
-"""ForwardableState <-> the JSON wire of ``POST /import``.
+"""ForwardableState <-> the JSON wire of ``POST /import`` and the
+MetricList wire of the framed-TCP lane.
 
-Port of the JSON half of ``veneur_tpu/forward/convert.py``. Two body
-formats, both accepted on import:
+Port of ``veneur_tpu/forward/convert.py``. Two JSON body formats, both
+accepted on import:
 
 * our structured entries: counters and gauges carry numbers in
   ``value``, digests a ``digest`` object with ``[mean, weight]``
@@ -16,8 +17,15 @@ formats, both accepted on import:
 Our format also carries one ``topk_sketch`` entry, the heavy-hitter
 count-min table (base64 float32) and each series' top-k candidates; the
 reference's format never does (a Go global would count an unknown
-type). The protobuf (gRPC) wire is not ported: it needs the generated
-``forward_pb2`` modules.
+type).
+
+The MetricList of the framed-TCP lane (``forward/native_transport.py``)
+is written by :func:`metric_list_from_state` through the protobuf-free
+codec ``protocol/mlist.py``; its digest groups, when they ride as
+planes, are the C++ encoders' (``native/egress.py``), and the global
+decodes whole frames in C++ (``MetricStore.import_columnar``). The
+protobuf import path of the JAX package (``apply_metric_list``) is not
+ported: the port has no fallback behind the C++ decoder.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from typing import Dict, List
 import numpy as np
 
 from veneur_tpu_torch.ops import axiomhq
+from veneur_tpu_torch.protocol import mlist
 from veneur_tpu_torch.protocol.gob import (decode_reference_digest,
                                            encode_reference_digest)
 from veneur_tpu_torch.samplers.parser import MetricKey
@@ -38,6 +47,20 @@ log = logging.getLogger("veneur.forward.convert")
 
 _HLL_MAGIC = b"VH"
 _HLL_VERSION = 1
+
+_PB_TYPE = {"counter": mlist.COUNTER, "gauge": mlist.GAUGE,
+            "histogram": mlist.HISTOGRAM, "timer": mlist.TIMER,
+            "set": mlist.SET}
+_TYPE_PB = {v: k for k, v in _PB_TYPE.items()}
+
+
+def type_name(pb_type: int) -> str:
+    """metricpb.Type enum value -> the lowercase type string of a
+    MetricKey ("counter", "timer", ...)."""
+    name = _TYPE_PB.get(pb_type)
+    if name is None:
+        raise ValueError(f"unknown metric type {pb_type}")
+    return name
 
 
 def encode_hll(registers: np.ndarray, precision: int,
@@ -203,9 +226,82 @@ def json_metrics_from_state(state, compression: float = 100.0
     return out
 
 
-def decode_topk_sketch(d: Dict) -> tuple:
-    """A JSON ``topk_sketch`` entry -> the (table, series) pair
-    ``MetricStore.import_topk`` takes."""
+def _state_metrics(state, compression: float, reference_compat: bool):
+    """(serialized Metrics, serialized TopKSketch or None) of a
+    ForwardableState's per-row parts, in the JAX builder's order."""
+    metrics = [mlist.counter(name, tags, value)
+               for name, tags, value in state.counters]
+    metrics += [mlist.gauge(name, tags, value)
+                for name, tags, value in state.gauges]
+    for kind, pb_type in (("histograms", mlist.HISTOGRAM),
+                          ("timers", mlist.TIMER)):
+        metrics += [mlist.digest(name, tags, pb_type, means, weights, dmin,
+                                 dmax, compression, reference_compat)
+                    for name, tags, means, weights, dmin, dmax
+                    in getattr(state, kind)]
+    metrics += [mlist.set_metric(name, tags, encode_hll(
+                    registers, precision, reference_compat=reference_compat))
+                for name, tags, registers, precision in state.sets]
+    topk = None
+    if state.topk is not None and not reference_compat:
+        topk = mlist.topk_sketch(*state.topk)
+    return metrics, topk
+
+
+def metric_list_from_state(state, compression: float = 100.0,
+                           reference_compat: bool = False) -> bytes:
+    """ForwardableState -> one serialized MetricList (worker.go:161-183's
+    ForwardableMetrics and each sampler's Metric()): the bytes the JAX
+    package's builder of the same name serializes. Digests travel as
+    packed parallel arrays; ``reference_compat`` also writes the
+    reference's repeated Centroid messages and the reference's axiomhq
+    set bytes, and keeps the heavy-hitter sketch (MetricList.topk) off
+    the wire. Columnar digest planes are not written here (the C++
+    encoders take them): materialize them first to send them this way.
+    Returns b"" for a state with nothing to send."""
+    chunks = metric_lists_from_state(state, compression, reference_compat)
+    return chunks[0][0] if chunks else b""
+
+
+def metric_lists_from_state(state, compression: float = 100.0,
+                            reference_compat: bool = False,
+                            max_bytes: int = 0) -> List[tuple]:
+    """:func:`metric_list_from_state` cut into MetricLists of at most
+    ``max_bytes`` (0 = one; a metric larger alone gets one of its own):
+    ``[(bytes, metrics in it)]``, the top-k sketch in the first. A
+    1M-series local's 32,768 sets alone are ~537 MB, past one frame.
+    Parsed together, the chunks are the one list."""
+    metrics, topk = _state_metrics(state, compression, reference_compat)
+    if not metrics and topk is None:
+        return []
+    out, cur, size = [], [], 0
+    if topk is not None:
+        size = len(mlist.metric_list([], topk))
+    for m in metrics:
+        grown = mlist.framed_size(m)
+        if max_bytes and (cur or size) and size + grown > max_bytes:
+            out.append((mlist.metric_list(cur, topk), len(cur)))
+            cur, size, topk = [], 0, None
+        cur.append(m)
+        size += grown
+    out.append((mlist.metric_list(cur, topk), len(cur)))
+    return out
+
+
+def decode_topk_sketch(d) -> tuple:
+    """A heavy-hitter sketch -> the (table, series) pair
+    ``MetricStore.import_topk`` takes: a JSON ``topk_sketch`` entry, or a
+    MetricList's :class:`~veneur_tpu_torch.protocol.mlist.TopKSketch`."""
+    if isinstance(d, mlist.TopKSketch):
+        table = np.frombuffer(d.table, np.float32).reshape(d.depth, d.width)
+        series = []
+        for s in d.series:
+            members = [m or None for m in s.members]
+            members += [None] * (len(s.keys) - len(members))
+            series.append((s.name, list(s.tags),
+                           [(k >> 32, k & 0xFFFFFFFF) for k in s.keys],
+                           members))
+        return table, series
     table = np.frombuffer(base64.b64decode(d["table"]),
                           np.float32).reshape(int(d["depth"]),
                                               int(d["width"]))

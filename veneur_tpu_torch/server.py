@@ -44,9 +44,12 @@ store's rows; ``cli/server.py`` builds the Datadog sink and the
 local-file plugin from the config.
 
 Global aggregation: with ``forward_address`` set the server is a local
-and forwards its sketch state there over HTTP after each flush; with
-``http_address`` set it serves ``POST /import`` (a global merges what
-its locals forward) beside ``/healthcheck`` and ``/version``.
+and forwards its sketch state there after each flush, over HTTP or, for
+``native://host:port``, as MetricList frames over framed TCP (digests
+packed on the device); with ``http_address`` set it serves ``POST
+/import`` (a global merges what its locals forward) beside
+``/healthcheck`` and ``/version``, and with ``native_import_address``
+the framed-TCP import (``forward/native_transport.py``).
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from veneur_tpu_torch import flusher, native, networking, overload
 from veneur_tpu_torch.config import Config
 from veneur_tpu_torch.core.store import MetricStore
 from veneur_tpu_torch.forward import configure_forwarding
+from veneur_tpu_torch.forward.native_transport import NativeImportServer
 from veneur_tpu_torch.httpserv import OpsServer
 from veneur_tpu_torch.ingest import IngestFleet, ShardedCounter
 from veneur_tpu_torch.protocol import ssf, wire
@@ -289,6 +293,8 @@ class Server:
         self.last_forward_ok: Optional[bool] = None
         self.forward_errors = 0
         self.ops_server: Optional[OpsServer] = None
+        # the framed-TCP import (native_import_address)
+        self.native_import_server: Optional[NativeImportServer] = None
         self.imported_metrics = 0
         self.import_errors = 0
         self.statsd_addrs: List[tuple] = []
@@ -477,6 +483,9 @@ class Server:
         if cfg.http_address:
             self.ops_server = OpsServer.for_server(self, cfg.http_address)
             self.ops_server.start()
+        if cfg.native_import_address:
+            self.native_import_server = NativeImportServer(self.store)
+            self.native_import_server.start(cfg.native_import_address)
         if self.forward_fn is None:
             self.forwarder = configure_forwarding(self)
         for spec in cfg.statsd_listen_addresses:
@@ -754,3 +763,7 @@ class Server:
         finally:
             if self.ops_server is not None:
                 self.ops_server.stop()
+            if self.native_import_server is not None:
+                self.native_import_server.stop()
+            if hasattr(self.forwarder, "close"):
+                self.forwarder.close()
