@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and its native
-ingest and egress libraries (g++), side by side, then runs ten phases,
-each printing one JSON line:
+ingest and egress libraries (g++), side by side, then runs eleven phases,
+each printing one JSON line (checkpoint two):
 
   kernels  K1 drain_quantile and K2 compress_presorted at the flush's
            shape (1,048,576 rows, K=104, the store's 9 quantiles), each
@@ -115,12 +115,43 @@ each printing one JSON line:
            the global's pool and flushed into a channel sink, in our
            body format and in the reference's (gob/axiomhq); then the
            same over native:// into native_import_address, with packed
-           digests and with forward_packed_digests false.
+           digests and with forward_packed_digests false;
+  checkpoint
+           crash-safe state at full width: a Server on cuda with
+           checkpoint_interval 1s (the file in build/, on local disk)
+           takes 1,048,576 histogram series x 8 samples (the last four
+           shifted +1000: K2 on ingest), 32,768 sets x 16 members, 4,096
+           counters and gauges and 4,096 veneurtopk series x 16 members
+           through the store API; once a committed checkpoint covers all
+           of it the Server is killed (crash_stop) and a second Server on
+           the same path restores it (deserialize, intern, import drains)
+           and flushes columnar (K1, held to its plain version on the
+           same tensors). Held to an uninterrupted twin store: counters,
+           gauges and set estimates equal, digest counts and total weight
+           exact, sum/min/max within rel 1e-4, percentiles within 0.02 x
+           span, top-k rows equal; the checkpoint gone after the flush.
+           The line splits the checkpoint write (lock, fetch, flatten,
+           serialize, write+fsync, bytes) and the restore; K2 on
+           ingest and K1 at the restored flush are held to their plain
+           versions. Then compute_ladder at 65,536 series: a kernel
+           fault at preflight (a FaultInjector) launches nothing and
+           re-merges the interval (rung 3), which the next flush emits
+           through K1, held to a twin that never failed; the breaker
+           opening (flushes re-merge without a launch, the staging
+           drains stay on K2) and its probe closing it on an injected
+           clock; and a fetch fault while the next interval arrives
+           (the re-merge trips the guard, K2 held to its plain version;
+           every count emitted at the next flush).
+
+After every phase every store it built must show requeued_total and
+lost_total at 0 (the compute_ladder store excepted), so a run in which
+the kernel ever gave way fails.
 
 The launch counts in the kernel summary are the sum over the store,
 ingest (its two intervals), ssf (its main path), heavy_hitters (its two
-Servers), overload (the series cap's flush), global_merge, native_merge
-and server_global phases. It
+Servers), overload (the series cap's flush), global_merge, native_merge,
+server_global and checkpoint (the kill and restart, and the ladder)
+phases. It
 ends with the kernel summary, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits 2 before
@@ -132,6 +163,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
 import socket
 import subprocess
@@ -4202,6 +4234,669 @@ def phase_overload(dev, card: str) -> dict:
     return counts
 
 
+CKPT_TOPK = 4096                 # the checkpoint phase's veneurtopk series
+CKPT_SCALARS = 4096              # its counters and gauges
+LADDER_ROWS = 1 << 16            # the compute_ladder subphase's series
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+_BREAKERS = []                   # the compute breaker of each store built
+
+
+def _track_breakers() -> None:
+    """Record the compute breaker of every MetricStore built from here on
+    (a Server's included), so each phase can show that no store it ran
+    ever left the kernel (:func:`_check_breakers`)."""
+    from veneur_tpu_torch.core.store import MetricStore
+
+    real = MetricStore.__init__
+
+    def init(self, *args, **kwargs):
+        real(self, *args, **kwargs)
+        _BREAKERS.append(self.compute)
+
+    MetricStore.__init__ = init
+
+
+def _check_breakers(phase: str) -> int:
+    """Every store the phase built ended with requeued_total and
+    lost_total at 0: a run in which the kernel gave way anywhere fails.
+    Returns the number of stores checked."""
+    seen = list(_BREAKERS)
+    _BREAKERS.clear()
+    bad = [b.snapshot() for b in seen
+           if b.requeued_total or b.lost_total]
+    if bad:
+        raise AssertionError(f"{phase}: the compute ladder left the kernel: "
+                             f"{bad}")
+    return len(seen)
+
+
+def _checkpoint_traffic(rows: int, set_series: int, scalars: int,
+                        topk: int) -> dict:
+    """The checkpoint phase's data, from the seed: 8 samples a histogram
+    series at rate 0.5 (weight 2; four from gamma(2, 10), then four
+    shifted +1000, so the shift guard drains through K2 on ingest), 16
+    members a set, counter and gauge values, and 16 Zipf(1.1) members a
+    veneurtopk series."""
+    from veneur_tpu_torch.ops import hll as hll_ops
+
+    rng = iter([np.random.default_rng(s) for s in
+                np.random.SeedSequence(SEED + 9).spawn(8)])
+    half = SAMPLES_PER_SERIES // 2
+    t = {"rows": rows, "set_series": set_series, "scalars": scalars,
+         "topk": topk,
+         "early": next(rng).gamma(2.0, 10.0, (rows, half)).astype(
+             np.float32),
+         "late": (1000.0 + next(rng).gamma(2.0, 10.0, (rows, half))
+                  ).astype(np.float32),
+         "set_hashes": next(rng).integers(
+             0, np.iinfo(np.uint64).max, (set_series, 16), dtype=np.uint64,
+             endpoint=True),
+         "counters": next(rng).integers(1, 1000, scalars),
+         "gauges": next(rng).normal(0.0, 100.0, scalars)}
+    keys = next(rng).zipf(1.1, (topk, 16)) % 4096
+    t["topk_members"] = [f"m{k}".encode() for k in keys.reshape(-1)]
+    t["topk_hashes"] = np.array([hll_ops.hash_member(m)
+                                 for m in t["topk_members"]], np.uint64)
+    return t
+
+
+def _feed_checkpoint_store(store, t) -> None:
+    """The traffic through the store API (not UDP, to save time): each
+    group's series interned and its samples staged and drained in one
+    store-lock hold, so a snapshot holds all of a group or none of it."""
+    from veneur_tpu_torch.samplers.parser import MetricKey
+
+    rows, sets, scal, tk = t["rows"], t["set_series"], t["scalars"], t["topk"]
+    half = SAMPLES_PER_SERIES // 2
+    with store._lock:
+        hist = store.histograms
+        for i in range(rows):
+            hist.interner.intern(MetricKey(f"ck.h.{i}", "histogram", ""), [])
+        hist.ensure_capacity(rows - 1)
+        row_ids = np.repeat(np.arange(rows, dtype=np.int32), half)
+        wts = np.full(rows * half, 2.0, np.float32)
+        hist.sample_many(row_ids, t["early"].reshape(-1), wts)
+        hist.sample_many(row_ids, t["late"].reshape(-1), wts)
+        hist._drain_samples()
+    with store._lock:
+        g = store.sets
+        for i in range(sets):
+            g.interner.intern(MetricKey(f"ck.s.{i}", "set", ""), [])
+        g.ensure_capacity(sets - 1)
+        g.sample_many(np.repeat(np.arange(sets, dtype=np.int32), 16),
+                      t["set_hashes"].reshape(-1))
+        g._drain_samples()
+    for attr, kind, prefix, vals in (
+            ("counters", "counter", "ck.c", t["counters"]),
+            ("gauges", "gauge", "ck.g", t["gauges"])):
+        with store._lock:
+            g = getattr(store, attr)
+            for i in range(scal):
+                g.interner.intern(MetricKey(f"{prefix}.{i}", kind, ""), [])
+            g.ensure_capacity(scal - 1)
+            if kind == "counter":
+                g.add_many(np.arange(scal), vals.astype(np.int64))
+            else:
+                g.set_many(np.arange(scal), vals)
+    with store._lock:
+        hh = store.heavy_hitters
+        hrows = np.array([hh._row(MetricKey(f"ck.k.{i}", "set",
+                                            "veneurtopk"), ["veneurtopk"])
+                          for i in range(tk)], np.int32)
+        hh.sample_many(np.repeat(hrows, 16), t["topk_hashes"],
+                       t["topk_members"])
+        hh._drain_samples()
+
+
+def _ckpt_covers(groups, t) -> bool:
+    """Whether a committed checkpoint holds all of the traffic."""
+    h = groups["histograms"]
+    return (len(h["names"]) == t["rows"] and "count" in h
+            and float(h["count"].sum()) == 2 * t["rows"] * SAMPLES_PER_SERIES
+            and len(groups["sets"]["names"]) == t["set_series"]
+            and len(groups["counters"]["names"]) == t["scalars"]
+            and len(groups["gauges"]["names"]) == t["scalars"]
+            and len(groups["heavy_hitters"]["names"]) == t["topk"])
+
+
+def _instrument_checkpointer(server):
+    """Time each checkpoint write of ``server`` by stage, around the
+    store's and the format's own functions: ``lock_s`` the group holds of
+    snapshot_begin (the staging drain and the device copies, under the
+    store lock), ``fetch_s`` the off-lock finishes less ``flatten_s``
+    (flatten_digest_state), then serialize and write+fsync. Returns (the
+    list each write appends its record to, a function that removes the
+    module-level wrappers)."""
+    from veneur_tpu_torch.core import store as store_mod
+    from veneur_tpu_torch.persist import format as ckpt_format
+
+    writes, cur = [], {}
+    store = server.store
+    for name in store._GEN_GROUPS:
+        def begin(real=getattr(store, name).snapshot_begin):
+            snap, fin = _timed_into(cur, "lock_s", real)()
+            return snap, fin and _timed_into(cur, "finish_s", fin)
+
+        getattr(store, name).snapshot_begin = begin
+    real_flatten, real_serialize = (store_mod.flatten_digest_state,
+                                    ckpt_format.serialize)
+    store_mod.flatten_digest_state = _timed_into(cur, "flatten_s",
+                                                 real_flatten)
+    ckpt_format.serialize = _timed_into(cur, "serialize_s", real_serialize)
+    real_snapshot = store.snapshot_state
+
+    def snapshot():
+        cur.clear()
+        cur.update(dict.fromkeys(("lock_s", "finish_s", "flatten_s",
+                                  "serialize_s", "write_fsync_s"), 0.0))
+        return real_snapshot()
+
+    store.snapshot_state = snapshot
+    timed_write = _timed_into(cur, "write_fsync_s", ckpt_format.write_atomic)
+
+    def write(path, blob):
+        cur["bytes"] = timed_write(path, blob)
+        rec = dict(cur)
+        rec["fetch_s"] = rec.pop("finish_s") - rec["flatten_s"]
+        writes.append(rec)
+        return cur["bytes"]
+
+    server.checkpointer._write_fn = write
+
+    def undo():
+        store_mod.flatten_digest_state = real_flatten
+        ckpt_format.serialize = real_serialize
+
+    return writes, undo
+
+
+def _blocks_by_prefix(col) -> dict:
+    """A ColumnarFlush's blocks keyed by the group prefix of their first
+    name ("h", "s", "c" or "g" of ck.<p>.<i>), each with its names."""
+    from veneur_tpu_torch.core.columnar import arena_strings
+
+    out = {}
+    for blk in col.blocks:
+        names = arena_strings(blk.names)
+        key = names[0].split(".")[1]
+        if key in out:
+            raise AssertionError(f"two blocks of group {key!r}")
+        out[key] = (blk, names)
+    return out
+
+
+def _check_restored_flush(col, twin, t) -> dict:
+    """The restored Server's flush against the uninterrupted twin's:
+    counters, gauges and set estimates equal; per-row digest count exact,
+    sum/min/max within rel 1e-4, percentiles within 0.02 x (max - min);
+    the total weight conserved exactly; the top-k rows equal."""
+    got, want = _blocks_by_prefix(col), _blocks_by_prefix(twin)
+    if set(got) != {"h", "s", "c", "g"} or set(want) != set(got):
+        raise AssertionError(f"blocks {sorted(got)} vs {sorted(want)}")
+    rec = {}
+    for key, (blk, names) in got.items():
+        wblk, wnames = want[key]
+        if names != wnames or blk.suffixes != wblk.suffixes:
+            raise AssertionError(f"group {key}: names or suffixes differ")
+        g, w = _block_matrix(blk), _block_matrix(wblk)
+        if key != "h":
+            if not np.array_equal(g, w):
+                raise AssertionError(f"group {key}: values differ")
+            continue
+        sfx = [s.decode() for s in blk.suffixes]
+        col_of = {s: i for i, s in enumerate(sfx)}
+        cnt = g[:, col_of[".count"]]
+        if not np.array_equal(cnt, w[:, col_of[".count"]]):
+            raise AssertionError("digest counts differ")
+        if float(cnt.sum()) != 2 * t["rows"] * SAMPLES_PER_SERIES:
+            raise AssertionError(f"total weight {cnt.sum()} != "
+                                 f"{2 * t['rows'] * SAMPLES_PER_SERIES}")
+        for s in (".sum", ".min", ".max"):
+            a, b = g[:, col_of[s]], w[:, col_of[s]]
+            err = float(np.max(np.abs(a - b) / np.abs(b)))
+            rec[f"rel_err{s.replace('.', '_')}"] = err
+            if err > 1e-4:
+                raise AssertionError(f"digest {s} off by {err:.3g}")
+        span = w[:, col_of[".max"]] - w[:, col_of[".min"]]
+        pc = [i for s, i in col_of.items() if s.endswith("percentile")]
+        perr = float(np.max(np.abs(g[:, pc] - w[:, pc]) / span[:, None]))
+        rec["pct_err_of_span"] = perr
+        if perr > 0.02:
+            raise AssertionError(f"percentiles off by {perr:.3g} of the "
+                                 f"span")
+    topk = sorted((m.name, tuple(m.tags), m.value) for m in col.extras)
+    wtopk = sorted((m.name, tuple(m.tags), m.value) for m in twin.extras)
+    if topk != wtopk or not topk:
+        raise AssertionError(f"top-k rows differ ({len(topk)} vs "
+                             f"{len(wtopk)})")
+    rec["topk_rows"] = len(topk)
+    return rec
+
+
+def run_checkpoint(dev, t, aggs) -> tuple:
+    """The main part of the checkpoint phase: a port Server on ``dev``
+    with checkpoints every second takes the traffic; once a committed
+    checkpoint covers all of it the Server is killed (crash_stop); a
+    second Server on the same path restores it and flushes columnar.
+    Held to an uninterrupted twin store fed the same traffic and flushed
+    directly (before the counts reset: it is the reference). Returns
+    (the phase's record, the launch counts of the main path)."""
+    import shutil
+
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.core.store import MetricStore
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.persist import deserialize, read_file
+    from veneur_tpu_torch.persist import format as ckpt_format
+    from veneur_tpu_torch.server import Server
+
+    rec = {}
+    t0 = time.perf_counter()
+    twin = MetricStore(initial_capacity=1024, device=dev,
+                       max_series=2 * t["rows"])
+    _feed_checkpoint_store(twin, t)
+    want, _ = twin.flush(list(PERCENTILES), aggs, 0, columnar=True)
+    del twin
+    gc.collect()
+    rec["twin_s"] = time.perf_counter() - t0
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    path = str(CKPT_DIR / "veneur.ckpt")
+    cfg = dict(interval="600s", percentiles=list(PERCENTILES),
+               aggregates=["min", "max", "count", "sum"], hostname="smoke",
+               max_series=2 * t["rows"], checkpoint_path=path,
+               checkpoint_interval="1s")
+    try:
+        _reset_counts(tc)
+        a = Server(Config(**cfg), metric_sinks=[_ColumnarRecorder()],
+                   device=dev)
+        writes, undo = _instrument_checkpointer(a)
+        a.start()
+        try:
+            t0 = time.perf_counter()
+            with _capture_launches(tc, "launch_compress_presorted") as \
+                    k2_calls:
+                _feed_checkpoint_store(a.store, t)
+            _sync(dev)
+            rec["ingest_s"] = time.perf_counter() - t0
+            rec["ingest_k2"] = tc.compress_presorted.launches
+            t0 = time.perf_counter()
+            deadline = time.time() + 600
+            while True:
+                blob = read_file(path)
+                if blob is not None and _ckpt_covers(deserialize(blob)[0],
+                                                     t):
+                    break
+                if time.time() > deadline:
+                    raise AssertionError("no committed checkpoint covered "
+                                         "the traffic in 600 s")
+                time.sleep(0.5)
+            rec["covered_after_s"] = time.perf_counter() - t0
+        finally:
+            # a write in flight finishes before the "kill" returns: an
+            # in-process kill cannot stop a thread, and a late write
+            # must not race the restart
+            a.crash_stop(timeout=600)
+            undo()
+        if any(th.name == "checkpoint" for th in threading.enumerate()):
+            raise AssertionError("a checkpoint write outlived crash_stop")
+        if not writes or a.checkpointer.write_errors:
+            raise AssertionError(f"checkpoint writes {len(writes)}, errors "
+                                 f"{a.checkpointer.write_errors}")
+        rec["writes"] = len(writes)
+        rec["last_write"] = writes[-1]
+        rec["file_bytes"] = os.path.getsize(path)
+        del a
+        gc.collect()
+
+        # the restart: restore (deserialize, intern, import drains,
+        # restats) before any listener, then one columnar flush
+        recorder = _ColumnarRecorder()
+        b = Server(Config(**cfg), metric_sinks=[recorder], device=dev)
+        split = dict.fromkeys(("deserialize_s", "restore_wall_s",
+                               "restore_state_s", "histograms_group_s",
+                               "import_bulk_s", "import_drains_s",
+                               "restore_stats_s"), 0.0)
+        split["import_drains"] = 0
+        real_deser = ckpt_format.deserialize
+        ckpt_format.deserialize = _timed_into(split, "deserialize_s",
+                                              real_deser)
+        bstore, bhist, ck = b.store, b.store.histograms, b.checkpointer
+        ck.restore = _timed_into(split, "restore_wall_s", ck.restore)
+        bstore.restore_state = _timed_into(split, "restore_state_s",
+                                           bstore.restore_state)
+        real_group = bstore._restore_group
+        hist_group = _timed_into(split, "histograms_group_s", real_group)
+        bstore._restore_group = lambda name, *a, **k: (
+            hist_group if name == "histograms" else real_group)(name, *a,
+                                                                **k)
+        bhist.import_centroids_bulk = _timed_into(
+            split, "import_bulk_s", bhist.import_centroids_bulk)
+        bhist.restore_stats = _timed_into(split, "restore_stats_s",
+                                          bhist.restore_stats)
+        drain = _timed_into(split, "import_drains_s", bhist._drain_imports)
+
+        def counted_drain():
+            split["import_drains"] += 1
+            return drain()
+
+        bhist._drain_imports = counted_drain
+        k2 = tc.compress_presorted.launches
+        try:
+            b.start()
+        finally:
+            ckpt_format.deserialize = real_deser
+        _sync(dev)
+        split["restore_k2"] = tc.compress_presorted.launches - k2
+        split["intern_s"] = (split["histograms_group_s"]
+                             - split["import_bulk_s"]
+                             - split["restore_stats_s"])
+        if ck.restore_total != 1 or ck.discard_total:
+            raise AssertionError(f"restore_total {ck.restore_total}, "
+                                 f"discard_total {ck.discard_total}")
+        rec["restored_series"] = ck.restored_series
+        rec["restore"] = split
+        # K1 at the restored flush, its inputs and output kept to hold it
+        # against its plain version on the same tensors
+        t0 = time.perf_counter()
+        with _capture_launches(tc, "launch_drain_quantile") as k1_calls:
+            b.flush()
+        rec["restored_flush_s"] = time.perf_counter() - t0
+        counts = _counts(tc)
+        # the flush truncated the checkpoint; B's own cadence may have
+        # written the fresh (empty) interval since, never the restored one
+        blob = read_file(path)
+        if blob is not None and any(g["names"] for g in
+                                    deserialize(blob)[0].values()):
+            raise AssertionError("the restored state is still on disk "
+                                 "after the flush")
+        b.shutdown()
+        col = recorder.flushes.get(timeout=60)
+        rec.update(_check_restored_flush(col, want, t))
+        if dev.type == "cuda":
+            if not k1_calls or rec["ingest_k2"] < 1:
+                raise AssertionError(f"K1 at the restored flush "
+                                     f"{len(k1_calls)}x, K2 on ingest "
+                                     f"{rec['ingest_k2']}x")
+            rec["k1_restored_max_abs_err"] = _hold_to_plain(
+                tc, "K1 at the restored flush", k1_calls[0])
+            rec["k2_ingest_max_abs_err"] = _hold_to_plain(
+                tc, "K2 on the checkpointed ingest", k2_calls[0])
+        del k1_calls, k2_calls, b
+        gc.collect()
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return rec, counts
+
+
+class _capture_launches:
+    """Within the block, keep the arguments and outputs of every launch
+    of ``tc.<name>`` (launch_drain_quantile or launch_compress_presorted:
+    the wrappers call them only when they launch the kernel, and count
+    the launch themselves), to hold the kernel against its plain version
+    on the same tensors afterwards."""
+
+    def __init__(self, tc, name: str):
+        self.tc, self.name = tc, name
+        self.real = getattr(tc, name)
+
+    def __enter__(self) -> list:
+        calls = []
+
+        def launch(*args):
+            out = self.real(*args)
+            calls.append((args, out))
+            return out
+
+        setattr(self.tc, self.name, launch)
+        return calls
+
+    def __exit__(self, *exc):
+        setattr(self.tc, self.name, self.real)
+
+
+def _hold_to_plain(tc, what: str, call) -> float:
+    """A captured launch against its plain version on the same inputs
+    (:func:`_compare`'s bounds). Returns the max abs error."""
+    args, out = call
+    if len(out) == 3:   # K1: (..., mn, mx, qs, compression, out_size, sort_b)
+        plain = tc.drain_quantile_plain(*args)
+        span = args[5] - args[4]
+    else:
+        plain = tc.compress_presorted_plain(*args)
+        span = None
+    _sync(args[0].device)
+    return _compare(what, out, plain, args[1], args[3], span=span)
+
+
+def run_compute_ladder(dev, aggs, rows: int = LADDER_ROWS) -> tuple:
+    """The compute_ladder subphase on ``dev`` at ``rows`` histogram series
+    x 8 samples:
+
+    * a kernel fault: a FaultInjector fails rung 1 at preflight; the
+      flush launches nothing and re-merges the interval into the live
+      store (rung 3), and the next flush emits it through K1 (held to
+      its plain version), its rows held to a twin store that never
+      failed (count, min, max equal, sum within rel 1e-6, percentiles
+      within 0.02 x span, the checkpoint round trip's bound); the walls
+      of the faulted flush (the re-merge), the late flush and the
+      twin's flush are printed;
+    * the breaker: two more faults open it; a flush while it is open
+      re-merges without a launch and without spending the probe, while
+      the staging drains go on through K2 (a shifted chunk trips the
+      guard); past the reset timeout on an injected clock one probe
+      launches K1, closes it and emits every held interval;
+    * a fetch fault: the retired group's collect raises (wrapped here
+      only) while the next interval's shifted samples arrive in the live
+      store, as ingest goes on during a flush; the retired interval
+      re-merges, where its import drain trips the guard (K2, held to its
+      plain version), and emits at the next flush with every count
+      conserved.
+
+    The twin flushes before the launch counts reset: it is the
+    reference. Returns (the subphase record, its launch counts)."""
+    from veneur_tpu_torch.core.store import MetricStore
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.resilience.compute import (KERNEL_TDIGEST,
+                                                     ComputeBreaker)
+    from veneur_tpu_torch.resilience.faults import FaultInjector
+    from veneur_tpu_torch.samplers.parser import MetricKey
+
+    rng = np.random.default_rng(SEED + 10)
+    interval1 = rng.gamma(2.0, 10.0, (rows, 8)).astype(np.float32)
+    shifted = (5000.0 + rng.gamma(2.0, 10.0, (rows, 8))).astype(np.float32)
+
+    def feed(target, vals):
+        with target._lock:
+            hist = target.histograms
+            if not len(hist):
+                for i in range(rows):
+                    hist.interner.intern(
+                        MetricKey(f"cl.h.{i}", "histogram", ""), [])
+                hist.ensure_capacity(rows - 1)
+            k = vals.shape[1]
+            hist.sample_many(np.repeat(np.arange(rows, dtype=np.int32), k),
+                             vals.reshape(-1), np.ones(vals.size,
+                                                       np.float32))
+            hist._drain_samples()
+
+    def flush(target):
+        t0 = time.perf_counter()
+        col, _ = target.flush(list(PERCENTILES), aggs, 0, columnar=True)
+        _sync(dev)
+        return col.blocks, time.perf_counter() - t0
+
+    def count_col(blocks):
+        blk = blocks[0]
+        col_of = {sx.decode(): i for i, sx in enumerate(blk.suffixes)}
+        return _block_matrix(blk)[:, col_of[".count"]]
+
+    def is_open(breaker):
+        return any(gauge for _, gauge in breaker.states())
+
+    rec = {"histogram_series": rows}
+    twin = MetricStore(initial_capacity=1024, device=dev)
+    feed(twin, interval1)
+    (blk1,), rec["twin_flush_s"] = flush(twin)
+    kern = _block_matrix(blk1)
+    del twin
+    gc.collect()
+
+    now = [1000.0]
+    breaker = ComputeBreaker(failure_threshold=2, reset_timeout=60.0,
+                             clock=lambda: now[0])
+    store = MetricStore(initial_capacity=1024, device=dev, compute=breaker)
+    # this store fails on purpose: the phase's no-fallback check covers
+    # every other store it builds
+    _BREAKERS.remove(breaker)
+
+    def arm():
+        breaker.injector = FaultInjector(rate=1.0, seed=SEED,
+                                         kinds=("connect",),
+                                         scope=KERNEL_TDIGEST)
+
+    _reset_counts(tc)
+    # a kernel fault at preflight: no launch, the re-merge, then the
+    # late emission held to the twin
+    feed(store, interval1)
+    arm()
+    blocks, rec["faulted_flush_s"] = flush(store)
+    if (blocks or tc.drain_quantile.launches or breaker.requeued_total != 1
+            or breaker.injector.calls != 1 or is_open(breaker)):
+        raise AssertionError(f"kernel fault: blocks {len(blocks)}, K1 "
+                             f"{tc.drain_quantile.launches}x, "
+                             f"{breaker.snapshot()}")
+    breaker.injector = None
+    with _capture_launches(tc, "launch_drain_quantile") as k1_calls:
+        (blk2,), rec["late_flush_s"] = flush(store)
+    if dev.type == "cuda":
+        if len(k1_calls) != 1:
+            raise AssertionError(f"the late flush launched K1 "
+                                 f"{len(k1_calls)}x")
+        rec["k1_late_max_abs_err"] = _hold_to_plain(
+            tc, "K1 at the late flush", k1_calls[0])
+    del k1_calls
+    late = _block_matrix(blk2)
+    if (blk1.suffixes != blk2.suffixes or blk1.names[0] != blk2.names[0]
+            or not all(np.array_equal(x, y) for x, y in
+                       zip(blk1.names[1:], blk2.names[1:]))):
+        raise AssertionError("the late flush emitted other rows than the "
+                             "twin")
+    col_of = {sx.decode(): i for i, sx in enumerate(blk1.suffixes)}
+    exact = [col_of[sx] for sx in (".count", ".min", ".max")]
+    if not np.array_equal(late[:, exact], kern[:, exact]):
+        raise AssertionError("the late count/min/max differ from the twin")
+    rel = np.abs(late[:, col_of[".sum"]] / kern[:, col_of[".sum"]] - 1.0)
+    rec["late_rel_err_sum"] = float(rel.max())
+    span = kern[:, col_of[".max"]] - kern[:, col_of[".min"]]
+    pc = [i for sx, i in col_of.items() if sx.endswith("percentile")]
+    err = np.abs(late[:, pc] - kern[:, pc])
+    rec["late_pct_err_of_span"] = float(np.max(err / span[:, None]))
+    if rec["late_rel_err_sum"] > 1e-6 or (err > 0.02 * span[:, None]).any():
+        raise AssertionError(f"the late interval is off the twin: sum "
+                             f"{rec['late_rel_err_sum']:.3g}, percentiles "
+                             f"{rec['late_pct_err_of_span']:.3g} of span")
+    del blk1, blk2, kern, late
+    gc.collect()
+
+    # the breaker: two faults open it; an open breaker re-merges without
+    # a launch while the staging drains go on through K2
+    arm()
+    for _ in range(2):
+        feed(store, interval1)
+        blocks, _ = flush(store)
+        if blocks:
+            raise AssertionError("a faulted flush emitted its digests")
+    if not is_open(breaker) or breaker.requeued_total != 3:
+        raise AssertionError(f"the breaker did not open after 2 faults: "
+                             f"{breaker.snapshot()}")
+    k1, k2 = tc.drain_quantile.launches, tc.compress_presorted.launches
+    calls = breaker.injector.calls
+    feed(store, interval1)
+    feed(store, shifted)
+    rec["open_breaker_k2"] = tc.compress_presorted.launches - k2
+    blocks, _ = flush(store)
+    if (blocks or tc.drain_quantile.launches != k1
+            or breaker.injector.calls != calls
+            or breaker.requeued_total != 4
+            or (dev.type == "cuda" and not rec["open_breaker_k2"])):
+        raise AssertionError(f"open breaker: K1 launched, the probe spent, "
+                             f"or the drains left K2: {rec}, "
+                             f"{breaker.snapshot()}")
+    breaker.injector = None
+    now[0] += 61.0
+    feed(store, interval1)
+    blocks, rec["probe_flush_s"] = flush(store)
+    held = count_col(blocks)
+    if is_open(breaker) or (dev.type == "cuda"
+                            and tc.drain_quantile.launches != k1 + 1):
+        raise AssertionError("the half-open probe did not close the "
+                             "breaker through K1")
+    if not (held == 40).all():   # 2 faulted, 2 open, 1 probe interval
+        raise AssertionError(f"the held intervals lost counts: "
+                             f"{held.sum()} != {rows * 40}")
+
+    # a fetch fault while the next interval arrives
+    feed(store, interval1)
+    retired = store.histograms
+    attempts = []
+
+    def failing_collect(*args):
+        attempts.append(len(attempts))
+        feed(store, shifted)    # ingest goes on during the flush
+        raise RuntimeError("collect failed (smoke script)")
+
+    retired._flush_collect = failing_collect
+    k2 = tc.compress_presorted.launches
+    with _capture_launches(tc, "launch_compress_presorted") as k2_calls:
+        blocks, _ = flush(store)
+    del retired
+    if blocks or breaker.requeued_total != 5 or breaker.lost_total \
+            or attempts != [0]:
+        raise AssertionError(f"fetch fault: {breaker.snapshot()}, "
+                             f"attempts {attempts}")
+    rec["remerge_k2"] = tc.compress_presorted.launches - k2
+    if dev.type == "cuda":
+        if not k2_calls:
+            raise AssertionError("the re-merge did not trip the guard")
+        rec["k2_remerge_max_abs_err"] = _hold_to_plain(
+            tc, "K2 at the re-merge", k2_calls[0])
+    del k2_calls
+    blocks, _ = flush(store)
+    cnt = count_col(blocks)
+    if float(cnt.sum()) != rows * 16 or not (cnt == 16).all():
+        raise AssertionError(f"the re-merge lost counts: {cnt.sum()} != "
+                             f"{rows * 16}")
+    rec.update(requeued_total=breaker.requeued_total,
+               lost_total=breaker.lost_total)
+    return rec, _counts(tc)
+
+
+def phase_checkpoint(dev, card: str, rows: int = ROWS,
+                     set_series: int = SET_SERIES,
+                     scalars: int = CKPT_SCALARS, topk: int = CKPT_TOPK,
+                     ladder_rows: int = LADDER_ROWS) -> dict:
+    """Crash-safe state on the card: the kill and warm restart
+    (run_checkpoint), then the compute_ladder subphase. Prints one line
+    each; returns the launch counts of both main paths."""
+    from veneur_tpu_torch.samplers.intermetric import HistogramAggregates
+
+    t0 = time.perf_counter()
+    aggs = HistogramAggregates.from_names(["min", "max", "count", "sum"])
+    t = _checkpoint_traffic(rows, set_series, scalars, topk)
+    rec, counts = run_checkpoint(dev, t, aggs)
+    emit({"phase": "checkpoint", "card": card, "histogram_series": rows,
+          "set_series": set_series, "scalars": scalars,
+          "topk_series": topk, "launches": counts, **rec,
+          "phase_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    lad, lcounts = run_compute_ladder(dev, aggs, ladder_rows)
+    emit({"phase": "compute_ladder", "card": card, "launches": lcounts,
+          **lad, "phase_s": time.perf_counter() - t0})
+    return {k: counts[k] + lcounts[k] for k in counts}
+
+
 def _ptxas_summary(logs) -> list:
     """Registers, spills and shared memory of every kernel instance, from
     nvcc's -Xptxas -v output: warp<half,sort_b,drain> / block<...>."""
@@ -4228,7 +4923,7 @@ def _ptxas_summary(logs) -> list:
 
 
 PHASES = ("store", "server", "ingest", "ssf", "heavy_hitters", "overload",
-          "global_merge", "native_merge", "server_global")
+          "global_merge", "native_merge", "server_global", "checkpoint")
 
 
 def main() -> int:
@@ -4293,15 +4988,22 @@ def main() -> int:
             "overload": lambda: phase_overload(dev, card),
             "global_merge": lambda: phase_global_merge(dev, card),
             "native_merge": lambda: phase_native_merge(dev, card),
-            "server_global": lambda: phase_server_global(dev, card)}
+            "server_global": lambda: phase_server_global(dev, card),
+            "checkpoint": lambda: phase_checkpoint(dev, card)}
     kern = phase_kernels(dev)
     # the main path's launches: each phase resets the counts just before
-    # it drives its path and reads them just after
+    # it drives its path and reads them just after; and no store of any
+    # phase may leave the kernel for its plain version (the compute
+    # ladder's subphase, which does so on purpose, excepted)
+    _track_breakers()
     launches = {key: 0 for key in (f"{fn}.{c}" for fn in (
         "drain_quantile", "compress_presorted") for c in _COUNTERS)}
+    stores = {}
     for name in PHASES:
         for key, n in (runs[name]() or {}).items():
             launches[key] += n
+        stores[name] = _check_breakers(name)
+    emit({"phase": "no_fallback", "stores_checked": stores})
     src = "veneur_tpu_torch/csrc/tdigest_merge.cu"
     rows = []
     # K1 and K2 with the b half presorted (the main path), then K3: the

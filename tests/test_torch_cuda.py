@@ -496,3 +496,85 @@ def test_native_forward_on_cuda_matches_cpu(cuda):
             assert abs(got[key] - value) <= 1e-4 * 60, key
         else:
             assert got[key] == value, key
+
+
+def test_kernel_fault_on_cuda_requeues_then_emits(cuda):
+    """The compute ladder on the card: a flush whose kernel fails at
+    preflight launches nothing (no plain version runs on the CUDA
+    tensors), re-merges the interval into the live store, and the next
+    flush emits it through K1 with the counts, sums and extrema of a
+    store that never failed, and its percentiles within 0.02 of the
+    span (the checkpoint round trip's bound)."""
+    from veneur_tpu_torch.resilience.compute import ComputeBreaker
+    from veneur_tpu_torch.resilience.faults import FaultInjector
+
+    rng = np.random.default_rng(37)
+    lines = [f"h.{i}:{v:.5f}|h".encode() for i in range(300)
+             for v in rng.gamma(2.0, 10.0, 24)]
+    breaker = ComputeBreaker()
+    breaker.injector = FaultInjector(rate=1.0, kinds=("connect",),
+                                     scope="compute.tdigest_merge")
+    faulted = MetricStore(chunk=512, device=cuda, compute=breaker)
+    clean = MetricStore(chunk=512, device=cuda)
+    for store in (faulted, clean):
+        for ln in lines:
+            store.process_metric(parse_metric(ln))
+    aggs = HistogramAggregates.from_names(["min", "max", "count", "sum"])
+    pcts = [0.01, 0.25, 0.5, 0.75, 0.99]
+
+    def rows(store):
+        flushed, _ = store.flush(pcts, aggs, 0)
+        return {m.name: m.value for m in flushed.to_intermetrics()}
+
+    k1 = tc.drain_quantile.launches
+    assert rows(faulted) == {}
+    torch.cuda.synchronize()
+    assert tc.drain_quantile.launches == k1
+    assert breaker.requeued_total == 1 and breaker.lost_total == 0
+    breaker.injector = None
+    got, want = rows(faulted), rows(clean)
+    assert tc.drain_quantile.launches == k1 + 2
+    assert set(got) == set(want)
+    for i in range(300):
+        span = want[f"h.{i}.max"] - want[f"h.{i}.min"]
+        for suffix in (".count", ".min", ".max"):
+            assert got[f"h.{i}{suffix}"] == want[f"h.{i}{suffix}"]
+        assert got[f"h.{i}.sum"] == pytest.approx(want[f"h.{i}.sum"],
+                                                  rel=1e-6)
+        for p in ("1", "25", "50", "75", "99"):
+            name = f"h.{i}.{p}percentile"
+            assert abs(got[name] - want[name]) <= 0.02 * span, name
+
+
+def test_snapshot_on_cuda_holds_state_after_ingest(cuda):
+    """A snapshot begun on the card and fetched after more ingest (in
+    place on the temp planes, the extrema and the registers) holds the
+    state of its begin: the device copies, not views."""
+    rng = np.random.default_rng(43)
+    lines = []
+    for i in range(64):
+        lines += [f"h.{i}:{v:.5f}|h" for v in rng.gamma(2.0, 10.0, 12)]
+        lines += [f"s.{i}:m{int(rng.integers(0, 40))}|s" for _ in range(8)]
+        lines += [f"k.{i}:x{int(rng.integers(0, 9))}|s|#veneurtopk"
+                  for _ in range(8)]
+    store = MetricStore(chunk=256, device=cuda, topk_width=1 << 10)
+    for ln in lines:
+        store.process_metric(parse_metric(ln.encode()))
+    want, _ = store.snapshot_state()
+    with store._lock:
+        begun = {name: getattr(store, name).snapshot_begin()
+                 for name in store._GEN_GROUPS}
+    for ln in lines:
+        store.process_metric(parse_metric(ln.encode()))
+    with store._lock:
+        for name in ("histograms", "sets", "heavy_hitters"):
+            getattr(store, name)._drain_staging()
+    for name, (snap, finish) in begun.items():
+        if finish is not None:
+            finish()
+        for k, v in want[name].items():
+            if isinstance(v, np.ndarray):
+                np.testing.assert_array_equal(snap[k], v,
+                                              err_msg=f"{name}.{k}")
+            else:
+                assert snap[k] == v, (name, k)

@@ -111,6 +111,15 @@ def test_native_forward_modules_are_covered():
             "veneur_tpu_torch.forward.native_transport"} <= set(_modules())
 
 
+def test_crash_safe_state_modules_are_covered():
+    """The checkpoint and compute-ladder slice's modules (persist/, the
+    compute breaker, fault injection) are scanned and imported too."""
+    assert {"veneur_tpu_torch.persist", "veneur_tpu_torch.persist.format",
+            "veneur_tpu_torch.persist.checkpoint",
+            "veneur_tpu_torch.resilience.compute",
+            "veneur_tpu_torch.resilience.faults"} <= set(_modules())
+
+
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"

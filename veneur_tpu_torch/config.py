@@ -18,6 +18,7 @@ from dataclasses import dataclass, field
 from typing import List
 
 from veneur_tpu_torch import overload
+from veneur_tpu_torch.resilience import compute, faults
 
 log = logging.getLogger("veneur.config")
 
@@ -151,6 +152,29 @@ class Config:
     flush_max_per_body: int = 0
     # the local-file plugin: a gzip TSV member appended each flush
     flush_file: str = ""
+    # crash-safe state (persist/): where the interval checkpoint lives
+    # ("" = no checkpoints; the atomic write's scratch file is
+    # checkpoint_path + ".tmp"), how often it is written (the bound on
+    # data lost to a crash; "" = interval / 4), and the age, in flush
+    # intervals, past which a checkpoint found at startup is stale and
+    # discarded (0 = 2.0)
+    checkpoint_path: str = ""
+    checkpoint_interval: str = ""
+    checkpoint_max_age_intervals: float = 0.0
+    # the flush kernel's compute breaker (resilience/compute.py):
+    # consecutive kernel failures before flushes and drains take the
+    # plain version (0 = 2), and how long an open breaker waits before
+    # one flush probes the kernel again ("" = 60s)
+    compute_breaker_failure_threshold: int = 0
+    compute_breaker_reset_timeout: str = ""
+    # seeded fault injection (resilience/faults.py; rate 0 = off): the
+    # same seed gives the same schedule. The port arms disk_full (the
+    # checkpoint commit) and deadline_pressure (the flush's egress
+    # budget); scope substring-filters the operation names
+    fault_injection_rate: float = 0.0
+    fault_injection_seed: int = 0
+    fault_injection_kinds: str = ""
+    fault_injection_scope: str = ""
 
     def __post_init__(self):
         if not self.aggregates:
@@ -243,12 +267,50 @@ class Config:
                 self.datadog_flush_max_per_body = self.flush_max_per_body
         self.datadog_flush_max_per_body = (self.datadog_flush_max_per_body
                                            or 25000)
+        if self.checkpoint_max_age_intervals < 0:
+            raise ValueError(
+                f"checkpoint_max_age_intervals must be >= 0 (0 = use the "
+                f"default, 2.0), got {self.checkpoint_max_age_intervals}")
+        self.checkpoint_max_age_intervals = (
+            self.checkpoint_max_age_intervals or 2.0)
+        if self.compute_breaker_failure_threshold < 0:
+            raise ValueError(
+                f"compute_breaker_failure_threshold must be >= 0 (0 = use "
+                f"the default, {compute.DEFAULT_FAILURE_THRESHOLD}; the "
+                f"compute breaker cannot be disabled), got "
+                f"{self.compute_breaker_failure_threshold}")
+        self.compute_breaker_failure_threshold = (
+            self.compute_breaker_failure_threshold
+            or compute.DEFAULT_FAILURE_THRESHOLD)
+        self.compute_breaker_reset_timeout = (
+            self.compute_breaker_reset_timeout or "60s")
+        if not 0.0 <= self.fault_injection_rate <= 1.0:
+            raise ValueError(f"fault_injection_rate must be in [0, 1], got "
+                             f"{self.fault_injection_rate}")
+        kinds = [k.strip() for k in self.fault_injection_kinds.split(",")
+                 if k.strip()]
+        bad = [k for k in kinds if k not in faults.KNOWN_KINDS]
+        if bad:
+            raise ValueError(f"unknown fault_injection_kinds {bad}; known: "
+                             f"{list(faults.KNOWN_KINDS)}")
+        if self.fault_injection_rate > 0:
+            unported = [k for k in kinds or faults.ALL_KINDS
+                        if k not in faults.PORTED_KINDS]
+            if unported:
+                raise UnsupportedConfig(
+                    f"fault_injection_kinds {unported} have no hook in "
+                    f"veneur_tpu_torch yet (it injects "
+                    f"{list(faults.PORTED_KINDS)}); run veneur_tpu for "
+                    f"them")
         self.forward_timeout = self.forward_timeout or "10s"
         self.retry_base_interval = self.retry_base_interval or "100ms"
         self.breaker_reset_timeout = self.breaker_reset_timeout or "30s"
         for name in ("interval", "forward_timeout", "retry_base_interval",
-                     "breaker_reset_timeout"):
+                     "breaker_reset_timeout",
+                     "compute_breaker_reset_timeout"):
             parse_duration(getattr(self, name))  # malformed raises here
+        if self.checkpoint_interval:
+            parse_duration(self.checkpoint_interval)
 
     @property
     def interval_seconds(self) -> float:
@@ -265,6 +327,17 @@ class Config:
     @property
     def breaker_reset_timeout_seconds(self) -> float:
         return parse_duration(self.breaker_reset_timeout)
+
+    @property
+    def compute_breaker_reset_timeout_seconds(self) -> float:
+        return parse_duration(self.compute_breaker_reset_timeout)
+
+    @property
+    def checkpoint_interval_seconds(self) -> float:
+        """The checkpoint cadence; 0.0 = unset (the server takes
+        interval / 4)."""
+        return (parse_duration(self.checkpoint_interval)
+                if self.checkpoint_interval else 0.0)
 
 
 # values that leave an unimplemented key switched off

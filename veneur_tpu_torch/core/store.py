@@ -44,9 +44,15 @@ group's device program dispatches before any fetch blocks, and one
 serializer thread emits each fetched result (``flush_pipeline_depth``,
 ``core/pipeline.py``). A columnar flush emits ``EmissionBlock`` columns
 (``core/columnar.py``) that the native serializers turn into sink bodies,
-and streams each group's blocks to the sinks as it completes. Snapshots
-are not ported yet, and a kernel error propagates (there is no fallback
-rung).
+and streams each group's blocks to the sinks as it completes.
+
+A digest flush runs the compute ladder (``resilience/compute.py``): the
+CUDA kernel, and when it fails (or its breaker is open) the retired
+group re-merges into the live store (late, never lost).
+Every group snapshots without resetting (``snapshot_begin`` takes device
+copies under the store lock, ``finish`` fetches them off it), and
+:meth:`MetricStore.restore_state` merges a snapshot back with import
+semantics: the checkpoint (``persist/``) and the ladder's third rung.
 
 Device state is updated in place where the JAX package donates buffers;
 a flush swaps every group for a fresh twin with freshly allocated
@@ -57,6 +63,7 @@ from __future__ import annotations
 
 import logging
 import math
+import sys
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -76,6 +83,7 @@ from veneur_tpu_torch.ops import hll as hll_ops
 from veneur_tpu_torch.ops import tdigest as td_ops
 from veneur_tpu_torch.overload import (OVERFLOW_NAME, Quarantine,
                                        freeze_exempt)
+from veneur_tpu_torch.resilience.compute import ComputeBreaker
 from veneur_tpu_torch.samplers.intermetric import (
     Aggregate,
     HistogramAggregates,
@@ -220,6 +228,7 @@ class OverloadLimited:
     scrubbed = 0
     _overload = None        # overload.OverloadController
     _quarantine: Optional[Quarantine] = None  # the store's shared ledger
+    _compute = None         # resilience.compute.ComputeBreaker
 
     def _intern_row(self, key: MetricKey, tags: List[str]) -> int:
         """Interner hit -> its row; first sight -> a fresh row, or the
@@ -253,6 +262,75 @@ class OverloadLimited:
         q = self._quarantine
         if q is not None:
             q.count(reason, n)
+
+
+class KernelBreakerOpen(RuntimeError):
+    """The flush kernel's breaker is open: the digest unit goes straight
+    to the store's re-merge rung without a launch."""
+
+
+def begin_compute_ladder(compute, dispatch, collect):
+    """The flush kernel's ladder (``resilience/compute.py``) around one
+    digest unit: ``dispatch()`` (the asynchronous launch) runs NOW when
+    the breaker admits the kernel, and the returned ``finish()`` runs
+    ``collect(pending)`` (the blocking device->host fetch). A failure in
+    either phase is recorded on the breaker and raised, and a flush
+    while the breaker is open raises :class:`KernelBreakerOpen` without
+    launching: the store's failure edge then re-merges the retired group
+    (rung 3). There is no plain-version rung: a CUDA tensor reaches the
+    kernel or nothing.
+
+    The re-merge starts from intact state: the flush program reads the
+    digest and temp planes without changing them, and a launch the
+    runtime refuses (``tdigest_cuda._raise_on``) leaves the context
+    usable. A fault inside a running kernel is sticky: it poisons the
+    context, the re-merge fails as well, and the interval is bounded by
+    the last checkpoint."""
+    if compute is None:
+        pending = dispatch()
+        return lambda: collect(pending)
+    if not compute.probe():
+        raise KernelBreakerOpen("the t-digest flush kernel's breaker is "
+                                "open")
+    try:
+        compute.preflight()
+        pending = dispatch()
+    except Exception:
+        compute.record_failure()
+        raise
+
+    def finish():
+        try:
+            out = collect(pending)
+        except Exception:
+            compute.record_failure()
+            raise
+        compute.record_success()
+        return out
+
+    return finish
+
+
+def _snapshot_copies(tensors):
+    """Device copies of ``tensors``, taken now (the caller holds the store
+    lock), and a CUDA event recorded after them (None on the CPU). A
+    slice would be a view that a later in-place ingest changes
+    (``index_add_``, ``scatter_reduce_``); the copies are the state at
+    the snapshot."""
+    copies = tuple(t.clone() for t in tensors)
+    event = None
+    if copies and copies[0].is_cuda:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(copies[0].device))
+    return copies, event
+
+
+def _fetch_copies(copies, event) -> List[np.ndarray]:
+    """The host arrays of :func:`_snapshot_copies`: waits for the copies
+    alone, then fetches them (no lock held)."""
+    if event is not None:
+        event.synchronize()
+    return [_to_host(t) for t in copies]
 
 
 # ---------------------------------------------------------------------------
@@ -370,6 +448,23 @@ class ScalarGroup(OverloadLimited):
             self.messages, self.hostnames = [], []
         return interner, values, messages, hostnames
 
+    def snapshot_begin(self):
+        """Phase 1 of the two-phase snapshot (the caller holds the store
+        lock): the host copy is the whole snapshot, so there is no fetch
+        phase. Returns ``(snap, None)`` like the device groups."""
+        n = len(self.interner)
+        snap = {"kind": "scalar", "names": list(self.interner.names),
+                "joined": list(self.interner.joined),
+                "values": self.values[:n].copy()}
+        if self.messages is not None:
+            snap["messages"] = list(self.messages[:n])
+            snap["hostnames"] = list(self.hostnames[:n])
+        return snap, None
+
+    def snapshot_state(self) -> dict:
+        """Host copy of the live group WITHOUT resetting it."""
+        return self.snapshot_begin()[0]
+
     def fresh(self) -> "ScalarGroup":
         """Empty same-config twin (swap-on-flush generation swap)."""
         return ScalarGroup(self.kind, self.capacity)
@@ -425,6 +520,40 @@ def _flush_digests(digest: td_ops.TDigest, temp: td_ops.TempCentroids,
                                               compression)
     return (drained, pcts, temp.count, temp.vsum, temp.vmin, temp.vmax,
             temp.recip)
+
+
+def _restore_temp_stats(temp: td_ops.TempCentroids, rows, count, vsum,
+                        vmin, vmax, recip):
+    """Fold a recovered interval's per-row scalar stats into the temp
+    accumulators, in place (checkpoint restore). The centroid half of a
+    restore rides the import path, which skips these (update_stats=False,
+    samplers.go:473-480); without this a warm restart would keep the
+    percentiles but lose the .count/.min/.max/.sum/.hmean emissions of
+    the recovered samples."""
+    temp.count.index_add_(0, rows, count)
+    temp.vsum.index_add_(0, rows, vsum)
+    temp.vmin.scatter_reduce_(0, rows, vmin, "amin")
+    temp.vmax.scatter_reduce_(0, rows, vmax, "amax")
+    temp.recip.index_add_(0, rows, recip)
+
+
+def flatten_digest_state(mean: np.ndarray, weight: np.ndarray,
+                         bin_w: np.ndarray, bin_wm: np.ndarray) -> dict:
+    """Flatten [n, K] digest planes plus [n, K] pending temp bins into
+    per-row centroid runs sorted by (row, mean): the layout
+    :meth:`DigestGroup.import_centroids_bulk` takes back at restore.
+    Pending bins become centroids at (sum_wm/sum_w, sum_w), as a drain
+    would cluster them."""
+    r1, c1 = np.nonzero(weight > 0)
+    r2, c2 = np.nonzero(bin_w > 0)
+    w2 = bin_w[r2, c2]
+    rows = np.concatenate([r1, r2]).astype(np.int32)
+    means = np.concatenate([mean[r1, c1],
+                            bin_wm[r2, c2] / w2]).astype(np.float64)
+    weights = np.concatenate([weight[r1, c1], w2]).astype(np.float64)
+    order = np.lexsort((means, rows))
+    return {"rows": rows[order], "means": means[order],
+            "weights": weights[order]}
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -738,16 +867,21 @@ class DigestGroup(OverloadLimited):
         now (kernel launches are asynchronous), and return a ``finish()``
         whose device->host copy blocks later, so the store can dispatch
         every group before any fetch waits. ``finish()`` returns
-        ``(interner, out)`` and only then resets the group."""
+        ``(interner, out)`` and only then resets the group. The program
+        runs through the compute ladder (:func:`begin_compute_ladder`):
+        a kernel failure in either phase raises with the group intact,
+        for the store's re-merge rung."""
         self._drain_staging()
         n = len(self.interner)
         if n == 0:
             res = self._flush_empty()
             return lambda: res
-        pending = self._flush_dispatch(n, percentiles, want_digests,
-                                       want_stats)
-        return lambda: self._flush_commit(
-            self._flush_collect(pending, n, percentiles))
+        fin = begin_compute_ladder(
+            self._compute,
+            lambda: self._flush_dispatch(n, percentiles, want_digests,
+                                         want_stats),
+            lambda pending: self._flush_collect(pending, n, percentiles))
+        return lambda: self._flush_commit(fin())
 
     def _flush_empty(self):
         interner, self.interner = self.interner, Interner()
@@ -838,6 +972,68 @@ class DigestGroup(OverloadLimited):
         self._imp_stat_rows = self._imp_stat_mins = None
         self._imp_stat_maxs = None
         self._fill = self._imp_fill = self._imp_stat_fill = 0
+
+    def snapshot_begin(self):
+        """Phase 1 of the two-phase snapshot (the caller holds the store
+        lock): drain staging, then copy every live plane on the device
+        (:func:`_snapshot_copies`). The returned ``finish`` fetches the
+        copies and flattens them off-lock, completing ``snap`` in place;
+        ingest that runs meanwhile cannot change what it reads."""
+        self._drain_staging()
+        n = len(self.interner)
+        snap = {"kind": "digest", "names": list(self.interner.names),
+                "joined": list(self.interner.joined)}
+        if n == 0:
+            return snap, None
+        d, t = self.digest, self.temp
+        copies, event = _snapshot_copies((
+            d.mean[:n], d.weight[:n], t.sum_w[:n], t.sum_wm[:n],
+            self.dmin[:n], self.dmax[:n], d.min[:n], d.max[:n],
+            t.count[:n], t.vsum[:n], t.vmin[:n], t.vmax[:n], t.recip[:n]))
+
+        def finish():
+            (mean, weight, bin_w, bin_wm, imp_min, imp_max, dmn, dmx, cnt,
+             vsum, vmin, vmax, recip) = _fetch_copies(copies, event)
+            snap.update(flatten_digest_state(mean, weight, bin_w, bin_wm))
+            # digest-bound extrema (the import path's stat arguments); the
+            # interval's observed extrema travel as the temp stats
+            snap["mins"] = np.minimum(imp_min, dmn)
+            snap["maxs"] = np.maximum(imp_max, dmx)
+            for nm, arr in (("count", cnt), ("vsum", vsum), ("vmin", vmin),
+                            ("vmax", vmax), ("recip", recip)):
+                snap[nm] = np.asarray(arr, np.float32)
+
+        return snap, finish
+
+    def snapshot_state(self) -> dict:
+        """Host copy of the live sketch state WITHOUT resetting it: the
+        digest centroids plus the pending bins as per-row runs, and the
+        interval's scalar stats beside them, so a restore rebuilds the
+        sketch and the local aggregates. Begin and finish in one call,
+        for a caller that owns the group (the re-merge rung, tests)."""
+        snap, finish = self.snapshot_begin()
+        if finish is not None:
+            finish()
+        return snap
+
+    def restore_stats(self, rows: np.ndarray, count: np.ndarray,
+                      vsum: np.ndarray, vmin: np.ndarray, vmax: np.ndarray,
+                      recip: np.ndarray):
+        """Fold recovered per-row scalar stats into the temp accumulators
+        (see :func:`_restore_temp_stats`)."""
+        if not len(rows):
+            return
+        self.ensure_capacity(int(rows.max()))
+        self._device_dirty = True
+        dev = self.device
+
+        def f32(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+                dev)
+
+        _restore_temp_stats(
+            self.temp, torch.from_numpy(rows.astype(np.int64)).to(dev),
+            f32(count), f32(vsum), f32(vmin), f32(vmax), f32(recip))
 
 
 # ---------------------------------------------------------------------------
@@ -1060,6 +1256,34 @@ class SetGroup(OverloadLimited):
         self.registers = torch.zeros((self.capacity, self.m),
                                      dtype=torch.int8, device=self.device)
         self._device_dirty = False
+
+    def snapshot_begin(self):
+        """Phase 1 of the two-phase snapshot: drain staging and copy the
+        live rows' registers on the device under the store lock; the
+        returned ``finish`` fetches them off-lock (see
+        ``DigestGroup.snapshot_begin``)."""
+        self._drain_staging()
+        n = len(self.interner)
+        snap = {"kind": "set", "precision": self.precision,
+                "names": list(self.interner.names),
+                "joined": list(self.interner.joined)}
+        if n == 0:
+            return snap, None
+        copies, event = _snapshot_copies((self.registers[:n],))
+
+        def finish():
+            (regs,) = _fetch_copies(copies, event)
+            snap["registers"] = regs.view(np.uint8)
+
+        return snap, finish
+
+    def snapshot_state(self) -> dict:
+        """Host copy of the live registers WITHOUT resetting; begin and
+        finish in one call."""
+        snap, finish = self.snapshot_begin()
+        if finish is not None:
+            finish()
+        return snap
 
 
 # ---------------------------------------------------------------------------
@@ -1329,6 +1553,47 @@ class HeavyHitterGroup(OverloadLimited):
         self.sketch = cm_ops.init(self.capacity, self.depth, self.width,
                                   self.k, self.device)
 
+    def snapshot_begin(self):
+        """Phase 1 of the two-phase snapshot: copy the live top-k planes
+        and the count-min table on the device and the host member memo,
+        all under the store lock; the returned ``finish`` fetches and
+        assembles them off-lock (see ``DigestGroup.snapshot_begin``)."""
+        self._drain_samples()
+        n = len(self.interner)
+        snap = {"kind": "topk", "depth": self.depth, "width": self.width,
+                "names": list(self.interner.names),
+                "joined": list(self.interner.joined)}
+        if n == 0:
+            return snap, None
+        copies, event = _snapshot_copies(self._live_topk(n)
+                                         + (self.sketch.table,))
+        members = dict(self._members)
+
+        def finish():
+            hi, lo, ct, table = _fetch_copies(copies, event)
+            hi, lo = hi.view(np.uint32), lo.view(np.uint32)
+            snap["table"] = np.asarray(table, np.float32)
+            live_r, live_c = np.nonzero(ct > 0)
+            series = [{"keys": [], "members": []} for _ in range(n)]
+            for r, h32, l32 in zip(live_r.tolist(),
+                                   hi[live_r, live_c].tolist(),
+                                   lo[live_r, live_c].tolist()):
+                s = series[r]
+                s["keys"].append((h32, l32))
+                s["members"].append(members.get((h32 << 32) | l32))
+            snap["series"] = series
+
+        return snap, finish
+
+    def snapshot_state(self) -> dict:
+        """Host copy of the live sketch WITHOUT resetting: the count-min
+        table plus each series' top-k candidates in the
+        :meth:`import_sketch` layout; begin and finish in one call."""
+        snap, finish = self.snapshot_begin()
+        if finish is not None:
+            finish()
+        return snap
+
 
 _DIGEST_GROUPS = ("histograms", "timers", "local_histograms", "local_timers")
 _SET_GROUPS = ("sets", "local_sets")
@@ -1519,7 +1784,7 @@ class MetricStore:
                  topk_width: int = cm_ops.DEFAULT_WIDTH,
                  topk_k: int = cm_ops.DEFAULT_TOPK, max_series: int = 0,
                  max_tag_length: int = 0, overload=None,
-                 flush_pipeline_depth: int = 2, device=None):
+                 flush_pipeline_depth: int = 2, compute=None, device=None):
         self.device = resolve_device(device)
         # samples the store rejects, by reason (cumulative): the groups'
         # scrubs, process_batch's and the ingest lanes' ledgers, and the
@@ -1554,6 +1819,9 @@ class MetricStore:
         self.max_series = max_series
         self.max_tag_length = max_tag_length
         self._overload = overload
+        # the flush kernel's compute ladder (resilience/compute.py):
+        # always on; its breaker is shared by every digest group
+        self.compute = compute if compute is not None else ComputeBreaker()
         self._configure_overload_groups()
         self.processed = 0
         # forwarded metrics merged this interval (import_*)
@@ -1568,6 +1836,8 @@ class MetricStore:
         # import_columnar's C++ (type, payload, name, tags) -> row memo;
         # it too restarts with every generation
         self._mlist_table = None
+        # the ingest fleets' sealed-chunk drain, run before a snapshot
+        self._ingest_drain = None
 
     # -- overload plumbing (overload.py) -------------------------------------
 
@@ -1590,6 +1860,7 @@ class MetricStore:
         g._overflow_type = self._GROUP_TYPES[name]
         g._overload = self._overload
         g._quarantine = self.quarantine
+        g._compute = self.compute
 
     def _truncate_tags(self, joined: str) -> str:
         """The per-series tag-length cap: cut the joined tags at the last
@@ -2196,7 +2467,8 @@ class MetricStore:
                 lambda res, name=name, pcts=pcts, fwd_attr=fwd_attr:
                     self._emit_digest_result(
                         name, res, pcts, aggregates, final, now, fwd,
-                        fwd_attr, col, stream)))
+                        fwd_attr, col, stream),
+                group))
         # local sets always flush; mixed sets flush only on a global and
         # are forwarded by a local
         for name, out, fwd_list in (
@@ -2211,7 +2483,8 @@ class MetricStore:
                                       want_registers=fwd_list is not None),
                 lambda res, name=name, out=out, fwd_list=fwd_list:
                     self._emit_set_result(name, res, out, now, fwd_list,
-                                          col, stream)))
+                                          col, stream),
+                None))
         # heavy hitters follow the mixed-set rule: a forwarding local ships
         # its sketch and emits nothing (the global emits the fleet top-k);
         # when the transport cannot carry it, the local emits its own view
@@ -2220,7 +2493,8 @@ class MetricStore:
             "topk",
             lambda: g.heavy_hitters.flush_begin(want_forward=want_hh_fwd),
             lambda res: self._emit_topk_result(res, final, now, fwd,
-                                               want_hh_fwd)))
+                                               want_hh_fwd),
+            None))
         self._run_flush_units(units)
         # status checks are always local
         self._flush_status(g.local_status_checks, final, now)
@@ -2242,9 +2516,9 @@ class MetricStore:
         return flushed, fwd
 
     def _run_flush_units(self, units: List[tuple]):
-        """Run the generation's flush plan of ``(name, begin, emit)``
-        units: ``begin()`` dispatches a group's device program and
-        returns its ``finish()``, which fetches the result; ``emit``
+        """Run the generation's flush plan of ``(name, begin, emit,
+        group)`` units: ``begin()`` dispatches a group's device program
+        and returns its ``finish()``, which fetches the result; ``emit``
         turns the fetched result into rows.
 
         Sequential (``flush_pipeline_depth`` 0): begin, finish and emit
@@ -2254,21 +2528,237 @@ class MetricStore:
         emits, and streams, each fetched result, so group k's emission
         overlaps group k+1's fetch. The lane's bounded queue keeps at
         most ``flush_pipeline_depth`` results resident, and emission
-        order stays deterministic. A unit that fails propagates (there
-        is no fallback rung)."""
+        order stays deterministic.
+
+        A digest unit (``group`` set) whose kernel fails at dispatch or
+        fetch, or whose breaker is open, re-merges into the live store
+        (:meth:`_requeue_group`) and the plan goes on; any other unit's
+        failure propagates."""
         depth = self.flush_pipeline_depth
         if depth <= 0:
-            for _name, begin, emit in units:
-                emit(begin()())
+            for name, begin, emit, group in units:
+                try:
+                    res = begin()()
+                except Exception:
+                    if not self._unit_failed(name, group, "flush"):
+                        raise
+                    continue
+                emit(res)
             return
-        plan = [(name, begin(), emit) for name, begin, emit in units]
+        plan = []
+        for name, begin, emit, group in units:
+            try:
+                fin = begin()
+            except Exception:
+                if not self._unit_failed(name, group, "dispatch"):
+                    raise
+                fin = None
+            plan.append((name, fin, emit, group))
         lane = SerializerLane(depth)
         try:
-            for name, fin, emit in plan:
-                lane.submit(name, emit, fin())
+            for name, fin, emit, group in plan:
+                if fin is None:
+                    continue
+                try:
+                    res = fin()
+                except Exception:
+                    if not self._unit_failed(name, group, "fetch"):
+                        raise
+                    continue
+                lane.submit(name, emit, res)
         finally:
             # joins the serializer; re-raises the first emit error
             lane.close()
+
+    def _unit_failed(self, name: str, group, phase: str) -> bool:
+        """The flush plan's failure edge (called from an except block):
+        a digest unit whose kernel failed, or whose breaker is open,
+        re-merges into the live store and the plan goes on (True);
+        anything else propagates (False)."""
+        if group is None:
+            return False
+        if isinstance(sys.exc_info()[1], KernelBreakerOpen):
+            log.warning("digest flush for %s: the kernel's breaker is "
+                        "open; re-merging the interval into the live "
+                        "store", name)
+        else:
+            log.exception("digest flush for %s failed at %s; re-merging "
+                          "the interval into the live store", name, phase)
+        self._requeue_group(name, group)
+        return True
+
+    def _requeue_group(self, gen_name: str, group) -> None:
+        """Rung 3 of the compute ladder: snapshot the retired group (this
+        thread owns it alone: the swap already replaced it) and merge the
+        snapshot into the LIVE group with import semantics, as a restore
+        does. The interval emits late, never lost; when the snapshot
+        fails too (a poisoned CUDA context), the last checkpoint bounds
+        the loss."""
+        compute = self.compute
+        try:
+            snap = group.snapshot_state()
+            with self._lock:
+                self._restore_group(gen_name, self._GROUP_TYPES[gen_name],
+                                    getattr(self, gen_name), snap)
+            compute.count_requeued()
+            log.warning("re-merged %s into the live store; its interval "
+                        "emits with the next flush", gen_name)
+        except Exception:
+            compute.count_lost()
+            log.exception("could not re-merge %s after the flush failure; "
+                          "its interval is lost (the last checkpoint "
+                          "bounds the damage)", gen_name)
+
+    # -- snapshot and restore (persist/, the ladder's rung 3) ----------------
+
+    def set_ingest_drain(self, drain) -> None:
+        """Register the ingest fleets' sealed-chunk drain; a snapshot runs
+        it first, so chunks the lanes sealed but the merger has not
+        folded in yet are captured (``IngestFleet.merge_sealed``)."""
+        self._ingest_drain = drain
+
+    def snapshot_state(self) -> Tuple[Dict[str, dict], int]:
+        """Host snapshot of every group WITHOUT resetting anything, in two
+        phases: under each group's own store-lock hold the host copies and
+        the device copies are taken (``snapshot_begin``), and the blocking
+        device->host fetches run after, with no lock held (``finish``), so
+        ingest never waits behind a checkpoint's transfer. Returns
+        ``(groups, flush_epoch)``: the writer discards the snapshot when
+        the epoch moved before it commits, which also covers a flush swap
+        landing between two group holds."""
+        drain = self._ingest_drain
+        if drain is not None:
+            try:
+                drain()
+            except Exception:
+                log.exception("pre-snapshot ingest drain failed")
+        with self._lock:
+            epoch = self.flush_epoch
+        groups = {}
+        fetches = []
+        for name in self._GEN_GROUPS:
+            with self._lock:
+                snap, finish = getattr(self, name).snapshot_begin()
+            groups[name] = snap
+            if finish is not None:
+                fetches.append(finish)
+        for finish in fetches:  # blocking device reads, no lock held
+            finish()
+        return groups, epoch
+
+    def restore_state(self, groups: Dict[str, dict],
+                      prefer_live_scalars: bool = False) -> int:
+        """Merge a snapshot into the live store with import semantics
+        (counters add, gauges last-write, digests re-enter the centroid
+        binning, sets register-max, count-min tables add), so recovery
+        composes with global aggregation as a forwarded sketch would.
+        Returns the number of series merged. An unknown group holding
+        series and a configuration mismatch (HLL precision, count-min
+        geometry) skip that group with a warning; nothing here raises.
+
+        ``prefer_live_scalars=True`` re-merges RETIRED state into a store
+        that kept ingesting: a gauge or status row that exists live holds
+        a newer sample, so it is skipped rather than overwritten.
+        Counters always add."""
+        merged = 0
+        with self._lock:
+            for name, snap in groups.items():
+                tname = self._GROUP_TYPES.get(name)
+                target = getattr(self, name, None)
+                if (tname is None or target is None
+                        or not isinstance(snap, dict)):
+                    if isinstance(snap, dict) and not snap.get("names"):
+                        continue  # a group this store lacks, but empty
+                    log.warning("checkpoint restore: unknown group %r; "
+                                "skipping", name)
+                    continue
+                try:
+                    merged += self._restore_group(
+                        name, tname, target, snap,
+                        prefer_live_scalars=prefer_live_scalars)
+                except Exception:
+                    log.exception("checkpoint restore: group %s failed; "
+                                  "skipping it", name)
+        return merged
+
+    def _restore_group(self, name: str, tname: str, target, snap: dict,
+                       prefer_live_scalars: bool = False) -> int:
+        kind = snap.get("kind")
+        names, joined = snap.get("names", []), snap.get("joined", [])
+        n = len(names)
+
+        def keys():
+            for i in range(n):
+                jt = joined[i]
+                yield i, MetricKey(name=names[i], type=tname,
+                                   joined_tags=jt), \
+                    (jt.split(",") if jt else [])
+
+        if kind == "scalar":
+            values = snap.get("values", ())
+            messages = snap.get("messages")
+            hostnames = snap.get("hostnames")
+            skip_live = prefer_live_scalars and target.kind != "counter"
+            merged = 0
+            for i, key, tags in keys():
+                if skip_live and key in target.interner.rows:
+                    continue
+                merged += 1
+                if messages is not None:
+                    target.sample(key, tags, float(values[i]), 1.0,
+                                  message=messages[i],
+                                  hostname=hostnames[i])
+                else:
+                    target.combine(key, tags, values[i])
+            return merged
+        if kind == "digest":
+            if n == 0:
+                return 0
+            row_map = np.empty(n, np.int32)
+            for i, key, tags in keys():
+                row_map[i] = target._row(key, tags)
+            rows = row_map[np.asarray(snap["rows"], np.int64)]
+            mins, maxs = snap["mins"], snap["maxs"]
+            finite = np.isfinite(mins)
+            target.import_centroids_bulk(
+                rows, snap["means"], snap["weights"], row_map[finite],
+                mins[finite], maxs[finite])
+            target.restore_stats(row_map, snap["count"], snap["vsum"],
+                                 snap["vmin"], snap["vmax"], snap["recip"])
+            return n
+        if kind == "set":
+            if snap.get("precision") != target.precision:
+                log.warning("checkpoint restore: %s has HLL precision %s, "
+                            "the store runs %d; skipping the group", name,
+                            snap.get("precision"), target.precision)
+                return 0
+            registers = snap.get("registers", ())
+            for i, key, tags in keys():
+                target.import_registers(key, tags, registers[i])
+            return n
+        if kind == "topk":
+            table = snap.get("table")
+            if table is None or n == 0:
+                return 0
+            if (snap.get("depth"), snap.get("width")) != (target.depth,
+                                                          target.width):
+                log.warning("checkpoint restore: %s count-min geometry "
+                            "%sx%s != the store's %dx%d; skipping the "
+                            "group", name, snap.get("depth"),
+                            snap.get("width"), target.depth, target.width)
+                return 0
+            series = snap.get("series", [])
+            entries = []
+            for i, key, tags in keys():
+                s = series[i] if i < len(series) else {"keys": [],
+                                                       "members": []}
+                entries.append((key, tags, [tuple(p) for p in s["keys"]],
+                                s["members"]))
+            target.import_sketch(np.asarray(table, np.float32), entries)
+            return n
+        log.warning("checkpoint restore: group %s has unknown kind %r; "
+                    "skipping", name, kind)
+        return 0
 
     def _flush_scalars(self, group: ScalarGroup, mtype: MetricType,
                        out: List[InterMetric], now: int,

@@ -18,8 +18,9 @@ library must load: a build or load failure fails the flush (there is no
 quiet per-row fallback). With ``flush_streaming`` and a pipelined store
 too, every sink with ``flush_chunk`` gets each completed group as it
 exists (core/pipeline.py), and a forwarder that takes parts ships each
-forwarded digest group upstream the same way. Self-telemetry is not
-ported yet.
+forwarded digest group upstream the same way. A store flush truncates
+the checkpoint (``persist/``): the state it captured is now on its way
+to the sinks. Self-telemetry is not ported yet.
 """
 
 from __future__ import annotations
@@ -55,8 +56,13 @@ def flush_once(server: "Server") -> int:
             log.exception("sink %s flush_other_samples failed", sink.name)
     _start_span_flush(server)
     # the interval's egress budget: sink and streamed-part retries end
-    # before the next flush
-    deadline = _egress_deadline(server)
+    # before the next flush; a seeded deadline_pressure fault shrinks it
+    # (one schedule draw a flush)
+    budget = _egress_budget(server)
+    if server.soak_injector is not None:
+        budget = server.soak_injector.scale_deadline("flush.deadline",
+                                                     budget)
+    deadline = Deadline.after(budget)
     is_local = server.is_local()
     forwarding = is_local and server.forward_fn is not None
     # the heavy-hitter sketch rides our JSON body, never the reference's
@@ -81,13 +87,20 @@ def flush_once(server: "Server") -> int:
             stream=stream)
         log.debug("store flush of %d rows took %.1f ms", len(final),
                   (time.perf_counter() - t0) * 1e3)
+        # the store just drained: a checkpoint holds state that is now
+        # flushing, so a restart must never merge (and flush) it again.
+        # Non-blocking: a write in flight holds the IO lock through its
+        # fsync, and the writer's own epoch check then removes its file
+        if server.checkpointer is not None:
+            server.checkpointer.truncate(blocking=False)
         if forwarding and len(forwardable):
             # the batch forward's budget starts with it, as before
             # streaming: a slow store flush must not leave it no time
             # (this state has no requeue)
             thread = threading.Thread(
                 target=_forward,
-                args=(server, forwardable, _egress_deadline(server)),
+                args=(server, forwardable,
+                      Deadline.after(_egress_budget(server))),
                 name="forward", daemon=True)
             server.forward_thread = thread
             thread.start()
@@ -103,9 +116,8 @@ def flush_once(server: "Server") -> int:
     return len(final)
 
 
-def _egress_deadline(server: "Server") -> Deadline:
-    return Deadline.after(min(server.interval,
-                              server.config.forward_timeout_seconds))
+def _egress_budget(server: "Server") -> float:
+    return min(server.interval, server.config.forward_timeout_seconds)
 
 
 def _fan_out(server: "Server", final, stream_sinks,

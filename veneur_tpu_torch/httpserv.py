@@ -1,18 +1,24 @@
-"""The operational HTTP server of the port: healthcheck, version, import.
+"""The operational HTTP server of the port: health, version, import.
 
 Port of the part of ``veneur_tpu/httpserv.py`` that global aggregation
-needs (after the reference's goji mux, http.go:21-51, and its import
-handler, handlers_global.go:60-213):
+and readiness need (after the reference's goji mux, http.go:21-51, and
+its import handler, handlers_global.go:60-213):
 
-    GET  /healthcheck   -> "ok"
-    GET  /version       -> version string
-    POST /import        -> JSON (optionally deflate) list of forwarded
-                           metrics, queued for a merge worker; 202, or
-                           429 when the bounded queue is full
+    GET  /healthcheck        -> "ok" (liveness)
+    GET  /healthcheck/ready  -> "ready", "ready (degraded: ...)" naming
+                                an overload level, an open compute
+                                breaker or failing checkpoint writes; 503
+                                once the last successful flush is older
+                                than twice the interval
+    GET  /version            -> version string
+    POST /import             -> JSON (optionally deflate) list of
+                                forwarded metrics, queued for a merge
+                                worker; 202, or 429 when the bounded
+                                queue is full
 
 Error behavior follows ``unmarshalMetricsFromHTTP``: an empty body, an
 unknown encoding and invalid JSON are 400s. The other routes of the JAX
-package (``/debug/vars``, ``/handoff``, readiness, ...) are not ported.
+package (``/debug/vars``, ``/handoff``, ...) are not ported.
 """
 
 from __future__ import annotations
@@ -100,8 +106,11 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self):
         self._drain_body()
         path = self.path.partition("?")[0]
+        ready = self.server.veneur_ready
         if path == "/healthcheck":
             self._reply(200, "ok")
+        elif path == "/healthcheck/ready" and ready is not None:
+            self._reply(*ready())
         elif path == "/version":
             self._reply(200, __version__)
         else:
@@ -210,11 +219,13 @@ class OpsServer:
     """The /healthcheck, /version and /import endpoints (http.go:21-51).
 
     ``import_fn`` receives each decoded JSON metric list on a merge
-    worker; without one, /import answers 404."""
+    worker; without one, /import answers 404. ``ready_fn`` answers
+    /healthcheck/ready with (status, body); without one, 404."""
 
     def __init__(self, addr: str = "127.0.0.1:0",
                  import_fn: Optional[Callable[[List[dict]], object]] = None,
-                 import_workers: int = 2, import_queue: int = 64):
+                 import_workers: int = 2, import_queue: int = 64,
+                 ready_fn: Optional[Callable[[], tuple]] = None):
         host, _, port = addr.rpartition(":")
         self._httpd = ThreadingHTTPServer((host or "127.0.0.1", int(port)),
                                           _Handler)
@@ -224,6 +235,7 @@ class OpsServer:
                             max_queue=import_queue)
             if import_fn is not None else None)
         self._httpd.veneur_import_pool = self.import_pool
+        self._httpd.veneur_ready = ready_fn
         self._thread: Optional[threading.Thread] = None
 
     @classmethod
@@ -242,10 +254,23 @@ class OpsServer:
                             len(metrics))
             return n_ok
 
+        def ready():
+            ok, age, limit = server.readiness()
+            degraded = server.degradation()
+            if ok:
+                return 200, ("ready" if not degraded else
+                             "ready (degraded: " + "; ".join(degraded) + ")")
+            detail = ("; last flush attempt FAILED"
+                      if not server.last_flush_ok else "")
+            if degraded:
+                detail += "; degraded: " + "; ".join(degraded)
+            return 503, (f"last successful flush {age:.1f}s ago (limit "
+                         f"{limit:.1f}s){detail}")
+
         cfg = server.config
         return cls(addr, import_fn=import_metrics,
                    import_workers=cfg.http_import_workers,
-                   import_queue=cfg.http_import_queue)
+                   import_queue=cfg.http_import_queue, ready_fn=ready)
 
     @property
     def port(self) -> int:

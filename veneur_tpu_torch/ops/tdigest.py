@@ -462,7 +462,9 @@ def drain_and_quantile(state: TDigest, temp: TempCentroids, dmin, dmax,
                        qs, compression: float = DEFAULT_COMPRESSION):
     """The whole per-interval digest flush: drain the temp bins into the
     digests, fold in the imported extrema (dmin/dmax), and return
-    (drained digests, per-series percentiles [S, P]) from one K1 launch."""
+    (drained digests, per-series percentiles [S, P]) from one K1 launch.
+    Reads its inputs without changing them, so a failed launch leaves
+    them intact for the compute ladder's re-merge."""
     mn = torch.minimum(torch.minimum(state.min, temp.vmin), dmin)
     mx = torch.maximum(torch.maximum(state.max, temp.vmax), dmax)
     t_mean, t_w = _sorted_temp_half(temp)

@@ -7,9 +7,10 @@ instead of a full timeout); after ``reset_timeout`` the breaker admits
 ``half_open_max`` probe requests — one success closes it, one failure
 re-opens it and restarts the timer.
 
-Port of ``veneur_tpu/resilience/breaker.py``, the part the HTTP
-forwarder uses (the per-destination registry of the proxy is not
-ported).
+Port of ``veneur_tpu/resilience/breaker.py``: the breaker the HTTP
+forwarder uses, and the registry of breakers by name that the compute
+ladder keys by kernel (``resilience/compute.py``). The state reads as a
+gauge: 0 closed, 1 half-open, 2 open.
 """
 
 from __future__ import annotations
@@ -17,13 +18,15 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from typing import Callable
+from typing import Callable, Dict, List, Tuple
 
 log = logging.getLogger("veneur.resilience.breaker")
 
 CLOSED = "closed"
 OPEN = "open"
 HALF_OPEN = "half_open"
+
+_STATE_GAUGE = {CLOSED: 0.0, HALF_OPEN: 1.0, OPEN: 2.0}
 
 
 class CircuitBreaker:
@@ -53,6 +56,10 @@ class CircuitBreaker:
         with self._lock:
             self._maybe_half_open()
             return self._state
+
+    def state_gauge(self) -> float:
+        """0 = closed, 1 = half-open, 2 = open."""
+        return _STATE_GAUGE[self.state]
 
     def _maybe_half_open(self) -> None:
         # caller holds self._lock
@@ -113,3 +120,36 @@ class CircuitBreaker:
             if self._state == CLOSED and \
                     self._failures >= self.failure_threshold:
                 self._trip()
+
+
+class BreakerRegistry:
+    """Breakers by name, created on demand with one configuration (the
+    compute ladder keys it by kernel)."""
+
+    def __init__(self, failure_threshold: int = 5,
+                 reset_timeout: float = 30.0, half_open_max: int = 1,
+                 clock: Callable[[], float] = time.monotonic):
+        self.failure_threshold = failure_threshold
+        self.reset_timeout = reset_timeout
+        self.half_open_max = half_open_max
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._breakers: Dict[str, CircuitBreaker] = {}
+
+    def get(self, name: str) -> CircuitBreaker:
+        with self._lock:
+            b = self._breakers.get(name)
+            if b is None:
+                b = CircuitBreaker(
+                    failure_threshold=self.failure_threshold,
+                    reset_timeout=self.reset_timeout,
+                    half_open_max=self.half_open_max,
+                    clock=self._clock, name=name)
+                self._breakers[name] = b
+            return b
+
+    def states(self) -> List[Tuple[str, float]]:
+        """(name, state gauge) of every breaker consulted so far."""
+        with self._lock:
+            breakers = list(self._breakers.items())
+        return [(name, b.state_gauge()) for name, b in breakers]

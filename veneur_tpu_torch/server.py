@@ -43,6 +43,15 @@ default (``flush_columnar``, ``flush_pipeline_depth``,
 store's rows; ``cli/server.py`` builds the Datadog sink and the
 local-file plugin from the config.
 
+Crash-safe state: with ``checkpoint_path`` set a background thread
+checkpoints the store every ``checkpoint_interval`` (``persist/``);
+:meth:`Server.start` first merges a valid checkpoint left by a killed
+process (before any listener ingests), and a flush truncates it. A
+digest flush whose kernel fails runs the compute ladder
+(``resilience/compute.py``); ``degradation()`` names an open compute
+breaker and a failing checkpoint write, and ``GET /healthcheck/ready``
+carries both. :meth:`Server.crash_stop` is the in-process SIGKILL.
+
 Global aggregation: with ``forward_address`` set the server is a local
 and forwards its sketch state there after each flush, over HTTP or, for
 ``native://host:port``, as MetricList frames over framed TCP (digests
@@ -68,8 +77,13 @@ from veneur_tpu_torch.forward import configure_forwarding
 from veneur_tpu_torch.forward.native_transport import NativeImportServer
 from veneur_tpu_torch.httpserv import OpsServer
 from veneur_tpu_torch.ingest import IngestFleet, ShardedCounter
+from veneur_tpu_torch.ops import tdigest_cuda
+from veneur_tpu_torch.persist import Checkpointer
+from veneur_tpu_torch.persist import format as ckpt_format
 from veneur_tpu_torch.protocol import ssf, wire
 from veneur_tpu_torch.protocol.addr import resolve_addr
+from veneur_tpu_torch.resilience import compute as rcompute
+from veneur_tpu_torch.resilience import faults as rfaults
 from veneur_tpu_torch.samplers import parser as p
 from veneur_tpu_torch.samplers.intermetric import HistogramAggregates
 from veneur_tpu_torch.sinks.base import MetricSink, SpanSink
@@ -258,7 +272,11 @@ class Server:
             topk_depth=config.topk_depth, topk_width=config.topk_width,
             topk_k=config.topk_k, max_series=config.max_series,
             max_tag_length=config.max_tag_length, overload=self.overload,
-            flush_pipeline_depth=config.flush_pipeline_depth, device=device)
+            flush_pipeline_depth=config.flush_pipeline_depth,
+            compute=rcompute.from_config(config), device=device)
+        # the configured fault kinds (config.py admits disk_full and
+        # deadline_pressure): the checkpoint commit and the flush budget
+        self.soak_injector = rfaults.from_config(config)
         self.metric_sinks = (list(metric_sinks) if metric_sinks is not None
                              else [BlackholeMetricSink()])
         # archival plugins, flushed after the metric sinks
@@ -286,6 +304,21 @@ class Server:
         self.span_flush_thread: Optional[threading.Thread] = None
         self.last_flush_time = 0.0
         self.last_flush_ok = True
+        # readiness measures flush staleness from here until a flush lands
+        self._started_wall = time.time()
+        # crash-safe state (persist/): the interval checkpoint
+        self.checkpointer: Optional[Checkpointer] = None
+        if config.checkpoint_path:
+            write_fn = None
+            if self.soak_injector is not None:
+                write_fn = self.soak_injector.wrap_write(
+                    ckpt_format.write_atomic, "checkpoint.write")
+            self.checkpointer = Checkpointer(
+                self.store, config.checkpoint_path,
+                interval_s=(config.checkpoint_interval_seconds
+                            or self.interval / 4.0),
+                max_age_s=config.checkpoint_max_age_intervals * self.interval,
+                hostname=self.hostname, write_fn=write_fn)
         # global aggregation (start() wires them from the config)
         self.forward_fn = None
         self.forwarder = None
@@ -468,8 +501,16 @@ class Server:
 
     def start(self):
         """Bring up the span workers, the listeners and the flush ticker
-        (server.go:555-666)."""
+        (server.go:555-666). On the card the kernel library loads first:
+        a build or load failure raises here, not inside a flush. A
+        checkpoint left by a killed process merges into the store before
+        any listener ingests."""
         cfg = self.config
+        if self.store.device.type == "cuda":
+            tdigest_cuda._kernel_lib()
+        self._started_wall = time.time()
+        if self.checkpointer is not None:
+            self.checkpointer.restore()
         self._span_lanes = make_span_lanes(self.span_sinks, self._span_stop)
         for i in range(cfg.num_span_workers):
             w = SpanWorker(self.span_chan, self._stop, self._span_lanes)
@@ -515,6 +556,14 @@ class Server:
                                   name="flush-ticker", daemon=True)
         ticker.start()
         self._threads.append(ticker)
+        if self.checkpointer is not None:
+            ckpt = threading.Thread(
+                target=self.checkpointer.run, args=(self._stop,),
+                name="checkpoint", daemon=True)
+            ckpt.start()
+            self._threads.append(ckpt)
+            log.info("checkpointing to %s every %.1fs",
+                     self.checkpointer.path, self.checkpointer.interval_s)
 
     def _try_ingest_lanes(self, spec: str) -> bool:
         """The default rung: one lane per reader (``ingest_lanes: 0``) or
@@ -536,6 +585,11 @@ class Server:
             return False
         fleet.start()
         self.ingest_fleets.append(fleet)
+        # sealed but unmerged chunks belong in a checkpoint: every fleet
+        # drains before a snapshot
+        fleets = list(self.ingest_fleets)
+        self.store.set_ingest_drain(
+            lambda: [f.merge_sealed() for f in fleets])
         # one entry per LISTENER: every lane REUSEPORTs the same address
         self.statsd_addrs.append(fleet.bound[0])
         self.listeners.append((spec, "lanes", fleet.bound[0]))
@@ -709,6 +763,43 @@ class Server:
         """One flush pass; see veneur_tpu_torch.flusher."""
         return flusher.flush_once(self)
 
+    def flush_age_seconds(self) -> float:
+        """Seconds since the last successful flush (since start before
+        the first one)."""
+        base = self.last_flush_time or self._started_wall
+        return max(0.0, time.time() - base)
+
+    def readiness(self) -> tuple:
+        """(ready, age_seconds, limit_seconds): ready while the last
+        successful flush is no older than twice the interval. A wedged
+        flush goes unready here while /healthcheck (liveness) stays ok."""
+        age = self.flush_age_seconds()
+        limit = 2.0 * self.interval
+        return age <= limit, age, limit
+
+    def is_ready(self) -> bool:
+        return self.readiness()[0]
+
+    def degradation(self) -> list:
+        """Human-readable active degradations, [] when fully healthy.
+        Degraded is not unready: a shedding but flushing instance keeps
+        taking traffic, so this rides the readiness body, not its
+        status."""
+        out = []
+        level = self.overload.level()
+        if level > 0:
+            out.append(f"overload level {level} "
+                       f"(pressure {self.overload.pressure():.2f})")
+        for kernel, gauge in self.store.compute.states():
+            if gauge:
+                state = "half-open" if gauge == 1.0 else "open"
+                out.append(f"compute breaker {kernel} {state} (digest "
+                           f"intervals re-merge until it closes)")
+        ckpt = self.checkpointer
+        if ckpt is not None and ckpt.last_error:
+            out.append(f"checkpoint writes failing ({ckpt.last_error})")
+        return out
+
     def wait_forward(self, timeout: float = 60.0) -> Optional[bool]:
         """Join the last flush's forward thread; returns its outcome
         (None when no forward ran). A forward still running after
@@ -721,11 +812,30 @@ class Server:
             raise TimeoutError(f"forward still running after {timeout} s")
         return self.last_forward_ok
 
+    def crash_stop(self, timeout: float = 10.0):
+        """Abandon the process state WITHOUT the final flush or the
+        checkpoint's truncation: the in-process twin of SIGKILL. Threads
+        are joined and sockets closed, so a test can restart on the same
+        ``checkpoint_path`` in one process, but whatever lived only in
+        this store dies here, as in a real kill: a restart recovers what
+        the last checkpoint committed."""
+        self._stop_threads(timeout)
+        self._close_servers()
+
     def shutdown(self, timeout: float = 10.0):
-        """Stop the readers and the ticker, let the span workers and span
-        lanes finish what they accepted, then flush the current interval
-        once more so its data reaches the sinks (and, on a local, its
-        forward lands), and stop the ops server."""
+        """Stop the readers, the ticker and the checkpoint thread, let the
+        span workers and span lanes finish what they accepted, then flush
+        the current interval once more so its data reaches the sinks
+        (and, on a local, its forward lands) and the checkpoint is
+        truncated, and stop the ops server."""
+        self._stop_threads(timeout)
+        try:
+            self.flush()
+            self.wait_forward(timeout)
+        finally:
+            self._close_servers()
+
+    def _stop_threads(self, timeout: float):
         self._stop.set()
         for t in self._threads + self._native_pumps:
             t.join(timeout=timeout)
@@ -757,13 +867,11 @@ class Server:
         for lane in self._span_lanes:
             lane.thread.join(timeout=timeout)
         self._span_threads.clear()
-        try:
-            self.flush()
-            self.wait_forward(timeout)
-        finally:
-            if self.ops_server is not None:
-                self.ops_server.stop()
-            if self.native_import_server is not None:
-                self.native_import_server.stop()
-            if hasattr(self.forwarder, "close"):
-                self.forwarder.close()
+
+    def _close_servers(self):
+        if self.ops_server is not None:
+            self.ops_server.stop()
+        if self.native_import_server is not None:
+            self.native_import_server.stop()
+        if hasattr(self.forwarder, "close"):
+            self.forwarder.close()
