@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and its native
-ingest and egress libraries (g++), side by side, then runs eleven phases,
-each printing one JSON line (checkpoint two):
+ingest and egress libraries (g++), side by side, then runs twelve phases,
+each printing one JSON line (checkpoint two, capacity eight):
 
   kernels  K1 drain_quantile and K2 compress_presorted at the flush's
            shape (1,048,576 rows, K=104, the store's 9 quantiles), each
@@ -87,9 +87,11 @@ each printing one JSON line (checkpoint two):
            3, every one counted);
   global_merge
            global aggregation over the JSON body: two forwarding locals
-           on cuda (262,144 histogram series each since the native leg
-           came, to keep the script inside its time: 1,048,576 took
-           174 s of a 627 s run on an NVIDIA H100 80GB HBM3 at 700 W;
+           on cuda (65,536 histogram series each since the capacity
+           phase came, 262,144 before it and 1,048,576 before the
+           native leg, to keep the script inside its time: 1,048,576
+           took 174 s of a 627 s run on an NVIDIA H100 80GB HBM3 at
+           700 W; native_merge runs the same merge at 1,048,576;
            B's distribution shifted from A's, 32,768 sets in both,
            4,096 global-only counters) and a global that imports both
            states (digests through import_digests_bulk, the rest
@@ -117,9 +119,11 @@ each printing one JSON line (checkpoint two):
            same over native:// into native_import_address, with packed
            digests and with forward_packed_digests false;
   checkpoint
-           crash-safe state at full width: a Server on cuda with
+           crash-safe state: a Server on cuda with
            checkpoint_interval 1s (the file in build/, on local disk)
-           takes 1,048,576 histogram series x 8 samples (the last four
+           takes 262,144 histogram series x 8 samples (1,048,576 until
+           the capacity phase came, to keep the script in its time;
+           the last four
            shifted +1000: K2 on ingest), 32,768 sets x 16 members, 4,096
            counters and gauges and 4,096 veneurtopk series x 16 members
            through the store API; once a committed checkpoint covers all
@@ -142,16 +146,44 @@ each printing one JSON line (checkpoint two):
            clock; and a fetch fault while the next interval arrives
            (the re-merge trips the guard, K2 held to its plain version;
            every count emitted at the next flush).
+  capacity the slab and tiered digest stores (digest_storage: slab |
+           tiered) at the JAX package's own capacity-plan sizes
+           (bench.py's lanes, their sizes copied here): slab_4m, a
+           local SlabDigestBank of 4,194,304 series in float32 over
+           1M-row slabs, 8 chunks of one gamma(2, 50) sample a row a
+           slab (2_histo_4m); slab_10m_bf16, 10,485,760 series stored
+           bfloat16 over 262,144-row slabs, 4 chunks (2b_histo_10m_bf16);
+           merge_10m_bf16, the merge role at 10,485,760 series bfloat16,
+           one batch of sorted [slab, 104] centroids a slab through K2
+           (2c_merge_global_10m); tiered_10m, a TieredDigestGroup of
+           10,485,760 series over 262,144-row pool slabs, 4 cold samples
+           a series and 10,000 hot series x 40 more (promote_samples 32,
+           promote_intervals 1: they take dense slots mid-interval), the
+           pool compacting through K2 at merge width 32 (2g_tiered_10m).
+           Each prints its staging and flush walls (median of 5),
+           torch.cuda.max_memory_allocated, its K1/K2 launches, the
+           first launch of each new shape held to its plain version
+           (K1 on slabs upcast from bfloat16, K2 in the merge role and at
+           width 32), every count exact, and 2,048 sampled rows against
+           a dense DigestGroup fed them identically (bench.py 2g's
+           merged_ok: the excess rank error at most 0.15). Then three
+           Servers on the UDP lane at 65,536 histogram series (dense,
+           slab with bfloat16 digests, tiered; the same datagrams), the
+           slab and tiered rows held to the dense twin's; a checkpoint
+           written by a slab store and restored into a tiered one, and
+           rung 3 (a preflight fault, the re-merge, the late flush) on a
+           slab and a tiered store, held to twins that never failed,
+           both at 16,384 series.
 
 After every phase every store it built must show requeued_total and
-lost_total at 0 (the compute_ladder store excepted), so a run in which
-the kernel ever gave way fails.
+lost_total at 0 (the compute_ladder store and capacity's two rung-3
+stores excepted), so a run in which the kernel ever gave way fails.
 
 The launch counts in the kernel summary are the sum over the store,
 ingest (its two intervals), ssf (its main path), heavy_hitters (its two
 Servers), overload (the series cap's flush), global_merge, native_merge,
-server_global and checkpoint (the kill and restart, and the ladder)
-phases. It
+server_global, checkpoint (the kill and restart, and the ladder) and
+capacity phases (its oracles and plain-version holds excepted). It
 ends with the kernel summary, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits 2 before
@@ -189,7 +221,7 @@ FP32_OPS_PER_S = 67e12           # H100 SXM non-tensor fp32 peak
 TIMED_LAUNCHES = 20
 PLAIN_RUNS = 3
 NATIVE_TWIN_ROWS = 1 << 16       # native_merge's pack twin: rows compared
-GLOBAL_MERGE_ROWS = 1 << 18      # the JSON leg's series a local (see above)
+GLOBAL_MERGE_ROWS = 1 << 16      # the JSON leg's series a local (see above)
 _RECORDS = {}                    # phase records a later phase reports
 
 
@@ -1130,7 +1162,6 @@ def _native_local(dev, chunk, vals, set_owner, set_hashes, set_series,
     import torch
 
     from veneur_tpu_torch.core import slab as slab_mod
-    from veneur_tpu_torch.core import store as store_mod
     from veneur_tpu_torch.core.store import MetricStore
     from veneur_tpu_torch.samplers.parser import MetricKey, parse_metric
 
@@ -1156,7 +1187,7 @@ def _native_local(dev, chunk, vals, set_owner, set_hashes, set_series,
     rec = {"dispatch_s": 0.0, "pack_s": 0.0, "fetch_s": 0.0,
            "fetched_bytes": 0}
     twin = {}
-    real_pack = store_mod._pack_slab
+    real_pack = slab_mod._pack_slab
     real_slice, real_gather = slab_mod._slice_pack, slab_mod._gather_pack
 
     def pack(mean, weight, dmin, dmax):
@@ -1190,7 +1221,7 @@ def _native_local(dev, chunk, vals, set_owner, set_hashes, set_series,
                 rec[key] += time.perf_counter() - t
         return run
 
-    store_mod._pack_slab = pack
+    slab_mod._pack_slab = pack
     slab_mod._slice_pack = fetched(real_slice)
     slab_mod._gather_pack = fetched(real_gather)
     hist._flush_dispatch = timed("dispatch_s", hist._flush_dispatch)
@@ -1202,7 +1233,7 @@ def _native_local(dev, chunk, vals, set_owner, set_hashes, set_series,
                                      digest_format="packed")
         rec["flush_s"] = time.perf_counter() - t0
     finally:
-        store_mod._pack_slab = real_pack
+        slab_mod._pack_slab = real_pack
         slab_mod._slice_pack, slab_mod._gather_pack = real_slice, \
             real_gather
     # the dispatch's own host time: the pack (and the wait for K1 before
@@ -4236,6 +4267,7 @@ def phase_overload(dev, card: str) -> dict:
 
 CKPT_TOPK = 4096                 # the checkpoint phase's veneurtopk series
 CKPT_SCALARS = 4096              # its counters and gauges
+CKPT_ROWS = 1 << 18              # the checkpoint phase's histogram series
 LADDER_ROWS = 1 << 16            # the compute_ladder subphase's series
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 _BREAKERS = []                   # the compute breaker of each store built
@@ -4873,7 +4905,7 @@ def run_compute_ladder(dev, aggs, rows: int = LADDER_ROWS) -> tuple:
     return rec, _counts(tc)
 
 
-def phase_checkpoint(dev, card: str, rows: int = ROWS,
+def phase_checkpoint(dev, card: str, rows: int = CKPT_ROWS,
                      set_series: int = SET_SERIES,
                      scalars: int = CKPT_SCALARS, topk: int = CKPT_TOPK,
                      ladder_rows: int = LADDER_ROWS) -> dict:
@@ -4895,6 +4927,738 @@ def phase_checkpoint(dev, card: str, rows: int = ROWS,
     emit({"phase": "compute_ladder", "card": card, "launches": lcounts,
           **lad, "phase_s": time.perf_counter() - t0})
     return {k: counts[k] + lcounts[k] for k in counts}
+
+
+# ---------------------------------------------------------------------------
+# capacity: the slab and tiered digest stores at the JAX package's own
+# capacity-plan sizes (bench.py lanes 2_histo_4m, 2b_histo_10m_bf16,
+# 2c_merge_global_10m, 2g_tiered_10m; their sizes copied here as data)
+# ---------------------------------------------------------------------------
+
+CAP_ITERS = 5                    # timed staging/flush rounds a subphase
+CAP_ORACLE_ROWS = 2048           # the dense oracle's sampled rows
+CAP_SERIES = 1 << 16             # the Servers' histogram series
+CAP_AUX_SERIES = 1 << 14         # the checkpoint's and the ladder's
+CAP_HOT = 1024                   # hot series among them (40 more samples)
+CAP_ENVELOPE = 0.15              # bench.py 2g's excess rank error gate
+
+
+class _RangeInterner:
+    """Interner stand-in for the 10M-series tiered group (bench.py's
+    _RangeInterner): 10M MetricKeys are GBs of Python objects, and the
+    flush reads only its length and the hot rows' name and tags."""
+
+    class _Names:
+        def __getitem__(self, i):
+            return f"s{i}"
+
+    class _Joined:
+        def __getitem__(self, i):
+            return ""
+
+    def __init__(self, n: int):
+        self._n = n
+        self.rows = {}
+        self.names = self._Names()
+        self.joined = self._Joined()
+
+    def __len__(self):
+        return self._n
+
+
+class _first_launch:
+    """Within the block, keep the arguments and outputs of the FIRST
+    launch of ``tc.<name>`` only (a slab flush launches tens of times
+    at hundreds of MB each), to hold it against its plain version."""
+
+    def __init__(self, tc, name: str):
+        self.tc, self.name = tc, name
+        self.real = getattr(tc, name)
+        self.call = None
+
+    def __enter__(self):
+        def launch(*args):
+            out = self.real(*args)
+            if self.call is None:
+                self.call = (args, out)
+            return out
+
+        setattr(self.tc, self.name, launch)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.tc, self.name, self.real)
+
+
+def _peak_reset(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.zeros(1, device=dev)   # the allocator exists before a reset
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_bytes(dev):
+    import torch
+
+    return (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+
+
+def _add_counts(total: dict, counts: dict) -> dict:
+    for key, n in counts.items():
+        total[key] = total.get(key, 0) + n
+    return total
+
+
+def _rank_errors(pcts, oracle_pcts, samples) -> tuple:
+    """bench.py 2g's merged_ok measure over sampled rows: the largest
+    rank error of a percentile against the row's exact samples, and the
+    largest EXCESS over the dense oracle's own (the reference's quantile
+    interpolation costs both alike on a few-sample row)."""
+    worst = excess = 0.0
+    for m, vals in enumerate(samples):
+        t = np.sort(np.asarray(vals, np.float64))
+        if not len(t):
+            continue
+        for qi, q in enumerate(PERCENTILES):
+            errs = []
+            for v in (float(pcts[m, qi]), float(oracle_pcts[m, qi])):
+                lo = np.searchsorted(t, v, "left") / len(t)
+                hi = np.searchsorted(t, v, "right") / len(t)
+                errs.append(max(0.0, lo - q, q - hi))
+            worst = max(worst, errs[0])
+            excess = max(excess, errs[0] - errs[1])
+    return worst, excess
+
+
+def _dense_oracle(dev, rounds, centroids: bool = False):
+    """A dense DigestGroup on ``dev`` fed the sampled rows identically:
+    ``rounds`` is [rows, rounds] (NaN = no value that round), each round
+    staged and drained on its own, as the store under test took it (one
+    value a row a chunk), or with ``centroids`` the one round imported
+    as unit centroids with each row's extrema (the merge role's
+    import). Returns (percentiles [n, P], counts [n])."""
+    from veneur_tpu_torch.core.bucketing import next_pow2
+    from veneur_tpu_torch.core.store import DigestGroup
+    from veneur_tpu_torch.samplers.parser import MetricKey
+
+    n = len(rounds)
+    g = DigestGroup(capacity=next_pow2(n), chunk=1 << 16, device=dev)
+    for i in range(n):
+        g.interner.intern(MetricKey(f"o{i}", "histogram", ""), [])
+    if centroids:
+        rows = np.repeat(np.arange(n, dtype=np.int32), rounds.shape[1])
+        vals = rounds.reshape(-1).astype(np.float32)
+        g.import_centroids_bulk(
+            rows, vals, np.ones(len(vals), np.float32),
+            np.arange(n, dtype=np.int32), rounds.min(1).astype(np.float32),
+            rounds.max(1).astype(np.float32))
+    else:
+        for col in rounds.T:
+            rows = np.flatnonzero(~np.isnan(col)).astype(np.int32)
+            g.sample_many(rows, col[rows].astype(np.float32),
+                          np.ones(len(rows), np.float32))
+            g._drain_samples()
+    _, r = g.flush(list(PERCENTILES), want_digests=False,
+                   want_stats=("pcts", "count"))
+    return r["percentiles"], r["count"]
+
+
+def _timed(dev, fn) -> float:
+    _sync(dev)
+    t = time.perf_counter()
+    fn()
+    _sync(dev)
+    return time.perf_counter() - t
+
+
+def _oracle_check(name, pcts, counts, samples, opcts, ocounts) -> dict:
+    """The sampled rows against the dense oracle: counts exact (an
+    importing oracle has none: ``ocounts`` None), the excess rank error
+    inside bench.py 2g's envelope."""
+    worst, excess = _rank_errors(pcts, opcts, samples)
+    rec = {"oracle_rows": len(samples), "rank_err": worst,
+           "excess_rank_err": excess,
+           "oracle_counts_equal": ocounts is None
+           or bool(np.array_equal(counts, ocounts))}
+    if not rec["oracle_counts_equal"] or excess > CAP_ENVELOPE:
+        raise AssertionError(f"{name}: the sampled rows left the dense "
+                             f"oracle's envelope: {rec}")
+    return rec
+
+
+def run_slab_bank(dev, label: str, series: int, dtype: str, slab_rows: int,
+                  chunks: int, iters: int = CAP_ITERS) -> tuple:
+    """A local-role SlabDigestBank at ``series`` (bench.py
+    bench_histo_flush): every slab takes ``chunks`` chunks of one
+    gamma(2, 50) sample a row, staged untimed in bench.py and timed here
+    apart; the flush drains each slab through K1 (the digests upcast
+    from ``dtype``). The first flush is fetched and checked (every count
+    exact, the sampled rows against a dense oracle) with its first K1
+    launch held to the plain version; then ``iters`` rounds of staging
+    and flush, each timed to a device sync (the flush without the host
+    fetch, as bench.py times it). Returns (record, launch counts)."""
+    import torch
+
+    from veneur_tpu_torch.core.slab import SlabDigestBank
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+
+    _peak_reset(dev)
+    bank = SlabDigestBank(series, COMPRESSION, slab_rows=slab_rows,
+                          digest_dtype=dtype, device=dev)
+    nslabs, slab = bank.num_slabs, bank.slab_rows
+    rng = np.random.default_rng(SEED + 40)
+    perm = rng.permutation(slab)
+    inv = np.argsort(perm)
+    valsets = [rng.gamma(2.0, 50.0, slab).astype(np.float32)
+               for _ in range(4)]
+    rows_d = torch.from_numpy(perm.astype(np.int64)).to(dev)
+    vals_d = [torch.from_numpy(v).to(dev) for v in valsets]
+    wts = torch.ones(slab, dtype=torch.float32, device=dev)
+
+    def stage():
+        for i in range(nslabs):
+            for j in range(chunks):
+                bank.ingest_slab(i, rows_d, vals_d[j % 4], wts)
+
+    qs = list(PERCENTILES)
+    _reset_counts(tc)
+    rec = {"series": series, "dtype": dtype, "slab_rows": slab,
+           "slabs": nslabs, "chunks": chunks,
+           "resident_gb": bank.hbm_bytes()["total_bytes"] / 2**30}
+    rec["first_staging_s"] = _timed(dev, stage)
+    with _first_launch(tc, "launch_drain_quantile") as cap:
+        t = time.perf_counter()
+        out = bank.flush(qs)
+        rec["first_flush_fetched_s"] = time.perf_counter() - t
+    counts = _counts(tc)
+    args = cap.call[0]
+    rec["k1_input_dtype"] = str(args[0].dtype)
+    rec["k1_rows"] = int(args[0].shape[0])
+    rec["k1_max_abs_err"] = _hold_to_plain(tc, f"{label} K1", cap.call)
+    del cap
+    rec["counts_exact"] = bool((out["count"] == float(chunks)).all())
+    osel = np.unique(rng.choice(series, CAP_ORACLE_ROWS, replace=False))
+    local = inv[osel % slab]
+    rounds = np.stack([valsets[j % 4][local] for j in range(chunks)], 1)
+    samples = list(rounds)
+    opcts, ocounts = _dense_oracle(dev, rounds)
+    rec.update(_oracle_check(label, out["percentiles"][osel],
+                             out["count"][osel], samples, opcts, ocounts))
+    del out
+    _reset_counts(tc)
+    stage_s, flush_s = [], []
+    for _ in range(iters):
+        stage_s.append(_timed(dev, stage))
+        flush_s.append(_timed(dev, lambda: bank.flush(qs, fetch=False)))
+    counts = _add_counts(counts, _counts(tc))
+    rec.update(staging_s=float(np.median(stage_s)),
+               flush_s=float(np.median(flush_s)), staging_all_s=stage_s,
+               flush_all_s=flush_s, peak_bytes=_peak_bytes(dev),
+               launches=counts)
+    if not rec["counts_exact"] or counts["drain_quantile.launches"] != \
+            nslabs * (iters + 1):
+        raise AssertionError(f"{label}: {rec}")
+    del bank
+    return rec, counts
+
+
+def run_merge_bank(dev, series: int, dtype: str,
+                   iters: int = CAP_ITERS) -> tuple:
+    """A merge-role SlabDigestBank at ``series`` (bench.py
+    bench_merge_global): one forwarded batch of sorted [slab, K]
+    unit-weight centroids merged into every slab through K2 (merge width
+    256, the digests upcast from ``dtype``), then the flush
+    (``quantile`` a slab, no kernel). The first round is checked (every
+    count exact from the float32 count plane, the sampled rows against a
+    dense oracle that imports the same centroids) with its first K2
+    launch held to the plain version; then ``iters`` timed rounds."""
+    import torch
+
+    from veneur_tpu_torch.core.slab import SlabDigestBank
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+
+    _peak_reset(dev)
+    bank = SlabDigestBank(series, COMPRESSION, digest_dtype=dtype,
+                          mode="merge", device=dev)
+    nslabs, slab, k = bank.num_slabs, bank.slab_rows, bank.k
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    # gamma(2, 40) as the sum of two exponentials, on the device
+    base = sum(torch.empty((slab, k), device=dev).exponential_(
+        1.0 / 40.0, generator=gen) for _ in range(2))
+    base = torch.sort(base, dim=1).values
+    w_in = torch.ones_like(base)
+    mins, maxs = base[:, 0].contiguous(), base[:, -1].contiguous()
+
+    def merge_batch():
+        for i in range(nslabs):
+            bank.merge_digests(i, base, w_in, mins, maxs)
+
+    qs = list(PERCENTILES)
+    _reset_counts(tc)
+    rec = {"series": series, "dtype": dtype, "slab_rows": slab,
+           "slabs": nslabs, "merge_width": 2 * 128,
+           "resident_gb": bank.hbm_bytes()["total_bytes"] / 2**30}
+    with _first_launch(tc, "launch_compress_presorted") as cap:
+        rec["first_merge_s"] = _timed(dev, merge_batch)
+    t = time.perf_counter()
+    out = bank.flush(qs)
+    rec["first_flush_fetched_s"] = time.perf_counter() - t
+    counts = _counts(tc)
+    rec["k2_input_dtype"] = str(cap.call[0][0].dtype)
+    rec["k2_rows"] = int(cap.call[0][0].shape[0])
+    rec["k2_max_abs_err"] = _hold_to_plain(tc, "merge K2", cap.call)
+    del cap
+    rec["counts_exact"] = bool((out["count"] == float(k)).all())
+    rng = np.random.default_rng(SEED + 42)
+    osel = np.unique(rng.choice(series, CAP_ORACLE_ROWS, replace=False))
+    host = base[torch.from_numpy(osel % slab).to(dev)].cpu().numpy()
+    samples = list(host)
+    opcts, _ = _dense_oracle(dev, host, centroids=True)
+    rec.update(_oracle_check("merge_10m_bf16", out["percentiles"][osel],
+                             out["count"][osel], samples, opcts, None))
+    del out
+    _reset_counts(tc)
+    merge_s, flush_s = [], []
+    for _ in range(iters):
+        merge_s.append(_timed(dev, merge_batch))
+        flush_s.append(_timed(dev, lambda: bank.flush(qs, fetch=False)))
+    counts = _add_counts(counts, _counts(tc))
+    rec.update(merge_s=float(np.median(merge_s)),
+               flush_s=float(np.median(flush_s)), merge_all_s=merge_s,
+               flush_all_s=flush_s, peak_bytes=_peak_bytes(dev),
+               launches=counts)
+    if not rec["counts_exact"] or counts["compress_presorted.launches"] != \
+            nslabs * (iters + 1):
+        raise AssertionError(f"merge_10m_bf16: {rec}")
+    del bank, base, w_in
+    return rec, counts
+
+
+def run_tiered_group(dev, series: int, hot_rows: int = 10000,
+                     cold_samples: int = 4, hot_rounds: int = 40,
+                     iters: int = CAP_ITERS) -> tuple:
+    """A TieredDigestGroup at ``series`` (bench.py bench_tiered_10m):
+    262,144-row pool slabs, promote_samples 32, promote_intervals 1;
+    every series takes ``cold_samples`` rounds of one sample, then
+    ``hot_rows`` series take ``hot_rounds`` more (they promote to dense
+    slots mid-interval). The first interval is checked (every count
+    exact, the sampled rows, cold and hot, against a dense oracle fed
+    identically) with the first pool compaction (K2 at merge width 32)
+    and the dense bank's K1 held to their plain versions; then ``iters``
+    timed rounds of staging and flush."""
+    from veneur_tpu_torch.core.tiered import TieredDigestGroup
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+
+    _peak_reset(dev)
+    chunk = 1 << 16
+    g = TieredDigestGroup(slab_rows=1 << 18, chunk=chunk,
+                          promote_samples=32, promote_intervals=1,
+                          device=dev)
+    g.ensure_capacity(series - 1)
+    g.interner = _RangeInterner(series)
+    rng = np.random.default_rng(SEED + 43)
+    hot = rng.choice(series, size=min(hot_rows, series),
+                     replace=False).astype(np.int64)
+    osel = np.unique(np.concatenate([
+        rng.choice(series, CAP_ORACLE_ROWS - 64, replace=False),
+        hot[:64]]).astype(np.int64))
+    ones = np.ones(chunk, np.float32)
+    # each sampled row's index among the hot rows (-1: cold)
+    hot_at = np.full(len(osel), -1, np.int64)
+    where = np.searchsorted(np.sort(hot), osel)
+    is_hot = np.isin(osel, hot)
+    hot_at[is_hot] = np.argsort(hot)[where[is_hot]]
+
+    def stage(record=None):
+        for _ in range(cold_samples):
+            vals = rng.gamma(2.0, 50.0, series).astype(np.float32)
+            for start in range(0, series, chunk):
+                n = min(chunk, series - start)
+                g.sample_many(np.arange(start, start + n, dtype=np.int64),
+                              vals[start:start + n], ones[:n])
+            if record is not None:
+                record.append(vals[osel])
+        for _ in range(hot_rounds):
+            vals = rng.gamma(2.0, 50.0, len(hot)).astype(np.float32)
+            g.sample_many(hot, vals, ones[:len(hot)])
+            if record is not None:
+                record.append(np.where(hot_at >= 0,
+                                       vals[np.maximum(hot_at, 0)], np.nan))
+
+    def flush(**kw):
+        _, r = g.flush(list(PERCENTILES), want_digests=False,
+                       want_stats=("pcts", "count"), **kw)
+        ni = _RangeInterner(series)
+        g.interner = ni
+        # the range interner bypasses _row, which gives a directory-dense
+        # series its dense slot at first sight: re-stamp the hot rows
+        for row in hot:
+            if g.directory.is_dense((ni.names[int(row)],
+                                     ni.joined[int(row)])):
+                g._assign_dense(int(row))
+        return r
+
+    _reset_counts(tc)
+    record = []
+    rec = {"series": series, "hot_rows": int(len(hot)),
+           "cold_samples": cold_samples, "pool_slab_rows": g.slab_rows,
+           "pool_centroids": g.pk}
+    rec["first_staging_s"] = _timed(dev, lambda: stage(record))
+    rec["dense_rows_first"] = len(g._dense_rows)
+    with _first_launch(tc, "launch_compress_presorted") as k2, \
+            _first_launch(tc, "launch_drain_quantile") as k1:
+        t = time.perf_counter()
+        r0 = flush()
+        rec["first_flush_s"] = time.perf_counter() - t
+    counts = _counts(tc)
+    a = k2.call[0]
+    rec["k2_merge_width"] = 2 * tc.next_pow2(max(a[0].shape[1],
+                                                 a[2].shape[1]))
+    rec["k2_rows"] = int(a[0].shape[0])
+    rec["k2_max_abs_err"] = _hold_to_plain(tc, "pool compact K2", k2.call)
+    rec["k1_rows"] = int(k1.call[0][0].shape[0])
+    rec["k1_max_abs_err"] = _hold_to_plain(tc, "dense bank K1", k1.call)
+    if dev.type == "cuda":
+        # the compaction's full call timed on its own inputs, beside its
+        # bound (after the counts are read: not the main path's launches)
+        nbytes, ops = _work(rec["k2_rows"], a[0].shape[1], a[2].shape[1],
+                            a[5], 0, False, False)
+        rec["k2_w32_ms"] = _median_ms(lambda: tc.compress_presorted(*a),
+                                      TIMED_LAUNCHES)
+        rec["k2_w32_plain_ms"] = _median_ms(
+            lambda: tc.compress_presorted_plain(*a), PLAIN_RUNS, warmup=1)
+        rec["k2_w32_bound_ms"], rec["k2_w32_bound_by"] = _bound(nbytes, ops)
+        rec["k2_w32_bytes"], rec["k2_w32_ops"] = nbytes, ops
+    del k1, k2, a
+    want = np.full(series, float(cold_samples), np.float32)
+    want[hot] += hot_rounds
+    rec["counts_exact"] = bool(np.array_equal(r0["count"], want))
+    vals = np.stack(record, axis=1)
+    samples = [v[~np.isnan(v)] for v in vals]
+    opcts, ocounts = _dense_oracle(dev, vals)
+    rec.update(_oracle_check("tiered_10m", r0["percentiles"][osel],
+                             r0["count"][osel], samples, opcts, ocounts))
+    del r0
+    _reset_counts(tc)
+    stage_s, flush_s = [], []
+    for _ in range(iters):
+        stage_s.append(_timed(dev, stage))
+        flush_s.append(_timed(dev, flush))
+    counts = _add_counts(counts, _counts(tc))
+    plan = g.hbm_bytes()
+    rec.update(staging_s=float(np.median(stage_s)),
+               flush_s=float(np.median(flush_s)), staging_all_s=stage_s,
+               flush_all_s=flush_s, promotions=g.directory.promotions,
+               resident_gb=plan["total_bytes"] / 2**30,
+               pool_bytes_per_row=plan["pool_bytes_per_row"],
+               peak_bytes=_peak_bytes(dev), launches=counts)
+    if not rec["counts_exact"] or rec["k2_merge_width"] != 32:
+        raise AssertionError(f"tiered_10m: {rec}")
+    del g
+    return rec, counts
+
+
+def _cap_lines(series: int, hot: int, seed: int):
+    """``series`` histogram series x 8 samples, the first ``hot`` 40 more
+    (4 decimals, exact as the parser reads them); returns (lines in a
+    seeded order, samples by series name)."""
+    rng = np.random.default_rng(seed)
+    lines, samples = [], {}
+    for i in range(series):
+        vals = np.round(rng.gamma(2.0, 10.0, 48 if i < hot else 8), 4)
+        samples[f"cap.h.{i}"] = vals.astype(np.float32)
+        lines += [f"cap.h.{i}:{v:.4f}|h" for v in vals.tolist()]
+    order = rng.permutation(len(lines))
+    return [lines[j] for j in order], samples
+
+
+def _pct_rows(rows: dict) -> dict:
+    """(series name, q) -> value of the percentile rows."""
+    out = {}
+    for (name, _), v in rows.items():
+        base, _, suffix = name.rpartition(".")
+        if suffix.endswith("percentile"):
+            out[base, float(suffix[:-len("percentile")]) / 100.0] = v
+    return out
+
+
+def _hold_rows(label: str, got: dict, want: dict, samples: dict,
+               span_tol) -> dict:
+    """A storage's rows against the dense twin's: every row present,
+    count/min/max exact, sum rel 1e-6; percentiles within ``span_tol`` x
+    (max - min), or with ``span_tol`` None by the rank error they add
+    over the twin's: at most bench.py 2g's 0.15, or two samples' rank on
+    a row of few samples (a pool bin with no room between its brackets
+    takes the nearer one, so two neighbouring samples may share a
+    centroid: bin_pool_samples, which bins as the JAX package's does,
+    tests/test_torch_tiered.py; seen at 65,536 series on the CPU, 7-9
+    percentile rows of 524,288 at 2/8)."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: rows differ from the dense twin")
+    bad = []
+    for (name, tags), v in want.items():
+        suffix = name.rpartition(".")[2]
+        g = got[(name, tags)]
+        if suffix in ("count", "min", "max") and g != v:
+            bad.append(name)
+        elif suffix == "sum" and abs(g - v) > 1e-6 * abs(v) + 1e-6:
+            bad.append(name)
+    gp, wp = _pct_rows(got), _pct_rows(want)
+    keys = list(wp)
+    by_len = {}
+    for k, (base, _) in enumerate(keys):
+        by_len.setdefault(len(samples[base]), []).append(k)
+    worst = 0.0
+    for n, sel in by_len.items():
+        # the rows of one sample count at once: [m, n] sorted samples
+        t = np.sort(np.stack([samples[keys[k][0]] for k in sel])
+                    .astype(np.float64), axis=1)
+        q = np.array([keys[k][1] for k in sel])
+        g = np.array([gp[keys[k]] for k in sel], np.float64)
+        w = np.array([wp[keys[k]] for k in sel], np.float64)
+        if span_tol is not None:
+            err = np.abs(g - w) / np.maximum(t[:, -1] - t[:, 0], 1e-30)
+            over = err > span_tol
+        else:
+            def rank_err(v):
+                lo = (t < v[:, None]).sum(1) / n
+                hi = (t <= v[:, None]).sum(1) / n
+                return np.maximum(0.0, np.maximum(lo - q, q - hi))
+
+            err = rank_err(g) - rank_err(w)
+            over = err > max(CAP_ENVELOPE, 2.0 / n)
+        worst = max(worst, float(err.max()))
+        bad += [keys[sel[k]][0] for k in np.flatnonzero(over)]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} rows off the dense "
+                             f"twin, e.g. {bad[:5]}")
+    return {"rows": len(want), ("pct_span_err" if span_tol is not None
+                                else "excess_rank_err"): worst}
+
+
+def run_capacity_servers(dev, series: int = CAP_SERIES,
+                         hot: int = CAP_HOT) -> tuple:
+    """Three port Servers, each through the default UDP lane (4 lanes):
+    ``digest_storage`` dense (the twin), slab with bfloat16 digests, and
+    tiered (promote_samples 32, promote_intervals 1, so the hot series
+    promote); ``series`` histogram series x 8 samples, the first ``hot``
+    x 48, the same datagrams to each. Each flushes columnar into a
+    recording sink; the slab and tiered rows are held to the twin's. The
+    groups start at their final capacity, so the dense twin never grows
+    (a growth drains its staging, the pinned difference of ROADMAP
+    section 3)."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.server import Server
+
+    lines, samples = _cap_lines(series, hot, SEED + 44)
+    packed = _pack_lines(lines)
+    dgrams = _datagrams(packed)
+    cum = np.concatenate([[0], np.cumsum(packed["d_lines"])])
+    configs = {
+        "dense": {},
+        "slab_bf16": {"digest_storage": "slab",
+                      "digest_dtype": "bfloat16"},
+        "tiered": {"digest_storage": "tiered", "tier_promote_samples": 32,
+                   "tier_promote_intervals": 1}}
+    rows, recs, counts = {}, {}, {}
+    for name, extra in configs.items():
+        sink = _ColumnarRecorder()
+        server = Server(Config(
+            statsd_listen_addresses=["udp://127.0.0.1:0"], num_readers=4,
+            interval="86400s", percentiles=list(PERCENTILES),
+            aggregates=["min", "max", "count", "sum"], hostname="smoke",
+            store_initial_capacity=series, **extra),
+            metric_sinks=[sink], device=dev)
+        server.start()
+        rec = {}
+        try:
+            fleet = server.ingest_fleets[0]
+            port = fleet.bound[0][1]
+            _reset_counts(tc)
+            t0 = time.perf_counter()
+            _udp_send(port, dgrams,
+                      lambda n: fleet.totals()["merged"] >= cum[n])
+            rec["ingest_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            server.flush()
+            batch = sink.flushes.get(timeout=120)
+            rec["flush_s"] = time.perf_counter() - t0
+            _add_counts(counts, _counts(tc))
+            rec["launches"] = _counts(tc)
+            rec["kernel_drops"] = _udp_drops(port)
+            g = server.store.histograms
+            if name == "tiered":
+                rec["promotions"] = g.directory.promotions
+        finally:
+            server.shutdown()
+        rows[name] = {(m.name, tuple(m.tags)): m.value
+                      for m in batch.to_intermetrics()
+                      if m.name.startswith("cap.h.")}
+        recs[name] = rec
+    recs["slab_bf16"].update(_hold_rows("slab_bf16 Server", rows["slab_bf16"],
+                                        rows["dense"], samples, 0.02))
+    recs["tiered"].update(_hold_rows("tiered Server", rows["tiered"],
+                                     rows["dense"], samples, None))
+    if len(rows["dense"]) != series * (4 + len(PERCENTILES)) or \
+            recs["tiered"]["promotions"] < hot:
+        raise AssertionError(f"capacity servers: {recs}")
+    return {"series": series, "hot": hot, "lines": len(lines),
+            "datagrams": len(dgrams), **recs}, counts
+
+
+def _fed_store(dev, storage: str, samples: dict, **kw):
+    """A port MetricStore of ``storage`` on ``dev``, its histogram group
+    fed ``samples`` (name -> values) through the store API: each series
+    interned, then every sample in one seeded order by sample_many."""
+    from veneur_tpu_torch.core.store import MetricStore
+    from veneur_tpu_torch.samplers.parser import MetricKey
+
+    store = MetricStore(initial_capacity=max(len(samples), 1024),
+                        chunk=1 << 14, digest_storage=storage, device=dev,
+                        **kw)
+    if not samples:
+        return store
+    hist = store.histograms
+    with store._lock:
+        rows = np.array([hist._row(MetricKey(name, "histogram", ""), [])
+                         for name in samples], np.int32)
+        lens = [len(v) for v in samples.values()]
+        rows = np.repeat(rows, lens)
+        vals = np.concatenate(list(samples.values())).astype(np.float32)
+        order = np.random.default_rng(SEED + 47).permutation(len(vals))
+        hist.sample_many(rows[order], vals[order],
+                         np.ones(len(vals), np.float32))
+    return store
+
+
+def _store_rows(store, aggs) -> dict:
+    flushed, _ = store.flush(list(PERCENTILES), aggs, 0, columnar=True)
+    return {(m.name, tuple(m.tags)): m.value
+            for m in flushed.to_intermetrics()}
+
+
+def run_capacity_checkpoint(dev, aggs,
+                            series: int = CAP_AUX_SERIES) -> tuple:
+    """A checkpoint written by a slab store (bfloat16 digests) and
+    restored into a tiered one: the VCKP file to local disk and back,
+    restore_state into the tiered store, a columnar flush held to the
+    slab store's own flush of the same interval."""
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.persist import (deserialize, read_file,
+                                          serialize, write_atomic)
+
+    _, samples = _cap_lines(series, CAP_HOT, SEED + 45)
+    src = _fed_store(dev, "slab", samples, digest_dtype="bfloat16")
+    _reset_counts(tc)
+    t0 = time.perf_counter()
+    groups, _ = src.snapshot_state()
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(CKPT_DIR / "capacity.ckpt")
+    write_atomic(path, serialize(groups, created_at=time.time(),
+                                 interval=10.0))
+    rec = {"series": series, "write_s": time.perf_counter() - t0,
+           "bytes": os.path.getsize(path)}
+    dst = _fed_store(dev, "tiered", {}, tier_promote_samples=32,
+                     tier_promote_intervals=1)
+    t0 = time.perf_counter()
+    restored = dst.restore_state(deserialize(read_file(path))[0])
+    rec["restore_s"] = time.perf_counter() - t0
+    rec["restored_series"] = restored
+    got = _store_rows(dst, aggs)
+    counts = _counts(tc)
+    want = _store_rows(src, aggs)
+    os.remove(path)
+    got = {k: v for k, v in got.items() if k[0].startswith("cap.h.")}
+    want = {k: v for k, v in want.items() if k[0].startswith("cap.h.")}
+    rec.update(_hold_rows("slab -> tiered restore", got, want, samples,
+                          None))
+    rec["launches"] = counts
+    return rec, counts
+
+
+def run_capacity_ladder(dev, aggs, series: int = CAP_AUX_SERIES) -> tuple:
+    """Rung 3 on a slab and a tiered store: a FaultInjector fails the
+    flush kernel at preflight, the interval re-merges into the live
+    group (requeued_total 1) and emits at the next flush, held to a twin
+    store that never failed. These two stores are the phase's only ones
+    allowed to requeue."""
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.resilience.faults import FaultInjector
+
+    _, samples = _cap_lines(series, CAP_HOT, SEED + 46)
+    recs, counts = {}, {}
+    for storage, kw in (("slab", {"digest_dtype": "bfloat16"}),
+                        ("tiered", {"tier_promote_samples": 32,
+                                    "tier_promote_intervals": 1})):
+        store = _fed_store(dev, storage, samples, **kw)
+        twin = _fed_store(dev, storage, samples, **kw)
+        if store.compute in _BREAKERS:
+            _BREAKERS.remove(store.compute)
+        store.compute.injector = FaultInjector(
+            rate=1.0, seed=SEED, kinds=("connect",),
+            scope="compute.tdigest_merge")
+        _reset_counts(tc)
+        t0 = time.perf_counter()
+        faulted = _store_rows(store, aggs)
+        rec = {"faulted_flush_s": time.perf_counter() - t0}
+        store.compute.injector = None
+        t0 = time.perf_counter()
+        late = _store_rows(store, aggs)
+        rec["late_flush_s"] = time.perf_counter() - t0
+        _add_counts(counts, _counts(tc))
+        rec["launches"] = _counts(tc)
+        want = _store_rows(twin, aggs)
+        c = store.compute
+        rec.update(requeued_total=c.requeued_total, lost_total=c.lost_total)
+        if any(k[0].startswith("cap.h.") for k in faulted) or \
+                (c.requeued_total, c.lost_total) != (1, 0):
+            raise AssertionError(f"{storage} rung 3: {rec}")
+        late = {k: v for k, v in late.items() if k[0].startswith("cap.h.")}
+        want = {k: v for k, v in want.items() if k[0].startswith("cap.h.")}
+        rec.update(_hold_rows(f"{storage} rung 3", late, want, samples,
+                              0.02 if storage == "slab" else None))
+        recs[storage] = rec
+    return recs, counts
+
+
+def phase_capacity(dev, card: str, slab4m: int = 4 << 20,
+                   slab10m: int = 10 << 20, tiered10m: int = 10 << 20,
+                   servers: int = CAP_SERIES) -> dict:
+    """The slab and tiered digest stores at the JAX package's own
+    capacity-plan sizes, one line a subphase, each subphase's state freed
+    before the next; returns the phase's launch counts."""
+    import torch
+
+    from veneur_tpu_torch.samplers.intermetric import HistogramAggregates
+
+    aggs = HistogramAggregates.from_names(["min", "max", "count", "sum"])
+    counts = {}
+    t_phase = time.perf_counter()
+    for name, run in (
+            ("slab_4m", lambda: run_slab_bank(
+                dev, "slab_4m", slab4m, "float32", 1 << 20, 8)),
+            ("slab_10m_bf16", lambda: run_slab_bank(
+                dev, "slab_10m_bf16", slab10m, "bfloat16", 1 << 18, 4)),
+            ("merge_10m_bf16", lambda: run_merge_bank(
+                dev, slab10m, "bfloat16")),
+            ("tiered_10m", lambda: run_tiered_group(dev, tiered10m)),
+            ("servers", lambda: run_capacity_servers(dev, servers)),
+            ("checkpoint", lambda: run_capacity_checkpoint(dev, aggs)),
+            ("ladder", lambda: run_capacity_ladder(dev, aggs))):
+        t0 = time.perf_counter()
+        rec, c = run()
+        _add_counts(counts, c)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        emit({"phase": "capacity", "subphase": name, "card": card, **rec,
+              "subphase_s": time.perf_counter() - t0})
+    emit({"phase": "capacity", "card": card, "launches": counts,
+          "phase_s": time.perf_counter() - t_phase})
+    return counts
 
 
 def _ptxas_summary(logs) -> list:
@@ -4923,7 +5687,8 @@ def _ptxas_summary(logs) -> list:
 
 
 PHASES = ("store", "server", "ingest", "ssf", "heavy_hitters", "overload",
-          "global_merge", "native_merge", "server_global", "checkpoint")
+          "global_merge", "native_merge", "server_global", "checkpoint",
+          "capacity")
 
 
 def main() -> int:
@@ -4989,7 +5754,8 @@ def main() -> int:
             "global_merge": lambda: phase_global_merge(dev, card),
             "native_merge": lambda: phase_native_merge(dev, card),
             "server_global": lambda: phase_server_global(dev, card),
-            "checkpoint": lambda: phase_checkpoint(dev, card)}
+            "checkpoint": lambda: phase_checkpoint(dev, card),
+            "capacity": lambda: phase_capacity(dev, card)}
     kern = phase_kernels(dev)
     # the main path's launches: each phase resets the counts just before
     # it drives its path and reads them just after; and no store of any

@@ -302,3 +302,71 @@ def test_kernel_library_failure_raises_at_start(monkeypatch):
         server.start()
     assert not server._threads and not server._span_threads
     assert server.store.compute.requeued_total == 0
+
+
+def _storage_store(storage, clock):
+    return tstore.MetricStore(
+        initial_capacity=32, chunk=64, digest_storage=storage,
+        slab_rows=64, tier_promote_samples=12, tier_promote_intervals=1,
+        device="cpu", compute=ComputeBreaker(failure_threshold=5,
+                                             reset_timeout=30.0,
+                                             clock=clock))
+
+
+def _storage_lines(seed=9):
+    """150 histogram series over several slabs, a tenth of them hot
+    enough to promote on the tiered store."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i in range(150):
+        n = 40 if i % 10 == 0 else int(rng.integers(2, 12))
+        lines += [b"h.%d:%f|h" % (i, v) for v in rng.gamma(2.0, 20.0, n)]
+    return [lines[j] for j in rng.permutation(len(lines))]
+
+
+def _stat_rows(store):
+    flushed, _ = store.flush([0.5], HistogramAggregates.from_names(AGGS), 1)
+    return {m.name: m.value for m in flushed.to_intermetrics()}
+
+
+@pytest.mark.parametrize("phase", ["preflight", "fetch"])
+@pytest.mark.parametrize("storage", ["slab", "tiered"])
+def test_rung3_on_slab_and_tiered_conserves_counts(storage, phase,
+                                                   fake_clock, monkeypatch):
+    """A slab or tiered flush whose kernel fails (at preflight, or at the
+    fetch) re-merges the retired group into the live one exactly as a
+    dense one does: the interval emits at the next flush, counts and
+    extrema exact against a twin that never failed, sums rtol 1e-6, the
+    median within 0.02 x (max - min)."""
+    lines = _storage_lines()
+    store, twin = (_storage_store(storage, fake_clock) for _ in range(2))
+    for st in (store, twin):
+        for ln in lines:
+            st.process_metric(tparser.parse_metric(ln))
+    group_cls = type(store.histograms)
+    with monkeypatch.context() as m:
+        if phase == "preflight":
+            store.compute.injector = FaultInjector(
+                rate=1.0, seed=1, kinds=("connect",),
+                scope="compute.tdigest_merge")
+        else:
+            def fail(*args, **kwargs):
+                raise RuntimeError("injected fetch failure")
+
+            m.setattr(group_cls, "_flush_collect", fail)
+        first = _stat_rows(store)
+        store.compute.injector = None
+    assert not any(k.startswith("h.") for k in first)
+    assert (store.compute.requeued_total, store.compute.lost_total) == (1, 0)
+    got, want = _stat_rows(store), _stat_rows(twin)
+    assert set(got) == set(want) and len(want) == 150 * len(AGGS) + 150
+    for name, v in want.items():
+        suffix = name.rpartition(".")[2]
+        if suffix in ("count", "min", "max"):
+            assert got[name] == v, name
+        elif suffix == "sum":
+            assert got[name] == pytest.approx(v, rel=1e-6), name
+    for i in range(150):
+        span = want[f"h.{i}.max"] - want[f"h.{i}.min"]
+        assert abs(got[f"h.{i}.50percentile"] - want[f"h.{i}.50percentile"]) \
+            <= 0.02 * span + 1e-6, i

@@ -110,16 +110,18 @@ def test_cuda_kernels_small_widths(cuda):
         _assert_match(got, want, wa, wb)
 
 
-# merge width L -> (compression, K): L=64, 128 and 256 run the warp path
-# (one instance each), L=2048 (compression 1000) the general block path
-WIDTHS = {64: (20.0, 24), 128: (50.0, 56), 256: (100.0, 104),
-          2048: (1000.0, 1008)}
+# merge width L -> (compression, K): L=32 (the tiered pool's compaction,
+# PK = 16 at compression 14) runs a block of one warp a row, L=64, 128
+# and 256 the warp path (one instance each), L=2048 (compression 1000)
+# the general block path
+WIDTHS = {32: (14.0, 16), 64: (20.0, 24), 128: (50.0, 56),
+          256: (100.0, 104), 2048: (1000.0, 1008)}
 
 
 @pytest.mark.parametrize("sort_b", [False, True])
 @pytest.mark.parametrize("width", sorted(WIDTHS))
 def test_cuda_kernel_widths_match_plain(cuda, width, sort_b):
-    """K1 and K2, presorted and with sort_b (K3), at merge widths 64,
+    """K1 and K2, presorted and with sort_b (K3), at merge widths 32, 64,
     128, 256 and 2048 against their plain versions; each call is one
     counted launch of its own kernel."""
     c, k = WIDTHS[width]
@@ -157,6 +159,88 @@ def test_cuda_kernel_widths_match_plain(cuda, width, sort_b):
     assert (getattr(tc.drain_quantile, counter),
             getattr(tc.compress_presorted, counter)) == (before[0] + 1,
                                                          before[1] + 1)
+
+
+def test_k1_on_a_bf16_upcast_slab_matches_plain(cuda):
+    """The slab store's flush program on a bfloat16 slab: the digest
+    planes upcast to float32 (core/slab.py _flush_slab), the temp half
+    sorted, K1 against its plain version on the same tensors."""
+    from veneur_tpu_torch.core import slab
+
+    rng = np.random.default_rng(37)
+    rows = 4099
+    ma, wa, mb, wb, mn, mx = _halves(rng, rows, dead_means=True)
+    ma = torch.from_numpy(ma).to(torch.bfloat16).float().numpy()
+    wa = torch.from_numpy(wa).to(torch.bfloat16).float().numpy()
+    digest = slab._init_digest_slab(rows, K, torch.bfloat16, cuda)
+    digest.mean.copy_(torch.from_numpy(ma).reshape(-1).to(cuda))
+    digest.weight.copy_(torch.from_numpy(wa).reshape(-1).to(cuda))
+    temp = slab._init_temp_slab(rows, K, cuda)
+    # the temp bins: (sum_w, sum_wm) whose means are mb where live
+    temp.sum_w.copy_(torch.from_numpy(wb).reshape(-1).to(cuda))
+    temp.sum_wm.copy_(torch.from_numpy(
+        (wb * np.where(wb > 0, mb, 0.0)).astype(np.float32)).reshape(-1)
+        .to(cuda))
+    temp.vmin.copy_(torch.from_numpy(mn).to(cuda))
+    temp.vmax.copy_(torch.from_numpy(mx).to(cuda))
+    qs = torch.from_numpy(QS).to(cuda)
+    calls = []
+    real = tc.launch_drain_quantile
+
+    def capture(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    tc.launch_drain_quantile = capture
+    try:
+        before = tc.drain_quantile.launches
+        slab._flush_slab(digest, temp, qs, rows, C)
+        assert tc.drain_quantile.launches == before + 1
+    finally:
+        tc.launch_drain_quantile = real
+    (args, out), = calls
+    assert args[0].dtype == torch.float32
+    want = [t.cpu().numpy() for t in tc.drain_quantile_plain(*args)]
+    got = [t.cpu().numpy() for t in out]
+    _assert_match(got, want, args[1].cpu().numpy(), args[3].cpu().numpy(),
+                  args[4].cpu().numpy(), args[5].cpu().numpy())
+
+
+def test_pool_compact_matches_plain(cuda):
+    """The tiered pool's compaction (K2 at merge width 32) on the card
+    against its plain version on the same pool, and the CPU's run."""
+    from veneur_tpu_torch.core import tiered
+    from veneur_tpu_torch.ops import tdigest as td
+
+    rng = np.random.default_rng(41)
+    rows, pk = 4099, 16
+    pool = tiered._init_pool_slab(rows, pk, "cpu")
+    m = np.sort(rng.gamma(2.0, 30.0, (rows, pk)), 1).astype(np.float32)
+    w = ((rng.random((rows, pk)) < 0.5)
+         * rng.integers(1, 9, (rows, pk))).astype(np.float32)
+    mq, wb, fmin, fmax = td.quantize_centroids(
+        torch.from_numpy(np.where(w > 0, m, np.inf).astype(np.float32)),
+        torch.from_numpy(w))
+    for plane, v in ((pool.mq, mq.reshape(-1)), (pool.wb, wb.reshape(-1)),
+                     (pool.fmin, fmin), (pool.fmax, fmax)):
+        plane.copy_(v)
+    sel = rng.random((rows, pk)) < 0.4
+    bw = np.where(sel, rng.integers(1, 5, (rows, pk)), 0).astype(np.float32)
+    pool.bw.copy_(torch.from_numpy(bw.reshape(-1)))
+    pool.bwm.copy_(torch.from_numpy(
+        (bw * rng.gamma(2.0, 30.0, (rows, pk))).astype(np.float32)
+        .reshape(-1)))
+    card = tiered.PoolSlab(*(p.to(cuda) for p in pool))
+    before = tc.compress_presorted.launches
+    got = [t.cpu().numpy() for t in tiered._pool_compact(card, rows, pk,
+                                                         14.0)]
+    assert tc.compress_presorted.launches == before + 1
+    want = [t.numpy() for t in tiered._pool_compact(pool, rows, pk, 14.0)]
+    wa = td.dequantize_centroids(pool.mq.view(rows, pk),
+                                 pool.wb.view(rows, pk), pool.fmin,
+                                 pool.fmax)[1].numpy()
+    _assert_match(got, want, wa, bw)
 
 
 def test_store_on_cuda_matches_cpu(cuda):

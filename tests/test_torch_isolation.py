@@ -120,6 +120,12 @@ def test_crash_safe_state_modules_are_covered():
             "veneur_tpu_torch.resilience.faults"} <= set(_modules())
 
 
+def test_digest_storage_modules_are_covered():
+    """The slab and tiered digest stores are scanned and imported too."""
+    assert {"veneur_tpu_torch.core.slab", "veneur_tpu_torch.core.tiered",
+            "veneur_tpu_torch.core.bucketing"} <= set(_modules())
+
+
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"

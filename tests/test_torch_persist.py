@@ -301,6 +301,54 @@ def test_cross_restore(src, dst, caplog):
     _assert_rows_close(got, want)
 
 
+STORAGE_PAIRS = [("dense", "slab"), ("slab", "tiered"), ("tiered", "dense"),
+                 ("tiered", "slab"), ("slab", "dense"), ("dense", "tiered")]
+
+
+def _storage_kw(storage):
+    return dict(digest_storage=storage, slab_rows=64,
+                tier_promote_samples=12, tier_promote_intervals=1)
+
+
+def _assert_restored_match(got, want):
+    """A port restore against the JAX package's restore of the same file:
+    every row; percentiles within 0.02 x (max - min) (the cross-rung
+    bound), every other row within rel 1e-4 (the round-trip bound)."""
+    assert set(got) == set(want)
+    for (name, tags), v in want.items():
+        base, _, suffix = name.rpartition(".")
+        if suffix.endswith("percentile"):
+            span = want[(f"{base}.max", tags)] - want[(f"{base}.min", tags)]
+            assert abs(got[(name, tags)] - v) <= 0.02 * span + 1e-6, name
+        elif np.isnan(v):
+            assert np.isnan(got[(name, tags)]), name
+        else:
+            assert got[(name, tags)] == pytest.approx(v, rel=1e-4,
+                                                      abs=1e-9), name
+
+
+@pytest.mark.parametrize("src", ["jax", "port"])
+@pytest.mark.parametrize("src_storage,dst_storage", STORAGE_PAIRS,
+                         ids=[f"{a}->{b}" for a, b in STORAGE_PAIRS])
+def test_storage_cross_restore(src, src_storage, dst_storage):
+    """A checkpoint of one package's store of one digest storage: both
+    packages write the same VCKP bytes for it, and it restores into both
+    packages' stores of another storage, which flush the same rows."""
+    lines = traffic()
+    groups, _ = STORES[src][0](lines, **_storage_kw(src_storage)) \
+        .snapshot_state()
+    blob = tpersist.serialize(groups, created_at=5.0, interval=10.0)
+    assert blob == jpersist.serialize(groups, created_at=5.0, interval=10.0)
+    rows = {}
+    for pkg, (make, rows_of, mod) in STORES.items():
+        store = make(**_storage_kw(dst_storage))
+        assert store.restore_state(mod.deserialize(blob)[0]) == sum(
+            len(g["names"]) for g in groups.values())
+        rows[pkg] = rows_of(store)
+    assert len(rows["jax"]) > 150
+    _assert_restored_match(rows["port"], rows["jax"])
+
+
 def test_restore_composes_with_live_traffic():
     groups, _ = port_store(traffic()).snapshot_state()
     restored = port_store()

@@ -123,8 +123,11 @@ def test_config_is_loud_about_unported_keys(tmp_path):
         config_from_dict({"grpc_address": "127.0.0.1:1"})
     with pytest.raises(UnsupportedConfig, match="HTTP forwarding"):
         config_from_dict({"forward_address": "x:1", "forward_use_grpc": True})
-    with pytest.raises(UnsupportedConfig, match="digest_storage"):
-        config_from_dict({"digest_storage": "slab"})
+    # digest_storage is ported (dense, slab, tiered); another is an error
+    assert config_from_dict({"digest_storage": "slab"}).digest_storage == \
+        "slab"
+    with pytest.raises(ValueError, match="digest_storage"):
+        config_from_dict({"digest_storage": "sparse"})
     with pytest.raises(UnsupportedConfig, match="mesh_enabled"):
         config_from_dict({"mesh_enabled": True})
     with pytest.raises(UnsupportedConfig, match="ssf_listen_addresses"):

@@ -3,7 +3,7 @@
 A YAML file (the veneur key names) maps onto :class:`Config`. A key this
 port does not implement yet raises :class:`UnsupportedConfig` instead of
 being ignored, unless its value is empty or off (``""``, ``[]``,
-``false``, ``null``) or ``digest_storage: dense``. PyYAML is imported
+``false``, ``null``). PyYAML is imported
 only inside :func:`read_config`: code that builds its ``Config`` directly
 never needs it.
 """
@@ -105,6 +105,29 @@ class Config:
     # group's initial row capacity
     store_chunk: int = 16384
     store_initial_capacity: int = 4096
+    # histogram/timer digest storage: "dense" (one [S, K] plane a field),
+    # "slab" (flat per-slab planes, grown a slab at a time: the
+    # multi-million-series plan, core/slab.py) or "tiered" (every series
+    # in a packed u16/bfloat16 pool at ~228 B a row, dense full-K slots
+    # for series with sustained activity: core/tiered.py)
+    digest_storage: str = "dense"
+    # tiered: packed-pool centroid slots a series (a power of two >= 8)
+    tier_pool_centroids: int = 16
+    # tiered: interval samples at or above which a series is HOT (0 =
+    # 64); a hot pool series takes a dense slot mid-interval once its
+    # hot streak reaches tier_promote_intervals
+    tier_promote_samples: int = 0
+    # tiered: hot intervals in a row before a dense slot (0 = 2)
+    tier_promote_intervals: int = 0
+    # tiered: idle intervals in a row after which a dense series goes
+    # back to the pool at a flush boundary (0 = 3)
+    tier_demote_intervals: int = 0
+    # slab: the digest planes' storage type, "float32" or "bfloat16"
+    # (half the memory; the kernels and the counts stay float32)
+    digest_dtype: str = "float32"
+    # slab: rows a slab (at most 1,048,576: the per-slab flush transient
+    # scales with it); tiered pool slabs take at most 262,144
+    slab_rows: int = 1 << 20
     # the global's import pool: merge threads and queued bodies
     http_import_workers: int = 2
     http_import_queue: int = 64
@@ -302,6 +325,35 @@ class Config:
                     f"veneur_tpu_torch yet (it injects "
                     f"{list(faults.PORTED_KINDS)}); run veneur_tpu for "
                     f"them")
+        if self.digest_storage not in ("dense", "slab", "tiered"):
+            raise ValueError(
+                f"digest_storage must be 'dense', 'slab' or 'tiered', "
+                f"got {self.digest_storage!r}")
+        pk = self.tier_pool_centroids
+        if pk < 8 or pk & (pk - 1):
+            raise ValueError(
+                f"tier_pool_centroids must be a power of two >= 8 (the "
+                f"packed pool's per-row centroid budget), got {pk}")
+        for knob in ("tier_promote_samples", "tier_promote_intervals",
+                     "tier_demote_intervals"):
+            if getattr(self, knob) < 0:
+                raise ValueError(
+                    f"{knob} must be >= 0 (0 = use the default), "
+                    f"got {getattr(self, knob)}")
+        if self.digest_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"digest_dtype must be 'float32' or 'bfloat16', got "
+                f"{self.digest_dtype!r}")
+        if self.digest_dtype == "bfloat16" and self.digest_storage != "slab":
+            raise ValueError(
+                "digest_dtype: bfloat16 requires digest_storage: slab "
+                "(the dense store is f32-only)")
+        if self.slab_rows <= 0:
+            raise ValueError(f"slab_rows must be positive, got "
+                             f"{self.slab_rows}")
+        self.tier_promote_samples = self.tier_promote_samples or 64
+        self.tier_promote_intervals = self.tier_promote_intervals or 2
+        self.tier_demote_intervals = self.tier_demote_intervals or 3
         self.forward_timeout = self.forward_timeout or "10s"
         self.retry_base_interval = self.retry_base_interval or "100ms"
         self.breaker_reset_timeout = self.breaker_reset_timeout or "30s"
@@ -342,7 +394,6 @@ class Config:
 
 # values that leave an unimplemented key switched off
 _OFF_VALUES = (None, "", [], {}, False)
-_OFF_SETTINGS = {"digest_storage": "dense"}
 
 _DURATION_RE = re.compile(r"(\d+(?:\.\d+)?)(ns|us|µs|ms|s|m|h)")
 _DURATION_UNITS = {"ns": 1e-9, "us": 1e-6, "µs": 1e-6, "ms": 1e-3,
@@ -371,8 +422,7 @@ def config_from_dict(data: dict) -> Config:
     known = {f.name for f in dataclasses.fields(Config)}
     unsupported = sorted(
         k for k, v in data.items()
-        if k not in known and v not in _OFF_VALUES
-        and _OFF_SETTINGS.get(k, object()) != v)
+        if k not in known and v not in _OFF_VALUES)
     if unsupported:
         raise UnsupportedConfig(
             f"configuration keys not implemented by veneur_tpu_torch yet: "

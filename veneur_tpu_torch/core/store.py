@@ -76,7 +76,6 @@ from veneur_tpu_torch.core import columnar
 from veneur_tpu_torch.core.bucketing import pow2_cap
 from veneur_tpu_torch.core.columnar import ColumnarFlush
 from veneur_tpu_torch.core.pipeline import SerializerLane
-from veneur_tpu_torch.core.slab import _fetch_packed, _pack_slab
 from veneur_tpu_torch.device import resolve_device
 from veneur_tpu_torch.ops import countmin as cm_ops
 from veneur_tpu_torch.ops import hll as hll_ops
@@ -316,8 +315,10 @@ def _snapshot_copies(tensors):
     lock), and a CUDA event recorded after them (None on the CPU). A
     slice would be a view that a later in-place ingest changes
     (``index_add_``, ``scatter_reduce_``); the copies are the state at
-    the snapshot."""
-    copies = tuple(t.clone() for t in tensors)
+    the snapshot. A bfloat16 plane (the slab store's) is copied as
+    float32, exactly, since numpy has no bfloat16."""
+    copies = tuple(t.float() if t.dtype == torch.bfloat16 else t.clone()
+                   for t in tensors)
     event = None
     if copies and copies[0].is_cuda:
         event = torch.cuda.Event()
@@ -560,37 +561,40 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-class DigestGroup(OverloadLimited):
-    """One scope-class of histograms/timers as a dense t-digest batch."""
+def _select_stats(want_stats) -> List[str]:
+    """The per-row stat columns a flush fetches, in fetch order; None =
+    all."""
+    return [nm for nm in _STAT_NAMES
+            if want_stats is None or nm in want_stats]
 
-    # set by MetricStore._swap_generation: a retired group's flush drops
-    # its device state instead of reallocating it
-    _retired = False
 
-    def __init__(self, capacity: int = DEFAULT_INITIAL_CAPACITY,
-                 chunk: int = DEFAULT_CHUNK,
-                 compression: float = td_ops.DEFAULT_COMPRESSION,
-                 device=None):
-        self.device = resolve_device(device)
-        self.interner = Interner()
-        self.capacity = capacity
-        self.chunk = chunk
-        self.compression = compression
-        self.k = td_ops.size_bound(compression)
-        self._init_device()
-        self._init_staging()
+def _fill_stat_results(sel, cols, n: int, percentiles, out: dict) -> dict:
+    """Map the fetched stat columns into a digest flush's result dict,
+    zero-filling the unfetched ones: the aggregate mask that left them
+    out of the fetch also gates their emission (:func:`_digest_want`).
+    Shared by the dense, slab and tiered groups. The shared zeros array
+    is read-only, so a stray in-place write cannot corrupt every key
+    aliasing it."""
+    got = dict(zip(sel, cols))
+    zeros = np.zeros(n, np.float32)
+    zeros.flags.writeable = False
+    for nm in _STAT_NAMES[1:]:
+        out[nm] = got.get(nm, zeros)
+    if "pcts" in got:
+        out["percentiles"] = got["pcts"][:, :-1]
+        out["median"] = got["pcts"][:, -1]
+    else:
+        out["percentiles"] = np.zeros((n, len(percentiles)), np.float32)
+        out["median"] = zeros
+    return out
 
-    def _init_device(self):
-        dev = self.device
-        self.temp = td_ops.init_temp(self.capacity, self.k, self.compression,
-                                     device=dev)
-        self.digest = td_ops.init((self.capacity,), self.compression,
-                                  self.k, device=dev)
-        self.dmin = torch.full((self.capacity,), math.inf,
-                               dtype=torch.float32, device=dev)
-        self.dmax = torch.full((self.capacity,), -math.inf,
-                               dtype=torch.float32, device=dev)
-        self._device_dirty = False
+
+class DigestStaging(OverloadLimited):
+    """The host staging every digest group shares (dense, slab and tiered
+    storage): sample and import buffers padded with the out-of-range row
+    ``self.capacity``, drained through the group's own ``_drain_samples``
+    and ``_drain_imports`` when a chunk fills. ``_note_activity`` is the
+    tiered group's hook (each staged row's interval activity)."""
 
     def _init_staging(self):
         self._new_sample_buffers()
@@ -619,50 +623,9 @@ class DigestGroup(OverloadLimited):
     def __len__(self):
         return len(self.interner)
 
-    def _row(self, key: MetricKey, tags: List[str]) -> int:
-        row = self._intern_row(key, tags)
-        if row >= self.capacity:
-            self._grow()
-        return row
-
-    def _grow(self):
-        self._drain_staging()
-        old = self.capacity
-        self.capacity *= _GROW_FACTOR
-        pad = self.capacity - old
-
-        def grow(t, fill):
-            return torch.cat([t, t.new_full((pad,) + tuple(t.shape[1:]),
-                                            fill)])
-
-        t = self.temp
-        self.temp = td_ops.TempCentroids(
-            sum_w=grow(t.sum_w, 0.0), sum_wm=grow(t.sum_wm, 0.0),
-            seg_w=grow(t.seg_w, 0.0), seg_wm=grow(t.seg_wm, 0.0),
-            count=grow(t.count, 0.0), vsum=grow(t.vsum, 0.0),
-            vmin=grow(t.vmin, math.inf), vmax=grow(t.vmax, -math.inf),
-            recip=grow(t.recip, 0.0))
-        d = self.digest
-        self.digest = td_ops.TDigest(
-            mean=grow(d.mean, math.inf), weight=grow(d.weight, 0.0),
-            min=grow(d.min, math.inf), max=grow(d.max, -math.inf))
-        self.dmin = grow(self.dmin, math.inf)
-        self.dmax = grow(self.dmax, -math.inf)
-        # re-point staging padding at the new out-of-range row id
-        self._rows[self._fill:] = self.capacity
-        self._imp_rows[self._imp_fill:] = self.capacity
-        self._imp_stat_rows[self._imp_stat_fill:] = self.capacity
-
-    def ensure_capacity(self, max_row: int):
-        """Grow so max_row is addressable (bulk paths bypass _row)."""
-        while max_row >= self.capacity:
-            self._grow()
-
-    def fresh(self) -> "DigestGroup":
-        """Empty same-config twin with newly allocated planes. Carries the
-        grown capacity so a steady cardinality never re-grows."""
-        return DigestGroup(self.capacity, self.chunk, self.compression,
-                           self.device)
+    def _note_activity(self, rows, n: int) -> None:
+        """Count ``n`` staged entries per row in ``rows`` (an int or an
+        array); nothing but the tiered group keeps the count."""
 
     def sample_many(self, rows: np.ndarray, vals: np.ndarray,
                     wts: np.ndarray):
@@ -675,6 +638,7 @@ class DigestGroup(OverloadLimited):
         if not ok.all():
             self.scrubbed += int((~ok).sum())
             rows, vals, wts = rows[ok], vals[ok], wts[ok]
+        self._note_activity(rows, 1)
         n = len(rows)
         start = 0
         while start < n:
@@ -700,6 +664,7 @@ class DigestGroup(OverloadLimited):
             self._quarantine_samples("bad_rate")
             return
         row = self._row(key, tags)
+        self._note_activity(row, 1)
         i = self._fill
         self._rows[i] = row
         self._vals[i] = value
@@ -717,6 +682,7 @@ class DigestGroup(OverloadLimited):
         (merging_digest.go:358-370) without the shuffle."""
         row = self._row(key, tags)
         n = len(means)
+        self._note_activity(row, n)
         # keep one digest's sorted centroid run inside one staging drain:
         # a split run hands each drain a skewed half that the per-chunk
         # binning aliases (see import_centroids_bulk)
@@ -758,6 +724,7 @@ class DigestGroup(OverloadLimited):
         binning aliases into the same bins. Only a run longer than a
         whole chunk (never a digest: a run is <= K centroids) splits."""
         n = len(rows)
+        self._note_activity(rows, 1)
         # equal-row run boundaries, so span copies stay O(n / chunk)
         if n:
             run_ends = np.concatenate(
@@ -806,6 +773,97 @@ class DigestGroup(OverloadLimited):
                 or self._imp_stat_fill == self.chunk):
             self._drain_imports()
 
+    def _drain_staging(self):
+        self._drain_samples()
+        self._drain_imports()
+
+    def _drop_staging(self):
+        """Release a RETIRED group's host staging: a stray drain on the
+        dead group is then a no-op, and it allocates nothing."""
+        self._rows = self._vals = self._wts = None
+        self._imp_rows = self._imp_means = self._imp_wts = None
+        self._imp_stat_rows = self._imp_stat_mins = None
+        self._imp_stat_maxs = None
+        self._fill = self._imp_fill = self._imp_stat_fill = 0
+
+
+class DigestGroup(DigestStaging):
+    """One scope-class of histograms/timers as a dense t-digest batch."""
+
+    # set by MetricStore._swap_generation: a retired group's flush drops
+    # its device state instead of reallocating it
+    _retired = False
+
+    def __init__(self, capacity: int = DEFAULT_INITIAL_CAPACITY,
+                 chunk: int = DEFAULT_CHUNK,
+                 compression: float = td_ops.DEFAULT_COMPRESSION,
+                 device=None):
+        self.device = resolve_device(device)
+        self.interner = Interner()
+        self.capacity = capacity
+        self.chunk = chunk
+        self.compression = compression
+        self.k = td_ops.size_bound(compression)
+        self._init_device()
+        self._init_staging()
+
+    def _init_device(self):
+        dev = self.device
+        self.temp = td_ops.init_temp(self.capacity, self.k, self.compression,
+                                     device=dev)
+        self.digest = td_ops.init((self.capacity,), self.compression,
+                                  self.k, device=dev)
+        self.dmin = torch.full((self.capacity,), math.inf,
+                               dtype=torch.float32, device=dev)
+        self.dmax = torch.full((self.capacity,), -math.inf,
+                               dtype=torch.float32, device=dev)
+        self._device_dirty = False
+
+    def _row(self, key: MetricKey, tags: List[str]) -> int:
+        row = self._intern_row(key, tags)
+        if row >= self.capacity:
+            self._grow()
+        return row
+
+    def _grow(self):
+        self._drain_staging()
+        old = self.capacity
+        self.capacity *= _GROW_FACTOR
+        pad = self.capacity - old
+
+        def grow(t, fill):
+            return torch.cat([t, t.new_full((pad,) + tuple(t.shape[1:]),
+                                            fill)])
+
+        t = self.temp
+        self.temp = td_ops.TempCentroids(
+            sum_w=grow(t.sum_w, 0.0), sum_wm=grow(t.sum_wm, 0.0),
+            seg_w=grow(t.seg_w, 0.0), seg_wm=grow(t.seg_wm, 0.0),
+            count=grow(t.count, 0.0), vsum=grow(t.vsum, 0.0),
+            vmin=grow(t.vmin, math.inf), vmax=grow(t.vmax, -math.inf),
+            recip=grow(t.recip, 0.0))
+        d = self.digest
+        self.digest = td_ops.TDigest(
+            mean=grow(d.mean, math.inf), weight=grow(d.weight, 0.0),
+            min=grow(d.min, math.inf), max=grow(d.max, -math.inf))
+        self.dmin = grow(self.dmin, math.inf)
+        self.dmax = grow(self.dmax, -math.inf)
+        # re-point staging padding at the new out-of-range row id
+        self._rows[self._fill:] = self.capacity
+        self._imp_rows[self._imp_fill:] = self.capacity
+        self._imp_stat_rows[self._imp_stat_fill:] = self.capacity
+
+    def ensure_capacity(self, max_row: int):
+        """Grow so max_row is addressable (bulk paths bypass _row)."""
+        while max_row >= self.capacity:
+            self._grow()
+
+    def fresh(self) -> "DigestGroup":
+        """Empty same-config twin with newly allocated planes. Carries the
+        grown capacity so a steady cardinality never re-grows."""
+        return DigestGroup(self.capacity, self.chunk, self.compression,
+                           self.device)
+
     def _drain_samples(self):
         if self._fill == 0:
             return
@@ -846,10 +904,6 @@ class DigestGroup(OverloadLimited):
         else:
             _scatter_extrema(self.dmin, self.dmax, srows.long(), smins,
                              smaxs)
-
-    def _drain_staging(self):
-        self._drain_samples()
-        self._drain_imports()
 
     def flush(self, percentiles: List[float], want_digests=False,
               want_stats=None):
@@ -903,8 +957,7 @@ class DigestGroup(OverloadLimited):
 
     def _flush_dispatch(self, n: int, percentiles, want_digests,
                         want_stats):
-        sel = [nm for nm in _STAT_NAMES
-               if want_stats is None or nm in want_stats]
+        sel = _select_stats(want_stats)
         qs = torch.tensor(list(percentiles) + [0.5], dtype=torch.float32,
                           device=self.device)
         digest, pcts, count, vsum, vmin, vmax, recip = _flush_digests(
@@ -915,7 +968,9 @@ class DigestGroup(OverloadLimited):
         if want_digests == "packed":
             # the pack runs on the whole capacity, as JAX's _pack_slab on
             # the slab; the fetch takes the first n rows
-            planes = ("packed",) + _pack_slab(
+            from veneur_tpu_torch.core import slab
+
+            planes = ("packed",) + slab._pack_slab(
                 digest.mean, digest.weight, digest.min, digest.max) + (
                 digest.min[:n], digest.max[:n])
         elif want_digests:
@@ -927,21 +982,8 @@ class DigestGroup(OverloadLimited):
 
     def _flush_collect(self, pending, n: int, percentiles) -> dict:
         sel, refs, planes = pending
-        fetched = [_to_host(t) for t in refs]
-        out = {}
-        # unfetched stats zero-fill: the aggregate mask that left them out
-        # of the fetch also gates their emission (_digest_want)
-        got = dict(zip(sel, fetched))
-        zeros = np.zeros(n, np.float32)
-        zeros.flags.writeable = False
-        for nm in _STAT_NAMES[1:]:
-            out[nm] = got.get(nm, zeros)
-        if "pcts" in got:
-            out["percentiles"] = got["pcts"][:, :-1]
-            out["median"] = got["pcts"][:, -1]
-        else:
-            out["percentiles"] = np.zeros((n, len(percentiles)), np.float32)
-            out["median"] = zeros
+        out = _fill_stat_results(sel, [_to_host(t) for t in refs], n,
+                                 percentiles, {})
         if planes:
             out.update(self._fetch_planes(planes, n))
         return out
@@ -954,8 +996,10 @@ class DigestGroup(OverloadLimited):
         PackedDigestPlanes); both with the [n] extrema."""
         kind, *refs = planes
         if kind == "packed":
+            from veneur_tpu_torch.core import slab
+
             counts, q_pref, wb_pref, dmin, dmax = refs
-            pc, pm, pw = _fetch_packed(counts, q_pref, wb_pref, n)
+            pc, pm, pw = slab._fetch_packed(counts, q_pref, wb_pref, n)
             return {"packed_counts": pc, "packed_means": pm,
                     "packed_weights": pw, "digest_min": _to_host(dmin),
                     "digest_max": _to_host(dmax)}
@@ -967,11 +1011,7 @@ class DigestGroup(OverloadLimited):
         """Free a retired generation's device state and staging buffers."""
         self.digest = self.temp = self.dmin = self.dmax = None
         self._device_dirty = False
-        self._rows = self._vals = self._wts = None
-        self._imp_rows = self._imp_means = self._imp_wts = None
-        self._imp_stat_rows = self._imp_stat_mins = None
-        self._imp_stat_maxs = None
-        self._fill = self._imp_fill = self._imp_stat_fill = 0
+        self._drop_staging()
 
     def snapshot_begin(self):
         """Phase 1 of the two-phase snapshot (the caller holds the store
@@ -1784,7 +1824,13 @@ class MetricStore:
                  topk_width: int = cm_ops.DEFAULT_WIDTH,
                  topk_k: int = cm_ops.DEFAULT_TOPK, max_series: int = 0,
                  max_tag_length: int = 0, overload=None,
-                 flush_pipeline_depth: int = 2, compute=None, device=None):
+                 flush_pipeline_depth: int = 2, compute=None,
+                 digest_storage: str = "dense",
+                 digest_dtype: str = "float32", slab_rows: int = 1 << 20,
+                 tier_pool_centroids: int = 16,
+                 tier_promote_samples: int = 64,
+                 tier_promote_intervals: int = 2,
+                 tier_demote_intervals: int = 3, device=None):
         self.device = resolve_device(device)
         # samples the store rejects, by reason (cumulative): the groups'
         # scrubs, process_batch's and the ingest lanes' ledgers, and the
@@ -1803,9 +1849,13 @@ class MetricStore:
         self.gauges = ScalarGroup("gauge", initial_capacity)
         self.global_gauges = ScalarGroup("gauge", initial_capacity)
         self.local_status_checks = ScalarGroup("status", initial_capacity)
+        self.digest_storage = digest_storage
         for name in _DIGEST_GROUPS:
-            setattr(self, name, DigestGroup(initial_capacity, chunk,
-                                            compression, self.device))
+            setattr(self, name, self._digest_group(
+                digest_storage, initial_capacity, chunk, compression,
+                digest_dtype, slab_rows, tier_pool_centroids,
+                tier_promote_samples, tier_promote_intervals,
+                tier_demote_intervals))
         for name in _SET_GROUPS:
             setattr(self, name, SetGroup(initial_capacity, chunk,
                                          hll_precision, self.device))
@@ -1839,6 +1889,35 @@ class MetricStore:
         # the ingest fleets' sealed-chunk drain, run before a snapshot
         self._ingest_drain = None
 
+    def _digest_group(self, storage: str, initial_capacity: int, chunk: int,
+                      compression: float, digest_dtype: str, slab_rows: int,
+                      pool_centroids: int, promote_samples: int,
+                      promote_intervals: int, demote_intervals: int):
+        """One histogram/timer group of the configured storage: "dense"
+        (one [S, K] plane a field), "slab" (flat per-slab planes, maybe
+        bfloat16: ``core/slab.py``) or "tiered" (a packed pool with dense
+        slots for active series, 256k-row pool slabs at most:
+        ``core/tiered.py``; each group owns one TierDirectory its
+        generation twins share). Sets, scalars and heavy hitters stay
+        dense whatever the storage."""
+        if storage == "dense":
+            return DigestGroup(initial_capacity, chunk, compression,
+                               self.device)
+        if storage == "slab":
+            from veneur_tpu_torch.core.slab import SlabDigestGroup
+
+            return SlabDigestGroup(slab_rows, chunk, compression,
+                                   digest_dtype, self.device)
+        if storage == "tiered":
+            from veneur_tpu_torch.core.tiered import TieredDigestGroup
+
+            return TieredDigestGroup(
+                min(slab_rows, 1 << 18), chunk, compression,
+                pool_centroids, promote_samples, promote_intervals,
+                demote_intervals, initial_capacity, device=self.device)
+        raise ValueError(f"digest_storage must be 'dense', 'slab' or "
+                         f"'tiered', got {storage!r}")
+
     # -- overload plumbing (overload.py) -------------------------------------
 
     def set_overload(self, controller) -> None:
@@ -1861,6 +1940,9 @@ class MetricStore:
         g._overload = self._overload
         g._quarantine = self.quarantine
         g._compute = self.compute
+        # the slab and tiered groups' dispatch-ahead window over their
+        # slabs rides the flush pipeline's depth
+        g._pipeline_window = max(1, self.flush_pipeline_depth)
 
     def _truncate_tags(self, joined: str) -> str:
         """The per-series tag-length cap: cut the joined tags at the last

@@ -253,14 +253,14 @@ def _acc_below_mass(r: torch.Tensor, v: torch.Tensor,
     monotone coarse CDF, interpolated linearly inside the segment a
     value falls in. Returns (below [N], acc_total [N]); zeros for rows
     that have accumulated nothing."""
-    a_w = acc_seg_w.reshape(num_series, anchors)
-    a_wm = acc_seg_wm.reshape(num_series, anchors)
-    live = a_w > 0
-    means = torch.where(live, a_wm / torch.where(live, a_w, 1.0), -_INF)
-    mono = torch.cummax(means, dim=1).values             # [S, A]
+    # the chunk's rows are gathered first: the running max is per row,
+    # so it equals the JAX package's over all [S, A] rows, at [N, A] cost
     rc = torch.clamp_max(r, num_series - 1)
-    s_mean = mono[rc]                                    # [N, A]
-    s_dw = a_w[rc]                                       # [N, A]
+    s_dw = acc_seg_w.reshape(num_series, anchors)[rc]    # [N, A]
+    s_wm = acc_seg_wm.reshape(num_series, anchors)[rc]
+    live = s_dw > 0
+    means = torch.where(live, s_wm / torch.where(live, s_dw, 1.0), -_INF)
+    s_mean = torch.cummax(means, dim=1).values
     s_prev = torch.cat([torch.full_like(s_mean[:, :1], -_INF),
                         s_mean[:, :-1]], dim=1)
     span = s_mean - s_prev
@@ -473,3 +473,170 @@ def drain_and_quantile(state: TDigest, temp: TempCentroids, dmin, dmax,
         state.mean, state.weight, t_mean, t_w, mn, mx, qs, compression,
         state.capacity)
     return TDigest(mean=nm, weight=nw, min=mn, max=mx), pcts
+
+
+# ---------------------------------------------------------------------------
+# The tiered pool's binning (core/tiered.py)
+# ---------------------------------------------------------------------------
+
+
+def _packed_below_mass(r: torch.Tensor, v: torch.Tensor, mq: torch.Tensor,
+                       wb: torch.Tensor, fmin: torch.Tensor,
+                       fmax: torch.Tensor, num_series: int, capacity: int):
+    """Per-sample accumulated mass below its value from the PACKED
+    centroid planes (step attribution at centroid granularity; a tie
+    counts half). Only the chunk's rows are gathered before the
+    dequantize: [N, PK] work. Returns (below [N], packed total [N])."""
+    rc = torch.clamp_max(r, num_series - 1)
+    pm, pw = dequantize_centroids(
+        mq.reshape(num_series, capacity)[rc],
+        wb.reshape(num_series, capacity)[rc], fmin[rc], fmax[rc])
+    live = pw > 0
+    vv = v[:, None]
+    below = (torch.where(live & (pm < vv), pw, 0.0).sum(1)
+             + 0.5 * torch.where(live & (pm == vv), pw, 0.0).sum(1))
+    ptot = torch.where(live, pw, 0.0).sum(1)
+    return below, ptot
+
+
+def bin_pool_samples(rows: torch.Tensor, values: torch.Tensor,
+                     weights: torch.Tensor, num_series: int, capacity: int,
+                     compression: float, acc_w: torch.Tensor,
+                     acc_wm: torch.Tensor, mq: torch.Tensor | None = None,
+                     wb: torch.Tensor | None = None,
+                     fmin: torch.Tensor | None = None,
+                     fmax: torch.Tensor | None = None):
+    """Pool-tier binning (port of the JAX module's ``bin_pool_samples``):
+    each sample is placed against its row's LIVE bin means, which in the
+    pool are the anchors (A == PK == capacity):
+
+    * room between the bracketing live bins: a value-interpolated bin
+      inside the gap, off the bins next to the brackets while >= 3 are
+      free;
+    * a new row minimum or maximum: bisect the open side's bin range;
+    * no room: the nearer-by-value bracket, unless it already holds more
+      than ~2 x total / C and the other bracket is lighter;
+    * an empty summary, or a row whose chunk mass exceeds everything it
+      has accumulated (bins plus the packed planes, when given): the
+      merged-rank quantile bin.
+
+    rows: [N] in [0, num_series]; padding uses ``num_series`` and weight
+    0. Returns (rows, values, weights, bins) sorted by (row, value)."""
+    rows = rows.long()
+    r, v, w = _row_value_sort(rows, values.float(), weights.float())
+    cw = _cumsum(w)
+    excl = cw - w
+    seg_start = torch.ones_like(r, dtype=torch.bool)
+    seg_start[1:] = r[1:] != r[:-1]
+    base = _cummax(torch.where(seg_start, excl, -_INF))
+    q_excl = excl - base
+    totals = torch.zeros(num_series + 1, dtype=w.dtype, device=w.device) \
+        .index_add_(0, r, w)
+    tot = totals[torch.clamp_max(r, num_series)]
+    below, acc_tot = _acc_below_mass(r, v, acc_w, acc_wm, num_series,
+                                     capacity)
+    if mq is not None:
+        pbelow, ptot = _packed_below_mass(r, v, mq, wb, fmin, fmax,
+                                          num_series, capacity)
+        below = below + pbelow
+        acc_tot = acc_tot + ptot
+    q_mid = (below + q_excl + 0.5 * w) / torch.clamp_min(tot + acc_tot,
+                                                         _TINY)
+    qb = torch.clamp(torch.floor(_kscale(q_mid, compression)), 0,
+                     capacity - 1).long()
+    # the chunk's rows gathered first (elementwise: the same values)
+    rc = torch.clamp_max(r, num_series - 1)
+    wt_r = acc_w.reshape(num_series, capacity)[rc]    # [N, PK]
+    live_r = wt_r > 0
+    m_r = torch.where(live_r, acc_wm.reshape(num_series, capacity)[rc]
+                      / torch.where(live_r, wt_r, 1.0), float("nan"))
+    idx = torch.arange(capacity, device=r.device)
+    vv = v[:, None]
+    is_below = live_r & (m_r < vv)
+    is_above = live_r & (m_r > vv)
+    lo = torch.where(is_below, idx, -1).amax(1)
+    hi = torch.where(is_above, idx, capacity).amin(1)
+    m_lo = torch.where(is_below, m_r, -_INF).amax(1)
+    m_hi = torch.where(is_above, m_r, _INF).amin(1)
+    gap = hi - lo - 1                                 # free/equal bins
+    span = m_hi - m_lo
+    interp_ok = torch.isfinite(span) & (span > 0)
+    frac = torch.clamp((v - m_lo) / torch.where(interp_ok, span, 1.0),
+                       0.0, 1.0)
+    off = torch.round(frac * (gap - 1).to(v.dtype)).long()
+    roomy = gap >= 3
+    off = torch.clamp(off, torch.where(roomy, 1, 0),
+                      torch.where(roomy, gap - 2, gap - 1))
+    b_interp = lo + 1 + off
+    low_open = (lo < 0) & (hi < capacity)     # new row minimum
+    high_open = (lo >= 0) & (hi >= capacity)  # new row maximum
+    b_onesided = torch.where(low_open, (hi - 1) // 2, (lo + capacity) // 2)
+    b_room = torch.where(interp_ok, b_interp,
+                         torch.where(low_open | high_open, b_onesided, qb))
+    b_room = torch.clamp(b_room, lo + 1, hi - 1)
+    w_lo = torch.gather(wt_r, 1, torch.clamp(lo, 0, capacity - 1)[:, None])
+    w_hi = torch.gather(wt_r, 1, torch.clamp(hi, 0, capacity - 1)[:, None])
+    w_lo, w_hi = w_lo[:, 0], w_hi[:, 0]
+    nearer_lo = (v - m_lo) <= (m_hi - v)
+    w_near = torch.where(nearer_lo, w_lo, w_hi)
+    w_far = torch.where(nearer_lo, w_hi, w_lo)
+    cap_w = 2.0 * (tot + acc_tot) / compression
+    switch = ((lo >= 0) & (hi < capacity) & (w_near + w > cap_w)
+              & (w_far < w_near))
+    b_full = torch.where(nearer_lo ^ switch, lo, hi)
+    b = torch.where(gap >= 1, b_room, b_full)
+    b = torch.where(tot > acc_tot, qb, b)
+    return r, v, w, torch.clamp(b, 0, capacity - 1)
+
+
+# ---------------------------------------------------------------------------
+# Quantized (packed) centroid storage: the tiered pool's resident format
+# ---------------------------------------------------------------------------
+#
+# Means quantize to u16 against the row's own [fmin, fmax] frame and
+# weights round to bfloat16; both travel as int16 tensors holding the 16
+# bits (torch has few ops on uint16), widened for arithmetic. A wb of 0
+# is the empty slot.
+
+
+def _u16(x: torch.Tensor) -> torch.Tensor:
+    """The unsigned value of int16 bit patterns, as int32."""
+    return x.to(torch.int32) & 0xFFFF
+
+
+def quantize_centroids(mean: torch.Tensor, weight: torch.Tensor):
+    """Quantize [..., P] float32 centroid planes into (means_q, weights_bf,
+    fmin, fmax): int16 bit patterns of the u16 range-quantized means and
+    of the bfloat16 weights, and the row frame (the live-mean span, so
+    quantization never clips; +inf/-inf and all-zero planes for a row
+    with no live centroid). Rounding is half to even, as XLA's."""
+    live = weight > 0
+    fmin = torch.where(live, mean, _INF).amin(-1)
+    fmax = torch.where(live, mean, -_INF).amax(-1)
+    span = fmax - fmin
+    # a true division (F3): a Python number over a tensor multiplies by
+    # the reciprocal in torch, one rounding more than XLA's divide
+    scale = torch.where(span > 0, torch.full_like(span, 65535.0) / span,
+                        torch.zeros_like(span))
+    base = torch.where(torch.isfinite(fmin), fmin, torch.zeros_like(fmin))
+    q = torch.clamp(torch.round((torch.where(live, mean, 0.0)
+                                 - base[..., None]) * scale[..., None]),
+                    0.0, 65535.0)
+    q = torch.where(live, q, torch.zeros_like(q)).to(torch.int32)
+    mq = torch.where(q >= 32768, q - 65536, q).to(torch.int16)
+    wb = torch.where(live, weight, 0.0).to(torch.bfloat16).view(torch.int16)
+    return mq, wb, fmin, fmax
+
+
+def dequantize_centroids(mq: torch.Tensor, wb: torch.Tensor,
+                         fmin: torch.Tensor, fmax: torch.Tensor):
+    """Inverse of :func:`quantize_centroids`: (mean float32 [..., P] with
+    +inf empties, weight float32)."""
+    weight = wb.view(torch.bfloat16).float()
+    live = weight > 0
+    base = torch.where(torch.isfinite(fmin), fmin, torch.zeros_like(fmin))
+    span = fmax - fmin
+    span = torch.where(torch.isfinite(span), span, torch.zeros_like(span))
+    step = span / torch.full_like(span, 65535.0)   # a true division (F3)
+    mean = base[..., None] + _u16(mq).float() * step[..., None]
+    return torch.where(live, mean, _INF), weight

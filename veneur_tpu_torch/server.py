@@ -273,7 +273,14 @@ class Server:
             topk_k=config.topk_k, max_series=config.max_series,
             max_tag_length=config.max_tag_length, overload=self.overload,
             flush_pipeline_depth=config.flush_pipeline_depth,
-            compute=rcompute.from_config(config), device=device)
+            compute=rcompute.from_config(config),
+            digest_storage=config.digest_storage,
+            digest_dtype=config.digest_dtype, slab_rows=config.slab_rows,
+            tier_pool_centroids=config.tier_pool_centroids,
+            tier_promote_samples=config.tier_promote_samples,
+            tier_promote_intervals=config.tier_promote_intervals,
+            tier_demote_intervals=config.tier_demote_intervals,
+            device=device)
         # the configured fault kinds (config.py admits disk_full and
         # deadline_pressure): the checkpoint commit and the flush budget
         self.soak_injector = rfaults.from_config(config)
