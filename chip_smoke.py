@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and its native
-ingest and egress libraries (g++), side by side, then runs twelve phases,
-each printing one JSON line (checkpoint two, capacity eight):
+ingest and egress libraries (g++), side by side, then runs thirteen
+phases, each printing one JSON line (checkpoint two, capacity eight,
+mesh six):
 
   kernels  K1 drain_quantile and K2 compress_presorted at the flush's
            shape (1,048,576 rows, K=104, the store's 9 quantiles), each
@@ -24,7 +25,8 @@ each printing one JSON line (checkpoint two, capacity eight):
            type, one flush, rows checked against what was sent;
   ingest   the server's default UDP listener, the ingest-lane fleet
            (4 lanes, native parse, recvmmsg) of a Server on cuda, at
-           1,048,576 histogram series (2 tags, 8 samples, a quarter at
+           524,288 histogram series (1,048,576 until the mesh phase came,
+           to keep the script in its time; 2 tags, 8 samples, a quarter at
            @0.5, the last four shifted +1000 so the guard drains through
            K2), 32,768 sets of 16 members, 4,096 counters and gauges,
            256 events and service checks: DogStatsD lines in datagrams of
@@ -109,6 +111,24 @@ each printing one JSON line (checkpoint two, capacity eight):
            drains), which flushes columnar (K1); held to the same
            checks as global_merge, and printed beside its JSON leg's
            import and flush seconds;
+  mesh     the mesh-sharded global tier on a 4 x 2 shard mesh (the
+           card eight times: series shards are row blocks of one plane,
+           the hosts axis a leading dimension): GlobalAggregator.step at
+           1,048,576 series (2 hosts x 16,777,216 samples, 2 x 1,048,576
+           set members at p=14 and counter increments; counters exact,
+           registers bit for bit one device's scatter-max, digest mass
+           exact, the dryrun's quantiles of every 5th row against
+           np.quantile); merge_forwarded_digests at 1,048,576 rows and
+           hosts 2 (one butterfly round: K2 with both halves ascending,
+           held to its plain version, mass exact, timed beside its
+           bound); a mesh global Server (mesh_enabled, mesh_hosts 2) fed
+           over native:// the two states native_merge's locals sent, its
+           flush held to native_merge's dense global (percentiles rtol
+           1e-5, counts, extrema, counters and set estimates equal; the
+           import split, shard occupancy and balance ratio printed); a
+           mesh store's checkpoint at 65,536 series restored into a mesh
+           and a dense store, which flush the same rows; rung 3 on a
+           mesh group at 16,384 series;
   server_global
            a global Server (http_address) and a local Server (UDP in,
            forward_address) in this process: 65,536 series forwarded
@@ -176,14 +196,16 @@ each printing one JSON line (checkpoint two, capacity eight):
            both at 16,384 series.
 
 After every phase every store it built must show requeued_total and
-lost_total at 0 (the compute_ladder store and capacity's two rung-3
-stores excepted), so a run in which the kernel ever gave way fails.
+lost_total at 0 (the compute_ladder store and the rung-3 stores of
+capacity and mesh excepted), so a run in which the kernel ever gave way
+fails.
 
 The launch counts in the kernel summary are the sum over the store,
 ingest (its two intervals), ssf (its main path), heavy_hitters (its two
 Servers), overload (the series cap's flush), global_merge, native_merge,
-server_global, checkpoint (the kill and restart, and the ladder) and
-capacity phases (its oracles and plain-version holds excepted). It
+mesh, server_global, checkpoint (the kill and restart, and the ladder)
+and capacity phases (its oracles and plain-version holds excepted); the
+summary's butterfly row counts the mesh phase's butterfly K2 alone. It
 ends with the kernel summary, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits 2 before
@@ -192,6 +214,7 @@ printing any result. It imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import math
@@ -1260,6 +1283,9 @@ def _native_local(dev, chunk, vals, set_owner, set_hashes, set_series,
     frames0, bytes0 = len(fwd.post_content_lengths), \
         sum(fwd.post_content_lengths)
     weights = _packed_row_weights(planes)
+    # the mesh phase forwards this same state into a mesh global (the
+    # forward consumes the digest planes of the one it sends)
+    rec["state"] = copy.copy(state)
     if fwd.forward(state) is not True:
         raise AssertionError(f"native forward failed ({fwd.errors} errors, "
                              f"{fwd.retries} retries)")
@@ -1332,7 +1358,7 @@ def run_native_merge(dev, rows: int, set_series: int, gcounters: int,
     glob.import_columnar = timed("import_columnar_s", glob.import_columnar)
     srv._merge = timed("merge_s", srv._merge)
     srv.start("127.0.0.1:0")
-    fwd_weights = []
+    fwd_weights, states = [], []
     try:
         for label in ("a", "b"):
             keep = t[f"{label}_keep"]
@@ -1345,6 +1371,7 @@ def run_native_merge(dev, rows: int, set_series: int, gcounters: int,
                     aggs, fwd)
             finally:
                 fwd.close()
+            states.append(local.pop("state"))
             rec[f"local_{label}"] = local
             fwd_weights.append(weights)
         t0 = time.perf_counter()
@@ -1400,6 +1427,10 @@ def run_native_merge(dev, rows: int, set_series: int, gcounters: int,
                                                 digest.max)]
     _check_native_merge(t, fwd_weights, merged, pcts[:rows, :-1].cpu()
                         .numpy(), flushed, rows, set_series, gcounters, rec)
+    # the mesh phase sends the same two states into a mesh global and
+    # holds its flush to this dense global's
+    _RECORDS["native_merge_states"] = (states, flushed, rows, set_series,
+                                       gcounters)
     return rec
 
 
@@ -1742,6 +1773,10 @@ INGEST_PERCENTILES = (0.5, 0.75, 0.99)   # example.yaml's
 # the ingest Server's series cap: a 1M-series host raises the default
 # 2^20, whose freeze (70%) and cap would spill a third of its series
 INGEST_MAX_SERIES = 1 << 21
+# the ingest phase's histogram series: 1,048,576 until the mesh phase
+# came (the phase took 137-170 s at 1M on an NVIDIA H100 80GB HBM3 at
+# 700 W); cut to keep the script inside its time
+INGEST_ROWS = 1 << 19
 # the unpaced burst's 64-line cycle (one line a datagram)
 _BURST_LINE = "ingest.h.%d:%d.5|h|#az:z%d,svc:s%d"
 
@@ -2751,7 +2786,7 @@ def lane_decode_rate(threads: int, seconds: float = 2.0) -> float:
             sock.close()
 
 
-def phase_ingest(dev, card: str, rows: int = ROWS,
+def phase_ingest(dev, card: str, rows: int = INGEST_ROWS,
                  set_series: int = SET_SERIES, scalars: int = 4096,
                  raws: int = 256, lanes: int = 4):
     """The default UDP ingest lane at full width (run_ingest_lanes), the
@@ -4442,15 +4477,16 @@ def _instrument_checkpointer(server):
     return writes, undo
 
 
-def _blocks_by_prefix(col) -> dict:
-    """A ColumnarFlush's blocks keyed by the group prefix of their first
-    name ("h", "s", "c" or "g" of ck.<p>.<i>), each with its names."""
+def _blocks_by_prefix(col, part: int = 1) -> dict:
+    """A ColumnarFlush's blocks keyed by the dotted ``part`` of their
+    first name (the group prefix: "h", "s", "c" or "g" of ck.<p>.<i>
+    at part 1, of <p>.<i> at part 0), each with its names."""
     from veneur_tpu_torch.core.columnar import arena_strings
 
     out = {}
     for blk in col.blocks:
         names = arena_strings(blk.names)
-        key = names[0].split(".")[1]
+        key = names[0].split(".")[part]
         if key in out:
             raise AssertionError(f"two blocks of group {key!r}")
         out[key] = (blk, names)
@@ -5661,6 +5697,447 @@ def phase_capacity(dev, card: str, slab4m: int = 4 << 20,
     return counts
 
 
+# the mesh phase: the mesh-sharded global tier on a 4 x 2 shard mesh
+
+MESH_SERIES = 1 << 20            # the aggregator's and butterfly's series
+MESH_HOSTS = 2                   # the hosts axis: 4 x 2 on one card
+MESH_SAMPLES = 1 << 24           # the aggregator's samples a host (~32 a row)
+MESH_QS = (0.5, 0.9, 0.99)       # the dryrun's quantiles
+MESH_SETS = 1 << 20              # its set members a host
+MESH_COUNTERS = 1 << 20          # its counter increments a host
+MESH_CKPT_ROWS = 1 << 16         # the mesh checkpoint's series
+MESH_LADDER_ROWS = 1 << 14       # rung 3 on a mesh group
+
+
+def _shard_mesh(dev):
+    """The 4 x 2 mesh on one card: the device eight times."""
+    from veneur_tpu_torch.parallel.mesh import fleet_mesh
+
+    return fleet_mesh([dev] * 8, hosts=MESH_HOSTS)
+
+
+def _grouped_quantiles(rows, vals, qs, keep):
+    """np.quantile (linear) of each row's samples, for the rows where
+    ``keep`` is true and at least 4 samples fell: returns (rows, [n, P]
+    quantiles, spans), vectorized over one lexsort."""
+    sel = keep[rows]
+    r, v = rows[sel], vals[sel].astype(np.float64)
+    order = np.lexsort((v, r))
+    r, v = r[order], v[order]
+    starts = np.flatnonzero(np.r_[True, r[1:] != r[:-1]])
+    counts = np.diff(np.r_[starts, len(r)])
+    ok = counts >= 4
+    starts, counts = starts[ok], counts[ok]
+    pos = np.asarray(qs)[None, :] * (counts[:, None] - 1)
+    lo = np.floor(pos).astype(np.int64)
+    hi = np.minimum(lo + 1, counts[:, None] - 1)
+    frac = pos - lo
+    a, b = v[starts[:, None] + lo], v[starts[:, None] + hi]
+    span = v[starts + counts - 1] - v[starts]
+    return r[starts], a + frac * (b - a), span
+
+
+def run_mesh_aggregator(dev, series: int = MESH_SERIES,
+                        samples: int = MESH_SAMPLES, sets: int = MESH_SETS,
+                        counters: int = MESH_COUNTERS) -> dict:
+    """GlobalAggregator.step at ``series`` on the 4 x 2 mesh with a
+    make_host_batch of 2 hosts (~32 samples a row, the dryrun's density):
+    counters exact against np.add.at, the registers bit for bit one
+    device's scatter-max, the digest mass exact, and the dryrun's
+    quantiles of every 5th row against np.quantile. The dryrun holds
+    each of its few rows within 0.15 of the span; over 200k rows the
+    digest's q*n interpolation against np.quantile's q*(n-1) puts a tail
+    of rows past it at ~32 samples (either package), so the 99th
+    percentile of the rows' error is held to 0.15 and the maximum
+    reported. K2 drains the psummed bins once."""
+    import torch
+
+    from veneur_tpu_torch.ops import hll
+    from veneur_tpu_torch.parallel.global_agg import (GlobalAggregator,
+                                                      make_host_batch)
+
+    mesh = _shard_mesh(dev)
+    agg = GlobalAggregator(mesh, series)
+    t0 = time.perf_counter()
+    batch = make_host_batch(mesh.hosts, series, n=samples, m=sets,
+                            c=counters, seed=SEED + 31)
+    rec = {"series": series, "mesh": mesh.shape, "samples": batch.h_rows.size,
+           "set_members": batch.s_rows.size,
+           "counter_incs": batch.c_rows.size,
+           "batch_build_s": time.perf_counter() - t0}
+    state = agg.init_state()
+    dbatch = agg.shard_batch(batch)
+    _sync(dev)
+    t0 = time.perf_counter()
+    state, pcts, est, counters = agg.step(state, dbatch, MESH_QS)
+    _sync(dev)
+    rec["step_s"] = time.perf_counter() - t0
+    want = np.zeros(series, np.int64)
+    np.add.at(want, batch.c_rows.reshape(-1), batch.c_incs.reshape(-1))
+    if not np.array_equal(counters.cpu().numpy(), want):
+        raise AssertionError("aggregator counters differ from np.add.at")
+    oracle = torch.zeros_like(state.registers)
+    hll.insert(oracle, dbatch.s_rows.reshape(-1), dbatch.s_hi.reshape(-1),
+               dbatch.s_lo.reshape(-1), precision=agg.precision)
+    if not torch.equal(oracle, state.registers):
+        raise AssertionError("aggregator registers differ from one "
+                             "device's scatter-max")
+    part = slice(0, 1 << 14)
+    if not torch.equal(hll.estimate(oracle[part], agg.precision),
+                       est[part]):
+        raise AssertionError("aggregator estimates differ")
+    del oracle
+    rows = batch.h_rows.reshape(-1).astype(np.int64)
+    keep = np.arange(series) % 5 == 0
+    rr, exact, span = _grouped_quantiles(rows, batch.h_vals.reshape(-1),
+                                         MESH_QS, keep)
+    got = pcts[torch.from_numpy(rr).to(dev)].cpu().numpy()
+    err = (np.abs(got - exact) / np.maximum(span, 1e-6)[:, None]).max(1)
+    p99 = float(np.percentile(err, 99))
+    rec.update(checked_rows=len(rr), pct_err_of_span_max=float(err.max()),
+               pct_err_of_span_p99=p99,
+               rows_past_015=int((err >= 0.15).sum()))
+    if p99 >= 0.15 or len(rr) < series // 6:
+        raise AssertionError(f"aggregator percentiles off np.quantile: "
+                             f"p99 {p99:.3g} of the span over {len(rr)} "
+                             "rows")
+    mass = state.digest.weight.double().sum(1).cpu().numpy()
+    if not np.array_equal(mass, np.bincount(rows, minlength=series)):
+        raise AssertionError("aggregator digest mass differs from the "
+                             "samples'")
+    return rec
+
+
+def run_mesh_butterfly(dev, series: int = MESH_SERIES) -> tuple:
+    """merge_forwarded_digests at ``series`` rows and hosts 2: one
+    butterfly round, K2 over both hosts' rows with two ascending K-wide
+    halves. Its K2 is held to compress_presorted_plain on the same inputs
+    (host 0's pair, where the plain version fits beside the state), the
+    total mass must be exact, and the K2 call on one pair is timed
+    (median of 20) beside its byte bound and its plain version. Returns
+    (record, the main-path launch counts, the kernels-line row)."""
+    import torch
+
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.parallel.global_agg import GlobalAggregator
+
+    agg = GlobalAggregator(_shard_mesh(dev), series)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 33)
+    ma, wa, mb, wb, mn, mx = _random_halves(series, agg.k, dev, gen)
+    mean, weight = torch.stack([ma, mb]), torch.stack([wa, wb])
+    mins = torch.stack([mn, mn])
+    maxs = torch.stack([mx, mx])
+    _sync(dev)
+    _reset_counts(tc)
+    with _capture_launches(tc, "launch_compress_presorted") as calls:
+        t0 = time.perf_counter()
+        merged = agg.merge_forwarded_digests(mean, weight, mins, maxs)
+        _sync(dev)
+        rec = {"series": series, "hosts": MESH_HOSTS,
+               "first_call_s": time.perf_counter() - t0}
+    counts = _counts(tc)
+    if counts["compress_presorted.launches"] != 1 or len(calls) != 1 \
+            or counts["compress_presorted.sort_b_launches"]:
+        raise AssertionError(f"the butterfly launched {counts}")
+    (args, out), = calls
+    if args[-1] is not False or args[0].shape[0] != 2 * series:
+        raise AssertionError("the butterfly's K2 took sort_b or another "
+                             "shape")
+    mass = (wa.double().sum(1) + wb.double().sum(1))
+    if not torch.equal(merged.weight.double().sum(1), mass):
+        raise AssertionError("the butterfly lost mass")
+    del calls, args, out
+    got = (merged.mean, merged.weight)
+    want = tc.compress_presorted_plain(ma, wa, mb, wb, COMPRESSION, agg.k)
+    _sync(dev)
+    err = _compare("butterfly K2", got, want, wa, wb)
+    del want, got
+    rec["max_abs_err"] = err
+    rec["butterfly_ms"] = _median_ms(
+        lambda: agg.merge_forwarded_digests(mean, weight, mins, maxs),
+        TIMED_LAUNCHES)
+    k2_ms = _median_ms(lambda: tc.compress_presorted(
+        ma, wa, mb, wb, COMPRESSION, agg.k), TIMED_LAUNCHES)
+    t0 = time.perf_counter()
+    for _ in range(PLAIN_RUNS):
+        tc.compress_presorted_plain(ma, wa, mb, wb, COMPRESSION, agg.k)
+        _sync(dev)
+    plain_ms = (time.perf_counter() - t0) / PLAIN_RUNS * 1e3
+    nbytes, ops = _work(series, agg.k, agg.k, agg.k, 0, False, False)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    rec.update(k2_pair_ms=k2_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, bytes=nbytes)
+    row = {"max_abs_err": err, "ms": k2_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    return rec, counts, row
+
+
+def run_mesh_server(dev) -> tuple:
+    """A mesh global Server (mesh_enabled, mesh_hosts 2, 4 x 2 on the
+    card) fed over native:// with the two states native_merge's locals
+    forwarded into the dense global; its columnar flush is held to that
+    dense global's: every percentile within rtol 1e-5, counts, extrema,
+    counters and set estimates equal. Returns (record, launch counts)."""
+    from veneur_tpu_torch import flusher
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.fleet import balance_ratio, fleet_snapshot
+    from veneur_tpu_torch.forward.native_transport import NativeForwarder
+    from veneur_tpu_torch.native import egress
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.server import Server
+
+    states, dense, rows, set_series, gcounters = _RECORDS.pop(
+        "native_merge_states")
+    sink = _ColumnarRecorder()
+    server = Server(Config(
+        native_import_address="127.0.0.1:0", interval="86400s",
+        percentiles=list(PERCENTILES), aggregates=["min", "max", "count"],
+        hostname="mesh", store_initial_capacity=1024, store_chunk=1 << 14,
+        max_series=INGEST_MAX_SERIES, mesh_enabled=True,
+        mesh_hosts=MESH_HOSTS), metric_sinks=[sink], device=dev,
+        mesh=_shard_mesh(dev))
+    store, srv = server.store, None
+    split = {"decode_s": 0.0, "miss_loop_s": 0.0, "import_columnar_s": 0.0,
+             "merge_s": 0.0}
+    real_decode = egress.decode_metric_list
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                split[key] += time.perf_counter() - t0
+        return run
+
+    _reset_counts(tc)
+    server.start()
+    try:
+        srv = server.native_import_server
+        egress.decode_metric_list = timed("decode_s", real_decode)
+        store._intern_mlist = timed("miss_loop_s", store._intern_mlist)
+        store.import_columnar = timed("import_columnar_s",
+                                      store.import_columnar)
+        srv._merge = timed("merge_s", srv._merge)
+        for state in states:
+            fwd = NativeForwarder(f"native://127.0.0.1:{srv.port}",
+                                  timeout=600.0)
+            try:
+                if fwd.forward(state) is not True:
+                    raise AssertionError(f"native forward into the mesh "
+                                         f"global failed ({fwd.errors})")
+            finally:
+                fwd.close()
+        egress.decode_metric_list = real_decode
+        t0 = time.perf_counter()
+        with store._lock:
+            store.histograms._drain_staging()
+            store.sets._drain_staging()
+        _sync(dev)
+        split["final_drain_s"] = time.perf_counter() - t0
+        split["staging_and_drains_s"] = (split["import_columnar_s"]
+                                         - split["miss_loop_s"])
+        snap = fleet_snapshot(store)
+        t0 = time.perf_counter()
+        flusher.flush_once(server)
+        rec = {"flush_s": time.perf_counter() - t0,
+               "last_fleet_occupancy": store.last_fleet_occupancy}
+    finally:
+        egress.decode_metric_list = real_decode
+        server.shutdown()
+    if srv.import_errors or srv.received != 2 * (rows + set_series
+                                                 + gcounters):
+        raise AssertionError(f"mesh import: {srv.received} merged, "
+                             f"{srv.import_errors} errors")
+    rec.update(import_s=split["merge_s"] + split["final_drain_s"],
+               import_split=split, shard_occupancy=snap["shard_occupancy"],
+               balance_ratio=snap["balance_ratio"],
+               histogram_occupancy=snap["groups"]["histograms"])
+    if rec["last_fleet_occupancy"] != snap["shard_occupancy"]:
+        raise AssertionError("the swap stamped another occupancy")
+    if snap["balance_ratio"] != balance_ratio(snap["shard_occupancy"]):
+        raise AssertionError("balance ratio")
+    col = sink.flushes.get(timeout=60)
+    got, want = _blocks_by_prefix(col, 0), _blocks_by_prefix(dense, 0)
+    if set(got) != {"h", "s"} or set(want) != set(got):
+        raise AssertionError(f"mesh blocks {sorted(got)} vs dense "
+                             f"{sorted(want)}")
+    for key, (blk, names) in got.items():
+        wblk, wnames = want[key]
+        if sorted(names) != sorted(wnames) or blk.suffixes != wblk.suffixes:
+            raise AssertionError(f"mesh group {key}: names or suffixes "
+                                 "differ from the dense global's")
+        g, w = _block_matrix(blk), _block_matrix(wblk)
+        g = g[np.argsort(names)]
+        w = w[np.argsort(wnames)]
+        sfx = [x.decode() for x in blk.suffixes]
+        pc = [i for i, x in enumerate(sfx) if x.endswith("percentile")]
+        other = [i for i in range(len(sfx)) if i not in pc]
+        if not np.array_equal(g[:, other], w[:, other]):
+            raise AssertionError(f"mesh group {key}: counts, extrema or "
+                                 "estimates differ from the dense global's")
+        if pc:
+            rel = np.abs(g[:, pc] - w[:, pc]) / np.maximum(np.abs(w[:, pc]),
+                                                           1e-30)
+            rec["pct_rel_err_vs_dense"] = float(rel.max())
+            if rel.max() > 1e-5:
+                raise AssertionError(f"mesh percentiles off the dense "
+                                     f"global's by rel {rel.max():.3g}")
+    gx = sorted((m.name, tuple(m.tags), m.value) for m in col.extras)
+    wx = sorted((m.name, tuple(m.tags), m.value) for m in dense.extras)
+    if gx != wx or len(gx) != gcounters:
+        raise AssertionError("mesh counters differ from the dense global's")
+    rec["histogram_series"], rec["set_series"] = rows, set_series
+    rec["global_counters"] = gcounters
+    return rec, _counts(tc)
+
+
+def run_mesh_checkpoint(dev, aggs, series: int = MESH_CKPT_ROWS) -> tuple:
+    """A mesh store's checkpoint at ``series`` histogram series: written
+    to local disk, read back, restored into a fresh mesh store and into
+    a dense store, whose flushes are the same rows (percentiles within
+    1e-5 of the span, count/min/max exact, sums rel 1e-6) and hold the
+    source's own flush within 0.02 of the span."""
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.persist import (deserialize, read_file,
+                                          serialize, write_atomic)
+
+    _, samples = _cap_lines(series, CAP_HOT, SEED + 35)
+    src = _fed_store(dev, "dense", samples, mesh=_shard_mesh(dev))
+    _reset_counts(tc)
+    t0 = time.perf_counter()
+    groups, _ = src.snapshot_state()
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(CKPT_DIR / "mesh.ckpt")
+    write_atomic(path, serialize(groups, created_at=time.time(),
+                                 interval=10.0))
+    rec = {"series": series, "write_s": time.perf_counter() - t0,
+           "bytes": os.path.getsize(path)}
+    blob = deserialize(read_file(path))[0]
+    os.remove(path)
+    out = {}
+    for label, kw in (("mesh", {"mesh": _shard_mesh(dev)}), ("dense", {})):
+        dst = _fed_store(dev, "dense", {}, **kw)
+        t0 = time.perf_counter()
+        n = dst.restore_state(blob)
+        rec[f"{label}_restore_s"] = time.perf_counter() - t0
+        if n != series:
+            raise AssertionError(f"{label} restored {n} of {series} series")
+        rows = _store_rows(dst, aggs)
+        out[label] = {k: v for k, v in rows.items()
+                      if k[0].startswith("cap.h.")}
+    counts = _counts(tc)
+    want = {k: v for k, v in _store_rows(src, aggs).items()
+            if k[0].startswith("cap.h.")}
+    rec["mesh_vs_dense"] = _hold_rows("mesh restore vs dense restore",
+                                      out["mesh"], out["dense"], samples,
+                                      1e-5)
+    rec["mesh_vs_source"] = _hold_rows("mesh restore vs source",
+                                       out["mesh"], want, samples, 0.02)
+    rec["launches"] = counts
+    return rec, counts
+
+
+def run_mesh_ladder(dev, aggs, series: int = MESH_LADDER_ROWS) -> tuple:
+    """Rung 3 on a mesh group: a FaultInjector fails the flush kernel at
+    preflight, the retired mesh group re-merges into the live one
+    (through its placement) and emits at the next flush, held to a mesh
+    twin that never failed. The phase's only store allowed to requeue."""
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.resilience.faults import FaultInjector
+
+    _, samples = _cap_lines(series, CAP_HOT, SEED + 37)
+    store = _fed_store(dev, "dense", samples, mesh=_shard_mesh(dev))
+    twin = _fed_store(dev, "dense", samples, mesh=_shard_mesh(dev))
+    if store.compute in _BREAKERS:
+        _BREAKERS.remove(store.compute)
+    store.compute.injector = FaultInjector(
+        rate=1.0, seed=SEED, kinds=("connect",),
+        scope="compute.tdigest_merge")
+    _reset_counts(tc)
+    t0 = time.perf_counter()
+    faulted = _store_rows(store, aggs)
+    rec = {"series": series, "faulted_flush_s": time.perf_counter() - t0}
+    store.compute.injector = None
+    t0 = time.perf_counter()
+    late = _store_rows(store, aggs)
+    rec["late_flush_s"] = time.perf_counter() - t0
+    counts = _counts(tc)
+    want = _store_rows(twin, aggs)
+    c = store.compute
+    rec.update(requeued_total=c.requeued_total, lost_total=c.lost_total)
+    if any(k[0].startswith("cap.h.") for k in faulted) or \
+            (c.requeued_total, c.lost_total) != (1, 0):
+        raise AssertionError(f"mesh rung 3: {rec}")
+    late = {k: v for k, v in late.items() if k[0].startswith("cap.h.")}
+    want = {k: v for k, v in want.items() if k[0].startswith("cap.h.")}
+    rec.update(_hold_rows("mesh rung 3", late, want, samples, 0.02))
+    rec["launches"] = counts
+    return rec, counts
+
+
+def phase_mesh(dev, card: str) -> dict:
+    """The mesh-sharded global tier on a 4 x 2 shard mesh on the card:
+    the standalone interval step and the butterfly at 1,048,576 series,
+    a mesh global Server fed native_merge's two 1M-series states over
+    native://, a mesh checkpoint restored into a mesh and a dense store,
+    and rung 3 on a mesh group; one line a subphase, each subphase's
+    state freed before the next. Returns the main-path launch counts
+    (the plain-version holds and the timing runs excepted)."""
+    import torch
+
+    from veneur_tpu_torch.samplers.intermetric import HistogramAggregates
+
+    aggs = HistogramAggregates.from_names(["min", "max", "count", "sum"])
+    counts = {}
+    t_phase = time.perf_counter()
+
+    def aggregator():
+        from veneur_tpu_torch.ops import tdigest_cuda as tc
+
+        _reset_counts(tc)
+        rec = run_mesh_aggregator(dev)
+        c = _counts(tc)
+        if c["compress_presorted.launches"] != 1:
+            raise AssertionError(f"the aggregator step launched {c}")
+        rec["launches"] = c
+        return rec, c
+
+    def butterfly():
+        rec, c, row = run_mesh_butterfly(dev)
+        _RECORDS["mesh_butterfly"] = dict(row, launches=c[
+            "compress_presorted.launches"])
+        rec["launches"] = c
+        return rec, c
+
+    def server():
+        rec, c = run_mesh_server(dev)
+        if c["drain_quantile.launches"] < 1 or \
+                c["compress_presorted.launches"] < 1:
+            raise AssertionError(f"the mesh Server launched {c}")
+        rec["launches"] = c
+        return rec, c
+
+    for name, run in (("aggregator", aggregator), ("butterfly", butterfly),
+                      ("server", server),
+                      ("checkpoint", lambda: run_mesh_checkpoint(dev, aggs)),
+                      ("ladder", lambda: run_mesh_ladder(dev, aggs))):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        rec, c = run()
+        _add_counts(counts, c)
+        rec["max_memory_allocated"] = int(torch.cuda.max_memory_allocated(
+            dev))
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "mesh", "subphase": name, "card": card, **rec,
+              "subphase_s": time.perf_counter() - t0})
+    emit({"phase": "mesh", "card": card, "launches": counts,
+          "phase_s": time.perf_counter() - t_phase})
+    return counts
+
+
 def _ptxas_summary(logs) -> list:
     """Registers, spills and shared memory of every kernel instance, from
     nvcc's -Xptxas -v output: warp<half,sort_b,drain> / block<...>."""
@@ -5687,8 +6164,8 @@ def _ptxas_summary(logs) -> list:
 
 
 PHASES = ("store", "server", "ingest", "ssf", "heavy_hitters", "overload",
-          "global_merge", "native_merge", "server_global", "checkpoint",
-          "capacity")
+          "global_merge", "native_merge", "mesh", "server_global",
+          "checkpoint", "capacity")
 
 
 def main() -> int:
@@ -5753,6 +6230,7 @@ def main() -> int:
             "overload": lambda: phase_overload(dev, card),
             "global_merge": lambda: phase_global_merge(dev, card),
             "native_merge": lambda: phase_native_merge(dev, card),
+            "mesh": lambda: phase_mesh(dev, card),
             "server_global": lambda: phase_server_global(dev, card),
             "checkpoint": lambda: phase_checkpoint(dev, card),
             "capacity": lambda: phase_capacity(dev, card)}
@@ -5771,9 +6249,11 @@ def main() -> int:
         stores[name] = _check_breakers(name)
     emit({"phase": "no_fallback", "stores_checked": stores})
     src = "veneur_tpu_torch/csrc/tdigest_merge.cu"
-    rows = []
     # K1 and K2 with the b half presorted (the main path), then K3: the
-    # sort_b mode of each, which no production path runs
+    # sort_b mode of each, which no production path runs; then K2 in the
+    # mesh's butterfly round (both halves ascending, K wide), whose
+    # launches are its own (part of K2's)
+    specs = []
     for name, key, line, counter in (
             ("drain_quantile", "drain_quantile", 334, "launches"),
             ("compress_presorted", "compress_presorted", 419, "launches"),
@@ -5781,16 +6261,19 @@ def main() -> int:
              "sort_b_launches"),
             ("compress_presorted sort_b", "sort_b_compress_presorted", 97,
              "sort_b_launches")):
-        k = kern[key]
-        wide = kern["wide_" + key]
-        rows.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": f"veneur_tpu/ops/tdigest_pallas.py:{line}",
-            "launches": launches[f"{name.split()[0]}.{counter}"],
-            "max_abs_err": max(k["max_abs_err"], wide["max_abs_err"]),
-            "ms": k["ms"], "plain_ms": k["plain_ms"],
-            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None})
+        k, wide = kern[key], kern["wide_" + key]
+        specs.append((name, line, dict(
+            launches=launches[f"{name.split()[0]}.{counter}"],
+            max_abs_err=max(k["max_abs_err"], wide["max_abs_err"]),
+            **{f: k[f] for f in ("ms", "plain_ms", "bound_ms",
+                                 "bound_by")})))
+    fly = _RECORDS["mesh_butterfly"]
+    specs.append(("compress_presorted butterfly", 419, {
+        f: fly[f] for f in ("launches", "max_abs_err", "ms", "plain_ms",
+                            "bound_ms", "bound_by")}))
+    rows = [{"name": name, "route": "cuda", "source": src,
+             "replaces": f"veneur_tpu/ops/tdigest_pallas.py:{line}",
+             **vals, "library_ms": None} for name, line, vals in specs]
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -662,3 +662,97 @@ def test_snapshot_on_cuda_holds_state_after_ingest(cuda):
                                               err_msg=f"{name}.{k}")
             else:
                 assert snap[k] == v, (name, k)
+
+
+def _ascending_digests(rng, s):
+    """Two batches of row-ascending digests as the kernels leave them:
+    gap slots weigh 0 with running-max means, a few rows empty (+inf)."""
+    out = []
+    for scale in (30.0, 25.0):
+        m = np.sort(rng.gamma(2.0, scale, (s, K)).astype(np.float32), 1)
+        w = ((rng.random((s, K)) < 0.6) * rng.integers(1, 5, (s, K)))
+        w = w.astype(np.float32)
+        m = np.maximum.accumulate(np.where(w > 0, m, -np.inf), axis=1)
+        m[::97], w[::97] = np.inf, 0.0
+        out += [m, w]
+    return [np.ascontiguousarray(a, np.float32) for a in out]
+
+
+def test_butterfly_k2_with_both_halves_ascending(cuda):
+    """tdigest.merge, the butterfly's round: K2 with both halves
+    ascending at K = 104 (sort_b off; the kernel reverses b itself),
+    against the plain version on the same tensors; and a 4 x 2 mesh's
+    merge_forwarded_digests on the card against the CPU's."""
+    from veneur_tpu_torch.ops import tdigest as td
+    from veneur_tpu_torch.parallel import fleet_mesh
+    from veneur_tpu_torch.parallel.global_agg import GlobalAggregator
+
+    rng = np.random.default_rng(61)
+    ma, wa, mb, wb = _ascending_digests(rng, 4100)
+    inf = np.full(4100, np.inf, np.float32)
+    a = td.TDigest(*(torch.from_numpy(x).to(cuda) for x in (ma, wa, inf,
+                                                            -inf)))
+    b = td.TDigest(*(torch.from_numpy(x).to(cuda) for x in (mb, wb, inf,
+                                                            -inf)))
+    k2, k3 = tc.compress_presorted.launches, \
+        tc.compress_presorted.sort_b_launches
+    got = td.merge(a, b, C)
+    assert tc.compress_presorted.launches == k2 + 1
+    assert tc.compress_presorted.sort_b_launches == k3
+    want = tc.compress_presorted_plain(a.mean, a.weight, b.mean, b.weight,
+                                       C, K)
+    _assert_match([got.mean.cpu().numpy(), got.weight.cpu().numpy()],
+                  [t.cpu().numpy() for t in want], wa, wb)
+    mean, weight = np.stack([ma, mb]), np.stack([wa, wb])
+    mins, maxs = np.stack([inf, inf]), np.stack([-inf, -inf])
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        agg = GlobalAggregator(fleet_mesh([dev] * 8, hosts=2), 4100)
+        d = agg.merge_forwarded_digests(mean, weight, mins, maxs)
+        out.append([d.mean.cpu().numpy(), d.weight.cpu().numpy()])
+    _assert_match(out[0], out[1], wa, wb)
+
+
+def test_mesh_store_on_cuda_matches_cpu(cuda):
+    """A 4 x 2 mesh store on the card against the same mesh store on the
+    CPU: the guard and import drains (K2) and the flush (K1, one launch
+    over the shard-blocked plane a group) on the card, their plain
+    versions on the CPU; the tolerances of test_store_on_cuda_matches_cpu."""
+    from veneur_tpu_torch.parallel import fleet_mesh
+
+    rng = np.random.default_rng(67)
+    lines = []
+    for i in range(300):
+        for _ in range(12):
+            lines.append(f"h.{i}:{rng.gamma(2.0, 10.0):.5f}|h|@0.5")
+        lines.append(f"c.{i}:{i}|c")
+        lines.append(f"s.{i % 40}:m{int(rng.integers(0, 30))}|s")
+    for i in range(300):   # a step the shift guard drains through K2
+        lines.extend(f"h.{i}:{500 + rng.gamma(2.0, 10.0):.5f}|h|@0.5"
+                     for _ in range(4))
+    aggs = HistogramAggregates.from_names(["min", "max", "count", "sum"])
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        k1, k2 = tc.drain_quantile.launches, tc.compress_presorted.launches
+        store = MetricStore(chunk=512, mesh=fleet_mesh([dev] * 8, hosts=2))
+        for ln in lines:
+            store.process_metric(parse_metric(ln.encode()))
+        rows, _ = store.flush([0.5, 0.99], aggs, 0)
+        if dev.type == "cuda":
+            assert tc.compress_presorted.launches > k2
+            assert tc.drain_quantile.launches == k1 + 1
+        assert store.compute.requeued_total == store.compute.lost_total == 0
+        out.append({(m.name, tuple(m.tags)): m.value
+                    for m in rows.to_intermetrics()})
+    got, want = out
+    assert set(got) == set(want)
+    for key, value in want.items():
+        name = key[0]
+        if name.endswith("percentile"):
+            base = name.rpartition(".")[0]
+            span = want[(base + ".max", ())] - want[(base + ".min", ())]
+            assert abs(got[key] - value) <= 1e-3 * span + 1e-6, key
+        elif name.endswith(".sum"):
+            np.testing.assert_allclose(got[key], value, rtol=1e-6)
+        else:
+            assert got[key] == value, key

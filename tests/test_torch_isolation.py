@@ -126,6 +126,17 @@ def test_digest_storage_modules_are_covered():
             "veneur_tpu_torch.core.bucketing"} <= set(_modules())
 
 
+def test_mesh_modules_are_covered():
+    """The mesh-sharded global tier (parallel/, the fleet router, the
+    proxy's ring, the mesh store) is scanned and imported too."""
+    assert {"veneur_tpu_torch.parallel", "veneur_tpu_torch.parallel.mesh",
+            "veneur_tpu_torch.parallel.collectives",
+            "veneur_tpu_torch.parallel.global_agg",
+            "veneur_tpu_torch.fleet", "veneur_tpu_torch.fleet.router",
+            "veneur_tpu_torch.proxy", "veneur_tpu_torch.proxy.consistent",
+            "veneur_tpu_torch.core.mesh_store"} <= set(_modules())
+
+
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"

@@ -128,8 +128,11 @@ def test_config_is_loud_about_unported_keys(tmp_path):
         "slab"
     with pytest.raises(ValueError, match="digest_storage"):
         config_from_dict({"digest_storage": "sparse"})
+    # mesh_enabled is ported with dense storage; the mesh tiered store
+    # is not
+    assert config_from_dict({"mesh_enabled": True}).mesh_enabled
     with pytest.raises(UnsupportedConfig, match="mesh_enabled"):
-        config_from_dict({"mesh_enabled": True})
+        config_from_dict({"mesh_enabled": True, "digest_storage": "tiered"})
     with pytest.raises(UnsupportedConfig, match="ssf_listen_addresses"):
         config_from_dict({"ssf_listen_addresses": ["http://127.0.0.1:1"]})
     with pytest.raises(UnsupportedConfig, match="debug_ingested_spans"):

@@ -128,6 +128,12 @@ class Config:
     # slab: rows a slab (at most 1,048,576: the per-slab flush transient
     # scales with it); tiered pool slabs take at most 262,144
     slab_rows: int = 1 << 20
+    # shard the global-tier store over a (series, hosts) mesh
+    # (core/mesh_store.py); only meaningful on a global instance
+    # (forward_address unset); dense digest storage only
+    mesh_enabled: bool = False
+    # mesh fan-in axis width (0 = auto: 2 when the device count is even)
+    mesh_hosts: int = 0
     # the global's import pool: merge threads and queued bodies
     http_import_workers: int = 2
     http_import_queue: int = 64
@@ -351,6 +357,26 @@ class Config:
         if self.slab_rows <= 0:
             raise ValueError(f"slab_rows must be positive, got "
                              f"{self.slab_rows}")
+        if self.digest_storage == "slab" and self.mesh_enabled:
+            raise ValueError(
+                "digest_storage: slab cannot combine with mesh_enabled: "
+                "the slab layout is the single-card capacity plan and "
+                "fleet mode supersedes it; run the mesh dense")
+        if self.mesh_enabled and self.forward_address:
+            raise ValueError(
+                "mesh_enabled requires a GLOBAL instance, but "
+                "forward_address is set (a local forwards its sketches "
+                "upstream instead of sharding a store over the mesh). "
+                "Unset one of them: mesh_enabled belongs on the "
+                "instance the fleet forwards INTO")
+        if self.digest_storage == "tiered" and self.mesh_enabled:
+            raise UnsupportedConfig(
+                "digest_storage: tiered with mesh_enabled is the mesh "
+                "tiered store, which veneur_tpu_torch does not implement "
+                "yet; run the mesh dense (or veneur_tpu for it)")
+        if self.mesh_hosts < 0:
+            raise ValueError(f"mesh_hosts must be >= 0 (0 = auto), got "
+                             f"{self.mesh_hosts}")
         self.tier_promote_samples = self.tier_promote_samples or 64
         self.tier_promote_intervals = self.tier_promote_intervals or 2
         self.tier_demote_intervals = self.tier_demote_intervals or 3

@@ -262,6 +262,12 @@ class OverloadLimited:
         if q is not None:
             q.count(reason, n)
 
+    def _live_index(self, n: int):
+        """The device index of logical rows 0..n-1 in interner order:
+        the first n rows here; the mesh groups' shard placement gathers
+        (``core/mesh_store.py``)."""
+        return slice(0, n)
+
 
 class KernelBreakerOpen(RuntimeError):
     """The flush kernel's breaker is open: the digest unit goes straight
@@ -973,12 +979,13 @@ class DigestGroup(DigestStaging):
             planes = ("packed",) + slab._pack_slab(
                 digest.mean, digest.weight, digest.min, digest.max) + (
                 digest.min[:n], digest.max[:n])
-        elif want_digests:
-            planes = ("dense", digest.mean[:n], digest.weight[:n],
-                      digest.min[:n], digest.max[:n])
+            live = slice(0, n)
         else:
-            planes = ()
-        return sel, tuple(stats[nm][:n] for nm in sel), planes
+            live = self._live_index(n)
+            planes = (("dense", digest.mean[live], digest.weight[live],
+                       digest.min[live], digest.max[live])
+                      if want_digests else ())
+        return sel, tuple(stats[nm][live] for nm in sel), planes
 
     def _flush_collect(self, pending, n: int, percentiles) -> dict:
         sel, refs, planes = pending
@@ -1025,11 +1032,10 @@ class DigestGroup(DigestStaging):
                 "joined": list(self.interner.joined)}
         if n == 0:
             return snap, None
-        d, t = self.digest, self.temp
-        copies, event = _snapshot_copies((
-            d.mean[:n], d.weight[:n], t.sum_w[:n], t.sum_wm[:n],
-            self.dmin[:n], self.dmax[:n], d.min[:n], d.max[:n],
-            t.count[:n], t.vsum[:n], t.vmin[:n], t.vmax[:n], t.recip[:n]))
+        d, t, live = self.digest, self.temp, self._live_index(n)
+        copies, event = _snapshot_copies(tuple(x[live] for x in (
+            d.mean, d.weight, t.sum_w, t.sum_wm, self.dmin, self.dmax,
+            d.min, d.max, t.count, t.vsum, t.vmin, t.vmax, t.recip)))
 
         def finish():
             (mean, weight, bin_w, bin_wm, imp_min, imp_max, dmn, dmx, cnt,
@@ -1275,9 +1281,10 @@ class SetGroup(OverloadLimited):
                 self._reset_registers()
                 self._init_staging()
             return lambda: (interner, None, None)
-        est_ref = (_estimate_all(self.registers[:n]) if want_estimates
-                   else None)
-        reg_ref = self.registers[:n] if want_registers else None
+        live = (self.registers[self._live_index(n)]
+                if want_estimates or want_registers else None)
+        est_ref = _estimate_all(live) if want_estimates else None
+        reg_ref = live if want_registers else None
         if self._retired:
             self.registers = None
         else:
@@ -1309,7 +1316,8 @@ class SetGroup(OverloadLimited):
                 "joined": list(self.interner.joined)}
         if n == 0:
             return snap, None
-        copies, event = _snapshot_copies((self.registers[:n],))
+        copies, event = _snapshot_copies(
+            (self.registers[self._live_index(n)],))
 
         def finish():
             (regs,) = _fetch_copies(copies, event)
@@ -1520,8 +1528,8 @@ class HeavyHitterGroup(OverloadLimited):
 
         if rows:
             self.sketch = cm_ops.inject_candidates(
-                self.sketch, torch.tensor(rows, dtype=torch.int64,
-                                          device=dev),
+                self.sketch, torch.from_numpy(self._scatter_rows(
+                    np.asarray(rows, np.int64))).to(dev),
                 words(sids), words(his), words(los),
                 torch.tensor(slots, dtype=torch.int64, device=dev))
 
@@ -1584,10 +1592,16 @@ class HeavyHitterGroup(OverloadLimited):
 
         return finish
 
+    def _scatter_rows(self, rows: np.ndarray) -> np.ndarray:
+        """The device rows of logical rows (the mesh group's placement
+        translates them)."""
+        return rows
+
     def _live_topk(self, n: int):
         """The live rows' top-k planes, interner order."""
-        return (self.sketch.topk_hi[:n], self.sketch.topk_lo[:n],
-                self.sketch.topk_counts[:n])
+        live = self._live_index(n)
+        return (self.sketch.topk_hi[live], self.sketch.topk_lo[live],
+                self.sketch.topk_counts[live])
 
     def _reset_sketch(self):
         self.sketch = cm_ops.init(self.capacity, self.depth, self.width,
@@ -1830,8 +1844,13 @@ class MetricStore:
                  tier_pool_centroids: int = 16,
                  tier_promote_samples: int = 64,
                  tier_promote_intervals: int = 2,
-                 tier_demote_intervals: int = 3, device=None):
-        self.device = resolve_device(device)
+                 tier_demote_intervals: int = 3, device=None, mesh=None):
+        if mesh is not None and device is not None \
+                and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         # samples the store rejects, by reason (cumulative): the groups'
         # scrubs, process_batch's and the ingest lanes' ledgers, and the
         # tag-length cap's cuts
@@ -1844,24 +1863,61 @@ class MetricStore:
         # group's program dispatched before any fetch, with at most N
         # fetched-but-unemitted results resident (core/pipeline.py)
         self.flush_pipeline_depth = max(0, int(flush_pipeline_depth))
-        self.counters = ScalarGroup("counter", initial_capacity)
-        self.global_counters = ScalarGroup("counter", initial_capacity)
-        self.gauges = ScalarGroup("gauge", initial_capacity)
-        self.global_gauges = ScalarGroup("gauge", initial_capacity)
-        self.local_status_checks = ScalarGroup("status", initial_capacity)
         self.digest_storage = digest_storage
+        # fleet mode (core/mesh_store.py): the store's series shard over
+        # the mesh's row blocks, every group of them placed by one router
+        self.mesh = mesh
+        self.shard_router = None
+        self.last_fleet_occupancy = None
+        if mesh is not None:
+            self._check_mesh_storage(digest_storage)
+            from veneur_tpu_torch.fleet import ShardRouter
+
+            self.shard_router = ShardRouter(mesh.series)
+        groups = (("counters", "counter"), ("global_counters", "counter"),
+                  ("gauges", "gauge"), ("global_gauges", "gauge"))
+        for name, kind in groups:
+            if mesh is None:
+                setattr(self, name, ScalarGroup(kind, initial_capacity))
+            else:
+                from veneur_tpu_torch.core.mesh_store import MeshScalarGroup
+
+                setattr(self, name, MeshScalarGroup(
+                    kind, initial_capacity, mesh, self.shard_router))
+        self.local_status_checks = ScalarGroup("status", initial_capacity)
         for name in _DIGEST_GROUPS:
-            setattr(self, name, self._digest_group(
-                digest_storage, initial_capacity, chunk, compression,
-                digest_dtype, slab_rows, tier_pool_centroids,
-                tier_promote_samples, tier_promote_intervals,
-                tier_demote_intervals))
+            if mesh is not None and not name.startswith("local_"):
+                from veneur_tpu_torch.core.mesh_store import MeshDigestGroup
+
+                group = MeshDigestGroup(mesh, initial_capacity, chunk,
+                                        compression, self.shard_router)
+            else:
+                group = self._digest_group(
+                    digest_storage, initial_capacity, chunk, compression,
+                    digest_dtype, slab_rows, tier_pool_centroids,
+                    tier_promote_samples, tier_promote_intervals,
+                    tier_demote_intervals)
+            setattr(self, name, group)
         for name in _SET_GROUPS:
-            setattr(self, name, SetGroup(initial_capacity, chunk,
-                                         hll_precision, self.device))
-        self.heavy_hitters = HeavyHitterGroup(initial_capacity, chunk,
-                                              topk_depth, topk_width,
-                                              topk_k, self.device)
+            if mesh is not None and name == "sets":
+                from veneur_tpu_torch.core.mesh_store import MeshSetGroup
+
+                group = MeshSetGroup(mesh, initial_capacity, chunk,
+                                     hll_precision, self.shard_router)
+            else:
+                group = SetGroup(initial_capacity, chunk, hll_precision,
+                                 self.device)
+            setattr(self, name, group)
+        if mesh is None:
+            self.heavy_hitters = HeavyHitterGroup(
+                initial_capacity, chunk, topk_depth, topk_width, topk_k,
+                self.device)
+        else:
+            from veneur_tpu_torch.core.mesh_store import MeshHeavyHitterGroup
+
+            self.heavy_hitters = MeshHeavyHitterGroup(
+                initial_capacity, chunk, topk_depth, topk_width, topk_k,
+                mesh, self.shard_router)
         self.hll_precision = hll_precision
         # bounded cardinality and the tag-length cap (0 = off: a Server
         # passes its config's defaults), and the admission controller a
@@ -1888,6 +1944,24 @@ class MetricStore:
         self._mlist_table = None
         # the ingest fleets' sealed-chunk drain, run before a snapshot
         self._ingest_drain = None
+
+    @staticmethod
+    def _check_mesh_storage(storage: str) -> None:
+        """The digest storages a mesh takes: dense. Slab is refused as
+        the JAX package refuses it; tiered with a mesh is the mesh tiered
+        store, not ported yet."""
+        if storage == "slab":
+            raise ValueError(
+                "digest_storage: slab cannot combine with mesh_enabled: "
+                "the slab layout is the single-card capacity plan and "
+                "the mesh supersedes it; run the mesh dense")
+        if storage == "tiered":
+            from veneur_tpu_torch.config import UnsupportedConfig
+
+            raise UnsupportedConfig(
+                "digest_storage: tiered with mesh_enabled is the mesh "
+                "tiered store, which veneur_tpu_torch does not implement "
+                "yet; run the mesh dense (or veneur_tpu for it)")
 
     def _digest_group(self, storage: str, initial_capacity: int, chunk: int,
                       compression: float, digest_dtype: str, slab_rows: int,
@@ -2498,6 +2572,13 @@ class MetricStore:
             setattr(self, attr, fresh)
         gen.processed, gen.imported = self.processed, self.imported
         self.processed = self.imported = 0
+        if self.mesh is not None:
+            # the RETIRED interval's per-shard rows (fleet_snapshot reads
+            # the live fills)
+            from veneur_tpu_torch.fleet import sum_shard_occupancy
+
+            self.last_fleet_occupancy = sum_shard_occupancy(
+                getattr(gen, attr) for attr in self._GEN_GROUPS)
         self.flush_epoch += 1
         self._kind_groups = None  # it holds the retired groups
         for table in (self._native_table, self._mlist_table):

@@ -1,0 +1,203 @@
+"""Shard placement for the fleet-mode store: which shard owns a series.
+
+Port of ``veneur_tpu/fleet/router.py`` (its ``PoolPlacement`` and
+``RingTransition`` come with the mesh tiered store and the handoff).
+The proxy tier answers "which *instance* owns a
+series" with a consistent-hash ring (``proxy/consistent.py``); fleet
+mode asks the same question one level down, which *series shard* of the
+global's mesh owns a series, and answers it with the SAME ring rule:
+:class:`ShardRouter` builds a ring whose members are the series shards
+and hashes the ``name + type + joined_tags`` key of
+:func:`~veneur_tpu_torch.proxy.consistent.ring_key`. Ownership equals
+the JAX package's key for key.
+
+:class:`ShardPlacement` turns that shard choice into a physical row of
+a group's device planes. A :class:`~veneur_tpu_torch.parallel.mesh.
+ShardMesh` lays its series shards out as contiguous row blocks of one
+plane: shard ``d`` of ``S`` owns rows ``[d*cap/S, (d+1)*cap/S)``. The
+interner stays dense and sequential (logical rows 0..n-1, the order every
+flush and snapshot consumer expects); the placement maps logical to
+physical rows, so a series' state lives inside its shard's block.
+Growth doubles every shard's block (the groups' blocked pad) and the
+placement recomputes every physical id vectorized. It reports per-shard
+occupancy and a balance ratio (max/mean fill): hash placement keeps the
+ratio near 1 from the first interval, where sequential interning over a
+block layout would fill shard 0 before shard 1 saw a row.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from veneur_tpu_torch.proxy.consistent import ConsistentRing, ring_key
+
+__all__ = ["ring_key", "ShardRouter", "ShardPlacement", "route_stack",
+           "inverse_perm"]
+
+
+class ShardRouter:
+    """series identity → series-shard index, by the proxy's ring rule.
+
+    Stateless per series (the ring is fixed at mesh construction): every
+    group of one store shares one router, so a series owns the SAME
+    shard across scalars, digests, sets and heavy hitters — the
+    property a per-shard handoff (elastic resharding) needs."""
+
+    def __init__(self, shards: int, replicas: int = 20):
+        if shards < 1:
+            raise ValueError(f"need >= 1 shard, got {shards}")
+        self.shards = shards
+        self._index: Dict[str, int] = {
+            f"shard-{i}": i for i in range(shards)}
+        self._ring = ConsistentRing(list(self._index), replicas=replicas)
+
+    def shard_for(self, name: str, mtype: str, joined_tags: str) -> int:
+        """The shard owning one series — the shared :func:`ring_key`
+        rule against a ring of shards."""
+        if self.shards == 1:
+            return 0
+        return self._index[self._ring.get(ring_key(name, mtype,
+                                                   joined_tags))]
+
+
+class ShardPlacement:
+    """Logical (interner) rows → shard-blocked physical rows, with
+    doubling growth. All host-side numpy; the owning group calls under
+    the store lock."""
+
+    def __init__(self, shards: int, capacity: int):
+        if capacity % shards:
+            raise ValueError(
+                f"capacity {capacity} not divisible by {shards} shards")
+        self.shards = shards
+        self.capacity = capacity
+        self.block = capacity // shards
+        self.fills = np.zeros(shards, np.int64)
+        self._shard_of = np.empty(0, np.int32)
+        self._local_of = np.empty(0, np.int32)
+        self._phys = np.empty(0, np.int64)
+        self._count = 0
+
+    def __len__(self) -> int:
+        return self._count
+
+    def assigned(self, logical: int) -> bool:
+        return logical < self._count
+
+    def full(self, shard: int) -> bool:
+        return int(self.fills[shard]) >= self.block
+
+    def assign(self, logical: int, shard: int) -> int:
+        """Place the next logical row on ``shard``; rows assign in
+        logical order (the interner is sequential)."""
+        assert logical == self._count, (logical, self._count)
+        local = int(self.fills[shard])
+        if local >= self.block:
+            raise IndexError(f"shard {shard} full at {self.block} rows")
+        self.fills[shard] = local + 1
+        if self._count >= len(self._shard_of):
+            grow = max(256, len(self._shard_of))
+            self._shard_of = np.concatenate(
+                [self._shard_of, np.empty(grow, np.int32)])
+            self._local_of = np.concatenate(
+                [self._local_of, np.empty(grow, np.int32)])
+            self._phys = np.concatenate(
+                [self._phys, np.empty(grow, np.int64)])
+        self._shard_of[self._count] = shard
+        self._local_of[self._count] = local
+        phys = shard * self.block + local
+        self._phys[self._count] = phys
+        self._count += 1
+        return phys
+
+    def phys(self, logical: int) -> int:
+        return int(self._phys[logical])
+
+    def perm(self, n: Optional[int] = None) -> np.ndarray:
+        """Physical row of each logical row 0..n-1 — the flush/snapshot
+        gather order that restores interner ordering."""
+        n = self._count if n is None else n
+        return self._phys[:n].copy()
+
+    def to_phys(self, rows: np.ndarray, sentinel: int) -> np.ndarray:
+        """Vectorized logical → physical translation for one staged
+        chunk, AT DRAIN TIME. Logical rows are the ids that cross the
+        group boundary (and live in the native intern memos / lane
+        resolvers / bulk-ingest loops): they are stable forever, so a
+        mid-interval ``grow`` — which moves every physical id — can
+        never stale a cached row. Unassigned/sentinel entries map to
+        ``sentinel`` (the scatter-drop convention)."""
+        rows = np.asarray(rows)
+        out = np.full(rows.shape, sentinel, rows.dtype)
+        valid = rows < self._count
+        out[valid] = self._phys[rows[valid]]
+        return out
+
+    def grow(self) -> None:
+        """Double every shard's block (mirrors the owning group's
+        blocked-pad device grow); physical ids recompute vectorized."""
+        self.block *= 2
+        self.capacity *= 2
+        n = self._count
+        self._phys[:n] = (self._shard_of[:n].astype(np.int64) * self.block
+                          + self._local_of[:n])
+
+    def occupancy(self) -> dict:
+        return _occupancy(self.fills, self.block)
+
+
+def _occupancy(fills: np.ndarray, block: int) -> dict:
+    total = int(fills.sum())
+    mean = total / len(fills)
+    return {
+        "per_shard": [int(f) for f in fills],
+        "rows": total,
+        "block": int(block),
+        # max/mean fill: 1.0 = perfectly balanced, S = everything on
+        # one shard (what sequential block interning degraded to)
+        "balance_ratio": round(float(fills.max()) / mean, 4) if total
+        else 1.0,
+    }
+
+
+def inverse_perm(perm: np.ndarray, capacity: int) -> np.ndarray:
+    """physical row → logical row (-1 = hole); the snapshot paths use it
+    to translate per-slab flatten output back to interner order."""
+    inv = np.full(capacity, -1, np.int64)
+    inv[perm] = np.arange(len(perm), dtype=np.int64)
+    return inv
+
+
+def route_stack(shards: int, shard_idx: np.ndarray,
+                rows: np.ndarray, arrays: Sequence[np.ndarray],
+                sentinel_row: int,
+                min_width: int = 8) -> Tuple[np.ndarray, list]:
+    """Partition one staged chunk into a ``[shards, b]`` stack whose
+    dim 0 shards over the series axis — each device then receives
+    exactly its own rows' sub-chunk (whole, order-preserved) and bins
+    only that, instead of binning a replicated full chunk and dropping
+    foreign rows. ``b`` is the pow2 bucket of the fullest shard's count
+    (``core/bucketing.py`` ladder: the compiled-program variant count
+    stays log-bounded). Each lane is dim 0 of one shard's row block of
+    the same device plane. Padding rows carry ``sentinel_row`` and zeroed
+    payloads, the drop convention every scatter program shares."""
+    from veneur_tpu_torch.core.bucketing import pow2_cap
+
+    per_shard: List[np.ndarray] = []
+    for s in range(shards):
+        per_shard.append(np.flatnonzero(shard_idx == s))
+    width = max(min_width, max((len(ix) for ix in per_shard), default=0))
+    b = pow2_cap(width)
+    out_rows = np.full((shards, b), sentinel_row, rows.dtype)
+    out_arrays = [np.zeros((shards, b) + a.shape[1:], a.dtype)
+                  for a in arrays]
+    for s, ix in enumerate(per_shard):
+        m = len(ix)
+        if not m:
+            continue
+        out_rows[s, :m] = rows[ix]
+        for dst, a in zip(out_arrays, arrays):
+            dst[s, :m] = a[ix]
+    return out_rows, out_arrays

@@ -372,6 +372,19 @@ def shift_masses(acc_seg_w: torch.Tensor, acc_seg_wm: torch.Tensor,
     anchor summary: the mass of rows whose chunk values lie entirely
     outside what their accumulated segments cover. rows may carry the
     padding sentinel (== num_series)."""
+    shifted, cmass = shift_masses_by_row(acc_seg_w, acc_seg_wm, rows,
+                                         values, weights, num_series,
+                                         anchors)
+    return shifted.sum(), cmass.sum()
+
+
+def shift_masses_by_row(acc_seg_w: torch.Tensor, acc_seg_wm: torch.Tensor,
+                        rows: torch.Tensor, values: torch.Tensor,
+                        weights: torch.Tensor, num_series: int,
+                        anchors: int = BELOW_MASS_ANCHORS):
+    """:func:`shift_masses` before its sums: ([S] shifted mass, [S] chunk
+    mass) per row, for a caller that sums them block by block (the mesh
+    store's per-shard guard)."""
     rows = rows.long()
     acc_w2 = acc_seg_w.reshape(num_series, anchors)
     acc_m2 = acc_seg_wm.reshape(num_series, anchors)
@@ -394,8 +407,7 @@ def shift_masses(acc_seg_w: torch.Tensor, acc_seg_wm: torch.Tensor,
     disjoint = ((acc_mass >= SHIFT_GUARD_MIN_MASS)
                 & (cmass >= SHIFT_GUARD_MIN_CHUNK_MASS)
                 & ((cmin > amax) | (cmax < amin)))
-    shifted = torch.where(disjoint, cmass, 0.0).sum()
-    return shifted, cmass.sum()
+    return torch.where(disjoint, cmass, 0.0), cmass
 
 
 def shift_pred(acc_seg_w: torch.Tensor, acc_seg_wm: torch.Tensor,
@@ -473,6 +485,46 @@ def drain_and_quantile(state: TDigest, temp: TempCentroids, dmin, dmax,
         state.mean, state.weight, t_mean, t_w, mn, mx, qs, compression,
         state.capacity)
     return TDigest(mean=nm, weight=nw, min=mn, max=mx), pcts
+
+
+def merge(a: TDigest, b: TDigest,
+          compression: float = DEFAULT_COMPRESSION) -> TDigest:
+    """Merge digest batches elementwise through K2: the associative op of
+    the global aggregation tree (Histo.Combine / Merge,
+    samplers.go:657-691), and the butterfly round of
+    ``parallel/collectives.allmerge_digest``. Both batches' rows must be
+    ascending with dead slots that keep them so (+inf empties, or the
+    kernels' gap-filled means): every digest this package builds is; K2
+    reverses the b half itself (``sort_b`` off). Any leading batch shape;
+    the kernel sees ``[prod(batch), K]`` planes."""
+    k = a.capacity
+    shape = a.mean.shape
+    new_mean, new_weight = tdigest_cuda.compress_presorted(
+        a.mean.reshape(-1, k), a.weight.reshape(-1, k),
+        b.mean.reshape(-1, b.capacity), b.weight.reshape(-1, b.capacity),
+        compression, k)
+    return TDigest(mean=new_mean.reshape(shape),
+                   weight=new_weight.reshape(shape),
+                   min=torch.minimum(a.min, b.min),
+                   max=torch.maximum(a.max, b.max))
+
+
+def from_centroids(mean: torch.Tensor, weight: torch.Tensor, mins, maxs,
+                   compression: float = DEFAULT_COMPRESSION,
+                   capacity: int | None = None) -> TDigest:
+    """Build digests from centroid arrays in any order (the
+    deserialization path of forwarded sketch state, cf.
+    NewMergingFromData, merging_digest.go:83-99): one sort-based
+    :func:`_compress`, as in the JAX package, with no kernel.
+
+    mean/weight: [..., M] with weight==0 padding; M may differ from the
+    capacity."""
+    k = capacity if capacity is not None else size_bound(compression)
+    new_mean, new_weight = _compress(mean, weight, compression, k)
+    dev, f32 = mean.device, mean.dtype
+    return TDigest(mean=new_mean, weight=new_weight,
+                   min=torch.as_tensor(mins, dtype=f32, device=dev),
+                   max=torch.as_tensor(maxs, dtype=f32, device=dev))
 
 
 # ---------------------------------------------------------------------------

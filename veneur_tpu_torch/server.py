@@ -255,7 +255,7 @@ class Server:
     def __init__(self, config: Config,
                  metric_sinks: Optional[List[MetricSink]] = None,
                  span_sinks: Optional[List[SpanSink]] = None,
-                 device=None, plugins: Optional[list] = None):
+                 device=None, plugins: Optional[list] = None, mesh=None):
         self.config = config
         self.interval = config.interval_seconds
         self.hostname = config.hostname
@@ -264,6 +264,17 @@ class Server:
         self.histogram_aggregates = HistogramAggregates.from_names(
             config.aggregates)
         self.overload = overload.from_config(config)
+        # a global with mesh_enabled (Config refuses it on a local)
+        # shards its store over the fleet mesh (core/mesh_store.py): the
+        # visible cards' by default, or the caller's ``mesh`` (a
+        # ShardMesh; one card repeated shapes a wider mesh on it)
+        if mesh is not None and not config.mesh_enabled:
+            raise ValueError("a mesh was given, but mesh_enabled is off")
+        if config.mesh_enabled and mesh is None:
+            from veneur_tpu_torch.fleet import build_mesh
+
+            mesh = build_mesh(config, None if device is None
+                              else [device])
         self.store = MetricStore(
             initial_capacity=config.store_initial_capacity,
             chunk=config.store_chunk,
@@ -280,7 +291,7 @@ class Server:
             tier_promote_samples=config.tier_promote_samples,
             tier_promote_intervals=config.tier_promote_intervals,
             tier_demote_intervals=config.tier_demote_intervals,
-            device=device)
+            device=device, mesh=mesh)
         # the configured fault kinds (config.py admits disk_full and
         # deadline_pressure): the checkpoint commit and the flush budget
         self.soak_injector = rfaults.from_config(config)
