@@ -10,11 +10,15 @@ mesh six):
 
   kernels  K1 drain_quantile and K2 compress_presorted at the flush's
            shape (1,048,576 rows, K=104, the store's 9 quantiles), each
-           with the b half presorted and with sort_b (K3), and each again
-           at compression 1000 (K=1008) on 4,096 rows through the general
-           path: held against its plain PyTorch version on the card, then
-           each full call timed beside its bound, and sort_b beside the
-           flush's torch.sort + presorted composition;
+           with the b half presorted and with sort_b (K3), each again at
+           compression 1000 (K=1008) on 4,096 rows through the general
+           path, and at merge widths 32 and 16 (K=16 at compression 14,
+           K=8 at 6: the tiered pool's) on 262,144 rows through the
+           narrow path: held against its plain PyTorch version on the
+           card, each call's launch counted on its path's counter (the
+           wide and narrow ones print the device kernel a call runs),
+           then each full call timed beside its bound, and sort_b beside
+           the flush's torch.sort + presorted composition;
   store    a MetricStore on cuda with 65,536 histogram series x 8
            samples (the second half of the interval steps the
            distribution, so the shift guard drains through K2) and 32,768
@@ -179,7 +183,8 @@ mesh six):
            10,485,760 series over 262,144-row pool slabs, 4 cold samples
            a series and 10,000 hot series x 40 more (promote_samples 32,
            promote_intervals 1: they take dense slots mid-interval), the
-           pool compacting through K2 at merge width 32 (2g_tiered_10m).
+           pool compacting through K2 at merge width 32 on the narrow path
+           (2g_tiered_10m).
            Each prints its staging and flush walls (median of 5),
            torch.cuda.max_memory_allocated, its K1/K2 launches, the
            first launch of each new shape held to its plain version
@@ -205,7 +210,11 @@ ingest (its two intervals), ssf (its main path), heavy_hitters (its two
 Servers), overload (the series cap's flush), global_merge, native_merge,
 mesh, server_global, checkpoint (the kill and restart, and the ladder)
 and capacity phases (its oracles and plain-version holds excepted); the
-summary's butterfly row counts the mesh phase's butterfly K2 alone. It
+summary's butterfly row counts the mesh phase's butterfly K2 alone, and
+its width-32, width-16 and general-path rows the launches that took
+those paths (a share of K1's and K2's rows). K2 at width 32 is timed on
+the capacity phase's pool compaction inputs, and that phase prints the
+device function the compaction launched (the launcher's record). It
 ends with the kernel summary, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits 2 before
@@ -239,6 +248,11 @@ PERCENTILES = (0.01, 0.10, 0.25, 0.50, 0.75, 0.90, 0.95, 0.99)
 COMPRESSION = 100.0
 WIDE_COMPRESSION = 1000.0        # K=1008, merge width 2048: general path
 WIDE_ROWS = 4096
+# the narrow path: (label, compression) at merge width 32 (K=16, the
+# tiered pool's compaction at tier_pool_centroids 16) and 16 (K=8, at 8),
+# on one pool slab of rows
+NARROW = (("w32_", 14.0), ("w16_", 6.0))
+NARROW_ROWS = 1 << 18
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM non-tensor fp32 peak
 TIMED_LAUNCHES = 20
@@ -344,7 +358,11 @@ def _compare(name, got, want, wa, wb, span=None) -> float:
     return worst
 
 
-_COUNTERS = ("launches", "sort_b_launches")
+# tdigest_cuda.COUNTERS: launches by mode, then (a share of those) by path
+_COUNTERS = ("launches", "sort_b_launches", "narrow16_launches",
+             "narrow32_launches", "general_launches")
+_PATH_KERNEL = {"narrow": "narrow_rows_kernel", "warp": "warp_rows_kernel",
+                "general": "block_rows_kernel"}
 
 
 def _reset_counts(tc) -> None:
@@ -416,13 +434,17 @@ def _shuffled(mb, wb, gen):
     return torch.gather(mb, 1, perm), torch.gather(wb, 1, perm)
 
 
-def phase_kernels(dev, rows: int = ROWS, wide_rows: int = WIDE_ROWS):
+def phase_kernels(dev, rows: int = ROWS, wide_rows: int = WIDE_ROWS,
+                  narrow_rows: int = NARROW_ROWS):
     """Every kernel instance against its plain version on the card: K1
     and K2 at the flush's shape, each with the b half presorted and with
-    sort_b (K3), and the general path at compression 1000 on a few
-    thousand rows; then each full call timed beside its bound, and
-    sort_b beside the flush's own composition (torch.sort of the temp
-    half, then the presorted kernel)."""
+    sort_b (K3), the general path at compression 1000 on a few thousand
+    rows, and the narrow path at merge widths 32 and 16 on a pool slab of
+    rows; then each full call timed beside its bound, and sort_b beside
+    the flush's own composition (torch.sort of the temp half, then the
+    presorted kernel). Each call must count one launch on its path's
+    counter, and the wide and narrow instances print the device kernel
+    one call runs."""
     import torch
 
     from veneur_tpu_torch.ops import tdigest as td
@@ -434,8 +456,12 @@ def phase_kernels(dev, rows: int = ROWS, wide_rows: int = WIDE_ROWS):
     nq = qs.shape[0]
     out, calls = {}, {}
     for label, c, n in (("", COMPRESSION, rows),
-                        ("wide_", WIDE_COMPRESSION, wide_rows)):
+                        ("wide_", WIDE_COMPRESSION, wide_rows),
+                        *((lb, cn, narrow_rows) for lb, cn in NARROW)):
         k = td.size_bound(c)
+        path = tc.kernel_path(tc.next_pow2(k), k)
+        on_path = {"narrow": f"narrow{2 * tc.next_pow2(k)}_launches",
+                   "general": "general_launches"}.get(path)
         ma, wa, mb, wb, mn, mx = _random_halves(n, k, dev, gen)
         mb_u, wb_u = _shuffled(mb, wb, gen)
         span = (mx - mn).float()
@@ -459,16 +485,17 @@ def phase_kernels(dev, rows: int = ROWS, wide_rows: int = WIDE_ROWS):
                 return tc.compress_presorted_plain(ma, wa, *b, c, k,
                                                    sort_b=sort_b)
 
-            counter = "sort_b_launches" if sort_b else "launches"
+            counters = [x for x in ("sort_b_launches" if sort_b
+                                    else "launches", on_path) if x]
             for name, fn, plain, sp in (
                     ("drain_quantile", k1, k1_plain, span),
                     ("compress_presorted", k2, k2_plain, None)):
                 wrapper = getattr(tc, name)
-                before = getattr(wrapper, counter)
+                before = [getattr(wrapper, x) + 1 for x in counters]
                 got = fn()
-                if getattr(wrapper, counter) != before + 1:
+                if [getattr(wrapper, x) for x in counters] != before:
                     raise AssertionError(f"{tag}{name}: the call did not "
-                                         "count one launch")
+                                         f"count one launch ({path} path)")
                 want = plain()
                 torch.cuda.synchronize()
                 err = _compare(tag + name, got, want, wa, wb, sp)
@@ -479,6 +506,9 @@ def phase_kernels(dev, rows: int = ROWS, wide_rows: int = WIDE_ROWS):
                 out[tag + name] = {"rows": n, "k": k, "max_abs_err": err,
                                    "bytes": nbytes, "ops": ops,
                                    "bound_ms": bound_ms, "bound_by": by}
+                if label:
+                    out[tag + name]["device_kernels_per_call"] = \
+                        _one_kernel(tag + name, fn, path)
                 calls[tag + name] = (fn, plain)
         if not label:
             _add_composition(calls, out, tc, ma, wa, mb_u, wb_u, mn, mx, qs)
@@ -491,6 +521,17 @@ def phase_kernels(dev, rows: int = ROWS, wide_rows: int = WIDE_ROWS):
         calls.clear()
     emit({"phase": "kernels", "nq": nq, **out})
     return out
+
+
+def _one_kernel(name, fn, path):
+    """The device kernels one call of fn runs (a profiler trace): one, of
+    the path's kernel, or None where the trace holds no device events."""
+    kernels = _device_kernels(fn)
+    if kernels is not None and (len(kernels) != 1
+                                or _PATH_KERNEL[path] not in kernels[0]):
+        raise AssertionError(f"{name}: one call ran {kernels}, not one "
+                             f"{_PATH_KERNEL[path]}")
+    return kernels
 
 
 def _add_composition(calls, out, tc, ma, wa, mb_u, wb_u, mn, mx, qs):
@@ -514,10 +555,8 @@ def _add_composition(calls, out, tc, ma, wa, mb_u, wb_u, mn, mx, qs):
     # one call runs one kernel: no pad, flip or cummax passes
     for name in ("drain_quantile", "compress_presorted",
                  "sort_b_drain_quantile", "sort_b_compress_presorted"):
-        kernels = _device_kernels(calls[name][0])
-        if kernels is not None and len(kernels) != 1:
-            raise AssertionError(f"{name}: one call ran {kernels}")
-        out[name]["device_kernels_per_call"] = kernels
+        out[name]["device_kernels_per_call"] = _one_kernel(
+            name, calls[name][0], "warp")
 
 
 def _digest_reference(samples: np.ndarray, qs) -> np.ndarray:
@@ -5367,6 +5406,17 @@ def run_tiered_group(dev, series: int, hot_rows: int = 10000,
             lambda: tc.compress_presorted_plain(*a), PLAIN_RUNS, warmup=1)
         rec["k2_w32_bound_ms"], rec["k2_w32_bound_by"] = _bound(nbytes, ops)
         rec["k2_w32_bytes"], rec["k2_w32_ops"] = nbytes, ops
+        # the compaction's kernel, as the launcher names it (a profiler
+        # trace this late in the script was seen to hold no device events)
+        rec["k2_w32_device_kernel"] = tc.last_kernel_name()
+        if "narrow_rows_kernel" not in rec["k2_w32_device_kernel"] or \
+                counts["compress_presorted.narrow32_launches"] < 1:
+            raise AssertionError(f"tiered_10m: the compaction ran "
+                                 f"{rec['k2_w32_device_kernel']!r}; {counts}")
+        _RECORDS["pool_k2_w32"] = {
+            "max_abs_err": rec["k2_max_abs_err"],
+            **{f: rec[f"k2_w32_{f}"] for f in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by")}}
     del k1, k2, a
     want = np.full(series, float(cold_samples), np.float32)
     want[hot] += hot_rounds
@@ -6140,14 +6190,15 @@ def phase_mesh(dev, card: str) -> dict:
 
 def _ptxas_summary(logs) -> list:
     """Registers, spills and shared memory of every kernel instance, from
-    nvcc's -Xptxas -v output: warp<half,sort_b,drain> / block<...>."""
+    nvcc's -Xptxas -v output: warp<half,sort_b,drain> / narrow<...> /
+    block<...>."""
     out, cur = [], None
     for text in logs.values():
         for ln in text.splitlines():
             hit = re.search(r"Compiling entry function '(\w+)'", ln)
             if hit:
-                t = re.search(r"(warp|block)_rows_kernelI(?:Li(\d+)E)?"
-                              r"Lb(\d)ELb(\d)E", hit.group(1))
+                t = re.search(r"(warp|narrow|block)_rows_kernelI"
+                              r"(?:Li(\d+)E)?Lb(\d)ELb(\d)E", hit.group(1))
                 cur = {"fn": (f"{t.group(1)}<{t.group(2) or 'any'},"
                               f"sort_b={t.group(3)},drain={t.group(4)}>"
                               if t else hit.group(1))}
@@ -6161,6 +6212,59 @@ def _ptxas_summary(logs) -> list:
                     if got:
                         cur[key] = int(got.group(1))
     return out
+
+
+def _kernel_rows(kern: dict, launches: dict) -> list:
+    """The final kernels line's rows from the kernels phase's records, the
+    main path's launch counts and the records later phases left."""
+    src = "veneur_tpu_torch/csrc/tdigest_merge.cu"
+    # K1 and K2 with the b half presorted (the main path), then K3: the
+    # sort_b mode of each, which no production path runs; then K2 in the
+    # mesh's butterfly round (both halves ascending, K wide), whose
+    # launches are its own (part of K2's)
+    specs = []
+    for name, key, line, counter in (
+            ("drain_quantile", "drain_quantile", 334, "launches"),
+            ("compress_presorted", "compress_presorted", 419, "launches"),
+            ("drain_quantile sort_b", "sort_b_drain_quantile", 97,
+             "sort_b_launches"),
+            ("compress_presorted sort_b", "sort_b_compress_presorted", 97,
+             "sort_b_launches")):
+        k, wide = kern[key], kern["wide_" + key]
+        specs.append((name, line, dict(
+            launches=launches[f"{name.split()[0]}.{counter}"],
+            max_abs_err=max(k["max_abs_err"], wide["max_abs_err"]),
+            **{f: k[f] for f in ("ms", "plain_ms", "bound_ms",
+                                 "bound_by")})))
+    fly = _RECORDS["mesh_butterfly"]
+    specs.append(("compress_presorted butterfly", 419, {
+        f: fly[f] for f in ("launches", "max_abs_err", "ms", "plain_ms",
+                            "bound_ms", "bound_by")}))
+    # the narrow path at merge widths 32 and 16 and the general path at
+    # compression 1000, each with the launches of its path's counter (a
+    # share of its kernel's row above); K2 at width 32 is timed on the
+    # pool compaction's own inputs (the capacity phase)
+    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    for label, counter, what in (("w32_", "narrow32_launches", "width 32"),
+                                 ("w16_", "narrow16_launches", "width 16"),
+                                 ("wide_", "general_launches",
+                                  "general path")):
+        for name, line in (("drain_quantile", 334),
+                           ("compress_presorted", 419)):
+            rec = {f: kern[label + name][f] for f in timed}
+            rec["max_abs_err"] = max(
+                rec["max_abs_err"], kern[f"{label}sort_b_{name}"][
+                    "max_abs_err"])
+            if (label, name) == ("w32_", "compress_presorted"):
+                pool = _RECORDS["pool_k2_w32"]
+                rec.update(pool, max_abs_err=max(rec["max_abs_err"],
+                                                 pool["max_abs_err"]))
+            specs.append((f"{name} {what}", line, dict(
+                launches=launches[f"{name}.{counter}"], **rec)))
+    rows = [{"name": name, "route": "cuda", "source": src,
+             "replaces": f"veneur_tpu/ops/tdigest_pallas.py:{line}",
+             **vals, "library_ms": None} for name, line, vals in specs]
+    return rows
 
 
 PHASES = ("store", "server", "ingest", "ssf", "heavy_hitters", "overload",
@@ -6248,33 +6352,7 @@ def main() -> int:
             launches[key] += n
         stores[name] = _check_breakers(name)
     emit({"phase": "no_fallback", "stores_checked": stores})
-    src = "veneur_tpu_torch/csrc/tdigest_merge.cu"
-    # K1 and K2 with the b half presorted (the main path), then K3: the
-    # sort_b mode of each, which no production path runs; then K2 in the
-    # mesh's butterfly round (both halves ascending, K wide), whose
-    # launches are its own (part of K2's)
-    specs = []
-    for name, key, line, counter in (
-            ("drain_quantile", "drain_quantile", 334, "launches"),
-            ("compress_presorted", "compress_presorted", 419, "launches"),
-            ("drain_quantile sort_b", "sort_b_drain_quantile", 97,
-             "sort_b_launches"),
-            ("compress_presorted sort_b", "sort_b_compress_presorted", 97,
-             "sort_b_launches")):
-        k, wide = kern[key], kern["wide_" + key]
-        specs.append((name, line, dict(
-            launches=launches[f"{name.split()[0]}.{counter}"],
-            max_abs_err=max(k["max_abs_err"], wide["max_abs_err"]),
-            **{f: k[f] for f in ("ms", "plain_ms", "bound_ms",
-                                 "bound_by")})))
-    fly = _RECORDS["mesh_butterfly"]
-    specs.append(("compress_presorted butterfly", 419, {
-        f: fly[f] for f in ("launches", "max_abs_err", "ms", "plain_ms",
-                            "bound_ms", "bound_by")}))
-    rows = [{"name": name, "route": "cuda", "source": src,
-             "replaces": f"veneur_tpu/ops/tdigest_pallas.py:{line}",
-             **vals, "library_ms": None} for name, line, vals in specs]
-    emit({"kernels": rows})
+    emit({"kernels": _kernel_rows(kern, launches)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

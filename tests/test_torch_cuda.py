@@ -110,20 +110,21 @@ def test_cuda_kernels_small_widths(cuda):
         _assert_match(got, want, wa, wb)
 
 
-# merge width L -> (compression, K): L=32 (the tiered pool's compaction,
-# PK = 16 at compression 14) runs a block of one warp a row, L=64, 128
-# and 256 the warp path (one instance each), L=2048 (compression 1000)
-# the general block path
-WIDTHS = {32: (14.0, 16), 64: (20.0, 24), 128: (50.0, 56),
+# merge width L -> (compression, K): L=16 and 32 (the tiered pool's
+# compaction, PK = 8 at compression 6 and PK = 16 at 14) run the narrow
+# path, L=64, 128 and 256 the warp path (one instance each), L=2048
+# (compression 1000) the general block path
+WIDTHS = {16: (6.0, 8), 32: (14.0, 16), 64: (20.0, 24), 128: (50.0, 56),
           256: (100.0, 104), 2048: (1000.0, 1008)}
 
 
 @pytest.mark.parametrize("sort_b", [False, True])
 @pytest.mark.parametrize("width", sorted(WIDTHS))
 def test_cuda_kernel_widths_match_plain(cuda, width, sort_b):
-    """K1 and K2, presorted and with sort_b (K3), at merge widths 32, 64,
-    128, 256 and 2048 against their plain versions; each call is one
-    counted launch of its own kernel."""
+    """K1 and K2, presorted and with sort_b (K3), at merge widths 16, 32,
+    64, 128, 256 and 2048 against their plain versions; each call is one
+    counted launch, and K2's ran the kernel of the path that
+    tdigest_cuda.kernel_path names for its shape."""
     c, k = WIDTHS[width]
     rng = np.random.default_rng(width + sort_b)
     rows = 4099 if width <= 256 else 515
@@ -153,6 +154,10 @@ def test_cuda_kernel_widths_match_plain(cuda, width, sort_b):
     _assert_match(got, want, wa, wb, mn, mx)
     got = [t.cpu().numpy()
            for t in tc.compress_presorted(*args[:4], c, k, sort_b=sort_b)]
+    # the launch ran the kernel of the path kernel_path names
+    kernel = {"narrow": "narrow_rows_kernel", "warp": "warp_rows_kernel",
+              "general": "block_rows_kernel"}[tc.kernel_path(width // 2, k)]
+    assert kernel in tc.last_kernel_name()
     want = [t.cpu().numpy() for t in tc.compress_presorted_plain(
         *args[:4], c, k, sort_b=sort_b)]
     _assert_match(got, want, wa, wb)
@@ -232,15 +237,129 @@ def test_pool_compact_matches_plain(cuda):
         (bw * rng.gamma(2.0, 30.0, (rows, pk))).astype(np.float32)
         .reshape(-1)))
     card = tiered.PoolSlab(*(p.to(cuda) for p in pool))
-    before = tc.compress_presorted.launches
+    before = (tc.compress_presorted.launches,
+              tc.compress_presorted.narrow32_launches)
     got = [t.cpu().numpy() for t in tiered._pool_compact(card, rows, pk,
                                                          14.0)]
-    assert tc.compress_presorted.launches == before + 1
+    # one launch, on the narrow path
+    assert (tc.compress_presorted.launches,
+            tc.compress_presorted.narrow32_launches) == (before[0] + 1,
+                                                         before[1] + 1)
     want = [t.numpy() for t in tiered._pool_compact(pool, rows, pk, 14.0)]
     wa = td.dequantize_centroids(pool.mq.view(rows, pk),
                                  pool.wb.view(rows, pk), pool.fmin,
                                  pool.fmax)[1].numpy()
     _assert_match(got, want, wa, bw)
+
+
+def _narrow_halves(rng, rows, k, sort_b):
+    """Halves for the narrow path: means in [0, 100) (one float32 ulp at
+    most 7.6e-6 there), small integer weights, every 7th row dead and
+    some single-centroid rows; the b half ascending with +inf empties
+    last, or with sort_b in a random order a row."""
+    ma = np.sort(rng.uniform(0.0, 100.0, (rows, k)), 1)
+    wa = (rng.random((rows, k)) < 0.5) * rng.integers(1, 5, (rows, k))
+    mb = rng.uniform(0.0, 100.0, (rows, k))
+    wb = (rng.random((rows, k)) < 0.4) * rng.integers(1, 5, (rows, k))
+    wa[::7], wb[::7] = 0, 0
+    wa[3::11], wb[3::11] = 0, 0
+    wa[3::11, 0] = 2
+    ma = np.where(wa > 0, ma, np.inf)
+    mb = np.where(wb > 0, mb, np.inf)
+    if not sort_b:
+        order = np.argsort(mb, axis=1, kind="stable")
+        mb, wb = (np.take_along_axis(a, order, 1) for a in (mb, wb))
+    mn = np.minimum(np.where(wa > 0, ma, np.inf).min(1),
+                    np.where(wb > 0, mb, np.inf).min(1))
+    mx = np.maximum(np.where(wa > 0, ma, -np.inf).max(1),
+                    np.where(wb > 0, mb, -np.inf).max(1))
+    return [np.ascontiguousarray(a, np.float32)
+            for a in (ma, wa, mb, wb, mn, mx)]
+
+
+def _on_card(a: np.ndarray, cuda, layout: str) -> torch.Tensor:
+    """A [rows, k] plane on the card: contiguous, strided (a row stride
+    of k + 3, so no 8- or 16-byte accesses) or unaligned (one float past
+    a 16-byte boundary)."""
+    t = torch.from_numpy(a).to(cuda)
+    rows, k = a.shape
+    if layout == "strided":
+        wide = torch.full((rows, k + 3), float("nan"), device=cuda)
+        wide[:, :k] = t
+        return wide[:, :k]
+    if layout == "unaligned":
+        flat = torch.full((rows * k + 1,), float("nan"), device=cuda)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(rows, k)
+    return t
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "unaligned"])
+@pytest.mark.parametrize("sort_b", [False, True], ids=["presorted",
+                                                       "sort_b"])
+@pytest.mark.parametrize("width", [16, 32])
+def test_narrow_kernel_matches_plain(cuda, width, sort_b, layout):
+    """K1 and K2 on the narrow path (merge widths 16 and 32) against
+    their plain versions on the same card tensors, at 4,099 rows (not a
+    multiple of the rows a block or a warp holds) with dead rows and
+    single-centroid rows: bin liveness identical, row mass exact, live
+    weights and means rtol 1e-5 and within 1.526e-5 absolute (the plain
+    version's scatter-adds may round a bin's sum an ulp apart),
+    percentiles within 1e-4 x span; each call one launch on the narrow
+    counter of its width."""
+    c, k = WIDTHS[width]
+    rng = np.random.default_rng(1000 + width + 2 * sort_b)
+    ma, wa, mb, wb, mn, mx = _narrow_halves(rng, 4099, k, sort_b)
+    planes = [_on_card(a, cuda, layout) for a in (ma, wa, mb, wb)]
+    extra = [torch.from_numpy(a).to(cuda) for a in (mn, mx, QS)]
+    counter = f"narrow{width}_launches"
+    mass = wa.astype(np.float64).sum(1) + wb.astype(np.float64).sum(1)
+    for fn, plain, args in (
+            (tc.drain_quantile, tc.drain_quantile_plain, planes + extra),
+            (tc.compress_presorted, tc.compress_presorted_plain, planes)):
+        before = getattr(fn, counter)
+        got = [t.cpu().numpy() for t in fn(*args, c, k, sort_b=sort_b)]
+        assert getattr(fn, counter) == before + 1
+        assert "narrow_rows_kernel" in tc.last_kernel_name()
+        want = [t.cpu().numpy()
+                for t in plain(*args, c, k, sort_b=sort_b)]
+        if fn is tc.drain_quantile:
+            _assert_match(got, want, wa, wb, mn, mx)
+        else:
+            _assert_match(got, want, wa, wb)
+        np.testing.assert_array_equal(got[1].astype(np.float64).sum(1),
+                                      mass)
+        live = want[1] > 0
+        for g, w in zip(got[:2], want[:2]):
+            assert np.abs(g[live] - w[live]).max(initial=0.0) <= 1.526e-5
+
+
+def test_general_path_keeps_its_shapes(cuda):
+    """Merge width 2048 and out_size > half stay on the general path:
+    each call counts one general launch and no narrow one, and matches
+    its plain version."""
+    rng = np.random.default_rng(53)
+    for c, ka, kout, rows in ((1000.0, 1008, 1008, 65), (14.0, 16, 20, 999)):
+        ma, wa, mb, wb, mn, mx = _narrow_halves(rng, rows, ka, False)
+        args = [torch.from_numpy(a).to(cuda) for a in (ma, wa, mb, wb)]
+        counts = [(fn.general_launches, fn.narrow16_launches,
+                   fn.narrow32_launches)
+                  for fn in (tc.drain_quantile, tc.compress_presorted)]
+        extra = [torch.from_numpy(a).to(cuda) for a in (mn, mx, QS)]
+        got = [t.cpu().numpy()
+               for t in tc.drain_quantile(*args, *extra, c, kout)]
+        want = [t.cpu().numpy()
+                for t in tc.drain_quantile_plain(*args, *extra, c, kout)]
+        _assert_match(got, want, wa, wb, mn, mx)
+        got = [t.cpu().numpy() for t in tc.compress_presorted(*args, c, kout)]
+        assert "block_rows_kernel" in tc.last_kernel_name()
+        want = [t.cpu().numpy()
+                for t in tc.compress_presorted_plain(*args, c, kout)]
+        _assert_match(got, want, wa, wb)
+        assert [(fn.general_launches, fn.narrow16_launches,
+                 fn.narrow32_launches)
+                for fn in (tc.drain_quantile, tc.compress_presorted)] == [
+            (g + 1, n16, n32) for g, n16, n32 in counts]
 
 
 def test_store_on_cuda_matches_cpu(cuda):

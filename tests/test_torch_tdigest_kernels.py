@@ -55,20 +55,21 @@ def _extrema(ma, wa, mb, wb):
     return mn, mx
 
 
-def _both(ma, wa, mb, wb, mn=None, mx=None):
+def _both(ma, wa, mb, wb, mn=None, mx=None, c=C, k=K, sort_b=False):
     """(port outputs, Pallas outputs) as numpy, K1 when extrema are given,
-    else K2."""
+    else K2; compression c into k bins."""
     t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (ma, wa, mb, wb)]
     j = [jnp.asarray(a) for a in (ma, wa, mb, wb)]
     if mn is None:
-        port = tc.compress_presorted(*t, C, K)
-        ref = tp.compress_presorted(*j, C, K, interpret=True)
+        port = tc.compress_presorted(*t, c, k, sort_b=sort_b)
+        ref = tp.compress_presorted(*j, c, k, interpret=True, sort_b=sort_b)
     else:
         port = tc.drain_quantile(*t, torch.from_numpy(mn),
                                  torch.from_numpy(mx), torch.from_numpy(QS),
-                                 C, K)
+                                 c, k, sort_b=sort_b)
         ref = tp.drain_quantile(*j, jnp.asarray(mn), jnp.asarray(mx),
-                                jnp.asarray(QS), C, K, interpret=True)
+                                jnp.asarray(QS), c, k, interpret=True,
+                                sort_b=sort_b)
     return ([p.numpy() for p in port], [np.asarray(r) for r in ref])
 
 
@@ -352,3 +353,81 @@ def test_kernel_input_check_takes_compression_1000():
     s, _, half, m = tc._shapes(huge, huge)
     with pytest.raises(ValueError, match="merge width"):
         tc._check_kernel_inputs(huge, huge, huge, huge, 4097, m, half)
+
+
+# --- the narrow merge widths 16 and 32: the tiered pool's compaction -------
+
+# case -> (Ka, Kb, compression, out_size, inputs): the pool's K=16 at
+# compression 14 (tier_pool_centroids 16, merge width 32) and K=8 at 6
+# (tier_pool_centroids 8, width 16); halves of unequal width; out_size
+# below the half; and inputs with all-dead rows, one live centroid a
+# row, and the a half gap-filled as tiered._pool_compact builds it
+NARROW_CASES = {
+    "k16": (16, 16, 14.0, 16, "random"),
+    "k8": (8, 8, 6.0, 8, "random"),
+    "k16_kb9": (16, 9, 14.0, 16, "random"),
+    "k8_kb5": (8, 5, 6.0, 8, "random"),
+    "k16_out12": (16, 16, 14.0, 12, "random"),
+    "k8_out5": (8, 8, 6.0, 5, "random"),
+    "k16_dead_rows": (16, 16, 14.0, 16, "dead_rows"),
+    "k8_single_centroid": (8, 8, 6.0, 8, "single"),
+    "k16_gap_filled": (16, 16, 14.0, 16, "gap_filled"),
+}
+
+
+def _narrow_inputs(case: str, sort_b: bool, s: int = 37):
+    """Seeded halves for a NARROW_CASES case on an odd row count: the a
+    half ascending, the b half ascending with +inf empties last, or with
+    sort_b in a random order per row."""
+    ka, kb, _, _, how = NARROW_CASES[case]
+    rng = np.random.default_rng(sorted(NARROW_CASES).index(case))
+    ma, wa = _sorted_centroids(rng, s, ka, 30.0, 0.6)
+    mb, wb = _temp_half(rng, s, kb, 25.0, 0.5)
+    if how == "dead_rows":
+        ma[::4], wa[::4], mb[::4], wb[::4] = np.inf, 0.0, np.inf, 0.0
+    elif how == "single":
+        ma[:], wa[:], mb[:], wb[:] = np.inf, 0.0, np.inf, 0.0
+        ma[:, 0] = rng.gamma(2.0, 30.0, s)
+        wa[:, 0] = rng.integers(1, 5, s)
+    elif how == "gap_filled":
+        # dead slots: -inf before the first live one, the running max after
+        ma = np.maximum.accumulate(np.where(wa > 0, ma, -np.inf), axis=1)
+    if sort_b:
+        perm = np.argsort(rng.random((s, kb)), axis=1)
+        mb, wb = (np.take_along_axis(a, perm, 1) for a in (mb, wb))
+    return [np.ascontiguousarray(a, np.float32) for a in (ma, wa, mb, wb)]
+
+
+@pytest.mark.parametrize("sort_b", [False, True],
+                         ids=["presorted", "sort_b"])
+@pytest.mark.parametrize("kernel", ["drain_quantile", "compress_presorted"])
+@pytest.mark.parametrize("case", list(NARROW_CASES))
+def test_narrow_plain_matches_pallas_interpret(case, kernel, sort_b):
+    """K1 and K2 at merge widths 32 and 16, presorted and with sort_b:
+    the port's plain versions (what the narrow CUDA path is held to on
+    the card) against the Pallas kernels with interpret=True, at the
+    file's tolerances."""
+    ma, wa, mb, wb = _narrow_inputs(case, sort_b)
+    _, _, c, kout, _ = NARROW_CASES[case]
+    half = tc.next_pow2(max(ma.shape[1], mb.shape[1]))
+    assert tc.kernel_path(half, kout) == "narrow"
+    if kernel == "drain_quantile":
+        mn, mx = _extrema(ma, wa, mb, wb)
+        port, ref = _both(ma, wa, mb, wb, mn, mx, c=c, k=kout,
+                          sort_b=sort_b)
+        _assert_match(port, ref, wa, wb, mn, mx)
+    else:
+        port, ref = _both(ma, wa, mb, wb, c=c, k=kout, sort_b=sort_b)
+        _assert_match(port, ref, wa, wb)
+    assert port[0].shape == (ma.shape[0], kout)
+
+
+@pytest.mark.parametrize("half,out_size,path", [
+    (4, 4, "general"), (8, 8, "narrow"), (16, 12, "narrow"),
+    (16, 17, "general"), (32, 32, "warp"), (128, 104, "warp"),
+    (256, 256, "general"), (1024, 1008, "general")])
+def test_kernel_path_by_shape(half, out_size, path):
+    """The device path a shape takes, as csrc's launch_rows picks it: the
+    narrow path at half 8 and 16, the warp path at 32 to 128, the general
+    path for the rest and for out_size > half."""
+    assert tc.kernel_path(half, out_size) == path

@@ -18,14 +18,19 @@ K1 then runs the inverse-CDF for every requested quantile on the fresh
 bins. The kernel reads the b half at its own width and row stride and
 pads, reverses (or, with ``sort_b``, sorts) it in registers, so a call
 is input checks, ``torch.empty`` outputs and one launch. Merge widths
-up to 256 run a warp per row; wider ones (up to ``_MAX_MERGE_WIDTH``)
-a block per row.
+16 and 32 run a group of ``half / 2`` lanes a row (the narrow path), 64
+to 256 a warp a row, and wider ones (up to ``_MAX_MERGE_WIDTH``),
+narrower ones and ``out_size > half`` a block a row (the general path):
+:func:`kernel_path` names the path a shape takes.
 
 The gate is the tensor's device: a CUDA tensor goes to the kernel, a CPU
 tensor to the plain version (``*_plain`` below), anything else raises.
 There is no fallback from the kernel: a build or launch error
 propagates. Each wrapper counts its kernel launches in ``.launches``
-(presorted b half) and ``.sort_b_launches`` (K3).
+(presorted b half) and ``.sort_b_launches`` (K3); of those, the ones
+that took the narrow path also count in ``.narrow16_launches`` or
+``.narrow32_launches`` (by merge width) and those that took the general
+path in ``.general_launches``.
 
 The plain versions keep the JAX package's padding contract as separate
 passes: the b half is padded with +inf to ``half = next_pow2(max(Ka,
@@ -51,6 +56,18 @@ _MAX_MERGE_WIDTH = 4096
 
 def next_pow2(n: int) -> int:
     return 1 << (n - 1).bit_length()
+
+
+def kernel_path(half: int, out_size: int) -> str:
+    """The device path ``launch_rows`` (csrc) takes for halves padded to
+    ``half`` merged into ``out_size`` bins: "narrow" (half 8 or 16),
+    "warp" (half 32 to 128) or "general"."""
+    if out_size <= half:
+        if half in (8, 16):
+            return "narrow"
+        if 32 <= half <= 128:
+            return "warp"
+    return "general"
 
 
 def _use_kernel(*tensors: torch.Tensor) -> bool:
@@ -276,6 +293,8 @@ def _kernel_lib():
         lib.vt_compress_presorted.restype = _I
         lib.vt_error_string.argtypes = [_I]
         lib.vt_error_string.restype = ctypes.c_char_p
+        lib.vt_last_kernel_name.argtypes = []
+        lib.vt_last_kernel_name.restype = ctypes.c_char_p
         lib._vt_declared = True
     return lib
 
@@ -301,6 +320,12 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     """The plane with unit inner stride (the kernels take any row
     stride); copies only a plane whose columns are strided."""
     return t if t.shape[1] <= 1 or t.stride(1) == 1 else t.contiguous()
+
+
+def last_kernel_name() -> str:
+    """The (mangled) name of the device function that this thread's last
+    kernel launch ran, as the CUDA runtime names it ("" before any)."""
+    return _kernel_lib().vt_last_kernel_name().decode()
 
 
 def _raise_on(lib, err: int, name: str):
@@ -342,12 +367,22 @@ def launch_drain_quantile(mean_a, weight_a, mean_b, weight_b, mn, mx, qs,
     return om, ow, pct
 
 
-def _count(wrapper, s: int, sort_b: bool):
-    if s:
-        if sort_b:
-            wrapper.sort_b_launches += 1
-        else:
-            wrapper.launches += 1
+# every wrapper's launch counters: by mode, then (a share of those) by path
+COUNTERS = ("launches", "sort_b_launches", "narrow16_launches",
+            "narrow32_launches", "general_launches")
+
+
+def _count(wrapper, s: int, sort_b: bool, half: int, out_size: int):
+    if not s:
+        return
+    names = ["sort_b_launches" if sort_b else "launches"]
+    path = kernel_path(half, out_size)
+    if path == "narrow":
+        names.append(f"narrow{2 * half}_launches")
+    elif path == "general":
+        names.append("general_launches")
+    for name in names:
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def drain_quantile(mean_a, weight_a, mean_b, weight_b, mn, mx, qs,
@@ -368,12 +403,16 @@ def drain_quantile(mean_a, weight_a, mean_b, weight_b, mn, mx, qs,
                          "quantiles")
     out = launch_drain_quantile(mean_a, weight_a, mean_b, weight_b, mn, mx,
                                 qs, compression, out_size, sort_b)
-    _count(drain_quantile, s, sort_b)
+    _count(drain_quantile, s, sort_b, half, out_size)
     return out
 
 
-drain_quantile.launches = 0
-drain_quantile.sort_b_launches = 0
+def _init_counts(wrapper):
+    for name in COUNTERS:
+        setattr(wrapper, name, 0)
+
+
+_init_counts(drain_quantile)
 
 
 def launch_compress_presorted(mean_a, weight_a, mean_b, weight_b,
@@ -413,9 +452,8 @@ def compress_presorted(mean_a, weight_a, mean_b, weight_b,
                          half)
     out = launch_compress_presorted(mean_a, weight_a, mean_b, weight_b,
                                     compression, out_size, sort_b)
-    _count(compress_presorted, s, sort_b)
+    _count(compress_presorted, s, sort_b, half, out_size)
     return out
 
 
-compress_presorted.launches = 0
-compress_presorted.sort_b_launches = 0
+_init_counts(compress_presorted)
