@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and its native
-ingest and egress libraries (g++), side by side, then runs thirteen
+ingest and egress libraries (g++), side by side, then runs fourteen
 phases, each printing one JSON line (checkpoint two, capacity eight,
-mesh six):
+mesh six, grpc_proxy three):
 
   kernels  K1 drain_quantile and K2 compress_presorted at the flush's
            shape (1,048,576 rows, K=104, the store's 9 quantiles), each
@@ -115,6 +115,28 @@ mesh six):
            drains), which flushes columnar (K1); held to the same
            checks as global_merge, and printed beside its JSON leg's
            import and flush seconds;
+  grpc_proxy
+           gRPC forward and import, and the proxy tier. grpc_global: the
+           frames native_merge's two locals encoded (1,048,576 packed
+           digests, 32,768 sets, 4,096 counters a local) sent again by a
+           GRPCForwarder over loopback gRPC into an ImportServer on a
+           fresh dense global store (C++ decode, import_columnar, K2 on
+           its guard drains; one K2 a guard drain), which flushes (K1);
+           its rows equal the native:// global's bit for bit; the import
+           split, each local's send (and its wire share, less the
+           global's merge), frames and bytes. proxy_tier: two global
+           Servers with http_address and grpc_address (dense, and a mesh
+           4 x 2 with mesh_hosts 2) behind a Proxy with its HTTP and gRPC
+           listeners over a static ring of the two; local A (65,536
+           histogram series, 4,096 sets, counters and gauges) forwards
+           over gRPC to the proxy's gRPC port, local B (the same names,
+           its distribution shifted) over HTTP to its /import, and the
+           same two locals forward to a third, dense global directly:
+           every series on exactly one of the two globals (so both
+           transports routed it to the same one), their union equal to
+           the direct global (counters, gauges, extrema, counts and set
+           estimates exact, percentiles within rtol 1e-5), every metric
+           proxied with no error; each transport's fan-out seconds;
   mesh     the mesh-sharded global tier on a 4 x 2 shard mesh (the
            card eight times: series shards are row blocks of one plane,
            the hosts axis a leading dimension): GlobalAggregator.step at
@@ -208,7 +230,8 @@ fails.
 The launch counts in the kernel summary are the sum over the store,
 ingest (its two intervals), ssf (its main path), heavy_hitters (its two
 Servers), overload (the series cap's flush), global_merge, native_merge,
-mesh, server_global, checkpoint (the kill and restart, and the ladder)
+grpc_proxy (its globals and locals), mesh, server_global, checkpoint
+(the kill and restart, and the ladder)
 and capacity phases (its oracles and plain-version holds excepted); the
 summary's butterfly row counts the mesh phase's butterfly K2 alone, and
 its width-32, width-16 and general-path rows the launches that took
@@ -1335,107 +1358,100 @@ def _native_local(dev, chunk, vals, set_owner, set_hashes, set_series,
     return rec, weights
 
 
-def run_native_merge(dev, rows: int, set_series: int, gcounters: int,
-                     chunk: int):
-    """Two port locals A and B (the global_merge traffic) flush with
-    digest_format="packed" and send through real NativeForwarders over
-    loopback TCP into a real NativeImportServer on a port global, which
-    decodes the frames in C++, assigns rows through the C++ MetricList
-    table, bulk-stages them (import_columnar; K2 on the import drains)
-    and flushes in the default columnar shape (K1). Checks
-    conservation, extrema, percentiles, counters and set estimates.
-    Returns the record."""
-    from veneur_tpu_torch.core import store as store_mod
-    from veneur_tpu_torch.core.store import MetricStore
-    from veneur_tpu_torch.forward.native_transport import (
-        NativeForwarder, NativeImportServer)
-    from veneur_tpu_torch.native import egress
-    from veneur_tpu_torch.ops import tdigest as td
-    from veneur_tpu_torch.ops import tdigest_cuda as tc
-    from veneur_tpu_torch.samplers.intermetric import HistogramAggregates
+class _ImportProbe:
+    """Times a port global store's columnar import, the same way for the
+    native:// and the gRPC import server: the C++ decode, the miss loop
+    (``_intern_mlist``), ``import_columnar``, the import drains (device-
+    synchronized) and the server's handler (``handler``, its method
+    that runs one request or frame); counts the import drains and the
+    guard drains (each a K2 launch). A context manager: the module
+    functions it wraps are restored on exit."""
 
-    aggs = HistogramAggregates.from_names(["min", "max", "count"])
-    t = _global_merge_traffic(rows, set_series, gcounters)
-    rec = {"histogram_series": rows, "set_series": set_series,
-           "global_counters": gcounters, "chunk": chunk}
-    glob = MetricStore(initial_capacity=1024, chunk=chunk, device=dev)
-    gh = glob.histograms
-    srv = NativeImportServer(glob)
-    split = {"decode_s": 0.0, "miss_loop_s": 0.0, "import_columnar_s": 0.0,
-             "drains_s": 0.0, "merge_s": 0.0}
-    counts = {"import_drains": 0, "guard_drains": 0}
-    real = {"decode": egress.decode_metric_list, "drain": td.drain_temp}
+    def __init__(self, dev, glob, srv, handler: str):
+        self.dev, self.glob = dev, glob
+        self.split = {"decode_s": 0.0, "miss_loop_s": 0.0,
+                      "import_columnar_s": 0.0, "drains_s": 0.0,
+                      "merge_s": 0.0}
+        self.counts = {"import_drains": 0, "guard_drains": 0}
+        gh = glob.histograms
+        real_drain_imports = gh._drain_imports
 
-    def timed(key, fn, sync=False):
+        def drain_imports():
+            if gh._imp_fill:
+                self.counts["import_drains"] += 1
+            real_drain_imports()
+
+        gh._drain_imports = self._timed("drains_s", drain_imports,
+                                        sync=True)
+        glob._intern_mlist = self._timed("miss_loop_s", glob._intern_mlist)
+        glob.import_columnar = self._timed("import_columnar_s",
+                                           glob.import_columnar)
+        setattr(srv, handler, self._timed("merge_s", getattr(srv, handler)))
+
+    def _timed(self, key, fn, sync=False):
         def run(*args, **kwargs):
             if sync:
-                _sync(dev)
+                _sync(self.dev)
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
             finally:
                 if sync:
-                    _sync(dev)
-                split[key] += time.perf_counter() - t0
+                    _sync(self.dev)
+                self.split[key] += time.perf_counter() - t0
         return run
 
-    real_drain_imports = gh._drain_imports
+    def __enter__(self):
+        from veneur_tpu_torch.native import egress
+        from veneur_tpu_torch.ops import tdigest as td
 
-    def drain_imports():
-        if gh._imp_fill:
-            counts["import_drains"] += 1
-        real_drain_imports()
+        self._real = (egress.decode_metric_list, td.drain_temp)
 
-    def drain_temp(*args, **kwargs):
-        counts["guard_drains"] += 1
-        return real["drain"](*args, **kwargs)
+        def drain_temp(*args, **kwargs):
+            self.counts["guard_drains"] += 1
+            return self._real[1](*args, **kwargs)
 
-    egress.decode_metric_list = timed("decode_s", real["decode"])
-    td.drain_temp = drain_temp
-    gh._drain_imports = timed("drains_s", drain_imports, sync=True)
-    glob._intern_mlist = timed("miss_loop_s", glob._intern_mlist)
-    glob.import_columnar = timed("import_columnar_s", glob.import_columnar)
-    srv._merge = timed("merge_s", srv._merge)
-    srv.start("127.0.0.1:0")
-    fwd_weights, states = [], []
-    try:
-        for label in ("a", "b"):
-            keep = t[f"{label}_keep"]
-            fwd = NativeForwarder(f"native://127.0.0.1:{srv.port}",
-                                  timeout=600.0)
-            try:
-                local, weights = _native_local(
-                    dev, chunk, t[label], t["owner"][keep],
-                    t["universe"][keep], set_series, t[f"{label}_ctr"],
-                    aggs, fwd)
-            finally:
-                fwd.close()
-            states.append(local.pop("state"))
-            rec[f"local_{label}"] = local
-            fwd_weights.append(weights)
+        egress.decode_metric_list = self._timed("decode_s", self._real[0])
+        td.drain_temp = drain_temp
+        return self
+
+    def __exit__(self, *exc):
+        from veneur_tpu_torch.native import egress
+        from veneur_tpu_torch.ops import tdigest as td
+
+        egress.decode_metric_list, td.drain_temp = self._real
+
+    def final_drain(self):
+        """Drain what the imports left staged, timed whole (inside the
+        probe's context, so its guard drains count)."""
+        glob = self.glob
         t0 = time.perf_counter()
         with glob._lock:
-            gh._drain_staging()
+            glob.histograms._drain_staging()
             glob.sets._drain_staging()
-        _sync(dev)
-        split["final_drain_s"] = time.perf_counter() - t0
-    finally:
-        srv.stop()
-        egress.decode_metric_list = real["decode"]
-        td.drain_temp = real["drain"]
-    if srv.import_errors or srv.received != 2 * (rows + set_series
-                                                 + gcounters):
-        raise AssertionError(f"native import: {srv.received} merged, "
-                             f"{srv.import_errors} errors")
-    # the import: decode (C++), the row assignment with its miss loop,
-    # the numpy staging and the device drains it runs (K2 on the guard)
-    split["staging_s"] = (split["import_columnar_s"] - split["miss_loop_s"]
-                          - split["drains_s"])
-    split["drains_s"] += split["final_drain_s"]
-    rec["import_s"] = split["merge_s"] + split["final_drain_s"]
-    rec["import_split"] = split
-    rec.update(counts)
-    rec["imported"] = glob.imported
+        _sync(self.dev)
+        self.split["final_drain_s"] = time.perf_counter() - t0
+
+    def record(self, rec: dict) -> None:
+        """The import, split: decode (C++), the row assignment with its
+        miss loop, the numpy staging and the device drains it runs (K2
+        on the guard)."""
+        split = self.split
+        split["staging_s"] = (split["import_columnar_s"]
+                              - split["miss_loop_s"] - split["drains_s"])
+        split["drains_s"] += split["final_drain_s"]
+        rec["import_s"] = split["merge_s"] + split["final_drain_s"]
+        rec["import_split"] = split
+        rec.update(self.counts)
+        rec["imported"] = self.glob.imported
+
+
+def _flush_global(dev, glob, aggs, rows: int, rec: dict):
+    """A global store's columnar flush (K1, its device time by CUDA
+    events); returns (the ColumnarFlush, [weight, min, max] of the first
+    ``rows`` digest rows, their percentiles)."""
+    from veneur_tpu_torch.core import store as store_mod
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
 
     captured = []
     real_flush = store_mod._flush_digests
@@ -1464,12 +1480,79 @@ def run_native_merge(dev, rows: int, set_series: int, gcounters: int,
     digest, pcts = captured[0]
     merged = [x[:rows].cpu().numpy() for x in (digest.weight, digest.min,
                                                 digest.max)]
-    _check_native_merge(t, fwd_weights, merged, pcts[:rows, :-1].cpu()
-                        .numpy(), flushed, rows, set_series, gcounters, rec)
+    return flushed, merged, pcts[:rows, :-1].cpu().numpy()
+
+
+def run_native_merge(dev, rows: int, set_series: int, gcounters: int,
+                     chunk: int):
+    """Two port locals A and B (the global_merge traffic) flush with
+    digest_format="packed" and send through real NativeForwarders over
+    loopback TCP into a real NativeImportServer on a port global, which
+    decodes the frames in C++, assigns rows through the C++ MetricList
+    table, bulk-stages them (import_columnar; K2 on the import drains)
+    and flushes in the default columnar shape (K1). Checks
+    conservation, extrema, percentiles, counters and set estimates.
+    Keeps the frames each local sent for the grpc_proxy phase. Returns
+    the record."""
+    from veneur_tpu_torch.core.store import MetricStore
+    from veneur_tpu_torch.forward import native_transport as tnt
+    from veneur_tpu_torch.samplers.intermetric import HistogramAggregates
+
+    aggs = HistogramAggregates.from_names(["min", "max", "count"])
+    t = _global_merge_traffic(rows, set_series, gcounters)
+    rec = {"histogram_series": rows, "set_series": set_series,
+           "global_counters": gcounters, "chunk": chunk}
+    glob = MetricStore(initial_capacity=1024, chunk=chunk, device=dev)
+    srv = tnt.NativeImportServer(glob)
+    probe = _ImportProbe(dev, glob, srv, "_merge")
+    # the frames each local's forward encoded, sent again over gRPC by
+    # the grpc_proxy phase
+    sent, real_encode = [], tnt.encode_forwardable_frames
+
+    def encode(*args, **kwargs):
+        frames = real_encode(*args, **kwargs)
+        sent.append(list(frames))
+        return frames
+
+    srv.start("127.0.0.1:0")
+    fwd_weights, states = [], []
+    try:
+        with probe:
+            tnt.encode_forwardable_frames = encode
+            for label in ("a", "b"):
+                keep = t[f"{label}_keep"]
+                fwd = tnt.NativeForwarder(f"native://127.0.0.1:{srv.port}",
+                                          timeout=600.0)
+                try:
+                    local, weights = _native_local(
+                        dev, chunk, t[label], t["owner"][keep],
+                        t["universe"][keep], set_series, t[f"{label}_ctr"],
+                        aggs, fwd)
+                finally:
+                    fwd.close()
+                states.append(local.pop("state"))
+                rec[f"local_{label}"] = local
+                fwd_weights.append(weights)
+            probe.final_drain()
+    finally:
+        tnt.encode_forwardable_frames = real_encode
+        srv.stop()
+    if srv.import_errors or srv.received != 2 * (rows + set_series
+                                                 + gcounters):
+        raise AssertionError(f"native import: {srv.received} merged, "
+                             f"{srv.import_errors} errors")
+    probe.record(rec)
+    flushed, merged, pcts = _flush_global(dev, glob, aggs, rows, rec)
+    _check_native_merge(t, fwd_weights, merged, pcts, flushed, rows,
+                        set_series, gcounters, rec)
     # the mesh phase sends the same two states into a mesh global and
-    # holds its flush to this dense global's
+    # holds its flush to this dense global's; the grpc_proxy phase sends
+    # the same frames over gRPC and holds its flush bit for bit
     _RECORDS["native_merge_states"] = (states, flushed, rows, set_series,
                                        gcounters)
+    _RECORDS["native_merge_frames"] = dict(
+        frames=sent, flushed=flushed, rows=rows, set_series=set_series,
+        gcounters=gcounters, chunk=chunk, native=rec)
     return rec
 
 
@@ -1566,6 +1649,359 @@ def phase_native_merge(dev, card: str, rows: int = ROWS,
     rec["json_leg"] = {k: json_leg.get(k) for k in (
         "histogram_series", "import_s", "global_flush_s")}
     emit({"phase": "native_merge", "card": card, **rec})
+    return counts
+
+
+PROXY_SERIES = 1 << 16           # the proxy tier's histogram series a local
+PROXY_SETS = 4096                # its sets (each in both locals)
+PROXY_SCALARS = 4096             # its global-only counters and gauges
+
+
+def _same_flush(got, want) -> None:
+    """Two global ColumnarFlushes bit for bit: every block's names in
+    order, suffixes and values (NaN where NaN), and the extras."""
+    g, w = _blocks_by_prefix(got, 0), _blocks_by_prefix(want, 0)
+    if set(g) != set(w):
+        raise AssertionError(f"blocks {sorted(g)} vs {sorted(w)}")
+    for key, (blk, names) in g.items():
+        wblk, wnames = w[key]
+        if names != wnames or blk.suffixes != wblk.suffixes or not \
+                np.array_equal(_block_matrix(blk), _block_matrix(wblk),
+                               equal_nan=True):
+            raise AssertionError(f"group {key} differs from the native:// "
+                                 "global's")
+    gx = [(m.name, tuple(m.tags), m.value) for m in got.extras]
+    wx = [(m.name, tuple(m.tags), m.value) for m in want.extras]
+    if gx != wx:
+        raise AssertionError("extras differ from the native:// global's")
+
+
+def run_grpc_global(dev) -> dict:
+    """Leg (a) of grpc_proxy: the frames native_merge's two 1M-series
+    locals encoded (packed digests, sets, global-only counters) go again,
+    unchanged, through GRPCForwarder.send_frames over loopback gRPC into
+    an ImportServer on a fresh dense global store (the same chunk and
+    capacity), which decodes them in C++ and merges them through
+    import_columnar (K2 on its guard drains) and flushes columnar (K1).
+    Its rows must equal the native:// global's bit for bit. Prints the
+    import split, each local's send (through the last reply, and less
+    the global's merge: the wire), frames and bytes. Returns the record
+    and the launch counts."""
+    from veneur_tpu_torch.core.store import MetricStore
+    from veneur_tpu_torch.forward.grpc_forward import (GRPCForwarder,
+                                                       ImportServer)
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.samplers.intermetric import HistogramAggregates
+
+    src = _RECORDS.pop("native_merge_frames")
+    rows, set_series, gcounters = (src["rows"], src["set_series"],
+                                   src["gcounters"])
+    aggs = HistogramAggregates.from_names(["min", "max", "count"])
+    rec = {"histogram_series": rows, "set_series": set_series,
+           "global_counters": gcounters, "chunk": src["chunk"]}
+    _reset_counts(tc)
+    glob = MetricStore(initial_capacity=1024, chunk=src["chunk"],
+                       device=dev)
+    srv = ImportServer(glob)
+    probe = _ImportProbe(dev, glob, srv, "_send_metrics")
+    srv.start("127.0.0.1:0")
+    try:
+        with probe:
+            for label, frames in zip("ab", src["frames"]):
+                merge0 = probe.split["merge_s"]
+                fwd = GRPCForwarder(f"127.0.0.1:{srv.port}", timeout=600.0)
+                try:
+                    if fwd.send_frames(frames) is not True:
+                        raise AssertionError(f"gRPC send failed "
+                                             f"({fwd.errors} errors)")
+                finally:
+                    fwd.close()
+                # the digest frames come first; their rows are the series
+                done, digest_bytes = 0, 0
+                for payload, n in frames:
+                    if done >= rows:
+                        break
+                    done += n
+                    digest_bytes += len(payload)
+                send_s = fwd.post_durations[-1]
+                rec[f"local_{label}"] = {
+                    "send_s": send_s,
+                    "wire_s": send_s - (probe.split["merge_s"] - merge0),
+                    "frames": len(fwd.post_content_lengths),
+                    "wire_bytes": sum(fwd.post_content_lengths),
+                    "digest_wire_bytes": digest_bytes,
+                    "retries": fwd.retries}
+            probe.final_drain()
+    finally:
+        srv.stop()
+    if srv.import_errors or srv.received != 2 * (rows + set_series
+                                                 + gcounters):
+        raise AssertionError(f"gRPC import: {srv.received} merged, "
+                             f"{srv.import_errors} errors")
+    probe.record(rec)
+    flushed, _, _ = _flush_global(dev, glob, aggs, rows, rec)
+    counts = _counts(tc)
+    _same_flush(flushed, src["flushed"])
+    rec["rows_equal_native_global"] = True
+    k1, k2 = counts["drain_quantile.launches"], \
+        counts["compress_presorted.launches"]
+    if k1 < 1 or k2 < 1 or k2 != rec["guard_drains"]:
+        raise AssertionError(f"the gRPC global launched K1 {k1}x, K2 {k2}x "
+                             f"({rec['guard_drains']} guard drains)")
+    nat = src["native"]
+    rec["native_leg"] = {
+        "import_s": nat["import_s"], "global_flush_s": nat["global_flush_s"],
+        "send_s": [nat[f"local_{x}"]["send_s"] for x in "ab"],
+        "wire_bytes": [nat[f"local_{x}"]["wire_bytes"] for x in "ab"]}
+    rec["launches"] = counts
+    return rec, counts
+
+
+def _fed_local(dev, t, label: str, address: str, grpc: bool):
+    """A port local Server (no listener) forwarding to ``address`` (over
+    gRPC, else HTTP), fed local ``label``'s share of ``t`` through its
+    store: histograms p.h.<i> (4 samples), sets p.s.<i>, global-only
+    counters p.c.<i> and gauges p.g.<label>.<i>. Started; the caller
+    flushes and shuts it down."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.samplers.parser import MetricKey, parse_metric
+    from veneur_tpu_torch.server import Server
+
+    local = Server(Config(
+        interval="86400s", hostname=f"local-{label}",
+        percentiles=list(PERCENTILES), aggregates=["min", "max", "count"],
+        forward_address=address, forward_use_grpc=grpc,
+        forward_timeout="600s"), device=dev)
+    local.start()
+    vals, keep = t[label], t[f"{label}_keep"]
+    series, nsets = len(vals), len(t["card"])
+    store = local.store
+    with store._lock:
+        hist, sets = store.histograms, store.sets
+        for i in range(series):
+            hist.interner.intern(MetricKey(f"p.h.{i}", "histogram", ""), [])
+        hist.ensure_capacity(series - 1)
+        hist.sample_many(np.repeat(np.arange(series, dtype=np.int32), 4),
+                         vals.reshape(-1), np.ones(vals.size, np.float32))
+        for i in range(nsets):
+            sets.interner.intern(MetricKey(f"p.s.{i}", "set", ""), [])
+        sets.ensure_capacity(nsets - 1)
+        sets.sample_many(t["owner"][keep], t["universe"][keep])
+    for i, v in enumerate(t[f"{label}_ctr"]):
+        store.process_metric(parse_metric(
+            f"p.c.{i}:{int(v)}|c|#veneurglobalonly".encode()))
+        store.process_metric(parse_metric(
+            f"p.g.{label}.{i}:{int(v) + 0.5}|g|#veneurglobalonly".encode()))
+    return local
+
+
+def _proxy_globals(dev, mesh_too: bool):
+    """Global Servers with http_address and grpc_address and a columnar
+    recording sink: a dense one, and with ``mesh_too`` a mesh one
+    (mesh_enabled, mesh_hosts 2, 4 x 2 on the card)."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.server import Server
+
+    out = []
+    for mesh in ((False, True) if mesh_too else (False,)):
+        sink = _ColumnarRecorder()
+        server = Server(Config(
+            http_address="127.0.0.1:0", grpc_address="127.0.0.1:0",
+            interval="86400s", percentiles=list(PERCENTILES),
+            aggregates=["min", "max", "count"],
+            hostname="mesh" if mesh else "dense", mesh_enabled=mesh,
+            mesh_hosts=MESH_HOSTS if mesh else 0), metric_sinks=[sink],
+            device=dev, mesh=_shard_mesh(dev) if mesh else None)
+        server.start()
+        out.append((server, sink))
+    return out
+
+
+def _forward_pair(dev, t, globs, grpc_address: str, http_address: str,
+                  rec: dict) -> int:
+    """Local A over gRPC to ``grpc_address``, then local B over HTTP to
+    ``http_address``; each forward lands in ``globs`` (their imports,
+    summed, reach what the local sent) before the next starts. Returns
+    the metrics sent."""
+    sent = 0
+    for label, grpc, address in (("a", True, grpc_address),
+                                 ("b", False, http_address)):
+        local = _fed_local(dev, t, label, address, grpc)
+        try:
+            t0 = time.perf_counter()
+            local.flush()
+            if local.wait_forward(600) is not True:
+                raise AssertionError(f"local {label}'s forward failed "
+                                     f"({local.forwarder.errors} errors)")
+            sent += local.forwarder.forwarded
+            _wait_for(lambda: sum(g.store.imported for g, _ in globs)
+                      >= sent, 600, f"local {label}'s metrics imported")
+            rec[f"local_{label}_s"] = time.perf_counter() - t0
+            rec[f"local_{label}_forwarded"] = local.forwarder.forwarded
+        finally:
+            local.shutdown()
+    if sum(g.store.imported for g, _ in globs) != sent:
+        raise AssertionError("the globals imported more than was sent")
+    return sent
+
+
+def _global_rows(server, sink) -> tuple:
+    """One flush of a global Server: ({group: {name: row}}, {extra key:
+    value}, the suffixes)."""
+    from veneur_tpu_torch import flusher
+
+    flusher.flush_once(server)
+    col = sink.flushes.get(timeout=120)
+    groups, sfx = {}, {}
+    for key, (blk, names) in _blocks_by_prefix(col, 1).items():
+        groups[key] = dict(zip(names, _block_matrix(blk)))
+        sfx[key] = [x.decode() for x in blk.suffixes]
+    extras = {(m.name, tuple(m.tags)): m.value for m in col.extras}
+    return groups, extras, sfx
+
+
+def run_proxy_tier(dev, series: int = PROXY_SERIES, sets: int = PROXY_SETS,
+                   scalars: int = PROXY_SCALARS) -> dict:
+    """Leg (b) of grpc_proxy: two globals (dense, and mesh 4 x 2), each
+    serving /import and gRPC, behind one Proxy (HTTP and gRPC listeners)
+    over a StaticDiscoverer of the two (members are their HTTP
+    addresses; grpc_dial maps each to its gRPC import). Local A forwards
+    over gRPC to the proxy's gRPC port, local B over HTTP to its
+    /import; the same two locals forward directly to a third, dense
+    global. Held: every series on exactly one global, and both used (A
+    and B send every name, so HTTP and gRPC routed each series to the
+    same global); the union of the two globals' rows equals the
+    direct global's (counters, gauges, counts, extrema and set estimates
+    exact, percentiles within rtol 1e-5); the proxies proxied every
+    metric sent with no error or drop. Prints each transport's fan-out
+    seconds. Returns the record."""
+    from veneur_tpu_torch.config import ProxyConfig
+    from veneur_tpu_torch.discovery import StaticDiscoverer
+    from veneur_tpu_torch.protocol import mlist
+    from veneur_tpu_torch.proxy.proxy import Proxy
+
+    # the global_merge traffic's shapes at the proxy tier's size
+    t = _global_merge_traffic(series, sets, scalars)
+    rec = {"histogram_series": series, "set_series": sets,
+           "global_counters": scalars, "gauges_per_local": scalars}
+    pair = _proxy_globals(dev, mesh_too=True)
+    direct = _proxy_globals(dev, mesh_too=False)
+    proxy = None
+    real_split = mlist.split_metric_list
+    try:
+        members = [f"http://127.0.0.1:{g.ops_server.port}" for g, _ in pair]
+        dial = {m: f"127.0.0.1:{g.import_server.port}"
+                for m, (g, _) in zip(members, pair)}
+        proxy = Proxy(ProxyConfig(http_address="127.0.0.1:0",
+                                  grpc_forward_address="127.0.0.1:0",
+                                  forward_timeout="600s"),
+                      discoverer=StaticDiscoverer(members),
+                      grpc_dial=dial.get)
+        fan = {"http_fan_out_s": 0.0, "grpc_fan_out_s": 0.0,
+               "grpc_split_s": 0.0}
+        proxy._fan_out = _timed_into(fan, "http_fan_out_s", proxy._fan_out)
+        mlist.split_metric_list = _timed_into(fan, "grpc_split_s",
+                                              real_split)
+        proxy.start()
+        gsrv = proxy.grpc_server
+        gsrv.send_metrics = _timed_into(fan, "grpc_fan_out_s",
+                                        gsrv.send_metrics)
+        proxied = {}
+        sent = _forward_pair(dev, t, pair, f"127.0.0.1:{gsrv.port}",
+                             f"http://127.0.0.1:{proxy.port}", proxied)
+        mlist.split_metric_list = real_split
+        dsrv = direct[0][0]
+        direct_rec = {}
+        dsent = _forward_pair(
+            dev, t, direct, f"127.0.0.1:{dsrv.import_server.port}",
+            f"http://127.0.0.1:{dsrv.ops_server.port}", direct_rec)
+        rec.update(proxied_leg=proxied, direct_leg=direct_rec, **fan)
+        rec["proxy"] = proxy.vars()
+        if not (sent == dsent == proxied["local_a_forwarded"]
+                + proxied["local_b_forwarded"]
+                and gsrv.proxied == proxied["local_a_forwarded"]
+                and proxy.proxied == proxied["local_b_forwarded"]
+                and gsrv.forward_errors == proxy.forward_errors == 0
+                and gsrv.dropped == proxy.dropped == 0):
+            raise AssertionError(f"proxy counts: sent {sent}, direct "
+                                 f"{dsent}, {rec['proxy']}")
+        got = [_global_rows(g, sink) for g, sink in pair]
+        want = _global_rows(*direct[0])
+    finally:
+        mlist.split_metric_list = real_split
+        if proxy is not None:
+            proxy.shutdown()
+        for g, _ in pair + direct:
+            g.shutdown()
+    rec["per_global"] = {}
+    for (g, _), (groups, extras, _) in zip(pair, got):
+        rec["per_global"][g.config.hostname] = {
+            k: len(v) for k, v in groups.items()}
+        rec["per_global"][g.config.hostname]["extras"] = len(extras)
+    wgroups, wextras, wsfx = want
+    for key in ("h", "s"):
+        parts = [groups.get(key, {}) for groups, _, _ in got]
+        if not all(parts) or set(parts[0]) & set(parts[1]):
+            raise AssertionError(f"group {key}: a global holds none, or a "
+                                 "series is on both")
+        union = {**parts[0], **parts[1]}
+        if set(union) != set(wgroups[key]):
+            raise AssertionError(f"group {key}: the globals' series differ "
+                                 "from the direct global's")
+        names = sorted(union)
+        g = np.stack([union[n] for n in names])
+        w = np.stack([wgroups[key][n] for n in names])
+        pc = [i for i, x in enumerate(wsfx[key]) if x.endswith("percentile")]
+        other = [i for i in range(len(wsfx[key])) if i not in pc]
+        if any(sfx[key] != wsfx[key] for _, _, sfx in got):
+            raise AssertionError(f"group {key}: suffixes differ")
+        if not np.array_equal(g[:, other], w[:, other]):
+            raise AssertionError(f"group {key}: counts, extrema or "
+                                 "estimates differ from the direct global")
+        if pc:
+            rel = np.abs(g[:, pc] - w[:, pc]) / np.maximum(
+                np.abs(w[:, pc]), 1e-30)
+            rec[f"{key}_pct_rel_err_vs_direct"] = float(rel.max())
+            if rel.max() > 1e-5:
+                raise AssertionError(f"group {key}: percentiles off the "
+                                     f"direct global's by {rel.max():.3g}")
+    union_x = {**got[0][1], **got[1][1]}
+    if len(union_x) != len(got[0][1]) + len(got[1][1]) \
+            or union_x != wextras or len(wextras) != 3 * scalars:
+        raise AssertionError("counters or gauges differ from the direct "
+                             "global's")
+    return rec
+
+
+def phase_grpc_proxy(dev, card: str) -> dict:
+    """gRPC forward and import at full width (run_grpc_global: native_
+    merge's 2 x 1,048,576-series frames over gRPC, rows bit for bit the
+    native:// global's), then the proxy tier at 65,536 series a local
+    (run_proxy_tier); a line a leg. Returns the launch counts of both
+    (the JSON leg's locals and globals included)."""
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+
+    t_phase = time.perf_counter()
+    counts = {}
+    for name, run in (("grpc_global", lambda: run_grpc_global(dev)),
+                      ("proxy_tier", lambda: (run_proxy_tier(dev), None))):
+        _peak_reset(dev)
+        _reset_counts(tc)
+        t0 = time.perf_counter()
+        rec, c = run()
+        c = c or _counts(tc)
+        rec["subphase_s"] = time.perf_counter() - t0
+        rec["max_memory_allocated"] = _peak_bytes(dev)
+        if name == "proxy_tier":
+            # four locals and three globals each flush once
+            if c["drain_quantile.launches"] < 7:
+                raise AssertionError(f"the proxy tier launched {c}")
+            rec["launches"] = c
+        _add_counts(counts, c)
+        gc.collect()
+        emit({"phase": "grpc_proxy", "subphase": name, "card": card, **rec})
+    emit({"phase": "grpc_proxy", "card": card, "launches": counts,
+          "phase_s": time.perf_counter() - t_phase})
     return counts
 
 
@@ -6268,8 +6704,8 @@ def _kernel_rows(kern: dict, launches: dict) -> list:
 
 
 PHASES = ("store", "server", "ingest", "ssf", "heavy_hitters", "overload",
-          "global_merge", "native_merge", "mesh", "server_global",
-          "checkpoint", "capacity")
+          "global_merge", "native_merge", "grpc_proxy", "mesh",
+          "server_global", "checkpoint", "capacity")
 
 
 def main() -> int:
@@ -6334,6 +6770,7 @@ def main() -> int:
             "overload": lambda: phase_overload(dev, card),
             "global_merge": lambda: phase_global_merge(dev, card),
             "native_merge": lambda: phase_native_merge(dev, card),
+            "grpc_proxy": lambda: phase_grpc_proxy(dev, card),
             "mesh": lambda: phase_mesh(dev, card),
             "server_global": lambda: phase_server_global(dev, card),
             "checkpoint": lambda: phase_checkpoint(dev, card),

@@ -1,14 +1,17 @@
 """The port stands alone: veneur_tpu_torch and the scripts beside it
 (chip_smoke.py, chip_stages.py) import neither jax nor anything of
-veneur_tpu, nor protobuf or grpc (the card's machine has neither: the
-port decodes SSF with its own codec), and open no path under veneur_tpu/
-(the port builds and loads its own native library).
+veneur_tpu, nor protobuf (the port decodes SSF and MetricLists with its
+own codecs), and open no path under veneur_tpu/ (the port builds and
+loads its own native library). ``grpc`` is imported only inside the
+functions of the gRPC lanes and the proxy, never at module import: a
+gRPC key without grpcio raises at config time.
 
 An AST scan covers every import statement and every string that is not
 a docstring; a subprocess with ``jax``, ``veneur_tpu``,
 ``google.protobuf`` and ``grpc`` blocked from import then imports every
 module of the port and both scripts, so an import hidden behind a string
-or a call would fail there too.
+or a call would fail there too, and a module-level ``import grpc`` with
+it.
 """
 
 import ast
@@ -20,7 +23,10 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "veneur_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "veneur_tpu", "google.protobuf", "grpc")
+FORBIDDEN = ("jax", "jaxlib", "veneur_tpu", "google.protobuf")
+# blocked from import in the subprocess: the forbidden packages, and
+# grpc, which only the gRPC lanes' functions import
+BLOCKED = FORBIDDEN + ("grpc",)
 SCRIPTS = ("chip_smoke", "chip_stages")
 
 
@@ -137,6 +143,26 @@ def test_mesh_modules_are_covered():
             "veneur_tpu_torch.core.mesh_store"} <= set(_modules())
 
 
+def test_grpc_and_proxy_modules_are_covered():
+    """The gRPC forward and import, discovery, the proxy tier and its
+    binary are scanned and imported too; grpc is imported inside
+    functions only (no module-level import statement names it)."""
+    assert {"veneur_tpu_torch.forward.grpc_forward",
+            "veneur_tpu_torch.discovery", "veneur_tpu_torch.proxy.proxy",
+            "veneur_tpu_torch.proxy.grpc_proxy",
+            "veneur_tpu_torch.cli.proxy"} <= set(_modules())
+    top = []
+    for path in _sources():
+        for node in ast.parse(path.read_text(), str(path)).body:
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""]
+                     if isinstance(node, ast.ImportFrom) else [])
+            top += [(path.name, n) for n in names
+                    if n == "grpc" or n.startswith("grpc.")]
+    assert not top, top
+
+
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"
@@ -150,7 +176,7 @@ def test_imports_with_jax_blocked():
         "for mod in {mods!r}:\n"
         "    importlib.import_module(mod)\n"
         "print('imported', len({mods!r}))\n"
-    ).format(blocked=FORBIDDEN, mods=_modules())
+    ).format(blocked=BLOCKED, mods=_modules())
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)

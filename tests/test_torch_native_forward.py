@@ -782,8 +782,16 @@ def test_config_and_forwarder_choice():
     assert not fwd.wants_packed_digests and not fwd.supports_topk
     assert Config(hostname="h", native_import_address="127.0.0.1:0") \
         .native_import_address == "127.0.0.1:0"
-    with pytest.raises(UnsupportedConfig, match="grpc"):
-        Config(hostname="h", forward_address="h:1", forward_use_grpc=True)
+    # forward_use_grpc builds the gRPC forwarder (native:// still wins);
+    # without grpcio it raises (tests/test_torch_grpc.py)
+    grpc_srv = Srv()
+    grpc_srv.config = Config(hostname="h", forward_address="127.0.0.1:1",
+                             forward_use_grpc=True)
+    fwd = configure_forwarding(grpc_srv)
+    assert type(fwd).__name__ == "GRPCForwarder" and fwd.wants_packed_digests
+    fwd.close()
+    grpc_srv.config.forward_address = "native://h:1"
+    assert isinstance(configure_forwarding(grpc_srv), tnt.NativeForwarder)
 
 
 # ---------------------------------------------------------------------------

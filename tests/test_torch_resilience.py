@@ -8,6 +8,7 @@ merged batches, HTTP statuses); no tolerance applies.
 
 import json
 import socket
+import sys
 import threading
 import time
 import urllib.error
@@ -250,7 +251,7 @@ def test_bounded_inflate_caps_the_output():
     assert len(httpserv.bounded_inflate(bomb)) == 1 + 2 * 5000 + 2
 
 
-def test_config_knobs_match_jax_defaults():
+def test_config_knobs_match_jax_defaults(monkeypatch):
     """Defaults and validation of the egress knobs follow
     veneur_tpu/config.py; retry_max counts RE-tries."""
     j = JConfig()
@@ -267,8 +268,25 @@ def test_config_knobs_match_jax_defaults():
         .max_attempts == 1
     with pytest.raises(ValueError, match="breaker_failure_threshold"):
         Config(hostname="h", breaker_failure_threshold=-1)
-    with pytest.raises(UnsupportedConfig):
-        Config(hostname="h", forward_address="x:1", forward_use_grpc=True)
+    # the gRPC transport is ported: the key builds a GRPCForwarder with
+    # the same retry policy and breaker; without grpcio it raises
+    from veneur_tpu_torch.forward import configure_forwarding
+    from veneur_tpu_torch.forward.grpc_forward import GRPCForwarder
+
+    class Srv:
+        forward_fn = None
+        config = Config(hostname="h", forward_address="127.0.0.1:1",
+                        forward_use_grpc=True)
+
+    fwd = configure_forwarding(Srv())
+    assert isinstance(fwd, GRPCForwarder)
+    assert fwd.retry_policy == RetryPolicy.from_config(Srv.config)
+    assert fwd.breaker.failure_threshold == 5
+    fwd.close()
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "grpc", None)
+        with pytest.raises(UnsupportedConfig, match="grpcio"):
+            Config(hostname="h", forward_address="x:1", forward_use_grpc=True)
     # the framed-TCP lane is ported: native:// is a forward address
     assert Config(hostname="h", forward_address="native://x:1") \
         .forward_address == "native://x:1"

@@ -119,10 +119,32 @@ def test_rejected_lines_are_counted():
 
 
 def test_config_is_loud_about_unported_keys(tmp_path):
-    with pytest.raises(UnsupportedConfig, match="grpc_address"):
-        config_from_dict({"grpc_address": "127.0.0.1:1"})
-    with pytest.raises(UnsupportedConfig, match="HTTP forwarding"):
-        config_from_dict({"forward_address": "x:1", "forward_use_grpc": True})
+    # the gRPC keys are ported (the import server and the forwarder:
+    # tests/test_torch_grpc.py); without grpcio each raises
+    cfg = config_from_dict({"grpc_address": "127.0.0.1:0"})
+    server = Server(cfg, device="cpu")
+    server.start()
+    try:
+        assert type(server.import_server).__name__ == "ImportServer"
+        assert server.import_server.port > 0
+    finally:
+        server.shutdown()
+    assert config_from_dict({"forward_address": "x:1",
+                             "forward_use_grpc": True}).forward_use_grpc
+    import sys
+
+    real = sys.modules.get("grpc")
+    sys.modules["grpc"] = None
+    try:
+        for data in ({"grpc_address": "127.0.0.1:1"},
+                     {"forward_address": "x:1", "forward_use_grpc": True}):
+            with pytest.raises(UnsupportedConfig, match="grpcio"):
+                config_from_dict(data)
+    finally:
+        if real is None:
+            del sys.modules["grpc"]
+        else:
+            sys.modules["grpc"] = real
     # digest_storage is ported (dense, slab, tiered); another is an error
     assert config_from_dict({"digest_storage": "slab"}).digest_storage == \
         "slab"

@@ -1,11 +1,14 @@
-"""Configuration of the port's server: the keys this slice implements.
+"""Configuration of the port's server and proxy: the keys it implements.
 
-A YAML file (the veneur key names) maps onto :class:`Config`. A key this
+A YAML file (the veneur key names) maps onto :class:`Config`, and a
+proxy's onto :class:`ProxyConfig` (:func:`read_proxy_config`). A key this
 port does not implement yet raises :class:`UnsupportedConfig` instead of
 being ignored, unless its value is empty or off (``""``, ``[]``,
-``false``, ``null``). PyYAML is imported
-only inside :func:`read_config`: code that builds its ``Config`` directly
-never needs it.
+``false``, ``null``). PyYAML is imported only inside the readers: code
+that builds its config directly never needs it. The gRPC keys
+(``forward_use_grpc``, ``grpc_address``, a proxy's
+``grpc_forward_address``) need grpcio: without it they raise
+:class:`UnsupportedConfig`, never a quiet fall back to HTTP.
 """
 
 from __future__ import annotations
@@ -29,6 +32,39 @@ class UnsupportedConfig(ValueError):
 _BREAKER_THRESHOLD_DEFAULT = 5
 _SSF_SCHEMES = tuple(f"{s}://" for s in ("udp", "udp4", "udp6", "tcp",
                                           "tcp4", "tcp6", "unix"))
+
+
+def require_grpc(key: str) -> None:
+    """Raise UnsupportedConfig unless grpcio imports: a gRPC key never
+    falls back to another transport."""
+    try:
+        import grpc  # noqa: F401
+    except ImportError as e:
+        raise UnsupportedConfig(
+            f"{key} needs grpcio, which does not import here ({e}); "
+            f"install grpcio or forward over http:// or native://") from e
+
+
+def _check_fault_kinds(cfg, ported, who: str) -> None:
+    """The ``fault_injection_*`` keys: the rate in [0, 1], known kinds,
+    and (at a rate above 0) only kinds ``who`` has a hook for."""
+    if not 0.0 <= cfg.fault_injection_rate <= 1.0:
+        raise ValueError(f"fault_injection_rate must be in [0, 1], got "
+                         f"{cfg.fault_injection_rate}")
+    kinds = [k.strip() for k in cfg.fault_injection_kinds.split(",")
+             if k.strip()]
+    bad = [k for k in kinds if k not in faults.KNOWN_KINDS]
+    if bad:
+        raise ValueError(f"unknown fault_injection_kinds {bad}; known: "
+                         f"{list(faults.KNOWN_KINDS)}")
+    if cfg.fault_injection_rate > 0:
+        unported = [k for k in kinds or faults.ALL_KINDS
+                    if k not in ported]
+        if unported:
+            raise UnsupportedConfig(
+                f"fault_injection_kinds {unported} have no hook in "
+                f"{who} of veneur_tpu_torch yet (it injects "
+                f"{list(ported)}); run veneur_tpu for them")
 
 
 @dataclass
@@ -59,23 +95,27 @@ class Config:
     # (num_readers); N > 0 = N lanes; -1 = off (the C++ reader pool, else
     # the Python readers)
     ingest_lanes: int = 0
-    # global aggregation: a local forwards to forward_address (http://
-    # or native://host:port, the framed-TCP MetricList lane); a global
-    # serves POST /import (and /healthcheck, /version) on http_address
-    # and the framed-TCP import on native_import_address
+    # global aggregation: a local forwards to forward_address (http://,
+    # native://host:port, the framed-TCP MetricList lane, or host:port
+    # with forward_use_grpc); a global serves POST /import (and
+    # /healthcheck, /version) on http_address, the framed-TCP import on
+    # native_import_address and Forward.SendMetrics on grpc_address
     forward_address: str = ""
     http_address: str = ""
     native_import_address: str = ""
+    grpc_address: str = ""
     # per-flush forward budget: retries never push a forward past it
     forward_timeout: str = ""
     # forward in the reference's JSONMetric format (gob digests, axiomhq
     # sets), for a Go global
     forward_reference_compatible: bool = False
-    # only false: the gRPC transport is not ported
+    # forward over gRPC (Forward.SendMetrics; forward_address is the
+    # global's or a proxy's host:port); needs grpcio
     forward_use_grpc: bool = False
-    # native:// forwarding ships device-packed digests (u16 means,
-    # bfloat16 weights: tdigest fields 16/17); false keeps the dense
-    # float64 wire a global without those fields reads (HTTP ignores it)
+    # native:// and gRPC forwarding ship device-packed digests (u16
+    # means, bfloat16 weights: tdigest fields 16/17); false keeps the
+    # dense float64 wire a global without those fields reads (HTTP
+    # ignores it)
     forward_packed_digests: bool = True
     # RE-tries per forward (0 = one attempt; -1 = unset, defaults to 2)
     retry_max: int = -1
@@ -215,11 +255,9 @@ class Config:
                 raise UnsupportedConfig(
                     f"statsd_listen_addresses: {spec!r} is not a udp:// "
                     "address; TCP and UNIX listeners are not ported yet")
-        if self.forward_use_grpc:
-            raise UnsupportedConfig(
-                "only HTTP forwarding and native:// are ported: "
-                "forward_use_grpc needs grpcio and protobuf (run "
-                "veneur_tpu for it)")
+        if self.forward_use_grpc or self.grpc_address:
+            require_grpc("forward_use_grpc" if self.forward_use_grpc
+                         else "grpc_address")
         for spec in self.ssf_listen_addresses:
             if not spec.startswith(_SSF_SCHEMES):
                 raise UnsupportedConfig(
@@ -313,24 +351,7 @@ class Config:
             or compute.DEFAULT_FAILURE_THRESHOLD)
         self.compute_breaker_reset_timeout = (
             self.compute_breaker_reset_timeout or "60s")
-        if not 0.0 <= self.fault_injection_rate <= 1.0:
-            raise ValueError(f"fault_injection_rate must be in [0, 1], got "
-                             f"{self.fault_injection_rate}")
-        kinds = [k.strip() for k in self.fault_injection_kinds.split(",")
-                 if k.strip()]
-        bad = [k for k in kinds if k not in faults.KNOWN_KINDS]
-        if bad:
-            raise ValueError(f"unknown fault_injection_kinds {bad}; known: "
-                             f"{list(faults.KNOWN_KINDS)}")
-        if self.fault_injection_rate > 0:
-            unported = [k for k in kinds or faults.ALL_KINDS
-                        if k not in faults.PORTED_KINDS]
-            if unported:
-                raise UnsupportedConfig(
-                    f"fault_injection_kinds {unported} have no hook in "
-                    f"veneur_tpu_torch yet (it injects "
-                    f"{list(faults.PORTED_KINDS)}); run veneur_tpu for "
-                    f"them")
+        _check_fault_kinds(self, faults.SERVER_KINDS, "a Server")
         if self.digest_storage not in ("dense", "slab", "tiered"):
             raise ValueError(
                 f"digest_storage must be 'dense', 'slab' or 'tiered', "
@@ -466,3 +487,118 @@ def read_config(path: str) -> Config:
     if not isinstance(data, dict):
         raise ValueError("config must be a YAML mapping")
     return config_from_dict(data)
+
+
+@dataclass
+class ProxyConfig:
+    """veneur-proxy configuration (config_proxy.go:3-18; the JAX
+    package's ``ProxyConfig``), plus the egress-resilience keys the
+    server's :class:`Config` shares. Built directly, call
+    :meth:`finalize` (the :class:`~veneur_tpu_torch.proxy.proxy.Proxy`
+    does); :func:`read_proxy_config` does it for a file."""
+
+    consul_forward_service_name: str = ""
+    consul_refresh_interval: str = ""
+    consul_trace_service_name: str = ""
+    debug: bool = False
+    # not ported (profiling, item 11): only false
+    enable_profiling: bool = False
+    forward_address: str = ""
+    forward_timeout: str = ""
+    http_address: str = ""
+    # the cadence of the proxy's own runtime metrics, which go to
+    # stats_address; without it (refused below) nothing is emitted
+    runtime_metrics_interval: str = ""
+    # not ported (the self-telemetry plane, item 11): only empty
+    sentry_dsn: str = ""
+    ssf_destination_address: str = ""
+    stats_address: str = ""
+    trace_api_address: str = ""
+    # static /spans destination (no Consul trace service)
+    trace_address: str = ""
+    # the gRPC proxy's listener (Forward.SendMetrics); needs grpcio
+    grpc_forward_address: str = ""
+    retry_max: int = -1
+    retry_base_interval: str = ""
+    breaker_failure_threshold: int = 0
+    breaker_reset_timeout: str = ""
+    # the proxy arms the churn kinds (its discovery refresh)
+    fault_injection_rate: float = 0.0
+    fault_injection_seed: int = 0
+    fault_injection_kinds: str = ""
+    fault_injection_scope: str = ""
+
+    def finalize(self) -> "ProxyConfig":
+        """Refuse what the port does not implement, fill the defaults and
+        check the durations; idempotent."""
+        for key in ("enable_profiling", "sentry_dsn",
+                    "ssf_destination_address", "stats_address",
+                    "trace_api_address"):
+            if getattr(self, key) not in _OFF_VALUES:
+                raise UnsupportedConfig(
+                    f"proxy key {key} is not implemented by "
+                    f"veneur_tpu_torch yet (run veneur_tpu for it)")
+        if self.grpc_forward_address:
+            require_grpc("grpc_forward_address")
+        if self.breaker_failure_threshold < 0:
+            raise ValueError(
+                f"breaker_failure_threshold must be >= 0 (0 = use the "
+                f"default, {_BREAKER_THRESHOLD_DEFAULT}; breakers cannot "
+                f"be disabled), got {self.breaker_failure_threshold}")
+        _check_fault_kinds(self, faults.PROXY_KINDS, "the proxy")
+        self.consul_refresh_interval = self.consul_refresh_interval or "30s"
+        self.forward_timeout = self.forward_timeout or "10s"
+        if self.retry_max < 0:
+            self.retry_max = 2
+        self.retry_base_interval = self.retry_base_interval or "100ms"
+        self.breaker_failure_threshold = (self.breaker_failure_threshold
+                                          or _BREAKER_THRESHOLD_DEFAULT)
+        self.breaker_reset_timeout = self.breaker_reset_timeout or "30s"
+        for name in ("consul_refresh_interval", "forward_timeout",
+                     "retry_base_interval", "breaker_reset_timeout"):
+            parse_duration(getattr(self, name))  # malformed raises here
+        if self.runtime_metrics_interval:
+            parse_duration(self.runtime_metrics_interval)
+        return self
+
+    @property
+    def forward_timeout_seconds(self) -> float:
+        return parse_duration(self.forward_timeout)
+
+    @property
+    def refresh_interval_seconds(self) -> float:
+        return parse_duration(self.consul_refresh_interval)
+
+    @property
+    def retry_base_interval_seconds(self) -> float:
+        return parse_duration(self.retry_base_interval)
+
+    @property
+    def breaker_reset_timeout_seconds(self) -> float:
+        return parse_duration(self.breaker_reset_timeout)
+
+
+def proxy_config_from_dict(data: dict) -> ProxyConfig:
+    """ProxyConfig from a parsed mapping, finalized; a key the proxy does
+    not know raises UnsupportedConfig (switched-off values excepted)."""
+    known = {f.name for f in dataclasses.fields(ProxyConfig)}
+    unsupported = sorted(
+        k for k, v in data.items()
+        if k not in known and v not in _OFF_VALUES)
+    if unsupported:
+        raise UnsupportedConfig(
+            f"proxy configuration keys not implemented by veneur_tpu_torch "
+            f"yet: {unsupported} (run veneur_tpu for these)")
+    return ProxyConfig(**{k: v for k, v in data.items()
+                          if k in known and v is not None}).finalize()
+
+
+def read_proxy_config(path: str) -> ProxyConfig:
+    """Load a veneur-proxy YAML file (``example_proxy.yaml``)."""
+    import yaml  # the card's machine may lack PyYAML; only files need it
+
+    with open(path) as f:
+        data = yaml.safe_load(f) or {}
+    if not isinstance(data, dict):
+        raise ValueError("proxy config must be a YAML mapping")
+    return proxy_config_from_dict(data)

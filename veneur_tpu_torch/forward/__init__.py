@@ -1,12 +1,14 @@
 """Forwarding tier of the port: a local's sketch state to a global over
-HTTP ``POST /import`` (flusher.go:292-385, http.go:41-143) or over the
-framed-TCP MetricList lane (``native://``, ``native_transport.py``).
+HTTP ``POST /import`` (flusher.go:292-385, http.go:41-143), over gRPC
+``Forward.SendMetrics`` (flusher.go:424-473, ``grpc_forward.py``) or over
+the framed-TCP MetricList lane (``native://``, ``native_transport.py``).
 
-Port of ``veneur_tpu/forward/`` but for gRPC. The HTTP import side reads
-both our structured JSON and the reference's gob/axiomhq entries, and
+Port of ``veneur_tpu/forward/``. The HTTP import side reads both our
+structured JSON and the reference's gob/axiomhq entries, and
 ``forward_reference_compatible`` makes a local send the reference's
-format. The gRPC transport needs protobuf and grpc, which the card's
-machine lacks: :class:`~veneur_tpu_torch.config.Config` refuses it.
+format. The gRPC and native lanes send the same MetricList frames and
+merge them through the same ``import_columnar`` body; neither needs
+protobuf, and gRPC needs grpcio, which the config checks.
 """
 
 from veneur_tpu_torch.forward.convert import (apply_json_metric,
@@ -28,12 +30,14 @@ __all__ = [
 
 def configure_forwarding(server):
     """Attach the configured forwarder to a local server
-    (flusher.go:66-75): ``native://host:port`` the framed-TCP one, any
-    other address the HTTP one; each with the retry policy, a breaker
-    for the one upstream destination and ``forward_timeout`` as its
-    per-flush budget. ``forward_packed_digests: false`` keeps the
-    native wire's digests dense (float64 centroids). Returns the
-    forwarder, or None when ``forward_address`` is unset."""
+    (flusher.go:66-75, server.go:626-635): ``native://host:port`` the
+    framed-TCP one, else with ``forward_use_grpc`` the gRPC one, else
+    the HTTP one; each with the retry policy, a breaker for the one
+    upstream destination and ``forward_timeout`` as its per-flush
+    budget. ``forward_packed_digests: false`` keeps the native and gRPC
+    wires' digests dense (float64 centroids), for a global that does
+    not read the quantized fields. Returns the forwarder, or None when
+    ``forward_address`` is unset."""
     from veneur_tpu_torch.resilience import CircuitBreaker, RetryPolicy
 
     cfg = server.config
@@ -52,9 +56,15 @@ def configure_forwarding(server):
             NativeForwarder
 
         fwd = NativeForwarder(cfg.forward_address, **resilience)
-        if not cfg.forward_packed_digests:
-            fwd.wants_packed_digests = False
+    elif cfg.forward_use_grpc:
+        from veneur_tpu_torch.forward.grpc_forward import GRPCForwarder
+
+        fwd = GRPCForwarder(cfg.forward_address, **resilience)
     else:
         fwd = HTTPForwarder(cfg.forward_address, **resilience)
+    if not cfg.forward_packed_digests:
+        # HTTP ignores it (its JSON wire carries no packed digests)
+        fwd.wants_packed_digests = False
     server.forward_fn = fwd.forward
     return fwd
+

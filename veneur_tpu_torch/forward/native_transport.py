@@ -79,10 +79,10 @@ def encode_forwardable_frames(state, compression: float,
     at most ``chunk_bytes`` but for a single metric larger alone. Each
     frame is a complete MetricList (protobuf messages concatenate). The
     counterpart of the JAX package's ``encode_forwardable_frames``
-    (``forward/grpc_forward.py:35``), which its gRPC and native
-    forwarders share; here it has no gRPC caller. Unlike it, the rest
-    of the state is cut to ``chunk_bytes`` too: one frame holds at most
-    ``MAX_FRAME``."""
+    (``forward/grpc_forward.py:35``); as there, the native and the gRPC
+    forwarders (``grpc_forward.py``) share it. Unlike it, the rest of
+    the state is cut to ``chunk_bytes`` too: one frame holds at most
+    ``MAX_FRAME``, under the gRPC channel's bound."""
     frames = []
     for attr, pb_type in (("histograms_columnar", mlist.HISTOGRAM),
                           ("timers_columnar", mlist.TIMER)):
@@ -115,6 +115,18 @@ def encode_forwardable_frames(state, compression: float,
                                       reference_compat=reference_compat,
                                       max_bytes=chunk_bytes)
     return frames
+
+
+def import_metric_list(store, data: bytes) -> Tuple[int, int]:
+    """Merge one serialized MetricList into ``store``: the C++ decode,
+    then ``MetricStore.import_columnar``, the one import body of the
+    native and the gRPC lanes. Returns (merged, rejected) metrics;
+    raises when the frame cannot be decoded or merged."""
+    dec = egress.decode_metric_list(data, copy=False)
+    try:
+        return store.import_columnar(dec, data)
+    finally:
+        dec.close()
 
 
 class NativeImportServer:
@@ -199,11 +211,7 @@ class NativeImportServer:
 
     def _merge(self, data: bytes) -> int:
         try:
-            dec = egress.decode_metric_list(data, copy=False)
-            try:
-                n_ok, n_err = self._store.import_columnar(dec, data)
-            finally:
-                dec.close()
+            n_ok, n_err = import_metric_list(self._store, data)
         except Exception:
             log.exception("native import frame failed")
             with self._lock:

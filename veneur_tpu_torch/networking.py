@@ -99,6 +99,41 @@ def _udp_read_loop(sock: socket.socket, max_len: int,
         sock.close()
 
 
+def warn_for_stream_addr(addr_str: str) -> None:
+    """Probe a ``host:port`` / ``[v6]:port`` stream address (the gRPC
+    listeners' format) with a plain bind before the real, SO_REUSEPORT
+    one: when another process already serves the port, say so, since
+    the two would split its traffic. Best effort: a probe that cannot
+    be made stays quiet and the real bind reports the error."""
+    host, _, port_s = addr_str.rpartition(":")
+    host = host.strip("[]")
+    try:
+        port = int(port_s)
+    except ValueError:
+        return
+    if not port:
+        return
+    if ":" in host or host in ("", "::"):
+        family, wildcard = socket.AF_INET6, "::"
+    else:
+        family, wildcard = socket.AF_INET, "0.0.0.0"
+    probe = None
+    try:
+        probe = socket.socket(family, socket.SOCK_STREAM)
+        # REUSEADDR: a TIME_WAIT left by a restart is no second instance
+        probe.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        probe.bind((host or wildcard, port))
+    except OSError as e:
+        if e.errno == errno.EADDRINUSE:
+            log.warning(
+                "port %s:%d is already being served by another process; "
+                "binding alongside it (SO_REUSEPORT), so its traffic will "
+                "be split between the two", host or wildcard, port)
+    finally:
+        if probe is not None:
+            probe.close()
+
+
 def new_tcp_listener(family: int, host: str, port: int,
                      backlog: int = 128) -> socket.socket:
     """A bound, listening TCP socket with SO_REUSEPORT where available."""

@@ -32,20 +32,23 @@ the C++ decoder reads as a counter of 0, while a Metric with no value
 member is a metric with no value. Digest groups forwarded as planes are
 not written here: the C++ encoders (``native/egress.py``) write them.
 
-The reader parses a ``TopKSketch`` (the global's import needs it);
-malformed bytes raise :class:`~veneur_tpu_torch.protocol.ssf.DecodeError`.
+The reader parses a ``TopKSketch`` (the global's import needs it), and
+:func:`split_metric_list` walks a MetricList's ``metrics`` for the gRPC
+proxy; malformed bytes raise
+:class:`~veneur_tpu_torch.protocol.ssf.DecodeError`.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from veneur_tpu_torch.protocol.ssf import (DecodeError, _read_len,
-                                           _read_tag, _read_varint, _skip,
-                                           _str, _varint)
+from veneur_tpu_torch.protocol.ssf import (DecodeError, _int32,
+                                           _read_len, _read_tag,
+                                           _read_varint, _skip, _str,
+                                           _varint)
 
 # metricpb.Type
 COUNTER, GAUGE, HISTOGRAM, SET, TIMER = range(5)
@@ -213,7 +216,56 @@ def decode_topk(data: bytes) -> TopKSketch:
     return TopKSketch(depth, width, table, series)
 
 
+class MetricSpan(NamedTuple):
+    """One ``metrics`` entry of a serialized MetricList: ``data[start:
+    end]`` is its whole field record (tag, length, Metric), and the key
+    fields read from the Metric's own fields."""
+    start: int
+    end: int
+    name: str
+    type: int
+    tags: List[str]
+
+
+def _metric_key(buf, pos: int, end: int) -> Tuple[str, int, List[str]]:
+    name, pb_type, tags = "", 0, []
+    while pos < end:
+        field, wt, pos = _read_tag(buf, pos, end)
+        if field in (1, 2) and wt == 2:
+            a, pos = _read_len(buf, pos, end)
+            if field == 1:
+                name = _str(buf, a, pos)
+            else:
+                tags.append(_str(buf, a, pos))
+        elif field == 3 and wt == 0:
+            v, pos = _read_varint(buf, pos, end)
+            pb_type = _int32(v)
+        else:
+            pos = _skip(buf, pos, end, field, wt)
+    return name, pb_type, tags
+
+
+def split_metric_list(data: bytes) -> List[MetricSpan]:
+    """The ``metrics`` entries of a serialized MetricList, in order, each
+    with its byte span and key. Other top-level fields (``topk``) are
+    skipped. Repeated fields concatenate, so the records of any subset,
+    joined, are a MetricList of those metrics: the gRPC proxy routes
+    spans without re-encoding a metric."""
+    buf = memoryview(data)
+    pos, end = 0, len(buf)
+    out: List[MetricSpan] = []
+    while pos < end:
+        start = pos
+        field, wt, pos = _read_tag(buf, pos, end)
+        if field == 1 and wt == 2:
+            a, pos = _read_len(buf, pos, end)
+            out.append(MetricSpan(start, pos, *_metric_key(buf, a, pos)))
+        else:
+            pos = _skip(buf, pos, end, field, wt)
+    return out
+
+
 __all__ = ["COUNTER", "GAUGE", "HISTOGRAM", "SET", "TIMER", "DecodeError",
-           "TopKSeries", "TopKSketch", "counter", "decode_topk", "digest",
-           "framed_size", "gauge", "metric", "metric_list", "set_metric",
-           "topk_sketch"]
+           "MetricSpan", "TopKSeries", "TopKSketch", "counter",
+           "decode_topk", "digest", "framed_size", "gauge", "metric",
+           "metric_list", "set_metric", "split_metric_list", "topk_sketch"]

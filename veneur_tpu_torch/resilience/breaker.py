@@ -148,6 +148,16 @@ class BreakerRegistry:
                 self._breakers[name] = b
             return b
 
+    def retain(self, names) -> None:
+        """Drop the breakers of names no longer in ``names`` (the proxy
+        calls it on each discovery refresh, so ring churn cannot grow
+        the registry without bound)."""
+        keep = set(names)
+        with self._lock:
+            for name in list(self._breakers):
+                if name not in keep:
+                    del self._breakers[name]
+
     def states(self) -> List[Tuple[str, float]]:
         """(name, state gauge) of every breaker consulted so far."""
         with self._lock:

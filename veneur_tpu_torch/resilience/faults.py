@@ -8,13 +8,18 @@ between. ``scope`` substring-filters the operation names callers pass
 
 What the port wires:
 
-* the config keys ``fault_injection_*`` build one injector
+* a Server's config keys ``fault_injection_*`` build one injector
   (:func:`from_config`) for the two host-resource faults: ``disk_full``
   on the checkpoint commit (:meth:`FaultInjector.wrap_write`) and
   ``deadline_pressure`` on the flush's egress budget
-  (:meth:`FaultInjector.scale_deadline`); ``config.py`` refuses the
-  other kinds, whose hooks (the transports' ``wrap_post``, the ingest
-  and membership mangles) are not ported yet;
+  (:meth:`FaultInjector.scale_deadline`);
+* a proxy's build one for membership churn (``member_add``,
+  ``member_remove``, ``partition``): :meth:`FaultInjector.mangle_members`
+  on each discovery refresh (``proxy/proxy.py``, and
+  ``discovery.RingWatcher`` when a caller passes it one),
+  :meth:`FaultInjector.is_partitioned` before each fan-out send;
+* ``config.py`` refuses the other kinds, whose hooks (the transports'
+  ``wrap_post``, the ingest mangle) are not ported yet;
 * the compute ladder's ``preflight`` (``resilience/compute.py``) raises
   through :meth:`FaultInjector.maybe_fail` when a caller arms the
   breaker's ``injector``, as the JAX package's tests do.
@@ -29,7 +34,7 @@ import errno
 import logging
 import random
 import threading
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 log = logging.getLogger("veneur.resilience.faults")
 
@@ -39,13 +44,21 @@ KIND_HTTP_5XX = "http_5xx"
 KIND_PARTIAL_WRITE = "partial_write"
 ALL_KINDS = (KIND_CONNECT, KIND_TIMEOUT, KIND_HTTP_5XX, KIND_PARTIAL_WRITE)
 INGEST_KINDS = ("truncate", "burst")
-CHURN_KINDS = ("member_add", "member_remove", "partition")
+KIND_MEMBER_ADD = "member_add"
+KIND_MEMBER_REMOVE = "member_remove"
+KIND_PARTITION = "partition"
+CHURN_KINDS = (KIND_MEMBER_ADD, KIND_MEMBER_REMOVE, KIND_PARTITION)
+# refreshes (mangle_members calls) a partition black-holes its member
+PARTITION_INTERVALS = 3
 KIND_DISK_FULL = "disk_full"
 KIND_DEADLINE_PRESSURE = "deadline_pressure"
 SOAK_KINDS = (KIND_DISK_FULL, KIND_DEADLINE_PRESSURE)
 KNOWN_KINDS = ALL_KINDS + INGEST_KINDS + CHURN_KINDS + SOAK_KINDS
-# the kinds the port's config may arm (see the module docstring)
-PORTED_KINDS = SOAK_KINDS
+# the kinds the port may arm (see the module docstring): a Server's
+# config the soak kinds, a proxy's the churn kinds (its discovery refresh)
+SERVER_KINDS = SOAK_KINDS
+PROXY_KINDS = CHURN_KINDS
+PORTED_KINDS = CHURN_KINDS + SOAK_KINDS
 # an interval under deadline_pressure keeps this share of its budget
 DEADLINE_PRESSURE_FACTOR = 0.05
 
@@ -85,6 +98,8 @@ class FaultInjector:
         self._lock = threading.Lock()
         self.calls = 0
         self.injected: Dict[str, int] = {k: 0 for k in self.kinds}
+        # partitioned member -> refreshes left before it heals
+        self._partitions: Dict[str, int] = {}
 
     def should_fail(self, op: str) -> Optional[str]:
         """The kind to inject for this call, or None. Exactly two rng
@@ -117,6 +132,39 @@ class FaultInjector:
         if kind == KIND_PARTIAL_WRITE:
             raise InjectedPartialWrite(f"injected partial write ({op})")
         raise OSError(f"injected upstream 5xx ({op})")
+
+    def mangle_members(self, op: str, members: List[str]) -> List[str]:
+        """One discovery refresh's membership as the ring consumer should
+        see it under the scheduled churn fault: ``member_add`` appends a
+        synthetic black-hole member, ``member_remove`` drops a seeded
+        member (never the last), ``partition`` leaves the list as it is
+        but black-holes a seeded member for ``PARTITION_INTERVALS``
+        refreshes (:meth:`is_partitioned`). One call is one refresh:
+        live partitions tick down here. Other kinds pass through."""
+        with self._lock:
+            for dest in list(self._partitions):
+                self._partitions[dest] -= 1
+                if self._partitions[dest] <= 0:
+                    del self._partitions[dest]
+        kind = self.should_fail(op)
+        if kind == KIND_MEMBER_ADD:
+            with self._lock:
+                idx = self._rng.randrange(1 << 16)
+            return list(members) + [f"fault://injected-{idx}"]
+        if kind == KIND_MEMBER_REMOVE and len(members) > 1:
+            with self._lock:
+                idx = self._rng.randrange(len(members))
+            return [m for i, m in enumerate(members) if i != idx]
+        if kind == KIND_PARTITION and members:
+            with self._lock:
+                idx = self._rng.randrange(len(members))
+                self._partitions[members[idx]] = PARTITION_INTERVALS
+        return list(members)
+
+    def is_partitioned(self, dest: str) -> bool:
+        """Whether a scheduled ``partition`` black-holes ``dest`` now."""
+        with self._lock:
+            return dest in self._partitions
 
     def wrap_write(self, write: Callable[..., int],
                    op: str) -> Callable[..., int]:

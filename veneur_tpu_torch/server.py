@@ -54,11 +54,16 @@ carries both. :meth:`Server.crash_stop` is the in-process SIGKILL.
 
 Global aggregation: with ``forward_address`` set the server is a local
 and forwards its sketch state there after each flush, over HTTP or, for
-``native://host:port``, as MetricList frames over framed TCP (digests
-packed on the device); with ``http_address`` set it serves ``POST
-/import`` (a global merges what its locals forward) beside
-``/healthcheck`` and ``/version``, and with ``native_import_address``
-the framed-TCP import (``forward/native_transport.py``).
+``native://host:port``, as MetricList frames over framed TCP, or with
+``forward_use_grpc`` as the same frames over gRPC (digests packed on the
+device); with ``http_address`` set it serves ``POST /import`` (a global
+merges what its locals forward) beside ``/healthcheck`` and
+``/version``, with ``native_import_address`` the framed-TCP import
+(``forward/native_transport.py``) and with ``grpc_address`` the gRPC
+import (``forward/grpc_forward.py``: ``server.import_server``), on a
+dense, slab, tiered or mesh store alike. The port has no
+``/debug/vars``: the two imports count on their objects (``received``,
+``import_errors``).
 """
 
 from __future__ import annotations
@@ -344,8 +349,10 @@ class Server:
         self.last_forward_ok: Optional[bool] = None
         self.forward_errors = 0
         self.ops_server: Optional[OpsServer] = None
-        # the framed-TCP import (native_import_address)
+        # the framed-TCP import (native_import_address) and the gRPC one
+        # (grpc_address)
         self.native_import_server: Optional[NativeImportServer] = None
+        self.import_server = None
         self.imported_metrics = 0
         self.import_errors = 0
         self.statsd_addrs: List[tuple] = []
@@ -542,6 +549,11 @@ class Server:
         if cfg.http_address:
             self.ops_server = OpsServer.for_server(self, cfg.http_address)
             self.ops_server.start()
+        if cfg.grpc_address:
+            from veneur_tpu_torch.forward.grpc_forward import ImportServer
+
+            self.import_server = ImportServer(self.store)
+            self.import_server.start(cfg.grpc_address)
         if cfg.native_import_address:
             self.native_import_server = NativeImportServer(self.store)
             self.native_import_server.start(cfg.native_import_address)
@@ -891,5 +903,7 @@ class Server:
             self.ops_server.stop()
         if self.native_import_server is not None:
             self.native_import_server.stop()
+        if self.import_server is not None:
+            self.import_server.stop()
         if hasattr(self.forwarder, "close"):
             self.forwarder.close()
