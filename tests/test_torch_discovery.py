@@ -9,8 +9,9 @@ result, order and duplicates normalized, the single-member cases),
 Consul HTTP server (payload parsing, 500 and a timeout keeping the last
 good membership, one change a transition), ``RetryingDiscoverer``, and
 the churn kinds (``mangle_members``, ``is_partitioned``). The moved
-ranges are counted on the port's ``ConsistentRing`` (the JAX package's
-``RingTransition`` comes with the handoff, not ported yet). Parity:
+ranges are counted on the port's ``ConsistentRing`` (the port's
+``RingTransition``, which the handoff routes by, is held to the JAX
+package's in ``tests/test_torch_handoff.py``). Parity:
 the same seed gives the same churn schedule and mangled memberships as
 the JAX package's injector, and the same refresh sequence gives the
 same ``MembershipChange`` diffs. Everything here is exact.

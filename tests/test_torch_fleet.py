@@ -218,7 +218,8 @@ def test_config_accepts_mesh_keys():
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(digest_storage="slab"), ValueError, "slab"),
-    (dict(digest_storage="tiered"), UnsupportedConfig, "tiered"),
+    (dict(digest_storage="tiered", forward_address="http://127.0.0.1:1"),
+     ValueError, "forward_address"),
     (dict(forward_address="http://127.0.0.1:1"), ValueError,
      "forward_address"),
     (dict(mesh_hosts=-1), ValueError, "mesh_hosts")],
@@ -231,8 +232,14 @@ def test_config_refusals(kw, exc, match):
 def test_store_and_server_refusals():
     with pytest.raises(ValueError, match="slab"):
         tstore.MetricStore(mesh=_mesh(), digest_storage="slab")
-    with pytest.raises(UnsupportedConfig, match="tiered"):
-        tstore.MetricStore(mesh=_mesh(), digest_storage="tiered")
+    # tiered is no refusal: it builds the mesh tiered store for the
+    # mesh's groups (the local-only ones stay single-card tiered)
+    from veneur_tpu_torch.core.tiered import TieredDigestGroup
+    from veneur_tpu_torch.fleet.mesh_tiered import MeshTieredDigestGroup
+
+    ms = tstore.MetricStore(mesh=_mesh(), digest_storage="tiered")
+    assert type(ms.histograms) is MeshTieredDigestGroup
+    assert type(ms.local_histograms) is TieredDigestGroup
     with pytest.raises(ValueError, match="mesh"):
         tstore.MetricStore(mesh=ShardMesh(4, 2, "cpu"), device="meta")
     with pytest.raises(ValueError, match="mesh_enabled"):

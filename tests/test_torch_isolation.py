@@ -163,6 +163,15 @@ def test_grpc_and_proxy_modules_are_covered():
     assert not top, top
 
 
+def test_fleet_ha_modules_are_covered():
+    """The elastic and HA global tier (the handoff, the standby, the
+    lease, the mesh tiered store) is scanned and imported too."""
+    assert {"veneur_tpu_torch.fleet.handoff",
+            "veneur_tpu_torch.fleet.standby",
+            "veneur_tpu_torch.fleet.mesh_tiered",
+            "veneur_tpu_torch.discovery.lease"} <= set(_modules())
+
+
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"

@@ -150,11 +150,24 @@ def test_config_is_loud_about_unported_keys(tmp_path):
         "slab"
     with pytest.raises(ValueError, match="digest_storage"):
         config_from_dict({"digest_storage": "sparse"})
-    # mesh_enabled is ported with dense storage; the mesh tiered store
-    # is not
+    # mesh_enabled is ported with dense storage and with tiered (the
+    # mesh tiered store, fleet/mesh_tiered.py)
     assert config_from_dict({"mesh_enabled": True}).mesh_enabled
-    with pytest.raises(UnsupportedConfig, match="mesh_enabled"):
-        config_from_dict({"mesh_enabled": True, "digest_storage": "tiered"})
+    cfg = config_from_dict({"mesh_enabled": True, "mesh_hosts": 1,
+                            "digest_storage": "tiered"})
+    from veneur_tpu_torch.fleet.mesh_tiered import MeshTieredDigestGroup
+
+    store = Server(cfg, device="cpu").store
+    assert isinstance(store.histograms, MeshTieredDigestGroup)
+    assert isinstance(store.timers, MeshTieredDigestGroup)
+    # a handoff or standby key on a local raises, as the JAX package's
+    # validate does
+    for data in ({"handoff_enabled": True, "handoff_self": "a:1",
+                  "handoff_peers": "a:1", "http_address": "127.0.0.1:0"},
+                 {"standby_peers": "b:1", "http_address": "127.0.0.1:0"},
+                 {"lease_path": "file:///tmp/lease"}):
+        with pytest.raises(ValueError, match="GLOBAL"):
+            config_from_dict(dict(data, forward_address="http://g:1"))
     with pytest.raises(UnsupportedConfig, match="ssf_listen_addresses"):
         config_from_dict({"ssf_listen_addresses": ["http://127.0.0.1:1"]})
     with pytest.raises(UnsupportedConfig, match="debug_ingested_spans"):

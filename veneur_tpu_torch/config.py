@@ -170,7 +170,8 @@ class Config:
     slab_rows: int = 1 << 20
     # shard the global-tier store over a (series, hosts) mesh
     # (core/mesh_store.py); only meaningful on a global instance
-    # (forward_address unset); dense digest storage only
+    # (forward_address unset); dense digest storage, or tiered (the mesh
+    # tiered store, fleet/mesh_tiered.py)
     mesh_enabled: bool = False
     # mesh fan-in axis width (0 = auto: 2 when the device count is even)
     mesh_hosts: int = 0
@@ -244,6 +245,36 @@ class Config:
     fault_injection_seed: int = 0
     fault_injection_kinds: str = ""
     fault_injection_scope: str = ""
+    # elastic resharding of the global tier (fleet/handoff.py): on a
+    # change of the fleet's membership the moved key ranges stream as
+    # packed digests to their new owner's POST /handoff. A global only;
+    # needs handoff_self (this instance's address as the membership
+    # source reports it), a membership source (handoff_peers: comma-
+    # separated addresses or "file:///path", one a line, re-read each
+    # refresh; else the Consul service handoff_service_name, default
+    # veneur-global) and http_address. The refresh cadence ("" = 10s)
+    # and a handoff POST's budget, retries included ("" =
+    # forward_timeout)
+    handoff_enabled: bool = False
+    handoff_self: str = ""
+    handoff_peers: str = ""
+    handoff_service_name: str = ""
+    handoff_refresh_interval: str = ""
+    handoff_timeout: str = ""
+    # global HA (fleet/standby.py): the standbys the active replicates
+    # each flush's retired snapshot to (POST /replicate; comma-separated
+    # or "file:///path" re-read each dispatch; "" = none, needs
+    # http_address), the replicated epochs a standby keeps a sender (0 =
+    # 2), and the leadership lease (discovery/lease.py): "file:///path"
+    # or "consul://key" ("" = no election: an instance with
+    # standby_peers replicates unconditionally), its ttl ("" = 15s: the
+    # bound on detecting an active's death) and its renew cadence ("" =
+    # lease_ttl / 3). A global only
+    standby_peers: str = ""
+    standby_shadow_epochs: int = 0
+    lease_path: str = ""
+    lease_ttl: str = ""
+    lease_renew_interval: str = ""
 
     def __post_init__(self):
         if not self.aggregates:
@@ -390,11 +421,6 @@ class Config:
                 "upstream instead of sharding a store over the mesh). "
                 "Unset one of them: mesh_enabled belongs on the "
                 "instance the fleet forwards INTO")
-        if self.digest_storage == "tiered" and self.mesh_enabled:
-            raise UnsupportedConfig(
-                "digest_storage: tiered with mesh_enabled is the mesh "
-                "tiered store, which veneur_tpu_torch does not implement "
-                "yet; run the mesh dense (or veneur_tpu for it)")
         if self.mesh_hosts < 0:
             raise ValueError(f"mesh_hosts must be >= 0 (0 = auto), got "
                              f"{self.mesh_hosts}")
@@ -410,6 +436,78 @@ class Config:
             parse_duration(getattr(self, name))  # malformed raises here
         if self.checkpoint_interval:
             parse_duration(self.checkpoint_interval)
+        self._check_fleet_keys()
+
+    def _check_fleet_keys(self):
+        """The handoff, standby and lease keys (JAX ``config.py``
+        ``validate``): a global only, each with what it needs."""
+        if self.handoff_enabled:
+            if self.forward_address:
+                raise ValueError(
+                    "handoff_enabled requires a GLOBAL instance, but "
+                    "forward_address is set (a local owns no ring "
+                    "ranges to hand off). Unset one of them")
+            if not self.handoff_self:
+                raise ValueError(
+                    "handoff_enabled requires handoff_self: the address "
+                    "this instance appears as in the fleet membership "
+                    "(handoff_peers / discovery)")
+            if not self.handoff_peers and not self.handoff_service_name:
+                raise ValueError(
+                    "handoff_enabled requires a membership source: set "
+                    "handoff_peers (static CSV or file://...) or "
+                    "handoff_service_name (Consul)")
+            if not self.http_address:
+                raise ValueError(
+                    "handoff_enabled requires http_address: peers "
+                    "stream moved ranges into POST /handoff on it")
+        if self.standby_peers or self.lease_path:
+            if self.forward_address:
+                raise ValueError(
+                    "standby_peers/lease_path require a GLOBAL instance, "
+                    "but forward_address is set (a local has no merged "
+                    "store to replicate). Unset one of them")
+            if self.standby_peers and not self.http_address:
+                raise ValueError(
+                    "standby_peers requires http_address: standbys "
+                    "receive replication on POST /replicate and serve "
+                    "GET /ha-status on it")
+        if self.standby_shadow_epochs < 0:
+            raise ValueError(
+                f"standby_shadow_epochs must be >= 0 (0 = use the "
+                f"default, 2), got {self.standby_shadow_epochs}")
+        if self.lease_path and not (
+                self.lease_path.startswith("file://")
+                or self.lease_path.startswith("consul://")):
+            raise ValueError(
+                f"lease_path must be file:///path or consul://key, got "
+                f"{self.lease_path!r}")
+        self.standby_shadow_epochs = self.standby_shadow_epochs or 2
+        for name in ("handoff_refresh_interval", "handoff_timeout",
+                     "lease_ttl", "lease_renew_interval"):
+            if getattr(self, name):
+                parse_duration(getattr(self, name))  # malformed raises
+
+    @property
+    def handoff_refresh_interval_seconds(self) -> float:
+        return (parse_duration(self.handoff_refresh_interval)
+                if self.handoff_refresh_interval else 10.0)
+
+    @property
+    def handoff_timeout_seconds(self) -> float:
+        """A handoff POST's budget; unset, the forward budget."""
+        return (parse_duration(self.handoff_timeout) if self.handoff_timeout
+                else self.forward_timeout_seconds)
+
+    @property
+    def lease_ttl_seconds(self) -> float:
+        return parse_duration(self.lease_ttl) if self.lease_ttl else 15.0
+
+    @property
+    def lease_renew_interval_seconds(self) -> float:
+        return (parse_duration(self.lease_renew_interval)
+                if self.lease_renew_interval
+                else self.lease_ttl_seconds / 3.0)
 
     @property
     def interval_seconds(self) -> float:

@@ -188,7 +188,10 @@ class _PlacementMixin:
 
     def _to_phys(self, rows: np.ndarray) -> np.ndarray:
         """One staged chunk's logical rows -> current physical rows
-        (sentinels and unassigned rows -> capacity, the padding row)."""
+        (sentinels and unassigned rows -> capacity, the padding row). In
+        slot mode the caller already speaks physical slots."""
+        if self.placement is None:
+            return np.asarray(rows)
         return self.placement.to_phys(np.asarray(rows), self.capacity)
 
     def _shard_of_phys(self, phys: np.ndarray) -> np.ndarray:
@@ -202,12 +205,16 @@ class _PlacementMixin:
         """The interner swapped (an in-place flush): the placement must
         too, so the next interval's first series consults the router
         (a generation swap gets this from ``fresh()``)."""
-        if not getattr(self, "_retired", False):
+        if self.placement is not None \
+                and not getattr(self, "_retired", False):
             self.placement = ShardPlacement(self.shards, self.capacity)
 
     def _flush_rows(self, n: int) -> np.ndarray:
         """Physical rows of logical rows 0..n-1: the gather that restores
-        interner order in flush and snapshot output."""
+        interner order in flush and snapshot output (in slot mode, the
+        owner's slots, ``_ext_rows``)."""
+        if self.placement is None:
+            return np.asarray(self._ext_rows[:n], np.int64)
         return self.placement.perm(n)
 
     def _live_index(self, n: int):
@@ -215,15 +222,20 @@ class _PlacementMixin:
 
 
 def _mesh_init(group, mesh: ShardMesh, router: Optional[ShardRouter],
-               capacity: int) -> int:
+               capacity: int, slot_mode: bool = False) -> int:
     """The mesh attributes every mesh group sets before its base
-    constructor; returns the capacity rounded to whole shard blocks."""
+    constructor; returns the capacity rounded to whole shard blocks. In
+    slot mode the group has no router and no placement."""
     group.mesh = mesh
     group.shards = mesh.series
     group.hosts = mesh.hosts
-    group.router = router if router is not None else ShardRouter(mesh.series)
     cap = _round_up(capacity, group.shards)
-    group.placement = ShardPlacement(group.shards, cap)
+    if slot_mode:
+        group.router = group.placement = None
+    else:
+        group.router = (router if router is not None
+                        else ShardRouter(mesh.series))
+        group.placement = ShardPlacement(group.shards, cap)
     return cap
 
 
@@ -231,11 +243,18 @@ class MeshDigestGroup(_PlacementMixin, DigestGroup):
     """A DigestGroup whose planes are sharded over a fleet mesh: series
     place through the fleet consistent hash (``router``; a fresh one over
     the mesh's shards by default), samples ingest in host slices, imports
-    drain shard-routed."""
+    drain shard-routed.
+
+    ``slot_mode``: the mesh tiered group's dense bank. There is no router
+    and no placement: the owner assigns each series a physical slot on
+    the shard of its pool row, stages physical slots, and names the
+    slots a flush gathers in ``_ext_rows``."""
 
     def __init__(self, mesh: ShardMesh, capacity: int, chunk: int,
-                 compression: float, router: Optional[ShardRouter] = None):
-        cap = _mesh_init(self, mesh, router, capacity)
+                 compression: float, router: Optional[ShardRouter] = None,
+                 slot_mode: bool = False):
+        cap = _mesh_init(self, mesh, router, capacity, slot_mode)
+        self._ext_rows: Optional[np.ndarray] = None
         super().__init__(cap, _round_up(chunk, self.hosts), compression,
                          mesh.device)
 
@@ -266,7 +285,8 @@ class MeshDigestGroup(_PlacementMixin, DigestGroup):
             max=_blocked_pad(d.max, sh, ob, -inf))
         self.dmin = _blocked_pad(self.dmin, sh, ob, inf)
         self.dmax = _blocked_pad(self.dmax, sh, ob, -inf)
-        self.placement.grow()
+        if self.placement is not None:
+            self.placement.grow()
         # re-point staging padding at the new out-of-range row id
         self._rows[self._fill:] = self.capacity
         self._imp_rows[self._imp_fill:] = self.capacity

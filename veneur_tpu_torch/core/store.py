@@ -1886,7 +1886,19 @@ class MetricStore:
                     kind, initial_capacity, mesh, self.shard_router))
         self.local_status_checks = ScalarGroup("status", initial_capacity)
         for name in _DIGEST_GROUPS:
-            if mesh is not None and not name.startswith("local_"):
+            if (mesh is not None and not name.startswith("local_")
+                    and digest_storage == "tiered"):
+                # the packed pool over the mesh's series blocks, a mesh
+                # bank for the hot tier, shard-local promotion
+                from veneur_tpu_torch.fleet.mesh_tiered import \
+                    MeshTieredDigestGroup
+
+                group = MeshTieredDigestGroup(
+                    mesh, self.shard_router, min(slab_rows, 1 << 18),
+                    chunk, compression, tier_pool_centroids,
+                    tier_promote_samples, tier_promote_intervals,
+                    tier_demote_intervals, initial_capacity)
+            elif mesh is not None and not name.startswith("local_"):
                 from veneur_tpu_torch.core.mesh_store import MeshDigestGroup
 
                 group = MeshDigestGroup(mesh, initial_capacity, chunk,
@@ -1947,21 +1959,14 @@ class MetricStore:
 
     @staticmethod
     def _check_mesh_storage(storage: str) -> None:
-        """The digest storages a mesh takes: dense. Slab is refused as
-        the JAX package refuses it; tiered with a mesh is the mesh tiered
-        store, not ported yet."""
+        """The digest storages a mesh takes: dense, and tiered (the mesh
+        tiered store, ``fleet/mesh_tiered.py``). Slab is refused as the
+        JAX package refuses it."""
         if storage == "slab":
             raise ValueError(
                 "digest_storage: slab cannot combine with mesh_enabled: "
                 "the slab layout is the single-card capacity plan and "
                 "the mesh supersedes it; run the mesh dense")
-        if storage == "tiered":
-            from veneur_tpu_torch.config import UnsupportedConfig
-
-            raise UnsupportedConfig(
-                "digest_storage: tiered with mesh_enabled is the mesh "
-                "tiered store, which veneur_tpu_torch does not implement "
-                "yet; run the mesh dense (or veneur_tpu for it)")
 
     def _digest_group(self, storage: str, initial_capacity: int, chunk: int,
                       compression: float, digest_dtype: str, slab_rows: int,
@@ -2843,6 +2848,68 @@ class MetricStore:
                     log.exception("checkpoint restore: group %s failed; "
                                   "skipping it", name)
         return merged
+
+    # the ring-routed groups: what locals forward through the proxy ring,
+    # so what a resize of the global fleet moves. The mixed scalars and
+    # local-only groups are this host's own and stay. Heavy hitters move
+    # too: the candidate series split like any set, and the count-min
+    # table (cross-series, not partitionable by key) rides whole with
+    # every part: a linear sketch merges by an element-wise add, so the
+    # new owner's estimates stay one-sided upper bounds, widened by the
+    # donor's table weight (e/w * N)
+    _HANDOFF_GROUPS = ("global_counters", "global_gauges", "histograms",
+                       "timers", "sets", "heavy_hitters")
+
+    def handoff_extract(self, route_fn, route_many=None
+                        ) -> Tuple[Dict[str, Dict[str, dict]], int]:
+        """Extract the key ranges a resize of the global fleet moves
+        (``fleet/handoff.py``): retire the live generation (the swap a
+        flush performs, so the flush-epoch guard covers it), snapshot
+        the retired groups off the store lock, split the ring-routed
+        groups by ``route_fn``, and re-merge everything that STAYS into
+        the live store with import semantics (K2 on its import drains).
+        Samples arriving meanwhile land in the fresh live generation, so
+        a resize neither loses nor double-counts.
+
+        ``route_fn(name, type_str, joined_tags)`` returns the new owner,
+        or None to keep; ``route_many(names, type_str, joineds)`` is its
+        batched form. Returns ``(moved, moved_series)``: ``moved`` maps
+        a destination to {group: snapshot}, ready for the handoff
+        wire."""
+        from veneur_tpu_torch.fleet.handoff import split_group_snapshot
+
+        # the gate serializes the swap and the snapshot against a flush
+        # (ingest goes on under _lock); the retired generation is this
+        # thread's alone, so its snapshot needs no store lock
+        with self._flush_gate:
+            with self._lock:
+                gen = self._swap_generation()
+            snaps = {name: getattr(gen, name).snapshot_state()
+                     for name in self._GEN_GROUPS}
+        moved: Dict[str, Dict[str, dict]] = {}
+        kept: Dict[str, dict] = {}
+        moved_series = 0
+        for name, snap in snaps.items():
+            if name in self._HANDOFF_GROUPS:
+                parts = split_group_snapshot(
+                    snap, self._GROUP_TYPES[name], route_fn,
+                    route_many=route_many)
+            else:
+                parts = {None: snap}
+            for dest, part in parts.items():
+                if dest is None:
+                    kept[name] = part
+                else:
+                    moved.setdefault(dest, {})[name] = part
+                    moved_series += len(part.get("names") or ())
+        # a gauge sampled since the swap is newer than the kept one
+        self.restore_state(kept, prefer_live_scalars=True)
+        with self._lock:
+            # the retired interval's tallies come back: its samples are
+            # here again (kept) or leave as owned state (moved)
+            self.processed += gen.processed
+            self.imported += gen.imported
+        return moved, moved_series
 
     def _restore_group(self, name: str, tname: str, target, snap: dict,
                        prefer_live_scalars: bool = False) -> int:

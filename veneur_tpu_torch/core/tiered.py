@@ -135,14 +135,12 @@ def _pool_compact(pool: PoolSlab, slab_rows: int, pk: int, pcomp: float):
     return tdigest_cuda.compress_presorted(m, w, b_m, b_w, pcomp, pk)
 
 
-def _pool_guard_masses(pool: PoolSlab, rows, values, weights,
-                       slab_rows: int, pk: int, pcomp: float):
-    """The pool guard's three signals: the shift guard's mass pair
-    (against the bins) and the count of rows tripping the clump or
-    dominance triggers (see the JAX module). rows carry the padding
-    sentinel ``slab_rows``."""
-    shifted, total = td_ops.shift_masses(pool.bw, pool.bwm, rows, values,
-                                         weights, slab_rows, anchors=pk)
+def _pool_trigger_rows(pool: PoolSlab, rows, weights, slab_rows: int,
+                       pk: int, pcomp: float):
+    """The pool guard's row triggers ([slab] bool each): a row whose
+    heaviest bin would cross its k-scale envelope (clump), and a row
+    with live bins that gets more mass from this chunk than it holds
+    (dominance). rows carry the padding sentinel ``slab_rows``."""
     inc = torch.zeros(slab_rows + 1, dtype=torch.float32,
                       device=weights.device).index_add_(
         0, rows, weights.float())[:slab_rows]
@@ -153,6 +151,19 @@ def _pool_guard_masses(pool: PoolSlab, rows, values, weights,
     over = ((inc > 0) & (tot > float(pk))
             & (bw2.amax(1) + inc > 2.0 * (tot + inc) / pcomp))
     dom = (inc > tot) & (bw2.sum(1) > 0)
+    return over, dom
+
+
+def _pool_guard_masses(pool: PoolSlab, rows, values, weights,
+                       slab_rows: int, pk: int, pcomp: float):
+    """The pool guard's three signals: the shift guard's mass pair
+    (against the bins) and the count of rows tripping the clump or
+    dominance triggers (see the JAX module). rows carry the padding
+    sentinel ``slab_rows``."""
+    shifted, total = td_ops.shift_masses(pool.bw, pool.bwm, rows, values,
+                                         weights, slab_rows, anchors=pk)
+    over, dom = _pool_trigger_rows(pool, rows, weights, slab_rows, pk,
+                                   pcomp)
     return shifted, total, over.float().sum() + dom.float().sum()
 
 
@@ -170,6 +181,13 @@ def _pool_guard_apply(pool: PoolSlab, slab_rows: int, pk: int,
     pool.bwm.zero_()
 
 
+def _guard_fires(shifted, total, over_dom) -> bool:
+    """The guard's decision over its three signals (one host sync)."""
+    pred = ((shifted > td_ops.SHIFT_GUARD_FRAC
+             * torch.clamp_min(total, _TINY)) | (over_dom > 0))
+    return bool(pred.item())
+
+
 def _guard_drain_pool(pool: PoolSlab, rows, values, weights,
                       slab_rows: int, pk: int, pcomp: float) -> bool:
     """The pool's shift guard: drain when the chunk's mass is disjoint
@@ -177,11 +195,8 @@ def _guard_drain_pool(pool: PoolSlab, rows, values, weights,
     row's heaviest bin would cross its k-scale envelope, or a row with
     live bins gets more mass from this chunk than it holds (see the JAX
     module). One host sync a chunk. Returns whether it drained."""
-    shifted, total, over_dom = _pool_guard_masses(
-        pool, rows, values, weights, slab_rows, pk, pcomp)
-    pred = ((shifted > td_ops.SHIFT_GUARD_FRAC
-             * torch.clamp_min(total, _TINY)) | (over_dom > 0))
-    if not bool(pred.item()):
+    if not _guard_fires(*_pool_guard_masses(
+            pool, rows, values, weights, slab_rows, pk, pcomp)):
         return False
     _pool_guard_apply(pool, slab_rows, pk, pcomp)
     return True
@@ -205,12 +220,10 @@ def _pool_bin(pool: PoolSlab, rows, values, weights, slab_rows: int,
     return rr, v, wz, vz, valid & live
 
 
-def _pool_ingest(pool: PoolSlab, rows, values, weights, slab_rows: int,
-                 pk: int, pcomp: float) -> None:
-    """Fold one chunk of samples (slab-LOCAL rows; >= slab is padding)
-    into a pool slab's bins and stats, in place, behind the guard."""
-    rows, weights = slab._local_rows(rows, weights, slab_rows)
-    _guard_drain_pool(pool, rows, values, weights, slab_rows, pk, pcomp)
+def _pool_scatter_samples(pool: PoolSlab, rows, values, weights,
+                          slab_rows: int, pk: int, pcomp: float) -> None:
+    """Bin a chunk of samples (slab-local rows, the padding sentinel at
+    weight 0) into a pool slab's bins and stats, in place."""
     rr, v, wz, vz, ok = _pool_bin(pool, rows, values, weights, slab_rows,
                                   pk, pcomp)
     pool.count.index_add_(0, rr, wz)
@@ -220,17 +233,37 @@ def _pool_ingest(pool: PoolSlab, rows, values, weights, slab_rows: int,
     pool.recip.index_add_(0, rr, torch.where(ok, wz / v, 0.0))
 
 
-def _pool_import(pool: PoolSlab, rows, means, weights, stat_rows,
-                 stat_mins, stat_maxs, slab_rows: int, pk: int,
-                 pcomp: float) -> None:
-    """Fold imported digest CENTROIDS into a pool slab, in place, without
-    touching the local scalar stats (samplers.go:473-480); each digest's
-    extrema land on dmin/dmax."""
+def _pool_ingest(pool: PoolSlab, rows, values, weights, slab_rows: int,
+                 pk: int, pcomp: float) -> None:
+    """Fold one chunk of samples (slab-LOCAL rows; >= slab is padding)
+    into a pool slab's bins and stats, in place, behind the guard."""
     rows, weights = slab._local_rows(rows, weights, slab_rows)
-    _guard_drain_pool(pool, rows, means, weights, slab_rows, pk, pcomp)
+    _guard_drain_pool(pool, rows, values, weights, slab_rows, pk, pcomp)
+    _pool_scatter_samples(pool, rows, values, weights, slab_rows, pk,
+                          pcomp)
+
+
+def _pool_scatter_imports(pool: PoolSlab, rows, means, weights, stat_rows,
+                          stat_mins, stat_maxs, slab_rows: int, pk: int,
+                          pcomp: float) -> None:
+    """Bin imported centroids into a pool slab's bins (no local scalar
+    stats, samplers.go:473-480) and fold each digest's extrema into
+    dmin/dmax, in place."""
     _pool_bin(pool, rows, means, weights, slab_rows, pk, pcomp)
     _scatter_extrema(pool.dmin, pool.dmax, stat_rows.long(), stat_mins,
                      stat_maxs)
+
+
+def _pool_import(pool: PoolSlab, rows, means, weights, stat_rows,
+                 stat_mins, stat_maxs, slab_rows: int, pk: int,
+                 pcomp: float) -> None:
+    """Fold imported digest CENTROIDS into a pool slab, in place, behind
+    the guard, without touching the local scalar stats; each digest's
+    extrema land on dmin/dmax."""
+    rows, weights = slab._local_rows(rows, weights, slab_rows)
+    _guard_drain_pool(pool, rows, means, weights, slab_rows, pk, pcomp)
+    _pool_scatter_imports(pool, rows, means, weights, stat_rows, stat_mins,
+                          stat_maxs, slab_rows, pk, pcomp)
 
 
 def _pool_flush(pool: PoolSlab, qs, slab_rows: int, pk: int, pcomp: float):
@@ -474,14 +507,20 @@ class TieredDigestGroup(DigestStaging):
         self.directory = directory if directory is not None else \
             TierDirectory(promote_samples, promote_intervals,
                           demote_intervals)
-        self._dense = DigestGroup(dense_capacity, chunk, compression,
-                                  self.device)
+        self._dense = self._make_dense_bank(dense_capacity, chunk,
+                                            compression)
         self.pools: List[PoolSlab] = [self._new_pool_slab()]
         self._device_dirty = False
         self._slot = np.full(self.slab_rows, -1, np.int32)
         self._activity = np.zeros(self.slab_rows, np.int64)
         self._dense_rows: List[int] = []
         self._init_staging()
+
+    def _make_dense_bank(self, dense_capacity: int, chunk: int,
+                         compression: float) -> DigestGroup:
+        """The hot tier's bank (override point: the mesh tiered group
+        embeds a series-sharded MeshDigestGroup in slot mode)."""
+        return DigestGroup(dense_capacity, chunk, compression, self.device)
 
     def _new_pool_slab(self) -> PoolSlab:
         return _init_pool_slab(self.slab_rows, self.pk, self.device)
@@ -608,9 +647,16 @@ class TieredDigestGroup(DigestStaging):
             slots, (v, w) = dense
             self._dense.sample_many(slots, v, w)
         for i, local, (v, w) in spans:
-            _pool_ingest(self.pools[i], self._dev(local), self._dev(v),
-                         self._dev(w), self.slab_rows, self.pk, self.pcomp)
+            self._pool_drain_samples(i, local, v, w)
         self._maybe_promote(rows)
+
+    def _pool_drain_samples(self, i: int, local: np.ndarray,
+                            vals: np.ndarray, wts: np.ndarray) -> None:
+        """One slab's span of staged samples into its pool slab
+        (override point: the mesh tiered group routes the span by
+        shard)."""
+        _pool_ingest(self.pools[i], self._dev(local), self._dev(vals),
+                     self._dev(wts), self.slab_rows, self.pk, self.pcomp)
 
     def _drain_imports(self):
         if self._imp_fill == 0 and self._imp_stat_fill == 0:
@@ -642,11 +688,19 @@ class TieredDigestGroup(DigestStaging):
                                                 (empty_f, empty_f)))
             s_local, (s_mn, s_mx) = stats.get(i, (empty_r,
                                                   (empty_f, empty_f)))
-            _pool_import(self.pools[i], self._dev(c_local), self._dev(c_m),
-                         self._dev(c_w), self._dev(s_local),
-                         self._dev(s_mn), self._dev(s_mx), self.slab_rows,
-                         self.pk, self.pcomp)
+            self._pool_drain_imports(i, c_local, c_m, c_w, s_local, s_mn,
+                                     s_mx)
         self._maybe_promote(rows)
+
+    def _pool_drain_imports(self, i: int, c_local, c_means, c_wts,
+                            s_local, s_mins, s_maxs) -> None:
+        """One slab's span of staged imports (centroids and digest
+        extrema) into its pool slab (override point, like
+        ``_pool_drain_samples``)."""
+        _pool_import(self.pools[i], self._dev(c_local), self._dev(c_means),
+                     self._dev(c_wts), self._dev(s_local),
+                     self._dev(s_mins), self._dev(s_maxs), self.slab_rows,
+                     self.pk, self.pcomp)
 
     # -- promotion --------------------------------------------------------
 
@@ -783,7 +837,7 @@ class TieredDigestGroup(DigestStaging):
         i = st["next"]
         st["next"] = i + 1
         R, pk = self.slab_rows, self.pk
-        need = min(st["n"] - i * R, R)
+        need = self._slab_need(st["n"], i)
         if need <= 0:
             st["refs"].append(None)
             return
@@ -800,19 +854,34 @@ class TieredDigestGroup(DigestStaging):
         st["refs"].append((need, packed, planes + tuple(
             stats[nm_][:need] for nm_ in st["sel"])))
 
+    def _slab_need(self, n: int, i: int) -> int:
+        """Rows of pool slab ``i`` a flush fetches: the interned prefix
+        (override point: the mesh tiered group's rows are shard-placed,
+        so it fetches whole slabs)."""
+        return min(n - i * self.slab_rows, self.slab_rows)
+
+    def _collect_pool(self, st: dict):
+        """The pool's fetched columns in interner order, and the packed
+        triple or None (override point: the mesh tiered group gathers
+        through its placement)."""
+        return slab._collect_slabs(st, self._dispatch_slab, self._window())
+
+    def _dense_out_rows(self) -> np.ndarray:
+        """The interner rows of the dense tier's slots, in slot order."""
+        return np.asarray(self._dense_rows, np.int64)
+
     def _flush_collect(self, st: dict) -> dict:
         """Fetch the pool slab by slab, then the dense bank, and stitch
         them into row order."""
         n, sel = st["n"], st["sel"]
-        cols, packed = slab._collect_slabs(st, self._dispatch_slab,
-                                           self._window())
+        cols, packed = self._collect_pool(st)
         nd = len(self._dense_rows)
         dense_out = None
         if st["dense"] is not None:
             dense_out = self._dense._flush_collect(st["dense"], nd,
                                                    st["percentiles"])
         out = {}
-        dense_rows = np.asarray(self._dense_rows, np.int64)
+        dense_rows = self._dense_out_rows()
         if st["packed"]:
             pool_mn, pool_mx = cols[:2]
             cols = cols[2:]
@@ -985,5 +1054,12 @@ class TieredDigestGroup(DigestStaging):
             slots, arrs = dense
             self._dense.restore_stats(slots, *arrs)
         for i, local, arrs in spans:
-            _pool_restore_stats(self.pools[i], self._dev(local),
-                                *(self._dev(a) for a in arrs))
+            self._pool_restore(i, local, *arrs)
+
+    def _pool_restore(self, i: int, local, count, vsum, vmin, vmax,
+                      recip) -> None:
+        """One slab's span of recovered scalar stats into its pool slab
+        (override point, like ``_pool_drain_samples``)."""
+        _pool_restore_stats(self.pools[i], self._dev(local),
+                            *(self._dev(a)
+                              for a in (count, vsum, vmin, vmax, recip)))

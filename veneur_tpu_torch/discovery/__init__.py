@@ -6,8 +6,10 @@ healthy global-veneur destinations (``discoverer.go:5-7``), with a
 static list, a peers file, Consul (``consul.go:16-55``) and Kubernetes
 (``kubernetes.go:14-91``) on stdlib ``urllib``; :class:`RingWatcher`
 turns refreshes into membership diffs. The leadership lease of the
-global HA pair (the JAX package's ``discovery/lease.py``) is not ported
-here: it comes with the standby it serves.
+global HA pair lives in ``discovery/lease.py`` (re-exported here):
+the ``file://`` and ``consul://`` lease backends, the
+:class:`LeaseElector` state machine, and :class:`LeaderDiscoverer`, the
+lease holder as a one-member ``Discoverer``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,10 @@ import urllib.parse
 import urllib.request
 from typing import List, Optional, Protocol, Sequence
 
+from veneur_tpu_torch.discovery.lease import (ConsulLease,  # noqa: F401
+                                              FileLease, LeaderDiscoverer,
+                                              LeaseElector, LeaseState,
+                                              lease_backend_from_url)
 from veneur_tpu_torch.resilience import (Deadline, RetryPolicy,
                                          call_with_retry)
 

@@ -1,7 +1,6 @@
 """Fleet mode: the global tier's store sharded over a shard mesh.
 
-Port of ``veneur_tpu/fleet/__init__.py`` (its mesh tiered store, handoff
-and standby are not ported yet). This package owns:
+Port of ``veneur_tpu/fleet/__init__.py``. This package owns:
 
 - **mesh construction** - :func:`build_mesh` turns the config
   (``mesh_enabled`` / ``mesh_hosts``) into the ``(series, hosts)``
@@ -11,20 +10,30 @@ and standby are not ported yet). This package owns:
   series shard owns a series (the proxy's consistent-hash ring rule,
   one tier down) and where its rows live inside the sharded planes;
 - **shard-routed import** - the mesh groups (``core/mesh_store.py``)
-  drain staged import chunks as per-shard stacks (:func:`route_stack`).
+  drain staged import chunks as per-shard stacks (:func:`route_stack`);
+- **the mesh tiered store** - ``fleet/mesh_tiered.py``, the packed pool
+  over the mesh's series blocks (``mesh_enabled`` with ``digest_storage:
+  tiered``), placed by :class:`~veneur_tpu_torch.fleet.router.PoolPlacement`;
+- **elastic resharding** - ``fleet/handoff.py``: on a change of the
+  global fleet's membership (:class:`~veneur_tpu_torch.fleet.router.
+  RingTransition`) the moved key ranges stream to their new owner;
+- **global HA** - ``fleet/standby.py``: warm-standby replication of each
+  flush and promotion on a leased failover (``discovery/lease.py``).
 """
 
 from __future__ import annotations
 
 import logging
 
-from veneur_tpu_torch.fleet.router import (ShardPlacement, ShardRouter,
+from veneur_tpu_torch.fleet.router import (PoolPlacement, RingTransition,
+                                           ShardPlacement, ShardRouter,
                                            inverse_perm, ring_key,
                                            route_stack)
 
 log = logging.getLogger("veneur.fleet")
 
-__all__ = ["ShardRouter", "ShardPlacement", "ring_key", "route_stack",
+__all__ = ["RingTransition", "ShardRouter", "ShardPlacement",
+           "PoolPlacement", "ring_key", "route_stack",
            "inverse_perm", "build_mesh", "fleet_snapshot",
            "sum_shard_occupancy", "balance_ratio"]
 

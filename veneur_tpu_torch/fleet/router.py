@@ -1,8 +1,6 @@
 """Shard placement for the fleet-mode store: which shard owns a series.
 
-Port of ``veneur_tpu/fleet/router.py`` (its ``PoolPlacement`` and
-``RingTransition`` come with the mesh tiered store and the handoff).
-The proxy tier answers "which *instance* owns a
+Port of ``veneur_tpu/fleet/router.py``. The proxy tier answers "which *instance* owns a
 series" with a consistent-hash ring (``proxy/consistent.py``); fleet
 mode asks the same question one level down, which *series shard* of the
 global's mesh owns a series, and answers it with the SAME ring rule:
@@ -23,6 +21,12 @@ placement recomputes every physical id vectorized. It reports per-shard
 occupancy and a balance ratio (max/mean fill): hash placement keeps the
 ratio near 1 from the first interval, where sequential interning over a
 block layout would fill shard 0 before shard 1 saw a row.
+:class:`PoolPlacement` is the mesh tiered pool's slab-append twin:
+growth appends a slab and never moves a row.
+
+:class:`RingTransition` is the same ring rule one tier UP: a change of
+the global fleet's membership as a routing object, which the elastic
+resharding (``fleet/handoff.py``) splits the store by.
 """
 
 from __future__ import annotations
@@ -33,8 +37,62 @@ import numpy as np
 
 from veneur_tpu_torch.proxy.consistent import ConsistentRing, ring_key
 
-__all__ = ["ring_key", "ShardRouter", "ShardPlacement", "route_stack",
+__all__ = ["ring_key", "RingTransition", "ShardRouter",
+           "ShardPlacement", "PoolPlacement", "route_stack",
            "inverse_perm"]
+
+
+class RingTransition:
+    """One fleet-membership change as a routing object: which instance
+    owned a series before, which owns it after, and whether a given
+    instance loses it. Built from a discovery refresh diff
+    (``discovery.RingWatcher``); consumed by the handoff manager's
+    moved-range extraction (``fleet/handoff.py``) and by tests that
+    assert the proxy and the handoff agree on ownership."""
+
+    def __init__(self, old_members: Sequence[str],
+                 new_members: Sequence[str], replicas: int = 20):
+        self.old_members = sorted(set(old_members))
+        self.new_members = sorted(set(new_members))
+        self.old_ring = ConsistentRing(self.old_members, replicas=replicas) \
+            if self.old_members else None
+        self.new_ring = ConsistentRing(self.new_members, replicas=replicas) \
+            if self.new_members else None
+
+    def new_owner(self, name: str, mtype: str, joined_tags: str) -> Optional[str]:
+        if self.new_ring is None:
+            return None
+        return self.new_ring.get(ring_key(name, mtype, joined_tags))
+
+    def new_owners(self, names: Sequence[str], mtype: str,
+                   joined_tags: Sequence[str]) -> List[Optional[str]]:
+        """Batched :meth:`new_owner`: one ring-lock hold for the whole
+        series list (``ConsistentRing.get_many``) — the handoff
+        extraction's moved-range computation routes per group batch,
+        not per key."""
+        if self.new_ring is None:
+            return [None] * len(names)
+        return self.new_ring.get_many(
+            [ring_key(n, mtype, j) for n, j in zip(names, joined_tags)])
+
+    def old_owner(self, name: str, mtype: str, joined_tags: str) -> Optional[str]:
+        if self.old_ring is None:
+            return None
+        return self.old_ring.get(ring_key(name, mtype, joined_tags))
+
+    def moved(self, name: str, mtype: str, joined_tags: str) -> bool:
+        """Whether this series' owner changed across the transition."""
+        return (self.old_owner(name, mtype, joined_tags)
+                != self.new_owner(name, mtype, joined_tags))
+
+    def loses_ranges(self, member: str) -> bool:
+        """Whether ``member`` can lose any range: it owned ranges
+        before (was a member) and the membership actually changed.
+        The single-member degenerate cases fall out naturally: 1→N
+        loses ranges, N→1 loses everything on the departing members,
+        1→1 (same member) never does."""
+        return (member in self.old_members
+                and self.old_members != self.new_members)
 
 
 class ShardRouter:
@@ -146,6 +204,78 @@ class ShardPlacement:
 
     def occupancy(self) -> dict:
         return _occupancy(self.fills, self.block)
+
+
+class PoolPlacement:
+    """Slab-append placement for the mesh tiered pool: physical row =
+    ``slab * slab_rows + shard * block + index``; growth appends slabs
+    and never moves a row."""
+
+    def __init__(self, shards: int, slab_rows: int, slabs: int = 1):
+        if slab_rows % shards:
+            raise ValueError(
+                f"slab_rows {slab_rows} not divisible by {shards} shards")
+        self.shards = shards
+        self.slab_rows = slab_rows
+        self.block = slab_rows // shards
+        # fills[slab][shard]
+        self.fills: List[np.ndarray] = [np.zeros(shards, np.int64)
+                                        for _ in range(max(1, slabs))]
+        self._phys = np.empty(0, np.int64)
+        self._count = 0
+
+    def __len__(self) -> int:
+        return self._count
+
+    @property
+    def slabs(self) -> int:
+        return len(self.fills)
+
+    def assigned(self, logical: int) -> bool:
+        return logical < self._count
+
+    def assign(self, logical: int, shard: int) -> Tuple[int, bool]:
+        """Place the next logical row on ``shard``; returns
+        ``(physical_row, appended_slab)`` — the owner must append a
+        device slab when the second element is True."""
+        assert logical == self._count, (logical, self._count)
+        appended = False
+        slab = None
+        for i, f in enumerate(self.fills):
+            if int(f[shard]) < self.block:
+                slab = i
+                break
+        if slab is None:
+            self.fills.append(np.zeros(self.shards, np.int64))
+            slab = len(self.fills) - 1
+            appended = True
+        local = int(self.fills[slab][shard])
+        self.fills[slab][shard] = local + 1
+        if self._count >= len(self._phys):
+            grow = max(256, len(self._phys))
+            self._phys = np.concatenate(
+                [self._phys, np.empty(grow, np.int64)])
+        phys = slab * self.slab_rows + shard * self.block + local
+        self._phys[self._count] = phys
+        self._count += 1
+        return phys, appended
+
+    def phys(self, logical: int) -> int:
+        return int(self._phys[logical])
+
+    def perm(self, n: Optional[int] = None) -> np.ndarray:
+        n = self._count if n is None else n
+        return self._phys[:n].copy()
+
+    def shard_of_local(self, slab_local: np.ndarray) -> np.ndarray:
+        """Series-shard of slab-LOCAL physical rows (the tiered drains
+        partition per slab first)."""
+        return np.minimum(np.asarray(slab_local) // self.block,
+                          self.shards - 1)
+
+    def occupancy(self) -> dict:
+        fills = np.sum(np.stack(self.fills), axis=0)
+        return _occupancy(fills, self.block * len(self.fills))
 
 
 def _occupancy(fills: np.ndarray, block: int) -> dict:

@@ -20,7 +20,10 @@ too, every sink with ``flush_chunk`` gets each completed group as it
 exists (core/pipeline.py), and a forwarder that takes parts ships each
 forwarded digest group upstream the same way. A store flush truncates
 the checkpoint (``persist/``): the state it captured is now on its way
-to the sinks. Self-telemetry is not ported yet.
+to the sinks. An active global with standby peers (``fleet/standby.py``)
+snapshots the store just before its flush and, once the flush landed,
+hands that snapshot to its replicator. Self-telemetry is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ def flush_once(server: "Server") -> int:
                                False)) else "dense"
     stream, stream_sinks = _build_stream(server, now, deadline,
                                          use_columnar, forwarding)
+    ha_snapshot = _ha_capture(server)
     try:
         t0 = time.perf_counter()
         final, forwardable = server.store.flush(
@@ -93,6 +97,10 @@ def flush_once(server: "Server") -> int:
         # fsync, and the writer's own epoch check then removes its file
         if server.checkpointer is not None:
             server.checkpointer.truncate(blocking=False)
+        if ha_snapshot is not None:
+            # the flush landed: the captured (now retired) epoch streams
+            # to the standbys off the flush path
+            server.standby_manager.capture(*ha_snapshot)
         if forwarding and len(forwardable):
             # the batch forward's budget starts with it, as before
             # streaming: a slow store flush must not leave it no time
@@ -114,6 +122,22 @@ def flush_once(server: "Server") -> int:
     server.last_flush_time = time.time()
     server.last_flush_ok = True
     return len(final)
+
+
+def _ha_capture(server: "Server"):
+    """Warm-standby replication: the (groups, flush_epoch) the flush is
+    about to drain, taken without resetting anything BEFORE the
+    generation swap, or None. Replicating only what a flush emitted is
+    what makes the promoted standby's counter exclusion exact."""
+    sby = getattr(server, "standby_manager", None)
+    if sby is None or not sby.wants_capture():
+        return None
+    try:
+        return server.store.snapshot_state()
+    except Exception:
+        log.exception("HA replication capture failed; this epoch will "
+                      "not replicate")
+        return None
 
 
 def _egress_budget(server: "Server") -> float:

@@ -17,8 +17,16 @@ its import handler, handlers_global.go:60-213):
                                 queue is full
 
 Error behavior follows ``unmarshalMetricsFromHTTP``: an empty body, an
-unknown encoding and invalid JSON are 400s. The other routes of the JAX
-package (``/debug/vars``, ``/handoff``, ...) are not ported.
+unknown encoding and invalid JSON are 400s.
+
+A Server mounts more routes with :meth:`OpsServer.add_route` (GET,
+``fn(query) -> (status, body, content_type)``) and
+:meth:`OpsServer.add_post_route` (POST, ``fn(headers, body) -> (status,
+body, content_type)``): the elastic resharding's ``POST /handoff`` and
+``GET /handoff-status``, the standby's ``POST /replicate`` and ``GET
+/ha-status``. A POST route answers on the request thread, before
+``/import``: its 2xx is the ack of a merge that landed, so it never
+rides the import pool. ``/debug/vars`` is not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import json
 import logging
 import queue
 import threading
+import urllib.parse
 import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, List, Optional
@@ -89,10 +98,11 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # route to logging, not stderr
         log.debug("http: " + fmt, *args)
 
-    def _reply(self, status: int, body: str = ""):
+    def _reply(self, status: int, body: str = "",
+               ctype: str = "text/plain"):
         data = body.encode("utf-8")
         self.send_response(status)
-        self.send_header("Content-Type", "text/plain")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
         self.end_headers()
         self.wfile.write(data)
@@ -103,22 +113,39 @@ class _Handler(BaseHTTPRequestHandler):
         length = int(self.headers.get("Content-Length") or 0)
         return self.rfile.read(length) if length else b""
 
+    def _call_route(self, fn, *args):
+        try:
+            self._reply(*fn(*args))
+        except Exception as e:
+            log.exception("handler for %s failed", self.path)
+            self._reply(500, str(e))
+
     def do_GET(self):
         self._drain_body()
-        path = self.path.partition("?")[0]
+        path, _, qs = self.path.partition("?")
         ready = self.server.veneur_ready
+        extra = self.server.veneur_get_routes.get(path)
         if path == "/healthcheck":
             self._reply(200, "ok")
         elif path == "/healthcheck/ready" and ready is not None:
             self._reply(*ready())
         elif path == "/version":
             self._reply(200, __version__)
+        elif extra is not None:
+            self._call_route(extra, dict(urllib.parse.parse_qsl(qs)))
         else:
             self._reply(404, "not found")
 
     def do_POST(self):
         body = self._drain_body()
-        if self.path.partition("?")[0] != "/import":
+        path = self.path.partition("?")[0]
+        extra = self.server.veneur_post_routes.get(path)
+        if extra is not None:
+            # a synchronous merge (POST /handoff, /replicate): its 2xx is
+            # the ack, so it never rides the async import pool
+            self._call_route(extra, self.headers, body)
+            return
+        if path != "/import":
             self._reply(404, "not found")
             return
         pool = self.server.veneur_import_pool
@@ -236,6 +263,8 @@ class OpsServer:
             if import_fn is not None else None)
         self._httpd.veneur_import_pool = self.import_pool
         self._httpd.veneur_ready = ready_fn
+        self._httpd.veneur_get_routes = {}
+        self._httpd.veneur_post_routes = {}
         self._thread: Optional[threading.Thread] = None
 
     @classmethod
@@ -271,6 +300,15 @@ class OpsServer:
         return cls(addr, import_fn=import_metrics,
                    import_workers=cfg.http_import_workers,
                    import_queue=cfg.http_import_queue, ready_fn=ready)
+
+    def add_route(self, path: str, fn: Callable):
+        """GET ``path``: fn(query: dict) -> (status, body, content_type)."""
+        self._httpd.veneur_get_routes[path] = fn
+
+    def add_post_route(self, path: str, fn: Callable):
+        """POST ``path``: fn(headers, body: bytes) -> (status, body,
+        content_type), answered on the request thread."""
+        self._httpd.veneur_post_routes[path] = fn
 
     @property
     def port(self) -> int:

@@ -64,6 +64,19 @@ import (``forward/grpc_forward.py``: ``server.import_server``), on a
 dense, slab, tiered or mesh store alike. The port has no
 ``/debug/vars``: the two imports count on their objects (``received``,
 ``import_errors``).
+
+The global tier as a fleet (``fleet/``): with ``handoff_enabled`` a
+global watches its fleet's membership and hands the key ranges a resize
+moves to their new owner's ``POST /handoff`` (``handoff_manager``;
+``/handoff-status`` answers the sender's completion probe); a spool of a
+crashed life re-sends or re-merges at :meth:`Server.start`. With
+``standby_peers`` the active replicates each flush to its standbys'
+``POST /replicate``, and with ``lease_path`` the instances elect the
+active through a lease (``standby_manager``, ``lease_elector``; ``GET
+/ha-status``): a standby that wins the lease promotes its shadow into
+the live store. :meth:`Server.shutdown` quiesces a handoff in flight and
+releases the lease before its final flush; :meth:`Server.crash_stop`
+releases nothing, so a standby waits out the lease's ttl.
 """
 
 from __future__ import annotations
@@ -342,6 +355,34 @@ class Server:
                             or self.interval / 4.0),
                 max_age_s=config.checkpoint_max_age_intervals * self.interval,
                 hostname=self.hostname, write_fn=write_fn)
+        # the global tier as a fleet: elastic resharding (both roles),
+        # warm-standby replication and the leadership lease; each needs a
+        # global, as Config checks
+        self.handoff_manager = None
+        self.standby_manager = None
+        self.lease_elector = None
+        if config.handoff_enabled:
+            from veneur_tpu_torch.fleet.handoff import HandoffManager
+
+            self.handoff_manager = HandoffManager.for_server(self)
+        if config.standby_peers or config.lease_path:
+            from veneur_tpu_torch.fleet.standby import StandbyManager
+
+            self.standby_manager = StandbyManager.for_server(self)
+            if config.lease_path:
+                from veneur_tpu_torch.discovery import (
+                    LeaseElector, lease_backend_from_url)
+
+                self.lease_elector = LeaseElector(
+                    lease_backend_from_url(config.lease_path),
+                    holder=config.handoff_self or config.http_address,
+                    ttl=config.lease_ttl_seconds,
+                    renew_interval=config.lease_renew_interval_seconds,
+                    on_promote=self.standby_manager.on_promote,
+                    on_demote=self.standby_manager.on_demote)
+            else:
+                # no election: replicate unconditionally
+                self.standby_manager.is_leader = True
         # global aggregation (start() wires them from the config)
         self.forward_fn = None
         self.forwarder = None
@@ -536,6 +577,11 @@ class Server:
         self._started_wall = time.time()
         if self.checkpointer is not None:
             self.checkpointer.restore()
+        if self.handoff_manager is not None:
+            # handoffs a crashed life spooled but never saw acked re-send
+            # (the receiver's id guard makes that exactly-once) or
+            # re-enter the live store: late, never lost
+            self.handoff_manager.recover_spool()
         self._span_lanes = make_span_lanes(self.span_sinks, self._span_stop)
         for i in range(cfg.num_span_workers):
             w = SpanWorker(self.span_chan, self._stop, self._span_lanes)
@@ -548,6 +594,7 @@ class Server:
             sink.start()
         if cfg.http_address:
             self.ops_server = OpsServer.for_server(self, cfg.http_address)
+            self._mount_fleet_routes(self.ops_server)
             self.ops_server.start()
         if cfg.grpc_address:
             from veneur_tpu_torch.forward.grpc_forward import ImportServer
@@ -582,6 +629,14 @@ class Server:
             rung = ("python" if resolve_addr(spec).family == "udp"
                     else "stream")
             self.ssf_listeners.append((spec, rung, bound[0]))
+        for name, worker in (("handoff-refresh", self.handoff_manager),
+                             ("ha-replicator", self.standby_manager),
+                             ("lease-elector", self.lease_elector)):
+            if worker is not None:
+                t = threading.Thread(target=worker.run, args=(self._stop,),
+                                     name=name, daemon=True)
+                t.start()
+                self._threads.append(t)
         ticker = threading.Thread(target=self._flush_loop,
                                   name="flush-ticker", daemon=True)
         ticker.start()
@@ -594,6 +649,23 @@ class Server:
             self._threads.append(ckpt)
             log.info("checkpointing to %s every %.1fs",
                      self.checkpointer.path, self.checkpointer.interval_s)
+
+    def _mount_fleet_routes(self, ops: OpsServer) -> None:
+        """The receivers of the fleet plane: a peer's moved ranges merge
+        on ``POST /handoff`` synchronously (the 2xx is the ack; the id
+        and epoch guards make retries at-most-once), the active's
+        retired flushes shadow on ``POST /replicate`` until a
+        promotion."""
+        mgr = self.handoff_manager
+        if mgr is not None:
+            ops.add_post_route("/handoff", lambda headers, body:
+                               mgr.handle_handoff(body, headers=headers))
+            ops.add_route("/handoff-status", mgr.status_route)
+        sby = self.standby_manager
+        if sby is not None:
+            ops.add_post_route("/replicate", lambda headers, body:
+                               sby.handle_replicate(body, headers=headers))
+            ops.add_route("/ha-status", sby.status_route)
 
     def _try_ingest_lanes(self, spec: str) -> bool:
         """The default rung: one lane per reader (``ingest_lanes: 0``) or
@@ -828,6 +900,18 @@ class Server:
         ckpt = self.checkpointer
         if ckpt is not None and ckpt.last_error:
             out.append(f"checkpoint writes failing ({ckpt.last_error})")
+        mgr = self.handoff_manager
+        if mgr is not None and mgr.last_spool_error:
+            out.append(f"handoff spool writes failing "
+                       f"({mgr.last_spool_error})")
+        # failing replication widens the standby's takeover window past
+        # one interval: degraded, not unready
+        sby = self.standby_manager
+        if sby is not None and sby.is_leader and sby.last_error:
+            out.append(f"standby replication failing ({sby.last_error})")
+        elector = self.lease_elector
+        if elector is not None and elector.last_error:
+            out.append(f"lease renewal failing ({elector.last_error})")
         return out
 
     def wait_forward(self, timeout: float = 60.0) -> Optional[bool]:
@@ -848,7 +932,8 @@ class Server:
         are joined and sockets closed, so a test can restart on the same
         ``checkpoint_path`` in one process, but whatever lived only in
         this store dies here, as in a real kill: a restart recovers what
-        the last checkpoint committed."""
+        the last checkpoint committed. The lease is NOT released: a
+        standby waits out its ttl, as after a real kill."""
         self._stop_threads(timeout)
         self._close_servers()
 
@@ -857,8 +942,17 @@ class Server:
         span workers and span lanes finish what they accepted, then flush
         the current interval once more so its data reaches the sinks
         (and, on a local, its forward lands) and the checkpoint is
-        truncated, and stop the ops server."""
+        truncated, and stop the ops server. A handoff in flight finishes
+        (streamed or re-queued) and the lease goes back first, so the
+        moved ranges make this final flush and a standby promotes on its
+        next poll instead of waiting out the ttl."""
         self._stop_threads(timeout)
+        if (self.handoff_manager is not None
+                and not self.handoff_manager.quiesce(timeout=30.0)):
+            log.warning("handoff still in flight at shutdown; its spool "
+                        "recovers at the next start")
+        if self.lease_elector is not None:
+            self.lease_elector.release()
         try:
             self.flush()
             self.wait_forward(timeout)
