@@ -24,9 +24,19 @@ mesh six, grpc_proxy three, fleet_ha five):
            distribution, so the shift guard drains through K2) and 32,768
            HLL sets at p=14, then one flush through K1; cut from
            1,048,576 series, since the ingest phase drives the 1M-series
-           ingest and flush;
-  server   the UDP Server with a channel sink: datagrams of every ported
-           type, one flush, rows checked against what was sent;
+           ingest and flush; then the obs plane's cost on that store's
+           flush (the store_obs_cost line: median of 3 columnar flushes
+           with a StageRecorder active against 3 without);
+  server   the UDP Server with a channel sink and the obs plane:
+           datagrams of every ported type, one flush, rows checked
+           against what was sent; /debug/flush-timeline (the store's
+           stages) and /debug/vars (the kernel scopes' dispatches and
+           the CUDA launch counters) read over HTTP; the next flush's
+           self-metrics; a /debug/xprof capture over flushes whose
+           ingest trips the shift guard, every K1 and K2 device kernel
+           in it joined to its veneur.flush.digest.dense or
+           veneur.drain.digest.dense range; a twin with obs_enabled
+           false that flushes the same rows and answers 404;
   ingest   the server's default UDP listener, the ingest-lane fleet
            (4 lanes, native parse, recvmmsg) of a Server on cuda, at
            262,144 histogram series (1,048,576 until the mesh phase came,
@@ -289,6 +299,11 @@ mesh six, grpc_proxy three, fleet_ha five):
            rung 3 (a preflight fault, the re-merge, the late flush) on a
            slab and a tiered store, held to twins that never failed,
            both at 16,384 series.
+
+The ingest phase also prints its flushes' timeline (ingest_timeline:
+the stage tree, the lanes' ingest.* stages and the seal->merge
+latencies), and a 1 s capture at the end (late_capture) says whether a
+trace that late holds device events.
 
 After every phase every store it built must show requeued_total and
 lost_total at 0 (the compute_ladder store and the rung-3 stores of
@@ -870,22 +885,62 @@ def phase_store(dev, rows: int = ROWS, set_series: int = SET_SERIES,
           "set_err_vs_numpy_hll": ref_err,
           "set_rel_err_p50": float(np.median(rel)),
           "set_rel_err_p99": float(np.percentile(rel, 99))})
+    with _uncounted(tc):
+        emit({"phase": "store_obs_cost", "card": card_line(),
+              **_plane_cost(dev, rows, row_ids, early, late, wts, chunk)})
     return counts
 
 
-def phase_server(dev, series: int = 300, lines_per_series: int = 12):
-    """The UDP server end to end with a channel sink."""
-    from veneur_tpu_torch.config import Config
-    from veneur_tpu_torch.ops import tdigest_cuda as tc
-    from veneur_tpu_torch.server import Server
-    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+def _plane_cost(dev, rows, row_ids, early, late, wts, chunk,
+                rounds: int = 3) -> dict:
+    """The obs plane's cost on a store flush: the store phase's histogram
+    traffic into a fresh store, flushed columnar (the Server's default;
+    device-synced, after a collection) under an active StageRecorder
+    (its scopes, stages and the interval-end merge) and, in turn,
+    without one, the order alternating a round; the median of
+    ``rounds`` each."""
+    import torch
 
-    rng = np.random.default_rng(SEED + 1)
-    sink = ChannelMetricSink()
-    cfg = Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
-                 interval="3600s", percentiles=[0.5, 0.99],
-                 aggregates=["min", "max", "count"], hostname="smoke")
-    server = Server(cfg, metric_sinks=[sink], device=dev)
+    from veneur_tpu_torch import obs
+    from veneur_tpu_torch.core.store import MetricStore
+    from veneur_tpu_torch.samplers.intermetric import HistogramAggregates
+    from veneur_tpu_torch.samplers.parser import MetricKey
+
+    aggs = HistogramAggregates.from_names(["min", "max", "count"])
+    walls = {"with_recorder_s": [], "without_s": []}
+    for r in range(rounds):
+        for key in (sorted(walls) if r % 2 else sorted(walls)[::-1]):
+            store = MetricStore(initial_capacity=1024, chunk=chunk,
+                                device=dev)
+            hist = store.histograms
+            for i in range(rows):
+                hist.interner.intern(MetricKey(f"h.{i}", "histogram", ""),
+                                     [])
+            hist.ensure_capacity(rows - 1)
+            with store._lock:
+                hist.sample_many(row_ids, early.reshape(-1), wts)
+                hist.sample_many(row_ids, late.reshape(-1), wts)
+                hist._drain_samples()
+            torch.cuda.synchronize()
+            gc.collect()
+            rec = obs.StageRecorder() if key == "with_recorder_s" else None
+            t0 = time.perf_counter()
+            with obs.activate(rec):
+                store.flush(list(PERCENTILES), aggs, 0, columnar=True)
+            if rec is not None:
+                rec.finish()
+            torch.cuda.synchronize()
+            walls[key].append(time.perf_counter() - t0)
+            del store, hist
+    out = {k: float(np.median(v)) for k, v in walls.items()}
+    out["rounds"] = walls
+    out["cost_s"] = out["with_recorder_s"] - out["without_s"]
+    return out
+
+
+def _server_lines(rng, series: int, lines_per_series: int):
+    """The server phase's DogStatsD lines of every ported type, and what
+    they carry: counter totals, histogram samples, set members."""
     counters, hists, members = {}, {}, {}
     lines = []
     kinds = ("c", "g", "h", "ms", "s")
@@ -909,28 +964,275 @@ def phase_server(dev, series: int = 300, lines_per_series: int = 12):
                 member = f"m{rng.integers(0, 50)}"
                 members.setdefault(name, set()).add(member)
                 lines.append(f"{name}:{member}|s{scope}")
+    return lines, counters, hists, members
+
+
+def _send_lines(port: int, lines) -> None:
+    """Datagrams of 8 lines, paced (2 ms every 16 datagrams): a lane
+    sheds whole receive batches once its backlog of sealed chunks
+    reaches its cap."""
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+        for i in range(0, len(lines), 8):
+            tx.sendto("\n".join(lines[i:i + 8]).encode(),
+                      ("127.0.0.1", port))
+            if i % 128 == 0:
+                time.sleep(0.002)
+
+
+def _wait_processed(server, n: int, timeout: float = 60.0) -> None:
+    deadline = time.time() + timeout
+    while server.store.processed < n:
+        if time.time() > deadline:
+            raise AssertionError(f"server processed {server.store.processed}"
+                                 f" of {n} lines")
+        time.sleep(0.02)
+
+
+def _merged(server) -> int:
+    """Records the server's lane fleets merged into its store, ever."""
+    return sum(sum(f.merged_records.values()) for f in server.ingest_fleets)
+
+
+def _wait_settled(server, timeout: float = 60.0) -> None:
+    """Until the lanes merged nothing new for 0.25 s (a capture slows
+    the process: the kernel may drop datagrams, so no exact count)."""
+    deadline = time.time() + timeout
+    last, since = _merged(server), time.time()
+    while time.time() - since < 0.25:
+        if time.time() > deadline:
+            raise AssertionError("the lanes never settled")
+        time.sleep(0.02)
+        now = _merged(server)
+        if now != last:
+            last, since = now, time.time()
+
+
+def _wait_own_span(server, timeout: float = 60.0) -> None:
+    """Until the last flush's span re-entered the store through the span
+    workers (its veneur.flush.* timers interned)."""
+    deadline = time.time() + timeout
+    while "veneur.flush.total_duration_ns" not in \
+            server.store.histograms.interner.names:
+        if time.time() > deadline:
+            raise AssertionError("the flush span never reached the store")
+        time.sleep(0.02)
+
+
+def _http_get(port: int, path: str, timeout: float = 120.0):
+    """(status, body) of a GET on 127.0.0.1; an HTTP error's status."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _demangled(mangled: str) -> str:
+    """The profiler's (demangled) spelling of a kernel instance the CUDA
+    runtime names mangled: warp_rows_kernel<128, false, true>."""
+    hit = re.search(r"(warp|narrow|block)_rows_kernelI(?:Li(\d+)E)?"
+                    r"Lb(\d)ELb(\d)E", mangled)
+    if hit is None:
+        raise AssertionError(f"not a t-digest kernel: {mangled!r}")
+    flags = ", ".join("true" if f == "1" else "false"
+                      for f in hit.group(3, 4))
+    half = f"{hit.group(2)}, " if hit.group(2) else ""
+    return f"{hit.group(1)}_rows_kernel<{half}{flags}>"
+
+
+SCOPES = ("veneur.flush.digest.dense", "veneur.drain.digest.dense")
+
+
+def _attribute_kernels(trace_path: str, names: dict) -> dict:
+    """Each K1/K2 device kernel of a Chrome trace of torch.profiler,
+    attributed to the veneur scope range that launched it: its launch
+    call (same correlation id) inside a ``user_annotation`` of that name
+    on the launching thread, or the kernel inside a
+    ``gpu_user_annotation`` of it on the kernel's stream. ``names`` maps
+    K1/K2 to the profiler's kernel name. Raises when the trace holds no
+    device kernel at all, or a K1/K2 kernel falls in no scope."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("the capture holds no device events")
+    launches = {(e.get("args") or {}).get("correlation"): e
+                for e in events if e.get("cat") == "cuda_runtime"}
+    cpu = [e for e in events if e.get("cat") == "user_annotation"
+           and e.get("name") in SCOPES]
+    gpu = [e for e in events if e.get("cat") == "gpu_user_annotation"
+           and e.get("name") in SCOPES]
+
+    def inside(e, ranges, same):
+        return [r["name"] for r in ranges
+                if r.get(same) == e.get(same)
+                and r["ts"] <= e["ts"] <= r["ts"] + r.get("dur", 0)]
+
+    out = {}
+    for label, name in names.items():
+        mine = [e for e in kernels if name in e.get("name", "")]
+        scopes = {}
+        for e in mine:
+            rt = launches.get((e.get("args") or {}).get("correlation"))
+            hit = (inside(rt, cpu, "tid") if rt is not None else []) \
+                or inside(e, gpu, "tid")
+            if not hit:
+                raise AssertionError(f"{label} kernel at ts {e['ts']} lies "
+                                     f"in no veneur scope")
+            scopes[hit[0]] = scopes.get(hit[0], 0) + 1
+        out[label] = {"kernel": name, "device_kernels": len(mine),
+                      "by_scope": scopes}
+    out["device_events"] = len(kernels)
+    return out
+
+
+def _capture_over(port: int, seconds: float, work) -> dict:
+    """GET /debug/xprof?seconds=N on a thread while ``work()`` runs again
+    and again until the capture returns; the route's JSON body."""
+    box = {}
+    th = threading.Thread(target=lambda: box.update(
+        r=_http_get(port, f"/debug/xprof?seconds={seconds}")))
+    th.start()
+    cycles = 0
+    while th.is_alive():
+        work()
+        cycles += 1
+    th.join()
+    status, body = box["r"]
+    if status != 200:
+        raise AssertionError(f"/debug/xprof answered {status}: {body}")
+    data = json.loads(body)
+    data["work_cycles"] = cycles
+    return data
+
+
+def _server_rows(rows):
+    """A flush's rows of the traffic (srv.*) by (name, tags)."""
+    return {(m.name, tuple(m.tags)): m.value for m in rows
+            if m.name.startswith("srv.")}
+
+
+def phase_server(dev, series: int = 300, lines_per_series: int = 12):
+    """The UDP server end to end with a channel sink, and the obs plane
+    on it: the flush timeline, /debug/vars, the self-metrics of the next
+    flush, a /debug/xprof capture that attributes K1 and K2 to their
+    flush and drain scopes, and a twin Server with obs_enabled false."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+
+    rng = np.random.default_rng(SEED + 1)
+    lines, counters, hists, members = _server_lines(rng, series,
+                                                    lines_per_series)
+    kinds = ("c", "g", "h", "ms", "s")
+
+    def server_of(obs: bool):
+        sink = ChannelMetricSink()
+        cfg = Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                     interval="3600s", percentiles=[0.5, 0.99],
+                     aggregates=["min", "max", "count"], hostname="smoke",
+                     http_address="127.0.0.1:0", obs_enabled=obs)
+        return Server(cfg, metric_sinks=[sink], device=dev), sink
+
+    server, sink = server_of(True)
     _reset_counts(tc)
     server.start()
+    obs = {}
     try:
-        port = server.statsd_addrs[0][1]
-        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
-            for i in range(0, len(lines), 8):
-                tx.sendto("\n".join(lines[i:i + 8]).encode(),
-                          ("127.0.0.1", port))
-                if i % 512 == 0:
-                    time.sleep(0.002)
-        deadline = time.time() + 60
-        while server.store.processed < len(lines):
-            if time.time() > deadline:
-                raise AssertionError(f"server processed "
-                                     f"{server.store.processed} of "
-                                     f"{len(lines)} lines")
-            time.sleep(0.05)
+        port, http = server.statsd_addrs[0][1], server.ops_server.port
+        _send_lines(port, lines)
+        _wait_processed(server, len(lines))
         server.flush()
+        k1_name = _demangled(tc.last_kernel_name())
         rows = sink.get_flush(timeout=60)
+        k1 = tc.drain_quantile.launches
+        # the flush timeline: an entry an interval, the store's stages
+        status, body = _http_get(http, "/debug/flush-timeline")
+        tl = json.loads(body)
+        if status != 200 or tl["published_total"] != 1:
+            raise AssertionError(f"/debug/flush-timeline: {status} {body}")
+        entry = tl["intervals"][-1]
+        names = {st["name"] for st in entry["stages"]}
+        want = {"store", "store.swap", "store.dispatch",
+                "store.dispatch.histograms.compute",
+                "store.histograms.fetch"}
+        if not want <= names:
+            raise AssertionError(f"stages {sorted(want - names)} missing")
+        store_node = next(n for n in entry["tree"] if n["name"] == "store")
+        obs["coverage_ratio"] = entry["coverage_ratio"]
+        obs["stages_ms"] = {st["name"]: st["duration_ns"] / 1e6
+                            for st in entry["stages"]
+                            if st["name"].count(".") < 2}
+        obs["store_children"] = [c["name"] for c in store_node["children"]]
+        # /debug/vars: the kernel scopes' dispatches, the CUDA launches
+        status, body = _http_get(http, "/debug/vars")
+        kern = json.loads(body)["obs"]["kernels"]
+        for scope in ("flush.digest.dense", "drain.digest.dense"):
+            if not kern["dispatches"].get(scope):
+                raise AssertionError(f"/debug/vars counts no {scope}")
+        if kern["launches"]["drain_quantile"]["launches"] != k1:
+            raise AssertionError(f"/debug/vars launches {kern['launches']}")
+        obs["vars_dispatches"] = kern["dispatches"]
+        obs["vars_launches"] = kern["launches"]
+        # the next flush carries the first one's self-metrics
+        _wait_own_span(server)
+        server.flush()
+        own = [m for m in sink.get_flush(timeout=60)
+               if m.name.startswith("veneur.")]
+        stage_tags = {t for m in own
+                      if m.name == "veneur.obs.stage_duration_ns.99percentile"
+                      for t in m.tags}
+        if not ({"stage:store", "stage:post"} <= stage_tags and any(
+                m.name.startswith("veneur.flush.total_duration_ns.")
+                for m in own)):
+            raise AssertionError(f"the self-metrics are missing: "
+                                 f"{sorted({m.name for m in own})[:40]}")
+        obs["self_metric_rows"] = len(own)
+        obs["stage_tags"] = len(stage_tags)
+        # a capture over flushes whose ingest trips the shift guard (K2
+        # under drain.digest.dense) before the flush (K1 under
+        # flush.digest.dense)
+        with _uncounted(tc):
+            ka = _k2_inputs(dev)
+            tc.compress_presorted(*ka, COMPRESSION, ka[0].shape[-1])
+            k2_name = _demangled(tc.last_kernel_name())
+        shifted = []
+        for ln in lines:
+            name, rest = ln.split(":", 1)
+            value, tail = rest.split("|", 1)
+            if tail.startswith(("h", "ms")):
+                rest = f"{float(value) + 1000.0!r}|{tail}"
+            shifted.append(f"{name}:{rest}")
+
+        def cycle():
+            # a snapshot (a checkpoint's) drains the first half into the
+            # bins; the flush's drain of the shifted half then trips the
+            # shift guard: K2, then K1
+            _send_lines(port, lines)
+            _wait_settled(server)
+            server.store.snapshot_state()
+            _send_lines(port, shifted)
+            _wait_settled(server)
+            server.flush()
+            sink.get_flush(timeout=60)
+
+        cap = _capture_over(http, 3, cycle)
+        obs["xprof"] = {k: cap[k] for k in ("seconds", "work_cycles",
+                                            "files")}
+        obs["xprof"].update(_attribute_kernels(
+            cap["files"][0]["path"], {"K1": k1_name, "K2": k2_name}))
+        for label, scope in (("K1", SCOPES[0]), ("K2", SCOPES[1])):
+            got = obs["xprof"][label]
+            if not got["device_kernels"] or scope not in got["by_scope"]:
+                raise AssertionError(f"the capture attributes no {label} "
+                                     f"kernel to {scope}: {got}")
     finally:
         server.shutdown()
-    k1 = tc.drain_quantile.launches
     if k1 < 1:
         raise AssertionError("the server flush did not launch K1")
     by = {}
@@ -961,10 +1263,48 @@ def phase_server(dev, series: int = 300, lines_per_series: int = 12):
         if abs(by[name][0].value - len(ms)) > 0.02 * len(ms) + 0.5:
             raise AssertionError(f"{name}: estimate {by[name][0].value} vs "
                                  f"{len(ms)} members")
+    # the twin with the plane off: the same rows but veneur.*, no timeline
+    twin, tsink = server_of(False)
+    with _uncounted(tc):
+        twin.start()
+        try:
+            _send_lines(twin.statsd_addrs[0][1], lines)
+            _wait_processed(twin, len(lines))
+            twin.flush()
+            twin_rows = tsink.get_flush(timeout=60)
+            timeline_status, _ = _http_get(twin.ops_server.port,
+                                           "/debug/flush-timeline")
+        finally:
+            twin.shutdown()
+    got, want_rows = _server_rows(rows), _server_rows(twin_rows)
+    if set(got) != set(want_rows) or any(
+            got[k] != want_rows[k] for k in got
+            if "percentile" not in k[0] and not k[0].startswith("srv.s.")):
+        raise AssertionError("the obs_enabled: false twin flushed other "
+                             "rows")
+    if timeline_status != 404 or any(m.name.startswith("veneur.")
+                                     for m in twin_rows):
+        raise AssertionError(f"the twin with obs off answered "
+                             f"{timeline_status} / emitted veneur.* rows")
     emit({"phase": "server", "lines": len(lines), "rows_flushed": len(rows),
-          "rows_per_type": types,
-          "launches": _counts(tc),
+          "rows_per_type": types, "twin_rows_equal": True,
+          "launches": _counts(tc), "obs": obs,
           "packet_errors": server.packet_errors})
+
+
+def _k2_inputs(dev, rows: int = 64):
+    """K2's inputs at the store's width (K = 104 at compression 100):
+    two row-ascending centroid halves of ``rows`` rows, weight 1."""
+    import torch
+
+    from veneur_tpu_torch.ops import tdigest as td
+
+    k = td.size_bound(COMPRESSION)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    ma = torch.sort(torch.rand(rows, k, generator=gen), dim=-1)[0]
+    mb = torch.sort(torch.rand(rows, k, generator=gen), dim=-1)[0]
+    w = torch.ones(rows, k)
+    return (ma.to(dev), w.to(dev), mb.to(dev), w.clone().to(dev))
 
 
 def _sync(dev) -> None:
@@ -1912,7 +2252,8 @@ def _forward_pair(dev, t, globs, grpc_address: str, http_address: str,
     """Local A over gRPC to ``grpc_address``, then local B over HTTP to
     ``http_address``; each forward lands in ``globs`` (their imports,
     summed, reach what the local sent) before the next starts. Returns
-    the metrics sent."""
+    the metrics sent. Each local forwards once: it stops without the
+    final flush."""
     sent = 0
     for label, grpc, address in (("a", True, grpc_address),
                                  ("b", False, http_address)):
@@ -1929,7 +2270,9 @@ def _forward_pair(dev, t, globs, grpc_address: str, http_address: str,
             rec[f"local_{label}_s"] = time.perf_counter() - t0
             rec[f"local_{label}_forwarded"] = local.forwarder.forwarded
         finally:
-            local.shutdown()
+            # no final flush: it would forward again (the local's own
+            # veneur.* timers of the first one), past what was counted
+            local.crash_stop()
     if sum(g.store.imported for g, _ in globs) != sent:
         raise AssertionError("the globals imported more than was sent")
     return sent
@@ -1946,7 +2289,8 @@ def _global_rows(server, sink) -> tuple:
     for key, (blk, names) in _blocks_by_prefix(col, 1).items():
         groups[key] = dict(zip(names, _block_matrix(blk)))
         sfx[key] = [x.decode() for x in blk.suffixes]
-    extras = {(m.name, tuple(m.tags)): m.value for m in col.extras}
+    extras = {(m.name, tuple(m.tags)): m.value for m in col.extras
+              if not m.name.startswith("veneur.")}
     return groups, extras, sfx
 
 
@@ -2701,6 +3045,30 @@ def _block_matrix(blk):
     return out.reshape(n, nsfx)
 
 
+def _own_rows(col) -> int:
+    """The emission rows of a ColumnarFlush whose series is the server's
+    own (a veneur.* name), blocks and extras."""
+    from veneur_tpu_torch.core.columnar import arena_strings
+
+    own = sum(m.name.startswith("veneur.") for m in col.extras)
+    for blk in col.blocks:
+        mine = np.array([x.startswith("veneur.")
+                         for x in arena_strings(blk.names)], bool)
+        own += int(mine[blk.rows].sum()) if len(mine) else 0
+    return own
+
+
+def _traffic_prefix(blk):
+    """The name prefix of a block's first series that is not the
+    server's own (``ingest.h`` of ``ingest.h.17``), or None."""
+    from veneur_tpu_torch.core.columnar import arena_strings
+
+    for x in arena_strings(blk.names):
+        if not x.startswith("veneur."):
+            return x.rsplit(".", 1)[0]
+    return None
+
+
 def _check_ingest_flush(col, t, rec):
     """One interval's ColumnarFlush against the traffic, on the blocks'
     arrays: the row count; counters and gauges exact; on 4,096 seeded
@@ -2716,8 +3084,13 @@ def _check_ingest_flush(col, t, rec):
     checks = t["raw_lines"] // 2
     want_rows = (n * (3 + len(INGEST_PERCENTILES)) + sets + 2 * scalars
                  + checks)
-    if len(col) != want_rows:
-        raise AssertionError(f"{len(col)} rows flushed, want {want_rows}")
+    # the server's own rows (veneur.*: the previous flush's span, which
+    # re-entered the pipeline) share the blocks of their groups; they
+    # are told apart by name and counted on their own
+    own = _own_rows(col)
+    if len(col) - own != want_rows:
+        raise AssertionError(f"{len(col) - own} rows of the traffic "
+                             f"flushed, want {want_rows}")
     status = {m.name: (m.value, m.message) for m in col.extras
               if m.type.value == "status"}
     if len(status) != len(col.extras) or status != {
@@ -2727,15 +3100,18 @@ def _check_ingest_flush(col, t, rec):
                              "status rows")
     blocks = {}
     for blk in col.blocks:
-        first = blk.names[0][:blk.names[2][0]].decode()
-        blocks[first.rsplit(".", 1)[0]] = blk
+        prefix = _traffic_prefix(blk)
+        if prefix is not None:
+            blocks[prefix] = blk
     if sorted(blocks) != ["ingest.c", "ingest.g", "ingest.h", "ingest.s"]:
         raise AssertionError(f"unexpected blocks {sorted(blocks)}")
 
     def by_index(blk, prefix):
+        names = arena_strings(blk.names)
+        mine = np.array([x.startswith(prefix + ".") for x in names])
         idx = np.array([int(x[len(prefix) + 1:])
-                        for x in arena_strings(blk.names)])
-        vals = _block_matrix(blk)[:, 0]
+                        for x, m in zip(names, mine) if m])
+        vals = _block_matrix(blk)[mine, 0]
         out = np.full(len(idx), np.nan)
         out[idx] = vals
         return out, idx
@@ -2780,7 +3156,8 @@ def _check_ingest_flush(col, t, rec):
     if ref_err > 1e-4:
         raise AssertionError(f"set estimates off the numpy HLL by "
                              f"{ref_err:.3g}")
-    rec.update({"rows_flushed": len(col), "blocks": len(col.blocks),
+    rec.update({"rows_flushed": len(col), "own_rows": own,
+                "blocks": len(col.blocks),
                 "hist_mass_rel_err": mass_err,
                 "pct_err_vs_exact_digest": worst,
                 "set_err_vs_numpy_hll": ref_err,
@@ -3107,8 +3484,8 @@ def run_ingest_lanes(dev, rows: int, set_series: int, scalars: int,
                                      "chunk row")
             _check_ingest_flush(col, t, r)
             scalars_blocks = sum(1 for b in col.blocks
-                                 if b.names[0].startswith(b"ingest.c")
-                                 or b.names[0].startswith(b"ingest.g"))
+                                 if _traffic_prefix(b) in ("ingest.c",
+                                                           "ingest.g"))
             _check_bodies(recv, col, stages["serialized"][:scalars_blocks],
                           r)
             del col
@@ -3120,6 +3497,10 @@ def run_ingest_lanes(dev, rows: int, set_series: int, scalars: int,
                                      "flush_other_samples")
             rec["intervals"].append(r)
         counts = _counts(tc)
+        # the flush's stage tree, the lanes' ingest.* stages and their
+        # seal->merge latencies, as the timeline holds them
+        rec["timeline"] = [_timeline_summary(e)
+                           for e in server.obs_timeline.entries()]
     finally:
         gc.callbacks.remove(on_gc)
         beat.close()
@@ -3373,11 +3754,34 @@ def phase_ingest(dev, card: str, rows: int = INGEST_ROWS,
     rec["lane_decode_records_per_s"] = {
         str(n): lane_decode_rate(n) for n in (1, lanes)}
     rec["phase_s"] = time.perf_counter() - t0
+    timeline = rec.pop("timeline")
     emit({"phase": "ingest", "card": card, **rec})
     # the flush numbers alone, one line
     emit({"phase": "ingest_flush", "card": card, "intervals": [
         {k: r[k] for k in FLUSH_KEYS} for r in rec["intervals"]]})
+    emit({"phase": "ingest_timeline", "card": card, "intervals": timeline})
     return counts
+
+
+def _timeline_summary(entry: dict) -> dict:
+    """One flush-timeline entry in brief: coverage, the stages two levels
+    deep (ms), the lanes' ingest.* stages (lane-seconds) and the
+    seal->merge latencies."""
+    stages = {}
+    for st in entry["stages"]:
+        if st["name"].count(".") < 2 and not st["name"].startswith(
+                "ingest"):
+            stages[st["name"]] = stages.get(st["name"], 0.0) + \
+                st["duration_ns"] / 1e6
+    return {"interval": entry["interval"],
+            "total_ms": entry["total_duration_ns"] / 1e6,
+            "coverage_ratio": entry["coverage_ratio"],
+            "overlap_ratio": entry.get("overlap_ratio"),
+            "stages_ms": stages,
+            "ingest_lane_s": {st["name"]: st["duration_ns"] / 1e9
+                              for st in entry["stages"]
+                              if st["name"].startswith("ingest")},
+            "seal_to_merge": entry.get("ingest_seal_to_merge")}
 
 
 # the ssf phase: SSF spans into a Server on the card
@@ -3740,6 +4144,13 @@ def _wait_ssf_window(server, reader, acc, p0, sent, timeout=300):
               timeout, "the SSF pump to catch up with a window")
 
 
+def _traffic_spans(span_sink) -> int:
+    """Spans a channel span sink got, but the server's own: the flush's
+    root span ("flush") and its stages' ("veneur.flush.*")."""
+    return sum(1 for s in list(span_sink.queue.queue)
+               if not (s.name == "flush" or s.name.startswith("veneur.")))
+
+
 def run_ssf(dev, t, workdir, sock_path):
     """The ssf phase's main path: a Server on ``dev`` with the native SSF
     reader pool (4 readers) and a unix:// SSF listener takes the traffic
@@ -3819,7 +4230,8 @@ def run_ssf(dev, t, workdir, sock_path):
            "records_native": acc["records"], "slow_lane": acc["slow"],
            "pump_batches": acc["batches"],
            "process_batch_s": acc["process_batch_s"],
-           "spans_to_sinks": span_sink.queue.qsize(),
+           "spans_to_sinks": _traffic_spans(span_sink),
+           "own_spans": span_sink.queue.qsize() - _traffic_spans(span_sink),
            "spans_dropped": server.spans_dropped,
            "native_ssf_drops": server.native_ssf_drops,
            "decode_errors_and_invalid": server.packet_errors,
@@ -5044,14 +5456,40 @@ def _instrument_checkpointer(server):
     return writes, undo
 
 
+def _traffic_block(blk):
+    """A block without the server's own series (veneur.*: a Server's
+    flush span re-enters its pipeline and flushes with the next
+    interval), or None when it holds nothing else."""
+    from veneur_tpu_torch.core.columnar import (EmissionBlock, arena_strings,
+                                                build_arenas)
+
+    names = arena_strings(blk.names)
+    keep = np.array([not x.startswith("veneur.") for x in names], bool)
+    if keep.all():
+        return blk
+    if not keep.any():
+        return None
+    tags = arena_strings(blk.tags)
+    new_row = np.cumsum(keep) - 1
+    sel = keep[blk.rows]
+    return EmissionBlock(
+        names=build_arenas([x for x, k in zip(names, keep) if k]),
+        tags=build_arenas([x for x, k in zip(tags, keep) if k]),
+        suffixes=blk.suffixes,
+        rows=new_row[blk.rows[sel]].astype(blk.rows.dtype),
+        suffix_idx=blk.suffix_idx[sel], values=blk.values[sel],
+        type_codes=blk.type_codes[sel])
+
+
 def _blocks_by_prefix(col, part: int = 1) -> dict:
-    """A ColumnarFlush's blocks keyed by the dotted ``part`` of their
-    first name (the group prefix: "h", "s", "c" or "g" of ck.<p>.<i>
-    at part 1, of <p>.<i> at part 0), each with its names."""
+    """A ColumnarFlush's blocks of the traffic (``_traffic_block``) keyed
+    by the dotted ``part`` of their first name (the group prefix: "h",
+    "s", "c" or "g" of ck.<p>.<i> at part 1, of <p>.<i> at part 0),
+    each with its names."""
     from veneur_tpu_torch.core.columnar import arena_strings
 
     out = {}
-    for blk in col.blocks:
+    for blk in filter(None, map(_traffic_block, col.blocks)):
         names = arena_strings(blk.names)
         key = names[0].split(".")[part]
         if key in out:
@@ -6783,7 +7221,8 @@ def _fha_rows(server, sink, part: int = 0) -> tuple:
     blocks = {k: (names, _fha_matrix(blk),
                   [s.decode() for s in blk.suffixes])
               for k, (blk, names) in _blocks_by_prefix(col, part).items()}
-    extras = {(m.name, tuple(m.tags)): m.value for m in col.extras}
+    extras = {(m.name, tuple(m.tags)): m.value for m in col.extras
+              if not m.name.startswith("veneur.")}
     return blocks, extras
 
 
@@ -7820,6 +8259,44 @@ def phase_fleet_ha(dev, card: str) -> dict:
     return counts
 
 
+def _late_capture(dev, seconds: float = 1.0) -> dict:
+    """A 1 s profiler capture at the end of the script (obs/kernels.py
+    capture_xprof) while another thread launches K2 (uncounted): whether
+    it holds device events. Not a check: the question of the traces late
+    in the script that held none stays open when it does not."""
+    import torch
+
+    from veneur_tpu_torch.obs import kernels as obs_kernels
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+
+    stop = threading.Event()
+    ka = _k2_inputs(dev)
+
+    def launch():
+        while not stop.is_set():
+            tc.compress_presorted(*ka, COMPRESSION, ka[0].shape[-1])
+            torch.cuda.synchronize(dev)
+            time.sleep(0.01)
+
+    with _uncounted(tc):
+        th = threading.Thread(target=launch)
+        th.start()
+        try:
+            status, body, _ = obs_kernels.capture_xprof(seconds)
+        finally:
+            stop.set()
+            th.join()
+    if status != 200:
+        return {"status": status, "error": body}
+    data = json.loads(body)
+    with open(data["files"][0]["path"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return {"status": status, "seconds": data["seconds"],
+            "device_events": len(kernels),
+            "kernels": sorted(set(k[:60] for k in kernels))[:4]}
+
+
 def _ptxas_summary(logs) -> list:
     """Registers, spills and shared memory of every kernel instance, from
     nvcc's -Xptxas -v output: warp<half,sort_b,drain> / narrow<...> /
@@ -7986,6 +8463,7 @@ def main() -> int:
             launches[key] += n
         stores[name] = _check_breakers(name)
     emit({"phase": "no_fallback", "stores_checked": stores})
+    emit({"phase": "late_capture", **_late_capture(dev)})
     emit({"kernels": _kernel_rows(kern, launches)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -183,6 +183,14 @@ def test_columnar_flush_raises_without_the_library(tmp_path, monkeypatch):
     assert sink.queue.empty()
     assert server.store.processed == 3  # not swapped out, not lost
     server.config.flush_columnar = False
-    assert server.flush() == 5  # a, b, c.min, c.max, c.count
-    assert sorted(m.name for m in sink.get_flush(timeout=5)) == [
+    n = server.flush()
+    rows = sink.get_flush(timeout=5)
+    assert n == len(rows)
+    # a, b, c.min, c.max, c.count; beside them the self-telemetry rows of
+    # the failed flush's timed stages (veneur.obs.stage_duration_ns)
+    assert sorted(m.name for m in rows
+                  if not m.name.startswith("veneur.")) == [
         "a", "b", "c.count", "c.max", "c.min"]
+    assert {m.name.rpartition(".")[0] for m in rows
+            if m.name.startswith("veneur.")} == {
+        "veneur.obs.stage_duration_ns"}

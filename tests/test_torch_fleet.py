@@ -339,12 +339,19 @@ def globals_pair():
 
 def _forward_two_locals(glob, lane: str):
     """Two port locals (UDP in) forward to ``glob`` over ``lane``; the
-    global then flushes. Returns its rows."""
+    global then flushes. Returns its rows but the servers' own
+    self-metrics (``veneur.*``: each flush's span re-enters its server,
+    and a local's final flush forwards its ``veneur.*`` timers), and the
+    names the global's flush swap had placed on the mesh."""
     server, sink = glob
     if lane == "http":
         address = f"http://127.0.0.1:{server.ops_server.port}"
     else:
         address = f"native://127.0.0.1:{server.native_import_server.port}"
+    # every metric a local forwarded (its final flush's too) is merged
+    # before the global flushes
+    imported0 = server.imported_metrics + server.import_errors
+    sent = 0
     for seed in (1, 2):
         local = Server(Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
                               interval="3600s", percentiles=PCTS,
@@ -355,7 +362,6 @@ def _forward_two_locals(glob, lane: str):
         local.start()
         try:
             lines = _local_lines(seed)
-            merged0 = server.ops_server.import_pool.merged_batches
             with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
                 for i in range(0, len(lines), 8):
                     tx.sendto(b"\n".join(lines[i:i + 8]),
@@ -363,15 +369,32 @@ def _forward_two_locals(glob, lane: str):
             _wait(lambda: local.store.processed == len(lines))
             tflusher.flush_once(local)
             assert local.wait_forward(60) is True
-            if lane == "http":
-                posts = len(local.forwarder.post_durations)
-                _wait(lambda: server.ops_server.import_pool.merged_batches
-                      == merged0 + posts)
         finally:
             local.shutdown()
-    tflusher.flush_once(server)
+        sent += local.forwarder.forwarded
+    if lane == "http":
+        _wait(lambda: server.imported_metrics + server.import_errors
+              - imported0 == sent)
+    placed = []
+    store = server.store
+    swap = store._swap_generation
+
+    def recording_swap():
+        gen = swap()
+        placed.extend(n for attr in store._GEN_GROUPS
+                      for g in (getattr(gen, attr),)
+                      if getattr(g, "placement", None) is not None
+                      for n in g.interner.names)
+        return gen
+
+    store._swap_generation = recording_swap
+    try:
+        tflusher.flush_once(server)
+    finally:
+        store._swap_generation = swap
     return {(m.name, tuple(m.tags)): m.value
-            for m in sink.get_flush(timeout=30)}
+            for m in sink.get_flush(timeout=30)
+            if not m.name.startswith("veneur.")}, placed
 
 
 @pytest.mark.parametrize("lane", ["http", "native"])
@@ -379,8 +402,8 @@ def test_two_locals_into_mesh_global(globals_pair, lane):
     """The mesh global's rows equal the dense global's on the same two
     forwards: percentiles within rtol 1e-5, counters, counts, extrema and
     set estimates exact; the mesh store re-merged nothing."""
-    mesh_rows = _forward_two_locals(globals_pair["mesh"], lane)
-    dense_rows = _forward_two_locals(globals_pair["dense"], lane)
+    mesh_rows, placed = _forward_two_locals(globals_pair["mesh"], lane)
+    dense_rows, _ = _forward_two_locals(globals_pair["dense"], lane)
     assert set(mesh_rows) == set(dense_rows)
     assert sum(1 for name, _ in mesh_rows if "percentile" in name) == 72
     for key, want in dense_rows.items():
@@ -392,4 +415,5 @@ def test_two_locals_into_mesh_global(globals_pair, lane):
     assert mesh_rows[("srv.c3", ())] == 3 + 1 + 3 + 2
     store = globals_pair["mesh"][0].store
     assert store.compute.requeued_total == store.compute.lost_total == 0
-    assert sum(store.last_fleet_occupancy) == 24 + 12 + 5
+    assert sum(store.last_fleet_occupancy) == len(placed)
+    assert sum(not n.startswith("veneur.") for n in placed) == 24 + 12 + 5

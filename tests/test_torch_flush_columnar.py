@@ -331,24 +331,34 @@ def pair():
         glob.shutdown()
 
 
+def _customer_names(names):
+    return sum(not n.startswith("veneur.") for n in names)
+
+
 def _global_counts(pair, name, fail_first_part=False):
     """The ``name`` local of ``pair``, fed LINES, forwards to the
-    global over HTTP; returns the global's flushed rows by (name, tags)
-    and the number of POSTs the local made."""
+    global over HTTP; returns the global's flushed rows by (name, tags),
+    but the servers' own self-metrics (``veneur.*``: each flush's span
+    re-enters its server, and a local forwards its ``veneur.*`` timers
+    with its next flush), and the number of POSTs the local made."""
     glob, gsink, locals_ = pair
     local = locals_[name]
-    posts0 = len(local.forwarder.post_durations)
     merged0 = glob.ops_server.import_pool.merged_batches
     real = local.forward_fn
     failed = []
+    posts = []
 
     def forward(state, deadline=None):
         if fail_first_part and not failed and (
                 state.histograms_columnar is not None):
             # the part's names arenas: (blob, offsets, lengths)
-            failed.append(len(state.histograms_columnar[0][1]))
+            blob, offs, lens = state.histograms_columnar[0]
+            failed.append(_customer_names(
+                bytes(blob[o:o + n]).decode() for o, n in zip(offs, lens)))
             return False
-        return real(state, deadline=deadline)
+        ok = real(state, deadline=deadline)
+        posts.append(ok)
+        return ok
 
     local.forward_fn = forward
     try:
@@ -357,18 +367,20 @@ def _global_counts(pair, name, fail_first_part=False):
         assert local.wait_forward(30) is True
         if fail_first_part:
             # re-merged into the live store, forwarded next interval
-            assert failed and len(local.store.histograms) == failed[0]
+            assert failed and _customer_names(
+                local.store.histograms.interner.names) == failed[0]
             local.flush()
             assert local.wait_forward(30) is True
-            assert len(local.store.histograms) == 0
+            assert _customer_names(
+                local.store.histograms.interner.names) == 0
     finally:
         local.forward_fn = real
-    posts = len(local.forwarder.post_durations) - posts0
     _wait(lambda: glob.ops_server.import_pool.merged_batches
-          == merged0 + posts)
+          == merged0 + len(posts))
     glob.flush()
     rows = gsink.get_flush(timeout=10)
-    return {(m.name, tuple(m.tags)): m.value for m in rows}, posts
+    return {(m.name, tuple(m.tags)): m.value for m in rows
+            if not m.name.startswith("veneur.")}, len(posts)
 
 
 @pytest.fixture(scope="module")

@@ -272,7 +272,10 @@ def test_port_servers_local_to_global():
         local = Server(Config(
             statsd_listen_addresses=["udp://127.0.0.1:0"], interval="3600s",
             percentiles=PCTS, aggregates=AGGS, hostname="l",
-            forward_address=f"http://127.0.0.1:{glob.ops_server.port}"),
+            forward_address=f"http://127.0.0.1:{glob.ops_server.port}",
+            # a loaded test run can hold a POST past the default 10 s
+            # budget: the part would then re-merge (late) and arrive twice
+            forward_timeout="60s"),
             metric_sinks=[lsink], device="cpu")
         local.start()
         try:
@@ -286,11 +289,13 @@ def test_port_servers_local_to_global():
             assert local.wait_forward(30) is True
             # streaming egress (the default) POSTs each forwarded digest
             # group as its own part beside the rest of the state: wait
-            # for every POST the local made
-            posts = len(local.forwarder.post_durations)
-            assert posts >= 2
-            _wait(lambda: glob.ops_server.import_pool.merged_batches
-                  == posts)
+            # for every metric the local forwarded to merge (the flush's
+            # self-metrics drain the forwarder's POST durations, so they
+            # do not count the POSTs)
+            forwarded = local.forwarder.forwarded
+            _wait(lambda: glob.imported_metrics + glob.import_errors
+                  == forwarded)
+            assert glob.ops_server.import_pool.merged_batches >= 2
             glob.flush()
             rows = gsink.get_flush(timeout=10)
         finally:

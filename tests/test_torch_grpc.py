@@ -330,7 +330,10 @@ def _send_lines(server, lines=LINES):
 
 def _through(glob, gsink, address, **cfg):
     """LINES into a fresh port local Server forwarding to ``address``;
-    the global then flushes. Returns its rows."""
+    the global then flushes. Returns its rows but the servers' own
+    self-metrics (``veneur.*``: each flush's span re-enters its server),
+    and the metrics the local's final (shutdown) flush forwarded: its
+    own ``veneur.*`` timers of the first flush."""
     local = Server(Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
                           interval="3600s", percentiles=PCTS,
                           aggregates=AGGS, hostname="l",
@@ -338,20 +341,24 @@ def _through(glob, gsink, address, **cfg):
                           **TOPK, **cfg),
                    metric_sinks=[ChannelMetricSink()], device="cpu")
     local.start()
-    merged0 = glob.ops_server.import_pool.merged_batches
+    imported0 = glob.imported_metrics + glob.import_errors
     try:
         _send_lines(local)
         tflusher.flush_once(local)
         assert local.wait_forward(30) is True
         assert local.forwarder.errors == 0
+        forwarded = local.forwarder.forwarded
         if address.startswith("http://"):
-            posts = len(local.forwarder.post_durations)
-            _wait(lambda: glob.ops_server.import_pool.merged_batches
-                  == merged0 + posts, 30)
+            # every metric forwarded is merged (the POST's 202 comes
+            # before its merge)
+            _wait(lambda: glob.imported_metrics + glob.import_errors
+                  - imported0 == forwarded, 30)
         tflusher.flush_once(glob)
-        return gsink.get_flush(timeout=10)
+        rows = [m for m in gsink.get_flush(timeout=10)
+                if not m.name.startswith("veneur.")]
     finally:
         local.shutdown()
+    return rows, local.forwarder.forwarded - forwarded
 
 
 @pytest.mark.parametrize("packed", [True, False])
@@ -367,13 +374,15 @@ def test_servers_grpc_matches_http(packed):
     glob.start()
     try:
         assert isinstance(glob.import_server, tg.ImportServer)
-        http = _through(glob, gsink, f"http://127.0.0.1:{glob.ops_server.port}")
-        grpc_rows = _through(glob, gsink,
-                             f"127.0.0.1:{glob.import_server.port}",
-                             forward_use_grpc=True,
-                             forward_packed_digests=packed)
+        http, _ = _through(glob, gsink,
+                           f"http://127.0.0.1:{glob.ops_server.port}")
+        grpc_rows, own = _through(glob, gsink,
+                                  f"127.0.0.1:{glob.import_server.port}",
+                                  forward_use_grpc=True,
+                                  forward_packed_digests=packed)
         assert glob.import_server.import_errors == 0
-        assert glob.import_server.received == 240 + 30 + 48 + 1
+        assert own > 0
+        assert glob.import_server.received == 240 + 30 + 48 + 1 + own
         assert_global_rows_match(grpc_rows, http)
     finally:
         glob.shutdown()
@@ -425,7 +434,9 @@ def _dry_port(values):
             finally:
                 local.shutdown()
         tflusher.flush_once(glob)
-        rows = {m.name: m.value for m in gsink.get_flush(timeout=30)}
+        # the traffic's rows (the Servers add their self-telemetry)
+        rows = {m.name: m.value for m in gsink.get_flush(timeout=30)
+                if m.name.startswith("fleet.")}
         store = glob.store
         assert store.compute.requeued_total == store.compute.lost_total == 0
         assert type(store.histograms).__name__ == "MeshDigestGroup"
@@ -444,11 +455,15 @@ def _dry_jax(values):
     glob.start()
     try:
         for li, vals in enumerate(values):
+            # the JAX mesh global compiles its import programs on the
+            # first call: under a loaded test run that outlasts the
+            # default 10 s forward budget, as the port local's 60 s
             local = JServer(JConfig(
                 statsd_listen_addresses=[], interval="86400s",
                 forward_address=f"127.0.0.1:{glob.import_server.port}",
                 forward_use_grpc=True, aggregates=["count"],
-                store_initial_capacity=32, store_chunk=128),
+                store_initial_capacity=32, store_chunk=128,
+                forward_timeout="60s"),
                 metric_sinks=[JChannelSink()])
             local.start()
             try:

@@ -172,6 +172,17 @@ def test_fleet_ha_modules_are_covered():
             "veneur_tpu_torch.discovery.lease"} <= set(_modules())
 
 
+def test_obs_modules_are_covered():
+    """The interval timeline and the flush's self-trace (trace/, obs/,
+    debug.py) are scanned and imported too."""
+    assert {"veneur_tpu_torch.trace", "veneur_tpu_torch.trace.samples",
+            "veneur_tpu_torch.trace.client", "veneur_tpu_torch.trace.backend",
+            "veneur_tpu_torch.trace.metrics", "veneur_tpu_torch.obs",
+            "veneur_tpu_torch.obs.recorder", "veneur_tpu_torch.obs.timeline",
+            "veneur_tpu_torch.obs.kernels",
+            "veneur_tpu_torch.debug"} <= set(_modules())
+
+
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"

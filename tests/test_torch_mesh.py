@@ -585,7 +585,7 @@ def test_mesh_snapshot_parity():
     lines = _store_lines()
     want, _ = _jax_store(lines).snapshot_state()
     got, _ = _port_store(lines).snapshot_state()
-    assert set(want) - set(got) == {"self_timers"}
+    assert set(want) == set(got)
     for name, g in got.items():
         w = want[name]
         assert (g["kind"], g["names"], g["joined"]) == (
@@ -624,8 +624,7 @@ def test_mesh_cross_restore(src):
     for hosts in (2, None):
         dst = _port_store(hosts=hosts)
         n = dst.restore_state(tpersist.deserialize(blob)[0])
-        assert n == sum(len(g["names"]) for name, g in groups.items()
-                        if name != "self_timers")
+        assert n == sum(len(g["names"]) for g in groups.values())
         _assert_rows_match(_port_rows(dst), want)
 
 

@@ -836,7 +836,9 @@ def servers():
 
 def _through(servers, address, **cfg):
     """LINES into a fresh port local Server forwarding to ``address``;
-    the global then flushes. Returns the global's rows."""
+    the global then flushes. Returns the global's rows, but for the
+    servers' own self-metrics (``veneur.*``: each flush's span re-enters
+    its server, and a local forwards its ``veneur.*`` timers too)."""
     glob, gsink, _frames = servers
     local = Server(Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
                           interval="3600s", percentiles=PCTS,
@@ -845,20 +847,21 @@ def _through(servers, address, **cfg):
                           **TOPK, **cfg),
                    metric_sinks=[ChannelMetricSink()], device="cpu")
     local.start()
-    merged0 = glob.ops_server.import_pool.merged_batches
+    imported0 = glob.imported_metrics + glob.import_errors
     try:
         _send_lines(local)
         tflusher.flush_once(local)
         assert local.wait_forward(30) is True
         fwd = local.forwarder
         assert fwd.errors == 0
-        # a native forward returns once every frame is merged and acked
+        # a native forward returns once every frame is merged and acked;
+        # an HTTP POST's 202 comes before its merge
         if not address.startswith("native://"):
-            posts = len(fwd.post_durations)
-            _wait(lambda: glob.ops_server.import_pool.merged_batches
-                  == merged0 + posts)
+            _wait(lambda: glob.imported_metrics + glob.import_errors
+                  - imported0 == fwd.forwarded)
         tflusher.flush_once(glob)
-        return gsink.get_flush(timeout=10)
+        return [m for m in gsink.get_flush(timeout=10)
+                if not m.name.startswith("veneur.")]
     finally:
         local.shutdown()
 
@@ -877,11 +880,17 @@ def test_servers_native_matches_http(servers, packed):
                       f"native://127.0.0.1:{glob.native_import_server.port}",
                       forward_packed_digests=packed)
     assert glob.native_import_server.import_errors == 0
+    metrics = [m for data in frames
+               for m in forward_pb2.MetricList.FromString(data).metrics]
+    # beside LINES' metrics, the local's own veneur.* timers of its first
+    # flush, forwarded by its final (shutdown) flush
+    own = sum(m.name.startswith("veneur.") for m in metrics)
+    assert own > 0
     assert glob.native_import_server.received - received0 == \
-        200 + 40 + 30 + 2 * 24 + 1
+        200 + 40 + 30 + 2 * 24 + 1 + own
+    sent = [m for m in metrics if not m.name.startswith("veneur.")]
     assert_global_rows_match(native, http)
-    digests = [m.histogram.t_digest for data in frames
-               for m in forward_pb2.MetricList.FromString(data).metrics
+    digests = [m.histogram.t_digest for m in sent
                if m.WhichOneof("value") == "histogram"]
     assert len(digests) == 240
     assert all(bool(td.quantized_means) is packed

@@ -269,7 +269,9 @@ def two_globals():
 
 
 def _local_forward(address, n=40, prefix="series", **cfg):
-    """A port local Server with n global-only counters forwards once."""
+    """A port local Server with n global-only counters forwards once. It
+    stops without the final flush (``crash_stop``): that flush would
+    forward again, the local's own ``veneur.*`` timers of the first."""
     local = Server(Config(interval="3600s", hostname="l",
                           forward_address=address, forward_timeout="10s",
                           **cfg), metric_sinks=[ChannelMetricSink()],
@@ -283,7 +285,7 @@ def _local_forward(address, n=40, prefix="series", **cfg):
         assert local.wait_forward(30) is True
         assert local.forwarder.errors == 0
     finally:
-        local.shutdown()
+        local.crash_stop()
 
 
 def test_local_to_http_proxy_to_two_globals(two_globals):

@@ -275,6 +275,18 @@ class Config:
     lease_path: str = ""
     lease_ttl: str = ""
     lease_renew_interval: str = ""
+    # the flush's self-trace (obs/, trace/): each flush runs under a
+    # StageRecorder and a veneur.flush span whose samples (the veneur.*
+    # self-metrics) and stage durations (the self_timers group)
+    # re-enter this server's own pipeline; GET /debug/flush-timeline
+    # serves the last obs_timeline_intervals stage trees (0 = 64;
+    # negative refused). Off: no recorder, no ring, no lane stage
+    # timers; the kernel scopes' dispatch counters stay on
+    obs_enabled: bool = True
+    obs_timeline_intervals: int = 0
+    # where the reference sends its own statsd metrics; accepted and not
+    # read, as in the JAX package (the self-metrics ride the flush span)
+    stats_address: str = ""
 
     def __post_init__(self):
         if not self.aggregates:
@@ -294,6 +306,12 @@ class Config:
                 raise UnsupportedConfig(
                     f"ssf_listen_addresses: {spec!r} is not a udp://, "
                     "tcp:// or unix:// address")
+        if self.obs_timeline_intervals < 0:
+            raise ValueError(
+                f"obs_timeline_intervals must be >= 0 (0 = use the "
+                f"default, 64; the ring cannot be unbounded), got "
+                f"{self.obs_timeline_intervals}")
+        self.obs_timeline_intervals = self.obs_timeline_intervals or 64
         if self.span_channel_capacity < 0:
             # queue.Queue treats maxsize <= 0 as unbounded, which would
             # defeat span shedding; 0 takes the default

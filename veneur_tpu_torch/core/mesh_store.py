@@ -48,6 +48,7 @@ from veneur_tpu_torch.core.store import (IMPORT_DRAIN_BATCH, _GROW_FACTOR,
                                          ScalarGroup, SetGroup)
 from veneur_tpu_torch.fleet.router import (ShardPlacement, ShardRouter,
                                            route_stack)
+from veneur_tpu_torch.obs import kernels as obs_kernels
 from veneur_tpu_torch.ops import tdigest as td_ops
 from veneur_tpu_torch.parallel import collectives
 from veneur_tpu_torch.parallel.mesh import ShardMesh
@@ -250,6 +251,8 @@ class MeshDigestGroup(_PlacementMixin, DigestGroup):
     the shard of its pool row, stages physical slots, and names the
     slots a flush gathers in ``_ext_rows``."""
 
+    _SCOPE = "mesh"
+
     def __init__(self, mesh: ShardMesh, capacity: int, chunk: int,
                  compression: float, router: Optional[ShardRouter] = None,
                  slot_mode: bool = False):
@@ -316,10 +319,11 @@ class MeshDigestGroup(_PlacementMixin, DigestGroup):
         self._device_dirty = True
         rows, vals, wts, fill = self._rows, self._vals, self._wts, self._fill
         self._new_sample_buffers()
-        self.digest = _mesh_ingest_samples(
-            self.temp, self.digest,
-            self._host_slices(self._to_phys(rows), vals, wts, fill),
-            self.shards, self.compression)
+        with obs_kernels.scope("drain.digest.mesh", self.device):
+            self.digest = _mesh_ingest_samples(
+                self.temp, self.digest,
+                self._host_slices(self._to_phys(rows), vals, wts, fill),
+                self.shards, self.compression)
 
     def _drain_imports(self):
         if self._imp_fill == 0 and self._imp_stat_fill == 0:
@@ -343,9 +347,11 @@ class MeshDigestGroup(_PlacementMixin, DigestGroup):
             stacks += tuple(torch.from_numpy(a).to(self.device)
                             for a in (r_st, a_st, b_st))
         r_st, m_st, w_st, sr_st, mn_st, mx_st = stacks
-        self.digest = _mesh_import_routed(
-            self.temp, self.digest, self.dmin, self.dmax, r_st.long(), m_st,
-            w_st, sr_st.long(), mn_st, mx_st, self.shards, self.compression)
+        with obs_kernels.scope("drain.digest.mesh", self.device):
+            self.digest = _mesh_import_routed(
+                self.temp, self.digest, self.dmin, self.dmax, r_st.long(),
+                m_st, w_st, sr_st.long(), mn_st, mx_st, self.shards,
+                self.compression)
 
     def _flush_dispatch(self, n: int, percentiles, want_digests,
                         want_stats):
@@ -417,10 +423,11 @@ class MeshSetGroup(_PlacementMixin, SetGroup):
         hi, lo = self._hi[:n], self._lo[:n]
         self._new_sample_buffers()
         dev = self.device
-        _store._ingest_hashes(self.registers,
-                              torch.from_numpy(rows).to(dev).long(),
-                              torch.from_numpy(hi.view(np.int32)).to(dev),
-                              torch.from_numpy(lo.view(np.int32)).to(dev))
+        with obs_kernels.scope("drain.set.mesh", dev):
+            _store._ingest_hashes(
+                self.registers, torch.from_numpy(rows).to(dev).long(),
+                torch.from_numpy(hi.view(np.int32)).to(dev),
+                torch.from_numpy(lo.view(np.int32)).to(dev))
 
     def _drain_imports(self):
         """Shard-routed register import over the live rows only: each
@@ -439,14 +446,17 @@ class MeshSetGroup(_PlacementMixin, SetGroup):
         start = (np.arange(self.shards) * block)[:, None]
         ok = (r_st >= start) & (r_st < start + block)
         if ok.any():
-            _store._merge_registers(self.registers, r_st[ok], regs_st[ok])
+            with obs_kernels.scope("drain.set.mesh", self.device):
+                _store._merge_registers(self.registers, r_st[ok],
+                                        regs_st[ok])
 
     def flush_begin(self, want_estimates: bool = True,
                     want_registers: bool = False):
         """Two-phase flush: the permutation-gathered estimate and
         register refs dispatch now, and the placement resets with the
         interner."""
-        fin = super().flush_begin(want_estimates, want_registers)
+        with obs_kernels.scope("flush.set.mesh", self.device):
+            fin = super().flush_begin(want_estimates, want_registers)
         self._reset_placement()
         return fin
 

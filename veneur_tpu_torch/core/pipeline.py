@@ -23,9 +23,10 @@ make it MAX-shaped:
 
 The workers hold no store lock and touch only host numpy arrays: the
 flush thread has fetched every array before it is submitted, so no CUDA
-tensor crosses to these threads. The ``rec`` hooks take a stage
-recorder (``record_abs(name, t0_ns, t1_ns, **attrs)``); the port passes
-None until its self-telemetry lands.
+tensor crosses to these threads. ``rec`` is the interval's stage
+recorder (``obs/recorder.py``) or None: each worker activates it, so the
+sinks' chunk stages land in the same timeline entry, and the lanes
+record ``serialize.<group>`` and ``post.forward``.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ import queue
 import threading
 import time
 from typing import List, NamedTuple, Optional
+
+from veneur_tpu_torch.obs import recorder as obs_rec
 
 log = logging.getLogger("veneur.pipeline")
 
@@ -84,22 +87,23 @@ class SerializerLane:
         self._q.put((name, emit, result))
 
     def _run(self) -> None:
-        while True:
-            item = self._q.get()
-            if item is None:
-                return
-            name, emit, result = item
-            t0 = time.monotonic_ns()
-            try:
-                if self._err is None:
-                    emit(result)
-            except BaseException as e:  # re-raised at close
-                self._err = e
-                log.exception("flush emission for %s failed", name)
-            finally:
-                if self._rec is not None:
-                    self._rec.record_abs(f"serialize.{name}", t0,
-                                         time.monotonic_ns())
+        with obs_rec.activate(self._rec):
+            while True:
+                item = self._q.get()
+                if item is None:
+                    return
+                name, emit, result = item
+                t0 = time.monotonic_ns()
+                try:
+                    if self._err is None:
+                        emit(result)
+                except BaseException as e:  # re-raised at close
+                    self._err = e
+                    log.exception("flush emission for %s failed", name)
+                finally:
+                    if self._rec is not None:
+                        self._rec.record_abs(f"serialize.{name}", t0,
+                                             time.monotonic_ns())
 
     def close(self) -> None:
         """Drain + join the worker; re-raise the first emit error."""
@@ -192,6 +196,12 @@ class ChunkStream:
         self._fwd_q.put((name, attr, part, int(rows)))
 
     def _sink_worker(self, sink, q: "queue.Queue") -> None:
+        # the sink's chunk stages (post.<sink>.serialize / .post) land
+        # in the interval's timeline entry
+        with obs_rec.activate(self._rec):
+            self._drain_sink(sink, q)
+
+    def _drain_sink(self, sink, q: "queue.Queue") -> None:
         repost = getattr(sink, "repost_requeued", None)
         if repost is not None:
             # the PREVIOUS interval's parked bodies get their retry at
@@ -222,6 +232,11 @@ class ChunkStream:
 
     def _forward_worker(self, q: "queue.Queue", forward_fn,
                         forward_requeue) -> None:
+        with obs_rec.activate(self._rec):
+            self._drain_forward(q, forward_fn, forward_requeue)
+
+    def _drain_forward(self, q: "queue.Queue", forward_fn,
+                       forward_requeue) -> None:
         while True:
             item = q.get()
             if item is None:

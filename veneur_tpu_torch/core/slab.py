@@ -60,8 +60,11 @@ from veneur_tpu_torch.core.store import (
     _to_host,
     begin_compute_ladder,
     flatten_digest_state,
+    kernel_rung,
 )
 from veneur_tpu_torch.device import resolve_device
+from veneur_tpu_torch.obs import kernels as obs_kernels
+from veneur_tpu_torch.obs import recorder as obs_rec
 from veneur_tpu_torch.ops import tdigest as td_ops
 from veneur_tpu_torch.ops import tdigest_cuda
 
@@ -418,9 +421,10 @@ def _collect_slabs(st: dict, dispatch, window: int):
             continue
         st["refs"][j] = None  # drop the slab's outputs once fetched
         need, pk, refs = ref
-        if pk is not None:
-            packed.append(_fetch_packed(*pk, need))
-        parts.append([_to_host(t) for t in refs])
+        with obs_rec.maybe_stage("fetch"):
+            if pk is not None:
+                packed.append(_fetch_packed(*pk, need))
+            parts.append([_to_host(t) for t in refs])
     cols = [np.concatenate(c, axis=0) for c in zip(*parts)]
     return cols, ([np.concatenate(c) for c in zip(*packed)]
                   if packed else None)
@@ -505,11 +509,13 @@ class SlabDigestBank:
         (>= slab_rows is padding)."""
         if self.mode != "local":
             raise ValueError("ingest takes the local role")
-        self.digests[slab_idx] = _ingest_slab(
-            self.temps[slab_idx], self.digests[slab_idx],
-            self._dev(rows, torch.int64), self._dev(values, torch.float32),
-            self._dev(weights, torch.float32), self.slab_rows,
-            self.compression)
+        with obs_kernels.scope("drain.digest.slab", self.device):
+            self.digests[slab_idx] = _ingest_slab(
+                self.temps[slab_idx], self.digests[slab_idx],
+                self._dev(rows, torch.int64),
+                self._dev(values, torch.float32),
+                self._dev(weights, torch.float32), self.slab_rows,
+                self.compression)
 
     def ingest(self, rows, values, weights):
         """Fold a flat chunk with GLOBAL row ids: each slab takes the
@@ -531,10 +537,11 @@ class SlabDigestBank:
         """Merge imported digests into one slab: mean/weight [slab, M]
         float32 (weight 0 padding), mins/maxs [slab]."""
         f32 = torch.float32
-        self.digests[slab_idx] = _merge_slab(
-            self.digests[slab_idx], self._dev(mean, f32),
-            self._dev(weight, f32), self._dev(mins, f32),
-            self._dev(maxs, f32), self.slab_rows, self.compression)
+        with obs_kernels.scope("drain.digest.slab", self.device):
+            self.digests[slab_idx] = _merge_slab(
+                self.digests[slab_idx], self._dev(mean, f32),
+                self._dev(weight, f32), self._dev(mins, f32),
+                self._dev(maxs, f32), self.slab_rows, self.compression)
 
     # -- flush ----------------------------------------------------------
 
@@ -548,6 +555,20 @@ class SlabDigestBank:
         qs = torch.tensor(list(percentiles), dtype=torch.float32,
                           device=self.device)
         outs = []
+        with obs_kernels.scope("flush.digest.slab", self.device):
+            self._flush_slabs(qs, want_digest, outs)
+        if not fetch:
+            return outs
+        result = {}
+        for key in outs[0]:
+            cols = [o[key] for o in outs]
+            if key in ("digest_mean", "digest_weight"):
+                cols = [c.view(self.slab_rows, self.k).float() for c in cols]
+            result[key] = np.concatenate([_to_host(c) for c in cols],
+                                         axis=0)[:self.num_series]
+        return result
+
+    def _flush_slabs(self, qs, want_digest: bool, outs: list) -> None:
         for i in range(self.num_slabs):
             if self.mode == "local":
                 (mean, weight, _, _, pcts, count, vsum, vmin, vmax,
@@ -567,16 +588,6 @@ class SlabDigestBank:
                        "max": dmax}
             self.digests[i] = self._new_digest()
             outs.append(out)
-        if not fetch:
-            return outs
-        result = {}
-        for key in outs[0]:
-            cols = [o[key] for o in outs]
-            if key in ("digest_mean", "digest_weight"):
-                cols = [c.view(self.slab_rows, self.k).float() for c in cols]
-            result[key] = np.concatenate([_to_host(c) for c in cols],
-                                         axis=0)[:self.num_series]
-        return result
 
 
 # ---------------------------------------------------------------------------
@@ -680,11 +691,12 @@ class SlabDigestGroup(DigestStaging):
         rows, vals, wts = (self._rows[:fill], self._vals[:fill],
                            self._wts[:fill])
         self._new_sample_buffers()
-        for i, local, (v, w) in self._per_slab(rows, vals, wts):
-            self.digests[i] = _ingest_slab(
-                self.temps[i], self.digests[i], self._dev(local),
-                self._dev(v), self._dev(w), self.slab_rows,
-                self.compression)
+        with obs_kernels.scope("drain.digest.slab", self.device):
+            for i, local, (v, w) in self._per_slab(rows, vals, wts):
+                self.digests[i] = _ingest_slab(
+                    self.temps[i], self.digests[i], self._dev(local),
+                    self._dev(v), self._dev(w), self.slab_rows,
+                    self.compression)
 
     def _drain_imports(self):
         if self._imp_fill == 0 and self._imp_stat_fill == 0:
@@ -703,16 +715,17 @@ class SlabDigestGroup(DigestStaging):
                  in self._per_slab(stat_rows, stat_mins, stat_maxs)}
         empty_r = np.empty(0, np.int64)
         empty_f = np.empty(0, np.float32)
-        for i in sorted(set(cents) | set(stats)):
-            c_local, (c_m, c_w) = cents.get(i, (empty_r,
-                                                (empty_f, empty_f)))
-            s_local, (s_mn, s_mx) = stats.get(i, (empty_r,
-                                                  (empty_f, empty_f)))
-            self.digests[i] = _import_slab(
-                self.temps[i], self.digests[i], self._dev(c_local),
-                self._dev(c_m), self._dev(c_w), self._dev(s_local),
-                self._dev(s_mn), self._dev(s_mx), self.slab_rows,
-                self.compression)
+        with obs_kernels.scope("drain.digest.slab", self.device):
+            for i in sorted(set(cents) | set(stats)):
+                c_local, (c_m, c_w) = cents.get(i, (empty_r,
+                                                    (empty_f, empty_f)))
+                s_local, (s_mn, s_mx) = stats.get(i, (empty_r,
+                                                      (empty_f, empty_f)))
+                self.digests[i] = _import_slab(
+                    self.temps[i], self.digests[i], self._dev(c_local),
+                    self._dev(c_m), self._dev(c_w), self._dev(s_local),
+                    self._dev(s_mn), self._dev(s_mx), self.slab_rows,
+                    self.compression)
 
     # -- flush ------------------------------------------------------------
 
@@ -744,7 +757,7 @@ class SlabDigestGroup(DigestStaging):
             self._compute,
             lambda: self._flush_dispatch(n, percentiles, want_digests,
                                          want_stats),
-            self._flush_collect)
+            self._flush_collect, kernel_rung(self.device))
         return lambda: self._flush_commit(fin())
 
     def _reset_device(self):
@@ -804,18 +817,19 @@ class SlabDigestGroup(DigestStaging):
         if need <= 0:
             st["refs"].append(None)
             return
-        (mean, weight, dmin, dmax, pcts, count, vsum, vmin, vmax,
-         recip) = _flush_slab(self.digests[i], self.temps[i], st["qs"], R,
-                              self.compression, st["want_digests"])
-        packed, planes = None, ()
-        if st["packed"]:
-            packed = _pack_slab(mean.view(R, k), weight.view(R, k), dmin,
-                                dmax)
-            planes = (dmin[:need], dmax[:need])
-        elif st["want_digests"]:
-            planes = (mean.view(R, k)[:need].float(),
-                      weight.view(R, k)[:need].float(), dmin[:need],
-                      dmax[:need])
+        with obs_kernels.scope("flush.digest.slab", self.device):
+            (mean, weight, dmin, dmax, pcts, count, vsum, vmin, vmax,
+             recip) = _flush_slab(self.digests[i], self.temps[i], st["qs"],
+                                  R, self.compression, st["want_digests"])
+            packed, planes = None, ()
+            if st["packed"]:
+                packed = _pack_slab(mean.view(R, k), weight.view(R, k),
+                                    dmin, dmax)
+                planes = (dmin[:need], dmax[:need])
+            elif st["want_digests"]:
+                planes = (mean.view(R, k)[:need].float(),
+                          weight.view(R, k)[:need].float(), dmin[:need],
+                          dmax[:need])
         stats = {"pcts": pcts, "count": count, "sum": vsum, "min": vmin,
                  "max": vmax, "recip": recip}
         st["refs"].append((need, packed, planes + tuple(

@@ -77,6 +77,8 @@ from veneur_tpu_torch.core.bucketing import pow2_cap
 from veneur_tpu_torch.core.columnar import ColumnarFlush
 from veneur_tpu_torch.core.pipeline import SerializerLane
 from veneur_tpu_torch.device import resolve_device
+from veneur_tpu_torch.obs import kernels as obs_kernels
+from veneur_tpu_torch.obs import recorder as obs_rec
 from veneur_tpu_torch.ops import countmin as cm_ops
 from veneur_tpu_torch.ops import hll as hll_ops
 from veneur_tpu_torch.ops import tdigest as td_ops
@@ -274,7 +276,15 @@ class KernelBreakerOpen(RuntimeError):
     to the store's re-merge rung without a launch."""
 
 
-def begin_compute_ladder(compute, dispatch, collect):
+def kernel_rung(device) -> str:
+    """The flush rung a device runs, as the timeline's ``rung`` note
+    names it: ``cuda`` (the kernel) on a card, ``plain`` (the kernel's
+    plain PyTorch version) on the CPU. The re-merge rung is ``requeue``
+    (:meth:`MetricStore._requeue_group`)."""
+    return "cuda" if device.type == "cuda" else "plain"
+
+
+def begin_compute_ladder(compute, dispatch, collect, rung: str = "cuda"):
     """The flush kernel's ladder (``resilience/compute.py``) around one
     digest unit: ``dispatch()`` (the asynchronous launch) runs NOW when
     the breaker admits the kernel, and the returned ``finish()`` runs
@@ -290,10 +300,17 @@ def begin_compute_ladder(compute, dispatch, collect):
     runtime refuses (``tdigest_cuda._raise_on``) leaves the context
     usable. A fault inside a running kernel is sticky: it poisons the
     context, the re-merge fails as well, and the interval is bounded by
-    the last checkpoint."""
+    the last checkpoint. A completed fetch notes ``rung`` on the
+    timeline's open stage."""
     if compute is None:
         pending = dispatch()
-        return lambda: collect(pending)
+
+        def unguarded():
+            out = collect(pending)
+            obs_rec.note(rung=rung)
+            return out
+
+        return unguarded
     if not compute.probe():
         raise KernelBreakerOpen("the t-digest flush kernel's breaker is "
                                 "open")
@@ -311,6 +328,7 @@ def begin_compute_ladder(compute, dispatch, collect):
             compute.record_failure()
             raise
         compute.record_success()
+        obs_rec.note(rung=rung)
         return out
 
     return finish
@@ -799,6 +817,9 @@ class DigestGroup(DigestStaging):
     # set by MetricStore._swap_generation: a retired group's flush drops
     # its device state instead of reallocating it
     _retired = False
+    # the storage its profiler scopes name (drain.digest.<_SCOPE>,
+    # flush.digest.<_SCOPE>; obs/kernels.py PROGRAM_SCOPES)
+    _SCOPE = "dense"
 
     def __init__(self, capacity: int = DEFAULT_INITIAL_CAPACITY,
                  chunk: int = DEFAULT_CHUNK,
@@ -880,11 +901,12 @@ class DigestGroup(DigestStaging):
         rows, vals, wts = self._rows[:n], self._vals[:n], self._wts[:n]
         self._new_sample_buffers()
         dev = self.device
-        self.digest, self.temp = _ingest_samples(
-            self.digest, self.temp,
-            torch.from_numpy(rows).to(dev).long(),
-            torch.from_numpy(vals).to(dev), torch.from_numpy(wts).to(dev),
-            self.compression)
+        with obs_kernels.scope(f"drain.digest.{self._SCOPE}", dev):
+            self.digest, self.temp = _ingest_samples(
+                self.digest, self.temp,
+                torch.from_numpy(rows).to(dev).long(),
+                torch.from_numpy(vals).to(dev),
+                torch.from_numpy(wts).to(dev), self.compression)
 
     def _drain_imports(self):
         """One staged import chunk through ``_ingest_centroids`` (the
@@ -903,13 +925,16 @@ class DigestGroup(DigestStaging):
         self._new_import_buffers()
         rows, means, wts, srows, smins, smaxs = (
             torch.from_numpy(a).to(self.device) for a in staged)
-        if n:
-            self.digest, self.temp = _ingest_centroids(
-                self.digest, self.temp, self.dmin, self.dmax, rows.long(),
-                means, wts, srows.long(), smins, smaxs, self.compression)
-        else:
-            _scatter_extrema(self.dmin, self.dmax, srows.long(), smins,
-                             smaxs)
+        with obs_kernels.scope(f"drain.digest.{self._SCOPE}",
+                                self.device):
+            if n:
+                self.digest, self.temp = _ingest_centroids(
+                    self.digest, self.temp, self.dmin, self.dmax,
+                    rows.long(), means, wts, srows.long(), smins, smaxs,
+                    self.compression)
+            else:
+                _scatter_extrema(self.dmin, self.dmax, srows.long(), smins,
+                                 smaxs)
 
     def flush(self, percentiles: List[float], want_digests=False,
               want_stats=None):
@@ -940,7 +965,8 @@ class DigestGroup(DigestStaging):
             self._compute,
             lambda: self._flush_dispatch(n, percentiles, want_digests,
                                          want_stats),
-            lambda pending: self._flush_collect(pending, n, percentiles))
+            lambda pending: self._flush_collect(pending, n, percentiles),
+            kernel_rung(self.device))
         return lambda: self._flush_commit(fin())
 
     def _flush_empty(self):
@@ -963,36 +989,44 @@ class DigestGroup(DigestStaging):
 
     def _flush_dispatch(self, n: int, percentiles, want_digests,
                         want_stats):
+        """Enqueue the flush program (K1) and, for a forwarding flush,
+        the pack or the plane slices: the ``compute`` stage of the
+        timeline, under the ``flush.digest.dense`` scope."""
         sel = _select_stats(want_stats)
-        qs = torch.tensor(list(percentiles) + [0.5], dtype=torch.float32,
-                          device=self.device)
-        digest, pcts, count, vsum, vmin, vmax, recip = _flush_digests(
-            self.digest, self.temp, self.dmin, self.dmax, qs,
-            self.compression)
-        stats = {"pcts": pcts, "count": count, "sum": vsum, "min": vmin,
-                 "max": vmax, "recip": recip}
-        if want_digests == "packed":
-            # the pack runs on the whole capacity, as JAX's _pack_slab on
-            # the slab; the fetch takes the first n rows
-            from veneur_tpu_torch.core import slab
+        with obs_rec.maybe_stage("compute"), \
+                obs_kernels.scope(f"flush.digest.{self._SCOPE}",
+                                  self.device):
+            qs = torch.tensor(list(percentiles) + [0.5],
+                              dtype=torch.float32, device=self.device)
+            digest, pcts, count, vsum, vmin, vmax, recip = _flush_digests(
+                self.digest, self.temp, self.dmin, self.dmax, qs,
+                self.compression)
+            stats = {"pcts": pcts, "count": count, "sum": vsum,
+                     "min": vmin, "max": vmax, "recip": recip}
+            if want_digests == "packed":
+                # the pack runs on the whole capacity, as JAX's
+                # _pack_slab on the slab; the fetch takes the first n
+                from veneur_tpu_torch.core import slab
 
-            planes = ("packed",) + slab._pack_slab(
-                digest.mean, digest.weight, digest.min, digest.max) + (
-                digest.min[:n], digest.max[:n])
-            live = slice(0, n)
-        else:
-            live = self._live_index(n)
-            planes = (("dense", digest.mean[live], digest.weight[live],
-                       digest.min[live], digest.max[live])
-                      if want_digests else ())
-        return sel, tuple(stats[nm][live] for nm in sel), planes
+                planes = ("packed",) + slab._pack_slab(
+                    digest.mean, digest.weight, digest.min, digest.max) + (
+                    digest.min[:n], digest.max[:n])
+                live = slice(0, n)
+            else:
+                live = self._live_index(n)
+                planes = (("dense", digest.mean[live], digest.weight[live],
+                           digest.min[live], digest.max[live])
+                          if want_digests else ())
+            return sel, tuple(stats[nm][live] for nm in sel), planes
 
     def _flush_collect(self, pending, n: int, percentiles) -> dict:
+        """The blocking device->host fetch: the ``fetch`` stage."""
         sel, refs, planes = pending
-        out = _fill_stat_results(sel, [_to_host(t) for t in refs], n,
-                                 percentiles, {})
-        if planes:
-            out.update(self._fetch_planes(planes, n))
+        with obs_rec.maybe_stage("fetch"):
+            out = _fill_stat_results(sel, [_to_host(t) for t in refs], n,
+                                     percentiles, {})
+            if planes:
+                out.update(self._fetch_planes(planes, n))
         return out
 
     @staticmethod
@@ -1292,9 +1326,10 @@ class SetGroup(OverloadLimited):
             self._init_staging()
 
         def finish():
-            est = _to_host(est_ref) if est_ref is not None else None
-            regs = (_to_host(reg_ref).view(np.uint8) if reg_ref is not None
-                    else None)
+            with obs_rec.maybe_stage("fetch"):
+                est = _to_host(est_ref) if est_ref is not None else None
+                regs = (_to_host(reg_ref).view(np.uint8)
+                        if reg_ref is not None else None)
             return interner, est, regs
 
         return finish
@@ -1565,7 +1600,8 @@ class HeavyHitterGroup(OverloadLimited):
             out = []
             fwd = None
             if n:
-                hi, lo, ct = (_to_host(t) for t in refs)
+                with obs_rec.maybe_stage("fetch"):
+                    hi, lo, ct = (_to_host(t) for t in refs)
                 hi, lo = hi.view(np.uint32), lo.view(np.uint32)
                 # the live slots in (row, slot) order, as the reference's
                 # row-by-row loop visits them
@@ -1583,7 +1619,8 @@ class HeavyHitterGroup(OverloadLimited):
                         keys.append((h32, l32))
                         mems.append(member)
                 if want_forward:
-                    table = _to_host(table_ref)
+                    with obs_rec.maybe_stage("fetch"):
+                        table = _to_host(table_ref)
                     fwd = (table, [
                         (key.name, interner.tags[row]) + by_row[row]
                         for key, row in interner.rows.items()
@@ -1707,6 +1744,34 @@ def _packed_planes_from_result(r: dict) -> PackedDigestPlanes:
 
 
 @dataclass
+class MetricsSummary:
+    """Per-flush tallies (flusher.go:121-132) the flusher's
+    ``veneur.worker.*`` and ``veneur.overload.*`` self-metrics read
+    (``MetricStore.last_summary``): the mixed groups' series, the
+    interval's ingest counts, and each group's overflow spills (only
+    groups with some)."""
+
+    counters: int = 0
+    gauges: int = 0
+    histograms: int = 0
+    sets: int = 0
+    timers: int = 0
+    processed: int = 0
+    imported: int = 0
+    spilled: Dict[str, int] = field(default_factory=dict)
+
+
+def _summarize(g) -> MetricsSummary:
+    """The summary of a retired generation."""
+    return MetricsSummary(
+        **{name: len(getattr(g, name)) for name in (
+            "counters", "gauges", "histograms", "sets", "timers")},
+        processed=g.processed, imported=g.imported,
+        spilled={n: getattr(g, n).spilled for n in MetricStore._GEN_GROUPS
+                 if getattr(g, n).spilled})
+
+
+@dataclass
 class ForwardableState:
     """Sketch state a local forwards to the global tier
     (worker.go:161-183): global counters/gauges by value, digests as
@@ -1809,25 +1874,26 @@ class _Generation:
 
     __slots__ = ("counters", "global_counters", "gauges", "global_gauges",
                  "local_status_checks", "histograms", "timers",
-                 "local_histograms", "local_timers", "sets", "local_sets",
-                 "heavy_hitters", "processed", "imported")
+                 "local_histograms", "local_timers", "self_timers", "sets",
+                 "local_sets", "heavy_hitters", "processed", "imported")
 
 
 class MetricStore:
     """The ported scope-classes plus dispatch, import and flush."""
 
-    # every group swapped per flush, in flush order
+    # every group swapped per flush, in flush order (self_timers: the
+    # server's own stage durations, sample_self_timing)
     _GEN_GROUPS = ("counters", "global_counters", "gauges", "global_gauges",
                    "local_status_checks", "histograms", "timers",
-                   "local_histograms", "local_timers", "sets", "local_sets",
-                   "heavy_hitters")
+                   "local_histograms", "local_timers", "self_timers",
+                   "sets", "local_sets", "heavy_hitters")
     # the metric type each group's keys carry (its overflow row's type)
     _GROUP_TYPES = {
         "counters": "counter", "global_counters": "counter",
         "gauges": "gauge", "global_gauges": "gauge",
         "local_status_checks": "status",
         "histograms": "histogram", "local_histograms": "histogram",
-        "timers": "timer", "local_timers": "timer",
+        "timers": "timer", "local_timers": "timer", "self_timers": "timer",
         "sets": "set", "local_sets": "set", "heavy_hitters": "set"}
 
     def __init__(self, initial_capacity: int = DEFAULT_INITIAL_CAPACITY,
@@ -1910,6 +1976,11 @@ class MetricStore:
                     tier_promote_samples, tier_promote_intervals,
                     tier_demote_intervals)
             setattr(self, name, group)
+        # the self-telemetry group (obs/): the server's own stage
+        # durations, a small dense group whatever the storage (one row an
+        # instrumented stage), local-only, never forwarded
+        self.self_timers = DigestGroup(min(64, initial_capacity), chunk,
+                                       compression, self.device)
         for name in _SET_GROUPS:
             if mesh is not None and name == "sets":
                 from veneur_tpu_torch.core.mesh_store import MeshSetGroup
@@ -1956,6 +2027,9 @@ class MetricStore:
         self._mlist_table = None
         # the ingest fleets' sealed-chunk drain, run before a snapshot
         self._ingest_drain = None
+        # the last flushed generation's tallies (the flusher's
+        # self-metrics read them)
+        self.last_summary = MetricsSummary()
 
     @staticmethod
     def _check_mesh_storage(storage: str) -> None:
@@ -2016,12 +2090,28 @@ class MetricStore:
         g.max_series = self.max_series
         g.overflow_label = name
         g._overflow_type = self._GROUP_TYPES[name]
-        g._overload = self._overload
+        # the self-telemetry group is exempt from the admission freeze:
+        # it is the operator's view into the overload (the hard
+        # cardinality cap still applies)
+        g._overload = None if name == "self_timers" else self._overload
         g._quarantine = self.quarantine
         g._compute = self.compute
         # the slab and tiered groups' dispatch-ahead window over their
         # slabs rides the flush pipeline's depth
         g._pipeline_window = max(1, self.flush_pipeline_depth)
+
+    def sample_self_timing(self, stage: str, duration_ns: float,
+                           name: str = "veneur.obs.stage_duration_ns"
+                           ) -> None:
+        """One observed stage duration into the self-telemetry group
+        (``veneur.obs.stage_duration_ns`` tagged ``stage:<name>``): the
+        flusher feeds every interval's stage durations and the ingest
+        lanes' seal->merge latencies here, so the next flush emits their
+        percentiles through the same t-digest path the server sells."""
+        tag = f"stage:{stage}"
+        key = MetricKey(name=name, type="timer", joined_tags=tag)
+        with self._lock:
+            self.self_timers.sample(key, [tag], float(duration_ns), 1.0)
 
     def _truncate_tags(self, joined: str) -> str:
         """The per-series tag-length cap: cut the joined tags at the last
@@ -2556,8 +2646,9 @@ class MetricStore:
         generation off-lock, so ingest and imports never stall behind a
         flush."""
         with self._flush_gate:
-            with self._lock:
-                gen = self._swap_generation()
+            with obs_rec.maybe_stage("swap"):
+                with self._lock:
+                    gen = self._swap_generation()
             return self._flush_generation(gen, percentiles, aggregates, now,
                                           is_local, forward, forward_topk,
                                           columnar, digest_format, stream)
@@ -2606,10 +2697,14 @@ class MetricStore:
         col = flushed if columnar else None
         fwd = ForwardableState()
         fwd_digests = is_local and forward
+        self.last_summary = _summarize(g)
         # counters and gauges are host numpy: they flush, and stream as
         # the interval's first chunk, before any device fetch can block
-        self._flush_scalars(g.counters, MetricType.COUNTER, final, now, col)
-        self._flush_scalars(g.gauges, MetricType.GAUGE, final, now, col)
+        with obs_rec.maybe_stage("scalars"):
+            self._flush_scalars(g.counters, MetricType.COUNTER, final, now,
+                                col)
+            self._flush_scalars(g.gauges, MetricType.GAUGE, final, now,
+                                col)
         if stream is not None and col is not None and col.blocks:
             stream.emit("scalars", col.blocks,
                         sum(len(b) for b in col.blocks))
@@ -2622,13 +2717,15 @@ class MetricStore:
                 ("timers", mixed_pcts,
                  "timers_columnar" if fwd_digests else None),
                 ("local_histograms", list(percentiles), None),
-                ("local_timers", list(percentiles), None)):
+                ("local_timers", list(percentiles), None),
+                # the self-telemetry group: always local, full percentiles
+                ("self_timers", list(percentiles), None)):
             want, want_stats = _digest_want(pcts, aggregates,
                                              fwd_attr is not None,
                                              digest_format)
             group = getattr(g, name)
             units.append((
-                name,
+                name, len(group),
                 lambda group=group, pcts=pcts, want=want,
                 want_stats=want_stats: group.flush_begin(
                     pcts, want_digests=want, want_stats=want_stats),
@@ -2645,7 +2742,7 @@ class MetricStore:
                  fwd.sets if fwd_digests else None)):
             group = getattr(g, name)
             units.append((
-                name,
+                name, len(group),
                 lambda group=group, out=out, fwd_list=fwd_list:
                     group.flush_begin(want_estimates=out is not None,
                                       want_registers=fwd_list is not None),
@@ -2658,7 +2755,7 @@ class MetricStore:
         # when the transport cannot carry it, the local emits its own view
         want_hh_fwd = is_local and forward and forward_topk
         units.append((
-            "topk",
+            "topk", len(g.heavy_hitters),
             lambda: g.heavy_hitters.flush_begin(want_forward=want_hh_fwd),
             lambda res: self._emit_topk_result(res, final, now, fwd,
                                                want_hh_fwd),
@@ -2684,10 +2781,14 @@ class MetricStore:
         return flushed, fwd
 
     def _run_flush_units(self, units: List[tuple]):
-        """Run the generation's flush plan of ``(name, begin, emit,
-        group)`` units: ``begin()`` dispatches a group's device program
-        and returns its ``finish()``, which fetches the result; ``emit``
-        turns the fetched result into rows.
+        """Run the generation's flush plan of ``(name, series, begin,
+        emit, group)`` units: ``begin()`` dispatches a group's device
+        program and returns its ``finish()``, which fetches the result;
+        ``emit`` turns the fetched result into rows. With a recorder
+        active (``obs/``) the plan records the timeline's stages:
+        ``dispatch.<name>`` around each begin, ``<name>`` (with
+        ``series``) around each fetch, and the serializer lane's
+        ``serialize.<name>``.
 
         Sequential (``flush_pipeline_depth`` 0): begin, finish and emit
         a unit at a time, in plan order. Pipelined: every unit's program
@@ -2704,35 +2805,39 @@ class MetricStore:
         failure propagates."""
         depth = self.flush_pipeline_depth
         if depth <= 0:
-            for name, begin, emit, group in units:
-                try:
-                    res = begin()()
-                except Exception:
-                    if not self._unit_failed(name, group, "flush"):
-                        raise
-                    continue
-                emit(res)
+            for name, series, begin, emit, group in units:
+                with obs_rec.maybe_stage(name, series=series):
+                    try:
+                        res = begin()()
+                    except Exception:
+                        if not self._unit_failed(name, group, "flush"):
+                            raise
+                        continue
+                    emit(res)
             return
         plan = []
-        for name, begin, emit, group in units:
-            try:
-                fin = begin()
-            except Exception:
-                if not self._unit_failed(name, group, "dispatch"):
-                    raise
-                fin = None
-            plan.append((name, fin, emit, group))
-        lane = SerializerLane(depth)
+        with obs_rec.maybe_stage("dispatch"):
+            for name, series, begin, emit, group in units:
+                with obs_rec.maybe_stage(name):
+                    try:
+                        fin = begin()
+                    except Exception:
+                        if not self._unit_failed(name, group, "dispatch"):
+                            raise
+                        fin = None
+                plan.append((name, series, fin, emit, group))
+        lane = SerializerLane(depth, obs_rec.current())
         try:
-            for name, fin, emit, group in plan:
+            for name, series, fin, emit, group in plan:
                 if fin is None:
                     continue
-                try:
-                    res = fin()
-                except Exception:
-                    if not self._unit_failed(name, group, "fetch"):
-                        raise
-                    continue
+                with obs_rec.maybe_stage(name, series=series):
+                    try:
+                        res = fin()
+                    except Exception:
+                        if not self._unit_failed(name, group, "fetch"):
+                            raise
+                        continue
                 lane.submit(name, emit, res)
         finally:
             # joins the serializer; re-raises the first emit error
@@ -2763,6 +2868,7 @@ class MetricStore:
         fails too (a poisoned CUDA context), the last checkpoint bounds
         the loss."""
         compute = self.compute
+        obs_rec.note(rung="requeue")
         try:
             snap = group.snapshot_state()
             with self._lock:

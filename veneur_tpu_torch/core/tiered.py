@@ -54,8 +54,10 @@ from veneur_tpu_torch.core.store import (
     _snapshot_copies,
     begin_compute_ladder,
     flatten_digest_state,
+    kernel_rung,
 )
 from veneur_tpu_torch.device import resolve_device
+from veneur_tpu_torch.obs import kernels as obs_kernels
 from veneur_tpu_torch.ops import tdigest as td_ops
 from veneur_tpu_torch.ops import tdigest_cuda
 
@@ -471,6 +473,8 @@ class TieredDigestGroup(DigestStaging):
     _retired = False
     # pool slabs dispatched ahead of the fetch (MetricStore stamps it)
     _pipeline_window = 1
+    # the storage its profiler scopes name (obs/kernels.py)
+    _SCOPE = "tiered"
 
     def __init__(self, slab_rows: int = POOL_SLAB_ROWS_DEFAULT,
                  chunk: int = DEFAULT_CHUNK,
@@ -655,8 +659,10 @@ class TieredDigestGroup(DigestStaging):
         """One slab's span of staged samples into its pool slab
         (override point: the mesh tiered group routes the span by
         shard)."""
-        _pool_ingest(self.pools[i], self._dev(local), self._dev(vals),
-                     self._dev(wts), self.slab_rows, self.pk, self.pcomp)
+        with obs_kernels.scope(f"drain.digest.{self._SCOPE}", self.device):
+            _pool_ingest(self.pools[i], self._dev(local), self._dev(vals),
+                         self._dev(wts), self.slab_rows, self.pk,
+                         self.pcomp)
 
     def _drain_imports(self):
         if self._imp_fill == 0 and self._imp_stat_fill == 0:
@@ -697,10 +703,12 @@ class TieredDigestGroup(DigestStaging):
         """One slab's span of staged imports (centroids and digest
         extrema) into its pool slab (override point, like
         ``_pool_drain_samples``)."""
-        _pool_import(self.pools[i], self._dev(c_local), self._dev(c_means),
-                     self._dev(c_wts), self._dev(s_local),
-                     self._dev(s_mins), self._dev(s_maxs), self.slab_rows,
-                     self.pk, self.pcomp)
+        with obs_kernels.scope(f"drain.digest.{self._SCOPE}", self.device):
+            _pool_import(self.pools[i], self._dev(c_local),
+                         self._dev(c_means), self._dev(c_wts),
+                         self._dev(s_local), self._dev(s_mins),
+                         self._dev(s_maxs), self.slab_rows, self.pk,
+                         self.pcomp)
 
     # -- promotion --------------------------------------------------------
 
@@ -730,12 +738,13 @@ class TieredDigestGroup(DigestStaging):
         d._drain_staging()  # promoted mass lands on settled bins
         d._device_dirty = True
         slabs = rows // self.slab_rows
-        for i in np.unique(slabs):
-            sel = slabs == i
-            _promote_rows(self.pools[int(i)], d.temp, d.dmin, d.dmax,
-                          self._dev(rows[sel] - i * self.slab_rows),
-                          self._dev(slots[sel]), self.slab_rows, self.pk,
-                          self.compression)
+        with obs_kernels.scope(f"drain.digest.{self._SCOPE}", self.device):
+            for i in np.unique(slabs):
+                sel = slabs == i
+                _promote_rows(self.pools[int(i)], d.temp, d.dmin, d.dmax,
+                              self._dev(rows[sel] - i * self.slab_rows),
+                              self._dev(slots[sel]), self.slab_rows,
+                              self.pk, self.compression)
         self.directory.note_promoted(
             [(names[r], joined[r]) for r in promote])
         log.debug("promoted %d series to the dense tier", len(promote))
@@ -781,7 +790,7 @@ class TieredDigestGroup(DigestStaging):
             self._compute,
             lambda: self._flush_dispatch(n, percentiles, want_digests,
                                          want_stats),
-            self._flush_collect)
+            self._flush_collect, kernel_rung(self.device))
         return lambda: self._flush_commit(n, fin())
 
     def _flush_empty(self):
@@ -841,14 +850,16 @@ class TieredDigestGroup(DigestStaging):
         if need <= 0:
             st["refs"].append(None)
             return
-        (nm, nw, mn, mx, pcts, count, vsum, vmin, vmax,
-         recip) = _pool_flush(self.pools[i], st["qs"], R, pk, self.pcomp)
-        packed, planes = None, ()
-        if st["packed"]:
-            packed = slab._pack_slab(nm, nw, mn, mx)
-            planes = (mn[:need], mx[:need])
-        elif st["want_digests"]:
-            planes = (nm[:need], nw[:need], mn[:need], mx[:need])
+        with obs_kernels.scope(f"flush.digest.{self._SCOPE}", self.device):
+            (nm, nw, mn, mx, pcts, count, vsum, vmin, vmax,
+             recip) = _pool_flush(self.pools[i], st["qs"], R, pk,
+                                  self.pcomp)
+            packed, planes = None, ()
+            if st["packed"]:
+                packed = slab._pack_slab(nm, nw, mn, mx)
+                planes = (mn[:need], mx[:need])
+            elif st["want_digests"]:
+                planes = (nm[:need], nw[:need], mn[:need], mx[:need])
         stats = {"pcts": pcts, "count": count, "sum": vsum, "min": vmin,
                  "max": vmax, "recip": recip}
         st["refs"].append((need, packed, planes + tuple(
@@ -1060,6 +1071,7 @@ class TieredDigestGroup(DigestStaging):
                       recip) -> None:
         """One slab's span of recovered scalar stats into its pool slab
         (override point, like ``_pool_drain_samples``)."""
-        _pool_restore_stats(self.pools[i], self._dev(local),
-                            *(self._dev(a)
-                              for a in (count, vsum, vmin, vmax, recip)))
+        with obs_kernels.scope(f"drain.digest.{self._SCOPE}", self.device):
+            _pool_restore_stats(self.pools[i], self._dev(local),
+                                *(self._dev(a) for a in
+                                  (count, vsum, vmin, vmax, recip)))

@@ -66,6 +66,7 @@ from veneur_tpu_torch.core.tiered import (DEFAULT_DEMOTE_INTERVALS,
                                           dequantize_host)
 from veneur_tpu_torch.fleet.router import (PoolPlacement, ShardRouter,
                                            inverse_perm, route_stack)
+from veneur_tpu_torch.obs import kernels as obs_kernels
 from veneur_tpu_torch.ops import tdigest as td_ops
 from veneur_tpu_torch.parallel.mesh import ShardMesh
 
@@ -95,6 +96,8 @@ class MeshTieredDigestGroup(TieredDigestGroup):
     docstring): the same public surface, a physical row space managed by
     a :class:`PoolPlacement` (slab-append, rows never move), and a
     series-blocked dense bank in slot mode."""
+
+    _SCOPE = "mesh_tiered"
 
     def __init__(self, mesh: ShardMesh, router: ShardRouter,
                  slab_rows: int = POOL_SLAB_ROWS_DEFAULT,
@@ -205,19 +208,22 @@ class MeshTieredDigestGroup(TieredDigestGroup):
     def _pool_drain_samples(self, i: int, local, vals, wts) -> None:
         rows, v, w = self._route(local, [vals, wts])
         pool, R = self.pools[i], self.slab_rows
-        _mesh_guard_drain(pool, rows, v, w, R, self.pk, self.pcomp,
-                          self.shards)
-        _pool_scatter_samples(pool, rows, v, w, R, self.pk, self.pcomp)
+        with obs_kernels.scope("drain.digest.mesh_tiered", self.device):
+            _mesh_guard_drain(pool, rows, v, w, R, self.pk, self.pcomp,
+                              self.shards)
+            _pool_scatter_samples(pool, rows, v, w, R, self.pk,
+                                  self.pcomp)
 
     def _pool_drain_imports(self, i: int, c_local, c_means, c_wts,
                             s_local, s_mins, s_maxs) -> None:
         rows, m, w = self._route(c_local, [c_means, c_wts])
         pool, R = self.pools[i], self.slab_rows
-        _mesh_guard_drain(pool, rows, m, w, R, self.pk, self.pcomp,
-                          self.shards)
-        _pool_scatter_imports(pool, rows, m, w, self._dev(s_local),
-                              self._dev(s_mins), self._dev(s_maxs), R,
-                              self.pk, self.pcomp)
+        with obs_kernels.scope("drain.digest.mesh_tiered", self.device):
+            _mesh_guard_drain(pool, rows, m, w, R, self.pk, self.pcomp,
+                              self.shards)
+            _pool_scatter_imports(pool, rows, m, w, self._dev(s_local),
+                                  self._dev(s_mins), self._dev(s_maxs), R,
+                                  self.pk, self.pcomp)
 
     # -- promotion --------------------------------------------------------
 
@@ -253,12 +259,13 @@ class MeshTieredDigestGroup(TieredDigestGroup):
         d._drain_staging()  # promoted mass lands on settled bins
         d._device_dirty = True
         slabs = rows // self.slab_rows
-        for i in np.unique(slabs):
-            sel = slabs == i
-            _promote_rows(self.pools[int(i)], d.temp, d.dmin, d.dmax,
-                          self._dev(rows[sel] - i * self.slab_rows),
-                          self._dev(slots[sel]), self.slab_rows, self.pk,
-                          self.compression)
+        with obs_kernels.scope("drain.digest.mesh_tiered", self.device):
+            for i in np.unique(slabs):
+                sel = slabs == i
+                _promote_rows(self.pools[int(i)], d.temp, d.dmin, d.dmax,
+                              self._dev(rows[sel] - i * self.slab_rows),
+                              self._dev(slots[sel]), self.slab_rows,
+                              self.pk, self.compression)
         self.directory.note_promoted([ident(r) for r in promote])
 
     # -- flush ------------------------------------------------------------

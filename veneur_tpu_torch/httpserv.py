@@ -19,14 +19,19 @@ its import handler, handlers_global.go:60-213):
 Error behavior follows ``unmarshalMetricsFromHTTP``: an empty body, an
 unknown encoding and invalid JSON are 400s.
 
+A Server's ops server also serves the live debug endpoints of
+``debug.py`` (``/debug/threads``, ``/debug/profile``, ``/debug/vars``,
+``/debug/flush-timeline``, ``/debug/xprof``), as JAX
+``httpserv.py:405-407`` mounts them.
+
 A Server mounts more routes with :meth:`OpsServer.add_route` (GET,
-``fn(query) -> (status, body, content_type)``) and
+``fn(query) -> (status, body, content_type[, headers])``) and
 :meth:`OpsServer.add_post_route` (POST, ``fn(headers, body) -> (status,
 body, content_type)``): the elastic resharding's ``POST /handoff`` and
 ``GET /handoff-status``, the standby's ``POST /replicate`` and ``GET
 /ha-status``. A POST route answers on the request thread, before
 ``/import``: its 2xx is the ack of a merge that landed, so it never
-rides the import pool. ``/debug/vars`` is not ported.
+rides the import pool.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, List, Optional
 
-from veneur_tpu_torch import __version__
+from veneur_tpu_torch import __version__, debug
 
 log = logging.getLogger("veneur.http")
 
@@ -99,11 +104,13 @@ class _Handler(BaseHTTPRequestHandler):
         log.debug("http: " + fmt, *args)
 
     def _reply(self, status: int, body: str = "",
-               ctype: str = "text/plain"):
+               ctype: str = "text/plain", headers=None):
         data = body.encode("utf-8")
         self.send_response(status)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
+        for key, value in (headers or {}).items():
+            self.send_header(key, value)
         self.end_headers()
         self.wfile.write(data)
 
@@ -297,9 +304,11 @@ class OpsServer:
                          f"{limit:.1f}s){detail}")
 
         cfg = server.config
-        return cls(addr, import_fn=import_metrics,
-                   import_workers=cfg.http_import_workers,
-                   import_queue=cfg.http_import_queue, ready_fn=ready)
+        ops = cls(addr, import_fn=import_metrics,
+                  import_workers=cfg.http_import_workers,
+                  import_queue=cfg.http_import_queue, ready_fn=ready)
+        debug.mount(ops.add_route, server=server)
+        return ops
 
     def add_route(self, path: str, fn: Callable):
         """GET ``path``: fn(query: dict) -> (status, body, content_type)."""

@@ -23,7 +23,14 @@ boundary. Overload: at ``LEVEL_SHED_PACKETS`` a lane sheds whole recv
 batches at the socket (read lock-free through ``level_nowait``), and the
 merger drives the controller's ``level()`` on its tick and rolls the
 lanes' shed tallies into ``OverloadController.shed``; the backlog cap
-sheds the same way. Stage tracing is not ported yet.
+sheds the same way.
+
+Stage tracing (``trace_stages``, a Server's ``obs_enabled``): each lane
+sums the nanoseconds of its ``recv`` (socket wait included), ``decode``,
+``stage`` and ``seal`` steps, single-writer; the flusher reads the
+interval's sums through ``IngestFleet.take_ingest_stages``. Every sealed
+chunk carries its seal stamp, and the merger keeps the seal->merge
+latencies for ``take_merge_latencies``.
 """
 
 from __future__ import annotations
@@ -134,10 +141,13 @@ class _KindStage:
 class SealedChunk:
     """An immutable hand-off unit: per-kind staged spans plus the lane
     intern entries minted since the previous seal (the resolver learns
-    them even when a backlogged chunk's payload is shed)."""
+    them even when a backlogged chunk's payload is shed). ``sealed_ns``
+    stamps the hand-off (monotonic): the merger measures the seal->merge
+    latency from it (``stage:ingest.seal_to_merge``), one clock read a
+    chunk on the lane thread."""
 
     __slots__ = ("lane_id", "gen", "records", "spans", "new_entries",
-                 "raws")
+                 "raws", "sealed_ns")
 
     def __init__(self, lane_id: int, gen: int, records: int,
                  spans: Dict[int, tuple], new_entries: Dict[int, list],
@@ -148,6 +158,7 @@ class SealedChunk:
         self.spans = spans
         self.new_entries = new_entries
         self.raws = raws
+        self.sealed_ns = time.monotonic_ns()
 
 
 class LaneResolver:
@@ -193,7 +204,8 @@ class IngestLane:
                  chunk_records: int, stop: threading.Event,
                  max_backlog: int = DEFAULT_MAX_BACKLOG,
                  intern_limit: int = 1 << 20,
-                 use_native: Optional[bool] = None, overload=None):
+                 use_native: Optional[bool] = None, overload=None,
+                 trace_stages: bool = True):
         self.lane_id = lane_id
         self.sock = sock
         self._stop = stop
@@ -228,6 +240,12 @@ class IngestLane:
         self._nrows = [0] * KIND_COUNT
         self._intern_total = 0
         self._first_stage_t = 0.0
+        # ingest-path stage tracing (obs_enabled): cumulative ns a stage,
+        # single-writer (this lane's thread), diffed read-side by
+        # IngestFleet.take_ingest_stages; recv includes socket wait
+        self._obs = trace_stages
+        self.stage_ns = {"recv": 0, "decode": 0, "stage": 0, "seal": 0}
+        self.stage_iters = 0
 
         # native decode: a reusable C++ parse batch and this lane's own
         # intern table, bound once here so the hot loop never touches the
@@ -271,8 +289,12 @@ class IngestLane:
         """One hot-path iteration: recv a datagram batch, decode, stage
         columnar, seal at the chunk boundary. Returns the number of
         datagrams received (0 on timeout). Takes no lock."""
+        obs = self._obs
+        t_recv0 = time.monotonic_ns() if obs else 0
         datagrams = self._receiver.recv_batch(RECV_TIMEOUT)
         if not datagrams:
+            if obs:
+                self.stage_ns["recv"] += time.monotonic_ns() - t_recv0
             if self._staged_total or self._raws:
                 self._seal()
             return 0
@@ -288,6 +310,9 @@ class IngestLane:
                 if len(more) < self._receiver.batch:
                     hot = False
                     break
+        if obs:
+            self.stage_ns["recv"] += time.monotonic_ns() - t_recv0
+            self.stage_iters += 1
         now = time.monotonic()
         n = len(datagrams)
         self.packets += n
@@ -324,6 +349,8 @@ class IngestLane:
         intern table, scrub, and stage columnar per kind."""
         if self._intern_total >= self._intern_limit:
             self._reset_interner()
+        obs = self._obs
+        t0 = time.monotonic_ns() if obs else 0
         vt = self._vt
         buf = b"\n".join(datagrams)
         b = self._batch
@@ -332,11 +359,17 @@ class IngestLane:
         pb = native.ParsedBatch(b.contents)
         self.parse_errors += int(pb.parse_errors)
         if pb.count == 0:
+            if obs:
+                self.stage_ns["decode"] += time.monotonic_ns() - t0
             return
         self.parsed += int(pb.count)
         rows, kinds, miss = self._table.assign(pb)
         if len(miss):
             self._intern_misses(pb, rows, kinds, miss)
+        if obs:
+            t1 = time.monotonic_ns()
+            self.stage_ns["decode"] += t1 - t0
+            t0 = t1
         arena = pb.arena
         values, rates = pb.value, pb.sample_rate
         member_hashes = None
@@ -380,6 +413,8 @@ class IngestLane:
                                         abs_max=F32_ABS_MAX, weights=wts)
                 self._stage_span(kind, krows[ok],
                                  vals64[ok].astype(np.float32), wts[ok])
+        if obs:
+            self.stage_ns["stage"] += time.monotonic_ns() - t0
 
     def _intern_misses(self, pb, rows, kinds, miss) -> None:
         arena = pb.arena
@@ -408,6 +443,7 @@ class IngestLane:
         parse into the same columnar stages. Slower, same semantics."""
         if self._intern_total >= self._intern_limit:
             self._reset_interner()
+        t0 = time.monotonic_ns() if self._obs else 0
         interner = self._py_interner
         for d in datagrams:
             for line in p.split_lines(d):
@@ -437,6 +473,8 @@ class IngestLane:
                         (m.key.name.encode("utf-8"),
                          m.key.joined_tags.encode("utf-8")))
                 self._stage_one_metric(kind, row, m)
+        if self._obs:
+            self.stage_ns["decode"] += time.monotonic_ns() - t0
 
     def _stage_one_metric(self, kind: int, row: int, m) -> None:
         if kind in _COUNTER_KINDS:
@@ -507,6 +545,7 @@ class IngestLane:
         total = self._staged_total
         if total == 0 and not self._raws and not self._pending_entries:
             return
+        t0 = time.monotonic_ns() if self._obs else 0
         spans = {kind: st.take() for kind, st in enumerate(self._stages)
                  if st is not None and st.fill}
         chunk = SealedChunk(self.lane_id, self.gen, total, spans,
@@ -523,6 +562,8 @@ class IngestLane:
             chunk.raws = []
         self.sealed_chunks += 1
         self.sealed.append(chunk)
+        if self._obs:
+            self.stage_ns["seal"] += time.monotonic_ns() - t0
 
     # -- reader loop ---------------------------------------------------------
 
@@ -583,7 +624,8 @@ class IngestFleet:
                  drain_tick: float = DRAIN_TICK,
                  max_backlog: int = DEFAULT_MAX_BACKLOG,
                  use_native: Optional[bool] = None,
-                 intern_limit: int = 1 << 20, overload=None):
+                 intern_limit: int = 1 << 20, overload=None,
+                 trace_stages: bool = True):
         from veneur_tpu_torch import networking
 
         self._store = store
@@ -595,6 +637,17 @@ class IngestFleet:
         self._resolvers: Dict[int, LaneResolver] = {}
         self.merged_records: Dict[int, int] = {}
         self.merged_raws: Dict[int, int] = {}
+        # seal->merge latencies: the merger (single writer) appends each
+        # merged chunk's, the flusher drains them an interval into the
+        # self-telemetry group; the running aggregates ride /debug/vars.
+        # deque append/popleft are GIL-atomic: no lock between them
+        self._merge_latencies: "collections.deque" = collections.deque(
+            maxlen=4096)
+        self.merge_latency_count = 0
+        self.merge_latency_max_ns = 0
+        self._merge_latency_sum_ns = 0
+        # per-lane stage-tracing watermarks (take_ingest_stages)
+        self._stage_reported: Dict[tuple, int] = {}
         self.unrouted_raws: list = []  # only without a raw_handler
         self.lanes: List[IngestLane] = []
         self.bound: List[tuple] = []
@@ -611,7 +664,8 @@ class IngestFleet:
                     lane = IngestLane(
                         i, sock, max_len, chunk_records, self._stop,
                         max_backlog=max_backlog, intern_limit=intern_limit,
-                        use_native=use_native, overload=overload)
+                        use_native=use_native, overload=overload,
+                        trace_stages=trace_stages)
                 except BaseException:
                     sock.close()
                     raise
@@ -662,6 +716,11 @@ class IngestFleet:
             # never remap them
             res = self._resolvers[chunk.lane_id] = LaneResolver(chunk.gen)
         raws = self._store.import_lane_chunk(chunk, res)
+        latency = time.monotonic_ns() - chunk.sealed_ns
+        self._merge_latencies.append(latency)
+        self.merge_latency_count += 1
+        self._merge_latency_sum_ns += latency
+        self.merge_latency_max_ns = max(self.merge_latency_max_ns, latency)
         if chunk.records:
             self.merged_records[chunk.lane_id] = (
                 self.merged_records.get(chunk.lane_id, 0) + chunk.records)
@@ -726,6 +785,57 @@ class IngestFleet:
                 lane.sock.close()
 
     # -- read-side counters ----------------------------------------------------
+
+    def take_merge_latencies(self) -> List[int]:
+        """Drain the seal->merge latencies (ns) merged since the last
+        call, for the flusher's self-telemetry; the running aggregates
+        stay for /debug/vars."""
+        out: List[int] = []
+        latencies = self._merge_latencies
+        while latencies:
+            out.append(latencies.popleft())
+        return out
+
+    def take_ingest_stages(self) -> Optional[dict]:
+        """The ingest path's stage times since the last call: ns a stage
+        summed over the lanes (recv includes socket wait, so the sums are
+        lane-seconds, up to ``lanes`` x the interval), with ``iters`` and
+        ``lanes``. None when stage tracing is off or nothing accrued.
+        One reader (the flusher); the lanes' counters are single-writer
+        ints."""
+        out = {"recv": 0, "decode": 0, "stage": 0, "seal": 0}
+        iters = 0
+        traced = False
+        for lane in self.lanes:
+            if not lane._obs:
+                continue
+            traced = True
+            for stage in out:
+                cur = lane.stage_ns[stage]
+                key = (lane.lane_id, stage)
+                out[stage] += cur - self._stage_reported.get(key, 0)
+                self._stage_reported[key] = cur
+            key = (lane.lane_id, "iters")
+            iters += lane.stage_iters - self._stage_reported.get(key, 0)
+            self._stage_reported[key] = lane.stage_iters
+        if not traced or not any(out.values()):
+            return None
+        out["iters"] = iters
+        out["lanes"] = len(self.lanes)
+        return out
+
+    def merge_latency_snapshot(self) -> dict:
+        n = self.merge_latency_count
+        return {"count": n, "max_ns": self.merge_latency_max_ns,
+                "avg_ns": (self._merge_latency_sum_ns // n) if n else 0}
+
+    def snapshot(self) -> dict:
+        """The fleet's state for /debug/vars."""
+        return {"totals": self.totals(), "balance": self.balance(),
+                "pressure": round(self.pressure(), 4),
+                "seal_to_merge": self.merge_latency_snapshot(),
+                "stage_ns": [dict(lane.stage_ns) for lane in self.lanes
+                             if lane._obs]}
 
     def pressure(self) -> float:
         """Backlog fill ratio feeding the overload watermarks: sealed

@@ -1,0 +1,149 @@
+"""The flush-interval timeline ring: last-N interval records as JSON.
+
+Port of ``veneur_tpu/obs/timeline.py`` (host Python, copied).
+
+Each completed flush publishes its :class:`StageRecorder` record here;
+``GET /debug/flush-timeline`` (debug.py) serves the ring. The ring is
+bounded (``obs_timeline_intervals``, default 64) so a long-lived
+server's timeline costs fixed memory, and entries are plain dicts so
+the late off-path forward stage can land in an already-published
+interval (recorder.record_late)."""
+
+from __future__ import annotations
+
+import collections
+import json
+import threading
+import uuid
+from typing import List, Optional
+
+DEFAULT_INTERVALS = 64
+
+# the four egress pipeline lanes: device compute, device->host
+# transfer, host serialize/deflate, POST
+LANES = ("compute", "fetch", "serialize", "post")
+
+
+def annotate_overlap(entry: dict) -> dict:
+    """Bucket one interval's stage durations into the four egress
+    pipeline lanes and stamp the overlap measures the `6_egress_1m`
+    gate reads straight off the timeline:
+
+    - ``lanes`` — summed ns per lane. Leaf classification: a
+      ``*.compute`` / ``*.fetch`` stage is device dispatch / transfer;
+      ``serialize.<group>`` and ``post.<sink>.serialize`` are the
+      serialize lane; ``post.<sink>.post`` (streamed chunks) and the
+      ``post.<sink>`` fan-out stages (their amended ``post_ns`` /
+      ``serialize_ns`` when present, wall-clock otherwise) are POST.
+    - ``egress_wall_ns`` — wall-clock from the store drain's start to
+      the last POST's end: what the interval actually costs.
+    - ``overlap_ratio`` — egress_wall / Σlanes. A fully sequential
+      flush sits near 1.0 (the interval is the SUM of its lanes); a
+      pipelined one approaches max(lane)/Σlanes (the interval is their
+      MAX — overlap absorbed the rest).
+    - ``sum_vs_max_gap_ns`` — Σlanes − max(lane): the headroom overlap
+      can still reclaim.
+
+    Off-path stages (forward, ingest, hops) are excluded — they do not
+    spend the interval's wall-clock."""
+    lanes = dict.fromkeys(LANES, 0)
+    wall_start = None
+    wall_end = None
+    for s in entry.get("stages", ()):
+        if s.get("off_path"):
+            continue
+        name = s["name"]
+        segs = name.split(".")
+        leaf = segs[-1]
+        dur = s["duration_ns"]
+        end = s["start_ns"] + dur
+        if name == "store" or segs[0] == "post":
+            wall_start = s["start_ns"] if wall_start is None \
+                else min(wall_start, s["start_ns"])
+            wall_end = end if wall_end is None else max(wall_end, end)
+        if leaf == "compute":
+            lanes["compute"] += dur
+        elif leaf == "fetch":
+            lanes["fetch"] += dur
+        elif leaf == "serialize" or segs[0] == "serialize":
+            lanes["serialize"] += dur
+        elif segs[0] == "post" and len(segs) == 3 and leaf == "post":
+            # streamed chunk POST (post.<sink>.post)
+            lanes["post"] += dur
+        elif segs[0] == "post" and len(segs) == 2:
+            # one sink's batch fan-out thread: prefer the amended
+            # marshal/post split so serialize time is not double-billed
+            if "post_ns" in s or "serialize_ns" in s:
+                lanes["post"] += int(s.get("post_ns", 0))
+                lanes["serialize"] += int(s.get("serialize_ns", 0))
+            else:
+                lanes["post"] += dur
+    total = sum(lanes.values())
+    if total <= 0 or wall_start is None:
+        return entry
+    entry["lanes"] = lanes
+    wall = max(0, wall_end - wall_start)
+    entry["egress_wall_ns"] = wall
+    entry["overlap_ratio"] = round(wall / total, 4)
+    entry["sum_vs_max_gap_ns"] = total - max(lanes.values())
+    return entry
+
+
+class FlushTimeline:
+    """Bounded ring of per-interval stage records."""
+
+    def __init__(self, intervals: int = DEFAULT_INTERVALS):
+        self.capacity = max(1, int(intervals))
+        # per-process identity served at /debug/flush-timeline (the JAX
+        # package's fleet aggregator tells its own timeline by it)
+        self.uid = uuid.uuid4().hex
+        self._ring: "collections.deque" = collections.deque(
+            maxlen=self.capacity)
+        # shared by publish and the read side: list(deque) raises
+        # RuntimeError if an append lands mid-iteration, and the debug
+        # endpoints read from arbitrary request threads while the
+        # flusher publishes
+        self._lock = threading.Lock()
+        self.published_total = 0
+
+    def publish(self, entry: dict) -> dict:
+        with self._lock:
+            entry["interval"] = self.published_total
+            self.published_total += 1
+            self._ring.append(entry)
+        return entry
+
+    def entries(self, last: Optional[int] = None) -> List[dict]:
+        with self._lock:
+            snap = list(self._ring)
+        if last is not None and last > 0:
+            snap = snap[-last:]
+        return snap
+
+    def snapshot(self) -> dict:
+        """Summary for /debug/vars (the full ring rides its own
+        endpoint)."""
+        with self._lock:
+            snap = list(self._ring)
+        return {"published_total": self.published_total,
+                "ring_capacity": self.capacity,
+                "last_total_duration_ns":
+                    snap[-1]["total_duration_ns"] if snap else None,
+                "last_coverage_ratio":
+                    snap[-1]["coverage_ratio"] if snap else None}
+
+    def handler(self, query) -> tuple:
+        """The GET /debug/flush-timeline route body: ``?n=K`` limits to
+        the most recent K intervals. ``instance_uid`` identifies this
+        process."""
+        try:
+            last = int(query.get("n", "0") or 0)
+        except ValueError:
+            return 400, "n must be an integer", "text/plain"
+        body = json.dumps({
+            "published_total": self.published_total,
+            "ring_capacity": self.capacity,
+            "instance_uid": self.uid,
+            "intervals": self.entries(last or None),
+        }, default=str)
+        return 200, body, "application/json"

@@ -11,8 +11,10 @@ is stateless: a failed or empty refresh keeps the last good ring
 (:351-361), and starting with zero destinations is fatal (:232-243).
 
 Routes: ``POST /import`` and ``POST /spans`` (202, then the fan-out off
-the request thread), ``GET /healthcheck``, ``GET /debug/vars`` (the
-ring's counters and breakers). The JAX package's trace-plane hop
+the request thread), ``GET /healthcheck``, and through ``debug.mount``
+``GET /debug/threads``, ``/debug/profile`` and ``/debug/vars`` (the
+time, the thread count and the proxy's own ``vars()``: the ring's
+counters and breakers). The JAX package's trace-plane hop
 (``/debug/flush-timeline``, the ``X-Veneur-Trace`` re-parenting) is not
 ported.
 """
@@ -22,11 +24,13 @@ from __future__ import annotations
 import json
 import logging
 import threading
+import urllib.parse
 import zlib
 from collections import defaultdict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, List, Optional
 
+from veneur_tpu_torch import debug
 from veneur_tpu_torch.config import ProxyConfig
 from veneur_tpu_torch.discovery import (ConsulDiscoverer, Discoverer,
                                         RetryingDiscoverer,
@@ -58,11 +62,13 @@ class _ProxyHandler(BaseHTTPRequestHandler):
         log.debug("proxy http: " + fmt, *args)
 
     def _reply(self, status: int, body: str = "",
-               ctype: str = "text/plain"):
+               ctype: str = "text/plain", headers=None):
         data = body.encode()
         self.send_response(status)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
+        for key, value in (headers or {}).items():
+            self.send_header(key, value)
         self.end_headers()
         self.wfile.write(data)
 
@@ -73,12 +79,12 @@ class _ProxyHandler(BaseHTTPRequestHandler):
 
     def do_GET(self):
         self._drain_body()
-        path = self.path.partition("?")[0]
+        path, _, qs = self.path.partition("?")
+        route = self.server.veneur_get_routes.get(path)
         if path == "/healthcheck":
             self._reply(200, "ok")
-        elif path == "/debug/vars":
-            self._reply(200, json.dumps(self.server.veneur_proxy.vars()),
-                        "application/json")
+        elif route is not None:
+            self._reply(*route(dict(urllib.parse.parse_qsl(qs))))
         else:
             self._reply(404, "not found")
 
@@ -407,6 +413,11 @@ class Proxy:
                                           _ProxyHandler)
         self._httpd.daemon_threads = True
         self._httpd.veneur_proxy = self
+        # the live debug endpoints (the reference mounts pprof on the
+        # proxy's mux too, proxy.go:383-388)
+        self._httpd.veneur_get_routes = {}
+        debug.mount(self._httpd.veneur_get_routes.__setitem__,
+                    extra_vars=self.vars)
         t = threading.Thread(target=self._httpd.serve_forever,
                              name="proxy-http", daemon=True)
         t.start()

@@ -61,9 +61,19 @@ merges what its locals forward) beside ``/healthcheck`` and
 ``/version``, with ``native_import_address`` the framed-TCP import
 (``forward/native_transport.py``) and with ``grpc_address`` the gRPC
 import (``forward/grpc_forward.py``: ``server.import_server``), on a
-dense, slab, tiered or mesh store alike. The port has no
-``/debug/vars``: the two imports count on their objects (``received``,
-``import_errors``).
+dense, slab, tiered or mesh store alike; the two imports count on
+their objects (``received``, ``import_errors``), and ``GET /debug/vars``
+shows them.
+
+Self-telemetry (``obs/``, ``trace/``, ``debug.py``): ``trace_client``
+records each flush's span into the server's own span channel, so its
+``veneur.*`` self-metrics flush with the next interval; with
+``obs_enabled`` (the default) ``obs_timeline`` keeps the last
+``obs_timeline_intervals`` flush stage trees (``GET
+/debug/flush-timeline``) and the ingest lanes time their stages. The
+ops server mounts the debug endpoints (``/debug/threads``,
+``/debug/profile``, ``/debug/vars``, ``/debug/flush-timeline``,
+``/debug/xprof``).
 
 The global tier as a fleet (``fleet/``): with ``handoff_enabled`` a
 global watches its fleet's membership and hands the key ranges a resize
@@ -95,6 +105,7 @@ from veneur_tpu_torch.forward import configure_forwarding
 from veneur_tpu_torch.forward.native_transport import NativeImportServer
 from veneur_tpu_torch.httpserv import OpsServer
 from veneur_tpu_torch.ingest import IngestFleet, ShardedCounter
+from veneur_tpu_torch.obs import FlushTimeline
 from veneur_tpu_torch.ops import tdigest_cuda
 from veneur_tpu_torch.persist import Checkpointer
 from veneur_tpu_torch.persist import format as ckpt_format
@@ -107,6 +118,7 @@ from veneur_tpu_torch.samplers.intermetric import HistogramAggregates
 from veneur_tpu_torch.sinks.base import MetricSink, SpanSink
 from veneur_tpu_torch.sinks.blackhole import BlackholeMetricSink
 from veneur_tpu_torch.sinks.ssfmetrics import MetricExtractionSink
+from veneur_tpu_torch.trace import new_channel_client
 
 log = logging.getLogger("veneur.server")
 
@@ -150,6 +162,9 @@ class _SinkIngestor:
         self.queue: "queue.Queue" = queue.Queue(capacity)
         self.ingest_errors = 0
         self.ingest_timeouts = 0
+        # the interval's deepest queue (veneur.server.span_lane.depth_hwm,
+        # read and reset by the flush)
+        self.depth_hwm = 0
         self._drop_lock = threading.Lock()  # offer() runs on every worker
         self._flush_thread: Optional[threading.Thread] = None
         self.thread = threading.Thread(
@@ -163,6 +178,10 @@ class _SinkIngestor:
         except queue.Full:
             with self._drop_lock:
                 self.ingest_timeouts += n
+            return
+        d = self.queue.qsize()
+        if d > self.depth_hwm:
+            self.depth_hwm = d
 
     def _ingest(self, span) -> None:
         try:
@@ -337,6 +356,19 @@ class Server:
         self._last_span_drop_log = 0.0
         # interval span flushes skipped: the previous one still ran
         self.span_flush_skipped = 0
+        # flushes whose egress deadline expired (a sink ignored its
+        # budget) and when the last warning about one was logged
+        self.flush_overruns = 0
+        self._last_overrun_warn = 0.0
+        # datagrams the C++ reader pools dropped (their pump fell behind)
+        self.packet_drops = 0
+        # self-telemetry: a channel trace client into our own span
+        # channel, so the flush span's self-metrics re-enter the pipeline
+        # (server.go:196-202); with obs_enabled the timeline ring behind
+        # /debug/flush-timeline (None: the flusher allocates no recorder)
+        self.trace_client = new_channel_client(self.span_chan)
+        self.obs_timeline = (FlushTimeline(config.obs_timeline_intervals)
+                             if config.obs_enabled else None)
         self.span_flush_thread: Optional[threading.Thread] = None
         self.last_flush_time = 0.0
         self.last_flush_ok = True
@@ -680,7 +712,8 @@ class Server:
                 self.store, resolve_addr(spec), num_lanes,
                 cfg.read_buffer_size_bytes, cfg.metric_max_length,
                 stop=self._stop, raw_handler=self.handle_metric_packet,
-                overload=self.overload)
+                overload=self.overload,
+                trace_stages=bool(cfg.obs_enabled))
         except OSError as e:
             log.warning("ingest lanes failed to bind (%s); falling back "
                         "to the legacy readers", e)
@@ -745,6 +778,7 @@ class Server:
                 batches = reader.drain()
                 drops = reader.drops()
                 if drops != last_drops:
+                    self._count("packet_drops", drops - last_drops)
                     log.warning("native ingest dropped %d datagrams (pump "
                                 "falling behind)", drops - last_drops)
                     last_drops = drops
@@ -813,6 +847,7 @@ class Server:
                 drops = reader.drops()
                 if drops != last_drops:
                     self._count("native_ssf_drops", drops - last_drops)
+                    self._count("packet_drops", drops - last_drops)
                     log.warning("native SSF ingest dropped %d datagrams "
                                 "(pump falling behind)", drops - last_drops)
                     last_drops = drops
@@ -993,6 +1028,7 @@ class Server:
         self._span_threads.clear()
 
     def _close_servers(self):
+        self.trace_client.close()
         if self.ops_server is not None:
             self.ops_server.stop()
         if self.native_import_server is not None:

@@ -17,7 +17,11 @@ Port of ``DatadogMetricSink`` in ``veneur_tpu/sinks/datadog.py`` (after
 
 Every POST runs the port's retry loop inside the flush deadline and,
 when given, a circuit breaker for the API endpoint. The transport is
-injectable (``post``), so tests run without a network. The span sink
+injectable (``post``), so tests run without a network. Each flush
+leaves its marshal and POST seconds and body sizes for the flusher's
+``veneur.flush.*`` self-metrics (``drain_flush_telemetry``), and a
+streamed chunk records ``post.datadog.serialize`` and
+``post.datadog.post`` on the interval's timeline. The span sink
 (``DatadogSpanSink``) is not ported.
 """
 
@@ -27,6 +31,7 @@ import http.client
 import json
 import logging
 import threading
+import time
 from collections import deque
 from typing import Callable, List, Optional, Sequence
 
@@ -35,6 +40,7 @@ import numpy as np
 from veneur_tpu_torch.core.columnar import TYPE_COUNTER
 from veneur_tpu_torch.forward.http_forward import post_helper
 from veneur_tpu_torch.native import egress
+from veneur_tpu_torch.obs import recorder as obs_rec
 from veneur_tpu_torch.protocol import constants as dogstatsd
 from veneur_tpu_torch.resilience import (RetryPolicy, is_transient_status,
                                          post_with_retry)
@@ -113,10 +119,18 @@ class DatadogMetricSink(MetricSink):
         self.chunk_rows_acked = 0
         self.chunk_rows_requeued = 0
         self.chunk_rows_dropped = 0
+        # (kind, value) pairs for the flusher's self-metrics: marshal_s,
+        # post_s, chunk_marshal_s, chunk_post_s, content_length_bytes
+        self._telemetry: List[tuple] = []
 
     @property
     def name(self) -> str:
         return "datadog"
+
+    def drain_flush_telemetry(self) -> List[tuple]:
+        with self._err_lock:
+            out, self._telemetry = self._telemetry, []
+        return out
 
     def _url(self, path: str) -> str:
         return f"{self.dd_hostname}{path}?api_key={self.api_key}"
@@ -160,14 +174,22 @@ class DatadogMetricSink(MetricSink):
         in C++ and POST them in parallel; the extras (status checks,
         routed rows) take the per-row path."""
         bodies: List[bytes] = []
+        t_marshal = time.perf_counter()
         for blk in batch.blocks:
             bodies.extend(self._serialize_block(blk, batch.timestamp))
+        t_marshal = time.perf_counter() - t_marshal
         threads = [threading.Thread(target=self._flush_body, args=(body,),
                                     daemon=True) for body in bodies]
+        t_post = time.perf_counter()
         for t in threads:
             t.start()
         for t in threads:
             t.join()
+        t_post = time.perf_counter() - t_post
+        with self._err_lock:
+            self._telemetry += [("marshal_s", t_marshal), ("post_s", t_post)]
+            self._telemetry += [("content_length_bytes", len(b))
+                                for b in bodies]
         self.metrics_flushed += sum(len(b) for b in batch.blocks)
         if batch.extras:
             self.flush(batch.extras)
@@ -182,15 +204,30 @@ class DatadogMetricSink(MetricSink):
         # normally a no-op: the stream worker reposted already for this
         # interval; hand-built chunks (cycle 0) key on the timestamp
         self.repost_requeued(chunk.cycle or chunk.timestamp)
+        rec = obs_rec.current()
+        t0_ns = time.monotonic_ns()
         bodies = []
         for blk in chunk.blocks:
             blk_bodies = self._serialize_block(blk, chunk.timestamp)
             bodies.extend(zip(blk_bodies,
                               _body_rows(len(blk), self.flush_max_per_body,
                                          len(blk_bodies))))
+        t1_ns = time.monotonic_ns()
         for body, nrows in bodies:
             self._post_chunk_body(body, nrows)
+        t2_ns = time.monotonic_ns()
+        if rec is not None:
+            rec.record_abs(f"post.{self.name}.serialize", t0_ns, t1_ns,
+                           chunk=chunk.seq)
+            rec.record_abs(f"post.{self.name}.post", t1_ns, t2_ns,
+                           chunk=chunk.seq, rows=chunk.rows,
+                           bytes=sum(len(b) for b, _ in bodies))
         with self._err_lock:
+            # chunk kinds: the chunk's own timeline stages carry its lanes
+            self._telemetry += [("chunk_marshal_s", (t1_ns - t0_ns) / 1e9),
+                                ("chunk_post_s", (t2_ns - t1_ns) / 1e9)]
+            self._telemetry += [("content_length_bytes", len(b))
+                                for b, _ in bodies]
             self.chunks_flushed += 1
             self.metrics_flushed += chunk.rows
 
@@ -294,7 +331,9 @@ class DatadogMetricSink(MetricSink):
     # -- per-row egress -----------------------------------------------------
 
     def flush(self, metrics: List[InterMetric]) -> None:
+        t_marshal = time.perf_counter()
         dd_metrics, checks = self.finalize_metrics(metrics)
+        t_marshal = time.perf_counter() - t_marshal
         if checks:
             # check_run takes an array but not deflate (datadog.go:113-116)
             try:
@@ -318,10 +357,14 @@ class DatadogMetricSink(MetricSink):
             target=self._flush_part,
             args=(dd_metrics[i * chunk_size:(i + 1) * chunk_size],),
             daemon=True) for i in range(workers)]
+        t_post = time.perf_counter()
         for t in threads:
             t.start()
         for t in threads:
             t.join()
+        with self._err_lock:
+            self._telemetry += [("marshal_s", t_marshal),
+                                ("post_s", time.perf_counter() - t_post)]
         self.metrics_flushed += len(dd_metrics)
 
     def _flush_part(self, chunk: List[dict]) -> None:
