@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and its native
-ingest and egress libraries (g++), side by side, then runs fifteen
+ingest and egress libraries (g++), side by side, then runs sixteen
 phases, each printing one JSON line (checkpoint two, capacity eight,
 mesh six, grpc_proxy three, fleet_ha five):
 
@@ -149,7 +149,36 @@ mesh six, grpc_proxy three, fleet_ha five):
            transports routed it to the same one), their union equal to
            the direct global (counters, gauges, extrema, counts and set
            estimates exact, percentiles within rtol 1e-5), every metric
-           proxied with no error; each transport's fan-out seconds;
+           proxied with no error; each transport's fan-out seconds. The
+           fleet trace plane: each local serves its timeline, and the
+           globals (fleet_peers: the locals and the proxy) pull it
+           before it stops; the dense global's /debug/trace stitches
+           the HTTP local's trace through the proxy (local.flush ->
+           proxy.fan_out -> global.import -> global.flush, the import
+           re-parented under the fan-out) and the direct global's the
+           gRPC local's without a proxy hop;
+  fleet_trace
+           the fleet trace plane at full width: a port local Server (UDP
+           lanes, forward_use_grpc) takes 4,096 histogram series x 4
+           samples over UDP (each lane chunk carries its ingest stamp)
+           and 1,048,576 through its store; a second interval gives
+           every 16th series 4 samples shifted +1,000. Each local flush
+           forwards its packed digests over gRPC with X-Veneur-Trace in
+           the call metadata into a port global Server (obs_enabled,
+           fleet_peers naming the local), whose imports park their
+           global.import hops (K2 on the guard drains interval 2's
+           frames trip) and whose one flush (K1) publishes them. Held:
+           each local flush's trace id stitches local.flush ->
+           global.import -> global.flush at the global's /debug/trace,
+           every import hop under it; the next global flush emits
+           veneur.fleet.e2e_age_ns (through self_timers, K1), each
+           value between the UDP feed's end and the first send, as
+           ages at the global flush's start and end; /debug/fleet
+           lists the local fresh, then stale once it stopped; the
+           global's K2 and K1 launches counted by window (import,
+           flush) beside their kernel scopes' dispatches. Printed: each
+           trace's hops and durations, hop_coverage_ratio and e2e wall
+           time, the import split, the e2e age's p50 and p99;
   fleet_ha the elastic and HA global tier. handoff: a dense global
            Server A with handoff_enabled over a file:// peers file that
            names only A takes native_merge's local A frames over gRPC
@@ -171,7 +200,9 @@ mesh six, grpc_proxy three, fleet_ha five):
            0.02 x span of C's: the pack's u16 means; the top-k rows
            equal C's and within the count-min bound, the table having
            gone whole with each part); a second POST of the same handoff
-           acks as a duplicate and merges nothing. Printed: the
+           acks as a duplicate and merges nothing; B's /debug/trace
+           holds A's handoff.send entry and its own handoff.receive hop
+           under one trace id. Printed: the
            extraction split (swap and snapshot, ring split, kept
            re-merge), pack and encode, wire bytes, the POST until the
            ack, B's merge, moved series, K2 on each side. standby: an
@@ -188,7 +219,10 @@ mesh six, grpc_proxy three, fleet_ha five):
            re-routed samples), its flush emits no replicated counter,
            the active's last gauges and set estimates, and percentiles
            within rtol 1e-5 of the active's last flush; a replicate
-           carrying the deposed lease epoch gets 409. Printed: the
+           carrying the deposed lease epoch gets 409; the active's
+           flushes emit veneur.ha.*, and the standby's next flush counts
+           the two traced replicate hops in veneur.trace.hops_total.
+           Printed: the
            replication's seconds and bytes an epoch, kill -> leader,
            kill -> the first promoted flush. mesh_tiered: a
            MetricStore(digest_storage="tiered") on the 4 x 2 shard mesh
@@ -313,8 +347,8 @@ fails.
 The launch counts in the kernel summary are the sum over the store,
 ingest (its two intervals), ssf (its main path), heavy_hitters (its two
 Servers), overload (the series cap's flush), global_merge, native_merge,
-grpc_proxy (its globals and locals), fleet_ha (its four legs, the
-twins excepted), mesh,
+grpc_proxy (its globals and locals), fleet_trace (its local and
+global), fleet_ha (its four legs, the twins excepted), mesh,
 server_global, checkpoint
 (the kill and restart, and the ladder)
 and capacity phases (its oracles and plain-version holds excepted); the
@@ -2188,7 +2222,8 @@ def run_grpc_global(dev) -> dict:
 
 
 def _fed_local(dev, t, label: str, address: str, grpc: bool):
-    """A port local Server (no listener) forwarding to ``address`` (over
+    """A port local Server (no statsd listener; an ops port, which a
+    global's fleet view pulls) forwarding to ``address`` (over
     gRPC, else HTTP), fed local ``label``'s share of ``t`` through its
     store: histograms p.h.<i> (4 samples), sets p.s.<i>, global-only
     counters p.c.<i> and gauges p.g.<label>.<i>. Started; the caller
@@ -2201,7 +2236,7 @@ def _fed_local(dev, t, label: str, address: str, grpc: bool):
         interval="86400s", hostname=f"local-{label}",
         percentiles=list(PERCENTILES), aggregates=["min", "max", "count"],
         forward_address=address, forward_use_grpc=grpc,
-        forward_timeout="600s"), device=dev)
+        forward_timeout="600s", http_address="127.0.0.1:0"), device=dev)
     local.start()
     vals, keep = t[label], t[f"{label}_keep"]
     series, nsets = len(vals), len(t["card"])
@@ -2225,10 +2260,11 @@ def _fed_local(dev, t, label: str, address: str, grpc: bool):
     return local
 
 
-def _proxy_globals(dev, mesh_too: bool):
-    """Global Servers with http_address and grpc_address and a columnar
-    recording sink: a dense one, and with ``mesh_too`` a mesh one
-    (mesh_enabled, mesh_hosts 2, 4 x 2 on the card)."""
+def _proxy_globals(dev, mesh_too: bool, peers):
+    """Global Servers with http_address and grpc_address, fleet_peers the
+    file ``peers``, and a columnar recording sink: a dense one, and with
+    ``mesh_too`` a mesh one (mesh_enabled, mesh_hosts 2, 4 x 2 on the
+    card)."""
     from veneur_tpu_torch.config import Config
     from veneur_tpu_torch.server import Server
 
@@ -2240,7 +2276,8 @@ def _proxy_globals(dev, mesh_too: bool):
             interval="86400s", percentiles=list(PERCENTILES),
             aggregates=["min", "max", "count"],
             hostname="mesh" if mesh else "dense", mesh_enabled=mesh,
-            mesh_hosts=MESH_HOSTS if mesh else 0), metric_sinks=[sink],
+            mesh_hosts=MESH_HOSTS if mesh else 0,
+            fleet_peers=f"file://{peers}"), metric_sinks=[sink],
             device=dev, mesh=_shard_mesh(dev) if mesh else None)
         server.start()
         out.append((server, sink))
@@ -2248,12 +2285,15 @@ def _proxy_globals(dev, mesh_too: bool):
 
 
 def _forward_pair(dev, t, globs, grpc_address: str, http_address: str,
-                  rec: dict) -> int:
+                  rec: dict, peers) -> int:
     """Local A over gRPC to ``grpc_address``, then local B over HTTP to
     ``http_address``; each forward lands in ``globs`` (their imports,
     summed, reach what the local sent) before the next starts. Returns
     the metrics sent. Each local forwards once: it stops without the
-    final flush."""
+    final flush, after the globals' fleet views pulled it (``peers``
+    names it and the proxy) and kept it: they serve its flush to
+    /debug/trace after it stopped. Each local's trace id goes into
+    ``rec``."""
     sent = 0
     for label, grpc, address in (("a", True, grpc_address),
                                  ("b", False, http_address)):
@@ -2269,6 +2309,12 @@ def _forward_pair(dev, t, globs, grpc_address: str, http_address: str,
                       >= sent, 600, f"local {label}'s metrics imported")
             rec[f"local_{label}_s"] = time.perf_counter() - t0
             rec[f"local_{label}_forwarded"] = local.forwarder.forwarded
+            rec[f"local_{label}_trace_id"] = \
+                local.obs_timeline.entries()[-1]["trace_id"]
+            rec["peers"].append(f"127.0.0.1:{local.ops_server.port}")
+            peers.write_text("".join(f"{p}\n" for p in rec["peers"]))
+            for g, _ in globs:
+                g.fleet_aggregator.refresh(force=True)
         finally:
             # no final flush: it would forward again (the local's own
             # veneur.* timers of the first one), past what was counted
@@ -2309,6 +2355,8 @@ def run_proxy_tier(dev, series: int = PROXY_SERIES, sets: int = PROXY_SETS,
     exact, percentiles within rtol 1e-5); the proxies proxied every
     metric sent with no error or drop. Prints each transport's fan-out
     seconds. Returns the record."""
+    import tempfile
+
     from veneur_tpu_torch.config import ProxyConfig
     from veneur_tpu_torch.discovery import StaticDiscoverer
     from veneur_tpu_torch.protocol import mlist
@@ -2318,8 +2366,13 @@ def run_proxy_tier(dev, series: int = PROXY_SERIES, sets: int = PROXY_SETS,
     t = _global_merge_traffic(series, sets, scalars)
     rec = {"histogram_series": series, "set_series": sets,
            "global_counters": scalars, "gauges_per_local": scalars}
-    pair = _proxy_globals(dev, mesh_too=True)
-    direct = _proxy_globals(dev, mesh_too=False)
+    tmp = tempfile.TemporaryDirectory()
+    pair_peers = Path(tmp.name) / "pair.peers"
+    direct_peers = Path(tmp.name) / "direct.peers"
+    for f in (pair_peers, direct_peers):
+        f.write_text("")
+    pair = _proxy_globals(dev, True, pair_peers)
+    direct = _proxy_globals(dev, False, direct_peers)
     proxy = None
     real_split = mlist.split_metric_list
     try:
@@ -2340,15 +2393,17 @@ def run_proxy_tier(dev, series: int = PROXY_SERIES, sets: int = PROXY_SETS,
         gsrv = proxy.grpc_server
         gsrv.send_metrics = _timed_into(fan, "grpc_fan_out_s",
                                         gsrv.send_metrics)
-        proxied = {}
+        proxied = {"peers": [f"127.0.0.1:{proxy.port}"]}
         sent = _forward_pair(dev, t, pair, f"127.0.0.1:{gsrv.port}",
-                             f"http://127.0.0.1:{proxy.port}", proxied)
+                             f"http://127.0.0.1:{proxy.port}", proxied,
+                             pair_peers)
         mlist.split_metric_list = real_split
         dsrv = direct[0][0]
-        direct_rec = {}
+        direct_rec = {"peers": []}
         dsent = _forward_pair(
             dev, t, direct, f"127.0.0.1:{dsrv.import_server.port}",
-            f"http://127.0.0.1:{dsrv.ops_server.port}", direct_rec)
+            f"http://127.0.0.1:{dsrv.ops_server.port}", direct_rec,
+            direct_peers)
         rec.update(proxied_leg=proxied, direct_leg=direct_rec, **fan)
         rec["proxy"] = proxy.vars()
         if not (sent == dsent == proxied["local_a_forwarded"]
@@ -2361,12 +2416,26 @@ def run_proxy_tier(dev, series: int = PROXY_SERIES, sets: int = PROXY_SETS,
                                  f"{dsent}, {rec['proxy']}")
         got = [_global_rows(g, sink) for g, sink in pair]
         want = _global_rows(*direct[0])
+        # the fleet trace plane: the HTTP local's trace crosses the proxy
+        # (its fan-out re-parents the dense global's import), the gRPC
+        # local's direct one stitches without a proxy hop
+        rec["trace_via_proxy"] = _stitched(
+            pair[0][0].ops_server.port, proxied["local_b_trace_id"],
+            ("local.flush", "proxy.fan_out", "global.import",
+             "global.flush"))
+        rec["trace_grpc_direct"] = _stitched(
+            dsrv.ops_server.port, direct_rec["local_a_trace_id"],
+            ("local.flush", "global.import", "global.flush"))
+        if "proxy.fan_out" in {h for h, _ in
+                                rec["trace_grpc_direct"]["hops"]}:
+            raise AssertionError("the direct gRPC trace holds a proxy hop")
     finally:
         mlist.split_metric_list = real_split
         if proxy is not None:
             proxy.shutdown()
         for g, _ in pair + direct:
             g.shutdown()
+        tmp.cleanup()
     rec["per_global"] = {}
     for (g, _), (groups, extras, _) in zip(pair, got):
         rec["per_global"][g.config.hostname] = {
@@ -2436,6 +2505,294 @@ def phase_grpc_proxy(dev, card: str) -> dict:
         emit({"phase": "grpc_proxy", "subphase": name, "card": card, **rec})
     emit({"phase": "grpc_proxy", "card": card, "launches": counts,
           "phase_s": time.perf_counter() - t_phase})
+    return counts
+
+
+# the fleet_trace phase: the fleet trace plane on a traced 1M-series global
+
+FT_SERIES = 1 << 20              # the local's histogram series, in bulk
+FT_UDP_SERIES = 4096             # more over its UDP lanes, 4 samples each
+FT_EVERY = 16                    # interval 2: every 16th series, shifted
+FT_SHIFT = 1000.0
+
+
+def _own_values(col) -> dict:
+    """The server's own rows (veneur.*) of a ColumnarFlush, blocks and
+    extras: {(name with its suffix, joined tags): value}."""
+    from veneur_tpu_torch.core.columnar import arena_strings
+
+    out = {(m.name, ",".join(m.tags)): m.value for m in col.extras
+           if m.name.startswith("veneur.")}
+    for blk in col.blocks:
+        names, tags = arena_strings(blk.names), arena_strings(blk.tags)
+        own = np.array([x.startswith("veneur.") for x in names], bool)
+        if not len(own):
+            continue
+        for i in np.nonzero(own[blk.rows])[0].tolist():
+            row = int(blk.rows[i])
+            sfx = blk.suffixes[blk.suffix_idx[i]].decode()
+            out[(names[row] + sfx, tags[row])] = float(blk.values[i])
+    return out
+
+
+def _stitched(port: int, tid: int, hops: tuple) -> dict:
+    """GET /debug/trace?id=<tid> on a Server's or a proxy's ops port:
+    every hop named in ``hops`` is there under the one trace id, their
+    first occurrences in wall order; a missing hop or another trace id
+    fails. Returns the hops with their durations, the e2e wall time and
+    hop_coverage_ratio (printed, not gated)."""
+    status, body = _http_get(port, f"/debug/trace?id={tid}")
+    if status != 200:
+        raise AssertionError(f"/debug/trace?id={tid}: HTTP {status} "
+                             f"{body[:200]}")
+    data = json.loads(body)
+    names = [h["hop"] for h in data["hops"]]
+    if data["trace_id"] != tid or any(h.get("trace_id", tid) != tid
+                                      for h in data["hops"]):
+        raise AssertionError(f"trace {tid} split: {data['hops']}")
+    missing = [h for h in hops if h not in names]
+    first = [names.index(h) for h in hops if h in names]
+    if missing or first != sorted(first):
+        raise AssertionError(f"trace {tid}: hops {names}, want {hops} in "
+                             "wall order")
+    return {"hops": [[h["hop"], h["duration_ns"]] for h in data["hops"]],
+            "e2e_wall_ns": data["e2e_wall_ns"],
+            "hop_coverage_ratio": data["hop_coverage_ratio"],
+            "gaps": len(data.get("gaps", ()))}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after.get(k, 0) - before.get(k, 0) for k in after
+            if after.get(k, 0) != before.get(k, 0)}
+
+
+def run_fleet_trace(dev, series: int = FT_SERIES,
+                    udp_series: int = FT_UDP_SERIES) -> tuple:
+    """A port local Server (UDP lanes, forward_use_grpc) and a port global
+    Server (grpc_address, http_address, obs_enabled, fleet_peers naming
+    the local through a file://) on ``dev``. Interval 1: ``udp_series``
+    histogram series over the local's lanes (so each chunk carries an
+    ingest stamp), then ``series`` through its store; interval 2: every
+    FT_EVERY-th series takes 4 samples shifted +FT_SHIFT. Each local
+    flush forwards its packed digests as MetricList frames over gRPC
+    with X-Veneur-Trace in the call metadata; the global's imports (K2
+    on the guard drains of interval 2's frames, which meet rows that
+    hold interval 1) park their global.import hops, and one global flush
+    (K1) publishes them. Held: each local flush's trace id stitches
+    local.flush -> global.import -> global.flush at the global's
+    /debug/trace, every import hop under it; the global's next flush
+    emits veneur.fleet.e2e_age_ns.*, each value no more than the time
+    from the first UDP send to the end of the global's flush and no less
+    than from the end of the UDP feed to its start; /debug/fleet lists
+    the local, not stale, and after the local stops serves it stale.
+    Returns the record and the launch counts."""
+    import tempfile
+
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.forward import grpc_forward
+    from veneur_tpu_torch.obs import kernels as obs_kernels
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.samplers.parser import MetricKey
+    from veneur_tpu_torch.server import Server
+
+    rng = np.random.default_rng(SEED + 71)
+    common = dict(interval="86400s", percentiles=list(PERCENTILES),
+                  aggregates=["min", "max", "count"],
+                  max_series=INGEST_MAX_SERIES)
+    rec = {"histogram_series": series, "udp_series": udp_series,
+           "interval2_series": series // FT_EVERY}
+    tmp = tempfile.TemporaryDirectory()
+    peers = Path(tmp.name) / "fleet.peers"
+    peers.write_text("")
+    gsink = _ColumnarRecorder()
+    glob = Server(Config(http_address="127.0.0.1:0",
+                         grpc_address="127.0.0.1:0", hostname="ft-global",
+                         fleet_peers=f"file://{peers}", **common),
+                  metric_sinks=[gsink], device=dev)
+    glob.start()
+    local = None
+    real_import = grpc_forward.import_metric_list
+    try:
+        local = Server(Config(
+            statsd_listen_addresses=["udp://127.0.0.1:0"],
+            http_address="127.0.0.1:0", hostname="ft-local",
+            forward_address=f"127.0.0.1:{glob.import_server.port}",
+            forward_use_grpc=True, forward_timeout="600s", **common),
+            metric_sinks=[_ColumnarRecorder()], device=dev)
+        local.start()
+        local_addr = f"127.0.0.1:{local.ops_server.port}"
+        peers.write_text(local_addr + "\n")
+        udp = rng.gamma(2.0, 10.0, (udp_series, 4))
+        lines = [f"ft.u.{i}:{x:.4f}|h" for i in range(udp_series)
+                 for x in udp[i]]
+        t_send = time.time()
+        _send_lines(local.statsd_addrs[0][1], lines)
+        _wait_processed(local, len(lines), 120)
+        t_udp_done = time.time()
+        vals = rng.gamma(2.0, 10.0, (series, 4)).astype(np.float32)
+        store = local.store
+        t0 = time.perf_counter()
+        with store._lock:
+            hist = store.histograms
+            rows = np.array([hist.interner.intern(
+                MetricKey(f"ft.h.{i}", "histogram", ""), [])
+                for i in range(series)], np.int32)
+            hist.ensure_capacity(int(rows.max()))
+            # weight 2 (a 0.5 sample rate): each row's mass reaches the
+            # shift guard's minimum, so interval 2 trips it
+            hist.sample_many(np.repeat(rows, 4), vals.reshape(-1),
+                             np.full(vals.size, 2.0, np.float32))
+        _sync(dev)
+        rec["feed_s"] = time.perf_counter() - t0
+        _reset_counts(tc)
+        marks = []
+        real_fwd = local.forward_fn
+
+        def forward(state, deadline=None, parent_span=None, trace_ctx=None):
+            # the local's flush launches end where its forward begins
+            marks.append((_counts(tc), obs_kernels.dispatch_snapshot(),
+                          time.perf_counter()))
+            return real_fwd(state, deadline=deadline,
+                            parent_span=parent_span, trace_ctx=trace_ctx)
+
+        local.forward_fn = forward
+        probe = _ImportProbe(dev, glob.store, grpc_forward,
+                             "import_metric_list")
+        tids, launches = [], {"local_flush": {}, "global_import": {}}
+        scopes = {"global_import": {}}
+        with probe:
+            for interval in range(2):
+                if interval:
+                    # the flush swapped the generation: intern again
+                    shifted = (FT_SHIFT + rng.gamma(2.0, 10.0, (
+                        series // FT_EVERY, 4))).astype(np.float32)
+                    with store._lock:
+                        hist = store.histograms
+                        hot = np.array([hist.interner.intern(
+                            MetricKey(f"ft.h.{i}", "histogram", ""), [])
+                            for i in range(0, series, FT_EVERY)], np.int32)
+                        hist.ensure_capacity(int(hot.max()))
+                        hist.sample_many(np.repeat(hot, 4),
+                                         shifted.reshape(-1),
+                                         np.ones(shifted.size, np.float32))
+                c0, d0 = _counts(tc), obs_kernels.dispatch_snapshot()
+                t0 = time.perf_counter()
+                local.flush()
+                rec[f"local_flush_{interval + 1}_s"] = \
+                    time.perf_counter() - t0
+                if local.wait_forward(600) is not True:
+                    raise AssertionError(f"the local's forward failed "
+                                         f"({local.forwarder.errors})")
+                cf, df, tf = marks[-1]
+                rec[f"forward_{interval + 1}_s"] = time.perf_counter() - tf
+                _add_counts(launches["local_flush"], _delta(cf, c0))
+                _add_counts(launches["global_import"],
+                            _delta(_counts(tc), cf))
+                _add_counts(scopes["global_import"],
+                            _delta(obs_kernels.dispatch_snapshot(), df))
+                lentry = local.obs_timeline.entries()[-1]
+                tids.append(lentry["trace_id"])
+                rec[f"local_oldest_sample_age_{interval + 1}_ns"] = \
+                    lentry.get("oldest_sample_age_ns")
+            fwd = local.forwarder
+            rec.update(frames=len(fwd.post_content_lengths),
+                       wire_bytes=sum(fwd.post_content_lengths))
+            c1, d1 = _counts(tc), obs_kernels.dispatch_snapshot()
+            probe.final_drain()
+        grpc_forward.import_metric_list = real_import
+        probe.record(rec)
+        _add_counts(launches["global_import"], _delta(_counts(tc), c1))
+        _add_counts(scopes["global_import"],
+                    _delta(obs_kernels.dispatch_snapshot(), d1))
+        hops = [h for h in glob.obs_hops.peek() if h["hop"] ==
+                "global.import"]
+        if {h.get("trace_id") for h in hops} != set(tids):
+            raise AssertionError(f"import hops under "
+                                 f"{ {h.get('trace_id') for h in hops} }, "
+                                 f"the local flushed {tids}")
+        rec["import_hops"] = len(hops)
+        # the global's flush of both intervals (K1)
+        c2, d2 = _counts(tc), obs_kernels.dispatch_snapshot()
+        t_flush0 = time.time()
+        t0 = time.perf_counter()
+        glob.flush()
+        col = gsink.flushes.get(timeout=600)
+        rec["global_flush_s"] = time.perf_counter() - t0
+        t_flushed = time.time()
+        launches["global_flush"] = _delta(_counts(tc), c2)
+        scopes["global_flush"] = _delta(obs_kernels.dispatch_snapshot(), d2)
+        rec["global_rows"] = len(col)
+        del col
+        gentry = glob.obs_timeline.entries()[-1]
+        if not set(tids) <= set(gentry.get("import_traces", ())):
+            raise AssertionError(f"the global flush published "
+                                 f"{gentry.get('import_traces')}, not {tids}")
+        rec["global_e2e_age_ns"] = gentry["e2e_age_ns"]
+        rec["traces"] = [_stitched(glob.ops_server.port, tid, (
+            "local.flush", "global.import", "global.flush"))
+            for tid in tids]
+        # the e2e age's rows: its sample went through self_timers, so the
+        # next flush emits it (K1 over that group)
+        c3 = _counts(tc)
+        glob.flush()
+        own = _own_values(gsink.flushes.get(timeout=600))
+        launches["global_next_flush"] = _delta(_counts(tc), c3)
+        e2e = {name[len("veneur.fleet.e2e_age_ns"):]: v
+               for (name, _), v in own.items()
+               if name.startswith("veneur.fleet.e2e_age_ns.")}
+        lo, hi = (t_flush0 - t_udp_done) * 1e9, (t_flushed - t_send) * 1e9
+        if e2e.get(".count", 0) < 1 or not all(
+                lo <= e2e[s] <= hi for s in (".min", ".max",
+                                             ".50percentile",
+                                             ".99percentile")):
+            raise AssertionError(f"veneur.fleet.e2e_age_ns {e2e} outside "
+                                 f"[{lo:.4g}, {hi:.4g}] ns")
+        rec["e2e_age_ns"] = {"p50": e2e[".50percentile"],
+                             "p99": e2e[".99percentile"],
+                             "count": e2e[".count"], "bounds": [lo, hi]}
+        # /debug/fleet: the local pulled fresh, then stale once it stops
+        _, body = _http_get(glob.ops_server.port, "/debug/fleet?refresh=1")
+        view = json.loads(body)["peers"].get(local_addr)
+        if not view or not view["ok"] or view["stale"]:
+            raise AssertionError(f"/debug/fleet before the stop: {view}")
+        local.crash_stop()
+        local = None
+        _, body = _http_get(glob.ops_server.port, "/debug/fleet?refresh=1")
+        view = json.loads(body)["peers"].get(local_addr)
+        if not view or view["ok"] or not view["stale"]:
+            raise AssertionError(f"/debug/fleet after the stop: {view}")
+        rec["fleet_view_stale_after_stop"] = True
+        if not (launches["global_import"].get(
+                "compress_presorted.launches", 0) >= 1
+                and scopes["global_import"].get("drain.digest.dense", 0) >= 1
+                and launches["global_flush"].get(
+                    "drain_quantile.launches", 0) >= 1
+                and scopes["global_flush"].get("flush.digest.dense", 0) >= 1):
+            raise AssertionError(f"the global's kernels: {launches}, "
+                                 f"scopes {scopes}")
+        rec.update(launches=launches, scopes=scopes)
+    finally:
+        grpc_forward.import_metric_list = real_import
+        if local is not None:
+            local.crash_stop()
+        glob.shutdown()
+        tmp.cleanup()
+    return rec, _counts(tc)
+
+
+def phase_fleet_trace(dev, card: str) -> dict:
+    """The fleet trace plane at full width (run_fleet_trace): one line.
+    Returns the launch counts."""
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+
+    _peak_reset(dev)
+    _reset_counts(tc)
+    t0 = time.perf_counter()
+    rec, counts = run_fleet_trace(dev)
+    rec.update(phase_s=time.perf_counter() - t0,
+               max_memory_allocated=_peak_bytes(dev))
+    gc.collect()
+    emit({"phase": "fleet_trace", "card": card, **rec})
     return counts
 
 
@@ -2582,7 +2939,10 @@ def run_server_global(dev, compat: bool, series: int = 1 << 16,
             t0 = time.perf_counter()
             glob.flush()
             rec["global_flush_s"] = time.perf_counter() - t0
-            rows = sink.get_flush(timeout=60)
+            # the global's import spans re-enter it before this flush
+            # (veneur.import.metrics_total): not the local's rows
+            rows = [m for m in sink.get_flush(timeout=60)
+                    if not m.name.startswith("veneur.")]
         finally:
             local.shutdown()
     finally:
@@ -5458,8 +5818,10 @@ def _instrument_checkpointer(server):
 
 def _traffic_block(blk):
     """A block without the server's own series (veneur.*: a Server's
-    flush span re-enters its pipeline and flushes with the next
-    interval), or None when it holds nothing else."""
+    flush span, and a global's import spans, re-enter its pipeline), or
+    None when it holds nothing else; the suffixes only those series
+    emitted (their aggregates: a global's imported digests emit
+    percentiles alone) are dropped too."""
     from veneur_tpu_torch.core.columnar import (EmissionBlock, arena_strings,
                                                 build_arenas)
 
@@ -5472,12 +5834,15 @@ def _traffic_block(blk):
     tags = arena_strings(blk.tags)
     new_row = np.cumsum(keep) - 1
     sel = keep[blk.rows]
+    used = np.unique(blk.suffix_idx[sel])
+    new_sfx = np.zeros(len(blk.suffixes), blk.suffix_idx.dtype)
+    new_sfx[used] = np.arange(len(used))
     return EmissionBlock(
         names=build_arenas([x for x, k in zip(names, keep) if k]),
         tags=build_arenas([x for x, k in zip(tags, keep) if k]),
-        suffixes=blk.suffixes,
+        suffixes=[blk.suffixes[i] for i in used.tolist()],
         rows=new_row[blk.rows[sel]].astype(blk.rows.dtype),
-        suffix_idx=blk.suffix_idx[sel], values=blk.values[sel],
+        suffix_idx=new_sfx[blk.suffix_idx[sel]], values=blk.values[sel],
         type_codes=blk.type_codes[sel])
 
 
@@ -7210,14 +7575,17 @@ def _fha_server(dev, tag: str, peers=None, mesh=None, **extra):
     return server, sink, addr
 
 
-def _fha_rows(server, sink, part: int = 0) -> tuple:
+def _fha_rows(server, sink, part: int = 0, own=None) -> tuple:
     """One flush of a global Server: ({block prefix (the dotted ``part``
     of its names): (names, matrix, suffixes)}, {(name, tags): value} of
-    the extras)."""
+    the extras); ``own`` (a dict) takes the server's own rows
+    (``_own_values``)."""
     from veneur_tpu_torch import flusher
 
     flusher.flush_once(server)
     col = sink.flushes.get(timeout=600)
+    if own is not None:
+        own.update(_own_values(col))
     blocks = {k: (names, _fha_matrix(blk),
                   [s.decode() for s in blk.suffixes])
               for k, (blk, names) in _blocks_by_prefix(col, part).items()}
@@ -7518,9 +7886,9 @@ def run_fleet_handoff(dev, workdir) -> tuple:
         sent = []
         real_send = mgr._send
 
-        def send(dest, blob, handoff_id):
+        def send(dest, blob, handoff_id, **kw):
             sent.append((dest, blob, handoff_id))
-            return real_send(dest, blob, handoff_id)
+            return real_send(dest, blob, handoff_id, **kw)
 
         recv = b.handoff_manager
         real_handle = recv.handle_handoff
@@ -7563,6 +7931,14 @@ def run_fleet_handoff(dev, workdir) -> tuple:
                 len(sent) != 1:
             raise AssertionError(f"the handoff: {summary}")
         blob = sent[0][1]
+        # the fleet trace plane: B's /debug/trace (A among its fleet peers
+        # through the handoff's peers file) holds A's handoff.send and its
+        # own receiving hop under one trace id
+        send_entry = a.obs_timeline.entries()[-1]
+        if send_entry.get("hop") != "handoff.send":
+            raise AssertionError(f"A's last entry: {send_entry.get('hop')}")
+        rec["trace"] = _stitched(b.ops_server.port, send_entry["trace_id"],
+                                 ("handoff.send", "handoff.receive"))
         if first_k2.get("call") is None or marks["kept_counts"][
                 "compress_presorted.launches"] < 1:
             raise AssertionError(f"K2 did not run on both sides: kept "
@@ -7683,7 +8059,7 @@ def run_standby_failover(dev, workdir) -> dict:
     rec = {"histogram_series": n, "sets": FHA_SBY_SETS,
            "counters": FHA_SBY_SETS, "gauges": FHA_SBY_SETS,
            "lease_ttl": FHA_LEASE_TTL}
-    servers, epochs = [], []
+    servers, epochs, act_own = [], [], {}
     try:
         act, act_sink, _ = _fha_server(
             dev, "active", handoff_self="active",
@@ -7709,8 +8085,14 @@ def run_standby_failover(dev, workdir) -> dict:
                                FHA_SBY_SETS, ctrs, gauges)
             servers.append(local)
             _fha_forward(local, act)
+            if interval:
+                # the first flush's span (veneur.ha.* among its samples)
+                # re-entered the active
+                _wait_for(lambda: "veneur.ha.is_leader" in
+                          act.store.gauges.interner.names, 60,
+                          "the active's veneur.ha.* rows")
             t0 = time.perf_counter()
-            epochs.append(_fha_rows(act, act_sink, 1))
+            epochs.append(_fha_rows(act, act_sink, 1, own=act_own))
             _wait_for(lambda: mgr.receives_total == interval + 1, 600,
                       "the replicated epoch")
             rec[f"replicate_{interval}_s"] = time.perf_counter() - t0
@@ -7780,6 +8162,26 @@ def run_standby_failover(dev, workdir) -> dict:
             lease_epoch=sby.lease_elector.lease_epoch)
         del first["call"]
         rec.update(_fha_check_promoted(promoted, epochs[-1], hot))
+        # the fleet's self-metrics: the active's flushes emitted
+        # veneur.ha.*; the standby recorded a traced replicate hop an
+        # epoch, which its promoted flush counted in
+        # veneur.trace.hops_total (a row of its next flush)
+        ha = {n: v for (n, _), v in act_own.items()
+              if n.startswith("veneur.ha.")}
+        if ha.get("veneur.ha.is_leader") != 1.0 or \
+                "veneur.ha.replicated_total" not in ha:
+            raise AssertionError(f"the active's veneur.ha.* rows: {ha}")
+        rec["active_ha_rows"] = len(ha)
+        _wait_for(lambda: "veneur.trace.hops_total" in
+                  sby.store.counters.interner.names, 60,
+                  "the standby's veneur.trace.hops_total")
+        own = {}
+        _fha_rows(sby, sby_sink, 1, own=own)
+        hops = own.get(("veneur.trace.hops_total", "hop:ha.replicate"))
+        if hops != 2.0:
+            raise AssertionError(f"the standby counted {hops} replicate "
+                                 "hops, want 2")
+        rec["standby_replicate_hops"] = hops
         # the deposed active's late replicate: fenced, nothing merges
         sizes = {g: len(getattr(sby.store, g)) for g in
                  ("histograms", "sets", "global_gauges")}
@@ -8377,8 +8779,8 @@ def _kernel_rows(kern: dict, launches: dict) -> list:
 
 
 PHASES = ("store", "server", "ingest", "ssf", "heavy_hitters", "overload",
-          "global_merge", "native_merge", "grpc_proxy", "fleet_ha", "mesh",
-          "server_global", "checkpoint", "capacity")
+          "global_merge", "native_merge", "grpc_proxy", "fleet_trace",
+          "fleet_ha", "mesh", "server_global", "checkpoint", "capacity")
 
 
 def main() -> int:
@@ -8444,6 +8846,7 @@ def main() -> int:
             "global_merge": lambda: phase_global_merge(dev, card),
             "native_merge": lambda: phase_native_merge(dev, card),
             "grpc_proxy": lambda: phase_grpc_proxy(dev, card),
+            "fleet_trace": lambda: phase_fleet_trace(dev, card),
             "fleet_ha": lambda: phase_fleet_ha(dev, card),
             "mesh": lambda: phase_mesh(dev, card),
             "server_global": lambda: phase_server_global(dev, card),

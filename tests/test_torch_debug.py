@@ -7,11 +7,12 @@ the JAX package's (``veneur_tpu/debug.py``).
 * A port Server's ops server and a JAX Server's answer ``/debug/threads``,
   ``/debug/profile`` (with its ``Content-Disposition``), ``/debug/vars``,
   ``/debug/flush-timeline`` and ``/debug/xprof`` alike: the same vars
-  sections but the pinned ones (the JAX package's fleet trace plane:
-  ``obs.hops`` and ``obs.fleet``), the same timeline schema and ``?n=``
-  limit, the same 400s for bad parameters.
-* The proxy mounts ``/debug/threads``, ``/debug/profile`` and
-  ``/debug/vars`` (its ring counters beside the time and thread count).
+  sections (the fleet trace plane's ``obs.hops`` and ``obs.fleet``
+  included), the same timeline schema and ``?n=`` limit, the same 400s
+  for bad parameters.
+* The proxy mounts ``/debug/threads``, ``/debug/profile``,
+  ``/debug/vars`` (its ring counters beside the time and thread count)
+  and its own ``/debug/flush-timeline`` (the fleet trace plane's hops).
 """
 
 import json
@@ -126,15 +127,17 @@ def both():
     return port, jax
 
 
-# the JAX package's fleet trace plane (ROADMAP 11a-ii)
-PINNED_OBS = {"hops", "fleet"}
+# the JAX package's obs sections the port lacks: none since the fleet
+# trace plane landed
+PINNED_OBS = set()
 
 
 def test_vars_sections_match_jax(both):
     port, jax = both
     assert set(port["vars"]) == set(jax["vars"])
     assert set(jax["vars"]["obs"]) - set(port["vars"]["obs"]) == PINNED_OBS
-    assert set(port["vars"]["obs"]) == {"kernels", "timeline"}
+    assert set(port["vars"]["obs"]) == {"kernels", "timeline", "hops",
+                                        "fleet"}
     for key in ("store", "overload"):
         assert set(port["vars"][key]) == set(jax["vars"][key]), key
     assert set(port["vars"]["store"]["groups"]) == \
@@ -181,6 +184,8 @@ def test_proxy_mounts_the_debug_routes():
         data = json.loads(_get(proxy.port, "/debug/vars")[1])
         assert {"time", "threads"} <= set(data)
         assert set(proxy.vars()) <= set(data)
-        assert _status(proxy.port, "/debug/flush-timeline") == 404
+        # the proxy's own timeline of trace-bearing fan-outs: none yet
+        status, body, _ = _get(proxy.port, "/debug/flush-timeline")
+        assert status == 200 and json.loads(body)["intervals"] == []
     finally:
         proxy.shutdown()

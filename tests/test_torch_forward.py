@@ -297,7 +297,10 @@ def test_port_servers_local_to_global():
                   == forwarded)
             assert glob.ops_server.import_pool.merged_batches >= 2
             glob.flush()
-            rows = gsink.get_flush(timeout=10)
+            # the global's own rows (its import spans' veneur.import.*
+            # samples re-enter its pipeline) are not the local's data
+            rows = [m for m in gsink.get_flush(timeout=10)
+                    if not m.name.startswith("veneur.")]
         finally:
             local.shutdown()
     finally:

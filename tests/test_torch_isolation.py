@@ -183,6 +183,13 @@ def test_obs_modules_are_covered():
             "veneur_tpu_torch.debug"} <= set(_modules())
 
 
+def test_fleet_trace_modules_are_covered():
+    """The fleet trace plane (the cross-hop context, the fleet view) and
+    the crash surface are scanned and imported too."""
+    assert {"veneur_tpu_torch.obs.tracectx", "veneur_tpu_torch.obs.fleet",
+            "veneur_tpu_torch.crash"} <= set(_modules())
+
+
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"

@@ -12,10 +12,9 @@ self-metrics) against the JAX package's (``veneur_tpu/obs/``).
   exempt from the overload freeze, and carried by a checkpoint from
   either package into the other.
 * A JAX Server and a port Server fed the same UDP lines for two
-  intervals flush the same set of ``veneur.*`` row names but the pinned
-  difference (ROADMAP section 3: the fleet trace plane's
-  ``veneur.fleet.e2e_age_ns`` and ``veneur.trace.fleet_pull_errors_total``,
-  which the port does not emit yet), the same
+  intervals flush the same set of ``veneur.*`` row names (the fleet trace
+  plane's ``veneur.fleet.e2e_age_ns`` and
+  ``veneur.trace.fleet_pull_errors_total`` included), the same
   ``veneur.obs.stage_duration_ns`` stage tags, and the same counts that
   do not depend on time.
 """
@@ -393,13 +392,10 @@ def _veneur(rows):
     return {m.name for m in rows if m.name.startswith("veneur.")}
 
 
-# the JAX package's rows the port does not emit yet (ROADMAP section
-# 3, the fleet trace plane of item 11a-ii): a global's ingest-to-sink
-# age and its fleet aggregator's pull errors
-PINNED_JAX_ONLY = {
-    "veneur.fleet.e2e_age_ns." + s
-    for s in ("50percentile", "99percentile", "count", "max", "min")
-} | {"veneur.trace.fleet_pull_errors_total"}
+# the JAX package's rows the port does not emit: none since the fleet
+# trace plane (a global's ingest-to-sink age, its aggregator's pull
+# errors) landed
+PINNED_JAX_ONLY = set()
 
 
 def test_servers_flush_the_same_self_metric_names(two_servers):

@@ -537,10 +537,14 @@ def test_proxy_config_loads_and_refuses_unported():
                  "breaker_reset_timeout", "forward_timeout_seconds",
                  "breaker_reset_timeout_seconds"):
         assert getattr(t, name) == getattr(j, name), name
-    for key in ("stats_address", "sentry_dsn", "trace_api_address",
-                "ssf_destination_address"):
+    for key in ("trace_api_address", "ssf_destination_address"):
         with pytest.raises(UnsupportedConfig, match=key):
             proxy_config_from_dict({key: "x:1"})
+    # accepted and not read, as the JAX package's proxy does
+    loaded = proxy_config_from_dict({
+        "stats_address": "x:1", "sentry_dsn": "https://k@h/1",
+        "enable_profiling": True})
+    assert (loaded.stats_address, loaded.enable_profiling) == ("x:1", True)
     with pytest.raises(UnsupportedConfig, match="bogus"):
         proxy_config_from_dict({"bogus": 1})
     with pytest.raises(UnsupportedConfig):

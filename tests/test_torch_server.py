@@ -185,7 +185,7 @@ def test_config_is_loud_about_unported_keys(tmp_path):
                     "interval: 1s\ntdigest_compression: 50\n")
     cfg = read_config(str(path))
     assert cfg.tdigest_compression == 50 and cfg.interval_seconds == 1.0
-    path.write_text("sentry_dsn: https://x\n")
+    path.write_text("datadog_span_buffer_size: 16\n")
     with pytest.raises(UnsupportedConfig):
         read_config(str(path))
     assert cli.main(["-f", str(path)]) == 1

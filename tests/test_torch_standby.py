@@ -268,7 +268,7 @@ def wire_pair(monkeypatch, sby, active):
     real encode and decode, no sockets)."""
     statuses = []
 
-    def fake_send(dest, blob, rid):
+    def fake_send(dest, blob, rid, ctx=None):
         status, _body, _ct = sby.handle_replicate(blob)
         statuses.append(status)
         return status == 200
@@ -628,7 +628,8 @@ class TestFailover:
                         device="cpu")
         sby = server.standby_manager
         taken = []
-        sby.capture = lambda groups, epoch: taken.append(epoch)
+        sby.capture = lambda groups, epoch, trace_ctx=None: \
+            taken.append(epoch)
         feed(server.store, 1, n=2)
         server.flush()  # a follower: no capture
         sby.is_leader = True

@@ -287,6 +287,21 @@ class Config:
     # where the reference sends its own statsd metrics; accepted and not
     # read, as in the JAX package (the self-metrics ride the flush span)
     stats_address: str = ""
+    # the fleet trace plane (obs/fleet.py): the peers whose
+    # /debug/flush-timeline and /debug/vars GET /debug/fleet pulls, a
+    # CSV of addresses or "file:///path" re-read each refresh (one a
+    # line); empty = handoff_peers, else this instance's own entries
+    # only. List the locals too: the stitched trace needs their flushes
+    fleet_peers: str = ""
+    # least seconds between two peer-pull rounds ("" = 5s) and one
+    # peer's HTTP budget a pull ("" = 2s)
+    fleet_pull_interval: str = ""
+    fleet_pull_timeout: str = ""
+    # crash reports (crash.py): a Sentry DSN every Server thread reports
+    # an uncaught exception to before it rethrows; malformed raises here
+    sentry_dsn: str = ""
+    # cProfile from start to shutdown, written to veneur-profile.pstats
+    enable_profiling: bool = False
 
     def __post_init__(self):
         if not self.aggregates:
@@ -501,8 +516,13 @@ class Config:
                 f"lease_path must be file:///path or consul://key, got "
                 f"{self.lease_path!r}")
         self.standby_shadow_epochs = self.standby_shadow_epochs or 2
+        if self.sentry_dsn:
+            from veneur_tpu_torch.crash import SentryReporter
+
+            SentryReporter(self.sentry_dsn)  # a malformed DSN raises
         for name in ("handoff_refresh_interval", "handoff_timeout",
-                     "lease_ttl", "lease_renew_interval"):
+                     "lease_ttl", "lease_renew_interval",
+                     "fleet_pull_interval", "fleet_pull_timeout"):
             if getattr(self, name):
                 parse_duration(getattr(self, name))  # malformed raises
 
@@ -516,6 +536,16 @@ class Config:
         """A handoff POST's budget; unset, the forward budget."""
         return (parse_duration(self.handoff_timeout) if self.handoff_timeout
                 else self.forward_timeout_seconds)
+
+    @property
+    def fleet_pull_interval_seconds(self) -> float:
+        return (parse_duration(self.fleet_pull_interval)
+                if self.fleet_pull_interval else 5.0)
+
+    @property
+    def fleet_pull_timeout_seconds(self) -> float:
+        return (parse_duration(self.fleet_pull_timeout)
+                if self.fleet_pull_timeout else 2.0)
 
     @property
     def lease_ttl_seconds(self) -> float:
@@ -617,15 +647,15 @@ class ProxyConfig:
     consul_refresh_interval: str = ""
     consul_trace_service_name: str = ""
     debug: bool = False
-    # not ported (profiling, item 11): only false
+    # accepted and not read, as in the JAX package's proxy
     enable_profiling: bool = False
     forward_address: str = ""
     forward_timeout: str = ""
     http_address: str = ""
-    # the cadence of the proxy's own runtime metrics, which go to
-    # stats_address; without it (refused below) nothing is emitted
+    # the cadence of the proxy's own runtime metrics (accepted, not
+    # read, as stats_address)
     runtime_metrics_interval: str = ""
-    # not ported (the self-telemetry plane, item 11): only empty
+    # accepted and not read, as in the JAX package's proxy
     sentry_dsn: str = ""
     ssf_destination_address: str = ""
     stats_address: str = ""
@@ -647,9 +677,7 @@ class ProxyConfig:
     def finalize(self) -> "ProxyConfig":
         """Refuse what the port does not implement, fill the defaults and
         check the durations; idempotent."""
-        for key in ("enable_profiling", "sentry_dsn",
-                    "ssf_destination_address", "stats_address",
-                    "trace_api_address"):
+        for key in ("ssf_destination_address", "trace_api_address"):
             if getattr(self, key) not in _OFF_VALUES:
                 raise UnsupportedConfig(
                     f"proxy key {key} is not implemented by "

@@ -11,7 +11,8 @@ every mux, http.go:43-48, proxy.go:383-388):
                                     the queues' depths and counters
                                     (expvar's role), the overload ladder,
                                     the mesh, the handoff and the obs
-                                    plane's timeline and kernel counters
+                                    plane's timeline, kernel counters,
+                                    hop log and fleet pulls
     GET /debug/flush-timeline       the last N flush intervals as stage
                                     trees (obs/; a server with
                                     obs_enabled; 404 without)
@@ -20,10 +21,18 @@ every mux, http.go:43-48, proxy.go:383-388):
                                     local disk), the device kernels
                                     under the scopes of obs/kernels.py;
                                     one at a time, clamped to 30 s
+    GET /debug/fleet?n=K            the fleet view: each peer's last
+                                    pulled timeline summary, kept and
+                                    served stale when a pull fails
+                                    (obs/fleet.py)
+    GET /debug/trace?id=T           trace T's hops across this server
+                                    and its peers, in wall order, with
+                                    hop_coverage_ratio; 404 unknown
 
-The server's ops server mounts all five; the proxy mounts the first
-three, its ``/debug/vars`` body its own ``vars()`` beside the time and
-the thread count.
+The server's ops server mounts the first five, and the last two with
+its fleet aggregator (``obs_enabled``); the proxy mounts the first three
+(and its own ``/debug/flush-timeline``), its ``/debug/vars`` body its
+own ``vars()`` beside the time and the thread count.
 """
 
 from __future__ import annotations
@@ -184,6 +193,10 @@ def collect_vars(server) -> dict:
     obs = {"kernels": obs_kernels.snapshot()}
     if server.obs_timeline is not None:
         obs["timeline"] = server.obs_timeline.snapshot()
+    if server.obs_hops is not None:
+        obs["hops"] = server.obs_hops.snapshot()
+    if server.fleet_aggregator is not None:
+        obs["fleet"] = server.fleet_aggregator.snapshot()
     out["obs"] = obs
     return out
 
@@ -195,7 +208,8 @@ def mount(add_route, server=None, extra_vars=None) -> None:
     content_type[, headers])``; the profile's fourth element sets
     ``Content-Disposition`` so its output drops into flamegraph tools.
     ``server`` (a port Server) adds ``/debug/vars``,
-    ``/debug/flush-timeline`` and ``/debug/xprof``; without one
+    ``/debug/flush-timeline`` and ``/debug/xprof``, and with its fleet
+    aggregator ``/debug/fleet`` and ``/debug/trace``; without one
     ``/debug/vars`` answers the time, the thread count and
     ``extra_vars()``."""
 
@@ -238,3 +252,8 @@ def mount(add_route, server=None, extra_vars=None) -> None:
     if server is not None:
         add_route("/debug/flush-timeline", flush_timeline)
         add_route("/debug/xprof", xprof)
+        agg = server.fleet_aggregator
+        if agg is not None:
+            # the fleet trace plane: the peer view and the stitched trace
+            add_route("/debug/fleet", agg.fleet_route)
+            add_route("/debug/trace", agg.trace_route)

@@ -35,6 +35,15 @@ refused with 409) and by id (a duplicate acks without merging). The
 wire is byte for byte the JAX package's: the pack is the same host
 numpy arithmetic in float64, the envelope the same serializer, so
 either package's global receives the other's handoff.
+
+The fleet trace plane (``obs/tracectx.py``): with a timeline (a Server's
+``obs_enabled``) a transition starts a distributed trace of its own, a
+``handoff.send`` entry in the sender's ``/debug/flush-timeline`` whose
+stages are the transition's (``handoff.extract``, ``.checkpoint``,
+``.encode``, ``.stream``), and each ``POST /handoff`` carries
+``X-Veneur-Trace`` under it; the receiver records its
+``handoff.receive`` hop in its hop log, so ``/debug/trace`` stitches
+the resharding like any other hop.
 """
 
 from __future__ import annotations
@@ -52,7 +61,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from veneur_tpu_torch import obs
 from veneur_tpu_torch.fleet.router import RingTransition
+from veneur_tpu_torch.obs import tracectx
 from veneur_tpu_torch.persist import format as ckpt_format
 from veneur_tpu_torch.persist.format import CheckpointInvalid
 from veneur_tpu_torch.resilience import (BreakerRegistry, Deadline,
@@ -69,10 +80,12 @@ SEEN_LIMIT = 512
 
 @contextmanager
 def _stage(stages: Dict[str, float], name: str):
-    """Add the wall seconds of the block to ``stages[name]``."""
+    """Add the wall seconds of the block to ``stages[name]``, and time it
+    as the ``handoff.<name>`` stage of the transition's recorder."""
     t0 = time.perf_counter()
     try:
-        yield
+        with obs.maybe_stage(f"handoff.{name}"):
+            yield
     finally:
         stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
 
@@ -360,8 +373,13 @@ class HandoffManager:
                  spool_prefix: str = "", checkpointer=None,
                  refresh_interval: float = 10.0, injector=None,
                  replicas: int = 20, spool_write_fn=None,
-                 clock: Callable[[], float] = time.time):
+                 clock: Callable[[], float] = time.time, timeline=None,
+                 hop_log=None):
         self.store = store
+        # the fleet trace plane: a transition's entry goes to the
+        # timeline, a received handoff's hop to the hop log
+        self.timeline = timeline
+        self.hop_log = hop_log
         self.self_addr = self_addr
         self.watcher = watcher
         self.timeout = timeout
@@ -397,8 +415,8 @@ class HandoffManager:
         self._seen: "Dict[str, int]" = {}
         self._seen_order: List[str] = []
         self._sender_epochs: Dict[Tuple[str, str], Tuple[int, int]] = {}
-        # counts (the status route and snapshot(); the port has no
-        # self-metrics plane yet)
+        # counts (the status route, snapshot() and the flush's
+        # veneur.handoff.* self-metrics)
         self.resizes_total = 0
         self.moved_series_total = 0
         self.sent_total = 0
@@ -465,7 +483,8 @@ class HandoffManager:
             refresh_interval=cfg.handoff_refresh_interval_seconds,
             spool_write_fn=(soak.wrap_write(ckpt_format.write_atomic,
                                             "handoff.spool")
-                            if soak is not None else None))
+                            if soak is not None else None),
+            timeline=server.obs_timeline, hop_log=server.obs_hops)
 
     # -- sender: refresh loop ----------------------------------------------
 
@@ -548,18 +567,36 @@ class HandoffManager:
 
     def _run_handoff(self, transition: RingTransition) -> dict:
         t0 = time.monotonic_ns()
+        rec = obs.StageRecorder() if self.timeline is not None else None
+        if rec is not None:
+            # a handoff starts its own distributed trace: the receiver
+            # parents its merge under this hop's span
+            rec.adopt_trace(tracectx.new_span_id(), hop="handoff.send")
         # _busy spans the WHOLE transition, the spool fsync and the
         # stream included: it is the shutdown quiesce barrier, not a
         # data lock, and quiesce() exists to wait on exactly these
-        with self._busy:
+        with self._busy, obs.activate(rec):
             summary = self._run_handoff_staged(transition)
         self.last_duration_ns = time.monotonic_ns() - t0
+        if rec is not None:
+            try:
+                entry = rec.finish()
+                entry.update(kind="handoff", epoch=summary["epoch"],
+                             moved_series=summary["moved_series"])
+                self.timeline.publish(entry)
+            except Exception:  # telemetry must never fail a handoff
+                log.exception("handoff timeline publication failed")
+            self.store.sample_self_timing("handoff.total",
+                                          float(self.last_duration_ns))
         return summary
 
     def _run_handoff_staged(self, transition: RingTransition) -> dict:
         self.retry_pending = False  # re-set below by any requeue
         self._retry_dests.clear()
         stages = self.last_stages = {}
+        rec = obs.current()
+        ctx = (tracectx.TraceContext(rec.trace_id, rec.span_id)
+               if rec is not None and rec.trace_id else None)
         with self._lock:
             self.epoch, self.epoch_ctr = self._hybrid.advance()
             epoch, epoch_ctr = self.epoch, self.epoch_ctr
@@ -635,7 +672,7 @@ class HandoffManager:
         for dest, groups, blob, handoff_id, spool in pending:
             n = sum(snapshot_counts(groups).values())
             with _stage(stages, "stream"):
-                ok = self._send(dest, blob, handoff_id)
+                ok = self._send(dest, blob, handoff_id, ctx=ctx)
             if ok:
                 self.sent_total += 1
                 summary["sent"].append(dest)
@@ -706,13 +743,14 @@ class HandoffManager:
         return url
 
     def _post_blob(self, url: str, blob: bytes, timeout: float,
-                   out: dict) -> int:
+                   out: dict, ctx=None) -> int:
         if self.injector is not None:
             self.injector.maybe_fail(f"handoff.post.{url}")
-        req = urllib.request.Request(
-            url, data=blob,
-            headers={"Content-Type": "application/octet-stream"},
-            method="POST")
+        headers = {"Content-Type": "application/octet-stream"}
+        if ctx is not None:
+            headers[tracectx.HEADER] = ctx.encode()
+        req = urllib.request.Request(url, data=blob, headers=headers,
+                                     method="POST")
         try:
             with urllib.request.urlopen(req, timeout=timeout) as resp:
                 out["body"] = resp.read()
@@ -724,7 +762,8 @@ class HandoffManager:
                 e.close()
             return e.code
 
-    def _send(self, dest: str, blob: bytes, handoff_id: str) -> bool:
+    def _send(self, dest: str, blob: bytes, handoff_id: str,
+              ctx=None) -> bool:
         base = self._base_url(dest)
         breaker = self.breakers.get(dest)
         if self.injector is not None and self.injector.is_partitioned(dest):
@@ -751,7 +790,7 @@ class HandoffManager:
             status = post_with_retry(
                 lambda: self._post_blob(
                     base + "/handoff", blob,
-                    deadline.clamp(self.timeout), info),
+                    deadline.clamp(self.timeout), info, ctx=ctx),
                 self.retry_policy, deadline=deadline, on_retry=on_retry)
         except Exception as e:
             breaker.record_failure()
@@ -796,8 +835,10 @@ class HandoffManager:
         so a retry of a crashed-mid-merge attempt is at-most-once) and
         by per-sender epoch (a stale epoch is a replay of a superseded
         transition: 409), then merge through the import-semantics
-        restore and ack with the merged count. ``headers`` is the
-        request's (the port reads none of it)."""
+        restore and ack with the merged count. A trace-bearing stream
+        (``X-Veneur-Trace`` in ``headers``) records its
+        ``handoff.receive`` hop, so ``/debug/trace`` stitches it."""
+        t0_wall = time.time()
         try:
             groups, meta = decode_handoff(body)
         except CheckpointInvalid as e:
@@ -880,6 +921,10 @@ class HandoffManager:
                       handoff_id, sender, merged, expected)
         log.info("handoff %s from %s (epoch %d): merged %d series",
                  handoff_id, sender, epoch, merged)
+        ctx = tracectx.TraceContext.from_headers(headers)
+        if self.hop_log is not None and ctx is not None:
+            self.hop_log.record("handoff.receive", ctx, t0_wall,
+                                time.time(), series=merged, sender=sender)
         return 200, json.dumps({"id": handoff_id, "merged": merged}), \
             "application/json"
 

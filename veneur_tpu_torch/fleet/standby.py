@@ -32,6 +32,13 @@ merging counters would double-count at the sink. Gauges, digests, sets
 and heavy hitters re-merge, so the promoted standby serves the merged
 global percentiles at once. What dies with the active is the
 un-flushed tail of its last interval, bounded by one flush interval.
+
+The fleet trace plane (``obs/tracectx.py``): each ``POST /replicate``
+carries the active flush span's ids in ``X-Veneur-Trace`` (no ingest
+stamp: the standby emits none of it), and the standby records an
+``ha.replicate`` hop for each trace-bearing stream, which its next flush
+counts in ``veneur.trace.hops_total``. The JAX package's standby reads
+the header the same way; its replicator sends none.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from veneur_tpu_torch.fleet.handoff import (SEEN_LIMIT,
                                             config_skew_reason,
                                             decode_handoff, encode_handoff,
                                             snapshot_counts)
+from veneur_tpu_torch.obs import tracectx
 from veneur_tpu_torch.resilience import (BreakerRegistry, Deadline,
                                          RetryPolicy, is_transient_status,
                                          post_with_retry)
@@ -108,8 +116,11 @@ class StandbyManager:
 
     def __init__(self, store, self_addr: str, peers, timeout: float = 10.0,
                  retry_policy=None, breakers=None, shadow_epochs: int = 2,
-                 injector=None, clock: Callable[[], float] = time.time):
+                 injector=None, clock: Callable[[], float] = time.time,
+                 hop_log=None):
         self.store = store
+        # the fleet trace plane: a received replication's hop
+        self.hop_log = hop_log
         self.self_addr = self_addr
         # a "file:///path" spec re-reads per dispatch (the orchestrator-
         # managed flavor); a list/CSV is static
@@ -145,8 +156,8 @@ class StandbyManager:
         self._max_lease_epoch = 0
         self.promoted = False
         self.promoted_at = 0.0
-        # -- counts (snapshot() and GET /ha-status; the port has no
-        # self-metrics plane yet)
+        # -- counts (snapshot(), GET /ha-status and the flush's
+        # veneur.ha.* self-metrics)
         self.replicated_total = 0
         self.replicated_series_total = 0
         self.replicate_failures_total = 0
@@ -183,7 +194,8 @@ class StandbyManager:
             shadow_epochs=cfg.standby_shadow_epochs,
             injector=getattr(
                 getattr(server, "handoff_manager", None), "injector",
-                None))
+                None),
+            hop_log=server.obs_hops)
 
     def _resolve_peers(self) -> List[str]:
         if not self._peers_file:
@@ -221,15 +233,18 @@ class StandbyManager:
         never snapshots."""
         return self.is_leader and bool(self.peers or self._peers_file)
 
-    def capture(self, groups: Dict[str, dict], flush_epoch: int) -> None:
+    def capture(self, groups: Dict[str, dict], flush_epoch: int,
+                trace_ctx=None) -> None:
         """Hand one retired flush snapshot to the replicator (the flusher
         asks :meth:`wants_capture` first). Depth-1 drop-oldest: a slow
         peer costs the OLDEST un-replicated epoch (widening the loss
-        window to the next interval), never the flush loop."""
+        window to the next interval), never the flush loop. A
+        ``trace_ctx`` (the flush span's) rides each ``POST /replicate``
+        as ``X-Veneur-Trace``."""
         with self._lock:
             if self._pending is not None:
                 self.dropped_epochs_total += 1
-            self._pending = (flush_epoch, groups)
+            self._pending = (flush_epoch, groups, trace_ctx)
         self._kick.set()
 
     def run(self, stop: threading.Event) -> None:
@@ -254,7 +269,7 @@ class StandbyManager:
             pending, self._pending = self._pending, None
         if pending is None:
             return None
-        flush_epoch, groups = pending
+        flush_epoch, groups, ctx = pending
         peers = self._resolve_peers()
         if not self.is_leader or not peers:
             return None
@@ -277,7 +292,7 @@ class StandbyManager:
         summary = {"epoch": flush_epoch, "series": meta["series"],
                    "sent": [], "failed": []}
         for dest in peers:
-            if self._send(dest, blob, replicate_id):
+            if self._send(dest, blob, replicate_id, ctx=ctx):
                 self.replicated_total += 1
                 self.replicated_series_total += meta["series"]
                 summary["sent"].append(dest)
@@ -295,13 +310,14 @@ class StandbyManager:
         return url
 
     def _post_blob(self, url: str, blob: bytes, timeout: float,
-                   out: dict) -> int:
+                   out: dict, ctx=None) -> int:
         if self.injector is not None:
             self.injector.maybe_fail(f"replicate.post.{url}")
-        req = urllib.request.Request(
-            url, data=blob,
-            headers={"Content-Type": "application/octet-stream"},
-            method="POST")
+        headers = {"Content-Type": "application/octet-stream"}
+        if ctx is not None:
+            headers[tracectx.HEADER] = ctx.encode()
+        req = urllib.request.Request(url, data=blob, headers=headers,
+                                     method="POST")
         try:
             with urllib.request.urlopen(req, timeout=timeout) as resp:
                 out["body"] = resp.read()
@@ -313,7 +329,8 @@ class StandbyManager:
                 e.close()
             return e.code
 
-    def _send(self, dest: str, blob: bytes, replicate_id: str) -> bool:
+    def _send(self, dest: str, blob: bytes, replicate_id: str,
+              ctx=None) -> bool:
         base = self._base_url(dest)
         breaker = self.breakers.get(dest)
         if self.injector is not None \
@@ -337,7 +354,7 @@ class StandbyManager:
             status = post_with_retry(
                 lambda: self._post_blob(
                     base + "/replicate", blob,
-                    deadline.clamp(self.timeout), info),
+                    deadline.clamp(self.timeout), info, ctx=ctx),
                 self.retry_policy, deadline=deadline, on_retry=on_retry)
         except Exception as e:
             breaker.record_failure()
@@ -369,8 +386,9 @@ class StandbyManager:
         active's late flush — the split-brain guard); per-(sender,
         incarnation) flush epoch not newer → 409 stale; config skew →
         422 whole-rejection. Accepted epochs land in the shadow, NOT
-        the live store. ``headers`` is the request's (the port reads
-        none of it)."""
+        the live store. A trace-bearing stream (``X-Veneur-Trace`` in
+        ``headers``) records its ``ha.replicate`` hop in the hop log."""
+        t0_wall = time.time()
         try:
             groups, meta = decode_handoff(body)
         except Exception as e:
@@ -429,6 +447,10 @@ class StandbyManager:
             self._seen[replicate_id] = series
             self.receives_total += 1
             self.received_series_total += series
+        ctx = tracectx.TraceContext.from_headers(headers)
+        if self.hop_log is not None and ctx is not None:
+            self.hop_log.record("ha.replicate", ctx, t0_wall, time.time(),
+                                series=series, sender=sender)
         return 200, json.dumps({"id": replicate_id,
                                 "shadowed": series}), "application/json"
 

@@ -29,18 +29,31 @@ Self-telemetry (``obs/``, ``trace/``): the pass runs under a
 (``veneur.flush.*``, ``veneur.worker.*``, ``veneur.packet.*``,
 ``veneur.overload.*``, ``veneur.forward.*``, ``veneur.import.*``,
 ``veneur.sink.*``, ``veneur.trace_client.*``, ``veneur.obs.*``,
-``veneur.gc.*``, ``veneur.mem.*``), recorded into the server's own span
-channel so they flush with the next interval; with ``obs_enabled`` its
-stages (``events``, ``egress_detect``, ``ha_capture``, ``store`` with
-``swap``, ``scalars``, ``dispatch`` and a stage a group, ``post``,
-``plugins``, ``span_join``) land in ``/debug/flush-timeline``, as child
-spans and in the ``self_timers`` group. The fleet's self-metrics
-(``veneur.fleet.*``, ``veneur.handoff.*``, ``veneur.ha.*``,
-``veneur.checkpoint.*``) and the cross-hop trace are not ported.
+``veneur.gc.*``, ``veneur.mem.*``, and the fleet's: ``veneur.fleet.*``,
+``veneur.handoff.*``, ``veneur.ha.*``, ``veneur.checkpoint.*``,
+``veneur.trace.*``), recorded into the server's own span channel so they
+flush with the next interval; with ``obs_enabled`` its stages
+(``events``, ``egress_detect``, ``ha_capture``, ``store`` with ``swap``,
+``scalars``, ``dispatch`` and a stage a group, ``post``, ``plugins``,
+``span_join``) land in ``/debug/flush-timeline``, as child spans and in
+the ``self_timers`` group.
+
+The fleet trace plane (``obs/tracectx.py``): at the generation swap the
+flush takes the oldest ingest-era stamp its state holds (its lanes'
+chunks and the hops it received); the forward carries the flush span's
+ids and that stamp in ``X-Veneur-Trace`` (the batch forward and every
+streamed part, over HTTP and gRPC; the ``native://`` lane carries none,
+as in the JAX package), and the replication to a standby the span's ids.
+At the interval's end the hops the server received since its last flush
+(``server.obs_hops``) publish in its timeline entry with their trace ids
+(``import_traces``), and a global samples the stamp's age after its
+sinks joined as ``veneur.fleet.e2e_age_ns``.
 """
 
 from __future__ import annotations
 
+import collections
+import inspect
 import logging
 import threading
 import time
@@ -51,6 +64,7 @@ from veneur_tpu_torch.core.pipeline import ChunkStream
 from veneur_tpu_torch.core.store import ForwardableState
 from veneur_tpu_torch.native import egress
 from veneur_tpu_torch.obs import kernels as obs_kernels
+from veneur_tpu_torch.obs import tracectx
 from veneur_tpu_torch.obs.timeline import annotate_overlap
 from veneur_tpu_torch.resilience import Deadline
 from veneur_tpu_torch.samplers.parser import MetricKey
@@ -143,8 +157,16 @@ def _flush_once(server: "Server", span, rec) -> int:
     digest_format = "packed" if (
         forwarding and getattr(server.forwarder, "wants_packed_digests",
                                False)) else "dense"
+    # the freshness anchor, read and reset AT the swap: the oldest lane
+    # chunk merged before it and the oldest received hop recorded before
+    # it, the samples THIS flush drains (a stamp arriving after the swap
+    # merges into the next generation and ages the next interval). The
+    # forward's trace context and _publish_interval read it
+    server._interval_oldest_ingest_ns = _take_oldest_ingest_ns(server)
+    fwd_kwargs = _forward_kwargs(server, span, now) if forwarding else {}
     stream, stream_sinks = _build_stream(server, now, deadline,
-                                         use_columnar, forwarding, rec)
+                                         use_columnar, forwarding, rec,
+                                         fwd_kwargs)
     ha_snapshot = _ha_capture(server)
     try:
         t0 = time.perf_counter()
@@ -165,8 +187,12 @@ def _flush_once(server: "Server", span, rec) -> int:
             server.checkpointer.truncate(blocking=False)
         if ha_snapshot is not None:
             # the flush landed: the captured (now retired) epoch streams
-            # to the standbys off the flush path
-            server.standby_manager.capture(*ha_snapshot)
+            # to the standbys off the flush path, under the flush span
+            # (no ingest stamp: a standby shadows it, it emits nothing)
+            server.standby_manager.capture(
+                *ha_snapshot,
+                trace_ctx=tracectx.TraceContext(span.trace_id,
+                                                span.span_id))
         # the self-metric set (README.md:248-277) rides the flush span
         # and re-enters the pipeline through the extraction sink
         _add_flush_samples(server, span, final, flush_elapsed)
@@ -177,7 +203,8 @@ def _flush_once(server: "Server", span, rec) -> int:
             thread = threading.Thread(
                 target=_forward,
                 args=(server, forwardable,
-                      Deadline.after(_egress_budget(server)), rec),
+                      Deadline.after(_egress_budget(server)), rec,
+                      fwd_kwargs),
                 name="forward", daemon=True)
             server.forward_thread = thread
             thread.start()
@@ -229,8 +256,12 @@ def _add_flush_samples(server: "Server", span, final,
                                server.flush_overruns)), None),
         *_worker_samples(server, ms),
         *_overload_samples(server, ms),
+        *_fleet_samples(server),
+        *_handoff_samples(server),
+        *_ha_samples(server),
         *_forward_samples(server),
         *_import_samples(server),
+        *_checkpoint_samples(server),
         *_trace_client_samples(server),
         *_runtime_samples())
 
@@ -324,14 +355,15 @@ def _flush_sink_columnar(sink, batch) -> None:
 
 
 def _build_stream(server: "Server", now: int, deadline: Deadline,
-                  use_columnar: bool, forwarding: bool, rec):
+                  use_columnar: bool, forwarding: bool, rec,
+                  fwd_kwargs: dict):
     """The interval's :class:`ChunkStream` when streaming egress is on
     (``flush_streaming`` with a columnar, pipelined flush): every sink
     with ``flush_chunk`` POSTs each completed group the moment it
     exists, and when the forwarder takes parts, each forwarded digest
-    group ships upstream the same way, a part that fails terminally
-    re-merged into the live store. Returns (the stream or None, the
-    streaming sinks)."""
+    group ships upstream the same way (with the batch forward's trace
+    kwargs), a part that fails terminally re-merged into the live
+    store. Returns (the stream or None, the streaming sinks)."""
     if not (use_columnar and server.config.flush_streaming
             and server.store.flush_pipeline_depth > 0):
         return None, []
@@ -346,7 +378,8 @@ def _build_stream(server: "Server", now: int, deadline: Deadline,
         def fwd_fn(attr, part):
             mini = ForwardableState()
             setattr(mini, attr, part)
-            return server.forward_fn(mini, deadline=deadline)
+            return server.forward_fn(mini, deadline=deadline,
+                                     **fwd_kwargs)
 
         def fwd_requeue(attr, part):
             _requeue_forward_part(server.store, attr, part)
@@ -400,7 +433,27 @@ def _start_span_flush(server: "Server"):
     return thread
 
 
-def _forward(server: "Server", state, deadline: Deadline, rec):
+def _forward_kwargs(server: "Server", span, now: int) -> dict:
+    """The trace kwargs the forward takes (flusher.go:66-75 hands it the
+    flush span): ``parent_span``, whose parent-context headers the HTTP
+    and gRPC forwarders send (http.go:184-188), and ``trace_ctx``, the
+    fleet trace plane's hop context: the flush span's ids and the
+    oldest ingest-era stamp aboard (the interval's start when no lane
+    stamped one). A ``forward_fn`` without them (the native lane's, a
+    caller's wrapper) gets none."""
+    try:
+        params = inspect.signature(server.forward_fn).parameters
+    except (TypeError, ValueError):
+        return {}  # not introspectable: the forward runs without them
+    ingest_ns = server._interval_oldest_ingest_ns or int(now * 1e9)
+    kwargs = {"parent_span": span,
+              "trace_ctx": tracectx.TraceContext(span.trace_id,
+                                                 span.span_id, ingest_ns)}
+    return {k: v for k, v in kwargs.items() if k in params}
+
+
+def _forward(server: "Server", state, deadline: Deadline, rec,
+             fwd_kwargs: dict):
     """The forward thread: one POST of the interval's state (with the
     forwarder's own retries inside the deadline). Its outcome lands in
     ``server.last_forward_ok``; a failed forward is logged and counted
@@ -409,7 +462,8 @@ def _forward(server: "Server", state, deadline: Deadline, rec):
     ``forward`` stage."""
     t0 = time.monotonic_ns()
     try:
-        ok = bool(server.forward_fn(state, deadline=deadline))
+        ok = bool(server.forward_fn(state, deadline=deadline,
+                                    **fwd_kwargs))
     except Exception:
         log.exception("forward failed")
         ok = False
@@ -425,12 +479,29 @@ def _forward(server: "Server", state, deadline: Deadline, rec):
 
 
 def _publish_interval(server: "Server", span, rec, timeline) -> None:
-    """Interval end: finish the stage record (with the ingest lanes'
+    """Interval end: finish the stage record (with the hops this server
+    received since its last flush as off-path stages, the ingest lanes'
     stage times as an off-path ``ingest`` subtree and their seal->merge
-    latencies), annotate the egress overlap, publish it to the timeline
-    ring, mirror the stage tree as child spans of the flush span, sample
-    every stage duration into the self-telemetry group, and add the
-    ``veneur.obs.*`` samples to the flush span."""
+    latencies), stamp the entry with the received hops' trace ids
+    (``import_traces``, what ``/debug/trace`` matches the aggregating
+    flush on) and the age of the oldest ingest stamp it drained,
+    annotate the egress overlap, publish it to the timeline ring, mirror
+    the stage tree as child spans of the flush span, sample every stage
+    duration into the self-telemetry group, and add the ``veneur.obs.*``
+    and ``veneur.trace.*`` samples to the flush span. On a global the
+    age, taken after the sinks joined, spans ingest to the sink's 2xx:
+    ``veneur.fleet.e2e_age_ns``."""
+    hops = server.obs_hops.drain() if server.obs_hops is not None else []
+    for h in hops:
+        # the true wall times ride as attrs: a hop that landed BEFORE
+        # this interval began has its start clamped to 0 in the
+        # recorder's frame, and the stitcher needs the real order
+        attrs = {k: v for k, v in h.items()
+                 if k not in ("hop", "duration_ns")}
+        rec.record_abs(h["hop"],
+                       tracectx.wall_to_mono_ns(rec, h["wall_start"]),
+                       tracectx.wall_to_mono_ns(rec, h["wall_end"]),
+                       off_path=True, **attrs)
     ingest = _drain_ingest_stages(server)
     if ingest:
         # lane-time since the last interval (recv includes socket wait),
@@ -444,11 +515,23 @@ def _publish_interval(server: "Server", span, rec, timeline) -> None:
             rec.record_abs(f"ingest.{stage}", rec.t0_ns,
                            rec.t0_ns + ingest[stage], off_path=True)
     entry = rec.finish()
+    tids = sorted({h["trace_id"] for h in hops if h.get("trace_id")})
+    if tids:
+        entry["import_traces"] = tids
     latencies = _drain_ingest_latencies(server)
     if latencies:
         entry["ingest_seal_to_merge"] = {
             "count": len(latencies), "max_ns": int(max(latencies)),
             "avg_ns": int(sum(latencies) / len(latencies))}
+    # freshness: the oldest ingest stamp this interval drained, taken at
+    # the swap (_flush_once)
+    oldest = server._interval_oldest_ingest_ns
+    e2e_ns = None
+    if oldest:
+        age_ns = max(0, time.time_ns() - oldest)
+        entry["oldest_sample_age_ns"] = age_ns
+        if not server.is_local():
+            e2e_ns = entry["e2e_age_ns"] = age_ns
     annotate_overlap(entry)
     timeline.publish(entry)
     _record_stage_spans(server, span, entry)
@@ -457,6 +540,20 @@ def _publish_interval(server: "Server", span, rec, timeline) -> None:
         store.sample_self_timing(stage["name"], stage["duration_ns"])
     for ns in latencies:
         store.sample_self_timing("ingest.seal_to_merge", float(ns))
+    if e2e_ns is not None:
+        # its own metric name, through the same digest group
+        store.sample_self_timing("e2e", float(e2e_ns),
+                                 name="veneur.fleet.e2e_age_ns")
+    for hop, n in sorted(collections.Counter(
+            h["hop"] for h in hops).items()):
+        span.add(ssf_samples.count("veneur.trace.hops_total", float(n),
+                                   {"hop": hop}))
+    agg = server.fleet_aggregator
+    if agg is not None:
+        span.add(ssf_samples.count(
+            "veneur.trace.fleet_pull_errors_total",
+            float(_delta_since(agg, "_last_pull_errors",
+                               agg.pull_errors_total)), None))
     if entry.get("overlap_ratio") is not None:
         span.add(ssf_samples.gauge("veneur.obs.overlap_ratio",
                                    float(entry["overlap_ratio"]), None))
@@ -491,6 +588,16 @@ def _drain_ingest_stages(server: "Server"):
             for k in _INGEST_STAGES + ("iters", "lanes"):
                 total[k] += stages[k]
     return total
+
+
+def _take_oldest_ingest_ns(server: "Server"):
+    """The oldest ingest-era stamp (wall ns) among the lane chunks
+    merged and the hops received since the last flush (each read and
+    reset), or None."""
+    stamps = [fleet.take_oldest_ingest_ns() for fleet in server.ingest_fleets]
+    if server.obs_hops is not None:
+        stamps.append(server.obs_hops.take_oldest_ingest_ns())
+    return min((v for v in stamps if v), default=None)
 
 
 def _drain_ingest_latencies(server: "Server") -> list:
@@ -633,6 +740,124 @@ def _overload_samples(server: "Server", ms) -> list:
         out.append(ssf_samples.gauge("veneur.breaker.state", gauge,
                                      {"destination": kernel}))
     return out
+
+
+def _counts(obj, pairs) -> list:
+    """``veneur.<metric>`` interval-delta counts of ``obj``'s cumulative
+    counters: (metric, attribute) pairs, the last reported values kept
+    on ``obj`` as ``_last_<attribute>``."""
+    return [ssf_samples.count(
+        metric, float(_delta_since(obj, f"_last_{attr}",
+                                   getattr(obj, attr))), None)
+        for metric, attr in pairs]
+
+
+def _fleet_samples(server: "Server") -> list:
+    """``veneur.fleet.*``: each shard's resident rows, summed over the
+    mesh groups as the generation swap stamped them (the RETIRED
+    interval's fill), and their balance ratio. Empty off the mesh."""
+    occ = server.store.last_fleet_occupancy
+    if server.store.mesh is None or not occ:
+        return []
+    from veneur_tpu_torch.fleet import balance_ratio
+
+    out = [ssf_samples.gauge("veneur.fleet.shard_occupancy", float(rows),
+                             {"shard": str(i)})
+           for i, rows in enumerate(occ)]
+    out.append(ssf_samples.gauge("veneur.fleet.balance_ratio",
+                                 balance_ratio(occ), None))
+    return out
+
+
+def _handoff_samples(server: "Server") -> list:
+    """``veneur.handoff.*``: the elastic resharding's transitions, moved,
+    requeued and received series, guard hits, retries and spool errors
+    as interval deltas, its epoch, the last transition's wall time and
+    each destination's breaker. Empty without ``handoff_enabled``."""
+    mgr = server.handoff_manager
+    if mgr is None:
+        return []
+    out = _counts(mgr, (
+        ("veneur.handoff.resizes_total", "resizes_total"),
+        ("veneur.handoff.moved_series_total", "moved_series_total"),
+        ("veneur.handoff.sent_total", "sent_total"),
+        ("veneur.handoff.failed_total", "send_failures_total"),
+        ("veneur.handoff.requeued_series_total", "requeued_series_total"),
+        ("veneur.handoff.received_series_total", "received_series_total"),
+        ("veneur.handoff.duplicate_total", "duplicates_total"),
+        ("veneur.handoff.retries_total", "retries_total"),
+        ("veneur.handoff.requeue_retries_total", "requeue_retries_total"),
+        ("veneur.handoff.spool_errors_total", "spool_errors_total")))
+    out.append(ssf_samples.gauge("veneur.handoff.epoch", float(mgr.epoch),
+                                 None))
+    if mgr.last_duration_ns:
+        out.append(ssf_samples.timing("veneur.handoff.duration_ns",
+                                      mgr.last_duration_ns / 1e9, None))
+    out.extend(ssf_samples.gauge("veneur.breaker.state", gauge,
+                                 {"destination": dest})
+               for dest, gauge in mgr.breakers.states())
+    return out
+
+
+def _ha_samples(server: "Server") -> list:
+    """``veneur.ha.*``: the active's replication tallies, the standby's
+    guard hits and replication age, promotions, and the lease's
+    leadership gauges and counts, counters as interval deltas, and each
+    standby's breaker. Empty without a standby manager."""
+    sby = server.standby_manager
+    if sby is None:
+        return []
+    out = _counts(sby, (
+        ("veneur.ha.replicated_total", "replicated_total"),
+        ("veneur.ha.replicated_series_total", "replicated_series_total"),
+        ("veneur.ha.replicate_failures_total", "replicate_failures_total"),
+        ("veneur.ha.dropped_epochs_total", "dropped_epochs_total"),
+        ("veneur.ha.received_series_total", "received_series_total"),
+        ("veneur.ha.duplicate_total", "duplicates_total"),
+        ("veneur.ha.stale_total", "stale_total"),
+        ("veneur.ha.fenced_total", "fenced_total"),
+        ("veneur.ha.promotions_total", "promotions_total"),
+        ("veneur.ha.promoted_series_total", "promoted_series_total"),
+        ("veneur.ha.retries_total", "retries_total")))
+    out.append(ssf_samples.gauge("veneur.ha.is_leader",
+                                 1.0 if sby.is_leader else 0.0, None))
+    out.append(ssf_samples.gauge("veneur.ha.lease_epoch",
+                                 float(sby.lease_epoch), None))
+    age = sby.replication_age_seconds()
+    if age >= 0:
+        out.append(ssf_samples.gauge("veneur.ha.replication_age_seconds",
+                                     float(age), None))
+    if server.lease_elector is not None:
+        out.extend(_counts(server.lease_elector, (
+            ("veneur.ha.lease_acquires_total", "acquires_total"),
+            ("veneur.ha.lease_demotions_total", "demotions_total"),
+            ("veneur.ha.lease_renew_failures_total",
+             "renew_failures_total"))))
+    out.extend(ssf_samples.gauge("veneur.breaker.state", gauge,
+                                 {"destination": dest})
+               for dest, gauge in sby.breakers.states())
+    return out
+
+
+def _checkpoint_samples(server: "Server") -> list:
+    """``veneur.checkpoint.*``: the last write's duration and bytes, the
+    checkpoint's age, and the restore, discard and write-error counts as
+    interval deltas (a checkpointer that can never write shows before
+    the next crash proves it). Empty without ``checkpoint_path``."""
+    ckpt = server.checkpointer
+    if ckpt is None:
+        return []
+    return [
+        ssf_samples.timing("veneur.checkpoint.write_duration_ns",
+                           ckpt.last_write_duration_s, None),
+        ssf_samples.gauge("veneur.checkpoint.bytes",
+                          float(ckpt.last_write_bytes), None),
+        ssf_samples.gauge("veneur.checkpoint.age_seconds",
+                          ckpt.age_seconds(), None),
+        *_counts(ckpt, (
+            ("veneur.checkpoint.restore_total", "restore_total"),
+            ("veneur.checkpoint.discard_total", "discard_total"),
+            ("veneur.checkpoint.write_errors_total", "write_errors")))]
 
 
 def _forward_samples(server: "Server") -> list:

@@ -12,7 +12,11 @@ The import server decodes each request in C++ and merges it through
 ``MetricStore.import_columnar``, the body the ``native://`` lane runs
 (``native_transport.import_metric_list``). Unlike the JAX package there
 is no protobuf fallback: :meth:`ImportServer.start` raises when the
-egress library cannot load. ``grpc`` is imported where a channel or a
+egress library cannot load. The forwarder sends the flush span's
+parent-context headers and the fleet trace plane's ``X-Veneur-Trace`` as
+call metadata, lowercased as gRPC requires; the import server reads them
+into a ``veneur.import`` span and its ``global.import`` hop
+(``obs/tracectx.py``). ``grpc`` is imported where a channel or a
 server is made, so the module imports without grpcio; the config
 refuses a gRPC key when grpcio is missing.
 """
@@ -27,10 +31,13 @@ from typing import List, Optional, Sequence, Tuple
 
 from veneur_tpu_torch.forward.native_transport import (
     encode_forwardable_frames, import_metric_list)
+from veneur_tpu_torch import trace as vtrace
 from veneur_tpu_torch.native import egress
 from veneur_tpu_torch.networking import warn_for_stream_addr
+from veneur_tpu_torch.obs import tracectx
 from veneur_tpu_torch.resilience import (Deadline, RetryPolicy,
                                          call_with_retry)
+from veneur_tpu_torch.trace import samples as ssf_samples
 
 log = logging.getLogger("veneur.forward.grpc")
 
@@ -157,9 +164,12 @@ class GRPCForwarder:
                         self.addr)
         return rejected
 
-    def forward(self, state, deadline: Deadline = None) -> bool:
+    def forward(self, state, deadline: Deadline = None, parent_span=None,
+                trace_ctx=None) -> bool:
         """Encode one ForwardableState and send its frames. Returns True
-        once every frame was answered (or there was nothing to send)."""
+        once every frame was answered (or there was nothing to send).
+        ``parent_span`` and ``trace_ctx`` ride every call's metadata, as
+        the HTTP forward's headers."""
         if self._rejected_by_breaker(consume_probe=False):
             return False
         t0 = time.perf_counter()
@@ -169,12 +179,19 @@ class GRPCForwarder:
             self.encode_durations.append(time.perf_counter() - t0)
         if not frames:
             return True
-        return self.send_frames(frames, deadline)
+        metadata = [(k.lower(), v) for k, v in (
+            parent_span.context_as_parent().items()
+            if parent_span is not None else ())]
+        if trace_ctx is not None:
+            metadata.append((tracectx.HEADER.lower(), trace_ctx.encode()))
+        return self.send_frames(frames, deadline,
+                                metadata=tuple(metadata) or None)
 
     def send_frames(self, frames: Sequence[Tuple[bytes, int]],
-                    deadline: Deadline = None) -> bool:
+                    deadline: Deadline = None, metadata=None) -> bool:
         """Send encoded ``(MetricList bytes, rows)`` frames in order, one
-        RPC each, each with its own retries inside ``deadline``."""
+        RPC each, each with its own retries inside ``deadline`` and with
+        ``metadata`` (lowercase keys)."""
         import grpc
 
         if deadline is None:
@@ -188,7 +205,8 @@ class GRPCForwarder:
             for payload, rows in frames:
                 def send_frame(payload=payload):
                     attempted.append(len(payload))
-                    self._send(payload, timeout=deadline.clamp(self.timeout))
+                    self._send(payload, timeout=deadline.clamp(self.timeout),
+                               metadata=metadata)
 
                 call_with_retry(send_frame, self.retry_policy,
                                 deadline=deadline,
@@ -230,13 +248,19 @@ class ImportServer:
     """The global's gRPC import (importsrv/server.go:37-147): each request
     merges into ``store`` through ``import_columnar``. ``received`` and
     ``import_errors`` count merged and rejected metrics (a request that
-    fails whole counts one error and is answered with an error status)."""
+    fails whole counts one error and is answered with an error status).
+    Each request runs under a ``veneur.import`` span parented on its
+    metadata, recorded through ``trace_client``, and with a ``hop_log``
+    records its ``global.import`` hop, as the HTTP import does."""
 
-    def __init__(self, store, workers: int = 4):
+    def __init__(self, store, workers: int = 4, trace_client=None,
+                 hop_log=None):
         if store is None:
             raise ValueError("ImportServer needs a store")
         self._store = store
         self._workers = workers
+        self._trace_client = trace_client
+        self._hop_log = hop_log
         self.received = 0
         self.import_errors = 0
         self._lock = threading.Lock()
@@ -246,18 +270,38 @@ class ImportServer:
     def _send_metrics(self, request: bytes, context) -> bytes:
         import grpc
 
+        carrier = dict(context.invocation_metadata() or ())
+        span = vtrace.from_headers(carrier, resource="veneur.import")
+        span.name = "import"
+        t0 = time.perf_counter()
         try:
             n_ok, n_err = import_metric_list(self._store, request)
         except Exception as e:
             log.exception("gRPC import request failed")
             with self._lock:
                 self.import_errors += 1
+            span.error(e)
+            span.finish()
+            span.client_record(self._trace_client)
             # not retryable: a request that failed mid-merge must not
             # merge twice
             context.abort(grpc.StatusCode.INTERNAL, f"import failed: {e}")
         with self._lock:
             self.received += n_ok
             self.import_errors += n_err
+        span.add(ssf_samples.timing("veneur.import.response_duration_ns",
+                                    time.perf_counter() - t0,
+                                    {"part": "merge"}),
+                 ssf_samples.count("veneur.import.metrics_total",
+                                   float(n_ok), None))
+        span.finish()
+        span.client_record(self._trace_client)
+        if self._hop_log is not None:
+            # an untraced import still records: counted, unstitchable
+            self._hop_log.record("global.import",
+                                 tracectx.TraceContext.from_headers(carrier),
+                                 span.start, span.end, metrics=n_ok,
+                                 protocol="grpc")
         return b""  # google.protobuf.Empty
 
     def start(self, addr: str = "[::]:0") -> int:

@@ -4,8 +4,9 @@ Port of ``veneur_tpu/forward/http_forward.py`` (after ``flushForward`` +
 ``PostHelper``, flusher.go:292-385 and http/http.go:123-247): JSON
 body, zlib deflate ``Content-Encoding``, success = any 2xx (the
 reference answers 202). Retries with backoff inside the flush deadline
-and a circuit breaker for the destination. Trace-context headers are
-not sent: the trace plane is not ported.
+and a circuit breaker for the destination. The POST carries the flush
+span's parent-context headers (http.go:184-188) and the fleet trace
+plane's ``X-Veneur-Trace`` (``obs/tracectx.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import List
 
 from veneur_tpu_torch.forward.convert import (
     json_metrics_from_state, reference_json_metrics_from_state)
+from veneur_tpu_torch.obs import tracectx
 from veneur_tpu_torch.resilience import (Deadline, RetryPolicy,
                                          is_transient_status,
                                          post_with_retry)
@@ -29,14 +31,16 @@ log = logging.getLogger("veneur.forward.http")
 
 
 def post_helper(url: str, payload, timeout: float = 10.0,
-                compress: bool = True, method: str = "POST",
-                precompressed: bool = False, out_info: dict = None) -> int:
+                compress: bool = True, headers: dict = None,
+                method: str = "POST", precompressed: bool = False,
+                out_info: dict = None) -> int:
     """Send a JSON payload, deflated unless ``compress`` is False
-    (http/http.go:123-247); ``precompressed`` sends ``payload`` bytes as
-    an already-deflated JSON body (the native serializer's output).
-    Returns the HTTP status (including non-2xx); raises only on
-    transport errors. ``out_info`` (if given) receives
-    ``content_length``, the size of the body as sent."""
+    (http/http.go:123-247), with ``headers`` beside the content ones;
+    ``precompressed`` sends ``payload`` bytes as an already-deflated JSON
+    body (the native serializer's output). Returns the HTTP status
+    (including non-2xx); raises only on transport errors. ``out_info``
+    (if given) receives ``content_length``, the size of the body as
+    sent."""
     hdrs = {"Content-Type": "application/json"}
     if precompressed:
         body = payload
@@ -46,6 +50,8 @@ def post_helper(url: str, payload, timeout: float = 10.0,
         if compress:
             body = zlib.compress(body)
             hdrs["Content-Encoding"] = "deflate"
+    if headers:
+        hdrs.update(headers)
     if out_info is not None:
         out_info["content_length"] = len(body)
     req = urllib.request.Request(url, data=body, headers=hdrs, method=method)
@@ -118,15 +124,23 @@ class HTTPForwarder:
             return reference_json_metrics_from_state(state, self.compression)
         return json_metrics_from_state(state, self.compression)
 
-    def forward(self, state, deadline: Deadline = None) -> bool:
+    def forward(self, state, deadline: Deadline = None, parent_span=None,
+                trace_ctx=None) -> bool:
         """POST one ForwardableState. Returns True once the body got a
-        2xx (or there was nothing to send)."""
+        2xx (or there was nothing to send). ``parent_span`` (the flush
+        span) sends its parent-context headers, so the global's import
+        span joins its trace (http/http.go:184-188); ``trace_ctx`` sends
+        the one-header hop contract, which the global's hop log adopts."""
         if self._rejected_by_breaker(consume_probe=False):
             return False
         metrics = self.body(state)
         if not metrics:
             return True
         url = self.base + "/import"
+        headers = (dict(parent_span.context_as_parent())
+                   if parent_span is not None else {})
+        if trace_ctx is not None:
+            headers[tracectx.HEADER] = trace_ctx.encode()
         info = {}
         t0 = time.perf_counter()
         # the flush deadline bounds every attempt and backoff sleep; a
@@ -140,7 +154,7 @@ class HTTPForwarder:
             status = post_with_retry(
                 lambda: post_helper(url, metrics,
                                     timeout=deadline.clamp(self.timeout),
-                                    out_info=info),
+                                    headers=headers, out_info=info),
                 self.retry_policy, deadline=deadline,
                 on_retry=self._count_retry)
             if 200 <= status < 300:

@@ -14,14 +14,19 @@ its import handler, handlers_global.go:60-213):
     POST /import             -> JSON (optionally deflate) list of
                                 forwarded metrics, queued for a merge
                                 worker; 202, or 429 when the bounded
-                                queue is full
+                                queue is full. The merge runs under a
+                                ``veneur.import`` span joined to the
+                                sender's trace (handlers_global.go:125),
+                                and with a hop log records its
+                                ``global.import`` hop (obs/tracectx.py)
 
 Error behavior follows ``unmarshalMetricsFromHTTP``: an empty body, an
 unknown encoding and invalid JSON are 400s.
 
 A Server's ops server also serves the live debug endpoints of
 ``debug.py`` (``/debug/threads``, ``/debug/profile``, ``/debug/vars``,
-``/debug/flush-timeline``, ``/debug/xprof``), as JAX
+``/debug/flush-timeline``, ``/debug/xprof``, and with a fleet
+aggregator ``/debug/fleet`` and ``/debug/trace``), as JAX
 ``httpserv.py:405-407`` mounts them.
 
 A Server mounts more routes with :meth:`OpsServer.add_route` (GET,
@@ -40,12 +45,16 @@ import json
 import logging
 import queue
 import threading
+import time
 import urllib.parse
 import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, List, Optional
 
 from veneur_tpu_torch import __version__, debug
+from veneur_tpu_torch import trace as vtrace
+from veneur_tpu_torch.obs import tracectx
+from veneur_tpu_torch.trace import samples as ssf_samples
 
 log = logging.getLogger("veneur.http")
 
@@ -164,14 +173,52 @@ class _Handler(BaseHTTPRequestHandler):
         except ImportError400 as e:
             self._reply(400, str(e))
             return
+        # the forwarder's trace context, so the import span stitches into
+        # the local's flush trace (handlers_global.go:125)
+        carrier = {k.lower(): v for k, v in self.headers.items()}
         # merge off the request thread (the reference's ``go
         # s.ImportMetrics``, http.go:54-60) through a BOUNDED worker
         # pool: a fleet hitting a slow interval sheds (429) instead of
         # piling up threads and bodies
-        if pool.submit(metrics):
+        if pool.submit(metrics, carrier):
             self._reply(202, "accepted")
         else:
             self._reply(429, "import queue full; retry next interval")
+
+
+def _merge_one(handle, metrics: List[dict], carrier, trace_client,
+               hop_log) -> bool:
+    """One import batch's merge under a ``veneur.import`` span parented
+    on the carrier's trace headers, with ``veneur.import.metrics_total``,
+    recorded through ``trace_client``; with a ``hop_log`` the merge parks
+    its ``global.import`` hop there (an untraced sender's too, counted
+    but unstitchable) for the next flush to publish, and the header's
+    ingest stamp folds into the freshness min behind
+    ``veneur.fleet.e2e_age_ns``. Returns whether the merge succeeded."""
+    span = vtrace.from_headers(carrier or {}, resource="veneur.import")
+    span.name = "import"
+    ok = True
+    try:
+        n_ok = handle(metrics)
+        if not isinstance(n_ok, int):  # a handle that counts nothing
+            n_ok = len(metrics)
+        span.add(ssf_samples.count("veneur.import.metrics_total",
+                                   float(n_ok), None))
+    except Exception as e:
+        # the worker must survive a failed merge; the batch is reported
+        # here and counted
+        span.error(e)
+        log.exception("import of %d metrics failed", len(metrics))
+        ok = False
+    finally:
+        span.finish()
+        span.client_record(trace_client)
+    if hop_log is not None:
+        hop_log.record("global.import",
+                       tracectx.TraceContext.from_headers(carrier),
+                       span.start, span.end or time.time(),
+                       metrics=len(metrics), protocol="http")
+    return ok
 
 
 class ImportQueuePool:
@@ -179,11 +226,14 @@ class ImportQueuePool:
     reference's bounded worker channels, http.go:54-142). A full queue
     sheds the POST with 429; ``shed`` counts rejected batches,
     ``merged_batches`` the merged ones and ``failed_batches`` those whose
-    merge raised."""
+    merge raised. Each merge runs through :func:`_merge_one`."""
 
     def __init__(self, handle: Callable[[List[dict]], object],
-                 workers: int = 2, max_queue: int = 64):
+                 workers: int = 2, max_queue: int = 64,
+                 trace_client=None, hop_log=None):
         self._handle = handle
+        self._trace_client = trace_client
+        self._hop_log = hop_log
         # queue.Queue(maxsize <= 0) is UNBOUNDED, the opposite of this
         # pool's purpose: clamp to the smallest real bound
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, max_queue))
@@ -199,13 +249,14 @@ class ImportQueuePool:
         for t in self._workers:
             t.start()
 
-    def submit(self, metrics) -> bool:
-        """Enqueue one decoded batch; False = queue full (or the pool is
-        stopping), shed it."""
+    def submit(self, metrics, carrier=None) -> bool:
+        """Enqueue one decoded batch with its request's headers
+        (lowercased); False = queue full (or the pool is stopping), shed
+        it."""
         if self._stopping.is_set():
             return False
         try:
-            self._q.put_nowait(metrics)
+            self._q.put_nowait((metrics, carrier))
             return True
         except queue.Full:
             with self._lock:
@@ -222,14 +273,9 @@ class ImportQueuePool:
                 return
             if self._stopping.is_set():
                 continue  # drain without merging; exit on the sentinel
-            try:
-                self._handle(item)
-                ok = True
-            except Exception:
-                # the worker must survive a failed merge; the batch is
-                # reported here and counted
-                log.exception("import of %d metrics failed", len(item))
-                ok = False
+            metrics, carrier = item
+            ok = _merge_one(self._handle, metrics, carrier,
+                            self._trace_client, self._hop_log)
             with self._lock:
                 if ok:
                     self.merged_batches += 1
@@ -259,14 +305,16 @@ class OpsServer:
     def __init__(self, addr: str = "127.0.0.1:0",
                  import_fn: Optional[Callable[[List[dict]], object]] = None,
                  import_workers: int = 2, import_queue: int = 64,
-                 ready_fn: Optional[Callable[[], tuple]] = None):
+                 ready_fn: Optional[Callable[[], tuple]] = None,
+                 trace_client=None, hop_log=None):
         host, _, port = addr.rpartition(":")
         self._httpd = ThreadingHTTPServer((host or "127.0.0.1", int(port)),
                                           _Handler)
         self._httpd.daemon_threads = True
         self.import_pool = (
             ImportQueuePool(import_fn, workers=import_workers,
-                            max_queue=import_queue)
+                            max_queue=import_queue,
+                            trace_client=trace_client, hop_log=hop_log)
             if import_fn is not None else None)
         self._httpd.veneur_import_pool = self.import_pool
         self._httpd.veneur_ready = ready_fn
@@ -306,7 +354,9 @@ class OpsServer:
         cfg = server.config
         ops = cls(addr, import_fn=import_metrics,
                   import_workers=cfg.http_import_workers,
-                  import_queue=cfg.http_import_queue, ready_fn=ready)
+                  import_queue=cfg.http_import_queue, ready_fn=ready,
+                  trace_client=server.trace_client,
+                  hop_log=server.obs_hops)
         debug.mount(ops.add_route, server=server)
         return ops
 

@@ -30,7 +30,10 @@ sums the nanoseconds of its ``recv`` (socket wait included), ``decode``,
 ``stage`` and ``seal`` steps, single-writer; the flusher reads the
 interval's sums through ``IngestFleet.take_ingest_stages``. Every sealed
 chunk carries its seal stamp, and the merger keeps the seal->merge
-latencies for ``take_merge_latencies``.
+latencies for ``take_merge_latencies``. Every chunk also carries the
+wall clock of its first staged record, and the merger keeps the oldest
+merged one for ``take_oldest_ingest_ns``: the fleet trace plane's
+ingest-era stamp (``obs/tracectx.py``).
 """
 
 from __future__ import annotations
@@ -143,15 +146,18 @@ class SealedChunk:
     intern entries minted since the previous seal (the resolver learns
     them even when a backlogged chunk's payload is shed). ``sealed_ns``
     stamps the hand-off (monotonic): the merger measures the seal->merge
-    latency from it (``stage:ingest.seal_to_merge``), one clock read a
-    chunk on the lane thread."""
+    latency from it (``stage:ingest.seal_to_merge``). ``ingest_wall_ns``
+    is the WALL clock of the chunk's first staged record: the ingest-era
+    stamp the fleet trace plane carries through every later hop
+    (``obs/tracectx.py``) to ``veneur.fleet.e2e_age_ns``. Each is one
+    clock read a chunk on the lane thread."""
 
     __slots__ = ("lane_id", "gen", "records", "spans", "new_entries",
-                 "raws", "sealed_ns")
+                 "raws", "sealed_ns", "ingest_wall_ns")
 
     def __init__(self, lane_id: int, gen: int, records: int,
                  spans: Dict[int, tuple], new_entries: Dict[int, list],
-                 raws: list):
+                 raws: list, ingest_wall_ns: int = 0):
         self.lane_id = lane_id
         self.gen = gen
         self.records = records
@@ -159,6 +165,7 @@ class SealedChunk:
         self.new_entries = new_entries
         self.raws = raws
         self.sealed_ns = time.monotonic_ns()
+        self.ingest_wall_ns = ingest_wall_ns or time.time_ns()
 
 
 class LaneResolver:
@@ -235,6 +242,9 @@ class IngestLane:
         # staging state
         self._stages: List[Optional[_KindStage]] = [None] * KIND_COUNT
         self._staged_total = 0
+        # the current chunk's ingest-era stamp: the wall ns of its first
+        # staged record (0 = nothing staged yet)
+        self._first_stage_wall_ns = 0
         self._raws: list = []
         self._pending_entries: Dict[int, list] = {}
         self._nrows = [0] * KIND_COUNT
@@ -496,6 +506,8 @@ class IngestLane:
                           np.float32(1.0) / np.float32(m.sample_rate))
 
     def _put_one(self, kind, row, a, b=None, member=None) -> None:
+        if not self._first_stage_wall_ns:
+            self._first_stage_wall_ns = time.time_ns()
         if self._chunk - self._staged_total == 0:
             self._seal()
         st = self._stages[kind]
@@ -506,6 +518,10 @@ class IngestLane:
         self._staged_total += 1
 
     def _stage_span(self, kind, rows, a, b=None, members=None) -> None:
+        if not self._first_stage_wall_ns:
+            # the chunk's ingest-era stamp: one wall-clock read a chunk
+            # (a staged span at most, never a record)
+            self._first_stage_wall_ns = time.time_ns()
         st = self._stages[kind]
         if st is None:
             st = self._stages[kind] = _KindStage(kind, self._chunk)
@@ -549,10 +565,12 @@ class IngestLane:
         spans = {kind: st.take() for kind, st in enumerate(self._stages)
                  if st is not None and st.fill}
         chunk = SealedChunk(self.lane_id, self.gen, total, spans,
-                            self._pending_entries, self._raws)
+                            self._pending_entries, self._raws,
+                            ingest_wall_ns=self._first_stage_wall_ns)
         self._pending_entries = {}
         self._raws = []
         self._staged_total = 0
+        self._first_stage_wall_ns = 0
         self.staged += total
         if len(self.sealed) >= self._max_backlog:
             self.shed_records += total
@@ -646,6 +664,10 @@ class IngestFleet:
         self.merge_latency_count = 0
         self.merge_latency_max_ns = 0
         self._merge_latency_sum_ns = 0
+        # fleet freshness: the oldest ingest-era stamp (wall ns) among
+        # the chunks merged since the flush last took it; written by the
+        # merger under _merge_lock, read and reset the same way
+        self._oldest_ingest_ns: Optional[int] = None
         # per-lane stage-tracing watermarks (take_ingest_stages)
         self._stage_reported: Dict[tuple, int] = {}
         self.unrouted_raws: list = []  # only without a raw_handler
@@ -716,6 +738,11 @@ class IngestFleet:
             # never remap them
             res = self._resolvers[chunk.lane_id] = LaneResolver(chunk.gen)
         raws = self._store.import_lane_chunk(chunk, res)
+        if chunk.records and (self._oldest_ingest_ns is None
+                              or chunk.ingest_wall_ns
+                              < self._oldest_ingest_ns):
+            # merge_sealed holds _merge_lock, as take_oldest_ingest_ns
+            self._oldest_ingest_ns = chunk.ingest_wall_ns
         latency = time.monotonic_ns() - chunk.sealed_ns
         self._merge_latencies.append(latency)
         self.merge_latency_count += 1
@@ -795,6 +822,15 @@ class IngestFleet:
         while latencies:
             out.append(latencies.popleft())
         return out
+
+    def take_oldest_ingest_ns(self) -> Optional[int]:
+        """Read and reset the oldest ingest-era stamp (wall ns) among the
+        chunks merged since the last call: the flusher's freshness
+        anchor, taken at the generation swap (a chunk merged after the
+        swap ages the NEXT interval, which only over-states the age)."""
+        with self._merge_lock:
+            oldest, self._oldest_ingest_ns = self._oldest_ingest_ns, None
+        return oldest
 
     def take_ingest_stages(self) -> Optional[dict]:
         """The ingest path's stage times since the last call: ns a stage

@@ -104,14 +104,18 @@ class StageRecorder:
         self.parent_span_id = 0
         self.hop = ""
 
-    def adopt_trace(self, trace_id: int, span_id: int,
+    def adopt_trace(self, trace_id: int, span_id: int = 0,
                     parent_id: int = 0, hop: str = "") -> None:
-        """Publish this recorder's stage tree under a trace's ids: the
-        entry gains ``trace_id``/``span_id``/``parent_span_id``/``hop``.
-        The flusher adopts its flush span's ids. (The cross-hop header
-        that joins another process's hop to them is not ported.)"""
+        """Join this recorder's stage tree into a distributed trace: the
+        published entry gains ``trace_id``/``span_id``/
+        ``parent_span_id``/``hop``, which ``GET /debug/trace`` stitches
+        on. The flusher adopts its flush span's ids; the proxy's fan-out
+        adopts the ids off the ``X-Veneur-Trace`` header; a span id of 0
+        draws a fresh one."""
+        from veneur_tpu_torch.obs import tracectx
+
         self.trace_id = int(trace_id)
-        self.span_id = int(span_id)
+        self.span_id = int(span_id) or tracectx.new_span_id()
         self.parent_span_id = int(parent_id)
         self.hop = hop
 

@@ -94,15 +94,16 @@ class FlushTimeline:
 
     def __init__(self, intervals: int = DEFAULT_INTERVALS):
         self.capacity = max(1, int(intervals))
-        # per-process identity served at /debug/flush-timeline (the JAX
-        # package's fleet aggregator tells its own timeline by it)
+        # per-process identity served at /debug/flush-timeline: how the
+        # fleet aggregator recognizes a pull of ITSELF (fleet_peers
+        # lists every instance, the puller included)
         self.uid = uuid.uuid4().hex
         self._ring: "collections.deque" = collections.deque(
             maxlen=self.capacity)
         # shared by publish and the read side: list(deque) raises
         # RuntimeError if an append lands mid-iteration, and the debug
         # endpoints read from arbitrary request threads while the
-        # flusher publishes
+        # flusher (and the fleet aggregator's pulls) publish
         self._lock = threading.Lock()
         self.published_total = 0
 

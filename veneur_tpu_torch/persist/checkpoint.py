@@ -20,9 +20,11 @@ bounds that loss at ``checkpoint_interval``:
   on-disk state; truncated, corrupt, wrong-version or stale files are
   discarded (counted, logged), and no checkpoint can prevent startup.
 
-The ``veneur.checkpoint.*`` self-metrics are not ported yet: the counts
-live on the :class:`Checkpointer`, and ``Server.degradation()`` names a
-failing write.
+Each flush reads the counts on the :class:`Checkpointer` into the
+``veneur.checkpoint.*`` self-metrics (``flusher.py``
+``_checkpoint_samples``: the last write's duration and bytes, the
+checkpoint's age, and the restore, discard and write-error counts as
+interval deltas), and ``Server.degradation()`` names a failing write.
 """
 
 from __future__ import annotations

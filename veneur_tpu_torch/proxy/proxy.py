@@ -11,12 +11,20 @@ is stateless: a failed or empty refresh keeps the last good ring
 (:351-361), and starting with zero destinations is fatal (:232-243).
 
 Routes: ``POST /import`` and ``POST /spans`` (202, then the fan-out off
-the request thread), ``GET /healthcheck``, and through ``debug.mount``
-``GET /debug/threads``, ``/debug/profile`` and ``/debug/vars`` (the
-time, the thread count and the proxy's own ``vars()``: the ring's
-counters and breakers). The JAX package's trace-plane hop
-(``/debug/flush-timeline``, the ``X-Veneur-Trace`` re-parenting) is not
-ported.
+the request thread), ``GET /healthcheck``, ``GET /debug/flush-timeline``
+(the proxy's hops, below) and through ``debug.mount`` ``GET
+/debug/threads``, ``/debug/profile`` and ``/debug/vars`` (the time, the
+thread count and the proxy's own ``vars()``: the ring's counters and
+breakers).
+
+The fleet trace plane (``obs/tracectx.py``): an ``/import`` body that
+carries ``X-Veneur-Trace`` fans out under a ``proxy.fan_out`` hop of its
+own: each destination POST carries the context re-parented under the
+hop's span (``TraceContext.child``), so the global's import parents
+under the fan-out rather than the local's flush, and the hop (a
+``post.<destination>`` stage a destination) publishes into a 64-entry
+timeline, where a global's ``/debug/trace`` pulls it. The gRPC proxy
+carries no trace, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,13 +32,14 @@ from __future__ import annotations
 import json
 import logging
 import threading
+import time
 import urllib.parse
 import zlib
 from collections import defaultdict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, List, Optional
 
-from veneur_tpu_torch import debug
+from veneur_tpu_torch import debug, obs
 from veneur_tpu_torch.config import ProxyConfig
 from veneur_tpu_torch.discovery import (ConsulDiscoverer, Discoverer,
                                         RetryingDiscoverer,
@@ -38,6 +47,7 @@ from veneur_tpu_torch.discovery import (ConsulDiscoverer, Discoverer,
 from veneur_tpu_torch.forward.http_forward import post_helper
 from veneur_tpu_torch.httpserv import (ImportError400, bounded_inflate,
                                        unmarshal_metrics_from_http)
+from veneur_tpu_torch.obs import tracectx
 from veneur_tpu_torch.proxy.consistent import (ConsistentRing,
                                                EmptyRingError, ring_key)
 from veneur_tpu_torch.resilience import (BreakerRegistry, Deadline,
@@ -98,10 +108,14 @@ class _ProxyHandler(BaseHTTPRequestHandler):
             except ImportError400 as e:
                 self._reply(400, str(e))
                 return
+            # the fleet trace plane rides through: re-parented under the
+            # fan-out's span on every destination POST
+            trace_header = self.headers.get(tracectx.HEADER)
             # accept, then fan out off the request thread
             # (handlers_global.go:28-43: "go p.ProxyMetrics")
             self._reply(202, "accepted")
-            threading.Thread(target=proxy.proxy_metrics, args=(metrics,),
+            threading.Thread(target=proxy.proxy_metrics,
+                             args=(metrics, trace_header),
                              name="proxy-fanout", daemon=True).start()
         elif path == "/spans":
             # Datadog trace spans fan out over their own ring
@@ -178,6 +192,9 @@ class Proxy:
             if config.trace_address:
                 self.trace_ring.set_members([config.trace_address])
         self.grpc_dial = grpc_dial
+        # the trace-bearing fan-outs' hops, one entry a batch, served at
+        # GET /debug/flush-timeline
+        self.obs_timeline = obs.FlushTimeline(64)
         # the gRPC flavour (grpc_forward_address), seeded and refreshed
         # with the metrics ring's membership (proxysrv/server.go:147-177)
         self.grpc_server = None
@@ -253,11 +270,13 @@ class Proxy:
 
     # -- proxying -------------------------------------------------------
 
-    def proxy_metrics(self, metrics: List[dict]):
+    def proxy_metrics(self, metrics: List[dict], trace_header=None):
         """Hash each metric to its destination, batch, and POST the
-        batches in parallel (proxy.go:437-505)."""
+        batches in parallel (proxy.go:437-505); ``trace_header`` is the
+        inbound ``X-Veneur-Trace`` value, if any."""
         self._fan_out(metrics, self.ring, metric_ring_key, "/import",
-                      compress=True, counter="proxied", what="metrics")
+                      compress=True, counter="proxied", what="metrics",
+                      trace_header=trace_header)
 
     def proxy_traces(self, traces: List[dict]):
         """Partition Datadog trace spans by trace id over the trace ring
@@ -269,11 +288,24 @@ class Proxy:
                       what="trace spans")
 
     def _fan_out(self, items: List[dict], ring: ConsistentRing, key_fn,
-                 path: str, compress: bool, counter: str, what: str):
+                 path: str, compress: bool, counter: str, what: str,
+                 trace_header=None):
         """Partition, then POST each destination's batch on its own
         thread. A batch resolves through one ``get_many``, one ring
         version, so a refresh mid-batch cannot split it across two
-        memberships."""
+        memberships. A trace-bearing batch runs under a recorder: its
+        ``proxy.fan_out`` hop publishes into :attr:`obs_timeline`, and
+        every destination POST carries the context re-parented under the
+        hop's span."""
+        ctx = tracectx.TraceContext.decode(trace_header) \
+            if trace_header else None
+        rec = fwd_headers = None
+        if ctx is not None:
+            rec = obs.StageRecorder()
+            rec.adopt_trace(ctx.trace_id, parent_id=ctx.parent_id,
+                            hop="proxy.fan_out")
+            fwd_headers = {tracectx.HEADER:
+                           ctx.child(rec.span_id).encode()}
         by_dest: Dict[str, List[dict]] = defaultdict(list)
         dropped = 0
         keyed: List[tuple] = []
@@ -298,14 +330,38 @@ class Proxy:
             t = threading.Thread(
                 target=self._post_batch,
                 args=(dest, batch, path, compress, counter, what),
+                kwargs={"headers": fwd_headers, "rec": rec},
                 name="proxy-post", daemon=True)
             t.start()
             threads.append(t)
         for t in threads:
             t.join(timeout=self.forward_timeout + 1.0)
+        if rec is not None:
+            try:
+                entry = rec.finish()
+                entry.update(what=what, items=len(items),
+                             destinations=len(by_dest))
+                self.obs_timeline.publish(entry)
+            except Exception:  # telemetry must never fail a fan-out
+                log.exception("proxy hop publication failed")
 
     def _post_batch(self, dest: str, batch: List[dict], path: str,
-                    compress: bool, counter: str, what: str):
+                    compress: bool, counter: str, what: str,
+                    headers=None, rec=None):
+        t0_ns = time.monotonic_ns()
+        try:
+            self._post_batch_inner(dest, batch, path, compress, counter,
+                                   what, headers)
+        finally:
+            if rec is not None:
+                # each destination's POST is a child stage of the
+                # fan-out hop, recorded from its own thread
+                rec.record_abs(f"post.{dest}", t0_ns, time.monotonic_ns(),
+                               items=len(batch))
+
+    def _post_batch_inner(self, dest: str, batch: List[dict], path: str,
+                          compress: bool, counter: str, what: str,
+                          headers):
         url = dest.rstrip("/")
         if not url.startswith(("http://", "https://")):
             url = "http://" + url
@@ -330,7 +386,8 @@ class Proxy:
                 raise faults.InjectedConnectError(
                     f"{dest} is partitioned (injected)")
             return self._post(url + path, batch, compress=compress,
-                              timeout=deadline.clamp(self.forward_timeout))
+                              timeout=deadline.clamp(self.forward_timeout),
+                              headers=headers)
 
         deadline = Deadline.after(self.forward_timeout)
         try:
@@ -415,7 +472,8 @@ class Proxy:
         self._httpd.veneur_proxy = self
         # the live debug endpoints (the reference mounts pprof on the
         # proxy's mux too, proxy.go:383-388)
-        self._httpd.veneur_get_routes = {}
+        self._httpd.veneur_get_routes = {
+            "/debug/flush-timeline": self.obs_timeline.handler}
         debug.mount(self._httpd.veneur_get_routes.__setitem__,
                     extra_vars=self.vars)
         t = threading.Thread(target=self._httpd.serve_forever,

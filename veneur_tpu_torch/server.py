@@ -75,6 +75,20 @@ ops server mounts the debug endpoints (``/debug/threads``,
 ``/debug/profile``, ``/debug/vars``, ``/debug/flush-timeline``,
 ``/debug/xprof``).
 
+The fleet trace plane (``obs/tracectx.py``, ``obs/fleet.py``): with
+``obs_enabled`` the server keeps ``obs_hops``, the hop log its HTTP and
+gRPC imports, its handoff receiver and its standby record the
+``X-Veneur-Trace`` hops they merge into, and ``fleet_aggregator``, which
+serves ``GET /debug/fleet`` and ``GET /debug/trace?id=...`` on the ops
+server, pulling the peers of ``fleet_peers`` (a CSV or ``file://``;
+``handoff_peers`` without it).
+
+Crash reports (``crash.py``): every thread the server starts reports an
+uncaught exception to ``sentry_dsn`` (when set) before it rethrows, and
+a process-wide ``threading.excepthook`` covers the others; with
+``enable_profiling`` cProfile runs from start to shutdown and writes
+``veneur-profile.pstats``.
+
 The global tier as a fleet (``fleet/``): with ``handoff_enabled`` a
 global watches its fleet's membership and hands the key ranges a resize
 moves to their new owner's ``POST /handoff`` (``handoff_manager``;
@@ -98,14 +112,15 @@ import threading
 import time
 from typing import List, Optional, Tuple
 
-from veneur_tpu_torch import flusher, native, networking, overload
+from veneur_tpu_torch import crash, flusher, native, networking, overload
 from veneur_tpu_torch.config import Config
 from veneur_tpu_torch.core.store import MetricStore
 from veneur_tpu_torch.forward import configure_forwarding
 from veneur_tpu_torch.forward.native_transport import NativeImportServer
 from veneur_tpu_torch.httpserv import OpsServer
 from veneur_tpu_torch.ingest import IngestFleet, ShardedCounter
-from veneur_tpu_torch.obs import FlushTimeline
+from veneur_tpu_torch.obs import FlushTimeline, HopLog
+from veneur_tpu_torch.obs.fleet import FleetAggregator
 from veneur_tpu_torch.ops import tdigest_cuda
 from veneur_tpu_torch.persist import Checkpointer
 from veneur_tpu_torch.persist import format as ckpt_format
@@ -367,8 +382,25 @@ class Server:
         # (server.go:196-202); with obs_enabled the timeline ring behind
         # /debug/flush-timeline (None: the flusher allocates no recorder)
         self.trace_client = new_channel_client(self.span_chan)
-        self.obs_timeline = (FlushTimeline(config.obs_timeline_intervals)
-                             if config.obs_enabled else None)
+        self.obs_timeline = None
+        # the fleet trace plane: the hops this server receives (the
+        # imports, the handoff and the replication) and the /debug/fleet
+        # and /debug/trace view; with no peer source the aggregator still
+        # serves this server's own entries
+        self.obs_hops: Optional[HopLog] = None
+        self.fleet_aggregator: Optional[FleetAggregator] = None
+        if config.obs_enabled:
+            self.obs_timeline = FlushTimeline(config.obs_timeline_intervals)
+            self.obs_hops = HopLog()
+            self.fleet_aggregator = FleetAggregator(
+                self_addr=config.handoff_self,
+                watcher=self._build_fleet_watcher(config),
+                timeline=self.obs_timeline, hop_log=self.obs_hops,
+                pull_timeout=config.fleet_pull_timeout_seconds,
+                pull_interval=config.fleet_pull_interval_seconds)
+        # the oldest ingest stamp the current flush drains (taken at its
+        # swap; flusher.py)
+        self._interval_oldest_ingest_ns: Optional[int] = None
         self.span_flush_thread: Optional[threading.Thread] = None
         self.last_flush_time = 0.0
         self.last_flush_ok = True
@@ -450,6 +482,60 @@ class Server:
         self._span_stop = threading.Event()
         self._threads: List[threading.Thread] = []
         self._counts_lock = threading.Lock()
+        # crash reports and profiling (start() wires them)
+        self._sentry: Optional[crash.SentryReporter] = None
+        self._guard = lambda fn: fn
+        self._profiler = None
+
+    @staticmethod
+    def _build_fleet_watcher(config: Config):
+        """The /debug/fleet membership: ``fleet_peers`` (a CSV or
+        ``file://``), else ``handoff_peers``; None = own entries only."""
+        from veneur_tpu_torch.discovery import (FilePeersDiscoverer,
+                                                RingWatcher,
+                                                StaticDiscoverer)
+
+        peers = config.fleet_peers.strip() or config.handoff_peers.strip()
+        if not peers:
+            return None
+        if peers.startswith("file://"):
+            discoverer = FilePeersDiscoverer(peers[len("file://"):])
+        else:
+            discoverer = StaticDiscoverer(
+                [p.strip() for p in peers.split(",") if p.strip()])
+        return RingWatcher(discoverer, "veneur-fleet-debug")
+
+    def _wire_crash_surface(self) -> None:
+        """Report-then-rethrow on every thread the server starts
+        (ConsumePanic, sentry.go:17-52) and a process-wide excepthook;
+        with ``enable_profiling``, one cProfile from here to shutdown.
+        On Python 3.12 and later cProfile monitors every thread of the
+        process (``sys.monitoring``), and a second profiler, on a thread
+        of its own, would raise: the JAX package's per-thread profilers
+        do, killing each thread they wrap."""
+        if self.config.sentry_dsn:
+            self._sentry = crash.SentryReporter(self.config.sentry_dsn)
+        crash.install_excepthook(self._sentry)
+        self._guard = lambda fn: crash.guarded(fn, self._sentry)
+        if self.config.enable_profiling:
+            import cProfile
+
+            self._profiler = cProfile.Profile()
+            self._profiler.enable()
+            log.info("profiling enabled; stats written on shutdown")
+
+    def _write_profile(self) -> None:
+        """Write the profile to ``veneur-profile.pstats``
+        (server.go:1039-1047)."""
+        if self._profiler is None:
+            return
+        import pstats
+
+        self._profiler.disable()
+        path = "veneur-profile.pstats"
+        pstats.Stats(self._profiler).dump_stats(path)
+        log.info("profile written to %s", path)
+        self._profiler = None
 
     def _count(self, attr: str, n: int = 1):
         with self._counts_lock:
@@ -606,6 +692,7 @@ class Server:
         cfg = self.config
         if self.store.device.type == "cuda":
             tdigest_cuda._kernel_lib()
+        self._wire_crash_surface()
         self._started_wall = time.time()
         if self.checkpointer is not None:
             self.checkpointer.restore()
@@ -617,8 +704,8 @@ class Server:
         self._span_lanes = make_span_lanes(self.span_sinks, self._span_stop)
         for i in range(cfg.num_span_workers):
             w = SpanWorker(self.span_chan, self._stop, self._span_lanes)
-            t = threading.Thread(target=w.work, name=f"span-worker-{i}",
-                                 daemon=True)
+            t = threading.Thread(target=self._guard(w.work),
+                                 name=f"span-worker-{i}", daemon=True)
             t.start()
             self._span_workers.append(w)
             self._span_threads.append(t)
@@ -631,7 +718,9 @@ class Server:
         if cfg.grpc_address:
             from veneur_tpu_torch.forward.grpc_forward import ImportServer
 
-            self.import_server = ImportServer(self.store)
+            self.import_server = ImportServer(
+                self.store, trace_client=self.trace_client,
+                hop_log=self.obs_hops)
             self.import_server.start(cfg.grpc_address)
         if cfg.native_import_address:
             self.native_import_server = NativeImportServer(self.store)
@@ -665,18 +754,19 @@ class Server:
                              ("ha-replicator", self.standby_manager),
                              ("lease-elector", self.lease_elector)):
             if worker is not None:
-                t = threading.Thread(target=worker.run, args=(self._stop,),
-                                     name=name, daemon=True)
+                t = threading.Thread(target=self._guard(worker.run),
+                                     args=(self._stop,), name=name,
+                                     daemon=True)
                 t.start()
                 self._threads.append(t)
-        ticker = threading.Thread(target=self._flush_loop,
+        ticker = threading.Thread(target=self._guard(self._flush_loop),
                                   name="flush-ticker", daemon=True)
         ticker.start()
         self._threads.append(ticker)
         if self.checkpointer is not None:
             ckpt = threading.Thread(
-                target=self.checkpointer.run, args=(self._stop,),
-                name="checkpoint", daemon=True)
+                target=self._guard(self.checkpointer.run),
+                args=(self._stop,), name="checkpoint", daemon=True)
             ckpt.start()
             self._threads.append(ckpt)
             log.info("checkpointing to %s every %.1fs",
@@ -761,7 +851,8 @@ class Server:
         self.native_readers.append(reader)
         self.statsd_addrs.append((host, reader.port))
         self.listeners.append((spec, "native", (host, reader.port)))
-        t = threading.Thread(target=self._native_pump, args=(reader,),
+        t = threading.Thread(target=self._guard(self._native_pump),
+                             args=(reader,),
                              name="native-udp-pump", daemon=True)
         t.start()
         self._native_pumps.append(t)
@@ -825,7 +916,8 @@ class Server:
         self.native_ssf_readers.append(reader)
         self.ssf_addrs.append((host, reader.port))
         self.ssf_listeners.append((spec, "native", (host, reader.port)))
-        t = threading.Thread(target=self._native_ssf_pump, args=(reader,),
+        t = threading.Thread(target=self._guard(self._native_ssf_pump),
+                             args=(reader,),
                              name="native-ssf-pump", daemon=True)
         t.start()
         self._native_pumps.append(t)
@@ -1028,6 +1120,7 @@ class Server:
         self._span_threads.clear()
 
     def _close_servers(self):
+        self._write_profile()
         self.trace_client.close()
         if self.ops_server is not None:
             self.ops_server.stop()
