@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and its native
-ingest and egress libraries (g++), side by side, then runs sixteen
+ingest and egress libraries (g++), side by side, then runs seventeen
 phases, each printing one JSON line (checkpoint two, capacity eight,
 mesh six, grpc_proxy three, fleet_ha five):
 
@@ -179,6 +179,38 @@ mesh six, grpc_proxy three, fleet_ha five):
            flush) beside their kernel scopes' dispatches. Printed: each
            trace's hops and durations, hop_coverage_ratio and e2e wall
            time, the import split, the e2e age's p50 and p99;
+  sinks    the remaining sinks and the statsd TCP/TLS listener. Leg
+           (a): one port Server configured through sinks/factory.py
+           from a Config: a tcp:// statsd listener with TLS and client
+           certificates required (tests/data/torch_tls/; the C++ rung,
+           or the run fails), an SSF udp:// listener with the indicator
+           timer, SignalFx (tags_exclude drop_me), Datadog's trace
+           agent, LightStep and Falconer, each an in-process receiver on
+           127.0.0.1. 1,048,576 histogram series x 4 samples through its
+           store, then 65,536 series x 4 samples (weight 8; the last two
+           shifted +1,000, so the guard drains through K2 on the TLS
+           pump's thread; every 16th series tagged drop_me) over 8 TLS
+           connections with client certificates, after an anonymous
+           client and one with an untrusted certificate are refused;
+           4,096 indicator spans; one flush (K1). Held: every SignalFx
+           datapoint counted by a byte scan equals the flush's rows,
+           none carries drop_me, 4,096 sampled series' datapoints parsed
+           back equal the ColumnarFlush arrays and carry the host
+           dimension; the TLS series' counts, extrema and percentiles
+           (within 0.02 x span of the exact digest); 2 handshake
+           failures and 8 connections; every span at each span sink.
+           Leg (b): a second Server with the Kafka metric and span
+           sinks producing over the stdlib wire producer into an
+           in-process broker (Metadata v0, Produce v0): 16,384
+           histogram series, 1,024 counters, 256 events and 256 service
+           checks over plain tcp:// (the C++ rung), 1,024 spans; the
+           metric topic holds every row's JSON (status rows included),
+           the check and event topics none, each span message decodes
+           to the span sent. Printed: the TLS lines a second,
+           connections and handshake failures; SignalFx bodies, bytes,
+           serialize and POST seconds; the flush's wall; datapoints
+           against rows; messages by topic and the produce seconds;
+           spans at each sink; K1 and K2 by window;
   fleet_ha the elastic and HA global tier. handoff: a dense global
            Server A with handoff_enabled over a file:// peers file that
            names only A takes native_merge's local A frames over gRPC
@@ -226,8 +258,9 @@ mesh six, grpc_proxy three, fleet_ha five):
            replication's seconds and bytes an epoch, kill -> leader,
            kill -> the first promoted flush. mesh_tiered: a
            MetricStore(digest_storage="tiered") on the 4 x 2 shard mesh
-           and a single-card tiered twin, 1,048,576 histogram series,
-           two intervals of 8 samples a series (the last four shifted
+           and a single-card tiered twin, 524,288 histogram series
+           (two pool slabs; 1,048,576 until the sinks phase came, to keep
+           the script in its time), two intervals of 8 samples a series (the last four shifted
            +1,000: the pool guard drains), one 8-centroid import run a
            series and 128 samples on every 64th series (promoted in the
            second interval): counts and digest mass exact on both, the
@@ -264,7 +297,8 @@ mesh six, grpc_proxy three, fleet_ha five):
            flush held to native_merge's dense global (percentiles rtol
            1e-5, counts, extrema, counters and set estimates equal; the
            import split, shard occupancy and balance ratio printed); a
-           mesh store's checkpoint at 65,536 series restored into a mesh
+           mesh store's checkpoint at 32,768 series (65,536 until the
+           sinks phase came) restored into a mesh
            and a dense store, which flush the same rows; rung 3 on a
            mesh group at 16,384 series;
   server_global
@@ -319,14 +353,16 @@ mesh six, grpc_proxy three, fleet_ha five):
            promote_intervals 1: they take dense slots mid-interval), the
            pool compacting through K2 at merge width 32 on the narrow path
            (2g_tiered_10m).
-           Each prints its staging and flush walls (median of 3),
+           Each prints its staging and flush walls (median of 2; 3
+           until the sinks phase came, to keep the script in its time),
            torch.cuda.max_memory_allocated, its K1/K2 launches, the
            first launch of each new shape held to its plain version
            (K1 on slabs upcast from bfloat16, K2 in the merge role and at
            width 32), every count exact, and 2,048 sampled rows against
            a dense DigestGroup fed them identically (bench.py 2g's
            merged_ok: the excess rank error at most 0.15). Then three
-           Servers on the UDP lane at 65,536 histogram series (dense,
+           Servers on the UDP lane at 32,768 histogram series (65,536
+           until the sinks phase came; dense,
            slab with bfloat16 digests, tiered; the same datagrams), the
            slab and tiered rows held to the dense twin's; a checkpoint
            written by a slab store and restored into a tiered one, and
@@ -348,7 +384,7 @@ The launch counts in the kernel summary are the sum over the store,
 ingest (its two intervals), ssf (its main path), heavy_hitters (its two
 Servers), overload (the series cap's flush), global_merge, native_merge,
 grpc_proxy (its globals and locals), fleet_trace (its local and
-global), fleet_ha (its four legs, the twins excepted), mesh,
+global), sinks (both Servers' main paths), fleet_ha (its four legs, the twins excepted), mesh,
 server_global, checkpoint
 (the kill and restart, and the ladder)
 and capacity phases (its oracles and plain-version holds excepted); the
@@ -6341,10 +6377,12 @@ def phase_checkpoint(dev, card: str, rows: int = CKPT_ROWS,
 # 2c_merge_global_10m, 2g_tiered_10m; their sizes copied here as data)
 # ---------------------------------------------------------------------------
 
-CAP_ITERS = 3                    # timed staging/flush rounds a subphase
+CAP_ITERS = 2                    # timed staging/flush rounds a subphase
+#                                  (3 until the sinks phase came)
                                  # (5 until the fleet_ha phase came)
 CAP_ORACLE_ROWS = 2048           # the dense oracle's sampled rows
-CAP_SERIES = 1 << 16             # the Servers' histogram series
+CAP_SERIES = 1 << 15             # the Servers' histogram series (65,536
+#                                  until the sinks phase came)
 CAP_AUX_SERIES = 1 << 14         # the checkpoint's and the ladder's
 CAP_HOT = 1024                   # hot series among them (40 more samples)
 CAP_ENVELOPE = 0.15              # bench.py 2g's excess rank error gate
@@ -7092,7 +7130,8 @@ MESH_SAMPLES = 1 << 24           # the aggregator's samples a host (~32 a row)
 MESH_QS = (0.5, 0.9, 0.99)       # the dryrun's quantiles
 MESH_SETS = 1 << 20              # its set members a host
 MESH_COUNTERS = 1 << 20          # its counter increments a host
-MESH_CKPT_ROWS = 1 << 16         # the mesh checkpoint's series
+MESH_CKPT_ROWS = 1 << 15         # the mesh checkpoint's series (65,536
+#                                  until the sinks phase came)
 MESH_LADDER_ROWS = 1 << 14       # rung 3 on a mesh group
 
 
@@ -7536,7 +7575,7 @@ FHA_SBY_SETS = 4096              # leg (b): sets, counters and gauges
 FHA_SBY_EVERY = 16               # leg (b): a series in 16 re-routed
 FHA_LEASE_TTL = "1s"
 FHA_LEASE_RENEW = "250ms"
-FHA_MESH_SERIES = 1 << 20        # leg (c): histogram series
+FHA_MESH_SERIES = 1 << 19        # leg (c): histogram series
 FHA_MESH_CHUNK = 1 << 16         # leg (c): the stores' staging chunk
 FHA_MESH_FEED = 1 << 14          # leg (c): rows a sample_many call
 FHA_MESH_HOT_EVERY = 64          # leg (c): 1/64 of the series hot ...
@@ -8618,7 +8657,13 @@ def run_mesh_tiered_server(dev, series: int = FHA_MESH_SERVER_SERIES
     col = {s: i for i, s in enumerate(sfx)}
     idx = np.array([int(nm.rsplit(".", 1)[1]) for nm in names])
     if len(idx) != series or not np.all(m[:, col[".count"]] == 8.0):
-        raise AssertionError("the mesh tiered Server's counts")
+        counts = m[:, col[".count"]]
+        bad = np.flatnonzero(counts != 8.0)
+        raise AssertionError(
+            f"the mesh tiered Server's counts: {len(idx)} series of "
+            f"{series}, {len(bad)} counts off 8 (first "
+            f"{[(int(idx[i]), float(counts[i])) for i in bad[:8]]}, "
+            f"total {float(np.nansum(counts))} of {8.0 * series})")
     med = m[:, col[".50percentile"]]
     v = vals[idx]
     if not np.all((med >= v.min(1) - 1e-3) & (med <= v.max(1) + 1e-3)):
@@ -8659,6 +8704,672 @@ def phase_fleet_ha(dev, card: str) -> dict:
     emit({"phase": "fleet_ha", "card": card, "launches": counts,
           "phase_s": time.perf_counter() - t_phase})
     return counts
+
+
+SX_SERIES = 1 << 20              # histogram series fed through the store
+SX_TLS_SERIES = 1 << 16          # more over TLS, 4 samples each
+SX_TLS_CONNS = 8
+SX_RATE = 0.125                  # every TLS sample's rate: weight 8, so a
+SX_SHIFT = 1000.0                # row's first two reach the shift guard's
+SX_SPANS = 4096                  # minimum and its last two, shifted, trip it
+SX_SAMPLED = 4096                # datapoints parsed back: their series
+SX_TIMER = "sinks.indicator"
+SX_SERVICE = "sinks-svc"         # our spans' service prefix (the server's
+KF_SERIES = 1 << 14              # own flush spans reach the sinks too)
+KF_COUNTERS = 1024
+KF_RAWS = 256                    # events, and service checks
+KF_SPANS = 1024
+TLS_DIR = Path(__file__).resolve().parent / "tests" / "data" / "torch_tls"
+
+
+class _SinkReceiver:
+    """A stdlib HTTP server on 127.0.0.1 standing in for SignalFx's
+    ingest API, Datadog's trace agent or LightStep's collector: it reads
+    each body by its Content-Length, keeps (method, path, body) and
+    answers 200."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        requests = self.requests = []
+        lock = threading.Lock()
+
+        class Handler(BaseHTTPRequestHandler):
+            def _take(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                with lock:
+                    requests.append((self.command, self.path, body))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            do_POST = do_PUT = _take
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def bodies(self, path: str) -> list:
+        return [b for _, p, b in list(self.requests) if p == path]
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=10)
+
+
+class _FakeBroker:
+    """Just enough Kafka (a copy of tests/test_kafka_faults.py's broker):
+    Metadata v0 and Produce v0, every produced value recorded by topic."""
+
+    def __init__(self, partitions: int = 2):
+        from veneur_tpu_torch.sinks.kafka_wire import _Reader
+
+        self._reader = _Reader
+        self.partitions = partitions
+        self.messages = []   # (topic, partition, value bytes)
+        self._srv = socket.socket()
+        self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._srv.bind(("127.0.0.1", 0))
+        self._srv.listen(8)
+        self.port = self._srv.getsockname()[1]
+        self._stop = False
+        threading.Thread(target=self._accept_loop, daemon=True).start()
+
+    def _accept_loop(self):
+        while not self._stop:
+            try:
+                conn, _ = self._srv.accept()
+            except OSError:
+                return
+            threading.Thread(target=self._serve, args=(conn,),
+                             daemon=True).start()
+
+    @staticmethod
+    def _recv_exact(conn, n):
+        data = b""
+        while len(data) < n:
+            chunk = conn.recv(n - len(data))
+            if not chunk:
+                raise ConnectionError
+            data += chunk
+        return data
+
+    def _serve(self, conn):
+        import struct
+
+        try:
+            while True:
+                (size,) = struct.unpack(">i", self._recv_exact(conn, 4))
+                r = self._reader(self._recv_exact(conn, size))
+                api = r.i16()
+                r.i16()  # api version
+                corr = r.i32()
+                r.string()  # client id
+                if api == 3:
+                    resp = self._metadata(r)
+                elif api == 0:
+                    resp = self._produce(r)
+                    if resp is None:
+                        continue  # acks=0: no response
+                else:
+                    break
+                payload = struct.pack(">i", corr) + resp
+                conn.sendall(struct.pack(">i", len(payload)) + payload)
+        except (ConnectionError, OSError, struct.error):
+            pass
+        finally:
+            conn.close()
+
+    def _metadata(self, r):
+        import struct
+
+        r.i32()  # topic count
+        topic = r.string()
+        out = struct.pack(">i", 1) + struct.pack(">i", 1)  # one broker: us
+        host = b"127.0.0.1"
+        out += struct.pack(">h", len(host)) + host
+        out += struct.pack(">i", self.port)
+        out += struct.pack(">i", 1) + struct.pack(">h", 0)  # one topic
+        tb = topic.encode()
+        out += struct.pack(">h", len(tb)) + tb
+        out += struct.pack(">i", self.partitions)
+        for pid in range(self.partitions):
+            out += struct.pack(">hiiii", 0, pid, 1, 0, 0)
+        return out
+
+    def _produce(self, r):
+        import struct
+
+        acks = r.i16()
+        r.i32()  # timeout
+        r.i32()  # topic count
+        topic = r.string()
+        r.i32()  # partition count
+        pid = r.i32()
+        mset = r.take(r.i32())
+        mr = self._reader(mset)
+        mr.i64()  # offset
+        mr.i32()  # message size
+        crc = mr.i32() & 0xFFFFFFFF
+        body_start = mr.pos
+        mr.i16()  # magic and attributes
+        klen = mr.i32()
+        if klen > 0:
+            mr.take(klen)
+        value = mr.take(mr.i32())
+        if crc != (zlib.crc32(mset[body_start:]) & 0xFFFFFFFF):
+            raise ConnectionError("bad message CRC")
+        self.messages.append((topic, pid, value))
+        if acks == 0:
+            return None
+        tb = topic.encode()
+        return (struct.pack(">i", 1) + struct.pack(">h", len(tb)) + tb
+                + struct.pack(">iih", 1, pid, 0)
+                + struct.pack(">q", len(self.messages)))
+
+    def topic(self, name: str) -> list:
+        return [v for t, _, v in list(self.messages) if t == name]
+
+    def close(self):
+        self._stop = True
+        self._srv.close()
+
+
+def _poll(cond, timeout: float, what: str) -> None:
+    """:func:`_wait_for` for a condition that costs a scan: every 50 ms."""
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def _sx_spans(n: int, seed: int) -> list:
+    """``n`` valid indicator spans (port codec bytes) of SX_SERVICE's
+    8 services, each its own trace, 1 us to 10 s long."""
+    from veneur_tpu_torch.protocol import ssf
+
+    rng = np.random.default_rng(seed)
+    durs = (10 ** rng.uniform(3, 10, n)).astype(np.int64)
+    out = []
+    for i in range(n):
+        start = 1_700_000_000_000_000_000 + i * 1000
+        out.append(ssf.SSFSpan(
+            version=1, trace_id=1 + i, id=1_000_000 + i, parent_id=0,
+            start_timestamp=start, end_timestamp=start + int(durs[i]),
+            error=bool(i % 2), service=f"{SX_SERVICE}{i % 8}",
+            name=f"op.{i % 16}", indicator=True,
+            tags={"resource": f"/r{i % 4}"}).SerializeToString())
+    return out
+
+
+def _send_spans(addr, spans) -> None:
+    """SSF datagrams, paced (2 ms every 64): the C++ pool sheds a batch
+    its pump has not swapped yet."""
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+        for i, span in enumerate(spans):
+            tx.sendto(span, addr)
+            if i % 64 == 63:
+                time.sleep(0.002)
+
+
+def _tls_client(port: int, cert: str = ""):
+    import ssl
+
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+    ctx.load_verify_locations(str(TLS_DIR / "ca.crt"))
+    if cert:
+        ctx.load_cert_chain(str(TLS_DIR / f"{cert}.crt"),
+                            str(TLS_DIR / f"{cert}.key"))
+    raw = socket.create_connection(("127.0.0.1", port), timeout=30)
+    return ctx.wrap_socket(raw, server_hostname="localhost")
+
+
+def _refused(port: int, cert: str = "") -> bool:
+    """A client the listener must refuse: its handshake or its first read
+    fails, and nothing it sent may count."""
+    import ssl
+
+    try:
+        conn = _tls_client(port, cert)
+        conn.sendall(b"sx.refused:1|c\n")
+        conn.settimeout(10)
+        died = conn.recv(1) == b""
+        conn.close()
+        return died
+    except (ssl.SSLError, OSError):
+        return True
+
+
+def _sx_tls_traffic(series: int, seed: int) -> dict:
+    """The TLS series' samples (k/16 values: exact in float32 and in the
+    lines' 4 decimals; the last two shifted +SX_SHIFT) and their lines,
+    by connection and round: every 16th series carries drop_me."""
+    rng = np.random.default_rng(seed)
+    vals = np.round(rng.gamma(2.0, 10.0, (series, 4)) * 16.0) / 16.0
+    vals[:, 2:] += SX_SHIFT
+    rounds = [[[] for _ in range(SX_TLS_CONNS)] for _ in range(2)]
+    for i in range(series):
+        tags = f"k:v{i % 4}" + (",drop_me:x" if i % 16 == 0 else "")
+        for j in range(4):
+            rounds[j // 2][i % SX_TLS_CONNS].append(
+                f"sx.t.{i}:{vals[i, j]:.4f}|h|@{SX_RATE}|#{tags}")
+    return {"vals": vals, "rounds": [[("\n".join(c) + "\n").encode()
+                                      for c in r] for r in rounds]}
+
+
+def _sfx_datapoints(bodies) -> int:
+    """Datapoints in SignalFx bodies by a byte scan: the C++ serializer's
+    and json.dumps' spellings of a datapoint's first key."""
+    return sum(b.count(b'{"metric":"') + b.count(b'{"metric": "')
+               for b in bodies)
+
+
+def _check_sfx_sample(col, bodies, hostname: str, rec) -> None:
+    """SX_SAMPLED histogram series' datapoints, found by position in
+    their block's body (gauges, then counters, each in emission order)
+    and parsed back: each equals its emission (name and suffix, value,
+    the flush's timestamp in ms) and carries the host dimension and the
+    series' tags but drop_me."""
+    from veneur_tpu_torch.core.columnar import TYPE_COUNTER, arena_strings
+
+    blk = max(col.blocks, key=len)
+    body = next(b for b in bodies if _sfx_datapoints([b]) == len(blk))
+    starts = np.flatnonzero(np.frombuffer(body, np.uint8) == ord("{"))
+    starts = starts[starts + 10 < len(body)]
+    arr = np.frombuffer(body, np.uint8)
+    starts = starts[(arr[starts + 1] == ord('"'))
+                    & (arr[starts + 2] == ord("m"))]
+    if len(starts) != len(blk):
+        raise AssertionError(f"{len(starts)} datapoints in the body of a "
+                             f"{len(blk)}-row block")
+    counter = blk.type_codes == TYPE_COUNTER
+    pos = np.empty(len(blk), np.int64)
+    pos[~counter] = np.arange(int((~counter).sum()))
+    pos[counter] = int((~counter).sum()) + np.arange(int(counter.sum()))
+    names, tags = arena_strings(blk.names), arena_strings(blk.tags)
+    rng = np.random.default_rng(SEED + 181)
+    rows = set(rng.choice(len(names), min(SX_SAMPLED, len(names)),
+                          replace=False).tolist())
+    checked = 0
+    for e in np.flatnonzero(np.isin(blk.rows, list(rows))):
+        a = int(starts[pos[e]])
+        dp = json.loads(body[a:body.index(b"}}", a) + 2])
+        r = int(blk.rows[e])
+        want_dims = {"host": hostname}
+        want_dims.update(t.split(":", 1) for t in tags[r].split(",")
+                         if t and not t.startswith("drop_me:"))
+        want_value = (int(blk.values[e]) if counter[e]
+                      else float(blk.values[e]))
+        got = (dp["metric"], dp["value"], dp["timestamp"], dp["dimensions"])
+        want = (names[r] + blk.suffixes[blk.suffix_idx[e]].decode(),
+                want_value, col.timestamp * 1000, want_dims)
+        if got != want:
+            raise AssertionError(f"datapoint {got} is not {want}")
+        checked += 1
+    rec.update(sampled_series=len(rows), sampled_datapoints=checked)
+
+
+def _check_tls_rows(col, vals, rec) -> None:
+    """The TLS series' rows against what they were sent: counts exact
+    (4 samples of weight 8), min and max exact, the percentiles within
+    0.02 x (max - min) of the exact digest of the samples."""
+    from veneur_tpu_torch.core.columnar import arena_strings
+
+    blk = max(col.blocks, key=len)
+    mat = _block_matrix(blk)
+    row_of = {n: r for r, n in enumerate(arena_strings(blk.names))
+              if n.startswith("sx.t.")}
+    if len(row_of) != len(vals):
+        raise AssertionError(f"{len(row_of)} TLS series flushed of "
+                             f"{len(vals)}")
+    sfx = [b".max", b".min", b".count"] + [
+        f".{int(p * 100)}percentile".encode() for p in INGEST_PERCENTILES]
+    if blk.suffixes != sfx:
+        raise AssertionError(f"histogram suffixes {blk.suffixes}")
+    sel = mat[[row_of[f"sx.t.{i}"] for i in range(len(vals))]]
+    samples = vals.astype(np.float32)
+    if not (np.array_equal(sel[:, 0], samples.max(1))
+            and np.array_equal(sel[:, 1], samples.min(1))
+            and np.all(sel[:, 2] == 4.0 / SX_RATE)):
+        raise AssertionError("the TLS series' min, max or count are off")
+    want = np.stack([_digest_reference(row, INGEST_PERCENTILES)
+                     for row in samples])
+    span = (samples.max(1) - samples.min(1)).astype(np.float64)
+    worst = float(np.max(np.abs(sel[:, 3:] - want) / span[:, None]))
+    if worst > 0.02:
+        raise AssertionError(f"the TLS series' percentiles are "
+                             f"{worst:.3g} of the span off")
+    rec["tls_pct_err_vs_exact_digest"] = worst
+
+
+def run_sinks_tls(dev, series: int = SX_SERIES,
+                  tls_series: int = SX_TLS_SERIES,
+                  spans_n: int = SX_SPANS) -> tuple:
+    """Leg (a) of the sinks phase: one port Server configured through
+    sinks/factory.py from a Config (a TLS statsd listener with client
+    certificates required, on the C++ rung; an SSF listener; SignalFx,
+    Datadog's trace agent, LightStep and Falconer, each an in-process
+    receiver) takes ``series`` histogram series through its store,
+    ``tls_series`` x 4 samples over SX_TLS_CONNS TLS connections (the
+    guard drains through K2 on the TLS pump's thread), refuses an
+    anonymous client and one with an untrusted certificate, and takes
+    ``spans_n`` indicator spans; one flush (K1). Returns the record and
+    the launch counts."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.samplers.parser import MetricKey
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.factory import create_sinks
+    from veneur_tpu_torch.sinks.grpsink import SpanSinkServer
+
+    rec = {"histogram_series": series, "tls_series": tls_series,
+           "spans": spans_n}
+    sfx, agent, ls = _SinkReceiver(), _SinkReceiver(), _SinkReceiver()
+    falconer = SpanSinkServer()
+    falconer.start("127.0.0.1:0")
+    cfg = Config(
+        statsd_listen_addresses=["tcp://127.0.0.1:0"],
+        ssf_listen_addresses=["udp://127.0.0.1:0"],
+        tls_certificate=str(TLS_DIR / "server.crt"),
+        tls_key=str(TLS_DIR / "server.key"),
+        tls_authority_certificate=str(TLS_DIR / "ca.crt"),
+        native_ingest=True, indicator_span_timer_name=SX_TIMER,
+        span_channel_capacity=4096, max_series=INGEST_MAX_SERIES,
+        interval="86400s", percentiles=list(INGEST_PERCENTILES),
+        aggregates=["min", "max", "count"], hostname="sinks-host",
+        signalfx_api_key="sfx-key", signalfx_endpoint_base=sfx.url,
+        tags_exclude=["drop_me"], datadog_trace_api_address=agent.url,
+        lightstep_collector_host=ls.url, lightstep_access_token="ls-token",
+        lightstep_maximum_spans=2 * spans_n,
+        falconer_address=f"127.0.0.1:{falconer.port}")
+    sinks, span_sinks, plugins = create_sinks(cfg)
+    rec["sinks"] = [s.name for s in sinks]
+    rec["span_sinks"] = [s.name for s in span_sinks]
+    if rec["sinks"] != ["signalfx"] or rec["span_sinks"] != [
+            "datadog", "lightstep", "falconer"] or plugins:
+        raise AssertionError(f"the factory built {rec}")
+    sfx_sink = sinks[0]
+    telemetry = []
+    drain = sfx_sink.drain_flush_telemetry
+
+    def keep_telemetry():
+        out = drain()
+        telemetry.extend(out)
+        return out
+
+    sfx_sink.drain_flush_telemetry = keep_telemetry
+    recorder = _ColumnarRecorder()
+    server = Server(cfg, metric_sinks=sinks + [recorder],
+                    span_sinks=span_sinks, device=dev)
+    server.start()
+    try:
+        rungs = [r for _, r, _ in server.listeners]
+        rec["listener_rung"] = rungs
+        if rungs != ["native"]:
+            raise AssertionError(f"the TLS listener took the {rungs} rung")
+        reader = server.native_readers[0]
+        port = server.statsd_addrs[0][1]
+        vals_bulk = np.random.default_rng(SEED + 173).gamma(
+            2.0, 10.0, (series, 4)).astype(np.float32)
+        traffic = _sx_tls_traffic(tls_series, SEED + 179)
+        spans = _sx_spans(spans_n, SEED + 191)
+        _reset_counts(tc)
+        store = server.store
+        t0 = time.perf_counter()
+        with store._lock:
+            hist = store.histograms
+            rows = np.array([hist.interner.intern(
+                MetricKey(f"sx.h.{i}", "histogram", ""), [])
+                for i in range(series)], np.int32)
+            hist.ensure_capacity(int(rows.max()))
+            hist.sample_many(np.repeat(rows, 4), vals_bulk.reshape(-1),
+                             np.ones(vals_bulk.size, np.float32))
+        _sync(dev)
+        rec["bulk_feed_s"] = time.perf_counter() - t0
+        # the refused clients first: nothing of theirs may count
+        if not (_refused(port) and _refused(port, "rogue")):
+            raise AssertionError("a client without a trusted certificate "
+                                 "kept its connection")
+        c_tls0 = _counts(tc)
+        conns = [_tls_client(port, "client") for _ in range(SX_TLS_CONNS)]
+        p0, t0 = store.processed, time.perf_counter()
+        for rnd in range(2):
+            threads = [threading.Thread(target=c.sendall, args=(data,))
+                       for c, data in zip(conns, traffic["rounds"][rnd])]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            _wait_processed(server, p0 + 2 * tls_series * (rnd + 1), 300)
+        rec["tls_s"] = time.perf_counter() - t0
+        rec["tls_lines_per_s"] = 4 * tls_series / rec["tls_s"]
+        for c in conns:
+            c.close()
+        rec["tls_launches"] = _delta(_counts(tc), c_tls0)
+        rec.update(tls_conns=reader.conns(),
+                   tls_handshake_failures=reader.handshake_failures(),
+                   tls_drops=reader.drops())
+        if (reader.handshake_failures() != 2
+                or reader.conns() - reader.handshake_failures()
+                != SX_TLS_CONNS or reader.drops()):
+            raise AssertionError(f"TLS connections: {rec}")
+        if store.processed != p0 + 4 * tls_series:
+            raise AssertionError("a refused client's line was counted")
+        # after the feed and the TLS traffic: the Falconer lane's gRPC call
+        # a span, beside the interning loop, slows both by contention
+        t_spans = time.perf_counter()
+        _send_spans(server.ssf_addrs[0], spans)
+
+        def ours(spans_seen):
+            return sum(1 for s in spans_seen
+                       if s.service.startswith(SX_SERVICE))
+
+        _poll(lambda: ours(falconer.spans) >= spans_n, 120,
+                  "the spans at the Falconer receiver")
+        rec["spans_in_s"] = time.perf_counter() - t_spans
+        c_flush = _counts(tc)
+        t0 = time.perf_counter()
+        server.flush()
+        col = recorder.flushes.get(timeout=600)
+        rec["flush_s"] = time.perf_counter() - t0
+        rec["flush_launches"] = _delta(_counts(tc), c_flush)
+        counts = _counts(tc)
+        rows_flushed = sum(len(b) for b in col.blocks) + len(col.extras)
+        # the sink's POSTs end before the flush returns unless its
+        # fan-out join gave up on them
+        _poll(lambda: _sfx_datapoints(sfx.bodies("/v2/datapoint"))
+                  >= rows_flushed, 120, "the SignalFx datapoints")
+        bodies = sfx.bodies("/v2/datapoint")
+        dps = _sfx_datapoints(bodies)
+        rec.update(sfx_bodies=len(bodies),
+                   sfx_body_bytes=sum(len(b) for b in bodies),
+                   sfx_datapoints=dps, rows_flushed=rows_flushed,
+                   sfx_telemetry={k: sum(v for kk, v in telemetry
+                                         if kk == k)
+                                  for k in ("marshal_s", "post_s")})
+        if dps != rows_flushed:
+            raise AssertionError(f"SignalFx counted {dps} datapoints, the "
+                                 f"flush has {rows_flushed} rows")
+        if any(b'"drop_me"' in b for b in bodies):
+            raise AssertionError("a datapoint carries drop_me")
+        _check_sfx_sample(col, bodies, cfg.hostname, rec)
+        _check_tls_rows(col, traffic["vals"], rec)
+        rec["indicator_timer_rows"] = sum(
+            int(np.array([x.startswith(SX_TIMER) for x in _arena(b.names)],
+                         bool)[b.rows].sum()) for b in col.blocks)
+        # every span at every span sink (the Datadog ring PUT by the span
+        # flush, LightStep's reporter within its 1 s cadence)
+        seen = {"falconer": sorted(s.id for s in falconer.spans
+                                   if s.service.startswith(SX_SERVICE))}
+
+        def agent_ids():
+            return sorted(s["span_id"] for b in agent.bodies("/v0.3/traces")
+                          for t in json.loads(b) for s in t
+                          if s["service"].startswith(SX_SERVICE))
+
+        def ls_ids():
+            return sorted(s["span_id"]
+                          for b in ls.bodies("/api/v2/reports")
+                          for s in json.loads(b)["spans"]
+                          if s["tags"]["component"].startswith(SX_SERVICE))
+
+        _poll(lambda: len(agent_ids()) >= spans_n
+                  and len(ls_ids()) >= spans_n, 60, "the span sinks")
+        seen.update(datadog=agent_ids(), lightstep=ls_ids())
+        want_ids = [1_000_000 + i for i in range(spans_n)]
+        rec["spans_at"] = {k: len(v) for k, v in seen.items()}
+        if any(v != want_ids for v in seen.values()):
+            raise AssertionError(f"spans at the sinks: {rec['spans_at']}")
+        if dev.type == "cuda" and not (
+                rec["tls_launches"].get("compress_presorted.launches", 0)
+                >= 1 and rec["flush_launches"].get(
+                    "drain_quantile.launches", 0) >= 1):
+            raise AssertionError(f"K2 on the TLS pump {rec['tls_launches']}"
+                                 f", K1 at the flush "
+                                 f"{rec['flush_launches']}")
+        del col, bodies
+    finally:
+        server.shutdown()
+        falconer.stop()
+        for r in (sfx, agent, ls):
+            r.close()
+    return rec, counts
+
+
+def _arena(arenas) -> list:
+    from veneur_tpu_torch.core.columnar import arena_strings
+
+    return arena_strings(arenas)
+
+
+def run_sinks_kafka(dev, series: int = KF_SERIES,
+                    counters: int = KF_COUNTERS, raws: int = KF_RAWS,
+                    spans_n: int = KF_SPANS) -> tuple:
+    """Leg (b): a port Server configured through the factory with the
+    Kafka metric sink (metric, check and event topics) and the Kafka
+    span sink (SSF protobuf), producing through the stdlib wire producer
+    into an in-process broker; ``series`` histogram series x 4 samples,
+    ``counters`` counters, ``raws`` events and service checks over
+    plain tcp:// (the C++ rung) and ``spans_n`` spans; one flush (K1).
+    Held: the metric topic holds every row of the flush, service
+    checks' status rows included, each message the row's JSON; the
+    check and event topics hold nothing (the sink produces every row to
+    the metric topic and ignores events, as the JAX package and the
+    reference do) while the flush carried the events; each span message
+    decodes to the span sent. Returns the record and the launch
+    counts."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.protocol import ssf
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.factory import create_sinks
+
+    broker = _FakeBroker()
+    cfg = Config(
+        statsd_listen_addresses=["tcp://127.0.0.1:0"],
+        ssf_listen_addresses=["udp://127.0.0.1:0"], native_ingest=True,
+        span_channel_capacity=4096, interval="86400s", percentiles=[0.99],
+        aggregates=["count"], hostname="kafka-host",
+        kafka_broker=f"127.0.0.1:{broker.port}", kafka_metric_topic="m",
+        kafka_check_topic="c", kafka_event_topic="e", kafka_span_topic="s",
+        kafka_metric_require_acks="local", kafka_span_require_acks="local")
+    sinks, span_sinks, _ = create_sinks(cfg)
+    if [s.name for s in sinks + span_sinks] != ["kafka", "kafka"]:
+        raise AssertionError("the factory built no Kafka sinks")
+    recorder = _ColumnarRecorder()
+    server = Server(cfg, metric_sinks=sinks + [recorder],
+                    span_sinks=span_sinks, device=dev)
+    server.start()
+    rec = {"histogram_series": series, "counters": counters,
+           "events": raws, "checks": raws, "spans": spans_n}
+    try:
+        if [r for _, r, _ in server.listeners] != ["native"]:
+            raise AssertionError(f"the TCP listener: {server.listeners}")
+        rng = np.random.default_rng(SEED + 197)
+        vals = np.round(rng.gamma(2.0, 10.0, (series, 4)) * 16.0) / 16.0
+        lines = [f"kf.h.{i}:{v:.4f}|h" for i in range(series)
+                 for v in vals[i]]
+        lines += [f"kf.c.{i}:{i + 1}|c|#k:v" for i in range(counters)]
+        lines += [f"_e{{4,{len(str(i))}}}:ev.{i % 10}|{i}|#k:e"
+                  for i in range(raws)]
+        lines += [f"_sc|kf.check.{i}|{i % 4}|m:m{i}" for i in range(raws)]
+        spans = _sx_spans(spans_n, SEED + 199)
+        _reset_counts(tc)
+        t0 = time.perf_counter()
+        with socket.create_connection(server.statsd_addrs[0], 30) as conn:
+            conn.sendall(("\n".join(lines) + "\n").encode())
+        # events go to the event worker, not the store
+        _wait_processed(server, len(lines) - raws, 300)
+        _send_spans(server.ssf_addrs[0], spans)
+        _poll(lambda: sum(1 for v in broker.topic("s")
+                              if ssf.decode_span(v).service.startswith(
+                                  SX_SERVICE)) >= spans_n, 120,
+                  "the span messages")
+        rec["ingest_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        server.flush()
+        col = recorder.flushes.get(timeout=600)
+        events = recorder.events.get(timeout=60)
+        rows = col.to_intermetrics()
+        _poll(lambda: len(broker.topic("m")) >= len(rows), 300,
+                  "the metric messages")
+        rec["flush_and_produce_s"] = time.perf_counter() - t0
+        counts = _counts(tc)
+        got = sorted(broker.topic("m"))
+        want = sorted(json.dumps({
+            "name": m.name, "timestamp": m.timestamp, "value": m.value,
+            "tags": m.tags, "type": m.type.value, "message": m.message,
+            "hostname": m.hostname}).encode() for m in rows)
+        mine = sorted((span.id, v) for v, span in (
+            (v, ssf.decode_span(v)) for v in broker.topic("s"))
+            if span.service.startswith(SX_SERVICE))
+        status = sum(1 for m in rows if m.type.value == "status")
+        rec.update(rows_flushed=len(rows), status_rows=status,
+                   events_flushed=len(events),
+                   messages={t: len(broker.topic(t))
+                             for t in ("m", "c", "e", "s")},
+                   produce_errors=sum(getattr(s, "flush_errors", 0)
+                                      for s in sinks),
+                   metrics_flushed=sinks[0].metrics_flushed)
+        if got != want or status != raws or len(events) != raws:
+            raise AssertionError(f"the metric topic differs from the rows: "
+                                 f"{rec}")
+        if broker.topic("c") or broker.topic("e"):
+            raise AssertionError("a message on the check or event topic")
+        if [m for _, m in mine] != spans or [i for i, _ in mine] != [
+                1_000_000 + i for i in range(spans_n)]:
+            raise AssertionError("the span messages differ from the spans")
+        if dev.type == "cuda" and counts.get(
+                "drain_quantile.launches", 0) < 1:
+            raise AssertionError(f"no K1 at the Kafka Server's flush: "
+                                 f"{counts}")
+    finally:
+        server.shutdown()
+        broker.close()
+    return rec, counts
+
+
+def phase_sinks(dev, card: str) -> dict:
+    """The remaining sinks and the TLS listener at full width (leg (a),
+    run_sinks_tls, then leg (b), run_sinks_kafka): one line. Returns the
+    launch counts of both legs."""
+    _peak_reset(dev)
+    t0 = time.perf_counter()
+    tls, counts = run_sinks_tls(dev)
+    gc.collect()
+    kafka, kcounts = run_sinks_kafka(dev)
+    emit({"phase": "sinks", "card": card, "tls_and_signalfx": tls,
+          "kafka": kafka, "phase_s": time.perf_counter() - t0,
+          "max_memory_allocated": _peak_bytes(dev)})
+    return _add_counts(counts, kcounts)
 
 
 def _late_capture(dev, seconds: float = 1.0) -> dict:
@@ -8780,7 +9491,8 @@ def _kernel_rows(kern: dict, launches: dict) -> list:
 
 PHASES = ("store", "server", "ingest", "ssf", "heavy_hitters", "overload",
           "global_merge", "native_merge", "grpc_proxy", "fleet_trace",
-          "fleet_ha", "mesh", "server_global", "checkpoint", "capacity")
+          "sinks", "fleet_ha", "mesh", "server_global", "checkpoint",
+          "capacity")
 
 
 def main() -> int:
@@ -8847,6 +9559,7 @@ def main() -> int:
             "native_merge": lambda: phase_native_merge(dev, card),
             "grpc_proxy": lambda: phase_grpc_proxy(dev, card),
             "fleet_trace": lambda: phase_fleet_trace(dev, card),
+            "sinks": lambda: phase_sinks(dev, card),
             "fleet_ha": lambda: phase_fleet_ha(dev, card),
             "mesh": lambda: phase_mesh(dev, card),
             "server_global": lambda: phase_server_global(dev, card),

@@ -113,7 +113,7 @@ def _cfg(tmp, **kw):
 
 def _port_server(tmp, extra_sinks=(), **kw):
     cfg = Config(**_cfg(tmp, **kw))
-    sinks, plugins = cli.config_sinks(cfg)
+    sinks, _, plugins = cli.config_sinks(cfg)
     dd = sinks[0]
     dd.post = Recorder()
     server = Server(cfg, metric_sinks=[dd, *extra_sinks], plugins=plugins,
@@ -439,12 +439,18 @@ def test_config_keys_of_this_slice():
             JConfig(**bad).validate()
         with pytest.raises(ValueError, match=next(iter(bad))):
             Config(**bad)
-    with pytest.raises(UnsupportedConfig, match="datadog_trace_api_address"):
-        config_from_dict({"datadog_trace_api_address": "http://x:8126"})
+    # the span sink's key loads to the JAX package's value; a key neither
+    # package knows is refused
+    assert config_from_dict({"datadog_trace_api_address": "http://x:8126"}) \
+        .datadog_trace_api_address == JConfig(
+            datadog_trace_api_address="http://x:8126") \
+        .datadog_trace_api_address
+    with pytest.raises(UnsupportedConfig, match="datadog_bogus_address"):
+        config_from_dict({"datadog_bogus_address": "http://x:8126"})
     # the CLI's factory: a Datadog sink iff both keys are set, the plugin
     # iff flush_file is
-    assert cli.config_sinks(Config(hostname="h")) == ([], [])
-    sinks, plugins = cli.config_sinks(Config(
+    assert cli.config_sinks(Config(hostname="h")) == ([], [], [])
+    sinks, _, plugins = cli.config_sinks(Config(
         hostname="h", datadog_api_key="k", datadog_api_hostname="http://dd/",
         flush_file="/dev/null"))
     assert [s.name for s in sinks] == ["datadog"]
@@ -475,7 +481,7 @@ def test_default_config_streams_through_a_real_http_sink(tmp_path):
         cfg = Config(**_cfg(
             tmp_path, datadog_api_hostname=(
                 f"http://127.0.0.1:{httpd.server_address[1]}")))
-        sinks, plugins = cli.config_sinks(cfg)
+        sinks, _, plugins = cli.config_sinks(cfg)
         server = Server(cfg, metric_sinks=sinks, plugins=plugins,
                         device="cpu")
         _feed(server)

@@ -954,8 +954,9 @@ from veneur_tpu_torch.config import read_config
 from veneur_tpu_torch.server import Server
 
 cfg = read_config(sys.argv[1])
-sinks, plugins = config_sinks(cfg)
-srv = Server(cfg, metric_sinks=sinks, plugins=plugins, device="cpu")
+sinks, span_sinks, plugins = config_sinks(cfg)
+srv = Server(cfg, metric_sinks=sinks, span_sinks=span_sinks,
+             plugins=plugins, device="cpu")
 done = threading.Event()
 signal.signal(signal.SIGTERM, lambda s, f: done.set())
 srv.start()

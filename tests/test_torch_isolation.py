@@ -190,6 +190,19 @@ def test_fleet_trace_modules_are_covered():
             "veneur_tpu_torch.crash"} <= set(_modules())
 
 
+def test_sink_and_listener_modules_are_covered():
+    """The remaining sinks, the S3 plugin and the sink factory are scanned
+    and imported too; the TCP/TLS listener lives in the modules covered
+    above (networking, native, server)."""
+    assert {"veneur_tpu_torch.sinks.signalfx", "veneur_tpu_torch.sinks.kafka",
+            "veneur_tpu_torch.sinks.kafka_wire",
+            "veneur_tpu_torch.sinks.lightstep",
+            "veneur_tpu_torch.sinks.grpsink",
+            "veneur_tpu_torch.sinks.falconer",
+            "veneur_tpu_torch.sinks.factory",
+            "veneur_tpu_torch.plugins.s3"} <= set(_modules())
+
+
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"

@@ -537,9 +537,10 @@ def test_proxy_config_loads_and_refuses_unported():
                  "breaker_reset_timeout", "forward_timeout_seconds",
                  "breaker_reset_timeout_seconds"):
         assert getattr(t, name) == getattr(j, name), name
+    # accepted and not read, as the JAX package's proxy does
     for key in ("trace_api_address", "ssf_destination_address"):
-        with pytest.raises(UnsupportedConfig, match=key):
-            proxy_config_from_dict({key: "x:1"})
+        assert getattr(proxy_config_from_dict({key: "x:1"}), key) == \
+            getattr(JProxyConfig(**{key: "x:1"}).finalize(), key) == "x:1"
     # accepted and not read, as the JAX package's proxy does
     loaded = proxy_config_from_dict({
         "stats_address": "x:1", "sentry_dsn": "https://k@h/1",

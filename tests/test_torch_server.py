@@ -19,6 +19,7 @@ import time
 import numpy as np
 import pytest
 
+from veneur_tpu.config import Config as JConfig
 from veneur_tpu.core import store as jstore
 from veneur_tpu.samplers import parser as jparser
 from veneur_tpu.samplers.intermetric import HistogramAggregates as JAggs
@@ -170,10 +171,17 @@ def test_config_is_loud_about_unported_keys(tmp_path):
             config_from_dict(dict(data, forward_address="http://g:1"))
     with pytest.raises(UnsupportedConfig, match="ssf_listen_addresses"):
         config_from_dict({"ssf_listen_addresses": ["http://127.0.0.1:1"]})
-    with pytest.raises(UnsupportedConfig, match="debug_ingested_spans"):
-        config_from_dict({"debug_ingested_spans": True})
+    # these keys load to the JAX package's values; a statsd scheme
+    # neither package listens on is refused
+    jcfg = JConfig(debug_ingested_spans=True,
+                   statsd_listen_addresses=["tcp://127.0.0.1:1"])
+    jcfg.apply_defaults()
+    cfg = config_from_dict({"debug_ingested_spans": True,
+                            "statsd_listen_addresses": ["tcp://127.0.0.1:1"]})
+    assert (cfg.debug_ingested_spans, cfg.statsd_listen_addresses) == (
+        jcfg.debug_ingested_spans, jcfg.statsd_listen_addresses)
     with pytest.raises(UnsupportedConfig, match="udp"):
-        config_from_dict({"statsd_listen_addresses": ["tcp://127.0.0.1:1"]})
+        config_from_dict({"statsd_listen_addresses": ["unix:///tmp/s"]})
     # switched-off keys pass
     cfg = config_from_dict({"digest_storage": "dense", "grpc_address": "",
                             "mesh_enabled": False, "interval": "250ms",
@@ -186,6 +194,8 @@ def test_config_is_loud_about_unported_keys(tmp_path):
     cfg = read_config(str(path))
     assert cfg.tdigest_compression == 50 and cfg.interval_seconds == 1.0
     path.write_text("datadog_span_buffer_size: 16\n")
+    assert read_config(str(path)).datadog_span_buffer_size == 16
+    path.write_text("datadog_span_buffer_sizes: 16\n")
     with pytest.raises(UnsupportedConfig):
         read_config(str(path))
     assert cli.main(["-f", str(path)]) == 1

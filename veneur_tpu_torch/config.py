@@ -1,13 +1,15 @@
-"""Configuration of the port's server and proxy: the keys it implements.
+"""Configuration of the port's server and proxy.
 
 A YAML file (the veneur key names) maps onto :class:`Config`, and a
-proxy's onto :class:`ProxyConfig` (:func:`read_proxy_config`). A key this
-port does not implement yet raises :class:`UnsupportedConfig` instead of
-being ignored, unless its value is empty or off (``""``, ``[]``,
+proxy's onto :class:`ProxyConfig` (:func:`read_proxy_config`). Both hold
+every key of the JAX package's, with its defaults and deprecations
+(``example.yaml`` loads field for field equal); a key neither knows
+raises :class:`UnsupportedConfig` instead of being ignored (the JAX
+package warns), unless its value is empty or off (``""``, ``[]``,
 ``false``, ``null``). PyYAML is imported only inside the readers: code
 that builds its config directly never needs it. The gRPC keys
-(``forward_use_grpc``, ``grpc_address``, a proxy's
-``grpc_forward_address``) need grpcio: without it they raise
+(``forward_use_grpc``, ``grpc_address``, ``falconer_address``, a
+proxy's ``grpc_forward_address``) need grpcio: without it they raise
 :class:`UnsupportedConfig`, never a quiet fall back to HTTP.
 """
 
@@ -18,7 +20,7 @@ import logging
 import re
 import socket
 from dataclasses import dataclass, field
-from typing import List
+from typing import Dict, List
 
 from veneur_tpu_torch import overload
 from veneur_tpu_torch.resilience import compute, faults
@@ -30,8 +32,14 @@ class UnsupportedConfig(ValueError):
 
 
 _BREAKER_THRESHOLD_DEFAULT = 5
-_SSF_SCHEMES = tuple(f"{s}://" for s in ("udp", "udp4", "udp6", "tcp",
-                                          "tcp4", "tcp6", "unix"))
+_STATSD_SCHEMES = tuple(f"{s}://" for s in ("udp", "udp4", "udp6", "tcp",
+                                             "tcp4", "tcp6"))
+_SSF_SCHEMES = _STATSD_SCHEMES + ("unix://",)
+# the deprecated LightStep spellings and the keys they fill
+_LIGHTSTEP_RENAMES = tuple(
+    (f"trace_lightstep_{k}", f"lightstep_{k}")
+    for k in ("access_token", "collector_host", "maximum_spans",
+              "num_clients", "reconnect_period"))
 
 
 def require_grpc(key: str) -> None:
@@ -302,6 +310,79 @@ class Config:
     sentry_dsn: str = ""
     # cProfile from start to shutdown, written to veneur-profile.pstats
     enable_profiling: bool = False
+    # Go-runtime profile knobs: accepted for the reference's files and
+    # refused when set (nothing here would read them)
+    block_profile_rate: int = 0
+    mutex_profile_fraction: int = 0
+    # the reference's worker count (0 = 1); the store has no workers
+    num_workers: int = 0
+    # a tcp:// statsd listener serves TLS with both of these set, and
+    # requires a client certificate signed by the authority when it is
+    # set (the C++ listener with native_ingest, else the Python one)
+    tls_certificate: str = ""
+    tls_key: str = ""
+    tls_authority_certificate: str = ""
+    # tag keys the SignalFx sink drops from every datapoint
+    tags_exclude: List[str] = field(default_factory=list)
+    # a debug span sink printing each span
+    debug_ingested_spans: bool = False
+    # the SignalFx metric sink (sinks/signalfx.py): built when the key
+    # and the endpoint are set; the host's dimension name ("" = host),
+    # and a tag whose value picks a per-tag API key ({name, api_key}
+    # maps)
+    signalfx_api_key: str = ""
+    signalfx_endpoint_base: str = ""
+    signalfx_hostname_tag: str = ""
+    signalfx_vary_key_by: str = ""
+    signalfx_per_tag_api_keys: List[Dict[str, str]] = field(
+        default_factory=list)
+    # the Datadog span sink: the trace agent's address and the ring of
+    # spans it keeps between flushes (0 = 16,384)
+    datadog_trace_api_address: str = ""
+    datadog_span_buffer_size: int = 0
+    # deprecated spelling of datadog_span_buffer_size
+    ssf_buffer_size: int = 0
+    # the Kafka sinks (sinks/kafka.py, over sinks/kafka_wire.py): a
+    # metric sink with kafka_metric_topic, a span sink with
+    # kafka_span_topic; acks all|none|local, the hash|random partitioner
+    kafka_broker: str = ""
+    kafka_metric_topic: str = ""
+    kafka_check_topic: str = ""
+    kafka_event_topic: str = ""
+    kafka_span_topic: str = ""
+    kafka_partitioner: str = ""
+    kafka_metric_require_acks: str = ""
+    kafka_span_require_acks: str = ""
+    kafka_retry_max: int = 0
+    kafka_metric_buffer_bytes: int = 0
+    kafka_metric_buffer_messages: int = 0
+    kafka_metric_buffer_frequency: str = ""
+    kafka_span_buffer_bytes: int = 0
+    kafka_span_buffer_mesages: int = 0  # (sic: the reference's key)
+    kafka_span_buffer_frequency: str = ""
+    kafka_span_sample_rate_percent: int = 0
+    kafka_span_sample_tag: str = ""
+    kafka_span_serialization_format: str = ""
+    # the LightStep span sink (sinks/lightstep.py)
+    lightstep_access_token: str = ""
+    lightstep_collector_host: str = ""
+    lightstep_maximum_spans: int = 0
+    lightstep_num_clients: int = 0
+    lightstep_reconnect_period: str = ""
+    # deprecated spellings of the lightstep_* keys
+    trace_lightstep_access_token: str = ""
+    trace_lightstep_collector_host: str = ""
+    trace_lightstep_maximum_spans: int = 0
+    trace_lightstep_num_clients: int = 0
+    trace_lightstep_reconnect_period: str = ""
+    # the Falconer span sink: a gRPC SpanSink service's host:port
+    falconer_address: str = ""
+    # the S3 archive plugin (plugins/s3.py): built with the bucket; it
+    # stays off without an S3 client (boto3)
+    aws_access_key_id: str = ""
+    aws_secret_access_key: str = ""
+    aws_region: str = ""
+    aws_s3_bucket: str = ""
 
     def __post_init__(self):
         if not self.aggregates:
@@ -309,13 +390,20 @@ class Config:
         if not self.hostname and not self.omit_empty_hostname:
             self.hostname = socket.gethostname()
         for spec in self.statsd_listen_addresses:
-            if not spec.startswith(("udp://", "udp4://", "udp6://")):
+            if not spec.startswith(_STATSD_SCHEMES):
                 raise UnsupportedConfig(
                     f"statsd_listen_addresses: {spec!r} is not a udp:// "
-                    "address; TCP and UNIX listeners are not ported yet")
-        if self.forward_use_grpc or self.grpc_address:
-            require_grpc("forward_use_grpc" if self.forward_use_grpc
-                         else "grpc_address")
+                    "or tcp:// address")
+        for key in ("forward_use_grpc", "grpc_address", "falconer_address"):
+            if getattr(self, key):
+                require_grpc(key)
+        for key in ("block_profile_rate", "mutex_profile_fraction"):
+            if getattr(self, key):
+                raise ValueError(
+                    f"{key} is a Go-runtime profile knob with no "
+                    f"equivalent here; remove it (enable_profiling drives "
+                    f"the Python profiler)")
+        self._apply_sink_defaults()
         for spec in self.ssf_listen_addresses:
             if not spec.startswith(_SSF_SCHEMES):
                 raise UnsupportedConfig(
@@ -471,6 +559,28 @@ class Config:
             parse_duration(self.checkpoint_interval)
         self._check_fleet_keys()
 
+    def _apply_sink_defaults(self):
+        """The sink keys' deprecation shims and defaults (the JAX
+        ``apply_defaults``), and their durations checked."""
+        if self.ssf_buffer_size:
+            log.warning("ssf_buffer_size has been replaced by "
+                        "datadog_span_buffer_size and will be removed")
+            if not self.datadog_span_buffer_size:
+                self.datadog_span_buffer_size = self.ssf_buffer_size
+        for old, new in _LIGHTSTEP_RENAMES:
+            if getattr(self, old):
+                log.warning("%s has been replaced by %s and will be "
+                            "removed", old, new)
+                if not getattr(self, new):
+                    setattr(self, new, getattr(self, old))
+        self.datadog_span_buffer_size = self.datadog_span_buffer_size or 16384
+        self.num_workers = self.num_workers or 1
+        for name in ("lightstep_reconnect_period",
+                     "kafka_metric_buffer_frequency",
+                     "kafka_span_buffer_frequency"):
+            if getattr(self, name):
+                parse_duration(getattr(self, name))  # malformed raises
+
     def _check_fleet_keys(self):
         """The handoff, standby and lease keys (JAX ``config.py``
         ``validate``): a global only, each with what it needs."""
@@ -611,15 +721,14 @@ def parse_duration(s: str) -> float:
 
 def config_from_dict(data: dict) -> Config:
     """Config from a parsed mapping; raises UnsupportedConfig on any key
-    this port does not implement (switched-off values excepted)."""
+    :class:`Config` does not have (switched-off values excepted)."""
     known = {f.name for f in dataclasses.fields(Config)}
     unsupported = sorted(
         k for k, v in data.items()
         if k not in known and v not in _OFF_VALUES)
     if unsupported:
         raise UnsupportedConfig(
-            f"configuration keys not implemented by veneur_tpu_torch yet: "
-            f"{unsupported} (run veneur_tpu for these)")
+            f"unknown configuration keys: {unsupported}")
     return Config(**{k: v for k, v in data.items()
                      if k in known and v is not None})
 
@@ -655,7 +764,7 @@ class ProxyConfig:
     # the cadence of the proxy's own runtime metrics (accepted, not
     # read, as stats_address)
     runtime_metrics_interval: str = ""
-    # accepted and not read, as in the JAX package's proxy
+    # accepted and not read, as in the JAX package's proxy (these four)
     sentry_dsn: str = ""
     ssf_destination_address: str = ""
     stats_address: str = ""
@@ -677,11 +786,6 @@ class ProxyConfig:
     def finalize(self) -> "ProxyConfig":
         """Refuse what the port does not implement, fill the defaults and
         check the durations; idempotent."""
-        for key in ("ssf_destination_address", "trace_api_address"):
-            if getattr(self, key) not in _OFF_VALUES:
-                raise UnsupportedConfig(
-                    f"proxy key {key} is not implemented by "
-                    f"veneur_tpu_torch yet (run veneur_tpu for it)")
         if self.grpc_forward_address:
             require_grpc("grpc_forward_address")
         if self.breaker_failure_threshold < 0:
@@ -731,8 +835,7 @@ def proxy_config_from_dict(data: dict) -> ProxyConfig:
         if k not in known and v not in _OFF_VALUES)
     if unsupported:
         raise UnsupportedConfig(
-            f"proxy configuration keys not implemented by veneur_tpu_torch "
-            f"yet: {unsupported} (run veneur_tpu for these)")
+            f"unknown proxy configuration keys: {unsupported}")
     return ProxyConfig(**{k: v for k, v in data.items()
                           if k in known and v is not None}).finalize()
 

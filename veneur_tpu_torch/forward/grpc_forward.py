@@ -42,7 +42,6 @@ from veneur_tpu_torch.trace import samples as ssf_samples
 log = logging.getLogger("veneur.forward.grpc")
 
 SERVICE = "forwardrpc.Forward"
-METHOD = f"/{SERVICE}/SendMetrics"
 # forward messages scale with active-series cardinality: 256 MiB covers
 # ~2.5M digests an interval a local before chunking is needed
 MAX_MESSAGE = 256 * 1024 * 1024
@@ -59,27 +58,31 @@ def _raw(data: bytes) -> bytes:
     return data
 
 
-def dial(addr: str):
+def dial(addr: str, service: str = SERVICE, method: str = "SendMetrics"):
     """A channel to ``addr`` (``host:port``; a ``scheme://`` prefix is
-    dropped) and its raw-bytes ``SendMetrics`` callable."""
+    dropped) and its raw-bytes callable of ``/service/method``
+    (``Forward.SendMetrics`` by default)."""
     import grpc
 
     channel = grpc.insecure_channel(addr.split("://", 1)[-1],
                                     options=list(CHANNEL_OPTIONS))
-    send = channel.unary_unary(METHOD, request_serializer=_raw,
+    send = channel.unary_unary(f"/{service}/{method}",
+                               request_serializer=_raw,
                                response_deserializer=_raw)
     return channel, send
 
 
-def serve(handler, workers: int):
-    """A grpc server whose ``SendMetrics`` calls ``handler(request bytes,
-    context)`` and answers the bytes it returns."""
+def serve(handler, workers: int, service: str = SERVICE,
+          method: str = "SendMetrics"):
+    """A grpc server whose ``/service/method`` (``Forward.SendMetrics``
+    by default) calls ``handler(request bytes, context)`` and answers the
+    bytes it returns."""
     import grpc
 
     server = grpc.server(futures.ThreadPoolExecutor(max_workers=workers),
                          options=list(CHANNEL_OPTIONS))
     server.add_generic_rpc_handlers((grpc.method_handlers_generic_handler(
-        SERVICE, {"SendMetrics": grpc.unary_unary_rpc_method_handler(
+        service, {method: grpc.unary_unary_rpc_method_handler(
             handler, request_deserializer=_raw,
             response_serializer=_raw)}),))
     return server

@@ -33,16 +33,18 @@ log = logging.getLogger("veneur.forward.http")
 def post_helper(url: str, payload, timeout: float = 10.0,
                 compress: bool = True, headers: dict = None,
                 method: str = "POST", precompressed: bool = False,
-                out_info: dict = None) -> int:
+                out_info: dict = None, raw_body: bytes = None) -> int:
     """Send a JSON payload, deflated unless ``compress`` is False
     (http/http.go:123-247), with ``headers`` beside the content ones;
     ``precompressed`` sends ``payload`` bytes as an already-deflated JSON
-    body (the native serializer's output). Returns the HTTP status
-    (including non-2xx); raises only on transport errors. ``out_info``
-    (if given) receives ``content_length``, the size of the body as
-    sent."""
+    body, ``raw_body`` bytes as an uncompressed one (the native
+    serializers' outputs). Returns the HTTP status (including non-2xx);
+    raises only on transport errors. ``out_info`` (if given) receives
+    ``content_length``, the size of the body as sent."""
     hdrs = {"Content-Type": "application/json"}
-    if precompressed:
+    if raw_body is not None:
+        body = raw_body
+    elif precompressed:
         body = payload
         hdrs["Content-Encoding"] = "deflate"
     else:

@@ -1,10 +1,8 @@
 """ctypes bindings for the native (C++) DogStatsD and SSF ingest library.
 
-Port of the statsd and SSF halves of ``veneur_tpu/native/__init__.py``.
-``veneur_ingest.cpp`` beside this file is a byte-for-byte copy of the
-JAX package's source; its TLS (``vt_tls_*``) half compiles into the
-library but is not bound here yet. At first use the
-source builds with g++ into ``build/native/libveneur_ingest-<hash>.so``
+Port of ``veneur_tpu/native/__init__.py``. ``veneur_ingest.cpp`` beside
+this file is a byte-for-byte copy of the JAX package's source. At first
+use the source builds with g++ into ``build/native/libveneur_ingest-<hash>.so``
 at the repository root, the hash covering the source and the flags, so
 an edited source never loads a stale build; nothing is written beside
 the source. Exposes:
@@ -16,6 +14,10 @@ the source. Exposes:
 - :class:`NativeUDPReader`: the SO_REUSEPORT reader pool, N sockets
   drained with recvmmsg on C++ threads, handing Python parsed batches
   through double-buffer swaps;
+- ``tls_available()`` and :class:`NativeTLSReader`: the TCP/TLS statsd
+  listener, whose accept, handshake (the runtime's libssl, loaded with
+  ``dlopen``), newline framing and parse run on C++ threads, handing
+  parsed batches over through the same swap as the UDP pool;
 - ``decode_spans(datagrams)`` and :class:`NativeSSFReader`: SSFSpan
   datagrams decoded in C++ (the reader pool's threads, off the GIL) into
   a :class:`SpanBatch`: span headers, the embedded samples as an
@@ -234,6 +236,20 @@ def _bind(lib):
     lib.vs_reader_drops.restype = ctypes.c_uint64
     lib.vs_reader_drops.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.vs_reader_stop.argtypes = [ctypes.c_void_p]
+    lib.vt_tls_available.restype = ctypes.c_int
+    lib.vt_tls_available.argtypes = []
+    lib.vt_tls_server_start.restype = ctypes.c_void_p
+    lib.vt_tls_server_start.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_char_p,
+        ctypes.c_char_p, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int]
+    lib.vt_tls_server_port.restype = ctypes.c_int
+    lib.vt_tls_server_port.argtypes = [ctypes.c_void_p]
+    lib.vt_tls_server_swap.restype = ctypes.POINTER(_VtBatch)
+    lib.vt_tls_server_swap.argtypes = [ctypes.c_void_p]
+    for fn in ("conns", "handshake_failures", "drops"):
+        getattr(lib, f"vt_tls_server_{fn}").restype = ctypes.c_uint64
+        getattr(lib, f"vt_tls_server_{fn}").argtypes = [ctypes.c_void_p]
+    lib.vt_tls_server_stop.argtypes = [ctypes.c_void_p]
     return lib
 
 
@@ -405,6 +421,77 @@ class NativeUDPReader:
         """Abandon the pool WITHOUT freeing it (disarms stop() and the
         finalizer): for a shutdown where a pump thread may still read its
         batches, a bounded leak at exit beats a use-after-free."""
+        self._handle = None
+
+    def __del__(self):
+        try:
+            self.stop()
+        except Exception:
+            pass
+
+
+def tls_available() -> bool:
+    """True when the library loaded and found the runtime's libssl
+    (``libssl.so.3`` or ``.so.1.1``, loaded with ``dlopen``: no OpenSSL
+    headers at build time)."""
+    lib = _load()
+    return bool(lib is not None and lib.vt_tls_available())
+
+
+class NativeTLSReader:
+    """The C++ TCP/TLS statsd listener (one IPv4 address): accept, the
+    handshake, newline framing and the DogStatsD parse run off the GIL,
+    on a thread a connection; ``drain()`` swaps its parsed batch as
+    :class:`NativeUDPReader` does. An empty ``cert_path`` serves plain
+    TCP; ``ca_path`` requires a client certificate signed by it (as
+    ``networking.make_server_tls_context`` does). A line longer than
+    ``max_line`` closes its connection; a handshake that fails or takes
+    over 10 s counts in :meth:`handshake_failures`."""
+
+    BATCH_RECORDS = NativeUDPReader.BATCH_RECORDS
+    BATCH_ARENA = NativeUDPReader.BATCH_ARENA
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 cert_path: str = "", key_path: str = "",
+                 ca_path: str = "", max_line: int = 4096):
+        lib = _require()
+        if cert_path and not lib.vt_tls_available():
+            raise RuntimeError("the runtime's libssl did not load")
+        self._lib = lib
+        self._handle = lib.vt_tls_server_start(
+            host.encode(), port, cert_path.encode(), key_path.encode(),
+            ca_path.encode(), self.BATCH_RECORDS, self.BATCH_ARENA,
+            max_line)
+        if not self._handle:
+            raise OSError(f"could not start the native TCP/TLS listener "
+                          f"on {host}:{port}")
+        self.port = lib.vt_tls_server_port(self._handle)
+        self.num_readers = 1
+
+    def drain(self) -> List[ParsedBatch]:
+        b = self._lib.vt_tls_server_swap(self._handle)
+        if b.contents.count or b.contents.parse_errors:
+            return [ParsedBatch(b.contents)]
+        return []
+
+    def conns(self) -> int:
+        """Connections accepted, ever."""
+        return self._lib.vt_tls_server_conns(self._handle)
+
+    def handshake_failures(self) -> int:
+        return self._lib.vt_tls_server_handshake_failures(self._handle)
+
+    def drops(self) -> int:
+        """Reads whose lines found the batch full and were dropped."""
+        return self._lib.vt_tls_server_drops(self._handle)
+
+    def stop(self) -> None:
+        if self._handle:
+            self._lib.vt_tls_server_stop(self._handle)
+            self._handle = None
+
+    def leak(self) -> None:
+        """See :meth:`NativeUDPReader.leak`."""
         self._handle = None
 
     def __del__(self):

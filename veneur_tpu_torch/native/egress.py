@@ -10,6 +10,9 @@ Exposes:
 - ``dd_series_bodies``: one columnar emission block -> Datadog
   ``/api/v1/series`` JSON bodies, deflated in C++ (the vectorized
   finalize and serialize of ``sinks/datadog/datadog.go:245-330``);
+- ``sfx_datapoint_bodies``: one block -> a SignalFx ``/v2/datapoint``
+  JSON body, uncompressed (the vectorized ``SignalFxSink._dimensions``
+  and serialize of ``sinks/signalfx/signalfx.go:150-225``);
 - ``tsv_rows``: one block -> the archival TSV rows of the local-file
   plugin (``plugins/csv_encode.py`` column order);
 - ``decode_metric_list`` / ``MListInternTable``: forwardrpc.MetricList
@@ -132,6 +135,19 @@ def _bind(lib):
         ctypes.c_uint32, ctypes.c_int,          # max_per_body, level
     ]
     lib.vt_bodies_free.argtypes = [ctypes.POINTER(_VtBodies)]
+    lib.vt_sfx_datapoints_json.restype = ctypes.POINTER(_VtBodies)
+    lib.vt_sfx_datapoints_json.argtypes = [
+        ctypes.c_char_p, u32p, u32p,            # names
+        ctypes.c_char_p, u32p, u32p,            # tags
+        ctypes.c_uint32,                        # nrows
+        ctypes.c_char_p, u32p, u32p, ctypes.c_uint32,  # suffixes
+        u32p, u8p, f64p, u8p, ctypes.c_uint64,  # emissions
+        ctypes.c_int64,                         # timestamp ms
+        ctypes.c_char_p, ctypes.c_char_p,       # hostname tag, hostname
+        ctypes.c_char_p,                        # common dims json
+        ctypes.c_char_p, u32p, u32p, ctypes.c_uint32,  # common keys
+        ctypes.c_char_p, u32p, u32p, ctypes.c_uint32,  # excluded keys
+    ]
     lib.vt_tsv_rows.restype = ctypes.POINTER(_VtBodies)
     lib.vt_tsv_rows.argtypes = [
         ctypes.c_char_p, u32p, u32p,            # names
@@ -287,6 +303,37 @@ def dd_series_bodies(names: Arenas, tags: Arenas, suffixes: List[bytes],
     bp = lib.vt_dd_series_json(
         *args, timestamp, interval, default_host.encode("utf-8"),
         common_tags_json, max_per_body, compress_level)
+    del keep
+    return _take_bodies(lib, bp)
+
+
+def sfx_datapoint_bodies(names: Arenas, tags: Arenas,
+                         suffixes: List[bytes], em_rows: np.ndarray,
+                         em_suffix: np.ndarray, em_values: np.ndarray,
+                         em_type: np.ndarray, timestamp_ms: int,
+                         hostname_tag: str, hostname: str,
+                         common_dims_json: bytes = b"",
+                         common_keys: Optional[List[bytes]] = None,
+                         excluded_keys: Optional[List[bytes]] = None
+                         ) -> List[bytes]:
+    """Serialize one columnar emission block into a SignalFx
+    ``/v2/datapoint`` body (``{"gauge": [...], "counter": [...]}``,
+    uncompressed). Each tag becomes a dimension, the host one too (under
+    ``hostname_tag``; "" leaves it out); ``common_dims_json`` is the
+    escaped ``"k":"v",...`` fragment of the common dimensions, whose
+    keys (``common_keys``) override a tag's; ``excluded_keys`` drop."""
+    lib = load()
+    args, keep = _block_args(names, tags, suffixes, em_rows, em_suffix,
+                             em_values, em_type)
+    ck_blob, ck_off, ck_len = _key_list(common_keys or [])
+    ex_blob, ex_off, ex_len = _key_list(excluded_keys or [])
+    u32 = ctypes.c_uint32
+    bp = lib.vt_sfx_datapoints_json(
+        *args, timestamp_ms, hostname_tag.encode("utf-8"),
+        hostname.encode("utf-8"), common_dims_json,
+        ck_blob, _p(ck_off, u32), _p(ck_len, u32), len(common_keys or ()),
+        ex_blob, _p(ex_off, u32), _p(ex_len, u32),
+        len(excluded_keys or ()))
     del keep
     return _take_bodies(lib, bp)
 

@@ -3,8 +3,8 @@
 Port of ``veneur_tpu/plugins/__init__.py``. Plugins receive the whole
 flush after the metric sinks (flusher.go:95-109) and archive it: as
 per-row ``InterMetric``s through ``flush``, or as columns through
-``flush_columnar`` where a plugin has it. The local-file plugin is
-ported; the S3 plugin is not.
+``flush_columnar`` where a plugin has it: the local-file plugin
+(``localfile.py``) and the S3 one (``s3.py``).
 """
 
 from __future__ import annotations

@@ -10,7 +10,13 @@ Each statsd ``udp://`` listener takes the first rung of the reference's
 ladder that comes up: the ingest-lane fleet (``ingest/``, the default),
 then, with ``ingest_lanes: -1``, the C++ reader pool feeding
 ``MetricStore.process_batch``, then, with ``native_ingest: false`` too
-(or without a compiler), the Python readers and the per-line parser.
+(or without a compiler), the Python readers and the per-line parser. A
+``tcp://`` listener (TLS with ``tls_certificate`` and ``tls_key``,
+client certificates required with ``tls_authority_certificate``) takes
+the C++ listener (``native.NativeTLSReader``, pumped into
+``process_batch``) with ``native_ingest`` on an IPv4 address when the
+library and, for TLS, the runtime's libssl load; else the Python one
+(``networking.start_statsd``). ``listeners`` names each rung.
 Event and service-check lines (the native rungs hand them back raw) go
 through :meth:`Server.handle_metric_packet`: events collect in the
 :class:`EventWorker` until the flush hands them to every metric sink's
@@ -40,8 +46,9 @@ joined tags at ``max_tag_length`` on every path.
 Each flush (``flusher.py``) is columnar, pipelined and streaming by
 default (``flush_columnar``, ``flush_pipeline_depth``,
 ``flush_streaming``): the metric sinks, then the ``plugins``, get the
-store's rows; ``cli/server.py`` builds the Datadog sink and the
-local-file plugin from the config.
+store's rows; ``sinks/factory.py`` ``create_sinks`` builds the
+configured sinks, span sinks and plugins (``cli/server.py`` calls it).
+The span sinks given run beside the metric-extraction sink.
 
 Crash-safe state: with ``checkpoint_path`` set a background thread
 checkpoints the store every ``checkpoint_interval`` (``persist/``);
@@ -312,6 +319,7 @@ class Server:
         self.interval = config.interval_seconds
         self.hostname = config.hostname
         self.tags = list(config.tags)
+        self.tags_exclude = set(config.tags_exclude)
         self.histogram_percentiles = list(config.percentiles)
         self.histogram_aggregates = HistogramAggregates.from_names(
             config.aggregates)
@@ -486,6 +494,12 @@ class Server:
         self._sentry: Optional[crash.SentryReporter] = None
         self._guard = lambda fn: fn
         self._profiler = None
+        # the Python TCP rung's TLS context; a bad certificate raises here
+        self._tls_context = None
+        if config.tls_certificate and config.tls_key:
+            self._tls_context = networking.make_server_tls_context(
+                config.tls_certificate, config.tls_key,
+                config.tls_authority_certificate)
 
     @staticmethod
     def _build_fleet_watcher(config: Config):
@@ -728,12 +742,16 @@ class Server:
         if self.forward_fn is None:
             self.forwarder = configure_forwarding(self)
         for spec in cfg.statsd_listen_addresses:
-            if self._try_ingest_lanes(spec) or self._try_native_statsd(spec):
+            if (self._try_ingest_lanes(spec) or self._try_native_statsd(spec)
+                    or self._try_native_tcp(spec)):
                 continue
             threads, bound = networking.start_statsd(
                 spec, cfg.num_readers, cfg.read_buffer_size_bytes,
                 cfg.metric_max_length, self.handle_packet, self._stop,
-                admit=lambda: self.overload.admit_packet("statsd"))
+                admit=lambda: self.overload.admit_packet("statsd"),
+                handle_tcp_line=self.handle_metric_packet,
+                tls_config=self._tls_context,
+                error_log_interval=self.interval)
             self._threads.extend(threads)
             self.statsd_addrs.extend(bound)
             self.listeners.append((spec, "python", bound[0]))
@@ -794,7 +812,7 @@ class Server:
         ``ingest_lanes`` lanes, merged into the store by the fleet's
         merger thread; ``-1`` falls through to the legacy readers."""
         cfg = self.config
-        if cfg.ingest_lanes < 0:
+        if cfg.ingest_lanes < 0 or resolve_addr(spec).family != "udp":
             return False
         num_lanes = cfg.ingest_lanes or max(1, cfg.num_readers)
         try:
@@ -833,7 +851,8 @@ class Server:
         if not cfg.native_ingest:
             return False
         addr = resolve_addr(spec)
-        if addr.scheme.endswith("6") or ":" in addr.host:
+        if (addr.family != "udp" or addr.scheme.endswith("6")
+                or ":" in addr.host):
             return False  # the native pool is AF_INET only
         if not native.available():
             return False  # logged by the loader
@@ -860,7 +879,51 @@ class Server:
                  reader.num_readers)
         return True
 
-    def _native_pump(self, reader: native.NativeUDPReader):
+    def _try_native_tcp(self, spec: str) -> bool:
+        """The C++ TCP/TLS statsd listener for an IPv4 ``tcp://`` address
+        (accept, handshake, framing and parse off the GIL), pumped as the
+        UDP pool is; False falls back to the Python listener: without
+        ``native_ingest`` or the library, on IPv6, or for TLS without the
+        runtime's libssl."""
+        cfg = self.config
+        if not cfg.native_ingest:
+            return False
+        addr = resolve_addr(spec)
+        if (addr.family != "tcp" or addr.scheme.endswith("6")
+                or ":" in addr.host):
+            return False
+        if not native.available():
+            return False  # logged by the loader
+        use_tls = bool(cfg.tls_certificate and cfg.tls_key)
+        if use_tls and not native.tls_available():
+            log.warning("the runtime's libssl did not load; the Python "
+                        "listener serves TLS on %s", spec)
+            return False
+        host = addr.host or "0.0.0.0"
+        try:
+            reader = native.NativeTLSReader(
+                host=host, port=addr.port,
+                cert_path=cfg.tls_certificate if use_tls else "",
+                key_path=cfg.tls_key if use_tls else "",
+                ca_path=cfg.tls_authority_certificate if use_tls else "",
+                max_line=cfg.metric_max_length)
+        except (OSError, RuntimeError) as e:
+            log.warning("native TCP/TLS listener failed (%s); using the "
+                        "Python listener", e)
+            return False
+        self.native_readers.append(reader)
+        self.statsd_addrs.append((host, reader.port))
+        self.listeners.append((spec, "native", (host, reader.port)))
+        t = threading.Thread(target=self._guard(self._native_pump),
+                             args=(reader,), name="native-tcp-pump",
+                             daemon=True)
+        t.start()
+        self._native_pumps.append(t)
+        log.info("native %s statsd listener on tcp port %d",
+                 "TLS" if use_tls else "plaintext", reader.port)
+        return True
+
+    def _native_pump(self, reader):
         """Drain the reader pool's parsed batches into the store; raw
         event/service-check lines re-enter the per-line path."""
         last_drops = 0
@@ -1130,3 +1193,8 @@ class Server:
             self.import_server.stop()
         if hasattr(self.forwarder, "close"):
             self.forwarder.close()
+        # sinks holding a thread or a channel (LightStep's reporters, the
+        # gRPC span sinks) release it
+        for sink in self.metric_sinks + self.span_sinks:
+            if hasattr(sink, "close"):
+                sink.close()

@@ -1,4 +1,4 @@
-"""The Datadog metric sink: series, service checks and events.
+"""The Datadog sinks: series, service checks and events; and spans.
 
 Port of ``DatadogMetricSink`` in ``veneur_tpu/sinks/datadog.py`` (after
 ``sinks/datadog/datadog.go``):
@@ -21,8 +21,12 @@ injectable (``post``), so tests run without a network. Each flush
 leaves its marshal and POST seconds and body sizes for the flusher's
 ``veneur.flush.*`` self-metrics (``drain_flush_telemetry``), and a
 streamed chunk records ``post.datadog.serialize`` and
-``post.datadog.post`` on the interval's timeline. The span sink
-(``DatadogSpanSink``) is not ported.
+``post.datadog.post`` on the interval's timeline.
+
+``DatadogSpanSink`` keeps the newest ``buffer_size`` spans in a ring
+(datadog.go:387-397); each flush groups them by trace id and PUTs
+``[[span, ...], ...]`` to the trace agent's ``/v0.3/traces``, without
+deflate (datadog.go:460-530).
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import logging
 import threading
 import time
 from collections import deque
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -42,15 +46,19 @@ from veneur_tpu_torch.forward.http_forward import post_helper
 from veneur_tpu_torch.native import egress
 from veneur_tpu_torch.obs import recorder as obs_rec
 from veneur_tpu_torch.protocol import constants as dogstatsd
+from veneur_tpu_torch.protocol import wire
 from veneur_tpu_torch.resilience import (RetryPolicy, is_transient_status,
                                          post_with_retry)
 from veneur_tpu_torch.samplers.intermetric import InterMetric, MetricType
-from veneur_tpu_torch.sinks.base import MetricSink
+from veneur_tpu_torch.sinks.base import MetricSink, SpanSink
 
 log = logging.getLogger("veneur.sinks.datadog")
 
-# post(url, payload, compress=, precompressed=) -> HTTP status
+# post(url, payload, compress=, precompressed=, method=) -> HTTP status
 PostFn = Callable[..., int]
+
+DATADOG_RESOURCE_KEY = "resource"
+DATADOG_SPAN_TYPE = "web"
 
 # deflate level of the native serializer: level 1 runs about twice
 # zlib's default 6 at a ~12% ratio cost
@@ -58,9 +66,9 @@ COMPRESS_LEVEL = 1
 
 
 def _default_post(url: str, payload, compress: bool = True,
-                  precompressed: bool = False) -> int:
+                  precompressed: bool = False, method: str = "POST") -> int:
     return post_helper(url, payload, compress=compress,
-                       precompressed=precompressed)
+                       precompressed=precompressed, method=method)
 
 
 def _ok(status: int) -> bool:
@@ -468,3 +476,76 @@ class DatadogMetricSink(MetricSink):
         except OSError:
             log.warning("error flushing events to Datadog", exc_info=True)
             self._count_error()
+
+
+class DatadogSpanSink(SpanSink):
+    """Ring-buffered span sink for the Datadog trace agent
+    (datadog.go:359-530)."""
+
+    def __init__(self, trace_address: str, buffer_size: int = 16384,
+                 post: Optional[PostFn] = None,
+                 retry_policy: Optional[RetryPolicy] = None):
+        self.trace_address = trace_address.rstrip("/")
+        self.buffer_size = buffer_size
+        # the reference's container/ring: the newest buffer_size spans
+        # win (datadog.go:395-397)
+        self._buffer: deque = deque(maxlen=buffer_size)
+        self._lock = threading.Lock()
+        self.post = post or _default_post
+        self.retry_policy = retry_policy or RetryPolicy()
+        self.retries = 0
+        self.spans_flushed = 0
+
+    def _count_retry(self, retry_index, exc, pause) -> None:
+        with self._lock:
+            self.retries += 1
+
+    @property
+    def name(self) -> str:
+        return "datadog"
+
+    def ingest(self, span) -> None:
+        if not wire.valid_trace(span):
+            raise ValueError("invalid span for datadog sink")
+        with self._lock:
+            self._buffer.append(span)
+
+    def flush(self) -> None:
+        with self._lock:
+            spans = list(self._buffer)
+            self._buffer.clear()
+        if not spans:
+            return
+        trace_map: Dict[int, List[dict]] = {}
+        for span in spans:
+            tags = dict(span.tags)
+            resource = tags.pop(DATADOG_RESOURCE_KEY, "") or "unknown"
+            trace_map.setdefault(span.trace_id, []).append({
+                "trace_id": span.trace_id,
+                "span_id": span.id,
+                "parent_id": max(span.parent_id, 0),
+                "service": span.service,
+                "name": span.name or "unknown",
+                "resource": resource,
+                "start": span.start_timestamp,
+                "duration": span.end_timestamp - span.start_timestamp,
+                "type": DATADOG_SPAN_TYPE,
+                "error": 2 if span.error else 0,
+                "meta": tags,
+            })
+        # spans grouped by trace (datadog.go:503-508)
+        final_traces = list(trace_map.values())
+        try:
+            status = post_with_retry(
+                lambda: self.post(f"{self.trace_address}/v0.3/traces",
+                                  final_traces, compress=False,
+                                  method="PUT"),
+                self.retry_policy, on_retry=self._count_retry)
+        except OSError:
+            log.warning("error flushing traces to Datadog", exc_info=True)
+            return
+        if _ok(status):
+            with self._lock:
+                self.spans_flushed += len(spans)
+        else:
+            log.warning("Datadog trace flush returned HTTP %d", status)
