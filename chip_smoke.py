@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and its native
-ingest and egress libraries (g++), side by side, then runs seventeen
+ingest and egress libraries (g++), side by side, then runs eighteen
 phases, each printing one JSON line (checkpoint two, capacity eight,
-mesh six, grpc_proxy three, fleet_ha five):
+mesh six, grpc_proxy three, fleet_ha five, lifecycle five):
 
   kernels  K1 drain_quantile and K2 compress_presorted at the flush's
            shape (1,048,576 rows, K=104, the store's 9 quantiles), each
@@ -67,8 +67,9 @@ mesh six, grpc_proxy three, fleet_ha five):
            unpaced 5 s burst at 1 and 4 lanes;
   ssf      SSF into a Server on cuda: the native SSF reader pool (4
            readers) and a unix:// SSF listener, indicator_span_timer_name
-           set, a channel metric sink and a channel span sink. 262,144
-           histogram series (2 tags, 8 samples, a quarter at rate 0.5,
+           set, a channel metric sink and a channel span sink. 131,072
+           histogram series (262,144 until the lifecycle phase came; 2
+           tags, 8 samples, a quarter at rate 0.5,
            the last four shifted +1000 so the guard drains through K2 on
            the pump's thread) as SSFSamples, 16 a span, plus spans of
            4,096 counters, gauges and sets x 16 members and 1,024 STATUS
@@ -106,8 +107,9 @@ mesh six, grpc_proxy three, fleet_ha five):
            3, every one counted);
   global_merge
            global aggregation over the JSON body: two forwarding locals
-           on cuda (65,536 histogram series each since the capacity
-           phase came, 262,144 before it and 1,048,576 before the
+           on cuda (32,768 histogram series each since the lifecycle
+           phase came, 65,536 since the capacity phase came, 262,144
+           before it and 1,048,576 before the
            native leg, to keep the script inside its time: 1,048,576
            took 174 s of a 627 s run on an NVIDIA H100 80GB HBM3 at
            700 W; native_merge runs the same merge at 1,048,576;
@@ -140,8 +142,9 @@ mesh six, grpc_proxy three, fleet_ha five):
            global's merge), frames and bytes. proxy_tier: two global
            Servers with http_address and grpc_address (dense, and a mesh
            4 x 2 with mesh_hosts 2) behind a Proxy with its HTTP and gRPC
-           listeners over a static ring of the two; local A (65,536
-           histogram series, 4,096 sets, counters and gauges) forwards
+           listeners over a static ring of the two; local A (32,768
+           histogram series since the lifecycle phase came, 65,536
+           before; 4,096 sets, counters and gauges) forwards
            over gRPC to the proxy's gRPC port, local B (the same names,
            its distribution shifted) over HTTP to its /import, and the
            same two locals forward to a third, dense global directly:
@@ -297,8 +300,9 @@ mesh six, grpc_proxy three, fleet_ha five):
            flush held to native_merge's dense global (percentiles rtol
            1e-5, counts, extrema, counters and set estimates equal; the
            import split, shard occupancy and balance ratio printed); a
-           mesh store's checkpoint at 32,768 series (65,536 until the
-           sinks phase came) restored into a mesh
+           mesh store's checkpoint at 16,384 series (65,536 until the
+           sinks phase came, 32,768 until the lifecycle phase came)
+           restored into a mesh
            and a dense store, which flush the same rows; rung 3 on a
            mesh group at 16,384 series;
   server_global
@@ -361,14 +365,57 @@ mesh six, grpc_proxy three, fleet_ha five):
            width 32), every count exact, and 2,048 sampled rows against
            a dense DigestGroup fed them identically (bench.py 2g's
            merged_ok: the excess rank error at most 0.15). Then three
-           Servers on the UDP lane at 32,768 histogram series (65,536
-           until the sinks phase came; dense,
+           Servers on the UDP lane at 16,384 histogram series (65,536
+           until the sinks phase came, 32,768 until the lifecycle phase
+           came; dense,
            slab with bfloat16 digests, tiered; the same datagrams), the
            slab and tiered rows held to the dense twin's; a checkpoint
            written by a slab store and restored into a tiered one, and
            rung 3 (a preflight fault, the re-merge, the late flush) on a
            slab and a tiered store, held to twins that never failed,
            both at 16,384 series.
+  lifecycle
+           the reload, the upgrade, the client CLIs and the fault hooks.
+           reload: a Server built through sinks/factory.py, a Datadog
+           sink at in-process receiver A, percentiles 0.5 and 0.99;
+           1,048,576 histogram series x 4 gamma(2, 10) samples through
+           its store and a flush (K1); Server.reload with four
+           percentiles, one more tag, the sink at receiver B and a
+           changed tdigest_compression (frozen: it warns and stays); the
+           same series again and a flush (K1 with the new count). Held:
+           B gets every row, every series the four percentile columns,
+           every row the new tag, A nothing more; 4,096 series'
+           percentiles within 0.02 x (max - min) of the exact digest of
+           their samples (the rank error against np.quantile printed);
+           A's sink closed at the next reload, not before; the statsd
+           socket the same. cli: the server CLI as a process on the
+           card (fixed ports, interval 600 s, a Datadog
+           sink at an in-process receiver; first a probe that times a
+           child's torch import, CUDA context and library loads) takes
+           65,536 counter and 65,536 histogram series over UDP, emit's
+           metrics, event, service check, -ssf span and -command timing,
+           and a prometheus collect of 1,000 families; SIGHUP re-reads
+           the file (new percentiles) with the sockets bound; SIGUSR2
+           starts generation 2 beside it, generation 1 drains (its
+           final flush, K1) and exits 0, generation 2 takes 65,536
+           counters and 4,096 histogram series and flushes at SIGTERM.
+           Held: every counter exact on its side of the handoff, the
+           histogram counts, the new percentile rows, the emitted rows;
+           the overlap's datagrams and the kernel's drops printed, not
+           gated; SIGUSR2 -> ready and ready -> exit printed.
+           forward_faults: two locals of 65,536 histogram series x 8
+           (the second shifted +1,000) forward over HTTP to a global
+           under 30% http_5xx, connect and timeout faults (one seed,
+           retries enough); the same bodies fault-free to a twin
+           (uncounted); the global's import drains run K2 and its
+           flush K1; its rows bit for bit the twin's, no forward error,
+           the injected faults and retries printed. ingest_faults: a
+           Server on the per-datagram Python path with truncate and
+           burst at 0.1 takes 65,536 datagrams (a counter and a
+           histogram line each, 4,096 series, the second half shifted:
+           K2), paced with no kernel drop; the same seeded schedule
+           replayed on the same datagrams: every counter's sum, every
+           histogram's count and the rejected lines equal the replay's.
 
 The ingest phase also prints its flushes' timeline (ingest_timeline:
 the stage tree, the lanes' ingest.* stages and the seal->merge
@@ -386,8 +433,10 @@ Servers), overload (the series cap's flush), global_merge, native_merge,
 grpc_proxy (its globals and locals), fleet_trace (its local and
 global), sinks (both Servers' main paths), fleet_ha (its four legs, the twins excepted), mesh,
 server_global, checkpoint
-(the kill and restart, and the ladder)
-and capacity phases (its oracles and plain-version holds excepted); the
+(the kill and restart, and the ladder),
+capacity (its oracles and plain-version holds excepted) and lifecycle
+phases (the in-process legs; the CLI generations' launches are
+theirs, and the faulted forward's twin is uncounted); the
 summary's butterfly row counts the mesh phase's butterfly K2 alone, and
 its width-32, width-16 and general-path rows the launches that took
 those paths (a share of K1's and K2's rows). K2 at width 32 is timed on
@@ -436,7 +485,7 @@ FP32_OPS_PER_S = 67e12           # H100 SXM non-tensor fp32 peak
 TIMED_LAUNCHES = 20
 PLAIN_RUNS = 3
 NATIVE_TWIN_ROWS = 1 << 16       # native_merge's pack twin: rows compared
-GLOBAL_MERGE_ROWS = 1 << 16      # the JSON leg's series a local (see above)
+GLOBAL_MERGE_ROWS = 1 << 15      # the JSON leg's series a local (see above)
 _RECORDS = {}                    # phase records a later phase reports
 
 
@@ -2151,7 +2200,8 @@ def phase_native_merge(dev, card: str, rows: int = ROWS,
     return counts
 
 
-PROXY_SERIES = 1 << 16           # the proxy tier's histogram series a local
+PROXY_SERIES = 1 << 15           # the proxy tier's histogram series a local
+#                                  (65,536 until the lifecycle phase came)
 PROXY_SETS = 4096                # its sets (each in both locals)
 PROXY_SCALARS = 4096             # its global-only counters and gauges
 
@@ -2515,7 +2565,7 @@ def run_proxy_tier(dev, series: int = PROXY_SERIES, sets: int = PROXY_SETS,
 def phase_grpc_proxy(dev, card: str) -> dict:
     """gRPC forward and import at full width (run_grpc_global: native_
     merge's 2 x 1,048,576-series frames over gRPC, rows bit for bit the
-    native:// global's), then the proxy tier at 65,536 series a local
+    native:// global's), then the proxy tier at 32,768 series a local
     (run_proxy_tier); a line a leg. Returns the launch counts of both
     (the JSON leg's locals and globals included)."""
     from veneur_tpu_torch.ops import tdigest_cuda as tc
@@ -4182,7 +4232,8 @@ def _timeline_summary(entry: dict) -> dict:
 
 # the ssf phase: SSF spans into a Server on the card
 
-SSF_SERIES = 1 << 18             # histogram series carried in spans
+SSF_SERIES = 1 << 17             # histogram series carried in spans
+#                                  (262,144 until the lifecycle phase)
 SSF_SPAN_SAMPLES = 16            # samples a span
 SSF_SERVICES = 64                # indicator spans: 64 services x {error, ok}
 SSF_SCALARS = 4096               # counters, gauges and sets (16 members)
@@ -6381,8 +6432,9 @@ CAP_ITERS = 2                    # timed staging/flush rounds a subphase
 #                                  (3 until the sinks phase came)
                                  # (5 until the fleet_ha phase came)
 CAP_ORACLE_ROWS = 2048           # the dense oracle's sampled rows
-CAP_SERIES = 1 << 15             # the Servers' histogram series (65,536
-#                                  until the sinks phase came)
+CAP_SERIES = 1 << 14             # the Servers' histogram series (65,536
+#                                  until the sinks phase, 32,768 until the
+#                                  lifecycle phase came)
 CAP_AUX_SERIES = 1 << 14         # the checkpoint's and the ladder's
 CAP_HOT = 1024                   # hot series among them (40 more samples)
 CAP_ENVELOPE = 0.15              # bench.py 2g's excess rank error gate
@@ -7130,8 +7182,9 @@ MESH_SAMPLES = 1 << 24           # the aggregator's samples a host (~32 a row)
 MESH_QS = (0.5, 0.9, 0.99)       # the dryrun's quantiles
 MESH_SETS = 1 << 20              # its set members a host
 MESH_COUNTERS = 1 << 20          # its counter increments a host
-MESH_CKPT_ROWS = 1 << 15         # the mesh checkpoint's series (65,536
-#                                  until the sinks phase came)
+MESH_CKPT_ROWS = 1 << 14         # the mesh checkpoint's series (65,536
+#                                  until the sinks phase, 32,768 until the
+#                                  lifecycle phase came)
 MESH_LADDER_ROWS = 1 << 14       # rung 3 on a mesh group
 
 
@@ -7655,10 +7708,27 @@ def _fha_span(m, col) -> np.ndarray:
     return np.fmax(rng, m[:, col[".max"]] - m[:, col[".min"]])
 
 
+def _fha_spilled(server) -> dict:
+    """Each store group's first-sight series spilled to its overflow row
+    (past ``max_series`` or under the overload freeze), where nonzero."""
+    st = server.store
+    return {n: getattr(st, n).spilled for n in st._GEN_GROUPS
+            if getattr(st, n).spilled}
+
+
 def _fha_udp(server, lines) -> int:
     """``lines`` into ``server``'s UDP lanes in paced bursts; waits until
-    the fleet merged every record, with no kernel drop. Returns the
-    records sent."""
+    the fleet merged every record, with no kernel drop. A lane seals a
+    chunk at each short recv batch and at each full chunk, so a burst of
+    n datagrams, each smaller than a chunk, adds at most n + 1 sealed
+    chunks: a burst holds one less than half the low watermark's share
+    of a lane's backlog, and before each one the sender waits until the
+    burst before it is parsed and every lane's backlog is under that
+    half. So the backlog stays under the low watermark and the overload
+    ladder at level 0: at level 1 a first-sight series spills to the
+    overflow row (merged, but under another name), at level 3 the lanes
+    shed datagrams. Either fails here, by name. Returns the records
+    sent."""
     t = _pack_lines(lines)
     blob, off, ln = t["blob"], t["d_off"].tolist(), t["d_len"].tolist()
     dgrams = [blob[o:o + n] for o, n in zip(off, ln)]
@@ -7667,16 +7737,30 @@ def _fha_udp(server, lines) -> int:
     port = server.statsd_addrs[0][1]
     base = fleet.totals()["merged"]
     shed0 = sum(server.overload.shed.values())
+    spilled0 = _fha_spilled(server)
+    calm = server.overload.low / 2.0
+    per = max(1, int(calm * min(lane._max_backlog for lane in fleet.lanes))
+              - 1)
 
-    def taken(n: int) -> bool:
+    def lost() -> None:
         if sum(server.overload.shed.values()) != shed0:
             raise AssertionError(f"the server shed datagrams: "
                                  f"{server.overload.shed}")
-        return fleet.totals()["parsed"] >= base + int(ends[n - 1])
+        if _fha_spilled(server) != spilled0:
+            raise AssertionError(
+                f"first-sight series spilled to the overflow row: "
+                f"{_fha_spilled(server)} (before {spilled0}; overload "
+                f"{server.overload.snapshot()})")
 
-    _udp_send(port, dgrams, taken, per=64, timeout=600)
+    def taken(n: int) -> bool:
+        lost()
+        return (fleet.totals()["parsed"] >= base + int(ends[n - 1])
+                and fleet.pressure() < calm)
+
+    _udp_send(port, dgrams, taken, per=per, timeout=600)
     _wait_for(lambda: fleet.totals()["merged"] >= base + len(lines), 600,
               "the lanes to merge the UDP lines")
+    lost()
     if _udp_drops(port):
         raise AssertionError(f"the kernel dropped {_udp_drops(port)} "
                              "datagrams")
@@ -9489,10 +9573,912 @@ def _kernel_rows(kern: dict, launches: dict) -> list:
     return rows
 
 
+LC_SERIES = 1 << 20              # leg (a): histogram series through the store
+LC_SAMPLED = 4096                # leg (a): series held to the exact digest
+LC_PCTS = (0.5, 0.99)            # leg (a): before the reload
+LC_RELOAD_PCTS = (0.5, 0.9, 0.99, 0.999)
+LC_CLI_SERIES = 1 << 16          # leg (b): counter and histogram series
+LC_CLI_PCTS = (0.5, 0.99)        # leg (b): generation 1's file, then
+LC_CLI_HUP_PCTS = (0.5, 0.9, 0.99)   # after its SIGHUP
+LC_CLI_INTERVAL_S = 600.0        # leg (b): no tick flush; a Datadog rate
+LC_GEN2_HISTS = 4096             # leg (b): histogram series to generation 2
+LC_PROM_FAMILIES = 1000          # leg (b): the scraped exposition
+LC_FWD_SERIES = 1 << 16          # leg (c): histogram series a local
+LC_FWD_SEED = 3                  # its schedule: 2 faults, then a delivery
+LC_INGEST_DGRAMS = 1 << 16       # leg (c): datagrams on the per-line path
+LC_INGEST_SERIES = 4096
+LC_INGEST_SEED = 11
+LC_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_lc"
+
+_STARTUP_PROBE = r"""
+import json, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+from veneur_tpu_torch.ops import tdigest_cuda
+tdigest_cuda._kernel_lib()
+t3 = time.perf_counter()
+from veneur_tpu_torch import native
+from veneur_tpu_torch.native import egress
+assert native.available() and egress.available()
+t4 = time.perf_counter()
+print(json.dumps({"torch_import_s": t1 - t0, "cuda_context_s": t2 - t1,
+                  "kernel_library_s": t3 - t2,
+                  "native_libraries_s": t4 - t3}))
+"""
+
+
+def _dd_series(recv, take: bool = True) -> list:
+    """Every series entry the receiver's /api/v1/series bodies hold, in
+    arrival order (each body inflated and parsed); ``take`` empties the
+    receiver's list."""
+    bodies = list(recv.bodies)
+    if take:
+        del recv.bodies[:len(bodies)]
+    return [s for path, raw, enc in bodies if path == "/api/v1/series"
+            for s in json.loads(zlib.decompress(raw) if enc == "deflate"
+                                else raw)["series"]]
+
+
+def _dd_scan(recv, needles) -> dict:
+    """Occurrences of each byte string in the receiver's inflated series
+    bodies, and the series count (``{"metric":``), without parsing them;
+    empties the receiver."""
+    bodies = list(recv.bodies)
+    del recv.bodies[:len(bodies)]
+    out = dict.fromkeys(needles, 0)
+    out[b'{"metric":'] = 0
+    for path, raw, enc in bodies:
+        if path != "/api/v1/series":
+            continue
+        body = zlib.decompress(raw) if enc == "deflate" else raw
+        for k in out:
+            out[k] += body.count(k)
+    return out
+
+
+def _lc_block(col, prefix: str, matrix=None):
+    """The ColumnarFlush block holding the series that start with
+    ``prefix`` (the server's own veneur.* rows may share it): the block,
+    those series' names, and their rows of ``matrix(block)``
+    (``_block_matrix`` by default)."""
+    from veneur_tpu_torch.core.columnar import arena_strings
+
+    for blk in col.blocks:
+        names = arena_strings(blk.names)
+        rows = [r for r, n in enumerate(names) if n.startswith(prefix)]
+        if rows:
+            mat = (matrix or _block_matrix)(blk)[rows]
+            return blk, [names[r] for r in rows], mat
+    raise AssertionError(f"no block of {prefix}* series in the flush")
+
+
+def _lc_feed(server, prefix: str, vals: np.ndarray, weight: float = 1.0):
+    """``vals`` [S, n] into ``server``'s histogram group as S series
+    ``<prefix><i>`` through the store, in bulk (run_fleet_trace's feed);
+    returns the seconds it took, synchronised."""
+    from veneur_tpu_torch.samplers.parser import MetricKey
+
+    store = server.store
+    t0 = time.perf_counter()
+    with store._lock:
+        hist = store.histograms
+        rows = np.array([hist.interner.intern(
+            MetricKey(f"{prefix}{i}", "histogram", ""), [])
+            for i in range(len(vals))], np.int32)
+        hist.ensure_capacity(int(rows.max()))
+        hist.sample_many(np.repeat(rows, vals.shape[1]),
+                         vals.reshape(-1).astype(np.float32),
+                         np.full(vals.size, weight, np.float32))
+    _sync(server.store.device)
+    return time.perf_counter() - t0
+
+
+def run_lifecycle_reload(dev, series: int = LC_SERIES,
+                         sampled: int = LC_SAMPLED) -> tuple:
+    """Leg (a): one port Server on ``dev`` built from a Config through
+    sinks/factory.py, a Datadog sink at in-process receiver A with
+    percentiles 0.5 and 0.99. ``series`` histogram series of 4
+    gamma(2, 10) samples through its store, one flush (K1) to A; then
+    ``Server.reload`` with four percentiles, one more global tag, the
+    Datadog sink at receiver B and a changed tdigest_compression (a
+    frozen key: it warns and keeps its value); the same series again
+    and one flush (K1, taking the new percentile count). Held: B gets
+    every row of the second flush, the four percentile columns on every
+    series and the new tag on every row, A nothing after the reload;
+    ``sampled`` series' percentiles within 0.02 x (max - min) of the
+    exact digest of their samples (their rank error against np.quantile
+    printed); A's sink retired at the reload and closed at the next
+    one, not before; the statsd socket the same. Returns the record and
+    the launch counts of the two flushes."""
+    import logging
+
+    from veneur_tpu_torch import flusher
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks import factory
+
+    rng = np.random.default_rng(SEED + 91)
+    vals = rng.gamma(2.0, 10.0, (series, 4)).astype(np.float32)
+    recv_a, recv_b = _DatadogReceiver(), _DatadogReceiver()
+
+    def config(url, pcts, tags, compression=COMPRESSION):
+        return Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                      interval="86400s", percentiles=list(pcts),
+                      aggregates=["count"], tags=tags, hostname="lc",
+                      datadog_api_key="k", datadog_api_hostname=url,
+                      max_series=INGEST_MAX_SERIES,
+                      tdigest_compression=compression)
+
+    first = config(recv_a.url, LC_PCTS, ["env:lc"])
+    record = _ColumnarRecorder()
+    server = Server(first, metric_sinks=[record], device=dev,
+                    config_sinks=factory.create_sinks(first))
+    warned = []
+    catch = logging.Handler(logging.WARNING)
+    catch.emit = lambda r: warned.append(r.getMessage())
+    logging.getLogger("veneur.server").addHandler(catch)
+    rec = {"series": series, "percentiles_before": list(LC_PCTS),
+           "percentiles_after": list(LC_RELOAD_PCTS)}
+    counts = {}
+
+    def flush():
+        _reset_counts(tc)
+        t0 = time.perf_counter()
+        flusher.flush_once(server)
+        col = record.flushes.get(timeout=600)
+        wall = time.perf_counter() - t0
+        _add_counts(counts, _counts(tc))
+        return col, wall
+
+    try:
+        server.start()
+        addr = server.statsd_addrs[0]
+        rec["feed1_s"] = _lc_feed(server, "lc.h.", vals)
+        col1, rec["flush1_s"] = flush()
+        blk1, names1, _ = _lc_block(col1, "lc.h.")
+        want1 = [b".count"] + [f".{int(p * 100)}percentile".encode()
+                               for p in LC_PCTS]
+        if blk1.suffixes != want1 or len(names1) != series:
+            raise AssertionError(f"flush 1: suffixes {blk1.suffixes}")
+        got_a = _dd_scan(recv_a, [b'{"metric":"lc.h.'])
+        if got_a[b'{"metric":"lc.h.'] != series * len(want1):
+            raise AssertionError(f"receiver A got {got_a} before the "
+                                 f"reload")
+        rec["flush1_series_at_a"] = got_a[b'{"metric":']
+        old = next(s for s in server.metric_sinks if s.name == "datadog")
+        closed = []
+        old.close = lambda: closed.append(time.perf_counter())
+        new = config(recv_b.url, LC_RELOAD_PCTS, ["env:lc", "reload:2"],
+                     compression=COMPRESSION / 2)
+        t0 = time.perf_counter()
+        server.reload(new)
+        rec["reload_s"] = time.perf_counter() - t0
+        if (server.config.tdigest_compression != COMPRESSION
+                or not any("tdigest_compression" in w for w in warned)):
+            raise AssertionError("the frozen tdigest_compression changed "
+                                 "or did not warn")
+        if server.statsd_addrs[0] != addr or old not in \
+                server._retired_sinks or closed:
+            raise AssertionError("the reload moved the socket or closed "
+                                 "A's sink early")
+        rec["feed2_s"] = _lc_feed(server, "lc.h.", vals)
+        col2, rec["flush2_s"] = flush()
+        blk2, names2, mat = _lc_block(col2, "lc.h.")
+        want2 = [b".count"] + [f".{int(p * 100)}percentile".encode()
+                               for p in LC_RELOAD_PCTS]
+        if blk2.suffixes != want2 or len(names2) != series:
+            raise AssertionError(f"flush 2: {len(names2)} series, "
+                                 f"suffixes {blk2.suffixes}")
+        got_b = _dd_scan(recv_b, [b'{"metric":"lc.h.', b'"reload:2"'])
+        if recv_a.bodies:
+            raise AssertionError("receiver A got a body after the reload")
+        rows2 = sum(len(b) for b in col2.blocks)
+        if (got_b[b'{"metric":"lc.h.'] != series * len(want2)
+                or got_b[b'"reload:2"'] != got_b[b'{"metric":']
+                or got_b[b'{"metric":'] < rows2):
+            raise AssertionError(f"receiver B got {got_b}, the blocks "
+                                 f"hold {rows2} rows")
+        rec["flush2_series_at_b"] = got_b[b'{"metric":']
+        idx = np.array([int(n.rsplit(".", 1)[1]) for n in names2])
+        if not np.all(mat[:, 0] == 4.0):
+            raise AssertionError("a series' count is not 4")
+        pick = np.random.default_rng(SEED + 92).choice(
+            series, sampled, replace=False)
+        worst = rank_worst = 0.0
+        for r in pick.tolist():
+            samples = vals[idx[r]]
+            got = mat[r, 1:]
+            want = _digest_reference(samples, LC_RELOAD_PCTS)
+            span = float(samples.max() - samples.min())
+            worst = max(worst, float(np.max(np.abs(got - want))) / span)
+            srt = np.sort(samples.astype(np.float64))
+            ranks = np.interp(got, srt, np.linspace(0.0, 1.0, len(srt)))
+            rank_worst = max(rank_worst, float(np.max(np.abs(
+                ranks - np.array(LC_RELOAD_PCTS)))))
+        if worst > 0.02:
+            raise AssertionError(f"percentiles after the reload off the "
+                                 f"exact digest by {worst:.3g} of the span")
+        rec.update(sampled=sampled, pct_err_vs_exact_digest=worst,
+                   rank_err_vs_np_quantile_max=rank_worst)
+        server.reload(new)
+        if not closed:
+            raise AssertionError("A's sink did not close at the next "
+                                 "reload")
+    finally:
+        logging.getLogger("veneur.server").removeHandler(catch)
+        server.shutdown()
+        recv_a.close()
+        recv_b.close()
+    return rec, counts
+
+
+def _lc_vars(port: int) -> dict:
+    status, body = _http_get(port, "/debug/vars", timeout=10)
+    if status != 200:
+        raise AssertionError(f"/debug/vars answered {status}")
+    return json.loads(body)
+
+
+def _lc_port(kind) -> int:
+    """A free port for a config both generations read (the replacement
+    re-execs the same file, so its ports are fixed)."""
+    s = socket.socket(socket.AF_INET, kind)
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _lc_healthy(port: int, proc, timeout: float) -> float:
+    """Seconds until ``/healthcheck`` answers 200; ``proc`` exiting or
+    the timeout fails."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            if _http_get(port, "/healthcheck", timeout=2)[0] == 200:
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"the server exited with {proc.returncode}"
+                                 f" before it was healthy")
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError("the server never became healthy")
+        time.sleep(0.1)
+
+
+def _lc_send(udp: int, http: int, lines, timeout: float = 300) -> int:
+    """``lines`` packed into datagrams to the CLI server's lanes, paced
+    by the packets its /debug/vars says they took; waits until the
+    store processed every line. Returns the datagrams sent."""
+    t = _pack_lines(lines)
+    blob, off, ln = t["blob"], t["d_off"].tolist(), t["d_len"].tolist()
+    dgrams = [blob[o:o + n] for o, n in zip(off, ln)]
+
+    def fleet():
+        return _lc_vars(http)["ingest_fleet"][0]["totals"]
+
+    base = fleet()["packets"]
+    processed0 = _lc_vars(http)["store"]["processed_this_interval"]
+    _udp_send(udp, dgrams, lambda n: fleet()["packets"] >= base + n,
+              per=256, timeout=timeout)
+    _lc_processed(http, processed0 + len(lines), timeout)
+    return len(dgrams)
+
+
+def _lc_processed(http: int, n: int, timeout: float = 120) -> None:
+    try:
+        _wait_for(lambda: _lc_vars(http)["store"]["processed_this_interval"]
+                  >= n, timeout, f"the CLI server to process {n} lines")
+    except AssertionError:
+        v = _lc_vars(http)
+        raise AssertionError(f"the CLI server processed "
+                             f"{v['store']['processed_this_interval']} of "
+                             f"{n} lines; {v.get('ingest_fleet')}, "
+                             f"{v.get('overload')}") from None
+
+
+def _lc_log_wait(path: Path, pattern: str, timeout: float) -> re.Match:
+    deadline = time.perf_counter() + timeout
+    while True:
+        hit = re.search(pattern, path.read_text(errors="replace"))
+        if hit:
+            return hit
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{path.name} never logged {pattern!r}")
+        time.sleep(0.02)
+
+
+def _lc_exposition(families: int) -> tuple:
+    """A Prometheus exposition of ``families`` families (counters and
+    gauges, one summary, one histogram) and its counters' values."""
+    out, counters = [], {}
+    n = (families - 2) // 2
+    for i in range(n):
+        out += [f"# TYPE lc_prom_c{i} counter",
+                f'lc_prom_c{i}{{job="smoke"}} {i * 3 + 1}',
+                f"# TYPE lc_prom_g{i} gauge",
+                f'lc_prom_g{i}{{job="smoke"}} {i * 0.5}']
+        counters[f"lc_prom_c{i}"] = i * 3 + 1
+    out += ["# TYPE lc_prom_sum summary",
+            'lc_prom_sum{quantile="0.5"} 1.5',
+            'lc_prom_sum{quantile="0.99"} 9.5',
+            "lc_prom_sum_sum 120.0", "lc_prom_sum_count 40",
+            "# TYPE lc_prom_hist histogram",
+            'lc_prom_hist_bucket{le="1"} 3',
+            'lc_prom_hist_bucket{le="10"} 7',
+            'lc_prom_hist_bucket{le="+Inf"} 9',
+            "lc_prom_hist_sum 42.0", "lc_prom_hist_count 9"]
+    counters.update({"lc_prom_sum.count": 40, "lc_prom_hist.count": 9})
+    return "\n".join(out) + "\n", counters
+
+
+class _LcOverlap:
+    """A thread sending ``lc.o.<k>:1|c`` datagrams every 2 ms to the CLI
+    server's port while the generations overlap; ``sent`` counts them."""
+
+    def __init__(self, udp: int):
+        self.sent = 0
+        self._stop = threading.Event()
+        self._udp = udp
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+            while not self._stop.wait(0.002):
+                tx.sendto(f"lc.o.{self.sent}:1|c".encode(),
+                          ("127.0.0.1", self._udp))
+                self.sent += 1
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        return self.sent
+
+
+def _lc_counts(series: list) -> dict:
+    """{metric: count} of the counter series a CLI generation's flush
+    posted: each a rate, count / interval in float64, so the count is
+    the nearest integer to rate x interval (a counter's count is one)."""
+    out = {}
+    for s in series:
+        if s["type"] == "rate":
+            x = s["points"][0][1] * LC_CLI_INTERVAL_S
+            if abs(x - round(x)) > 1e-6:
+                raise AssertionError(f"{s['metric']}: rate x interval "
+                                     f"{x!r} is not a count")
+            out[s["metric"]] = round(x)
+    return out
+
+
+def run_lifecycle_cli(dev, series: int = LC_CLI_SERIES) -> tuple:
+    """Leg (b): the server CLI as a process on ``dev``: generation 1 of
+    ``python -m veneur_tpu_torch.cli.server -f <file>`` (fixed UDP, SSF
+    and http_address ports, interval 600 s, a Datadog sink at an
+    in-process receiver) takes ``series`` counter and ``series``
+    histogram series over UDP, metrics, an event, a service check, an
+    ``-ssf`` span and a ``-command`` timing sent by ``python -m
+    veneur_tpu_torch.cli.emit``, and one ``prometheus`` collect of an
+    in-process exposition. SIGHUP re-reads the file (new percentiles)
+    with the sockets bound; SIGUSR2 starts generation 2 beside it,
+    which signals ready, and generation 1 drains with a final flush
+    (K1) and exits 0. Generation 2 serves the same ports: its
+    /healthcheck answers and what is sent after generation 1 exits
+    flushes (K1) at its SIGTERM. Held: every counter sent before
+    SIGUSR2 exact in generation 1's final flush, every counter sent
+    after generation 1 exits exact in generation 2's, the histograms'
+    counts and the new percentile rows; datagrams sent during the
+    overlap counted and printed with the kernel's drops, not gated.
+    Their launches are the children's, not counted here."""
+    import signal
+
+    import torch
+
+    from veneur_tpu_torch.cli import prometheus as tprom
+
+    LC_DIR.mkdir(parents=True, exist_ok=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.pop("VENEUR_READY_FD", None)
+    rec = {"series": series}
+    if dev.type == "cuda":
+        out = subprocess.run([sys.executable, "-c", _STARTUP_PROBE],
+                             cwd=root, env=env, capture_output=True,
+                             text=True, timeout=300, check=True)
+        rec["child_startup"] = json.loads(out.stdout.splitlines()[-1])
+    udp, ssf_port = _lc_port(socket.SOCK_DGRAM), _lc_port(socket.SOCK_DGRAM)
+    http = _lc_port(socket.SOCK_STREAM)
+    recv = _DatadogReceiver()
+    cfg_path = LC_DIR / "server.yaml"
+    cfg = dict(statsd_listen_addresses=[f"udp://127.0.0.1:{udp}"],
+               ssf_listen_addresses=[f"udp://127.0.0.1:{ssf_port}"],
+               http_address=f"127.0.0.1:{http}",
+               interval=f"{int(LC_CLI_INTERVAL_S)}s",
+               percentiles=list(LC_CLI_PCTS), aggregates=["count"],
+               hostname="lc-cli", num_readers=2, datadog_api_key="k",
+               datadog_api_hostname=recv.url)
+    cfg_path.write_text(json.dumps(cfg))  # JSON is YAML
+    argv = [sys.executable, "-m", "veneur_tpu_torch.cli.server", "-f",
+            str(cfg_path)] + ([] if dev.type == "cuda"
+                              else ["--device", "cpu"])
+    log1 = LC_DIR / "gen1.log"
+    gen1 = gen2 = None
+    rng = np.random.default_rng(SEED + 95)
+    cvals = rng.integers(1, 1000, series)
+    hvals = np.round(rng.gamma(2.0, 10.0, (series, 4)), 3)
+    try:
+        with open(log1, "wb") as out1:
+            gen1 = subprocess.Popen(argv, cwd=root, env=env, stdout=out1,
+                                    stderr=subprocess.STDOUT)
+        rec["gen1_start_s"] = _lc_healthy(http, gen1, 300)
+        lines = [f"lc.c.{i}:{v}|c" for i, v in enumerate(cvals.tolist())]
+        lines += [f"lc.h.{i}:{v}|h" for i in range(series)
+                  for v in hvals[i].tolist()]
+        t0 = time.perf_counter()
+        rec["gen1_datagrams"] = _lc_send(udp, http, lines)
+        rec["gen1_udp_s"] = time.perf_counter() - t0
+        base = _lc_vars(http)["store"]["processed_this_interval"]
+        emits = [
+            ["-hostport", f"127.0.0.1:{udp}", "-name", "lc.emit.c",
+             "-count", "3", "-tag", "via:emit"],
+            ["-hostport", f"127.0.0.1:{udp}", "-name", "lc.emit.g",
+             "-gauge", "2.5"],
+            ["-hostport", f"127.0.0.1:{udp}", "-name", "lc.emit.t",
+             "-timing", "125ms"],
+            ["-hostport", f"127.0.0.1:{udp}", "-name", "lc.emit.s",
+             "-set", "member-1"],
+            ["-hostport", f"127.0.0.1:{udp}", "-mode", "event",
+             "-e_title", "lifecycle", "-e_text", "generation 1"],
+            ["-hostport", f"127.0.0.1:{udp}", "-mode", "sc", "-sc_name",
+             "lc.emit.sc", "-sc_status", "1"],
+            ["-hostport", f"udp://127.0.0.1:{ssf_port}", "-name",
+             "lc.emit.ssf", "-count", "2", "-ssf", "-trace_id", "4242"],
+            ["-hostport", f"127.0.0.1:{udp}", "-name", "lc.emit.cmd",
+             "-command", "true"]]
+        t0 = time.perf_counter()
+        for args in emits:
+            subprocess.run([sys.executable, "-m",
+                            "veneur_tpu_torch.cli.emit", *args], cwd=root,
+                           env=env, check=True, timeout=60)
+        rec["emit_s"] = time.perf_counter() - t0
+        text, prom_counters = _lc_exposition(LC_PROM_FAMILIES)
+        prom = _PromEndpoint(text)
+        try:
+            t0 = time.perf_counter()
+            rec["prometheus_packets"] = tprom.collect_once(
+                prom.url, f"127.0.0.1:{udp}", [], [], "")
+            rec["prometheus_s"] = time.perf_counter() - t0
+        finally:
+            prom.close()
+        # the emits' four metric lines over UDP and the scrape's; the
+        # rest (the span's sample, the timing, the service check) is
+        # held at the final flush
+        _lc_processed(http, base + 4 + rec["prometheus_packets"])
+        cfg_path.write_text(json.dumps(dict(
+            cfg, percentiles=list(LC_CLI_HUP_PCTS))))
+        gen1.send_signal(signal.SIGHUP)
+        _lc_log_wait(log1, r"config reloaded", 60)
+        base = _lc_vars(http)["store"]["processed_this_interval"]
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+            tx.sendto(b"lc.hup:1|c", ("127.0.0.1", udp))
+        _lc_processed(http, base + 1)
+        rec["drops_before_usr2"] = _udp_drops(udp)
+        if rec["drops_before_usr2"]:
+            raise AssertionError(f"the kernel dropped "
+                                 f"{rec['drops_before_usr2']} datagrams")
+        overlap = _LcOverlap(udp)
+        t_usr2 = time.perf_counter()
+        gen1.send_signal(signal.SIGUSR2)
+        hit = _lc_log_wait(log1, r"replacement pid (\d+) is serving", 300)
+        t_ready = time.perf_counter()
+        gen2 = gen2_pid = int(hit.group(1))
+        drops_overlap = _udp_drops(udp)
+        rc = gen1.wait(timeout=300)
+        t_exit = time.perf_counter()
+        if rc != 0:
+            raise AssertionError(f"generation 1 exited with {rc}")
+        time.sleep(0.2)
+        rec.update(usr2_to_ready_s=t_ready - t_usr2,
+                   ready_to_gen1_exit_s=t_exit - t_ready,
+                   overlap_sent=overlap.stop(),
+                   overlap_drops_seen=max(drops_overlap, _udp_drops(udp)))
+        first = _dd_series(recv, take=False)
+        other = [(p, zlib.decompress(b) if enc == "deflate" else b)
+                 for p, b, enc in recv.bodies if p != "/api/v1/series"]
+        del recv.bodies[:]
+        counts1 = _lc_counts(first)
+        bad = [i for i, v in enumerate(cvals.tolist())
+               if counts1.get(f"lc.c.{i}") != v]
+        want = {"lc.emit.c": 3, "lc.emit.ssf": 2, "lc.hup": 1,
+                **prom_counters}
+        bad += [k for k, v in want.items() if counts1.get(k) != v]
+        if bad:
+            raise AssertionError(f"generation 1's final flush: {len(bad)} "
+                                 f"counters off, first {bad[:5]}")
+        hist1 = {s["metric"]: s["points"][0][1] for s in first
+                 if s["metric"].startswith("lc.h.")}
+        pct_names = [f".{int(p * 100)}percentile" for p in LC_CLI_HUP_PCTS]
+        if (sum(1 for k in hist1 if k.endswith(".count"))
+                != series or any(counts1.get(f"lc.h.{i}.count") != 4
+                                 for i in range(series))
+                or any(f"lc.h.{i}{p}" not in hist1
+                       for i in range(0, series, 97) for p in pct_names)):
+            raise AssertionError("generation 1's histograms: a count off "
+                                 "4 or a percentile row of the SIGHUP "
+                                 "file missing")
+        names1 = {s["metric"] for s in first}
+        if not ({"lc.emit.g", "lc.emit.s", "lc.emit.t.count",
+                 "lc.emit.cmd.count"} <= names1
+                and any(p == "/intake" and b"lifecycle" in b
+                        for p, b in other)
+                and any(p == "/api/v1/check_run" and b"lc.emit.sc" in b
+                        for p, b in other)):
+            raise AssertionError("an emitted metric, the event or the "
+                                 "service check is missing")
+        rec["gen1_final_flush_series"] = len(first)
+        rec["gen2_healthy_s"] = _lc_healthy(http, None, 60)
+        base = _lc_vars(http)["ingest_fleet"][0]["totals"]["packets"]
+        avals = rng.integers(1, 1000, series)
+        gvals = np.round(rng.gamma(2.0, 10.0, (LC_GEN2_HISTS, 4)), 3)
+        lines = [f"lc.a.{i}:{v}|c" for i, v in enumerate(avals.tolist())]
+        lines += [f"lc.a.h.{i}:{v}|h" for i in range(LC_GEN2_HISTS)
+                  for v in gvals[i].tolist()]
+        t0 = time.perf_counter()
+        rec["gen2_datagrams"] = _lc_send(udp, http, lines)
+        rec["gen2_udp_s"] = time.perf_counter() - t0
+        rec["gen2_packets_before_feed"] = base
+        t0 = time.perf_counter()
+        os.kill(gen2_pid, signal.SIGTERM)
+        _wait_for(lambda: not _pid_alive(gen2_pid), 300,
+                  "generation 2 to exit")
+        rec["gen2_sigterm_to_exit_s"] = time.perf_counter() - t0
+        gen2 = None
+        second = _dd_series(recv)
+        counts2 = _lc_counts(second)
+        bad = [i for i, v in enumerate(avals.tolist())
+               if counts2.get(f"lc.a.{i}") != v]
+        hist2 = {s["metric"] for s in second
+                 if s["metric"].startswith("lc.a.h.")}
+        if bad or any(f"lc.a.h.{i}{p}" not in hist2
+                      for i in range(LC_GEN2_HISTS) for p in pct_names):
+            raise AssertionError(f"generation 2's flush: {len(bad)} "
+                                 f"counters off or a percentile row "
+                                 f"missing")
+        got = sum(v for c in (counts1, counts2) for k, v in c.items()
+                  if k.startswith("lc.o."))
+        rec.update(gen2_final_flush_series=len(second),
+                   overlap_in_gen1=sum(v for k, v in counts1.items()
+                                       if k.startswith("lc.o.")),
+                   overlap_in_gen2=sum(v for k, v in counts2.items()
+                                       if k.startswith("lc.o.")),
+                   overlap_lost=rec["overlap_sent"] - got)
+    finally:
+        for proc in (gen1,):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        if gen2 is not None and _pid_alive(gen2):
+            os.kill(gen2, signal.SIGKILL)
+        recv.close()
+    return rec, {}
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    # a zombie of ours counts as gone
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+class _PromEndpoint:
+    """An in-process /metrics endpoint serving one exposition."""
+
+    def __init__(self, text: str):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        body = text.encode()
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/metrics"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=10)
+
+
+def run_lifecycle_forward_faults(dev, series: int = LC_FWD_SERIES) -> tuple:
+    """Leg (c), the forward: two port locals of ``series`` histogram
+    series x 8 samples each (local 2's shifted +1,000, so the global's
+    import drains meet rows that hold local 1's and run K2) forward
+    over HTTP to a port global with 30% http_5xx, connect and timeout
+    faults on forward.http (one seed, retries enough to deliver). The
+    same bodies go, fault-free, to a twin global (uncounted). After one
+    interval each global flushes (K1): the faulted global's rows are
+    bit for bit the twin's, with the injected faults and retries
+    printed and no forward error. Returns the record and the launch
+    counts (the locals' flushes, the global's imports and flush)."""
+    from veneur_tpu_torch import flusher
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.forward.http_forward import HTTPForwarder
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.server import Server
+
+    rng = np.random.default_rng(SEED + 97)
+    vals = [rng.gamma(2.0, 10.0, (series, 8)),
+            1000.0 + rng.gamma(2.0, 10.0, (series, 8))]
+    common = dict(interval="86400s", percentiles=list(PERCENTILES),
+                  aggregates=["min", "max", "count"],
+                  max_series=INGEST_MAX_SERIES)
+    sinks = {k: _ColumnarRecorder() for k in ("global", "twin")}
+    globs = {k: Server(Config(http_address="127.0.0.1:0", hostname="lc-g",
+                              http_import_workers=1, **common),
+                       metric_sinks=[sinks[k]], device=dev)
+             for k in ("global", "twin")}
+    locals_ = []
+    rec = {"series": series, "kinds": "http_5xx,connect,timeout",
+           "rate": 0.3, "seed": LC_FWD_SEED}
+    counts = {}
+    try:
+        for g in globs.values():
+            g.start()
+        clean = HTTPForwarder(
+            f"http://127.0.0.1:{globs['twin'].ops_server.port}",
+            timeout=600.0)
+        for k in range(2):
+            local = Server(Config(
+                forward_address=(f"http://127.0.0.1:"
+                                 f"{globs['global'].ops_server.port}"),
+                hostname=f"lc-l{k}", flush_streaming=False,
+                forward_timeout="600s", retry_max=8,
+                retry_base_interval="1ms", fault_injection_rate=0.3,
+                fault_injection_seed=LC_FWD_SEED,
+                fault_injection_kinds="http_5xx,connect,timeout",
+                fault_injection_scope="forward.http", **common),
+                metric_sinks=[_ColumnarRecorder()], device=dev)
+            locals_.append(local)
+            local.start()
+            _lc_feed(local, "lc.f.", vals[k])
+            states = []
+            real = local.forward_fn
+
+            def forward(state, deadline=None, parent_span=None,
+                        trace_ctx=None, real=real, states=states):
+                states.append(state)
+                return real(state, deadline=deadline)
+
+            local.forward_fn = forward
+            _reset_counts(tc)
+            t0 = time.perf_counter()
+            flusher.flush_once(local)
+            if local.wait_forward(600) is not True:
+                raise AssertionError(f"local {k}'s faulted forward failed")
+            pool = globs["global"].ops_server.import_pool
+            _wait_for(lambda: pool.merged_batches >= k + 1, 600,
+                      "the global to merge the faulted forward")
+            rec[f"local{k}_flush_forward_import_s"] = \
+                time.perf_counter() - t0
+            _add_counts(counts, _counts(tc))
+            fwd = local.forwarder
+            rec[f"local{k}"] = {"injected": dict(fwd._faults.injected),
+                                "attempts": fwd._faults.calls,
+                                "retries": fwd.retries,
+                                "errors": fwd.errors,
+                                "forwarded": fwd.forwarded}
+            if fwd.errors:
+                raise AssertionError(f"local {k}: {fwd.errors} forward "
+                                     f"errors under the faults")
+            with _uncounted(tc):
+                twin_pool = globs["twin"].ops_server.import_pool
+                if not clean.forward(states[0]):
+                    raise AssertionError("the twin's forward failed")
+                _wait_for(lambda: twin_pool.merged_batches >= k + 1, 600,
+                          "the twin to merge the forward")
+        if not sum(sum(rec[f"local{k}"]["injected"].values())
+                   for k in range(2)):
+            raise AssertionError("no fault was injected")
+        _reset_counts(tc)
+        t0 = time.perf_counter()
+        flusher.flush_once(globs["global"])
+        gcol = sinks["global"].flushes.get(timeout=600)
+        rec["global_flush_s"] = time.perf_counter() - t0
+        _add_counts(counts, _counts(tc))
+        with _uncounted(tc):
+            flusher.flush_once(globs["twin"])
+            tcol = sinks["twin"].flushes.get(timeout=600)
+        gblk, gnames, gmat = _lc_block(gcol, "lc.f.", _fha_matrix)
+        tblk, tnames, tmat = _lc_block(tcol, "lc.f.", _fha_matrix)
+        if (gnames != tnames or gblk.suffixes != tblk.suffixes
+                or len(gnames) != series
+                or not np.array_equal(gmat, tmat, equal_nan=True)):
+            raise AssertionError("the faulted global's rows differ from "
+                                 "the twin's")
+        rec["rows_bit_equal_to_twin"] = len(gnames) * len(gblk.suffixes)
+        rec["imported_metrics"] = globs["global"].imported_metrics
+    finally:
+        for s in locals_ + list(globs.values()):
+            s.shutdown()
+    return rec, counts
+
+
+def run_lifecycle_ingest_faults(dev, dgrams: int = LC_INGEST_DGRAMS,
+                                series: int = LC_INGEST_SERIES) -> tuple:
+    """Leg (c), ingest: one Server on the per-datagram Python path
+    (``ingest_lanes: -1``, ``native_ingest: false``, one reader) with
+    truncate and burst at rate 0.1 takes ``dgrams`` datagrams of one
+    counter and one histogram line each over ``series`` series (the
+    second half's samples shifted +1,000, so the guard drains through
+    K2), paced by the lines the replay says it processes, with no
+    kernel drop. The checker replays the same seeded schedule on the
+    same datagrams with the port's FaultInjector and parser: every
+    counter's flushed value equals the replayed sum, every histogram's
+    count the replayed count, and the lines that no longer parse equal
+    the server's packet errors and quarantines. Returns the record and
+    the launch counts."""
+    from veneur_tpu_torch import flusher
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.ops import tdigest_cuda as tc
+    from veneur_tpu_torch.resilience.faults import FaultInjector
+    from veneur_tpu_torch.samplers import parser
+    from veneur_tpu_torch.server import Server
+
+    rng = np.random.default_rng(SEED + 99)
+    ids = np.arange(dgrams) % series
+    shift = np.where(np.arange(dgrams) >= dgrams // 2, 1000.0, 0.0)
+    hv = np.round(rng.gamma(2.0, 10.0, dgrams) + shift, 3)
+    cv = rng.integers(1, 100, dgrams)
+    grams = [f"lc.i.c.{i}:{c}|c\nlc.i.h.{i}:{h}|h".encode()
+             for i, c, h in zip(ids.tolist(), cv.tolist(), hv.tolist())]
+    cfg = Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                 ingest_lanes=-1, native_ingest=False, num_readers=1,
+                 interval="86400s", percentiles=list(PERCENTILES),
+                 aggregates=["min", "max", "count"], hostname="lc-in",
+                 fault_injection_rate=0.1,
+                 fault_injection_seed=LC_INGEST_SEED,
+                 fault_injection_kinds="truncate,burst",
+                 max_series=INGEST_MAX_SERIES)
+    replay = FaultInjector(rate=0.1, seed=LC_INGEST_SEED,
+                           kinds=("truncate", "burst"))
+    t0 = time.perf_counter()
+    counters, hcounts, errors, done = {}, {}, 0, []
+    processed = 0
+    for g in grams:
+        for piece in replay.mangle_packet("ingest.statsd", g):
+            for line in parser.split_lines(piece):
+                try:
+                    m = parser.parse_metric(line)
+                except parser.ParseError:  # a QuarantineError too
+                    errors += 1
+                    continue
+                processed += 1
+                name = m.key.name
+                if m.key.type == "counter":
+                    counters[name] = counters.get(name, 0.0) \
+                        + m.value / m.sample_rate
+                else:
+                    hcounts[name] = hcounts.get(name, 0) + 1
+        done.append(processed)
+    rec = {"datagrams": dgrams, "series": series,
+           "replay_s": time.perf_counter() - t0,
+           "replayed_injected": dict(replay.injected),
+           "replayed_lines": processed, "replayed_errors": errors}
+    record = _ColumnarRecorder()
+    server = Server(cfg, metric_sinks=[record], device=dev)
+    counts = {}
+    try:
+        server.start()
+        if server.listeners[0][1] != "python":
+            raise AssertionError(f"the listener took {server.listeners}")
+        port = server.statsd_addrs[0][1]
+        _reset_counts(tc)
+        t0 = time.perf_counter()
+        _udp_send(port, grams,
+                  lambda n: server.store.processed >= done[n - 1],
+                  per=256, timeout=600)
+        rec["udp_s"] = time.perf_counter() - t0
+        rec["kernel_drops"] = _udp_drops(port)
+        if rec["kernel_drops"]:
+            raise AssertionError(f"the kernel dropped {rec['kernel_drops']}"
+                                 f" datagrams")
+        flusher.flush_once(server)
+        col = record.flushes.get(timeout=600)
+        rec["flush_s"] = time.perf_counter() - t0 - rec["udp_s"]
+        _add_counts(counts, _counts(tc))
+        inj = server.ingest_injector
+        if (dict(inj.injected) != dict(replay.injected)
+                or inj.calls != replay.calls):
+            raise AssertionError(f"the server's schedule {inj.injected} is "
+                                 f"not the replay's {replay.injected}")
+        got_errors = server.packet_errors + server.quarantined
+        if got_errors != errors:
+            raise AssertionError(f"{got_errors} lines rejected, the replay "
+                                 f"rejects {errors}")
+        _, cnames, cmat = _lc_block(col, "lc.i.c.")
+        got = dict(zip(cnames, cmat[:, 0].tolist()))
+        if got != counters:
+            bad = [k for k in counters if got.get(k) != counters[k]]
+            raise AssertionError(f"{len(bad)} counters off the replayed "
+                                 f"sums, first {bad[:4]}")
+        hblk, hnames, hmat = _lc_block(col, "lc.i.h.")
+        ci = [s.decode() for s in hblk.suffixes].index(".count")
+        if dict(zip(hnames, hmat[:, ci].tolist())) != {
+                k: float(v) for k, v in hcounts.items()}:
+            raise AssertionError("a histogram's count is off the replay")
+        rec.update(injected=dict(inj.injected), lines_merged=processed,
+                   rejected_lines=got_errors,
+                   counters_checked=len(counters),
+                   histograms_checked=len(hcounts))
+        if not counts.get("compress_presorted.launches") and \
+                dev.type == "cuda":
+            raise AssertionError("the shifted samples ran no guard drain")
+    finally:
+        server.shutdown()
+    return rec, counts
+
+
+def phase_lifecycle(dev, card: str) -> dict:
+    """The reload, the upgrade, the client CLIs and the fault hooks on
+    the card (legs a, b, c): one line a leg, each resetting the launch
+    counts before it drives its path and reading them after. Returns
+    the launch counts."""
+    import torch
+
+    counts = {}
+    t_phase = time.perf_counter()
+    for leg, run in (("reload", lambda: run_lifecycle_reload(dev)),
+                     ("cli", lambda: run_lifecycle_cli(dev)),
+                     ("forward_faults",
+                      lambda: run_lifecycle_forward_faults(dev)),
+                     ("ingest_faults",
+                      lambda: run_lifecycle_ingest_faults(dev))):
+        _peak_reset(dev)
+        t0 = time.perf_counter()
+        rec, c = run()
+        _add_counts(counts, c)
+        rec.update(launches=c, peak_bytes=_peak_bytes(dev),
+                   leg_s=time.perf_counter() - t0)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        emit({"phase": "lifecycle", "leg": leg, "card": card, **rec})
+    emit({"phase": "lifecycle", "card": card, "launches": counts,
+          "phase_s": time.perf_counter() - t_phase})
+    return counts
+
+
 PHASES = ("store", "server", "ingest", "ssf", "heavy_hitters", "overload",
           "global_merge", "native_merge", "grpc_proxy", "fleet_trace",
           "sinks", "fleet_ha", "mesh", "server_global", "checkpoint",
-          "capacity")
+          "capacity", "lifecycle")
 
 
 def main() -> int:
@@ -9564,7 +10550,8 @@ def main() -> int:
             "mesh": lambda: phase_mesh(dev, card),
             "server_global": lambda: phase_server_global(dev, card),
             "checkpoint": lambda: phase_checkpoint(dev, card),
-            "capacity": lambda: phase_capacity(dev, card)}
+            "capacity": lambda: phase_capacity(dev, card),
+            "lifecycle": lambda: phase_lifecycle(dev, card)}
     kern = phase_kernels(dev)
     # the main path's launches: each phase resets the counts just before
     # it drives its path and reads them just after; and no store of any

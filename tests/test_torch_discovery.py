@@ -26,7 +26,7 @@ import pytest
 
 from veneur_tpu import discovery as jdisc
 from veneur_tpu.resilience import faults as jfaults
-from veneur_tpu_torch.config import Config, UnsupportedConfig
+from veneur_tpu_torch.config import Config
 from veneur_tpu_torch.discovery import (ConsulDiscoverer,
                                         FilePeersDiscoverer,
                                         KubernetesDiscoverer,
@@ -306,13 +306,16 @@ class TestChurnFaults:
     def test_churn_kinds_ported_apart_from_the_transport_kinds(self):
         for k in rfaults.CHURN_KINDS:
             assert k not in rfaults.ALL_KINDS
-            assert k in rfaults.PORTED_KINDS and k in rfaults.PROXY_KINDS
+            assert k in rfaults.KNOWN_KINDS
         assert rfaults.CHURN_KINDS == jfaults.CHURN_KINDS
         assert rfaults.PARTITION_INTERVALS == jfaults.PARTITION_INTERVALS
-        # a Server has no membership: its config refuses the churn kinds
-        with pytest.raises(UnsupportedConfig):
-            Config(hostname="h", fault_injection_rate=0.5,
-                   fault_injection_kinds="member_add")
+        # a Server's config takes them, as the JAX package's does: a
+        # global's handoff watcher arms a churn injector of its own
+        cfg = Config(hostname="h", fault_injection_rate=0.5,
+                     fault_injection_kinds="member_add")
+        inj = rfaults.armed_for(cfg, rfaults.CHURN_KINDS)
+        assert inj.kinds == ("member_add",)
+        assert rfaults.armed_for(cfg, rfaults.INGEST_KINDS) is None
 
     @pytest.mark.parametrize("seed", [7, 8])
     def test_seeded_schedules_equal_the_jax_injectors(self, seed):

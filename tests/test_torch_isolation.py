@@ -203,6 +203,25 @@ def test_sink_and_listener_modules_are_covered():
             "veneur_tpu_torch.plugins.s3"} <= set(_modules())
 
 
+def test_lifecycle_modules_are_covered():
+    """The upgrade choreography, the client CLIs and the OpenTracing
+    layer are scanned and imported too; the two clients do no device
+    work, so they import with torch blocked as well."""
+    assert {"veneur_tpu_torch.cli.upgrade", "veneur_tpu_torch.cli.emit",
+            "veneur_tpu_torch.cli.prometheus", "veneur_tpu_torch.cli.server",
+            "veneur_tpu_torch.trace.opentracing"} <= set(_modules())
+    code = ("import sys\n"
+            "sys.modules['torch'] = None\n"
+            "import veneur_tpu_torch.cli.emit, "
+            "veneur_tpu_torch.cli.prometheus\n"
+            "print('clients imported')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "clients imported" in out.stdout
+
+
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"

@@ -388,3 +388,66 @@ def test_server_boots_mesh_tiered():
             assert by[f"boot.h{i}.50percentile"] == pytest.approx(25, abs=2)
     finally:
         server.shutdown()
+
+
+def _paced_server(series: int):
+    """chip_smoke.py's mesh tiered UDP Server at a CPU size, with its
+    seeded lines (``series`` histogram series x 8 samples)."""
+    import chip_smoke
+
+    server, sink, _ = chip_smoke._fha_server(
+        CPU, "mt-paced", mesh=_mesh(), mesh_enabled=True, mesh_hosts=2,
+        digest_storage="tiered", grpc_address="", native_import_address="")
+    vals = np.round(np.random.default_rng(73).gamma(2.0, 10.0,
+                                                     (series, 8)), 3)
+    lines_ = [f"mts.{i}:{v}|h" for i in range(series)
+              for v in vals[i].tolist()]
+    return chip_smoke, server, sink, lines_
+
+
+def test_udp_feed_holds_the_backlog_under_the_freeze():
+    """The fault behind the mesh tiered Server's missing series on the
+    card: a sender paced only on the parsed count outruns a slow merger,
+    the lanes' sealed backlog crosses the low watermark, and the
+    overload ladder's level 1 spills first-sight series to the overflow
+    row, merged and counted but under another name (or, past the hard
+    watermark, the lanes shed datagrams). A lane seals a chunk at each
+    short recv batch and at each full chunk, so one burst can add many.
+    Here the merger sleeps 20 ms a chunk, and the lanes seal 256-record
+    chunks and hold at most 10 (level 1 at 7): the paced feed keeps the
+    ladder at level 0 and every series lands with its 8 samples."""
+    chip_smoke, server, sink, lines_ = _paced_server(1024)
+    try:
+        for lane in server.ingest_fleets[0].lanes:
+            lane._max_backlog, lane._chunk = 10, 256
+        real = server.store.import_lane_chunk
+
+        def slow(chunk, res):
+            time.sleep(0.02)
+            return real(chunk, res)
+
+        server.store.import_lane_chunk = slow
+        assert chip_smoke._fha_udp(server, lines_) == len(lines_)
+        assert server.overload.level_changes == 0
+        assert server.store.histograms.spilled == 0
+        blocks, _ = chip_smoke._fha_rows(server, sink, 0)
+    finally:
+        server.shutdown()
+    names, m, sfx = blocks["mts"]
+    assert len(names) == 1024
+    assert np.all(m[:, sfx.index(".count")] == 8.0)
+
+
+def test_udp_feed_names_a_spill():
+    """Under the admission freeze the lanes merge every record, shed no
+    datagram and the kernel drops none, yet the series spill: the feed
+    fails and names the spill, where it used to pass and leave the flush
+    short of series."""
+    chip_smoke, server, sink, lines_ = _paced_server(256)
+    try:
+        server.overload.freeze_new_series = lambda: True
+        with pytest.raises(AssertionError, match="spilled to the overflow"):
+            chip_smoke._fha_udp(server, lines_)
+        assert server.overload.shed_total() == 0
+    finally:
+        server.shutdown()

@@ -37,8 +37,7 @@ from veneur_tpu.core import store as jstore
 from veneur_tpu.samplers import parser as jparser
 from veneur_tpu.samplers.intermetric import HistogramAggregates as JAggs
 from veneur_tpu_torch import persist as tpersist
-from veneur_tpu_torch.config import (Config, UnsupportedConfig,
-                                     config_from_dict)
+from veneur_tpu_torch.config import Config, config_from_dict
 from veneur_tpu_torch.core import store as tstore
 from veneur_tpu_torch.persist import Checkpointer
 from veneur_tpu_torch.persist import checkpoint as tcheckpoint
@@ -581,11 +580,33 @@ def test_config_keys_load_with_the_jax_defaults():
 
 @pytest.mark.parametrize("kinds", ["", "http_5xx", "disk_full,truncate"])
 def test_unported_fault_kinds_refused(kinds):
-    """A kind with no hook in the port would be accepted and never fire:
-    refused instead (rate 0 keeps any kind switched off)."""
-    with pytest.raises(UnsupportedConfig):
-        Config(fault_injection_rate=0.1, fault_injection_kinds=kinds)
-    Config(fault_injection_rate=0.0, fault_injection_kinds=kinds)
+    """Every kind has its hook in the port, so each kind set loads (it
+    was refused while the transport and ingest hooks were missing), and
+    a Server arms the injectors the JAX Server arms for it: the ingest
+    one for an ingest kind, the soak one for a soak kind, each with the
+    configured kinds in their order; the transport kinds go to the
+    forwarder's and the sinks' injectors (from_config), the same kinds as
+    the JAX package's. Rate 0 keeps every kind off."""
+    from veneur_tpu.resilience import faults as jfaults
+    from veneur_tpu.server import Server as JServer
+    from veneur_tpu_torch.resilience import faults as rfaults
+
+    data = dict(fault_injection_rate=0.1, fault_injection_kinds=kinds,
+                fault_injection_seed=3, interval="86400s",
+                store_initial_capacity=32, store_chunk=128)
+    ours = Server(Config(**data), device="cpu")
+    theirs = JServer(JConfig(**data))
+    for attr in ("ingest_injector", "soak_injector"):
+        mine, ref = getattr(ours, attr), getattr(theirs, attr)
+        assert (mine is None) == (ref is None), attr
+        if ref is not None:
+            assert (mine.kinds, mine.rate, mine.seed) == (
+                ref.kinds, ref.rate, ref.seed), attr
+    assert rfaults.from_config(Config(**data)).kinds == \
+        jfaults.from_config(JConfig(**data)).kinds
+    off = Server(Config(**dict(data, fault_injection_rate=0.0)),
+                 device="cpu")
+    assert off.ingest_injector is None and off.soak_injector is None
 
 
 # -- the Server ----------------------------------------------------------------

@@ -548,9 +548,13 @@ def test_proxy_config_loads_and_refuses_unported():
     assert (loaded.stats_address, loaded.enable_profiling) == ("x:1", True)
     with pytest.raises(UnsupportedConfig, match="bogus"):
         proxy_config_from_dict({"bogus": 1})
-    with pytest.raises(UnsupportedConfig):
-        proxy_config_from_dict({"fault_injection_rate": 0.5,
-                                "fault_injection_kinds": "http_5xx"})
+    # a transport kind loads and wraps the fan-out's post, as the JAX
+    # proxy's does
+    http = proxy_config_from_dict({"fault_injection_rate": 0.5,
+                                   "fault_injection_kinds": "http_5xx",
+                                   "forward_address": "127.0.0.1:1"})
+    assert Proxy(http).fault_injector.kinds == ("http_5xx",)
+    assert Proxy(http).churn_injector is None
     assert proxy_config_from_dict({
         "fault_injection_rate": 0.5,
         "fault_injection_kinds": "member_add,partition"}) \
@@ -572,7 +576,7 @@ def test_churn_faults_drive_the_proxy():
                              fault_injection_kinds="partition"),
                  discoverer=StaticDiscoverer(MEMBERS))
     part.refresh_destinations()
-    hit = [m for m in MEMBERS if part.fault_injector.is_partitioned(m)]
+    hit = [m for m in MEMBERS if part.churn_injector.is_partitioned(m)]
     assert len(hit) == 1
     part._post = lambda url, batch, **kw: 202
     metrics = [{"name": n, "type": t, "tags": tags}

@@ -547,7 +547,8 @@ def test_create_sinks_matches_jax(case):
 
 def test_cli_hands_every_sink_to_the_server(monkeypatch, tmp_path):
     """``config_sinks`` gives the factory's three lists, which the CLI
-    passes to its Server."""
+    passes to its Server as the config-driven ones (a SIGHUP reload
+    rebuilds them), with no injected sink and the CLI's device."""
     path = tmp_path / "c.yaml"
     path.write_text("hostname: h\ndatadog_trace_api_address: "
                     "http://agent:1\nsignalfx_api_key: k\n"
@@ -558,16 +559,17 @@ def test_cli_hands_every_sink_to_the_server(monkeypatch, tmp_path):
         pass
 
     def fake_server(config, metric_sinks=None, span_sinks=None,
-                    plugins=None):
-        built.update(metric=metric_sinks, span=span_sinks,
-                     plugins=plugins)
+                    plugins=None, device=None, config_sinks=None):
+        assert (metric_sinks, span_sinks, plugins) == (None, None, None)
+        built.update(zip(("metric", "span", "plugins"), config_sinks),
+                     device=device)
         raise StopAfterInit
 
     monkeypatch.setattr(cli, "Server", fake_server)
     with pytest.raises(StopAfterInit):
-        cli.main(["-f", str(path)])
+        cli.main(["-f", str(path), "--device", "cpu"])
     assert [s.name for s in built["metric"]] == ["signalfx"]
     assert [s.name for s in built["span"]] == ["datadog"]
-    assert built["plugins"] == []
+    assert built["plugins"] == [] and built["device"] == "cpu"
     assert tuple(map(len, cli.config_sinks(Config(hostname="h")))) == (
         0, 0, 0)

@@ -53,9 +53,10 @@ def require_grpc(key: str) -> None:
             f"install grpcio or forward over http:// or native://") from e
 
 
-def _check_fault_kinds(cfg, ported, who: str) -> None:
-    """The ``fault_injection_*`` keys: the rate in [0, 1], known kinds,
-    and (at a rate above 0) only kinds ``who`` has a hook for."""
+def _check_fault_kinds(cfg) -> None:
+    """The ``fault_injection_*`` keys: the rate in [0, 1] and known
+    kinds. Every kind has its hook in the port, so a Server and a proxy
+    admit every known kind, as the JAX package does."""
     if not 0.0 <= cfg.fault_injection_rate <= 1.0:
         raise ValueError(f"fault_injection_rate must be in [0, 1], got "
                          f"{cfg.fault_injection_rate}")
@@ -65,14 +66,6 @@ def _check_fault_kinds(cfg, ported, who: str) -> None:
     if bad:
         raise ValueError(f"unknown fault_injection_kinds {bad}; known: "
                          f"{list(faults.KNOWN_KINDS)}")
-    if cfg.fault_injection_rate > 0:
-        unported = [k for k in kinds or faults.ALL_KINDS
-                    if k not in ported]
-        if unported:
-            raise UnsupportedConfig(
-                f"fault_injection_kinds {unported} have no hook in "
-                f"{who} of veneur_tpu_torch yet (it injects "
-                f"{list(ported)}); run veneur_tpu for them")
 
 
 @dataclass
@@ -503,7 +496,7 @@ class Config:
             or compute.DEFAULT_FAILURE_THRESHOLD)
         self.compute_breaker_reset_timeout = (
             self.compute_breaker_reset_timeout or "60s")
-        _check_fault_kinds(self, faults.SERVER_KINDS, "a Server")
+        _check_fault_kinds(self)
         if self.digest_storage not in ("dense", "slab", "tiered"):
             raise ValueError(
                 f"digest_storage must be 'dense', 'slab' or 'tiered', "
@@ -793,7 +786,7 @@ class ProxyConfig:
                 f"breaker_failure_threshold must be >= 0 (0 = use the "
                 f"default, {_BREAKER_THRESHOLD_DEFAULT}; breakers cannot "
                 f"be disabled), got {self.breaker_failure_threshold}")
-        _check_fault_kinds(self, faults.PROXY_KINDS, "the proxy")
+        _check_fault_kinds(self)
         self.consul_refresh_interval = self.consul_refresh_interval or "30s"
         self.forward_timeout = self.forward_timeout or "10s"
         if self.retry_max < 0:

@@ -69,6 +69,7 @@ from veneur_tpu_torch.persist.format import CheckpointInvalid
 from veneur_tpu_torch.resilience import (BreakerRegistry, Deadline,
                                          RetryPolicy, is_transient_status,
                                          post_with_retry)
+from veneur_tpu_torch.resilience import faults as rfaults
 
 log = logging.getLogger("veneur.fleet.handoff")
 
@@ -453,7 +454,10 @@ class HandoffManager:
         """Build from a server's config: the membership source
         (handoff_peers CSV, a ``file://`` peers file, or the Consul
         service), the shared resilience knobs, the checkpointer as the
-        crash anchor, and the server's disk_full fault on the spool."""
+        crash anchor, the server's disk_full fault on the spool, and
+        the seeded churn injector when a churn kind is configured (the
+        watcher mangles each refresh with it; the sends consult its
+        partitions)."""
         from veneur_tpu_torch.discovery import (ConsulDiscoverer,
                                                 FilePeersDiscoverer,
                                                 RingWatcher,
@@ -468,8 +472,10 @@ class HandoffManager:
                 [p.strip() for p in peers.split(",") if p.strip()])
         else:
             discoverer = ConsulDiscoverer()
+        injector = rfaults.armed_for(cfg, rfaults.CHURN_KINDS)
         watcher = RingWatcher(
-            discoverer, cfg.handoff_service_name or "veneur-global")
+            discoverer, cfg.handoff_service_name or "veneur-global",
+            injector=injector)
         soak = getattr(server, "soak_injector", None)
         return cls(
             store=server.store, self_addr=cfg.handoff_self,
@@ -481,6 +487,7 @@ class HandoffManager:
             spool_prefix=cfg.checkpoint_path,
             checkpointer=server.checkpointer,
             refresh_interval=cfg.handoff_refresh_interval_seconds,
+            injector=injector,
             spool_write_fn=(soak.wrap_write(ckpt_format.write_atomic,
                                             "handoff.spool")
                             if soak is not None else None),

@@ -33,12 +33,14 @@ def configure_forwarding(server):
     (flusher.go:66-75, server.go:626-635): ``native://host:port`` the
     framed-TCP one, else with ``forward_use_grpc`` the gRPC one, else
     the HTTP one; each with the retry policy, a breaker for the one
-    upstream destination and ``forward_timeout`` as its per-flush
-    budget. ``forward_packed_digests: false`` keeps the native and gRPC
-    wires' digests dense (float64 centroids), for a global that does
-    not read the quantized fields. Returns the forwarder, or None when
-    ``forward_address`` is unset."""
+    upstream destination, ``forward_timeout`` as its per-flush budget
+    and, with ``fault_injection_rate`` above 0, an injector of its own
+    (``resilience/faults.py``). ``forward_packed_digests: false`` keeps
+    the native and gRPC wires' digests dense (float64 centroids), for a
+    global that does not read the quantized fields. Returns the
+    forwarder, or None when ``forward_address`` is unset."""
     from veneur_tpu_torch.resilience import CircuitBreaker, RetryPolicy
+    from veneur_tpu_torch.resilience import faults
 
     cfg = server.config
     if not cfg.forward_address:
@@ -50,7 +52,8 @@ def configure_forwarding(server):
         breaker=CircuitBreaker(
             failure_threshold=cfg.breaker_failure_threshold,
             reset_timeout=cfg.breaker_reset_timeout_seconds,
-            name=cfg.forward_address))
+            name=cfg.forward_address),
+        fault_injector=faults.from_config(cfg))
     if cfg.forward_address.startswith("native://"):
         from veneur_tpu_torch.forward.native_transport import \
             NativeForwarder

@@ -108,13 +108,17 @@ class GRPCForwarder:
     def __init__(self, addr: str, timeout: float = 10.0,
                  compression: float = 100.0,
                  reference_compat: bool = False,
-                 retry_policy: RetryPolicy = None, breaker=None):
+                 retry_policy: RetryPolicy = None, breaker=None,
+                 fault_injector=None):
         self.addr = addr.split("://", 1)[-1]
         self.timeout = timeout
         self.compression = compression
         self.reference_compat = reference_compat
         self.retry_policy = retry_policy or RetryPolicy()
         self.breaker = breaker
+        # the seeded transport faults, raised before each frame's send
+        # attempt as "forward.grpc"
+        self._faults = fault_injector
         # the heavy-hitter sketch rides MetricList.topk, which a
         # reference global would skip: off the wire into a reference
         # fleet (the local then emits its own top-k)
@@ -207,6 +211,8 @@ class GRPCForwarder:
         try:
             for payload, rows in frames:
                 def send_frame(payload=payload):
+                    if self._faults is not None:
+                        self._faults.maybe_fail("forward.grpc")
                     attempted.append(len(payload))
                     self._send(payload, timeout=deadline.clamp(self.timeout),
                                metadata=metadata)

@@ -76,7 +76,8 @@ class HTTPForwarder:
     def __init__(self, addr: str, timeout: float = 10.0,
                  compression: float = 100.0,
                  reference_compat: bool = False,
-                 retry_policy: RetryPolicy = None, breaker=None):
+                 retry_policy: RetryPolicy = None, breaker=None,
+                 fault_injector=None):
         self.base = addr.rstrip("/")
         if not self.base.startswith(("http://", "https://")):
             self.base = "http://" + self.base
@@ -90,6 +91,9 @@ class HTTPForwarder:
         self.supports_chunked_forward = True
         self.retry_policy = retry_policy or RetryPolicy()
         self.breaker = breaker
+        # the seeded transport faults (resilience/faults.py), wrapped
+        # around each POST attempt as "forward.http"
+        self._faults = fault_injector
         # forward() runs on a fresh thread each flush; guard the counters
         self._lock = threading.Lock()
         self.forwarded = 0
@@ -102,6 +106,14 @@ class HTTPForwarder:
     def _count_retry(self, retry_index, exc, pause):
         with self._lock:
             self.retries += 1
+
+    def _post(self, *args, **kwargs) -> int:
+        # post_helper resolved at call time (tests patch the module's
+        # name); the fault wrap applies per attempt
+        fn = post_helper
+        if self._faults is not None:
+            fn = self._faults.wrap_post(fn, "forward.http")
+        return fn(*args, **kwargs)
 
     def _rejected_by_breaker(self, consume_probe: bool) -> bool:
         """The breaker gate: blocked() before serialization is paid
@@ -154,9 +166,9 @@ class HTTPForwarder:
         ok = False
         try:
             status = post_with_retry(
-                lambda: post_helper(url, metrics,
-                                    timeout=deadline.clamp(self.timeout),
-                                    headers=headers, out_info=info),
+                lambda: self._post(url, metrics,
+                                   timeout=deadline.clamp(self.timeout),
+                                   headers=headers, out_info=info),
                 self.retry_policy, deadline=deadline,
                 on_retry=self._count_retry)
             if 200 <= status < 300:

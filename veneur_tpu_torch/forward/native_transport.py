@@ -252,7 +252,8 @@ class NativeForwarder:
     def __init__(self, addr: str, timeout: float = 10.0,
                  compression: float = 100.0,
                  reference_compat: bool = False,
-                 retry_policy: RetryPolicy = None, breaker=None):
+                 retry_policy: RetryPolicy = None, breaker=None,
+                 fault_injector=None):
         if addr.startswith("native://"):
             addr = addr[len("native://"):]
         host, _, port = addr.rpartition(":")
@@ -267,6 +268,9 @@ class NativeForwarder:
         self.wants_packed_digests = not reference_compat
         self.retry_policy = retry_policy or RetryPolicy()
         self.breaker = breaker
+        # the seeded transport faults, raised before each send attempt
+        # as "forward.native"
+        self._faults = fault_injector
         self._sock: Optional[socket.socket] = None
         self._lock = threading.Lock()
         self.forwarded = 0
@@ -345,6 +349,8 @@ class NativeForwarder:
 
         def attempt():
             nonlocal sent_rows, next_frame
+            if self._faults is not None:
+                self._faults.maybe_fail("forward.native")
             if self._sock is None:
                 self._sock = self._connect(deadline)
             while next_frame < len(frames):

@@ -41,9 +41,11 @@ rides the import pool.
 
 from __future__ import annotations
 
+import errno
 import json
 import logging
 import queue
+import socket
 import threading
 import time
 import urllib.parse
@@ -52,6 +54,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, List, Optional
 
 from veneur_tpu_torch import __version__, debug
+from veneur_tpu_torch.networking import warn_if_port_already_served
 from veneur_tpu_torch import trace as vtrace
 from veneur_tpu_torch.obs import tracectx
 from veneur_tpu_torch.trace import samples as ssf_samples
@@ -295,6 +298,39 @@ class ImportQueuePool:
             t.join(timeout=5.0)
 
 
+class ReuseportHTTPServer(ThreadingHTTPServer):
+    """A ThreadingHTTPServer bound with SO_REUSEADDR and SO_REUSEPORT, so
+    a SIGUSR2 upgrade (``cli/upgrade.py``), a rolling restart or a
+    respawn after SIGKILL on the same port runs two generations side by
+    side (the role einhorn's inherited socket plays for the reference,
+    server.go:1048-1076). The bind retries a transient EADDRINUSE for a
+    bounded window: a killed predecessor's listener can linger for a few
+    milliseconds in its closing states."""
+
+    BIND_ATTEMPTS = 20
+    BIND_RETRY_PAUSE_S = 0.05
+
+    def server_bind(self):
+        self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        if hasattr(socket, "SO_REUSEPORT"):
+            self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT,
+                                   1)
+            host, port = self.server_address[:2]
+            warn_if_port_already_served(self.address_family,
+                                        socket.SOCK_STREAM, host, port)
+        for attempt in range(self.BIND_ATTEMPTS):
+            try:
+                return super().server_bind()
+            except OSError as e:
+                if (e.errno != errno.EADDRINUSE
+                        or attempt == self.BIND_ATTEMPTS - 1):
+                    raise
+                log.warning("bind to %s transiently refused (%s); retry "
+                            "%d/%d", self.server_address, e, attempt + 1,
+                            self.BIND_ATTEMPTS)
+                time.sleep(self.BIND_RETRY_PAUSE_S)
+
+
 class OpsServer:
     """The /healthcheck, /version and /import endpoints (http.go:21-51).
 
@@ -308,7 +344,7 @@ class OpsServer:
                  ready_fn: Optional[Callable[[], tuple]] = None,
                  trace_client=None, hop_log=None):
         host, _, port = addr.rpartition(":")
-        self._httpd = ThreadingHTTPServer((host or "127.0.0.1", int(port)),
+        self._httpd = ReuseportHTTPServer((host or "127.0.0.1", int(port)),
                                           _Handler)
         self._httpd.daemon_threads = True
         self.import_pool = (

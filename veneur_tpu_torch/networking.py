@@ -253,39 +253,54 @@ def make_server_tls_context(cert_path: str, key_path: str,
     return ctx
 
 
+def warn_if_port_already_served(family: int, kind: int, host: str,
+                                port: int) -> None:
+    """Probe ``host:port`` with a plain bind before the real, SO_REUSEPORT
+    one: when another process already serves the port, say so, since the
+    two would split its traffic. An upgrade replacement
+    (``VENEUR_READY_FD`` in the environment, ``cli/upgrade.py``) overlaps
+    by design and stays quiet. Best effort: a probe that cannot be made
+    stays quiet and the real bind reports the error. The TCP probe sets
+    SO_REUSEADDR (a TIME_WAIT left by a restart is no second instance);
+    a UDP one does not, or it would bind beside a live listener."""
+    if port == 0:
+        return
+    probe = None
+    try:
+        probe = socket.socket(family, kind)
+        if kind == socket.SOCK_STREAM:
+            probe.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        probe.bind((host, port))
+    except OSError as e:
+        if e.errno == errno.EADDRINUSE:
+            from veneur_tpu_torch.cli.upgrade import READY_ENV
+
+            if os.environ.get(READY_ENV):
+                return
+            log.warning(
+                "port %s:%d is already being served by another process; "
+                "binding alongside it (SO_REUSEPORT), so its traffic will "
+                "be split between the two", host, port)
+    finally:
+        if probe is not None:
+            probe.close()
+
+
 def warn_for_stream_addr(addr_str: str) -> None:
-    """Probe a ``host:port`` / ``[v6]:port`` stream address (the gRPC
-    listeners' format) with a plain bind before the real, SO_REUSEPORT
-    one: when another process already serves the port, say so, since
-    the two would split its traffic. Best effort: a probe that cannot
-    be made stays quiet and the real bind reports the error."""
+    """:func:`warn_if_port_already_served` for a ``host:port`` /
+    ``[v6]:port`` stream address (the gRPC listeners' format)."""
     host, _, port_s = addr_str.rpartition(":")
     host = host.strip("[]")
     try:
         port = int(port_s)
     except ValueError:
         return
-    if not port:
-        return
     if ":" in host or host in ("", "::"):
         family, wildcard = socket.AF_INET6, "::"
     else:
         family, wildcard = socket.AF_INET, "0.0.0.0"
-    probe = None
-    try:
-        probe = socket.socket(family, socket.SOCK_STREAM)
-        # REUSEADDR: a TIME_WAIT left by a restart is no second instance
-        probe.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        probe.bind((host or wildcard, port))
-    except OSError as e:
-        if e.errno == errno.EADDRINUSE:
-            log.warning(
-                "port %s:%d is already being served by another process; "
-                "binding alongside it (SO_REUSEPORT), so its traffic will "
-                "be split between the two", host or wildcard, port)
-    finally:
-        if probe is not None:
-            probe.close()
+    warn_if_port_already_served(family, socket.SOCK_STREAM,
+                                host or wildcard, port)
 
 
 def new_tcp_listener(family: int, host: str, port: int,
@@ -296,6 +311,8 @@ def new_tcp_listener(family: int, host: str, port: int,
         listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         if hasattr(socket, "SO_REUSEPORT"):
             listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+            warn_if_port_already_served(family, socket.SOCK_STREAM, host,
+                                        port)
         listener.bind((host, port))
         listener.listen(backlog)
     except OSError:

@@ -38,6 +38,15 @@ class ResolvedAddr:
             return socket.AF_INET6
         return socket.AF_INET
 
+    @property
+    def socket_type(self) -> int:
+        return (socket.SOCK_DGRAM if self.family == "udp"
+                else socket.SOCK_STREAM)
+
+    def connect_target(self):
+        """What ``socket.connect`` takes: the path, or (host, port)."""
+        return self.path if self.family == "unix" else (self.host, self.port)
+
 
 def resolve_addr(spec: str) -> ResolvedAddr:
     """Parse a URL-style address and resolve its host eagerly, as

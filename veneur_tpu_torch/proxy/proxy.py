@@ -36,7 +36,7 @@ import time
 import urllib.parse
 import zlib
 from collections import defaultdict
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Callable, Dict, List, Optional
 
 from veneur_tpu_torch import debug, obs
@@ -45,7 +45,8 @@ from veneur_tpu_torch.discovery import (ConsulDiscoverer, Discoverer,
                                         RetryingDiscoverer,
                                         StaticDiscoverer)
 from veneur_tpu_torch.forward.http_forward import post_helper
-from veneur_tpu_torch.httpserv import (ImportError400, bounded_inflate,
+from veneur_tpu_torch.httpserv import (ImportError400, ReuseportHTTPServer,
+                                       bounded_inflate,
                                        unmarshal_metrics_from_http)
 from veneur_tpu_torch.obs import tracectx
 from veneur_tpu_torch.proxy.consistent import (ConsistentRing,
@@ -160,10 +161,15 @@ class Proxy:
         self.breakers = BreakerRegistry(
             failure_threshold=config.breaker_failure_threshold,
             reset_timeout=config.breaker_reset_timeout_seconds)
-        # membership churn (the proxy's fault kinds): mangles each
-        # refresh, black-holes a partitioned member's sends
+        # the seeded transport faults around the fan-out's post, as the
+        # JAX proxy wraps it; membership churn has an injector of its own
+        # (armed by a churn kind): it mangles each refresh and
+        # black-holes a partitioned member's sends
         self.fault_injector = faults.from_config(config)
-        self._post = post_helper
+        self._post = (self.fault_injector.wrap_post(post_helper,
+                                                    "proxy.post")
+                      if self.fault_injector is not None else post_helper)
+        self.churn_injector = faults.armed_for(config, faults.CHURN_KINDS)
         self.service_name = config.consul_forward_service_name
         if discoverer is not None:
             self.discoverer = discoverer
@@ -200,7 +206,7 @@ class Proxy:
         self.grpc_server = None
         self._last_destinations: List[str] = []
         self._stop = threading.Event()
-        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._httpd: Optional[ReuseportHTTPServer] = None
         self._threads: List[threading.Thread] = []
         self.proxied = 0
         self.traces_proxied = 0
@@ -250,9 +256,9 @@ class Proxy:
             log.warning("discovery returned zero destinations, keeping %d",
                         len(ring))
             return
-        if self.fault_injector is not None:
+        if self.churn_injector is not None:
             # churn degrades the fleet, never erases it
-            destinations = self.fault_injector.mangle_members(
+            destinations = self.churn_injector.mangle_members(
                 f"discovery.refresh.{service_name}",
                 destinations) or destinations
         ring.set_members(destinations)
@@ -381,8 +387,8 @@ class Proxy:
                 self.forward_retries += 1
 
         def post():
-            if self.fault_injector is not None and \
-                    self.fault_injector.is_partitioned(dest):
+            if self.churn_injector is not None and \
+                    self.churn_injector.is_partitioned(dest):
                 raise faults.InjectedConnectError(
                     f"{dest} is partitioned (injected)")
             return self._post(url + path, batch, compress=compress,
@@ -466,7 +472,7 @@ class Proxy:
             self._threads.append(t)
         host, _, port = (self.config.http_address or "0.0.0.0:8127"
                          ).rpartition(":")
-        self._httpd = ThreadingHTTPServer((host or "0.0.0.0", int(port)),
+        self._httpd = ReuseportHTTPServer((host or "0.0.0.0", int(port)),
                                           _ProxyHandler)
         self._httpd.daemon_threads = True
         self._httpd.veneur_proxy = self
@@ -486,7 +492,7 @@ class Proxy:
             self.grpc_server = GRPCProxyServer(
                 destinations=self._last_destinations,
                 forward_timeout=self.forward_timeout, dial=self.grpc_dial,
-                injector=self.fault_injector)
+                injector=self.churn_injector)
             self.grpc_server.start(self.config.grpc_forward_address)
         log.info("veneur-proxy listening on port %d with %d destinations",
                  self.port, len(self.ring))

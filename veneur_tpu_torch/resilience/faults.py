@@ -4,22 +4,33 @@ Port of ``veneur_tpu/resilience/faults.py``: the schedule is a pure
 function of ``(seed, call index)``, so two runs with the same seed see
 the same faults at the same calls whatever the pass/fail pattern in
 between. ``scope`` substring-filters the operation names callers pass
-(``checkpoint.write``, ``flush.deadline``, ``compute.tdigest_merge``).
+(``forward.http``, ``sink.datadog``, ``proxy.post``, ``ingest.statsd``,
+``checkpoint.write``, ...), so a run can target one path at a time.
 
-What the port wires:
+What the port wires, where the JAX package does, each consumer with an
+injector of its own built from the same ``fault_injection_*`` keys:
 
-* a Server's config keys ``fault_injection_*`` build one injector
-  (:func:`from_config`) for the two host-resource faults: ``disk_full``
-  on the checkpoint commit (:meth:`FaultInjector.wrap_write`) and
+* the transports (``connect``, ``timeout``, ``http_5xx``,
+  ``partial_write``): :meth:`FaultInjector.wrap_post` around the HTTP
+  forward's POST (``forward.http``), the Datadog sink's
+  (``sink.datadog``), the SignalFx sink's submits (``sink.signalfx``)
+  and the proxy's fan-out (``proxy.post``); :meth:`FaultInjector.maybe_fail`
+  before each gRPC frame (``forward.grpc``) and each ``native://``
+  attempt (``forward.native``). An injected fault rides the same retry,
+  breaker and deadline as a real one;
+* the ingest kinds (``truncate``, ``burst``):
+  :meth:`FaultInjector.mangle_packet` on each datagram of a Server's
+  per-datagram Python path (``Server.handle_packet``); the ingest lanes
+  and the C++ reader pools do not take them;
+* membership churn (``member_add``, ``member_remove``, ``partition``):
+  :meth:`FaultInjector.mangle_members` on each discovery refresh of the
+  proxy and of a global's handoff ``RingWatcher``, and
+  :meth:`FaultInjector.is_partitioned` before each fan-out, handoff and
+  replication send;
+* the host-resource kinds: ``disk_full`` on the checkpoint and handoff
+  spool commits (:meth:`FaultInjector.wrap_write`) and
   ``deadline_pressure`` on the flush's egress budget
   (:meth:`FaultInjector.scale_deadline`);
-* a proxy's build one for membership churn (``member_add``,
-  ``member_remove``, ``partition``): :meth:`FaultInjector.mangle_members`
-  on each discovery refresh (``proxy/proxy.py``, and
-  ``discovery.RingWatcher`` when a caller passes it one),
-  :meth:`FaultInjector.is_partitioned` before each fan-out send;
-* ``config.py`` refuses the other kinds, whose hooks (the transports'
-  ``wrap_post``, the ingest mangle) are not ported yet;
 * the compute ladder's ``preflight`` (``resilience/compute.py``) raises
   through :meth:`FaultInjector.maybe_fail` when a caller arms the
   breaker's ``injector``, as the JAX package's tests do.
@@ -43,7 +54,12 @@ KIND_TIMEOUT = "timeout"
 KIND_HTTP_5XX = "http_5xx"
 KIND_PARTIAL_WRITE = "partial_write"
 ALL_KINDS = (KIND_CONNECT, KIND_TIMEOUT, KIND_HTTP_5XX, KIND_PARTIAL_WRITE)
-INGEST_KINDS = ("truncate", "burst")
+# the ingest kinds (mangle_packet): a datagram cut mid-line, and one
+# datagram amplified into a burst
+KIND_TRUNCATE = "truncate"
+KIND_BURST = "burst"
+INGEST_KINDS = (KIND_TRUNCATE, KIND_BURST)
+BURST_MAX_COPIES = 8
 KIND_MEMBER_ADD = "member_add"
 KIND_MEMBER_REMOVE = "member_remove"
 KIND_PARTITION = "partition"
@@ -54,13 +70,11 @@ KIND_DISK_FULL = "disk_full"
 KIND_DEADLINE_PRESSURE = "deadline_pressure"
 SOAK_KINDS = (KIND_DISK_FULL, KIND_DEADLINE_PRESSURE)
 KNOWN_KINDS = ALL_KINDS + INGEST_KINDS + CHURN_KINDS + SOAK_KINDS
-# the kinds the port may arm (see the module docstring): a Server's
-# config the soak kinds, a proxy's the churn kinds (its discovery refresh)
-SERVER_KINDS = SOAK_KINDS
-PROXY_KINDS = CHURN_KINDS
-PORTED_KINDS = CHURN_KINDS + SOAK_KINDS
 # an interval under deadline_pressure keeps this share of its budget
 DEADLINE_PRESSURE_FACTOR = 0.05
+
+# the status wrap_post returns for an injected 5xx
+INJECTED_STATUS = 503
 
 
 class InjectedFault(Exception):
@@ -133,6 +147,46 @@ class FaultInjector:
             raise InjectedPartialWrite(f"injected partial write ({op})")
         raise OSError(f"injected upstream 5xx ({op})")
 
+    def wrap_post(self, post: Callable[..., int],
+                  op: str) -> Callable[..., int]:
+        """Wrap a post-style callable returning an HTTP status: an
+        injected 5xx returns ``INJECTED_STATUS`` without touching the
+        real transport; connect, timeout and partial write raise before
+        it. Other kinds pass through to the real post."""
+
+        def wrapped(*args, **kwargs) -> int:
+            kind = self.should_fail(op)
+            if kind == KIND_HTTP_5XX:
+                return INJECTED_STATUS
+            if kind == KIND_CONNECT:
+                raise InjectedConnectError(f"injected connect error ({op})")
+            if kind == KIND_TIMEOUT:
+                raise InjectedTimeout(f"injected timeout ({op})")
+            if kind == KIND_PARTIAL_WRITE:
+                raise InjectedPartialWrite(f"injected partial write ({op})")
+            return post(*args, **kwargs)
+
+        return wrapped
+
+    def mangle_packet(self, op: str, data: bytes) -> List[bytes]:
+        """The datagram(s) the pipeline should see under the scheduled
+        ingest fault: ``[data]`` untouched without one, the datagram cut
+        at a seeded offset under ``truncate`` (mid-line, as the OS cuts
+        it), 2..``BURST_MAX_COPIES`` copies under ``burst``. Other kinds
+        pass the datagram through. An applied fault takes one more
+        seeded draw (the cut or the copy count) under the same lock, so
+        the schedule holds across thread interleavings."""
+        kind = self.should_fail(op)
+        if kind == KIND_TRUNCATE and len(data) > 1:
+            with self._lock:
+                cut = self._rng.randrange(1, len(data))
+            return [data[:cut]]
+        if kind == KIND_BURST:
+            with self._lock:
+                copies = self._rng.randrange(2, BURST_MAX_COPIES + 1)
+            return [data] * copies
+        return [data]
+
     def mangle_members(self, op: str, members: List[str]) -> List[str]:
         """One discovery refresh's membership as the ring consumer should
         see it under the scheduled churn fault: ``member_add`` appends a
@@ -195,6 +249,26 @@ class FaultInjector:
         return tuple(self.should_fail("schedule") for _ in range(n))
 
 
+def _configured_kinds(cfg) -> Tuple[str, ...]:
+    # CSV order: the kind tuple indexes the seeded schedule
+    return tuple(k.strip() for k in (cfg.fault_injection_kinds or "")
+                 .split(",") if k.strip())
+
+
+def armed_for(cfg, family: Sequence[str]) -> Optional[FaultInjector]:
+    """An injector of its own for the consumer of one kind family
+    (``INGEST_KINDS``, ``CHURN_KINDS`` or ``SOAK_KINDS``), or None: built
+    from the ``fault_injection_*`` keys only when the rate is above 0 and
+    a configured kind is of ``family``, as the JAX package arms its
+    ingest, soak and churn injectors."""
+    kinds = _configured_kinds(cfg)
+    if cfg.fault_injection_rate <= 0 or not any(k in family for k in kinds):
+        return None
+    return FaultInjector(rate=cfg.fault_injection_rate,
+                         seed=cfg.fault_injection_seed, kinds=kinds,
+                         scope=cfg.fault_injection_scope)
+
+
 def from_config(cfg) -> Optional[FaultInjector]:
     """The configured injector, or None when fault injection is off (the
     default: rate 0). The kinds keep their CSV order, which indexes the
@@ -202,9 +276,7 @@ def from_config(cfg) -> Optional[FaultInjector]:
     rate = float(cfg.fault_injection_rate or 0.0)
     if rate <= 0.0:
         return None
-    kinds = tuple(k.strip() for k in
-                  (cfg.fault_injection_kinds or "").split(",")
-                  if k.strip()) or ALL_KINDS
+    kinds = _configured_kinds(cfg) or ALL_KINDS
     injector = FaultInjector(rate=rate, seed=int(cfg.fault_injection_seed),
                              kinds=kinds, scope=cfg.fault_injection_scope)
     log.warning("fault injection ACTIVE: rate=%.2f seed=%d kinds=%s "

@@ -47,8 +47,22 @@ Each flush (``flusher.py``) is columnar, pipelined and streaming by
 default (``flush_columnar``, ``flush_pipeline_depth``,
 ``flush_streaming``): the metric sinks, then the ``plugins``, get the
 store's rows; ``sinks/factory.py`` ``create_sinks`` builds the
-configured sinks, span sinks and plugins (``cli/server.py`` calls it).
-The span sinks given run beside the metric-extraction sink.
+configured sinks, span sinks and plugins, which ``cli/server.py`` hands
+over as ``config_sinks``: :meth:`Server.reload` (the CLI's SIGHUP)
+rebuilds those from the new file, while the sinks and plugins passed as
+``metric_sinks``, ``span_sinks`` and ``plugins`` survive it. A reload
+takes the interval, percentiles, aggregates, tags and the forwarder,
+and keeps every socket and the store. The span sinks given run beside
+the metric-extraction sink.
+
+Fault injection (``resilience/faults.py``): with ``fault_injection_rate``
+above 0, each consumer builds an injector of its own from the same
+keys, where the JAX package builds one: the forwarder, the factory's
+Datadog and SignalFx sinks, the handoff's watcher (churn kinds), and
+here ``ingest_injector`` (``truncate``, ``burst``: each datagram of the
+per-datagram Python path, :meth:`Server.handle_packet`; the ingest
+lanes and the C++ pools take no ingest kind) and ``soak_injector``
+(``disk_full``, ``deadline_pressure``).
 
 Crash-safe state: with ``checkpoint_path`` set a background thread
 checkpoints the store every ``checkpoint_interval`` (``persist/``);
@@ -314,7 +328,8 @@ class Server:
     def __init__(self, config: Config,
                  metric_sinks: Optional[List[MetricSink]] = None,
                  span_sinks: Optional[List[SpanSink]] = None,
-                 device=None, plugins: Optional[list] = None, mesh=None):
+                 device=None, plugins: Optional[list] = None, mesh=None,
+                 config_sinks: Optional[tuple] = None):
         self.config = config
         self.interval = config.interval_seconds
         self.hostname = config.hostname
@@ -352,13 +367,30 @@ class Server:
             tier_promote_intervals=config.tier_promote_intervals,
             tier_demote_intervals=config.tier_demote_intervals,
             device=device, mesh=mesh)
-        # the configured fault kinds (config.py admits disk_full and
-        # deadline_pressure): the checkpoint commit and the flush budget
-        self.soak_injector = rfaults.from_config(config)
-        self.metric_sinks = (list(metric_sinks) if metric_sinks is not None
-                             else [BlackholeMetricSink()])
+        # the seeded ingest faults (truncate, burst) on the per-datagram
+        # path and the host-resource ones (disk_full on the checkpoint
+        # commit, deadline_pressure on the flush budget), each injector
+        # armed only when a kind of its own is configured
+        self.ingest_injector = rfaults.armed_for(config, rfaults.INGEST_KINDS)
+        self.soak_injector = rfaults.armed_for(config, rfaults.SOAK_KINDS)
+        # config-driven sinks and plugins (``config_sinks``, what
+        # sinks/factory.py create_sinks built from ``config``) rebuild at
+        # a reload; the injected ones survive it. Neither given: a
+        # blackhole
+        cfg_metric_sinks, cfg_span_sinks, cfg_plugins = (
+            config_sinks or ([], [], []))
+        if metric_sinks is None and config_sinks is None:
+            metric_sinks = [BlackholeMetricSink()]
+        self._injected_metric_sinks = list(metric_sinks or [])
+        self._injected_plugins = list(plugins or [])
+        self.metric_sinks = self._injected_metric_sinks + list(
+            cfg_metric_sinks)
         # archival plugins, flushed after the metric sinks
-        self.plugins = list(plugins or [])
+        self.plugins = self._injected_plugins + list(cfg_plugins)
+        # the config-driven sinks a reload replaced: closed at the next
+        # reload or at shutdown, once their in-flight flushes finished
+        self._retired_sinks: List[MetricSink] = []
+        self._reload_lock = threading.Lock()
         self.event_worker = EventWorker()
         self.span_chan: "queue.Queue" = queue.Queue(
             config.span_channel_capacity)
@@ -370,6 +402,7 @@ class Server:
         self.extraction_sink = MetricExtractionSink(
             self.store.process_metric, config.indicator_span_timer_name)
         self.span_sinks: List[SpanSink] = (list(span_sinks or [])
+                                           + list(cfg_span_sinks)
                                            + [self.extraction_sink])
         # per-line tallies, added to from reader threads without a lock;
         # the properties below add what the native rungs count
@@ -625,7 +658,16 @@ class Server:
         return True
 
     def handle_packet(self, datagram: bytes):
-        """Split a datagram into metric lines (server.go:806-819)."""
+        """Split a datagram into metric lines (server.go:806-819). With
+        an ingest kind configured, the seeded schedule first mangles the
+        datagram (``ingest.statsd``): cut mid-line, or a burst of
+        copies."""
+        inj = self.ingest_injector
+        if inj is not None:
+            for mangled in inj.mangle_packet("ingest.statsd", datagram):
+                for line in p.split_lines(mangled):
+                    self.handle_metric_packet(line)
+            return
         for line in p.split_lines(datagram):
             self.handle_metric_packet(line)
 
@@ -1104,6 +1146,115 @@ class Server:
             out.append(f"lease renewal failing ({elector.last_error})")
         return out
 
+    # keys a live reload cannot change: the sockets stay bound (a
+    # SIGUSR2 upgrade is the path for these), the store's geometry and
+    # plumbing are allocated once, and the checkpointer, standby and
+    # lease threads bind theirs at construction
+    _RELOAD_FROZEN = ("statsd_listen_addresses", "ssf_listen_addresses",
+                      "ingest_lanes", "http_address", "grpc_address",
+                      "native_import_address", "tls_certificate",
+                      "tls_key", "tls_authority_certificate",
+                      "digest_storage", "digest_dtype", "slab_rows",
+                      "flush_pipeline_depth", "flush_streaming",
+                      "tier_pool_centroids", "tier_promote_samples",
+                      "tier_promote_intervals", "tier_demote_intervals",
+                      "tdigest_compression", "hll_precision",
+                      "mesh_enabled", "mesh_hosts",
+                      "store_initial_capacity", "store_chunk",
+                      "span_channel_capacity", "num_span_workers",
+                      "enable_profiling", "sentry_dsn",
+                      "checkpoint_path", "checkpoint_interval",
+                      "checkpoint_max_age_intervals",
+                      "standby_peers", "standby_shadow_epochs",
+                      "lease_path", "lease_ttl", "lease_renew_interval",
+                      "max_series", "max_tag_length",
+                      "overload_low_watermark", "overload_high_watermark",
+                      "overload_hard_watermark",
+                      "compute_breaker_failure_threshold",
+                      "compute_breaker_reset_timeout")
+
+    def reload(self, config: Config) -> None:
+        """The SIGHUP reload (server.go:1048-1076): take ``config``'s
+        interval, percentiles, aggregates, hostname, tags and
+        ``tags_exclude``, rebuild the config-driven metric sinks and
+        plugins (sinks/factory.py) and, on a local, the forwarder,
+        without dropping a socket or the store's state. A frozen key
+        (``_RELOAD_FROZEN``) logs a warning and keeps its old value; the
+        role (local or global) stays; the span sinks stay (their lanes
+        rebuild only on a restart). Injected sinks survive. The sinks a
+        reload replaces close at the next reload or at shutdown, after
+        their in-flight flushes. Overlapping reloads apply one at a
+        time."""
+        with self._reload_lock:
+            self._reload_locked(config)
+
+    def _reload_locked(self, config: Config) -> None:
+        from veneur_tpu_torch.sinks import factory
+
+        for key in self._RELOAD_FROZEN:
+            old, new = getattr(self.config, key), getattr(config, key)
+            if old != new:
+                log.warning("reload cannot change %r (%r -> %r); keeping "
+                            "the old value; restart to apply", key, old,
+                            new)
+                setattr(config, key, old)
+        if bool(config.forward_address) != bool(self.config.forward_address):
+            log.warning("reload cannot change the instance's role (local "
+                        "or global); keeping forward_address=%r",
+                        self.config.forward_address)
+            config.forward_address = self.config.forward_address
+        if (factory.span_sinks_configured(config)
+                or factory.span_sinks_configured(self.config)):
+            log.warning("reload keeps the existing span sinks (the span "
+                        "lanes rebuild only on a restart)")
+        # the previous reload's retired sinks have had at least an
+        # interval to finish their flushes
+        self._close_retired_sinks()
+        old_cfg_sinks = [s for s in self.metric_sinks
+                         if s not in self._injected_metric_sinks]
+        old_forwarder = self.forwarder
+        cfg_metric_sinks, _, cfg_plugins = factory.create_sinks(config)
+        for sink in cfg_metric_sinks:
+            try:
+                sink.start()
+            except Exception:
+                log.exception("sink %s failed to start after reload",
+                              sink.name)
+        self.config = config
+        self.interval = config.interval_seconds
+        self.hostname = config.hostname
+        self.tags = list(config.tags)
+        self.tags_exclude = set(config.tags_exclude)
+        self.histogram_percentiles = list(config.percentiles)
+        self.histogram_aggregates = HistogramAggregates.from_names(
+            config.aggregates)
+        # the new set takes effect at the next flush; a flush in flight
+        # holds the old list, which stays valid until its sinks close
+        self.metric_sinks = self._injected_metric_sinks + cfg_metric_sinks
+        self._retired_sinks = old_cfg_sinks
+        self.plugins = self._injected_plugins + cfg_plugins
+        if self.is_local():
+            self.forward_fn = None
+            self.forwarder = configure_forwarding(self)
+        if (old_forwarder is not None and old_forwarder is not self.forwarder
+                and hasattr(old_forwarder, "close")):
+            old_forwarder.close()
+        log.info("config reloaded: %d metric sinks, %d plugins, interval "
+                 "%.1fs", len(self.metric_sinks), len(self.plugins),
+                 self.interval)
+
+    def _close_retired_sinks(self) -> None:
+        for sink in self._retired_sinks:
+            close = getattr(sink, "close", None)
+            if close is None:
+                continue
+            try:
+                close()
+            except Exception:
+                log.exception("retired sink %s close failed",
+                              getattr(sink, "name", sink))
+        self._retired_sinks = []
+
     def wait_forward(self, timeout: float = 60.0) -> Optional[bool]:
         """Join the last flush's forward thread; returns its outcome
         (None when no forward ran). A forward still running after
@@ -1194,7 +1345,8 @@ class Server:
         if hasattr(self.forwarder, "close"):
             self.forwarder.close()
         # sinks holding a thread or a channel (LightStep's reporters, the
-        # gRPC span sinks) release it
+        # gRPC span sinks) release it, the ones a reload retired too
         for sink in self.metric_sinks + self.span_sinks:
             if hasattr(sink, "close"):
                 sink.close()
+        self._close_retired_sinks()

@@ -95,7 +95,8 @@ class DatadogMetricSink(MetricSink):
                  hostname: str, tags: Sequence[str], dd_hostname: str,
                  api_key: str, post: Optional[PostFn] = None,
                  retry_policy: Optional[RetryPolicy] = None,
-                 breaker=None, requeue_max_bytes: int = 32 * 1048576):
+                 breaker=None, fault_injector=None,
+                 requeue_max_bytes: int = 32 * 1048576):
         self.interval = interval
         self.flush_max_per_body = max(1, flush_max_per_body)
         self.hostname = hostname
@@ -103,6 +104,9 @@ class DatadogMetricSink(MetricSink):
         self.dd_hostname = dd_hostname.rstrip("/")
         self.api_key = api_key
         self.post = post or _default_post
+        # the seeded transport faults, around every POST as "sink.datadog"
+        if fault_injector is not None:
+            self.post = fault_injector.wrap_post(self.post, "sink.datadog")
         self.retry_policy = retry_policy or RetryPolicy()
         self.breaker = breaker
         self.retries = 0

@@ -8,7 +8,9 @@ its keys are set, in the JAX package's order. Metric sinks: SignalFx
 address``), LightStep (:421-437), Falconer (:439-449), Kafka with
 ``kafka_span_topic``, debug with ``debug_ingested_spans``. Plugins: S3
 (:477-519), then the local file. Every HTTP sink shares one retry
-policy from the config and gets a breaker for its endpoint.
+policy from the config and gets a breaker for its endpoint; the
+SignalFx and Datadog metric sinks share one fault injector
+(``fault_injection_*``), the JAX package's two hooked sinks.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from veneur_tpu_torch.config import Config, parse_duration
 from veneur_tpu_torch.plugins import Plugin
 from veneur_tpu_torch.plugins.localfile import LocalFilePlugin
 from veneur_tpu_torch.plugins.s3 import S3Plugin
-from veneur_tpu_torch.resilience import CircuitBreaker, RetryPolicy
+from veneur_tpu_torch.resilience import CircuitBreaker, RetryPolicy, faults
 from veneur_tpu_torch.sinks.base import MetricSink, SpanSink
 from veneur_tpu_torch.sinks.datadog import DatadogMetricSink, DatadogSpanSink
 from veneur_tpu_torch.sinks.debug import DebugMetricSink, DebugSpanSink
@@ -65,6 +67,7 @@ def create_sinks(config: Config) -> Tuple[List[MetricSink], List[SpanSink],
     plugins: List[Plugin] = []
     interval = config.interval_seconds
     retry_policy = RetryPolicy.from_config(config)
+    fault_injector = faults.from_config(config)
 
     def breaker(name: str) -> CircuitBreaker:
         return CircuitBreaker(
@@ -86,7 +89,8 @@ def create_sinks(config: Config) -> Tuple[List[MetricSink], List[SpanSink],
                                   config.signalfx_api_key),
             vary_by=config.signalfx_vary_key_by, per_tag_clients=per_tag,
             excluded_tags=config.tags_exclude, retry_policy=retry_policy,
-            breaker=breaker(config.signalfx_endpoint_base)))
+            breaker=breaker(config.signalfx_endpoint_base),
+            fault_injector=fault_injector))
     if config.datadog_api_key and config.datadog_api_hostname:
         metric_sinks.append(DatadogMetricSink(
             interval=interval,
@@ -95,6 +99,7 @@ def create_sinks(config: Config) -> Tuple[List[MetricSink], List[SpanSink],
             dd_hostname=config.datadog_api_hostname,
             api_key=config.datadog_api_key, retry_policy=retry_policy,
             breaker=breaker(config.datadog_api_hostname),
+            fault_injector=fault_injector,
             requeue_max_bytes=config.sink_requeue_max_bytes))
     if config.datadog_trace_api_address:
         span_sinks.append(DatadogSpanSink(

@@ -94,7 +94,7 @@ class SignalFxSink(MetricSink):
                  per_tag_clients: Optional[Dict[str, SignalFxClient]] = None,
                  excluded_tags: Optional[Sequence[str]] = None,
                  retry_policy: Optional[RetryPolicy] = None,
-                 breaker=None):
+                 breaker=None, fault_injector=None):
         self.hostname_tag = hostname_tag
         self.hostname = hostname
         self.common_dimensions = dict(common_dimensions or {})
@@ -104,6 +104,9 @@ class SignalFxSink(MetricSink):
         self.excluded_tags = set(excluded_tags or ())
         self.retry_policy = retry_policy or RetryPolicy()
         self.breaker = breaker
+        # the seeded transport faults, around every submit as
+        # "sink.signalfx"
+        self._faults = fault_injector
         # submits run on several threads; guards the counters
         self._lock = threading.Lock()
         self._telemetry: List[tuple] = []
@@ -139,6 +142,8 @@ class SignalFxSink(MetricSink):
         open breaker raises OSError, which the callers log."""
         if self.breaker is not None and not self.breaker.allow():
             raise OSError("signalfx circuit breaker open")
+        if self._faults is not None:
+            call = self._faults.wrap_post(call, "sink.signalfx")
         try:
             status = post_with_retry(call, self.retry_policy,
                                      deadline=self.flush_deadline,

@@ -6,7 +6,7 @@ way the reference does (its ``trace/`` package). A flush runs under a
 veneur (UDP or UNIX SSF) or into the server's own span channel, so its
 samples re-enter the pipeline as ``veneur.*`` rows. Spans are the
 port's protobuf-free :class:`~veneur_tpu_torch.protocol.ssf.SSFSpan`.
-The opentracing bridge (``trace/opentracing.py``) is not ported.
+``trace/opentracing.py`` is the OpenTracing API over it.
 """
 
 from __future__ import annotations
