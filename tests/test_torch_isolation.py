@@ -222,6 +222,21 @@ def test_lifecycle_modules_are_covered():
     assert "clients imported" in out.stdout
 
 
+def test_soak_and_sweep_modules_are_covered():
+    """The soak plane, its two runtime ledger twins, the accuracy sweep
+    and the scalar golden model are scanned and imported too."""
+    assert {"veneur_tpu_torch.soak", "veneur_tpu_torch.soak.scenario",
+            "veneur_tpu_torch.soak.monitor", "veneur_tpu_torch.soak.gates",
+            "veneur_tpu_torch.soak.orchestrator",
+            "veneur_tpu_torch.soak.child", "veneur_tpu_torch.lint",
+            "veneur_tpu_torch.lint.ledger_audit",
+            "veneur_tpu_torch.lint.buffer_census",
+            "veneur_tpu_torch.analysis",
+            "veneur_tpu_torch.analysis.tdigest_sweep",
+            "veneur_tpu_torch.samplers.scalar",
+            "veneur_tpu_torch.ops.tdigest"} <= set(_modules())
+
+
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"

@@ -123,6 +123,9 @@ def test_spawn_failure_returns_none():
 
 
 def test_replacement_argv_reexecs_same_interpreter():
+    # no recording: a CLI main run earlier in this process (another test
+    # file's) leaves its argv recorded
+    upgrade._reset_state_for_tests()
     argv = upgrade.replacement_argv("/etc/veneur.yaml",
                                     "veneur_tpu_torch.cli.server")
     assert argv[0] == sys.executable

@@ -55,6 +55,7 @@ from __future__ import annotations
 import collections
 import inspect
 import logging
+import sys
 import threading
 import time
 from typing import TYPE_CHECKING
@@ -164,13 +165,17 @@ def _flush_once(server: "Server", span, rec) -> int:
     # forward's trace context and _publish_interval read it
     server._interval_oldest_ingest_ns = _take_oldest_ingest_ns(server)
     fwd_kwargs = _forward_kwargs(server, span, now) if forwarding else {}
-    stream, stream_sinks = _build_stream(server, now, deadline,
-                                         use_columnar, forwarding, rec,
-                                         fwd_kwargs)
     ha_snapshot = _ha_capture(server)
+    stream = None
     try:
         t0 = time.perf_counter()
         with obs.maybe_stage("store"):
+            # the streaming egress starts its workers inside the store's
+            # stage: a thread start waits for the new thread to run, time
+            # that belongs to the store's streamed flush
+            stream, stream_sinks = _build_stream(server, now, deadline,
+                                                 use_columnar, forwarding,
+                                                 rec, fwd_kwargs)
             final, forwardable = server.store.flush(
                 server.histogram_percentiles, server.histogram_aggregates,
                 now, is_local=is_local, forward=forwarding,
@@ -410,27 +415,85 @@ def _requeue_forward_part(store, attr: str, part) -> None:
                     "next flush", len(entries), mtype)
 
 
+class SpanFlushWorker:
+    """The span sinks' flush (flusher.go:49) on one long-lived thread a
+    Server, in place of a thread started every interval:
+    ``Thread.start`` returns only once the new thread has run, a GIL
+    hand-off on the flush path outside every timeline stage that takes
+    milliseconds on a process with many busy threads, while handing
+    this worker a flush takes microseconds.
+    ``is_alive()`` says a flush is in progress and ``join(timeout)``
+    waits for it, as a per-interval thread's did; an exception is
+    reported through ``threading.excepthook`` and the worker goes on."""
+
+    def __init__(self, flush):
+        self._flush = flush
+        self._cond = threading.Condition()
+        self._pending = self._busy = self._stopped = False
+        self.thread = threading.Thread(target=self._run, name="span-flush",
+                                       daemon=True)
+        self.thread.start()
+
+    def submit(self) -> None:
+        with self._cond:
+            self._pending = self._busy = True
+            self._cond.notify_all()
+
+    def is_alive(self) -> bool:
+        with self._cond:
+            return self._busy
+
+    def join(self, timeout=None) -> None:
+        with self._cond:
+            self._cond.wait_for(lambda: not self._busy, timeout)
+
+    def stop(self) -> None:
+        """End the thread once it is idle: at once, or after a flush in
+        progress (a wedged one holds only this daemon thread)."""
+        with self._cond:
+            self._stopped = True
+            self._cond.notify_all()
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                self._cond.wait_for(lambda: self._pending or self._stopped)
+                if not self._pending:
+                    return
+                self._pending = False
+            try:
+                self._flush()
+            except Exception:
+                threading.excepthook(threading.ExceptHookArgs(
+                    sys.exc_info() + (self.thread,)))
+            finally:
+                with self._cond:
+                    self._busy = False
+                    self._cond.notify_all()
+
+
 def _start_span_flush(server: "Server"):
-    """Flush the span sinks on a thread of their own (flusher.go:49) and
+    """Hand the span sinks' flush to the server's span-flush worker and
     return it; the flush joins it at its end (the ``span_join`` stage,
-    up to ``SPAN_JOIN_TIMEOUT``). A wedged lane can hold its barrier for 9 s, so with a
-    short interval the previous span flush may still run: then this
-    interval's is skipped, counted in ``server.span_flush_skipped``, and
-    the previous thread is the one joined."""
-    if not server._span_workers:
-        return None  # not started: no span lanes
-    previous = server.span_flush_thread
-    if previous is not None and previous.is_alive():
+    up to ``SPAN_JOIN_TIMEOUT``). A wedged lane can hold its barrier for
+    9 s, so with a short interval the previous span flush may still run:
+    then this interval's is skipped, counted in
+    ``server.span_flush_skipped``, and the previous one is joined. After
+    ``Server`` closed its servers there is no worker and no span flush."""
+    if not server._span_workers or server._span_flush_closed:
+        return None  # not started (no span lanes), or closed
+    worker = server.span_flush_worker
+    if worker is not None and worker.is_alive():
         server._count("span_flush_skipped")
         log.warning("previous span flush still running; skipping this "
                     "interval's span flush")
-        return previous
-    # the lanes are shared between workers: flush each sink once
-    thread = threading.Thread(target=server._span_workers[0].flush,
-                              name="span-flush", daemon=True)
-    server.span_flush_thread = thread
-    thread.start()
-    return thread
+        return worker
+    if worker is None:
+        # the lanes are shared between workers: flush each sink once
+        worker = SpanFlushWorker(server._span_workers[0].flush)
+        server.span_flush_worker = worker
+    worker.submit()
+    return worker
 
 
 def _forward_kwargs(server: "Server", span, now: int) -> dict:

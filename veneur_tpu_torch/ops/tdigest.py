@@ -37,6 +37,14 @@ def size_bound(compression: float) -> int:
     return (raw + 7) // 8 * 8
 
 
+def temp_buffer_size(compression: float) -> int:
+    """Heuristic ingest-buffer size per merge pass
+    (merging_digest.go:101-107), rounded up to a multiple of 8."""
+    c = min(925.0, max(20.0, compression))
+    raw = int(7.5 + 0.37 * c - 2e-4 * c * c)
+    return (raw + 7) // 8 * 8
+
+
 class TDigest(NamedTuple):
     """A batch of t-digests as dense tensors.
 
@@ -145,6 +153,29 @@ def _compress(mean: torch.Tensor, weight: torch.Tensor, compression: float,
     return new_mean, torch.gather(sum_w, -1, order)
 
 
+def merge_samples(state: TDigest, values: torch.Tensor,
+                  weights: torch.Tensor,
+                  compression: float = DEFAULT_COMPRESSION) -> TDigest:
+    """Fold a padded batch of raw samples into every digest: the batched
+    drain of tempCentroids (merging_digest.go:111-132 + mergeAllTemps).
+
+    values/weights: [..., T]; weight==0 marks padding. The sort-based
+    :func:`_compress`, as in the JAX package, on either device: no
+    kernel."""
+    values = values.to(state.mean.dtype)
+    weights = weights.to(state.weight.dtype)
+    live = weights > 0
+    vmin = torch.where(live, values, _INF).amin(-1)
+    vmax = torch.where(live, values, -_INF).amax(-1)
+    mean = torch.cat([state.mean, torch.where(live, values, _INF)], dim=-1)
+    weight = torch.cat([state.weight, weights], dim=-1)
+    new_mean, new_weight = _compress(mean, weight, compression,
+                                     state.capacity)
+    return TDigest(mean=new_mean, weight=new_weight,
+                   min=torch.minimum(state.min, vmin),
+                   max=torch.maximum(state.max, vmax))
+
+
 def _upper_bounds(state: TDigest) -> torch.Tensor:
     """Per-centroid upper bound: midpoint to the next LIVE centroid, or
     max for the last live one (merging_digest.go:339-354). Gap slots
@@ -183,6 +214,36 @@ def quantile(state: TDigest, qs) -> torch.Tensor:
     prop = (target - excl_i) / torch.where(w_i > 0, w_i, 1.0)
     out = lb + prop * (ub_i - lb)
     return torch.where(total > 0, out, float("nan"))
+
+
+def cdf(state: TDigest, xs) -> torch.Tensor:
+    """Batched CDF (merging_digest.go:261-293). xs: [P] queries shared
+    across the batch. Returns [..., P]; NaN for empty digests."""
+    w = state.weight
+    xs = torch.as_tensor(xs, dtype=w.dtype, device=w.device)
+    incl = _cumsum(w)
+    total = incl[..., -1:]
+    excl = incl - w
+    ub = _upper_bounds(state)
+    # the first centroid whose upper bound exceeds x (the one x falls
+    # inside); ub is non-decreasing
+    queries = xs.expand(ub.shape[:-1] + xs.shape).contiguous()
+    idx = torch.searchsorted(ub.contiguous(), queries, side="right")
+    idx = torch.clamp(idx, 0, state.capacity - 1)
+    mn = state.min[..., None]
+    mx = state.max[..., None]
+    ub_prev = torch.cat([ub[..., :1], ub[..., :-1]], dim=-1)
+    ub_i, prev_ub, w_i, excl_i = (torch.gather(a, -1, idx)
+                                  for a in (ub, ub_prev, w, excl))
+    lb = torch.where(idx == 0, mn, torch.maximum(prev_ub, mn))
+    span = ub_i - lb
+    frac = torch.where(span > 0,
+                       (queries - lb) / torch.where(span > 0, span, 1.0),
+                       0.0)
+    est = (excl_i + w_i * frac) / torch.clamp_min(total, _TINY)
+    est = torch.where(queries <= mn, 0.0, est)
+    est = torch.where(queries >= mx, 1.0, est)
+    return torch.where(total > 0, est, float("nan"))
 
 
 # 8 anchors of f32 summary state per row (see the JAX module)

@@ -442,7 +442,10 @@ class Server:
         # the oldest ingest stamp the current flush drains (taken at its
         # swap; flusher.py)
         self._interval_oldest_ingest_ns: Optional[int] = None
-        self.span_flush_thread: Optional[threading.Thread] = None
+        # the span-flush worker (flusher.SpanFlushWorker), built at the
+        # first flush of a started server, stopped with the servers
+        self.span_flush_worker = None
+        self._span_flush_closed = False
         self.last_flush_time = 0.0
         self.last_flush_ok = True
         # readiness measures flush staleness from here until a flush lands
@@ -1334,6 +1337,9 @@ class Server:
         self._span_threads.clear()
 
     def _close_servers(self):
+        self._span_flush_closed = True
+        if self.span_flush_worker is not None:
+            self.span_flush_worker.stop()
         self._write_profile()
         self.trace_client.close()
         if self.ops_server is not None:
